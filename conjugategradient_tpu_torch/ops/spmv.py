@@ -1,0 +1,81 @@
+"""SpMV in plain torch: CSR, symmetric blocked-ELL and dense.
+
+Counterpart of the matching parts of ``conjugategradient_tpu/ops/spmv.py``.
+The JAX package computes both sparse forms outside any Pallas kernel
+(segment_sum, einsum), so they stay plain torch here too.  Both are
+deterministic on CUDA: no ``index_add_`` (which lands through atomics
+there) — the CSR rows reduce with ``torch.segment_reduce`` (one thread per
+segment walks its values in order) and the symmetric mirror lands through a
+fixed-order gather of the transposed tile index.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def full_precision_matmul() -> None:
+    """Turn TF32 off for matmuls and cuDNN.  TF32 keeps ~10 mantissa bits,
+    which costs CG iterations (the TPU's VPU-over-MXU rule,
+    ``conjugategradient_tpu/ops/pallas/ell_spmv.py:15-17``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    if dtype in (torch.bfloat16, torch.float16):
+        return torch.float32
+    return dtype
+
+
+def segment_sum(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sum of consecutive segments of ``vals`` with the given lengths."""
+    return torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
+
+
+def csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    """y[i] = Σ_j A[i,j]·x[j]: one gather, one sorted segmented sum."""
+    prods = a.data * x.index_select(0, a.indices)
+    return segment_sum(prods, a.lengths)
+
+
+def dense_spmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    full_precision_matmul()
+    return torch.mv(a, x)
+
+
+def sym_bell_spmv(a, x: torch.Tensor) -> torch.Tensor:
+    """Symmetric blocked-ELL SpMV: each stored upper tile applied twice,
+    ``q[r] += B @ x[c]`` and ``q[c] += Bᵀ @ x[r]``.
+
+    The mirror products land in their block-row through ``a.mirror_src``
+    (types/bell.mirror_index): a padded gather summed over a small fixed
+    axis, so the result is the same on every run.
+    """
+    n, _ = a.shape
+    _, mp = a.padded_shape
+    xp = x if mp == x.shape[0] else torch.nn.functional.pad(x, (0, mp - x.shape[0]))
+    out_dtype = torch.promote_types(a.dtype, x.dtype)
+    acc = _acc(out_dtype)
+    y = sym_bell_apply(
+        a.diag_blocks.to(acc), a.off_blocks.to(acc), a.off_cols, a.mirror_src,
+        xp.reshape(mp // a.bn, a.bn).to(acc),
+    )
+    return y.reshape(-1)[:n].to(out_dtype)
+
+
+def sym_bell_apply(diag, off, off_cols, mirror_src, x2d):
+    """(nrb, bm) = (D + U + Uᵀ) x on symmetric tiles, x as (nrb, bn)."""
+    full_precision_matmul()
+    bn = x2d.shape[1]
+    qd = torch.einsum("rmn,rn->rm", diag, x2d)
+    gathered = x2d[off_cols.long()]  # (nrb, ku, bn)
+    qu = torch.einsum("rkmn,rkn->rm", off, gathered)
+    # mirror: Bᵀ @ x[r], one (bn,) row per stored slot, plus a zero row
+    # that the -1 padding of the transposed index points at
+    v = torch.einsum("rkmn,rm->rkn", off, x2d).reshape(-1, bn)
+    v = torch.cat([v, v.new_zeros(1, bn)])
+    src = mirror_src.long()
+    src = torch.where(src < 0, v.shape[0] - 1, src)
+    qt = v[src].sum(dim=1)  # (nrb, bn)
+    return qd + qu + qt

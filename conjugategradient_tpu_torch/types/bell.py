@@ -1,0 +1,297 @@
+"""Symmetric blocked-ELL on torch tensors, and the host packer it is built
+from.  Counterpart of ``conjugategradient_tpu/types/bell.py``: the packing
+is the same numpy code, so both packages hold bitwise-equal tiles."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .base import LinearOperator, _cdiv, as_numpy_dtype
+
+
+def pack_host_arrays(
+    data: np.ndarray,
+    indices: np.ndarray,
+    indptr: np.ndarray,
+    shape: Tuple[int, int],
+    bm: int = 128,
+    bn: int = 128,
+    dtype=None,
+):
+    """CSR -> full blocked-ELL as numpy arrays: ``(blocks, block_cols, nnz)``.
+
+    ``blocks`` is (nrb, kmax, bm, bn), ``block_cols`` (nrb, kmax) int32;
+    padding tiles are zero and point at column-block 0.  Uses the native
+    C++ packer (native/ell_pack.cpp) when built, else the numpy fallback.
+    """
+    n, ncols = shape
+    nrb = _cdiv(n, bm)
+    ncb = _cdiv(ncols, bn)
+    data = np.asarray(data)
+    if dtype is not None:
+        data = data.astype(as_numpy_dtype(dtype))
+    indices = np.asarray(indices, dtype=np.int64)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    nnz = int(len(data))
+
+    if data.dtype in (np.float32, np.float64):
+        from ..io import native as _native
+
+        if _native.available():
+            blocks, block_cols, _ = _native.ell_pack_native(
+                data, indices, indptr, shape, bm, bn, dtype=data.dtype
+            )
+            return blocks, np.asarray(block_cols, np.int32), nnz
+
+    # numpy fallback, O(nnz log nnz): sort entries by (row-block,
+    # col-block), find each row-block's distinct col-blocks from the sorted
+    # runs, scatter all values in one np.add.at
+    row_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    rb = row_ids // bm
+    cb = indices // bn
+    order = np.lexsort((cb, rb))
+    rb_s, cb_s = rb[order], cb[order]
+    key = rb_s * np.int64(ncb) + cb_s
+    first = np.ones(len(key), dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    pair_rb = rb_s[first]
+    pair_cb = cb_s[first]
+    counts = np.bincount(pair_rb, minlength=nrb)
+    kmax = max(int(counts.max()) if len(counts) else 1, 1)
+    pair_slot = np.arange(len(pair_rb)) - np.concatenate(
+        [[0], np.cumsum(counts)[:-1]]
+    )[pair_rb]
+    block_cols = np.zeros((nrb, kmax), dtype=np.int32)
+    block_cols[pair_rb, pair_slot] = pair_cb
+    pair_idx_sorted = np.cumsum(first) - 1
+    slot_sorted = pair_slot[pair_idx_sorted]
+    slot = np.empty(len(slot_sorted), dtype=np.int64)
+    slot[order] = slot_sorted
+
+    blocks = np.zeros((nrb, kmax, bm, bn), dtype=data.dtype)
+    np.add.at(
+        blocks,
+        (rb, slot, row_ids - rb * bm, indices - cb * bn),
+        data,
+    )
+    return blocks, block_cols, nnz
+
+
+def mirror_index(off_cols: np.ndarray) -> np.ndarray:
+    """Transposed index of the upper tiles: row ``c`` lists the flat slots
+    ``row * ku + k`` whose tile mirrors into block-row ``c``
+    (``off_cols[row, k] == c`` with ``row < c``), in increasing ``row``
+    order, padded with -1.  Shape (nrb, kin), kin >= 1.
+
+    The fixed order is what makes the mirror landing deterministic on the
+    GPU: block-row c sums its incoming Bᵀ·p contributions in this order
+    instead of through atomics.  Padding slots (pointing at their own row)
+    never appear.
+    """
+    off_cols = np.asarray(off_cols, dtype=np.int64)
+    nrb, ku = off_cols.shape
+    rows = np.repeat(np.arange(nrb, dtype=np.int64), ku)
+    tgt = off_cols.reshape(-1)
+    real = tgt > rows
+    slots = np.flatnonzero(real)  # increasing slot => increasing row
+    tgt = tgt[real]
+    order = np.argsort(tgt, kind="stable")
+    slots, tgt = slots[order], tgt[order]
+    counts = np.bincount(tgt, minlength=nrb)
+    kin = max(int(counts.max()) if len(counts) else 0, 1)
+    pos = np.arange(len(tgt)) - np.concatenate([[0], np.cumsum(counts)[:-1]])[tgt]
+    out = np.full((nrb, kin), -1, dtype=np.int32)
+    out[tgt, pos] = slots
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SymBellMatrix(LinearOperator):
+    """Symmetric blocked-ELL: each off-diagonal tile stored once.
+
+    * ``diag_blocks[i]`` — the full (bm, bn) tile at block (i, i);
+    * ``off_blocks[i, k]`` / ``off_cols[i, k]`` — the strictly-upper tiles
+      of block-row i (``off_cols[i, k] > i``); padding slots are zero tiles
+      pointing at their own row;
+    * ``mirror_src`` — :func:`mirror_index` of ``off_cols``, derived at
+      construction;
+    * ``full_kmax`` — tiles per row of the equivalent full layout, which
+      effective-bandwidth accounting credits;
+    * ``banded`` — block-tridiagonal pattern (ku == 1, every real upper
+      tile targets the next block-row).
+    """
+
+    diag_blocks: torch.Tensor  # (nrb, bm, bn)
+    off_blocks: torch.Tensor  # (nrb, ku, bm, bn)
+    off_cols: torch.Tensor  # (nrb, ku) int32
+    shape: Tuple[int, int]
+    nnz: int
+    full_kmax: int
+    banded: bool = False
+    mirror_src: Optional[torch.Tensor] = None  # (nrb, kin) int32
+
+    def __post_init__(self):
+        if self.mirror_src is None:
+            idx = mirror_index(self.off_cols.cpu().numpy())
+            object.__setattr__(
+                self, "mirror_src", torch.from_numpy(idx).to(self.off_cols.device)
+            )
+
+    @staticmethod
+    def from_csr_host(
+        data: np.ndarray,
+        indices: np.ndarray,
+        indptr: np.ndarray,
+        shape: Tuple[int, int],
+        bn: int = 128,
+        dtype=None,
+        check: bool = True,
+        device="cpu",
+    ) -> "SymBellMatrix":
+        """Host-side CSR -> symmetric blocked-ELL, then one copy to
+        ``device``."""
+        blocks, block_cols, nnz = pack_host_arrays(
+            data, indices, indptr, shape, bm=bn, bn=bn, dtype=dtype
+        )
+        nrb = blocks.shape[0]
+        padded = (nrb * bn, _cdiv(shape[1], bn) * bn)
+        return SymBellMatrix._pack_np(
+            blocks, block_cols.astype(np.int64), padded, shape, nnz, check,
+            device=device,
+        )
+
+    @staticmethod
+    def _pack_np(blocks, cols, padded_shape, shape, nnz, check, device="cpu"):
+        """Full blocked-ELL numpy tiles (nrb, kmax, bm, bn) and their
+        block columns -> symmetric storage on ``device``."""
+        nrb, kmax, bm, bn = blocks.shape
+        if bm != bn:
+            raise ValueError(f"symmetric layout needs square tiles, got {bm}x{bn}")
+        np_, mp = padded_shape
+        if np_ != mp:
+            raise ValueError(f"symmetric layout needs a square system, got {shape}")
+        rows_idx = np.arange(nrb, dtype=np.int64)[:, None]
+        nonzero = blocks.reshape(nrb, kmax, -1).any(axis=2)
+        diag = np.zeros((nrb, bm, bn), dtype=blocks.dtype)
+        for k in range(kmax):
+            sel = cols[:, k] == rows_idx[:, 0]
+            diag[sel] += blocks[sel, k]
+        up_mask = (cols > rows_idx) & nonzero
+        lo_mask = (cols < rows_idx) & nonzero
+        u_r, u_k = np.nonzero(up_mask)
+        if check:
+            l_r, l_k = np.nonzero(lo_mask)
+            u_keys = u_r * nrb + cols[u_r, u_k]
+            l_keys = cols[l_r, l_k] * nrb + l_r
+            ou, ol = np.argsort(u_keys), np.argsort(l_keys)
+            if len(u_keys) != len(l_keys) or not np.array_equal(
+                u_keys[ou], l_keys[ol]
+            ):
+                only = set(u_keys.tolist()) ^ set(l_keys.tolist())
+                key = sorted(only)[0]
+                raise ValueError(
+                    f"tile ({key // nrb}, {key % nrb}) is not symmetric "
+                    "(nonzero on one side of the diagonal only)"
+                )
+            U = blocks[u_r[ou], u_k[ou]]
+            L = blocks[l_r[ol], l_k[ol]]
+            if not np.allclose(U, np.swapaxes(L, 1, 2)):
+                bad = np.nonzero(
+                    ~np.isclose(U, np.swapaxes(L, 1, 2)).all(axis=(1, 2))
+                )[0][0]
+                key = int(u_keys[ou][bad])
+                raise ValueError(
+                    f"tile ({key // nrb}, {key % nrb}) is not symmetric"
+                )
+        counts = up_mask.sum(axis=1)
+        ku = max(int(counts.max()) if len(counts) else 1, 1)
+        slot = np.cumsum(up_mask, axis=1) - 1
+        off_blocks = np.zeros((nrb, ku, bm, bn), dtype=blocks.dtype)
+        off_cols = np.tile(np.arange(nrb, dtype=np.int32)[:, None], (1, ku))
+        off_blocks[u_r, slot[u_r, u_k]] = blocks[u_r, u_k]
+        off_cols[u_r, slot[u_r, u_k]] = cols[u_r, u_k].astype(np.int32)
+        banded = bool(
+            ku == 1
+            and nrb > 1
+            and np.array_equal(off_cols[:-1, 0], np.arange(1, nrb, dtype=np.int32))
+            and off_cols[-1, 0] == nrb - 1
+        )
+        dev = torch.device(device)
+        return SymBellMatrix(
+            torch.from_numpy(diag).to(dev),
+            torch.from_numpy(off_blocks).to(dev),
+            torch.from_numpy(off_cols).to(dev),
+            tuple(shape),
+            nnz,
+            kmax,
+            banded,
+            torch.from_numpy(mirror_index(off_cols)).to(dev),
+        )
+
+    @property
+    def bm(self) -> int:
+        return int(self.diag_blocks.shape[1])
+
+    @property
+    def bn(self) -> int:
+        return int(self.diag_blocks.shape[2])
+
+    @property
+    def ku(self) -> int:
+        return int(self.off_blocks.shape[1])
+
+    @property
+    def nrb(self) -> int:
+        return int(self.diag_blocks.shape[0])
+
+    @property
+    def n(self) -> int:
+        return self.shape[0]
+
+    @property
+    def dtype(self):
+        return self.diag_blocks.dtype
+
+    @property
+    def device(self):
+        return self.diag_blocks.device
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        np_ = self.nrb * self.bm
+        return (np_, np_)
+
+    def to(self, device) -> "SymBellMatrix":
+        return dataclasses.replace(
+            self,
+            diag_blocks=self.diag_blocks.to(device),
+            off_blocks=self.off_blocks.to(device),
+            off_cols=self.off_cols.to(device),
+            mirror_src=self.mirror_src.to(device),
+        )
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        from ..ops.spmv import sym_bell_spmv
+
+        return sym_bell_spmv(self, x)
+
+    def diagonal(self) -> torch.Tensor:
+        nrb, bm, bn = self.diag_blocks.shape
+        rows = torch.arange(nrb * bm, device=self.device)
+        d = self.diag_blocks[rows // bm, rows % bm, rows % bn]
+        return d[: self.n]
+
+    def tile_bytes(self) -> int:
+        """Operator bytes one symmetric pass streams (diag + upper tiles)."""
+        return (self.diag_blocks.numel() + self.off_blocks.numel()) * \
+            self.diag_blocks.element_size()
+
+    def full_tile_bytes(self) -> int:
+        """Bytes the equivalent FULL blocked-ELL layout would stream per
+        SpMV — what effective-bandwidth accounting credits."""
+        return self.nrb * self.full_kmax * self.bm * self.bn * \
+            self.diag_blocks.element_size()
