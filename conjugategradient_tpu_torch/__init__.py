@@ -1,9 +1,10 @@
 """conjugategradient_tpu_torch — the PyTorch / CUDA port of
 conjugategradient_tpu for NVIDIA Hopper GPUs.
 
-Symmetric blocked-ELL CG and Jacobi PCG run as two hand-written CUDA
-kernels per iteration (``ops/cuda``, sources in ``csrc/``); CSR and the
-portable loop run in plain torch.  Imports torch, never jax.
+Blocked-ELL CG and Jacobi PCG, in full or symmetric storage, run as two
+hand-written CUDA kernels per iteration (``ops/cuda``, sources in
+``csrc/``); the full blocked-ELL SpMV is a third.  CSR and the portable
+loop run in plain torch.  Imports torch, never jax.
 """
 
 from .io import load_matrix
@@ -16,9 +17,17 @@ from .solver import (
     fused_bell_pcg_solve,
     jacobi_preconditioner,
 )
-from .types import CSRMatrix, DenseOperator, LinearOperator, SymBellMatrix, as_linear_operator
+from .types import (
+    BlockedEllMatrix,
+    CSRMatrix,
+    DenseOperator,
+    LinearOperator,
+    SymBellMatrix,
+    as_linear_operator,
+)
 
 __all__ = [
+    "BlockedEllMatrix",
     "CGInfo",
     "CSRMatrix",
     "DenseOperator",

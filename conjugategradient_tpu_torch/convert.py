@@ -14,11 +14,18 @@ import torch
 
 from .ops.cuda.fused_cg import S_BETA, S_RHO, S_RNORM, FusedWork
 from .solver.fused import FusedCGState
-from .types import CSRMatrix, SymBellMatrix
+from .types import BlockedEllMatrix, CSRMatrix, SymBellMatrix
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
+
+
+def bell_from_arrays(blocks, block_cols, shape: Tuple[int, int], nnz: int,
+                     device="cpu") -> BlockedEllMatrix:
+    """A ``BlockedEllMatrix`` from the JAX one's fields."""
+    return BlockedEllMatrix(_t(blocks, device), _t(block_cols, device, np.int32),
+                            tuple(shape), int(nnz))
 
 
 def sym_bell_from_arrays(diag_blocks, off_blocks, off_cols,

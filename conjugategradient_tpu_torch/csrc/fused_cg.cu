@@ -3,7 +3,8 @@
 // Counterpart of conjugategradient_tpu/ops/pallas/fused_cg.py.  One CG
 // iteration is two passes over device memory:
 //
-//   K1  p = z + beta*p_old (z = d*r or r);  q = (D + U + U^T) p;  pap = p.q
+//   K1  p = z + beta*p_old (z = d*r or r);  q = A p;  pap = p.q
+//       (A as symmetric tiles D + U + U^T, or as full blocked-ELL tiles)
 //   K2  x += alpha*p;  r -= alpha*q;  rnorm = r.r  (PCG: rho = sum d*r*r)
 //
 // Every kernel launches on the caller's stream, allocates nothing, and the
@@ -47,24 +48,16 @@
 // vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  Speed work (TMA rings,
 // more rows in flight, CUDA graphs for the launch sequence) is later work.
 
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "common.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+namespace {
 
 // layout of the scalar buffers (ops/cuda/fused_cg.py keeps the same indices)
 enum { S_RHO = 0, S_RNORM = 1, S_BETA = 2, S_ALPHA = 3, S_TOL = 4 };
 enum { C_K = 0, C_DONE = 1, C_MAXITER = 2, C_LIVE = 3 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Fixed-order block sum; the result is valid in thread 0.
 __device__ float block_sum(float v, float* red) {
@@ -236,6 +229,63 @@ sym_dir_banded_kernel(const float* __restrict__ diag, const float* __restrict__ 
       float s = 0.f;
       for (int i = 0; i < kWarps; ++i) s += red2[i][t];
       carry[t] = s;  // this row's mirror, for row + 1
+    }
+  }
+  const float s = block_sum(pap_acc, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  if (arrive_last(counter)) {
+    const float pap = sum_partials(partials, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      finish_pap(pap, pap_out, scal);
+      *counter = 0u;
+    }
+  }
+}
+
+// ---- K1 on full storage ---------------------------------------------------
+// Replaces conjugategradient_tpu/ops/pallas/fused_cg.py:fused_dir_spmv_dot
+// (:111, _dir_spmv_kernel :68-107): p_new = z + beta p_old, q = A p_new,
+// pap = p_new . q on full blocked-ELL tiles (nrb, kmax, bn, bn), no mirror.
+// Bound: the tile stream, 4 * bn^2 * kmax bytes per block-row (402.7 MB per
+// call at n = 262,144 block-tridiagonal, bn = 128).  Design: one CTA per
+// strip of R block-rows; for each slot the CTA forms the gathered row of
+// p_new in shared memory (dir_row, bit-identical to the owner's stored
+// row) and streams the tile once.  Every slot is read, padding included:
+// padding tiles are zero and point at column block 0, so they cannot be told
+// from real tiles without reading them (the TPU kernel reads them too).
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+full_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+                const float* r, const float* pold, const float* d,
+                const float* beta_p, float* pnew, float* q, float* pap_out,
+                float* partials, unsigned* counter, float* scal, const int* ctl,
+                int nrb, int kmax, int R) {
+  if (ctl[C_LIVE] == 0) return;
+  __shared__ float xr[BN], xc[BN], qacc[BN];
+  __shared__ float red[kWarps];
+  const float beta = *beta_p;
+  const int base = blockIdx.x * R;
+  const int end = min(base + R, nrb);
+  const int64_t TT = (int64_t)BN * BN;
+  float unused[BN / 32];
+  float pap_acc = 0.f;
+  for (int row = base; row < end; ++row) {
+    __syncthreads();  // the previous row's readers of xr and qacc are done
+    dir_row<BN>(xr, row, r, pold, d, beta, pnew);
+    for (int t = threadIdx.x; t < BN; t += kThreads) qacc[t] = 0.f;
+    for (int k = 0; k < kmax; ++k) {
+      const int64_t slot = (int64_t)row * kmax + k;
+      __syncthreads();  // every warp is done reading xc
+      dir_row<BN>(xc, cols[slot], r, pold, d, beta, nullptr);
+      __syncthreads();
+      tile_apply<BN, true, false>(blocks + slot * TT, xc, nullptr, qacc, unused);
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < BN; t += kThreads) {
+      const float qv = qacc[t];
+      q[(int64_t)row * BN + t] = qv;
+      pap_acc += xr[t] * qv;
     }
   }
   const float s = block_sum(pap_acc, red);
@@ -442,9 +492,38 @@ cudaError_t launch_general(const float* diag, const float* off, const int* off_c
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_full(const float* blocks, const int* cols, const float* r,
+                        const float* pold, const float* d, const float* beta,
+                        float* pnew, float* q, float* pap, float* partials,
+                        unsigned* counter, float* scal, const int* ctl, int nrb,
+                        int kmax, int R, cudaStream_t s) {
+  const int grid = (nrb + R - 1) / R;
+  full_dir_kernel<BN><<<grid, kThreads, 0, s>>>(
+      blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal,
+      ctl, nrb, kmax, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// K1 on full blocked-ELL storage.  Returns a cudaError_t.
+int cg_full_dir(const float* blocks, const int* cols, const float* r,
+                const float* pold, const float* d, const float* beta,
+                float* pnew, float* q, float* pap, float* partials,
+                unsigned* counter, float* scal, const int* ctl, int nrb,
+                int kmax, int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_full<32>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 64: return launch_full<64>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 128: return launch_full<128>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 256: return launch_full<256>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // K1 with the banded landing.  Returns a cudaError_t.
 int cg_sym_dir_banded(const float* diag, const float* off, const int* off_cols,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), which :func:`load_library` opens with
+``nvcc`` compiles each source to an object for ``sm_90a`` (Hopper), all
+sources at once in parallel processes, and links them into one shared
+library with a plain C interface, which :func:`load_library` opens with
 ctypes — no PyTorch headers, so a build takes seconds.  The library is
 keyed by a hash of the sources and flags, so an edited kernel is rebuilt
 and a stale one is never loaded.  Nothing here runs at import time: the
@@ -26,20 +27,23 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "cuda"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-# argtypes of each C entry point (csrc/fused_cg.cu); every pointer is
-# c_void_p so ctypes never truncates it to 32 bits
+# argtypes of each C entry point (csrc/*.cu); every pointer is c_void_p so
+# ctypes never truncates it to 32 bits
 SIGNATURES = {
     "cg_sym_dir_banded": [_P] * 14 + [_I, _I, _I, _P],
     "cg_sym_dir_general": [_P] * 16 + [_I, _I, _I, _I, _I, _P],
+    "cg_full_dir": [_P] * 13 + [_I, _I, _I, _I, _P],
     "cg_update": [_P] * 15 + [_I, _I64, _I, _P],
+    "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
 }
 
 
@@ -59,11 +63,24 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcgtorch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> Path:
@@ -73,23 +90,18 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    # compile into a private directory and link to a temporary name, then
+    # rename: a concurrent or interrupted build never leaves a half-written
+    # library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                  for s, o in zip(cu, objs)])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -6,6 +6,8 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
 * :func:`sym_fused_dir_spmv_dot` — (p_new, q, pap) = (z + β·p_old,
   (D+U+Uᵀ)·p_new, p_new·q) with z = d⊙r (Jacobi) or r, on symmetric
   blocked-ELL tiles (replaces ``sym_fused_dir_spmv_dot``, fused_cg.py:338);
+* :func:`fused_dir_spmv_dot` — the same on full blocked-ELL tiles
+  (replaces ``fused_dir_spmv_dot``, fused_cg.py:111);
 * :func:`fused_update_dot` — (x + α·p, r − α·q, r'·r') (replaces
   ``fused_update_dot``, fused_cg.py:608);
 * :func:`fused_update_dot_pcg` — the same plus ρ = Σ d·r'² (replaces
@@ -14,9 +16,8 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
 Dispatch: a wrapper runs its plain version when the tensors it is given lie
 on the CPU, and launches its CUDA kernel when they lie on a CUDA device;
 anything else raises.  There is no fallback from a CUDA tensor to the plain
-version.  ``LAUNCHES`` counts kernel launches per wrapper;
-``PLAIN_ON_CUDA`` counts plain-version calls that were given CUDA tensors
-(only direct comparisons make those).
+version.  ``LAUNCHES`` and ``PLAIN_ON_CUDA`` (``_common``) count kernel
+launches and plain-version calls given CUDA tensors, per wrapper.
 
 Inside a solve the wrappers also take a :class:`FusedWork`: the device
 scalars of the solve (ρ, ‖r‖², β, α, tol; k, done, maxiter, live), the
@@ -30,33 +31,33 @@ steps.  The plain versions perform the same scalar step with torch ops.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from ..spmv import sym_bell_apply
+from ..spmv import bell_apply, sym_bell_apply
+from ._common import (
+    CUDA_BN,
+    LAUNCHES,
+    PLAIN_ON_CUDA,
+    check_cuda_operands,
+    on_cuda,
+    ptr,
+    raise_on_error,
+    reset_counts,  # noqa: F401  (re-exported with the counters)
+    stream,
+)
 
 # scalar-buffer layout shared with csrc/fused_cg.cu
 S_RHO, S_RNORM, S_BETA, S_ALPHA, S_TOL = range(5)
 C_K, C_DONE, C_MAXITER, C_LIVE = range(4)
 
 MIRRORS = ("scatter", "split", "banded")
-CUDA_BN = (32, 64, 128, 256)
+#: most block-rows per CTA of the full-storage K1 (its automatic row group)
+DIR_ROW_GROUP = 4
 _UPDATE_MAX_GRID = 1024
 _THREADS = 256
-
-LAUNCHES = {
-    "sym_fused_dir_spmv_dot": 0,
-    "fused_update_dot": 0,
-    "fused_update_dot_pcg": 0,
-}
-PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
-
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 @dataclasses.dataclass
@@ -95,45 +96,6 @@ class FusedWork:
     def __post_init__(self):
         self.beta = self.scalar(S_BETA)
         self.alpha = self.scalar(S_ALPHA)
-
-
-def _on_cuda(name: str, *tensors) -> bool:
-    """True for all-CUDA operands (one device), False for all-CPU ones."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: operands on several devices {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {dev}")
-
-
-def _check_cuda_operands(name, tensors, vec4=()):
-    """Contiguous operands; ``vec4`` ones are read as float4 (16-byte
-    aligned)."""
-    for t in tensors:
-        if t is not None:
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: operands must be contiguous")
-    for t in vec4:
-        if t is not None:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: vectors must be 16-byte aligned")
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {err})")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _extra(out, work) -> tuple:
@@ -211,8 +173,8 @@ def sym_fused_dir_spmv_dot(
         raise ValueError(f"{name}: p_new must not alias p_old")
     args = (diag_blocks, off_blocks, off_cols, r2d, pold2d, beta, inv_diag2d,
             mirror_src, out, work)
-    if not _on_cuda(name, diag_blocks, off_blocks, off_cols, r2d, pold2d,
-                    beta, inv_diag2d, mirror_src, *_extra(out, work)):
+    if not on_cuda(name, diag_blocks, off_blocks, off_cols, r2d, pold2d,
+                   beta, inv_diag2d, mirror_src, *_extra(out, work)):
         return _sym_dir_plain(*args)
     if bn not in CUDA_BN:
         raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
@@ -221,13 +183,22 @@ def sym_fused_dir_spmv_dot(
 
 def _sym_dir_plain(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
                    mirror_src, out, work):
+    return _dir_plain(
+        "sym_fused_dir_spmv_dot",
+        lambda p: sym_bell_apply(diag, off, off_cols, mirror_src, p),
+        r2d, pold2d, beta, inv_diag2d, out, work)
+
+
+def _dir_plain(name, apply, r2d, pold2d, beta, inv_diag2d, out, work):
+    """Plain K1: p_new = z + β·p_old, q = apply(p_new), pap = p_new·q, and
+    the kernel's scalar step (α) on ``work``."""
     if r2d.is_cuda:
-        PLAIN_ON_CUDA["sym_fused_dir_spmv_dot"] += 1
+        PLAIN_ON_CUDA[name] += 1
     if work is not None and not _live(work):
         return out[0], out[1], work.scal.new_zeros(1, 1)
     z = r2d if inv_diag2d is None else inv_diag2d * r2d
     p_new = z + beta.reshape(()) * pold2d
-    q = sym_bell_apply(diag, off, off_cols, mirror_src, p_new)
+    q = apply(p_new)
     pap = torch.sum(p_new * q).reshape(1, 1)
     if out is not None:
         out[0].copy_(p_new)
@@ -254,30 +225,137 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
     p_new, q = out if out is not None else (torch.empty_like(r2d),
                                              r2d.new_empty(nrb, bm))
     pap = r2d.new_empty(1, 1)
-    _check_cuda_operands(name, (diag, off, off_cols, r2d, pold2d, beta,
-                                inv_diag2d, mirror_src, p_new, q))
+    check_cuda_operands(name, (diag, off, off_cols, r2d, pold2d, beta,
+                               inv_diag2d, mirror_src, p_new, q))
     grid = -(-nrb // row_group)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)
     lib = load_library()
-    common = (_ptr(r2d), _ptr(pold2d), _ptr(inv_diag2d), _ptr(beta),
-              _ptr(p_new), _ptr(q), _ptr(pap))
+    common = (ptr(r2d), ptr(pold2d), ptr(inv_diag2d), ptr(beta),
+              ptr(p_new), ptr(q), ptr(pap))
     if mirror == "banded":
         err = lib.cg_sym_dir_banded(
-            _ptr(diag), _ptr(off), _ptr(off_cols), *common,
-            _ptr(work.partials), _ptr(work.counter), _ptr(work.scal),
-            _ptr(work.ctl), nrb, bn, row_group, _stream(dev))
+            ptr(diag), ptr(off), ptr(off_cols), *common,
+            ptr(work.partials), ptr(work.counter), ptr(work.scal),
+            ptr(work.ctl), nrb, bn, row_group, stream(dev))
     else:
         if work.tparts is None or work.tparts.numel() < nrb * ku * bn:
             work.tparts = torch.empty(nrb * ku * bn, device=dev)
         kin = mirror_src.shape[1]
         err = lib.cg_sym_dir_general(
-            _ptr(diag), _ptr(off), _ptr(off_cols), _ptr(mirror_src), *common,
-            _ptr(work.tparts), _ptr(work.partials), _ptr(work.counter),
-            _ptr(work.scal), _ptr(work.ctl), nrb, ku, kin, bn, row_group,
-            _stream(dev))
+            ptr(diag), ptr(off), ptr(off_cols), ptr(mirror_src), *common,
+            ptr(work.tparts), ptr(work.partials), ptr(work.counter),
+            ptr(work.scal), ptr(work.ctl), nrb, ku, kin, bn, row_group,
+            stream(dev))
     LAUNCHES[name] += 1
-    _raise_on_error(name, err)
+    raise_on_error(name, err)
+    return p_new, q, pap
+
+
+# ---- kernel 4 --------------------------------------------------------------
+
+def fused_dir_spmv_dot(
+    blocks: torch.Tensor,
+    block_cols: torch.Tensor,
+    r2d: torch.Tensor,
+    pold2d: torch.Tensor,
+    beta: torch.Tensor,
+    inv_diag2d: Optional[torch.Tensor] = None,
+    *,
+    row_group: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    work: Optional[FusedWork] = None,
+):
+    """(p_new, q, pap) on full blocked-ELL storage: the same contract as
+    :func:`sym_fused_dir_spmv_dot`, with the operator as ``blocks``
+    (nrb, kmax, bn, bn) float32 and ``block_cols`` (nrb, kmax) int32
+    (padding slots: zero tiles at column block 0).
+
+    ``r2d``/``pold2d``/``inv_diag2d``: vectors as (nrb, bn) float32 (a
+    square padded system); ``beta``: one float32.  Returns p_new (nrb, bn),
+    q (nrb, bm), pap (1, 1).  ``row_group``: block-rows per CTA; None picks
+    :func:`auto_row_group`.  ``out``: (p_new, q) buffers to fill; p_new
+    must not alias ``pold2d``.  ``work``: see module doc.
+    """
+    name = "fused_dir_spmv_dot"
+    if blocks.dim() != 4:
+        raise ValueError(f"{name}: blocks must be (nrb, kmax, bm, bn), got "
+                         f"{tuple(blocks.shape)}")
+    nrb, kmax, bm, bn = blocks.shape
+    if bm != bn:
+        raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
+    if blocks.dtype != torch.float32:
+        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
+                        "(bf16 tiles are not ported yet)")
+    if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
+        raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
+    for v in (r2d, pold2d, inv_diag2d):
+        if v is not None and (tuple(v.shape) != (nrb, bn) or v.dtype != torch.float32):
+            raise ValueError(f"{name}: vectors must be ({nrb}, {bn}) float32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    if beta.numel() != 1 or beta.dtype != torch.float32:
+        raise ValueError(f"{name}: beta must be one float32")
+    if row_group is not None and row_group < 1:
+        raise ValueError(f"{name}: row_group must be >= 1")
+    if out is not None and out[0].data_ptr() == pold2d.data_ptr():
+        raise ValueError(f"{name}: p_new must not alias p_old")
+    if not on_cuda(name, blocks, block_cols, r2d, pold2d, beta, inv_diag2d,
+                   *_extra(out, work)):
+        return _full_dir_plain(blocks, block_cols, r2d, pold2d, beta,
+                               inv_diag2d, out, work)
+    if bn not in CUDA_BN:
+        raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
+    if row_group is None:
+        row_group = auto_row_group(nrb, r2d.device)
+    return _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d,
+                          out, work, row_group)
+
+
+def auto_row_group(nrb: int, device) -> int:
+    """Block-rows per CTA of the full-storage K1: up to ``DIR_ROW_GROUP``,
+    but never so many that the grid gives an SM fewer than two CTAs (a CTA
+    walks its rows' slots in order, so a short grid leaves SMs idle: at
+    nrb = 96, R = 4 ran the elasticity3d_16 tester at twice the time of
+    R = 1 on an H100)."""
+    sms = _sm_count(torch.device(device).index or 0)
+    return max(1, min(DIR_ROW_GROUP, nrb // (2 * sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _full_dir_plain(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out, work):
+    return _dir_plain("fused_dir_spmv_dot",
+                      lambda p: bell_apply(blocks, block_cols, p),
+                      r2d, pold2d, beta, inv_diag2d, out, work)
+
+
+def _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out,
+                   work, row_group):
+    from ._build import load_library
+
+    name = "fused_dir_spmv_dot"
+    nrb, kmax, bm, bn = blocks.shape
+    dev = r2d.device
+    if work is None:
+        work = FusedWork.new(dev)
+    p_new, q = out if out is not None else (torch.empty_like(r2d),
+                                             r2d.new_empty(nrb, bm))
+    pap = r2d.new_empty(1, 1)
+    check_cuda_operands(name, (blocks, block_cols, r2d, pold2d, beta,
+                               inv_diag2d, p_new, q))
+    grid = -(-nrb // row_group)
+    if work.partials.numel() < grid:
+        work.partials = torch.empty(grid, device=dev)
+    err = load_library().cg_full_dir(
+        ptr(blocks), ptr(block_cols), ptr(r2d), ptr(pold2d), ptr(inv_diag2d),
+        ptr(beta), ptr(p_new), ptr(q), ptr(pap), ptr(work.partials),
+        ptr(work.counter), ptr(work.scal), ptr(work.ctl), nrb, kmax, bn,
+        row_group, stream(dev))
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
     return p_new, q, pap
 
 
@@ -326,7 +404,7 @@ def _update(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
         if o.shape != x2d.shape or o.dtype != torch.float32:
             raise ValueError(f"{name}: out buffers must match the vectors")
     args = (name, x2d, p2d, r2d, q2d, d2d, alpha, out, work)
-    if not _on_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, *_extra(out, work)):
+    if not on_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, *_extra(out, work)):
         return _update_plain(*args)
     if x2d.numel() % 4:
         raise ValueError(f"{name}: the CUDA kernel needs a length divisible by 4")
@@ -380,16 +458,16 @@ def _update_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
     rnorm = x2d.new_empty(1, 1)
     rho = None if d2d is None else x2d.new_empty(1, 1)
     vecs = (x2d, p2d, r2d, q2d, d2d, xo, ro)
-    _check_cuda_operands(name, vecs + (alpha,), vec4=vecs)
+    check_cuda_operands(name, vecs + (alpha,), vec4=vecs)
     n = x2d.numel()
     grid = max(1, min(-(-n // (4 * _THREADS)), _UPDATE_MAX_GRID))
     if work.partials.numel() < 2 * grid:
         work.partials = torch.empty(2 * grid, device=dev)
     err = load_library().cg_update(
-        _ptr(alpha), _ptr(x2d), _ptr(p2d), _ptr(r2d), _ptr(q2d), _ptr(d2d),
-        _ptr(xo), _ptr(ro), _ptr(rnorm), _ptr(rho), _ptr(work.partials),
-        _ptr(work.counter), _ptr(work.scal), _ptr(work.ctl), _ptr(work.hist),
-        work.hist.numel(), n, grid, _stream(dev))
+        ptr(alpha), ptr(x2d), ptr(p2d), ptr(r2d), ptr(q2d), ptr(d2d),
+        ptr(xo), ptr(ro), ptr(rnorm), ptr(rho), ptr(work.partials),
+        ptr(work.counter), ptr(work.scal), ptr(work.ctl), ptr(work.hist),
+        work.hist.numel(), n, grid, stream(dev))
     LAUNCHES[name] += 1
-    _raise_on_error(name, err)
+    raise_on_error(name, err)
     return (xo, ro, rnorm) if rho is None else (xo, ro, rnorm, rho)

@@ -1,12 +1,14 @@
-"""SpMV in plain torch: CSR, symmetric blocked-ELL and dense.
+"""SpMV: CSR, full and symmetric blocked-ELL, and dense.
 
 Counterpart of the matching parts of ``conjugategradient_tpu/ops/spmv.py``.
-The JAX package computes both sparse forms outside any Pallas kernel
-(segment_sum, einsum), so they stay plain torch here too.  Both are
-deterministic on CUDA: no ``index_add_`` (which lands through atomics
-there) — the CSR rows reduce with ``torch.segment_reduce`` (one thread per
-segment walks its values in order) and the symmetric mirror lands through a
-fixed-order gather of the transposed tile index.
+The JAX package computes CSR and symmetric blocked-ELL outside any Pallas
+kernel (segment_sum, einsum), so they stay plain torch here too; full
+blocked-ELL goes to the hand-written kernel (``ops/cuda/bell_spmv.py``) on
+a CUDA device, as the JAX package sends it to its Pallas kernel on a TPU.
+The plain forms are deterministic on CUDA: no ``index_add_`` (which lands
+through atomics there) — the CSR rows reduce with ``torch.segment_reduce``
+(one thread per segment walks its values in order) and the symmetric mirror
+lands through a fixed-order gather of the transposed tile index.
 """
 
 from __future__ import annotations
@@ -42,6 +44,52 @@ def csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
 def dense_spmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     full_precision_matmul()
     return torch.mv(a, x)
+
+
+KERNEL_CHOICES = ("auto", "never", "always")
+
+
+def bell_apply(blocks, block_cols, x2d):
+    """(nrb, bm) = Σ_k blocks[:, k] @ x2d[block_cols[:, k]] — the plain
+    full blocked-ELL product (the einsum of the JAX package's
+    ``_bell_spmv_jnp``), in the tiles' and x's common dtype."""
+    full_precision_matmul()
+    gathered = x2d[block_cols.long()]  # (nrb, kmax, bn)
+    # one batched product per (row, slot), then the sum over slots: no copy
+    # of the tile stream, which a joint (k, n) contraction would make
+    return torch.einsum("rkmn,rkn->rkm", blocks, gathered).sum(dim=1)
+
+
+def bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
+    """Full blocked-ELL SpMV (``BlockedEllMatrix.matvec``): x padded to the
+    operator's padded width, y cut to its ``n`` rows.
+
+    ``use_kernel="auto"`` follows the JAX package's dispatch: float32 (and
+    bf16) tiles on a CUDA device go to the hand-written kernel, float64
+    tiles and CPU tensors to the plain einsum; ``"never"`` and ``"always"``
+    force one route (on CPU tensors the kernel's wrapper runs its plain
+    version).  The JAX package's TPU gates (x fits VMEM ≤ 8 MB,
+    ``kmax <= 64``, ``bm % 8``/``bn % 128``) are dropped: the CUDA kernel
+    reads x from L2/HBM, loops over the slots at run time and takes any
+    ``bm`` with ``bn`` in ``CUDA_BN``.
+    """
+    if use_kernel not in KERNEL_CHOICES:
+        raise ValueError(f"use_kernel must be one of {KERNEL_CHOICES}, got {use_kernel!r}")
+    n, _ = a.shape
+    _, mp = a.padded_shape
+    xp = x if mp == x.shape[0] else torch.nn.functional.pad(x, (0, mp - x.shape[0]))
+    x2d = xp.reshape(mp // a.bn, a.bn)
+    out_dtype = torch.promote_types(a.dtype, x.dtype)
+    if use_kernel == "always" or (
+        use_kernel == "auto" and x.is_cuda and a.dtype != torch.float64
+    ):
+        from .cuda.bell_spmv import bell_spmv_tiles
+
+        y = bell_spmv_tiles(a.blocks, a.block_cols, x2d.to(torch.float32))
+    else:
+        acc = _acc(out_dtype)
+        y = bell_apply(a.blocks.to(acc), a.block_cols, x2d.to(acc)).reshape(-1)
+    return y[:n].to(out_dtype)
 
 
 def sym_bell_spmv(a, x: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,16 @@
 * at most N+1 iterations by default; a NaN residual ends the loop but is
   not convergence; ρ_k == 0 forces α = β = 0 so x survives a warm start at
   the solution;
-* ``CGInfo.rho_history`` holds ‖r_k‖² per iteration, NaN past the end.
+* ``CGInfo.rho_history`` holds ‖r_k‖² per iteration, NaN past the end;
+* ``recompute_r_every`` = N > 0: every N iterations a full restart replaces
+  the recurrence residual with the true b − A·x and resets the direction
+  (solver/restart.py), and ``rho_history[k]`` holds the true ‖r‖² there.
 
 The loop stays on the device: k, done, ρ and the history are tensors, a
 step after ``done`` (or at the iteration cap) is a masked no-op, and the
-host reads the ``done`` flag only every ``CHECK_EVERY`` steps — the port of
-the JAX package's single jitted ``lax.while_loop``.
+host reads the ``done`` flag only every ``CHECK_EVERY`` steps
+(solver/restart.py) — the port of the JAX package's single jitted
+``lax.while_loop``.
 """
 
 from __future__ import annotations
@@ -29,11 +33,9 @@ import torch
 from ..ops.blas import dot
 from ..ops.spmv import full_precision_matmul
 from ..types import LinearOperator, as_linear_operator
+from .restart import run_chunked
 
 FUSED_CHOICES = ("auto", "never", "always")
-#: steps launched between host reads of the done flag: a read drains the
-#: launch queue, and steps after done are no-ops that cost only launches
-CHECK_EVERY = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,19 +128,35 @@ def cg_step(
     )
 
 
-def run_chunked(step: Callable[[], Any], live: Callable[[], torch.Tensor],
-                maxiter: int) -> None:
-    """Drive ``step`` until ``live()`` turns false, reading it on the host
-    once per ``CHECK_EVERY`` steps and never launching more than
-    ``maxiter`` steps in all."""
-    launched = 0
-    while launched < maxiter:
-        n = min(CHECK_EVERY, maxiter - launched)
-        for _ in range(n):
-            step()
-        launched += n
-        if not bool(live()):
-            break
+def cg_replace(
+    A: LinearOperator,
+    state: CGState,
+    b: torch.Tensor,
+    every: int,
+    M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> CGState:
+    """The restart step (JAX ``solver/cg.py`` ``replace``): r ← b − A·x,
+    p ← M⁻¹r, ρ and ‖r‖² from the true residual and ``hist[k]`` ← the true
+    ‖r‖² — masked on the device to iterations k that are multiples of
+    ``every`` of a solve that is not done (no ``k < maxiter`` term: a solve
+    capped exactly on a boundary still reports its true residual)."""
+    mask = (~state.done) & (state.k % every == 0)
+    r_true = b - A.matvec(state.x)
+    rnorm = dot(r_true, r_true)
+    z = r_true if M is None else M(r_true)
+    rho = rnorm if M is None else dot(r_true, z)
+    kk = state.k.long().reshape(1)
+    hist = state.hist.index_put(
+        (kk,), torch.where(mask, rnorm, state.hist.gather(0, kk)[0]).reshape(1)
+    )
+    return CGState(
+        k=state.k, done=state.done, x=state.x,
+        r=torch.where(mask, r_true, state.r),
+        p=torch.where(mask, z, state.p),
+        rho=torch.where(mask, rho, state.rho),
+        rnorm_sq=torch.where(mask, rnorm, state.rnorm_sq),
+        hist=hist,
+    )
 
 
 def cg_solve(
@@ -159,13 +177,11 @@ def cg_solve(
     (solver/fused.py), including Jacobi PCG when ``M`` comes from
     :func:`~.precond.jacobi_preconditioner`; ``"never"`` forces the portable
     loop; ``"always"`` requires the fused path and raises where it cannot
-    run.
+    run.  ``recompute_r_every`` (residual replacement) works on both.
     """
     if fused not in FUSED_CHOICES:
         raise ValueError(f"fused must be one of {FUSED_CHOICES}, got {fused!r}")
-    if recompute_r_every:
-        raise NotImplementedError(
-            "recompute_r_every is not ported yet (ROADMAP: port queue)")
+    every = int(recompute_r_every)
     full_precision_matmul()
     op = as_linear_operator(A, device=b.device)
     N = op.shape[0]
@@ -177,14 +193,16 @@ def cg_solve(
     if fused != "never" and (M is None or inv_diag is not None):
         if fused_supported(op, dtype=b.dtype):
             if M is None:
-                return fused_bell_cg_solve(op, b, x0, tol=tol, maxiter=maxiter)
+                return fused_bell_cg_solve(op, b, x0, tol=tol, maxiter=maxiter,
+                                           recompute_r_every=every)
             return fused_bell_pcg_solve(op, b, inv_diag, x0, tol=tol,
-                                        maxiter=maxiter)
+                                        maxiter=maxiter, recompute_r_every=every)
     if fused == "always":
         raise ValueError(
-            "fused='always' needs a float32 SymBellMatrix on a CUDA device with "
-            "square tiles of width 32/64/128/256, float32 vectors, and no "
-            "preconditioner or a jacobi_preconditioner"
+            "fused='always' needs a float32 BlockedEllMatrix or SymBellMatrix "
+            "on a CUDA device with square tiles of width 32/64/128/256 and a "
+            "square padded shape, float32 vectors, and no preconditioner or a "
+            "jacobi_preconditioner"
         )
 
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
@@ -193,7 +211,10 @@ def cg_solve(
     def step():
         box[0] = cg_step(op, box[0], tol_t, M=M)
 
-    run_chunked(step, lambda: box[0].live, maxiter)
+    def replace():
+        box[0] = cg_replace(op, box[0], b, every, M=M)
+
+    run_chunked(step, lambda: box[0].live, maxiter, every, replace)
     s = box[0]
     info = CGInfo(
         iterations=s.k,

@@ -1,7 +1,8 @@
-"""Fused-kernel CG driver for symmetric blocked-ELL operators (the GPU fast
-path).  Counterpart of ``conjugategradient_tpu/solver/fused.py``: the same
-algorithm and semantics as solver/cg.py, with the iteration body as two
-kernels (ops/cuda/fused_cg.py):
+"""Fused-kernel CG driver for blocked-ELL operators, full or symmetric
+storage (the GPU fast path).  Counterpart of
+``conjugategradient_tpu/solver/fused.py``: the same algorithm and semantics
+as solver/cg.py, residual replacement included, with the iteration body as
+two kernels (ops/cuda/fused_cg.py):
 
     K1  p = z + β·p;  q = A·p;  pap = p·q      (z = d⊙r for Jacobi, else r)
     K2  x += α·p;  r −= α·q;  rnorm = r·r      (PCG: also ρ = Σ d·r²)
@@ -10,7 +11,7 @@ The direction update of the reference's iteration end (CG.hpp:418) is
 hoisted into the next K1.  α, β, ρ, k, done and the history stay on the
 device: the kernels' final reductions do the scalar step (FusedWork), every
 kernel is a no-op once the solve is done, and the host reads the done flag
-only every ``CHECK_EVERY`` steps (solver/cg.py).  x and r are updated in
+only every ``CHECK_EVERY`` steps (solver/restart.py).  x and r are updated in
 place; p lives in two buffers that swap each step (K1 reads p_old rows
 while other CTAs write p_new).
 """
@@ -18,7 +19,7 @@ while other CTAs write p_new).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -27,16 +28,21 @@ from ..ops.cuda.fused_cg import (
     C_K,
     C_LIVE,
     CUDA_BN,
+    S_BETA,
     S_RHO,
     S_RNORM,
     FusedWork,
+    fused_dir_spmv_dot,
     fused_update_dot,
     fused_update_dot_pcg,
     sym_fused_dir_spmv_dot,
 )
 from ..ops.spmv import full_precision_matmul
-from ..types import SymBellMatrix
-from .cg import CGInfo, run_chunked
+from ..types import BlockedEllMatrix, SymBellMatrix
+from .cg import CGInfo
+from .restart import run_chunked
+
+BellOperator = Union[BlockedEllMatrix, SymBellMatrix]
 
 
 @dataclasses.dataclass
@@ -89,16 +95,16 @@ class FusedCGState:
 
 
 def fused_supported(a: Any, dtype=None) -> bool:
-    """Whether the fused path can run this operator: symmetric blocked-ELL,
-    square tiles of a width the kernels take, a square padded system, float32
-    tiles and vectors, tensors on a CUDA device.
+    """Whether the fused path can run this operator: blocked-ELL in full or
+    symmetric storage, square tiles of a width the kernels take, a square
+    padded system, float32 tiles and vectors, tensors on a CUDA device.
 
     The TPU gates on Mosaic block shapes, VMEM residency and ``ku <= 64``
     are dropped: the CUDA kernels mask ragged strips themselves, stream the
-    vectors from L2/HBM, and loop over the ku tile slots at run time (the
+    vectors from L2/HBM, and loop over the tile slots at run time (the
     TPU's limit kept an unrolled loop compilable).
     """
-    if not isinstance(a, SymBellMatrix):
+    if not isinstance(a, (BlockedEllMatrix, SymBellMatrix)):
         return False
     np_, mp = a.padded_shape
     return (
@@ -118,7 +124,7 @@ def _auto_mirror(a: SymBellMatrix) -> str:
 
 
 def fused_cg_init(
-    a: SymBellMatrix,
+    a: BellOperator,
     b: torch.Tensor,
     x0: Optional[torch.Tensor] = None,
     maxiter: int = 0,
@@ -126,8 +132,9 @@ def fused_cg_init(
     tol: float = 0.0,
     inv_diag: Optional[torch.Tensor] = None,
 ) -> FusedCGState:
-    """r₀ = b − A·x₀ (no SpMV when x₀ is the default zero); p enters the
-    loop through K1 with β = 0, so p₁ = z₀.  With ``inv_diag`` the state is
+    """r₀ = b − A·x₀ (no SpMV when x₀ is the default zero; on full storage
+    on a CUDA device the SpMV is the blocked-ELL kernel); p enters the loop
+    through K1 with β = 0, so p₁ = z₀.  With ``inv_diag`` the state is
     Jacobi PCG: ρ₀ = r₀·(d⊙r₀), history on ‖r‖²."""
     _, mp = a.padded_shape
     bn = a.bn
@@ -158,11 +165,19 @@ def fused_cg_init(
     return FusedCGState(x=x2d, r=r2d, p=torch.zeros_like(r2d), work=work, d=d2d)
 
 
-def fused_cg_step(a: SymBellMatrix, state: FusedCGState,
+def fused_cg_step(a: BellOperator, state: FusedCGState,
                   mirror: str = "auto") -> FusedCGState:
     """One CG (or Jacobi-PCG) iteration in two fused kernels, updating
-    ``state`` in place.  ``mirror="auto"`` picks the Bᵀ landing from the
-    pattern (:func:`_auto_mirror`)."""
+    ``state`` in place.  On symmetric storage ``mirror="auto"`` picks the
+    Bᵀ landing from the pattern (:func:`_auto_mirror`); full storage has no
+    mirror and ignores it."""
+    w = state.work
+    if isinstance(a, BlockedEllMatrix):
+        p_new, q, _ = fused_dir_spmv_dot(
+            a.blocks, a.block_cols, state.r, state.p, w.beta, state.d,
+            out=(state.p_next, state.q), work=w,
+        )
+        return _update(state, p_new, q)
     if mirror == "auto":
         mirror = _auto_mirror(a)
     elif mirror == "banded" and not a.banded:
@@ -172,12 +187,17 @@ def fused_cg_step(a: SymBellMatrix, state: FusedCGState,
             "mirror='banded' requires a block-tridiagonal operator "
             "(SymBellMatrix.banded); this pattern has off-band tiles"
         )
-    w = state.work
     p_new, q, _ = sym_fused_dir_spmv_dot(
         a.diag_blocks, a.off_blocks, a.off_cols, state.r, state.p,
         w.beta, state.d, mirror=mirror, mirror_src=a.mirror_src,
         out=(state.p_next, state.q), work=w,
     )
+    return _update(state, p_new, q)
+
+
+def _update(state: FusedCGState, p_new, q) -> FusedCGState:
+    """K2 of the step, then the p buffers swap."""
+    w = state.work
     if state.d is None:
         fused_update_dot(state.x, p_new, state.r, q, w.alpha,
                          out=(state.x, state.r), work=w)
@@ -188,16 +208,46 @@ def fused_cg_step(a: SymBellMatrix, state: FusedCGState,
     return state
 
 
+def fused_replace(a: BellOperator, state: FusedCGState, bp: torch.Tensor,
+                  every: int) -> None:
+    """The restart step on the fused state (JAX ``solver/fused.py``
+    ``replace``), in place: r ← b − A·x, β ← 0 (so the next K1 emits
+    p = z), ρ and ‖r‖² from the true residual (PCG: ρ = Σ d·r²) and
+    ``hist[k]`` ← the true ‖r‖².  Masked on the device to iterations k that
+    are multiples of ``every`` of a solve that is not done; ``bp`` is b
+    padded to the operator's width, as float32."""
+    w = state.work
+    k = w.ctl[C_K]
+    mask = (w.ctl[C_DONE] == 0) & (k % every == 0)
+    n = a.shape[0]
+    ax = a.matvec(state.x.reshape(-1)).to(torch.float32)
+    r_true = (bp - torch.nn.functional.pad(ax, (0, bp.numel() - n))).reshape(state.r.shape)
+    r2 = r_true * r_true
+    rnorm = torch.sum(r2)
+    rho = rnorm if state.d is None else torch.sum(r2 * state.d)
+    state.r.copy_(torch.where(mask, r_true, state.r))
+    scal = w.scal
+    scal[S_BETA] = torch.where(mask, 0.0, scal[S_BETA])
+    scal[S_RHO] = torch.where(mask, rho, scal[S_RHO])
+    scal[S_RNORM] = torch.where(mask, rnorm, scal[S_RNORM])
+    kk = k.long().reshape(1)
+    w.hist.index_put_((kk,), torch.where(mask, rnorm, w.hist.gather(0, kk)[0]).reshape(1))
+
+
 def _solve(a, b, inv_diag, x0, tol, maxiter,
            recompute_r_every) -> Tuple[torch.Tensor, CGInfo]:
-    if recompute_r_every:
-        raise NotImplementedError(
-            "recompute_r_every is not ported yet (ROADMAP: port queue)")
+    every = int(recompute_r_every)
     full_precision_matmul()
     n = a.shape[0]
     maxiter = n + 1 if maxiter is None else int(maxiter)
     state = fused_cg_init(a, b, x0, maxiter, tol=tol, inv_diag=inv_diag)
-    run_chunked(lambda: fused_cg_step(a, state), lambda: state.live, maxiter)
+    bp = torch.nn.functional.pad(b.to(torch.float32), (0, state.r.numel() - n))
+
+    def replace():
+        fused_replace(a, state, bp, every)
+
+    run_chunked(lambda: fused_cg_step(a, state), lambda: state.live, maxiter,
+                every, replace)
     rnorm = state.rnorm[0, 0]
     info = CGInfo(
         iterations=state.k.clone(),
@@ -210,7 +260,7 @@ def _solve(a, b, inv_diag, x0, tol, maxiter,
 
 
 def fused_bell_cg_solve(
-    a: SymBellMatrix,
+    a: BellOperator,
     b: torch.Tensor,
     x0: Optional[torch.Tensor] = None,
     *,
@@ -220,12 +270,14 @@ def fused_bell_cg_solve(
 ) -> Tuple[torch.Tensor, CGInfo]:
     """Whole fused CG solve.  On CUDA tensors each step launches the
     kernels; on CPU tensors it runs their plain versions (the parity path
-    the tests hold against the JAX package)."""
+    the tests hold against the JAX package).  ``recompute_r_every`` > 0
+    adds a restart step (:func:`fused_replace`) every that many iterations,
+    outside the two-kernel body."""
     return _solve(a, b, None, x0, tol, maxiter, recompute_r_every)
 
 
 def fused_bell_pcg_solve(
-    a: SymBellMatrix,
+    a: BellOperator,
     b: torch.Tensor,
     inv_diag: torch.Tensor,
     x0: Optional[torch.Tensor] = None,

@@ -2,7 +2,7 @@
 (test/Tester.cpp:12-57), as the JAX package's ``tester.py`` runs it:
 
 * load the MatrixMarket matrix (symmetric storage expanded);
-* b[i] = i + 1;
+* b[i] = i + 1 (with ``--reorder``, permuted as the matrix is: b[perm]);
 * solve with absolute tolerance ``--tol`` (default 1e-24: run to the cap),
   after one untimed warm-up solve (which also builds the CUDA kernels);
 * print ``dim NNZ time_ms rel_error`` with rel_error = |Σ(b−Ax)²/Σx²|.
@@ -21,7 +21,7 @@ import sys
 
 import numpy as np
 
-_LAYOUTS = ("csr", "symbell")
+_LAYOUTS = ("csr", "bell", "symbell")
 _DTYPES = ("float32", "float64")
 _PRECONDS = ("none", "jacobi")
 
@@ -35,8 +35,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--maxiter", type=int, default=None,
                     help="iteration cap (reference: N+1)")
     ap.add_argument("--layout", default="csr",
-                    help="csr, or symbell = symmetric blocked-ELL (fused "
-                         "CUDA kernels for float32 on a GPU)")
+                    help="csr, bell = full blocked-ELL, or symbell = "
+                         "symmetric blocked-ELL (both blocked layouts run "
+                         "fused CUDA kernels for float32 on a GPU)")
+    ap.add_argument("--reorder", action="store_true",
+                    help="RCM-reorder the system first (bandwidth reduction; "
+                         "the printed metrics are permutation-invariant)")
+    ap.add_argument("--recompute", type=int, default=0, metavar="N",
+                    help="residual-replacement full restart every N "
+                         "iterations (0: never)")
     ap.add_argument("--dtype", default="float64", help="float32 or float64")
     ap.add_argument("--precond", default="none", help="none or jacobi")
     ap.add_argument("--bm", type=int, default=128, help="blocked-ELL row tile")
@@ -76,9 +83,16 @@ def main(argv=None) -> int:
               "(use --device cpu)", file=sys.stderr)
         return 1
     dtype = getattr(torch, args.dtype)
+    if args.recompute < 0:
+        print("error: --recompute must be >= 0", file=sys.stderr)
+        return 2
+    perm = None
     try:
         A = load_matrix(args.mtx, layout=args.layout, dtype=np.dtype(args.dtype),
-                        bm=args.bm, bn=args.bn, device=device)
+                        bm=args.bm, bn=args.bn, reorder=args.reorder,
+                        device=device)
+        if args.reorder:
+            A, perm = A
     except OSError as e:
         print(f"error: cannot read {args.mtx}: {e}", file=sys.stderr)
         return 2
@@ -88,16 +102,21 @@ def main(argv=None) -> int:
     n, nnz = A.shape[0], A.nnz
 
     b = torch.arange(1, n + 1, dtype=dtype, device=device)
+    if perm is not None:
+        b = b[torch.from_numpy(perm).to(device)]
     M = jacobi_preconditioner(A) if args.precond == "jacobi" else None
 
     def solve():
-        return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M)
+        return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
+                        recompute_r_every=args.recompute)
 
     solve()  # warm-up: kernel build and first-launch costs stay untimed
     t = Timer(device).start_measure()
     x, info = solve()
     t.stop_measure()
 
+    # with --reorder the solve runs in RCM ordering; the printed metrics are
+    # permutation-invariant, so x is not mapped back
     rel_err = float(accuracy(A, b, x))
     print(f"{n} {nnz} {t.get_duration()} {rel_err}")
     hist_all = info.rho_history.double().cpu().numpy()

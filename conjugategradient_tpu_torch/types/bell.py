@@ -1,6 +1,8 @@
-"""Symmetric blocked-ELL on torch tensors, and the host packer it is built
-from.  Counterpart of ``conjugategradient_tpu/types/bell.py``: the packing
-is the same numpy code, so both packages hold bitwise-equal tiles."""
+"""Blocked-ELL on torch tensors — full storage (``BlockedEllMatrix``) and
+symmetric upper-triangle storage (``SymBellMatrix``) — and the host packer
+both are built from.  Counterpart of ``conjugategradient_tpu/types/bell.py``:
+the packing is the same numpy code, so both packages hold bitwise-equal
+tiles."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from .base import LinearOperator, _cdiv, as_numpy_dtype
+from .csr import CSRMatrix
 
 
 def pack_host_arrays(
@@ -110,6 +113,135 @@ def mirror_index(off_cols: np.ndarray) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class BlockedEllMatrix(LinearOperator):
+    """Full blocked-ELL: rows grouped into ``nrb = ceil(n / bm)`` block-rows,
+    each storing exactly ``kmax`` dense (bm, bn) tiles (``blocks``) and, per
+    tile, the column block it multiplies (``block_cols``).  Padding tiles are
+    zero and point at column block 0, so the matvec needs no masking.
+    """
+
+    blocks: torch.Tensor  # (nrb, kmax, bm, bn)
+    block_cols: torch.Tensor  # (nrb, kmax) int32
+    shape: Tuple[int, int]
+    nnz: int  # true nnz (before padding)
+
+    @staticmethod
+    def from_csr_host(
+        data: np.ndarray,
+        indices: np.ndarray,
+        indptr: np.ndarray,
+        shape: Tuple[int, int],
+        bm: int = 128,
+        bn: int = 128,
+        dtype=None,
+        device="cpu",
+    ) -> "BlockedEllMatrix":
+        """Host-side CSR -> blocked-ELL, then one copy to ``device``."""
+        blocks, block_cols, nnz = pack_host_arrays(
+            data, indices, indptr, shape, bm=bm, bn=bn, dtype=dtype
+        )
+        dev = torch.device(device)
+        return BlockedEllMatrix(
+            torch.from_numpy(blocks).to(dev), torch.from_numpy(block_cols).to(dev),
+            (shape[0], shape[1]), nnz,
+        )
+
+    @staticmethod
+    def from_csr(csr: CSRMatrix, bm: int = 128, bn: int = 128) -> "BlockedEllMatrix":
+        """Repack a ``CSRMatrix`` (host round trip), on its device."""
+        return BlockedEllMatrix.from_csr_host(
+            csr.data.cpu().numpy(), csr.indices.cpu().numpy(),
+            csr.indptr.cpu().numpy(), csr.shape, bm=bm, bn=bn,
+            device=csr.device,
+        )
+
+    @property
+    def bm(self) -> int:
+        return int(self.blocks.shape[2])
+
+    @property
+    def bn(self) -> int:
+        return int(self.blocks.shape[3])
+
+    @property
+    def kmax(self) -> int:
+        return int(self.blocks.shape[1])
+
+    @property
+    def nrb(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def n(self) -> int:
+        return self.shape[0]
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self):
+        return self.blocks.device
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        """(nrb·bm, ncb·bn): rectangular when bm != bn or for a rectangular
+        operator."""
+        return (self.nrb * self.bm, _cdiv(self.shape[1], self.bn) * self.bn)
+
+    def to(self, device) -> "BlockedEllMatrix":
+        return dataclasses.replace(self, blocks=self.blocks.to(device),
+                                   block_cols=self.block_cols.to(device))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        from ..ops.spmv import bell_spmv
+
+        return bell_spmv(self, x)
+
+    def diagonal(self) -> torch.Tensor:
+        # row r lives in block-row r // bm at local row r % bm; its diagonal
+        # element sits in the tile whose column block is r // bn, at local
+        # column r % bn.  Gather that one element per (row, slot), an
+        # (n_pad, kmax) gather, never the (n_pad, kmax, bn) slab, which is
+        # bn times larger (the JAX package's Jacobi setup ran out of memory
+        # on it at n ~ 1M)
+        nrb, kmax, bm, bn = self.blocks.shape
+        rows = torch.arange(nrb * bm, device=self.device)
+        rb = rows // bm
+        hit = self.block_cols[rb] == (rows // bn)[:, None]  # (n_pad, kmax)
+        ks = torch.arange(kmax, device=self.device)[None, :]
+        picked = self.blocks[rb[:, None], ks, (rows % bm)[:, None], (rows % bn)[:, None]]
+        return torch.where(hit, picked, torch.zeros_like(picked)).sum(dim=1)[: self.n]
+
+    def to_dense(self) -> torch.Tensor:
+        nrb, kmax, bm, bn = self.blocks.shape
+        dev = self.device
+        rows = (torch.arange(nrb, device=dev)[:, None, None, None] * bm
+                + torch.arange(bm, device=dev)[None, None, :, None])
+        cols = (self.block_cols.long()[:, :, None, None] * bn
+                + torch.arange(bn, device=dev)[None, None, None, :])
+        rows, cols = torch.broadcast_tensors(rows, cols)
+        out = torch.zeros(self.padded_shape, dtype=self.dtype, device=dev)
+        out.index_put_((rows, cols), self.blocks, accumulate=True)
+        return out[: self.shape[0], : self.shape[1]]
+
+    def memory_footprint(self) -> int:
+        return (self.blocks.numel() * self.blocks.element_size()
+                + self.block_cols.numel() * self.block_cols.element_size())
+
+    def tile_bytes(self) -> int:
+        """Operator bytes one SpMV streams."""
+        return self.blocks.numel() * self.blocks.element_size()
+
+    def padding_ratio(self) -> float:
+        """Stored slots / true nnz — the bandwidth overhead of the layout."""
+        return float(self.blocks.numel()) / max(self.nnz, 1)
+
+    def astype(self, dtype) -> "BlockedEllMatrix":
+        return dataclasses.replace(self, blocks=self.blocks.to(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
 class SymBellMatrix(LinearOperator):
     """Symmetric blocked-ELL: each off-diagonal tile stored once.
 
@@ -162,6 +294,22 @@ class SymBellMatrix(LinearOperator):
         return SymBellMatrix._pack_np(
             blocks, block_cols.astype(np.int64), padded, shape, nnz, check,
             device=device,
+        )
+
+    @staticmethod
+    def from_bell(bell: BlockedEllMatrix, check: bool = True) -> "SymBellMatrix":
+        """Repack a full blocked-ELL operator into symmetric storage (host
+        round trip), on its device.  ``check=True`` verifies each dropped
+        lower tile equals the transpose of its stored upper mirror."""
+        return SymBellMatrix._pack_np(
+            bell.blocks.cpu().numpy(), bell.block_cols.cpu().numpy().astype(np.int64),
+            bell.padded_shape, bell.shape, bell.nnz, check, device=bell.device,
+        )
+
+    @staticmethod
+    def from_csr(csr: CSRMatrix, bm: int = 128, bn: int = 128) -> "SymBellMatrix":
+        return SymBellMatrix.from_bell(
+            BlockedEllMatrix.from_csr(csr, bm=bm, bn=bn), check=False
         )
 
     @staticmethod

@@ -253,10 +253,11 @@ def test_cg_solve_dispatch_rules(small_sym):
     b = torch.ones(tsym.n)
     with pytest.raises(ValueError, match="fused must be"):
         cg_solve(tsym, b, fused="sometimes")
-    with pytest.raises(NotImplementedError, match="recompute_r_every"):
-        cg_solve(tsym, b, recompute_r_every=10)
-    with pytest.raises(NotImplementedError, match="recompute_r_every"):
-        fused_bell_cg_solve(tsym, b, recompute_r_every=10)
+    # residual replacement runs on both loops
+    _, info = cg_solve(tsym, b, tol=1e-4, recompute_r_every=10)
+    assert bool(info.converged)
+    _, info = fused_bell_cg_solve(tsym, b, tol=1e-4, recompute_r_every=10)
+    assert bool(info.converged)
     # the fused path needs CUDA tensors: on the CPU "always" refuses and
     # "auto" runs the portable loop
     assert not fused_supported(tsym, dtype=torch.float32)

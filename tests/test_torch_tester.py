@@ -53,10 +53,10 @@ def test_default_csr_f64_matches_reference_protocol(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--reorder"],
+    ["--layout", "dia"],
     ["--method", "pipelined"],
     ["--nrhs", "4"],
-    ["--layout", "bell"],
+    ["--layout", "sell"],
     ["--layout", "auto"],
     ["--dtype", "bfloat16"],
     ["--precond", "amg"],
@@ -65,6 +65,40 @@ def test_unported_flags_exit_2(capsys, args):
     rc, lines, err = _run(capsys, "--device", "cpu", *args)
     assert rc == 2 and not lines
     assert "not yet ported" in err
+
+
+BELL = ["--layout", "bell", "--dtype", "float32", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--bm", "8"], ["--precond", "jacobi"]],
+                         ids=["128x128", "8x128", "jacobi"])
+def test_bell_f32_prints_four_fields(capsys, extra):
+    rc, lines, _ = _run(capsys, *BELL, "--tol", "1e-3", "--summary", *extra)
+    assert rc == 0 and len(lines) == 2
+    dim, nnz, ms, rel = lines[0].split()
+    assert (int(dim), int(nnz)) == (1156, 5644)
+    assert float(ms) > 0 and 0 <= float(rel) < 1e-10
+    assert json.loads(lines[1])["converged"] == [True]
+
+
+def test_reorder_keeps_dim_nnz_and_error(capsys):
+    rc, lines, _ = _run(capsys, *BELL, "--tol", "1e-3", "--reorder")
+    assert rc == 0 and len(lines) == 1
+    dim, nnz, _, rel = lines[0].split()
+    assert (int(dim), int(nnz)) == (1156, 5644) and float(rel) < 1e-10
+    rc, lines, _ = _run(capsys, "--device", "cpu", "--tol", "1e-8", "--reorder")
+    assert rc == 0 and float(lines[0].split()[3]) < 1e-20
+
+
+def test_recompute_runs_and_replaces(capsys):
+    rc, lines, _ = _run(capsys, *BELL, "--tol", "1e-3", "--maxiter", "24",
+                        "--recompute", "8", "--history")
+    assert rc == 0 and len(lines) == 2
+    hist = json.loads(lines[1])
+    assert hist["iterations"] == 24 and len(hist["residual_norms"]) == 25
+    assert all(v is not None and v > 0 for v in hist["residual_norms"])
+    rc, _, err = _run(capsys, *BELL, "--recompute", "-1")
+    assert rc == 2 and "--recompute" in err
 
 
 def test_missing_file_exits_2(capsys):
