@@ -7,22 +7,33 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the five kernels against its plain-torch version on the
-   card, at the main path's shapes (128 x 128 tiles on the n = 262,144
+2. Hold each of the seven kernels against its plain-torch version on the
+   card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
-   poisson3d_48 for the SpMV) and at small ragged shapes, and time both.
-3. Drive the main path through its entry points, with the launch counters
-   reset just before: the tester on ``problems/poisson3d_48.mtx`` and
-   ``problems/elasticity3d_16.mtx`` in both blocked layouts (symbell and
-   bell, float32, plain CG and Jacobi PCG); the n = 262,144 operator in
-   both storages for 256 timed steps; the fused solves against the
-   plain-torch loop on the same card, and twice against themselves
-   (bitwise); the portable loop on ``load_matrix(layout="bell")`` (8 x 128
-   tiles); residual replacement every 8 steps on the fused symmetric and
-   full solves and the portable loop, against the same solves run by the
-   plain versions on the CPU; one x0 warm start; the tester's default CSR
-   float64 path twice (bitwise).
-4. Check that every kernel launched during phase 3 and that no plain
+   poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
+   n = 2,097,152 with 41 diagonals, in full and symmetric DIA storage, and
+   poisson3d_48 as DIA) and at small ragged shapes, and time both, beside
+   one cuSPARSE call (``torch.sparse_csr_tensor @ x``) for the SpMVs and
+   the least time the card could take for each kernel's bytes.
+3. Drive the blocked-ELL path through its entry points, with the launch
+   counters reset just before and read just after: the tester on
+   ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
+   both blocked layouts (symbell and bell, float32, plain CG and Jacobi
+   PCG); the n = 262,144 operator in both storages for 256 timed steps;
+   the fused solves against the plain-torch loop on the same card, and
+   twice against themselves (bitwise); the portable loop on
+   ``load_matrix(layout="bell")`` (8 x 128 tiles); residual replacement
+   every 8 steps on the fused symmetric and full solves and the portable
+   loop, against the same solves run by the plain versions on the CPU; one
+   x0 warm start; the tester's default CSR float64 path twice (bitwise).
+   Then the DIA / SELL path, with its own reset and read: the tester with
+   ``--layout auto`` (resolves to DIA) and ``--layout symdia --precond
+   jacobi`` on poisson3d_48, ``--layout auto --reorder`` on powerlaw_1138
+   (SELL), the float64 ``--layout auto`` tester on poisson2d_34 twice
+   (bitwise); CG on symdia-big in both storages for 64 timed steps; a
+   float32 DIA solve twice (bitwise) and against the plain versions on the
+   CPU (trajectory, with and without residual replacement).
+4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -52,6 +63,8 @@ SOURCES = {
     "fused_update_dot": FUSED_SOURCE,
     "fused_update_dot_pcg": FUSED_SOURCE,
     "bell_spmv": "conjugategradient_tpu_torch/csrc/bell_spmv.cu",
+    "dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
+    "sym_dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -59,7 +72,22 @@ REPLACES = {
     "fused_update_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:608",
     "fused_update_dot_pcg": "conjugategradient_tpu/ops/pallas/fused_cg.py:555",
     "bell_spmv": "conjugategradient_tpu/ops/pallas/ell_spmv.py:57",
+    "dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:181 (dia_spmv_pallas), "
+                "dia_spmv.py:130 (dia_spmv_pallas_2d), "
+                "dia_spmv.py:398 (dia_spmv_pallas_blocked)",
+    "sym_dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
 }
+BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
+                   "fused_update_dot_pcg", "bell_spmv")
+DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# the JAX package's symdia-big operator (bench.py bench_symdia_big)
+SYMDIA_N = 1 << 21
+SYMDIA_OFFSETS = tuple(k * 1024 for k in range(21))
+DIA_STEPS = 64
 # stated tolerances (f32 sum order differs between kernel and plain version)
 TOL_ELEMWISE = 1e-6  # p_new, x', r': rtol of max|plain|
 TOL_Q = 1e-5  # q: of max|q|
@@ -146,6 +174,70 @@ def rel_max_err(a, b) -> tuple:
     """(max |a - b|, max |b|)."""
     d = float((a.double() - b.double()).abs().max())
     return d, float(b.double().abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved: int, flops: int) -> dict:
+    """The least time the card could take for a call: its bytes (each input
+    read once, each output written once) over the HBM rate, or its float32
+    operations over the f32 rate, whichever is larger."""
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_ms(fn) -> float:
+    """One PyTorch call's time, as ``time_pair`` reports a kernel's: device
+    time when the profiler sees it, else CUDA-event time."""
+    dm = device_ms(fn)
+    return dm if dm is not None else cuda_ms(fn)
+
+
+def csr_from_dia(a):
+    """A DIA operator's nonzeros as a torch sparse CSR tensor (rows in
+    order, columns ascending): the cuSPARSE yardstick's operand."""
+    import torch
+
+    n, ncols = a.shape
+    cols = torch.arange(n, device=a.device)[:, None] + a.offsets_dev.long()[None, :]
+    vals = a.diags.t()  # (n, ndiag): row i's entries in ascending column order
+    keep = (cols >= 0) & (cols < ncols) & (vals != 0)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=a.device)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(), vals[keep], (n, ncols))
+
+
+def csr_from_bell(a):
+    """A full blocked-ELL operator's nonzeros as a torch sparse CSR tensor."""
+    import torch
+
+    nrb, kmax, bm, bn = a.blocks.shape
+    n, ncols = a.shape
+    dev = a.device
+    order = torch.argsort(a.block_cols.long(), dim=1, stable=True)
+    bcols = torch.gather(a.block_cols.long(), 1, order)
+    vals = a.blocks[torch.arange(nrb, device=dev)[:, None], order].permute(0, 2, 1, 3)
+    cols = (bcols[:, None, :, None] * bn
+            + torch.arange(bn, device=dev)[None, None, None, :]).expand(nrb, bm, kmax, bn)
+    keep = ((vals != 0) & (cols < ncols)).reshape(nrb * bm, kmax * bn)[:n]
+    vals = vals.reshape(nrb * bm, kmax * bn)[:n]
+    cols = cols.reshape(nrb * bm, kmax * bn)[:n]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(), vals[keep], (n, ncols))
+
+
+def library_spmv(csr, x, y_kernel, label) -> float:
+    """Time ``csr @ x`` (one cuSPARSE SpMV) and check it computes what the
+    kernel computed, to TOL_Q of max|y| (another summation order)."""
+    y = csr @ x
+    e, m = rel_max_err(y, y_kernel)
+    check(e <= TOL_Q * m, f"library SpMV {label}: differs from the kernel by {e} (max {m})")
+    return library_ms(lambda: csr @ x)
 
 
 # ---- phase 2: kernels against their plain versions -------------------------
@@ -441,8 +533,169 @@ def phase_kernels(dev, big, big_full):
                         ("K5 poisson3d_48 8x128", p3d_8, x_p8)):
         extra[label] = time_pair(lambda: kb.bell_spmv_tiles(a.blocks, a.block_cols, x),
                                  lambda: kb._bell_plain(a.blocks, a.block_cols, x))
+        extra[label].update(bound(nbytes(a.blocks, a.block_cols, x) + a.n * 4,
+                                  2 * a.blocks.numel()))
+        extra[label]["library_ms"] = library_spmv(
+            csr_from_bell(a), x.reshape(-1)[:a.shape[1]],
+            kb.bell_spmv_tiles(a.blocks, a.block_cols, x)[:a.n], label)
+
+    # bounds from this run's inputs: every vector is n float32 entries
+    n, v = N_BIG, N_BIG * 4
+    times["sym_fused_dir_spmv_dot"].update(bound(
+        nbytes(big.diag_blocks, big.off_blocks, big.off_cols) + 4 * v,
+        2 * big.diag_blocks.numel() + 4 * big.off_blocks.numel() + 4 * n))
+    extra["K1 general poisson3d_48"].update(bound(
+        nbytes(p3d.diag_blocks, p3d.off_blocks, p3d.off_cols, p3d.mirror_src)
+        + 4 * p3d.nrb * 128 * 4,
+        2 * p3d.diag_blocks.numel() + 4 * p3d.off_blocks.numel() + 4 * p3d.nrb * 128))
+    times["fused_update_dot"].update(bound(6 * v, 6 * n))  # x p r q in, x' r' out
+    times["fused_update_dot_pcg"].update(bound(7 * v, 9 * n))  # and d
+    times["fused_dir_spmv_dot"].update(bound(
+        nbytes(big_full.blocks, big_full.block_cols) + 4 * v, 2 * big_full.blocks.numel() + 4 * n))
+    extra["K4 poisson3d_48"].update(bound(
+        nbytes(p3d_full.blocks, p3d_full.block_cols) + 4 * p3d_full.nrb * 128 * 4,
+        2 * p3d_full.blocks.numel() + 4 * p3d_full.nrb * 128))
+    times["bell_spmv"].update(bound(nbytes(big_full.blocks, big_full.block_cols) + 2 * v,
+                                    2 * big_full.blocks.numel()))
+    # kernels 1-4 fuse an SpMV with vector updates and dots: no one PyTorch
+    # call computes that
+    for name in BLOCKED_KERNELS[:4]:
+        times[name]["library_ms"] = None
+    times["bell_spmv"]["library_ms"] = library_spmv(
+        csr_from_bell(big_full), x_big.reshape(-1),
+        kb.bell_spmv_tiles(big_full.blocks, big_full.block_cols, x_big), "tridiag n=262144")
     torch.cuda.synchronize()
     return errs, times, extra, {"p3d": p3d, "p3d_full": p3d_full, "p3d_8": p3d_8}
+
+
+# ---- phase 2, DIA: kernels 7-10 against their plain versions -----------------
+
+def sym_dia_pair(n, offs_pos, rng, dev, scale=0.05):
+    """A random diagonally dominant symmetric DIA operator in full and in
+    symmetric storage, drawn as bench.py's symdia-big is (one normal draw
+    per stored off-diagonal, in order, zero past the end; the main diagonal
+    1 + 2·max row sum)."""
+    import torch
+
+    from conjugategradient_tpu_torch.types import DIAMatrix, SymDIAMatrix
+
+    diags_pos = np.zeros((len(offs_pos), n), np.float32)
+    for j, k in enumerate(offs_pos[1:], start=1):
+        d = (scale * rng.standard_normal(n)).astype(np.float32)
+        d[n - k:] = 0.0
+        diags_pos[j] = d
+    diags_pos[0] = 1.0 + 2.0 * np.abs(diags_pos[1:]).sum(axis=0).max()
+    offs_full = tuple(-k for k in reversed(offs_pos[1:])) + tuple(offs_pos)
+    diags_full = np.zeros((len(offs_full), n), np.float32)
+    for j, off in enumerate(offs_full):
+        if off >= 0:
+            diags_full[j] = diags_pos[offs_pos.index(off)]
+        else:
+            diags_full[j, -off:] = diags_pos[offs_pos.index(-off)][: n + off]
+    nnz = int(np.count_nonzero(diags_full))
+    full = DIAMatrix(torch.from_numpy(diags_full).to(dev), offs_full, (n, n), nnz)
+    sym = SymDIAMatrix(torch.from_numpy(diags_pos).to(dev), tuple(offs_pos), (n, n), nnz)
+    return full, sym
+
+
+def check_dia(a, sym, rng, errs, label):
+    """dia_spmv on ``a`` (and sym_dia_spmv on ``sym``, its symmetric half,
+    when given) bit for bit against the plain versions on one random x;
+    returns x and the kernel's y."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=torch.float32, device=a.device)
+    yk = kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x)
+    yp = kd._dia_plain(a.diags, a.offsets, x)
+    torch.cuda.synchronize()
+    e, m = rel_max_err(yk, yp)
+    check(torch.equal(yk, yp), f"dia_spmv {label}: not bit-equal to the plain version ({e})")
+    errs["dia_spmv"] = max(errs["dia_spmv"], e)
+    msg = (f"  dia_spmv {label:<30} bit-equal (max|y| {m:.4g}); {a.ndiag} diagonals, "
+           f"{a.shape[0]} x {a.shape[1]}, {nbytes(a.diags) / 1e6:.1f} MB")
+    if sym is not None:
+        ys = kd.sym_dia_spmv_diags(sym.diags, sym.offsets, sym.offsets_dev, x)
+        yps = kd._sym_dia_plain(sym.diags, sym.offsets, x)
+        torch.cuda.synchronize()
+        es, _ = rel_max_err(ys, yps)
+        check(torch.equal(ys, yps), f"sym_dia_spmv {label}: not bit-equal to the plain version ({es})")
+        errs["sym_dia_spmv"] = max(errs["sym_dia_spmv"], es)
+        ef, _ = rel_max_err(ys, yk)
+        check(ef <= TOL_Q * m, f"sym_dia_spmv {label}: {ef} from the full layout's y")
+        msg += f"; sym_dia_spmv bit-equal ({sym.ndiag} stored), |y_sym - y_full| {ef:.3g}"
+    print(msg)
+    return x, yk
+
+
+def dia_bounds(a, sym):
+    """Bounds of one call: dia_spmv reads its diagonals, offsets and x once
+    and writes y; sym_dia_spmv the same on its stored half-band, with two
+    multiply-adds per stored off-diagonal entry."""
+    n, ncols = a.shape
+    full = bound(nbytes(a.diags, a.offsets_dev) + (ncols + n) * 4, 2 * a.ndiag * n)
+    half = bound(nbytes(sym.diags, sym.offsets_dev) + 2 * n * 4, 2 * (2 * sym.ndiag - 1) * n)
+    return full, half
+
+
+def phase_dia_kernels(dev, errs, times, extra):
+    """Kernels 7-10 (two CUDA kernels) against their plain versions, timed
+    beside cuSPARSE; returns the operators phase 3 reuses."""
+    import torch
+
+    from conjugategradient_tpu_torch import load_matrix
+    from conjugategradient_tpu_torch.convert import dia_from_arrays
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    errs.update(dict.fromkeys(DIA_KERNELS, 0.0))
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    big, big_sym = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, rng, dev)
+    print(f"  symdia-big built in {time.perf_counter() - t0:.1f} s: full {big.ndiag} diagonals "
+          f"{nbytes(big.diags) / 1e6:.1f} MB, symmetric {big_sym.ndiag} "
+          f"{nbytes(big_sym.diags) / 1e6:.1f} MB, nnz {big.nnz}")
+    p3d = load_matrix(os.path.join(ROOT, MATRICES[0]), layout="dia", dtype=np.float32, device=dev)
+    p3d_sym = load_matrix(os.path.join(ROOT, MATRICES[0]), layout="symdia", dtype=np.float32,
+                          device=dev)
+    dense = load_matrix(os.path.join(ROOT, "problems/dense_256.mtx"), layout="dia",
+                        dtype=np.float32, device=dev)
+    dense_sym = load_matrix(os.path.join(ROOT, "problems/dense_256.mtx"), layout="symdia",
+                            dtype=np.float32, device=dev)
+    x_big, y_big = check_dia(big, big_sym, rng, errs, "symdia-big n=2097152")
+    x_p3d, y_p3d = check_dia(p3d, p3d_sym, rng, errs, "poisson3d_48")
+    check_dia(dense, dense_sym, rng, errs, "dense_256")
+    check_dia(*sym_dia_pair(1001, (0, 3, 300), rng, dev, scale=0.3), rng, errs,
+              "ragged n=1001 offsets 0,3,300")
+    rect = rng.standard_normal((4, 1001)).astype(np.float32)
+    check_dia(dia_from_arrays(rect, (-7, 0, 5, 299), (1001, 1300), rect.size, device=dev),
+              None, rng, errs, "rect 1001x1300")
+    neg = rng.standard_normal((3, 777)).astype(np.float32)
+    check_dia(dia_from_arrays(neg, (-300, -3, -1), (777, 777), neg.size, device=dev),
+              None, rng, errs, "negative offsets only")
+
+    for label, a, sym, x, y in (("symdia-big", big, big_sym, x_big, y_big),
+                                ("poisson3d_48", p3d, p3d_sym, x_p3d, y_p3d)):
+        full_b, half_b = dia_bounds(a, sym)
+        tf = time_pair(lambda: kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x),
+                       lambda: kd._dia_plain(a.diags, a.offsets, x))
+        ts = time_pair(lambda: kd.sym_dia_spmv_diags(sym.diags, sym.offsets, sym.offsets_dev, x),
+                       lambda: kd._sym_dia_plain(sym.diags, sym.offsets, x))
+        csr = csr_from_dia(a)
+        lib = library_spmv(csr, x, y, label)  # the same y = A x for both storages
+        del csr
+        tf.update(full_b, library_ms=lib)
+        ts.update(half_b, library_ms=lib)
+        full_bytes = nbytes(a.diags) + (a.shape[1] + a.n) * 4
+        print(f"  {label} SpMV on full-layout bytes ({full_bytes / 1e6:.1f} MB): dia_spmv "
+              f"{full_bytes / tf['ms'] / 1e6:.1f} GB/s, sym_dia_spmv "
+              f"{full_bytes / ts['ms'] / 1e6:.1f} GB/s effective")
+        if label == "symdia-big":
+            times["dia_spmv"], times["sym_dia_spmv"] = tf, ts
+        else:
+            extra[f"dia_spmv {label}"], extra[f"sym_dia_spmv {label}"] = tf, ts
+    torch.cuda.synchronize()
+    return {"big": big, "big_sym": big_sym, "p3d": p3d, "p3d_sym": p3d_sym}
 
 
 # ---- phase 3: the main path ------------------------------------------------
@@ -455,20 +708,22 @@ def bnorm(n: int) -> float:
     return math.sqrt(n * (n + 1) * (2 * n + 1) / 6.0)
 
 
-def run_tester(path, layout, precond, tol):
+def run_tester(path, layout, precond, tol, dtype="float32", extra=()):
+    """The port's tester in this process; returns (dim, nnz, ms, rel_error,
+    summary, printed lines)."""
     from conjugategradient_tpu_torch import tester
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = tester.main([os.path.join(ROOT, path), "--layout", layout,
-                          "--dtype", "float32", "--precond", precond,
+                          "--dtype", dtype, "--precond", precond,
                           "--tol", repr(tol), "--summary",
-                          "--device", str(DEVICE)])
+                          "--device", str(DEVICE), *extra])
     lines = buf.getvalue().strip().splitlines()
-    check(rc == 0, f"tester {path} {layout} {precond}: rc={rc}")
+    check(rc == 0, f"tester {path} {layout} {precond} {' '.join(extra)}: rc={rc}")
     dim, nnz, ms, rel = lines[0].split()
     summ = json.loads(lines[1])
-    return int(dim), int(nnz), float(ms), float(rel), summ
+    return int(dim), int(nnz), float(ms), float(rel), summ, lines
 
 
 def trajectory_ok(h_fused, h_plain, k, floor_rel=1e-10):
@@ -499,7 +754,7 @@ def phase_main_path(dev, big, big_full, ops, card):
             for precond in ("none", "jacobi"):
                 n = read_csr_host(os.path.join(ROOT, path))[3][0]
                 tol = TOL_SOLVE_REL * bnorm(n)
-                dim, nnz, ms, rel, summ = run_tester(path, layout, precond, tol)
+                dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, tol)
                 it = summ["iterations"][0]
                 what = f"tester {path} --layout {layout} --precond {precond}"
                 check(summ["converged"][0], f"{what}: not converged in {it}")
@@ -695,6 +950,109 @@ def phase_bell_paths(dev, ops, card):
           f"rel diff {e0:.3g}, rel_error {rel:.3e}")
 
 
+def phase_dia_path(dev, ops, card):
+    """The DIA / SELL path through its entry points (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import SellMatrix, cg_solve, jacobi_preconditioner, load_matrix
+    from conjugategradient_tpu_torch.io import read_csr_host
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.utils import Timer
+
+    # (a) the tester: --layout auto resolves poisson3d_48 to DIA, which the
+    # dia_spmv counter shows; symdia with Jacobi PCG
+    path = MATRICES[0]
+    n = read_csr_host(os.path.join(ROOT, path))[3][0]
+    for layout, precond, kernel in (("auto", "none", "dia_spmv"),
+                                    ("symdia", "jacobi", "sym_dia_spmv")):
+        before = _common.LAUNCHES[kernel]
+        dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, TOL_SOLVE_REL * bnorm(n))
+        it = summ["iterations"][0]
+        launched = _common.LAUNCHES[kernel] - before
+        what = f"tester {path} --layout {layout} --precond {precond}"
+        check(summ["converged"][0], f"{what}: not converged in {it}")
+        check(math.isfinite(rel) and rel < REL_ERROR_BOUND, f"{what}: rel_error {rel}")
+        check(launched >= 2 * it, f"{what}: {launched} {kernel} launches for 2 solves of {it} steps")
+        print(f"  {what}: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its ({ms / max(it, 1):.4f} "
+              f"ms/it), {launched} {kernel} launches, rel_error {rel:.3e}  [{card}]")
+
+    # (b) --layout auto --reorder on powerlaw_1138 resolves to SELL (plain
+    # torch: no kernel of this package)
+    path = "problems/powerlaw_1138.mtx"
+    op, _ = load_matrix(os.path.join(ROOT, path), layout="auto", reorder=True, device=dev)
+    check(isinstance(op, SellMatrix) and op.pos_identity,
+          f"auto --reorder on {path} gave {type(op).__name__}")
+    before = dict(_common.LAUNCHES)
+    n = op.n
+    dim, nnz, ms, rel, summ, _ = run_tester(path, "auto", "jacobi", TOL_SOLVE_REL * bnorm(n),
+                                            extra=("--reorder",))
+    check(summ["converged"][0] and rel < REL_ERROR_BOUND, f"tester {path} sell: rel_error {rel}")
+    check(dict(_common.LAUNCHES) == before, "the SELL solve launched a kernel")
+    print(f"  tester {path} --layout auto --reorder --precond jacobi (SELL): dim {dim} nnz {nnz} "
+          f"{ms:.3f} ms, {summ['iterations'][0]} its, rel_error {rel:.3e}  [{card}]")
+
+    # (c) the float64 auto path (DIA, plain torch) twice: bit for bit
+    path = "problems/poisson2d_34.mtx"
+    runs = [run_tester(path, "auto", "none", 1e-8 * bnorm(1156), dtype="float64",
+                       extra=("--history",)) for _ in range(2)]
+    check(runs[0][4]["converged"][0], "f64 auto poisson2d_34 did not converge")
+    check(runs[0][5][0].split()[3] == runs[1][5][0].split()[3] and runs[0][5][2] == runs[1][5][2],
+          "f64 auto poisson2d_34: the two runs differ")
+    print(f"  tester {path} --layout auto --dtype float64 twice: {runs[0][4]['iterations'][0]} its, "
+          f"rel_error {runs[0][3]:.3e}, residual history bitwise repeat ok")
+
+    # (d) symdia-big in both storages, DIA_STEPS timed full passes (tol = -1)
+    big, big_sym = ops["big"], ops["big_sym"]
+    n = big.n
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    eff = nbytes(big.diags) + 7 * n * 4  # full-layout bytes, bench.py's convention
+    for label, a, kernel in (("full", big, "dia_spmv"), ("symmetric", big_sym, "sym_dia_spmv")):
+        cg_solve(a, b, tol=-1.0, maxiter=8)
+        before = _common.LAUNCHES[kernel]
+        t = Timer(dev).start_measure()
+        _, info = cg_solve(a, b, tol=-1.0, maxiter=DIA_STEPS)
+        t.stop_measure()
+        check(int(info.iterations) == DIA_STEPS, f"symdia-big {label}: {int(info.iterations)} steps")
+        launched = _common.LAUNCHES[kernel] - before
+        check(launched >= DIA_STEPS + 1, f"symdia-big {label}: {launched} launches")
+        ms_it = t.get_duration() / DIA_STEPS
+        streamed = nbytes(a.diags) + 7 * n * 4
+        busy = device_ms(lambda: cg_solve(a, b, tol=-1.0, maxiter=DIA_STEPS), reps=1)
+        busy_s = "not measured" if busy is None else \
+            f"{busy / DIA_STEPS:.5f} ms/it ({100 * busy / t.get_duration():.1f}%)"
+        print(f"  CG symdia-big {label} ({a.ndiag} diagonals): {ms_it:.5f} ms/it, effective "
+              f"{eff / ms_it / 1e6:.1f} GB/s ({eff / 1e6:.1f} MB/it full layout), streamed "
+              f"{streamed / ms_it / 1e6:.1f} GB/s; device busy {busy_s}; {launched} launches  "
+              f"[{card}]")
+
+    # (e) a float32 DIA solve twice (bitwise), and the card against the plain
+    # versions on the CPU over 32 steps (trajectory), with and without
+    # residual replacement, and symmetric storage with Jacobi
+    p3d, p3d_sym = ops["p3d"], ops["p3d_sym"]
+    bb = torch.arange(1, p3d.n + 1, dtype=torch.float32, device=dev)
+    tt = TOL_SOLVE_REL * bnorm(p3d.n)
+    _, i1 = cg_solve(p3d, bb, tol=tt)
+    _, i2 = cg_solve(p3d, bb, tol=tt)
+    check(bool(i1.converged), "f32 DIA poisson3d_48 did not converge")
+    check(torch.equal(i1.rho_history.view(torch.int32), i2.rho_history.view(torch.int32)),
+          "f32 DIA solve: rho_history not bitwise repeatable")
+    print(f"  f32 DIA poisson3d_48: {int(i1.iterations)} its, bitwise repeat ok")
+    for label, a, pc, every in (("dia", p3d, False, 0), ("dia", p3d, False, RESTART_EVERY),
+                                ("symdia jacobi", p3d_sym, True, 0)):
+        Mc = jacobi_preconditioner(a) if pc else None
+        ac = a.to("cpu")
+        Mp = jacobi_preconditioner(ac) if pc else None
+        _, ic = cg_solve(a, bb, tol=0.0, maxiter=32, M=Mc, recompute_r_every=every)
+        _, ip = cg_solve(ac, bb.cpu(), tol=0.0, maxiter=32, M=Mp, recompute_r_every=every)
+        hc, hp = ic.rho_history.double().cpu().numpy(), ip.rho_history.double().numpy()
+        check(np.isfinite(hc).all(), f"f32 {label}: history not finite")
+        err = float(np.max(np.abs(hc - hp) / np.abs(hp)))
+        check(err <= RESTART_RTOL, f"f32 {label} every={every}: card vs plain rel diff {err}")
+        print(f"  f32 {label} poisson3d_48 recompute_r_every={every}: 32 steps, max rel diff "
+              f"to the plain versions on the CPU {err:.3g}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -716,28 +1074,43 @@ def main() -> int:
     print("phase 2: kernels vs plain versions")
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
     errs, times, extra, ops = phase_kernels(dev, big, big_full)
+    dia_ops = phase_dia_kernels(dev, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
-        print(f"  time {name:<24} kernel {fmt_ms(t['device_ms'])} device / "
+        more = ""
+        if "bound_ms" in t:
+            more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']})"
+        if t.get("library_ms") is not None:
+            more += f"; cuSPARSE {t['library_ms']:.5f}"
+        print(f"  time {name:<28} kernel {fmt_ms(t['device_ms'])} device / "
               f"{t['event_ms']:.5f} per call; plain {fmt_ms(t['plain_device_ms'])} "
-              f"device / {t['plain_event_ms']:.5f} per call (ms)  [{card}]")
+              f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
 
-    print("phase 3: main path")
-    fc.reset_counts()
-    results = phase_main_path(dev, big, big_full, ops, card)
-    launches = dict(fc.LAUNCHES)
-    plain_on_cuda = dict(fc.PLAIN_ON_CUDA)
+    # phase 3: each path with the counters set to 0 just before it and read
+    # just after; a kernel's launches are those of its own path
+    launches = {}
+    for label, kernels, run in (
+        ("blocked-ELL", BLOCKED_KERNELS,
+         lambda: phase_main_path(dev, big, big_full, ops, card)),
+        ("DIA / SELL", DIA_KERNELS, lambda: phase_dia_path(dev, dia_ops, card)),
+    ):
+        print(f"phase 3: main path, {label}")
+        fc.reset_counts()
+        run()
+        counts, plain_on_cuda = dict(fc.LAUNCHES), dict(fc.PLAIN_ON_CUDA)
+        print(f"  {label} path: launches {counts}, plain on CUDA {plain_on_cuda}")
+        for name in kernels:
+            check(counts[name] > 0, f"kernel {name} never launched on the {label} path")
+            launches[name] = counts[name]
+        for name, count in plain_on_cuda.items():
+            check(count == 0, f"plain {name} ran on CUDA tensors in the {label} path")
 
-    print(f"phase 4: launches {launches}, plain on CUDA {plain_on_cuda}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
-    for name, count in plain_on_cuda.items():
-        check(count == 0, f"plain {name} ran on CUDA tensors in the main path")
-
+    print(f"phase 4: launches {launches}")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"]}
+         "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"]}
         for name in fc.LAUNCHES
     ]}
     print(json.dumps(table))

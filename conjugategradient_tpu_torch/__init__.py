@@ -1,10 +1,14 @@
 """conjugategradient_tpu_torch — the PyTorch / CUDA port of
 conjugategradient_tpu for NVIDIA Hopper GPUs.
 
-Blocked-ELL CG and Jacobi PCG, in full or symmetric storage, run as two
+Layouts: CSR, blocked-ELL in full or symmetric storage, DIA in full or
+symmetric storage, and SELL; ``load_matrix(layout="auto")`` picks one from
+the sparsity pattern.  Blocked-ELL CG and Jacobi PCG run as two
 hand-written CUDA kernels per iteration (``ops/cuda``, sources in
-``csrc/``); the full blocked-ELL SpMV is a third.  CSR and the portable
-loop run in plain torch.  Imports torch, never jax.
+``csrc/``); the full blocked-ELL SpMV and both DIA SpMVs are kernels of
+their own, under the portable loop.  CSR, SELL and the portable loop run
+in plain torch.  Entry points put operators on the card (``"cuda"``) unless
+the caller passes ``device="cpu"``.  Imports torch, never jax.
 """
 
 from .io import load_matrix
@@ -21,8 +25,11 @@ from .types import (
     BlockedEllMatrix,
     CSRMatrix,
     DenseOperator,
+    DIAMatrix,
     LinearOperator,
+    SellMatrix,
     SymBellMatrix,
+    SymDIAMatrix,
     as_linear_operator,
 )
 
@@ -30,9 +37,12 @@ __all__ = [
     "BlockedEllMatrix",
     "CGInfo",
     "CSRMatrix",
+    "DIAMatrix",
     "DenseOperator",
     "LinearOperator",
+    "SellMatrix",
     "SymBellMatrix",
+    "SymDIAMatrix",
     "accuracy",
     "as_linear_operator",
     "cg_solve",

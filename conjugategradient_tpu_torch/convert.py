@@ -14,7 +14,15 @@ import torch
 
 from .ops.cuda.fused_cg import S_BETA, S_RHO, S_RNORM, FusedWork
 from .solver.fused import FusedCGState
-from .types import BlockedEllMatrix, CSRMatrix, SymBellMatrix
+from .types import (
+    DEFAULT_DEVICE,
+    BlockedEllMatrix,
+    CSRMatrix,
+    DIAMatrix,
+    SellMatrix,
+    SymBellMatrix,
+    SymDIAMatrix,
+)
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -22,7 +30,7 @@ def _t(a, device, dtype=None) -> torch.Tensor:
 
 
 def bell_from_arrays(blocks, block_cols, shape: Tuple[int, int], nnz: int,
-                     device="cpu") -> BlockedEllMatrix:
+                     device=DEFAULT_DEVICE) -> BlockedEllMatrix:
     """A ``BlockedEllMatrix`` from the JAX one's fields."""
     return BlockedEllMatrix(_t(blocks, device), _t(block_cols, device, np.int32),
                             tuple(shape), int(nnz))
@@ -30,7 +38,7 @@ def bell_from_arrays(blocks, block_cols, shape: Tuple[int, int], nnz: int,
 
 def sym_bell_from_arrays(diag_blocks, off_blocks, off_cols,
                          shape: Tuple[int, int], nnz: int, full_kmax: int,
-                         banded: bool, device="cpu") -> SymBellMatrix:
+                         banded: bool, device=DEFAULT_DEVICE) -> SymBellMatrix:
     """A ``SymBellMatrix`` from the JAX one's fields (the transposed mirror
     index is derived here)."""
     return SymBellMatrix(
@@ -41,15 +49,41 @@ def sym_bell_from_arrays(diag_blocks, off_blocks, off_cols,
 
 
 def csr_from_arrays(data, indices, indptr, shape: Tuple[int, int],
-                    device="cpu") -> CSRMatrix:
+                    device=DEFAULT_DEVICE) -> CSRMatrix:
     """A ``CSRMatrix`` from the JAX one's ``data``/``indices``/``indptr``."""
     return CSRMatrix.from_arrays(np.asarray(data), np.asarray(indices),
                                  np.asarray(indptr), tuple(shape),
                                  device=device)
 
 
+def dia_from_arrays(diags, offsets, shape: Tuple[int, int], nnz: int,
+                    device=DEFAULT_DEVICE) -> DIAMatrix:
+    """A ``DIAMatrix`` from the JAX one's ``diags``/``offsets`` (its
+    pre-blocked copy, if any, is not carried: the port reads (ndiag, n))."""
+    return DIAMatrix(_t(diags, device), tuple(int(o) for o in offsets),
+                     tuple(shape), int(nnz))
+
+
+def sym_dia_from_arrays(diags, offsets, shape: Tuple[int, int], nnz: int,
+                        device=DEFAULT_DEVICE) -> SymDIAMatrix:
+    """A ``SymDIAMatrix`` from the JAX one's ``diags``/``offsets``."""
+    return SymDIAMatrix(_t(diags, device), tuple(int(o) for o in offsets),
+                        tuple(shape), int(nnz))
+
+
+def sell_from_arrays(diag, pos, cols_flat, vals_flat, bucket_meta,
+                     shape: Tuple[int, int], nnz: int, pos_identity: bool,
+                     device=DEFAULT_DEVICE) -> SellMatrix:
+    """A ``SellMatrix`` from the JAX one's fields."""
+    return SellMatrix(
+        _t(diag, device), _t(pos, device, np.int32), _t(cols_flat, device, np.int32),
+        _t(vals_flat, device), tuple((int(b), int(k)) for b, k in bucket_meta),
+        tuple(shape), int(nnz), bool(pos_identity),
+    )
+
+
 def fused_state_from_arrays(x, r, p, beta, rho, k: int, done: bool, hist,
-                            tol: float = 0.0, device="cpu") -> FusedCGState:
+                            tol: float = 0.0, device=DEFAULT_DEVICE) -> FusedCGState:
     """A plain-CG ``FusedCGState`` from the JAX ``FusedCGState`` fields:
     (rows, bn) vectors x, r, p; scalars beta, rho (= ‖r‖²); k, done; the
     history, whose length sets maxiter."""

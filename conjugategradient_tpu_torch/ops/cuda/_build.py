@@ -44,6 +44,8 @@ SIGNATURES = {
     "cg_full_dir": [_P] * 13 + [_I, _I, _I, _I, _P],
     "cg_update": [_P] * 15 + [_I, _I64, _I, _P],
     "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
+    "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
+    "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
 }
 
 

@@ -21,6 +21,8 @@ LAUNCHES = {
     "fused_update_dot": 0,
     "fused_update_dot_pcg": 0,
     "bell_spmv": 0,
+    "dia_spmv": 0,
+    "sym_dia_spmv": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 

@@ -21,7 +21,7 @@ import sys
 
 import numpy as np
 
-_LAYOUTS = ("csr", "bell", "symbell")
+_LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
 _PRECONDS = ("none", "jacobi")
 
@@ -35,9 +35,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--maxiter", type=int, default=None,
                     help="iteration cap (reference: N+1)")
     ap.add_argument("--layout", default="csr",
-                    help="csr, bell = full blocked-ELL, or symbell = "
-                         "symmetric blocked-ELL (both blocked layouts run "
-                         "fused CUDA kernels for float32 on a GPU)")
+                    help="auto picks by sparsity pattern (with --bm/--bn); "
+                         "csr; sell = degree-bucketed ELL; bell = full "
+                         "blocked-ELL; symbell = symmetric blocked-ELL (both "
+                         "blocked layouts run fused CUDA kernels for float32 "
+                         "on a GPU); dia = diagonal storage; symdia = "
+                         "symmetric DIA (offsets >= 0 stored once; both DIA "
+                         "layouts run a CUDA SpMV kernel for float32 on a GPU)")
     ap.add_argument("--reorder", action="store_true",
                     help="RCM-reorder the system first (bandwidth reduction; "
                          "the printed metrics are permutation-invariant)")
@@ -46,8 +50,10 @@ def _parser() -> argparse.ArgumentParser:
                          "iterations (0: never)")
     ap.add_argument("--dtype", default="float64", help="float32 or float64")
     ap.add_argument("--precond", default="none", help="none or jacobi")
-    ap.add_argument("--bm", type=int, default=128, help="blocked-ELL row tile")
-    ap.add_argument("--bn", type=int, default=128, help="blocked-ELL col tile")
+    ap.add_argument("--bm", type=int, default=128,
+                    help="blocked-ELL row tile (also read by --layout auto)")
+    ap.add_argument("--bn", type=int, default=128,
+                    help="blocked-ELL col tile (also read by --layout auto)")
     ap.add_argument("--history", action="store_true",
                     help="also print the residual-norm history as JSON")
     ap.add_argument("--summary", action="store_true",

@@ -1,13 +1,19 @@
-from .base import DenseOperator, LinearOperator, as_linear_operator
+from .base import DEFAULT_DEVICE, DenseOperator, LinearOperator, as_linear_operator
 from .bell import BlockedEllMatrix, SymBellMatrix, mirror_index, pack_host_arrays
 from .csr import CSRMatrix
+from .dia import DIAMatrix, SymDIAMatrix
+from .sell import SellMatrix
 
 __all__ = [
+    "DEFAULT_DEVICE",
     "BlockedEllMatrix",
     "CSRMatrix",
+    "DIAMatrix",
     "DenseOperator",
     "LinearOperator",
+    "SellMatrix",
     "SymBellMatrix",
+    "SymDIAMatrix",
     "as_linear_operator",
     "mirror_index",
     "pack_host_arrays",

@@ -13,6 +13,12 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+#: where the entry points (``load_matrix``, the ``from_*`` constructors and
+#: ``convert``) put an operator when the caller names no device; a CPU run
+#: passes ``device="cpu"``.  There is no fallback: without a GPU a call that
+#: relies on this default raises torch's own error.
+DEFAULT_DEVICE = "cuda"
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .base import LinearOperator, _cdiv, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, _cdiv, as_numpy_dtype
 from .csr import CSRMatrix
 
 
@@ -134,7 +134,7 @@ class BlockedEllMatrix(LinearOperator):
         bm: int = 128,
         bn: int = 128,
         dtype=None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> "BlockedEllMatrix":
         """Host-side CSR -> blocked-ELL, then one copy to ``device``."""
         blocks, block_cols, nnz = pack_host_arrays(
@@ -282,7 +282,7 @@ class SymBellMatrix(LinearOperator):
         bn: int = 128,
         dtype=None,
         check: bool = True,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> "SymBellMatrix":
         """Host-side CSR -> symmetric blocked-ELL, then one copy to
         ``device``."""
@@ -313,7 +313,7 @@ class SymBellMatrix(LinearOperator):
         )
 
     @staticmethod
-    def _pack_np(blocks, cols, padded_shape, shape, nnz, check, device="cpu"):
+    def _pack_np(blocks, cols, padded_shape, shape, nnz, check, device=DEFAULT_DEVICE):
         """Full blocked-ELL numpy tiles (nrb, kmax, bm, bn) and their
         block columns -> symmetric storage on ``device``."""
         nrb, kmax, bm, bn = blocks.shape

@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .base import LinearOperator, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +33,7 @@ class CSRMatrix(LinearOperator):
         indptr: np.ndarray,
         shape: Optional[Tuple[int, int]] = None,
         dtype=None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> "CSRMatrix":
         """Build from host CSR arrays (the reference's ``setMatrix``)."""
         data = np.asarray(data)
@@ -63,7 +63,7 @@ class CSRMatrix(LinearOperator):
         shape: Tuple[int, int],
         dtype=None,
         sum_duplicates: bool = True,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> "CSRMatrix":
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)

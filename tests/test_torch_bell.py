@@ -66,7 +66,7 @@ def parsed():
 
 def _port(jbell):
     return convert.bell_from_arrays(np.asarray(jbell.blocks), np.asarray(jbell.block_cols),
-                                    jbell.shape, jbell.nnz)
+                                    jbell.shape, jbell.nnz, device="cpu")
 
 
 def _random_block(rng, nrb, bm, bn, per_row, ncols=None, spd=True):
@@ -106,7 +106,7 @@ def _jax_bell(A, bm, bn):
 def test_bell_packing_bitwise(path, parsed):
     data, indices, indptr, shape = parsed[path.name]
     jb = JBell.from_csr_host(data, indices, indptr, shape, dtype=np.float32, **PACK)
-    tb = BlockedEllMatrix.from_csr_host(data, indices, indptr, shape, dtype=np.float32, **PACK)
+    tb = BlockedEllMatrix.from_csr_host(data, indices, indptr, shape, dtype=np.float32, **PACK, device="cpu")
     assert np.array_equal(tb.blocks.numpy(), np.asarray(jb.blocks))
     assert np.array_equal(tb.block_cols.numpy(), np.asarray(jb.block_cols))
     assert tb.block_cols.dtype == torch.int32
@@ -140,7 +140,7 @@ def test_sym_from_bell_and_csr_match_jax():
     js = JSym.from_bell(jb)
     for ts in (SymBellMatrix.from_bell(_port(jb)),
                SymBellMatrix.from_csr(CSRMatrix.from_coo(*np.nonzero(A), A[np.nonzero(A)],
-                                                         A.shape), bm=16, bn=16)):
+                                                         A.shape, device="cpu"), bm=16, bn=16)):
         assert np.array_equal(ts.diag_blocks.numpy(), np.asarray(js.diag_blocks))
         assert np.array_equal(ts.off_blocks.numpy(), np.asarray(js.off_blocks))
         assert np.array_equal(ts.off_cols.numpy(), np.asarray(js.off_cols))
@@ -150,7 +150,7 @@ def test_sym_from_bell_and_csr_match_jax():
 def test_load_matrix_bell_bitwise():
     path = ROOT / "problems" / "elasticity3d_8.mtx"
     jb = jloader.load_matrix(path, layout="bell", dtype=np.float32, bm=8, bn=128)
-    tb = tloader.load_matrix(path, layout="bell", dtype=np.float32)  # bm=8, bn=128
+    tb = tloader.load_matrix(path, layout="bell", dtype=np.float32, device="cpu")  # bm=8, bn=128
     assert np.array_equal(tb.blocks.numpy(), np.asarray(jb.blocks))
     assert np.array_equal(tb.block_cols.numpy(), np.asarray(jb.block_cols))
     M = jacobi_preconditioner(tb)
@@ -334,7 +334,7 @@ def test_full_storage_solve_matches_jax(poisson_bell, path, precond):
 def test_full_storage_dispatch_and_warm_start(poisson_bell):
     _, tb, b, _ = poisson_bell
     assert not fused_supported(tb)  # CPU tensors: the fused path needs CUDA
-    rect = BlockedEllMatrix.from_csr_host(*_csr_arrays(), bm=8, bn=32)
+    rect = BlockedEllMatrix.from_csr_host(*_csr_arrays(), bm=8, bn=32, device="cpu")
     assert not fused_supported(rect)
     with pytest.raises(ValueError, match="BlockedEllMatrix or SymBellMatrix"):
         cg_solve(tb, torch.from_numpy(b), fused="always")
@@ -347,7 +347,7 @@ def test_full_storage_dispatch_and_warm_start(poisson_bell):
 
 def _csr_arrays():
     rows, cols, vals, shape = poisson2d_coo(6)
-    A = CSRMatrix.from_coo(rows, cols, vals, shape, dtype=np.float32)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, dtype=np.float32, device="cpu")
     return A.data.numpy(), A.indices.numpy(), A.indptr.numpy(), shape
 
 
@@ -374,14 +374,18 @@ def test_load_matrix_reorder_returns_jax_perm():
     jop, jperm = jloader.load_matrix(path, layout="bell", dtype=np.float32, bm=8, bn=32,
                                      reorder=True)
     top, tperm = tloader.load_matrix(path, layout="bell", dtype=np.float32, bm=8, bn=32,
-                                     reorder=True)
+                                     reorder=True, device="cpu")
     assert np.array_equal(tperm, jperm)
     assert np.array_equal(top.blocks.numpy(), np.asarray(jop.blocks))
     assert np.array_equal(top.block_cols.numpy(), np.asarray(jop.block_cols))
-    csr, perm = tloader.load_matrix(path, layout="csr", dtype=np.float64, reorder=True)
+    csr, perm = tloader.load_matrix(path, layout="csr", dtype=np.float64, reorder=True, device="cpu")
     assert np.array_equal(perm, jperm) and csr.shape == (1138, 1138)
-    with pytest.raises(NotImplementedError, match="sell"):
-        tloader.load_matrix(path, layout="sell", reorder=True)
+    # sell composes the degree sort on top of RCM, as the JAX loader does
+    jsell, jsperm = jloader.load_matrix(path, layout="sell", dtype=np.float32, reorder=True)
+    tsell, tsperm = tloader.load_matrix(path, layout="sell", dtype=np.float32, reorder=True,
+                                        device="cpu")
+    assert np.array_equal(tsperm, jsperm) and not np.array_equal(tsperm, jperm)
+    assert tsell.pos_identity and jsell.pos_identity
 
 
 def test_permute_vector_roundtrip():

@@ -13,6 +13,8 @@ ops per element, the same on both sides); q and y to 1e-5 of their largest
 entry and the dots to 1e-5 relative (f32 sums in another order).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -135,3 +137,67 @@ def test_sym_dir_and_update_kernels_match_plain(dev, mirror):
             torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
         for g, w in zip(kern[2:], plain[2:]):
             np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
+
+
+def _dia_cases():
+    """(label, diags (ndiag, n) f32, offsets, ncols): banded SPD, a
+    stencil-scale half band, a ragged rectangular one, negative offsets
+    only, and 511 diagonals (dense_256's count)."""
+    from conjugategradient_tpu_torch.problems import banded_spd_coo
+    from conjugategradient_tpu_torch.types import DIAMatrix
+
+    rng = np.random.default_rng(11)
+    out = []
+    for n, bw in ((300, 5), (3000, 9)):
+        rows, cols, vals, shape = banded_spd_coo(n, bandwidth=bw, seed=n)
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+        order = np.lexsort((cols, rows))
+        d = DIAMatrix.from_csr_host(vals[order].astype(np.float32), cols[order], indptr,
+                                    shape, device="cpu")
+        out.append((f"banded{n}", d.diags.numpy(), d.offsets, n))
+    n, k = 4096, 1100
+    full = np.stack([4.0 + rng.random(n), 0.1 * rng.standard_normal(n)]).astype(np.float32)
+    full[1, n - k:] = 0.0
+    out.append(("stencil-scale", full, (0, k), n))
+    out.append(("rect 1001x1300", rng.standard_normal((4, 1001)).astype(np.float32),
+                (-7, 0, 5, 299), 1300))
+    out.append(("negative only", rng.standard_normal((3, 777)).astype(np.float32),
+                (-300, -3, -1), 777))
+    offs = tuple(range(-255, 256))
+    out.append(("511 diagonals", rng.standard_normal((511, 256)).astype(np.float32), offs, 256))
+    return out
+
+
+@pytest.mark.cuda
+def test_dia_kernels_bit_equal_to_plain(dev):
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    for label, diags, offsets, ncols in _dia_cases():
+        d = torch.from_numpy(diags).to(dev)
+        od = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        x = torch.randn(ncols, device=dev)
+        before = fc.LAUNCHES["dia_spmv"]
+        yk = kd.dia_spmv_diags(d, offsets, od, x)
+        assert fc.LAUNCHES["dia_spmv"] == before + 1
+        yp = kd._dia_plain(d, offsets, x)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yp), label
+        if min(offsets) >= 0 and ncols == d.shape[1]:
+            ys = kd.sym_dia_spmv_diags(d, offsets, od, x)
+            assert torch.equal(ys, kd._sym_dia_plain(d, offsets, x)), label
+    with pytest.raises(TypeError, match="not ported"):
+        kd.dia_spmv_diags(d.bfloat16(), offsets, od, x)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(dev):
+    """``load_matrix`` and ``CSRMatrix.from_arrays`` called with no
+    ``device`` put the operator on the card."""
+    from conjugategradient_tpu_torch.io import load_matrix, read_csr_host
+    from conjugategradient_tpu_torch.types import CSRMatrix
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "problems" / "poisson2d_34.mtx"
+    data, indices, indptr, shape = read_csr_host(path)
+    for op in (load_matrix(path), load_matrix(path, layout="csr", dtype=np.float64),
+               CSRMatrix.from_arrays(data, indices, indptr, shape)):
+        assert op.device.type == "cuda"

@@ -63,7 +63,7 @@ def _port_sym(jsym):
     return convert.sym_bell_from_arrays(
         np.asarray(jsym.diag_blocks), np.asarray(jsym.off_blocks),
         np.asarray(jsym.off_cols), jsym.shape, jsym.nnz, jsym.full_kmax,
-        jsym.banded,
+        jsym.banded, device="cpu"
     )
 
 
@@ -161,7 +161,7 @@ def test_fused_step_from_jax_state(operators):
     tstate = convert.fused_state_from_arrays(
         np.asarray(jstate.x), np.asarray(jstate.r), np.asarray(jstate.p),
         np.asarray(jstate.beta), np.asarray(jstate.rho), int(jstate.k),
-        bool(jstate.done), np.asarray(jstate.hist),
+        bool(jstate.done), np.asarray(jstate.hist), device="cpu"
     )
     for _ in range(2):
         jstate = jstep(jstate)

@@ -18,6 +18,8 @@ from conjugategradient_tpu_torch import problems as tproblems
 from conjugategradient_tpu_torch.io import loader as tloader
 from conjugategradient_tpu_torch.io import mtx as tmtx
 from conjugategradient_tpu_torch.types import SymBellMatrix as TSymBell
+from conjugategradient_tpu_torch.types import CSRMatrix as TCSR
+from conjugategradient_tpu_torch.types import DEFAULT_DEVICE as TDEFAULT_DEVICE
 from conjugategradient_tpu_torch.types import mirror_index
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -57,14 +59,14 @@ def test_symbell_packing_bitwise(path, parsed):
     except ValueError as e:
         # non-symmetric files (convdiff_34) fail the same check the same way
         with pytest.raises(ValueError) as te:
-            TSymBell.from_csr_host(data, indices, indptr, shape, **kw)
+            TSymBell.from_csr_host(data, indices, indptr, shape, **kw, device="cpu")
         assert str(te.value) == str(e)
         return
-    tsym = TSymBell.from_csr_host(data, indices, indptr, shape, **kw)
+    tsym = TSymBell.from_csr_host(data, indices, indptr, shape, **kw, device="cpu")
     carried = convert.sym_bell_from_arrays(
         np.asarray(jsym.diag_blocks), np.asarray(jsym.off_blocks),
         np.asarray(jsym.off_cols), jsym.shape, jsym.nnz, jsym.full_kmax,
-        jsym.banded,
+        jsym.banded, device="cpu"
     )
     for got in (tsym, carried):
         for f in ("diag_blocks", "off_blocks", "off_cols", "mirror_src"):
@@ -153,18 +155,20 @@ def test_chip_smoke_imports_no_jax():
 
 def test_loader_layouts(parsed):
     path = ROOT / "problems" / "poisson2d_34.mtx"
-    for layout in ("auto", "dia", "symdia", "sell"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloader.load_matrix(path, layout=layout)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.load_matrix(path, layout="sell", reorder=True)
+    kinds = {"auto": "DIAMatrix", "dia": "DIAMatrix", "symdia": "SymDIAMatrix",
+             "sell": "SellMatrix"}
+    for layout, kind in kinds.items():
+        op = tloader.load_matrix(path, layout=layout, device="cpu")
+        assert type(op).__name__ == kind and op.device.type == "cpu"
+    op, perm = tloader.load_matrix(path, layout="sell", reorder=True, device="cpu")
+    assert type(op).__name__ == "SellMatrix" and op.pos_identity and len(perm) == op.n
     with pytest.raises(ValueError, match="unknown layout"):
-        tloader.load_matrix(path, layout="tiles")
-    csr = tloader.load_matrix(path, layout="csr", dtype=np.float64)
+        tloader.load_matrix(path, layout="tiles", device="cpu")
+    csr = tloader.load_matrix(path, layout="csr", dtype=np.float64, device="cpu")
     data, indices, indptr, shape = parsed["poisson2d_34.mtx"][1]
     assert np.array_equal(csr.data.numpy(), data)
     assert np.array_equal(csr.indptr.numpy(), indptr)
-    sym = tloader.load_matrix(path, layout="symbell", dtype=np.float32, bn=32)
+    sym = tloader.load_matrix(path, layout="symbell", dtype=np.float32, bn=32, device="cpu")
     assert sym.dtype == torch.float32 and sym.bn == 32
     x = np.random.default_rng(0).standard_normal(shape[0])
     dense = np.zeros(shape)
@@ -172,3 +176,18 @@ def test_loader_layouts(parsed):
     dense[rows, indices] = data
     np.testing.assert_allclose(sym.matvec(torch.from_numpy(x.astype(np.float32))).numpy(),
                                dense @ x, rtol=1e-5, atol=1e-4)
+
+
+def test_default_device_without_gpu_raises():
+    """Without a GPU, an entry point called with no ``device`` raises torch's
+    own error and never hands back a CPU operator (the card-side case is in
+    tests/test_torch_cuda.py)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    assert TDEFAULT_DEVICE == "cuda"
+    path = ROOT / "problems" / "poisson2d_34.mtx"
+    data, indices, indptr, shape = tloader.read_csr_host(path)
+    for make in (lambda: tloader.load_matrix(path, layout="csr", dtype=np.float64),
+                 lambda: TCSR.from_arrays(data, indices, indptr, shape)):
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()

@@ -39,13 +39,13 @@ from conjugategradient_tpu_torch.types import CSRMatrix
 
 def _port_bell(jb):
     return convert.bell_from_arrays(np.asarray(jb.blocks), np.asarray(jb.block_cols),
-                                    jb.shape, jb.nnz)
+                                    jb.shape, jb.nnz, device="cpu")
 
 
 def _port_sym(js):
     return convert.sym_bell_from_arrays(
         np.asarray(js.diag_blocks), np.asarray(js.off_blocks), np.asarray(js.off_cols),
-        js.shape, js.nnz, js.full_kmax, js.banded)
+        js.shape, js.nnz, js.full_kmax, js.banded, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def poisson32():
 def test_f64_portable_restart_matches_jax(every, precond):
     rows, cols, vals, shape = banded_spd_coo(300, bandwidth=5, seed=5)
     jA = JCSR.from_coo(rows, cols, vals, shape)
-    tA = CSRMatrix.from_coo(rows, cols, vals, shape)
+    tA = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     b = reference_rhs(shape[0])
     jM = jcg.jacobi_preconditioner(jA) if precond == "jacobi" else None
     tM = jacobi_preconditioner(tA) if precond == "jacobi" else None
@@ -89,7 +89,7 @@ def test_restart_changes_the_trajectory():
     """A restart does something: with every = 8 the history leaves the
     no-restart one after step 8, and equals it up to there."""
     rows, cols, vals, shape = poisson2d_coo(12)
-    A = CSRMatrix.from_coo(rows, cols, vals, shape)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     b = torch.from_numpy(reference_rhs(shape[0]))
     _, i0 = cg_solve(A, b, tol=0.0, maxiter=20)
     _, i8 = cg_solve(A, b, tol=0.0, maxiter=20, recompute_r_every=8)
@@ -198,6 +198,6 @@ def test_chunked_host_checks_match_per_step(poisson32, monkeypatch, path, every)
 
 
 def test_negative_every_raises():
-    A = CSRMatrix.from_coo(*poisson2d_coo(4))
+    A = CSRMatrix.from_coo(*poisson2d_coo(4), device="cpu")
     with pytest.raises(ValueError, match="recompute_r_every"):
         cg_solve(A, torch.ones(16, dtype=torch.float64), recompute_r_every=-1)

@@ -47,7 +47,7 @@ def _port(jsym):
     return convert.sym_bell_from_arrays(
         np.asarray(jsym.diag_blocks), np.asarray(jsym.off_blocks),
         np.asarray(jsym.off_cols), jsym.shape, jsym.nnz, jsym.full_kmax,
-        jsym.banded)
+        jsym.banded, device="cpu")
 
 
 def _assert_trajectory_parity(solve_jax, solve_port, n_fixed=25):
@@ -145,7 +145,7 @@ def test_f64_portable_matches_oracle(problem):
     else:
         rows, cols, vals, shape = banded_spd_coo(300, bandwidth=5, seed=5)
         tol = 1e-9
-    A = CSRMatrix.from_coo(rows, cols, vals, shape)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     d, i, p = A.data.numpy(), A.indices.numpy(), A.indptr.numpy()
     b = reference_rhs(shape[0])
     _oracle_check(A, lambda x: csr_matvec_np_fast(d, i, p, x), b, tol)
@@ -153,7 +153,7 @@ def test_f64_portable_matches_oracle(problem):
 
 def test_f64_jacobi_pcg_matches_oracle():
     rows, cols, vals, shape = banded_spd_coo(300, bandwidth=5, seed=1)
-    A = CSRMatrix.from_coo(rows, cols, vals, shape)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     d, i, p = A.data.numpy(), A.indices.numpy(), A.indptr.numpy()
     inv = 1.0 / A.diagonal().numpy()
     b = reference_rhs(shape[0])
@@ -163,7 +163,7 @@ def test_f64_jacobi_pcg_matches_oracle():
 
 def test_f64_nonzero_x0_and_dense_match_oracle():
     rows, cols, vals, shape = poisson2d_coo(9)
-    A = CSRMatrix.from_coo(rows, cols, vals, shape)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     d, i, p = A.data.numpy(), A.indices.numpy(), A.indptr.numpy()
     b = reference_rhs(shape[0])
     x0 = np.linspace(-1, 1, shape[0])
@@ -273,7 +273,7 @@ def test_spmv_blas_accuracy_match_jax():
     rows, cols, vals, shape = poisson2d_coo(10)
     jA = JCSR.from_coo(rows, cols, vals, shape)
     tA = convert.csr_from_arrays(np.asarray(jA.data), np.asarray(jA.indices),
-                                 np.asarray(jA.indptr), shape)
+                                 np.asarray(jA.indptr), shape, device="cpu")
     x = np.random.default_rng(0).standard_normal(shape[0])
     np.testing.assert_allclose(spmv.csr_spmv(tA, torch.from_numpy(x)).numpy(),
                                np.asarray(jA.matvec(jnp.asarray(x))), rtol=1e-13)
@@ -298,7 +298,7 @@ def test_spmv_blas_accuracy_match_jax():
 def test_expected_step_count_matches_jax():
     rows, cols, vals, shape = poisson2d_coo(10)
     jA = JCSR.from_coo(rows, cols, vals, shape)
-    tA = CSRMatrix.from_coo(rows, cols, vals, shape)
+    tA = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
     from conjugategradient_tpu.solver.cg import expected_step_count as jesc
 
     for eps in (1e-3, 1e-8):

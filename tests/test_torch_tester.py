@@ -53,11 +53,11 @@ def test_default_csr_f64_matches_reference_protocol(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--layout", "dia"],
     ["--method", "pipelined"],
     ["--nrhs", "4"],
-    ["--layout", "sell"],
-    ["--layout", "auto"],
+    ["--refine", "bfloat16"],
+    ["--eigs", "2"],
+    ["--layout", "stencil"],
     ["--dtype", "bfloat16"],
     ["--precond", "amg"],
 ], ids=lambda a: " ".join(a))
@@ -113,3 +113,48 @@ def test_cuda_device_without_gpu_exits_nonzero(capsys):
     rc = tester.main([MTX])  # --device cuda is the default
     assert rc != 0
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# the port's tester against the JAX package's (the root tester.py), f64 with
+# the same flags: the same "dim NNZ" and a rel_error under REL_BOUND on both
+# (tol 1e-8 absolute on ||r||, so ||r||^2 <= 1e-16 while ||x||^2 >= 1e4)
+REL_BOUND = 1e-18
+PROBLEMS = pathlib.Path(MTX).parent
+LAYOUT_CASES = [
+    ("poisson2d_34", "auto", False), ("poisson2d_34", "dia", False),
+    ("poisson2d_34", "symdia", False), ("poisson2d_34", "sell", False),
+    ("poisson2d_34", "auto", True), ("poisson2d_34", "dia", True),
+    ("powerlaw_1138", "auto", False), ("powerlaw_1138", "sell", False),
+    ("powerlaw_1138", "auto", True), ("powerlaw_1138", "sell", True),
+]
+
+
+@pytest.mark.parametrize("name,layout,reorder", LAYOUT_CASES,
+                         ids=[f"{n}-{lay}{'-reorder' if r else ''}" for n, lay, r in LAYOUT_CASES])
+def test_layouts_match_the_jax_tester(capsys, name, layout, reorder):
+    import tester as jtester  # the JAX package's harness, at the repository root
+
+    args = [str(PROBLEMS / f"{name}.mtx"), "--layout", layout, "--tol", "1e-8"]
+    args += ["--reorder"] if reorder else []
+    assert jtester.main(args) == 0
+    jline = capsys.readouterr().out.strip().splitlines()[0].split()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tline = capsys.readouterr().out.strip().splitlines()[0].split()
+    assert tline[:2] == jline[:2]
+    assert 0 <= float(tline[3]) < REL_BOUND and 0 <= float(jline[3]) < REL_BOUND
+
+
+@pytest.mark.parametrize("layout", ["auto", "dia", "symdia", "sell"])
+def test_new_layouts_f32_jacobi(capsys, layout):
+    rc, lines, _ = _run(capsys, "--layout", layout, "--dtype", "float32", "--device", "cpu",
+                        "--precond", "jacobi", "--tol", "1e-3", "--summary")
+    assert rc == 0 and len(lines) == 2
+    dim, nnz, ms, rel = lines[0].split()
+    assert (int(dim), int(nnz)) == (1156, 5644)
+    assert float(ms) > 0 and 0 <= float(rel) < 1e-10
+    assert json.loads(lines[1])["converged"] == [True]
+
+
+def test_symdia_on_a_nonsymmetric_file_exits_2(capsys):
+    rc = tester.main([str(PROBLEMS / "convdiff_34.mtx"), "--layout", "symdia", "--device", "cpu"])
+    assert rc == 2 and "not symmetric" in capsys.readouterr().err
