@@ -7,14 +7,20 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the seven kernels against its plain-torch version on the
+2. Hold each of the nine kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
    n = 2,097,152 with 41 diagonals, in full and symmetric DIA storage, and
-   poisson3d_48 as DIA) and at small ragged shapes, and time both, beside
-   one cuSPARSE call (``torch.sparse_csr_tensor @ x``) for the SpMVs and
-   the least time the card could take for each kernel's bytes.
+   poisson3d_48 as DIA; the 256^3 stencil of BASELINE config 4 in float32
+   and float64) and at small ragged shapes, and time both, beside one
+   library call (cuSPARSE ``torch.sparse_csr_tensor @ x`` for the SpMVs,
+   cuDNN ``conv3d`` with TF32 off for the stencil) and the least time the
+   card could take for each kernel's bytes.  ``stencil7``,
+   ``fused_stencil_dir_dot`` (p_new, q) and ``fused_update_dot(_pcg)``
+   (x', r'; also at lengths 210, 4097 and 256^3) must be bit-equal to
+   their plain versions; a NaN put into the stencil's input reaches only its point and
+   its six neighbours.
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -33,8 +39,17 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    (bitwise); CG on symdia-big in both storages for 64 timed steps; a
    float32 DIA solve twice (bitwise) and against the plain versions on the
    CPU (trajectory, with and without residual replacement).
+   Then the stencil path, with its own reset and read: the tester on
+   ``stencil:64`` float32 (the fused stencil CG), on ``stencil:48``
+   float64 twice (bitwise), and with ``--precond jacobi`` and ``--precond
+   amg`` (both smoothers); at 256^3 the fused stencil CG for 256 timed
+   steps (and its busy share over 64), the portable loop, and bench.py's
+   mgpcg comparison (plain fused CG against MG-PCG with each smoother, to
+   1e-5 ||b||); residual replacement against the CPU's plain versions on
+   64^3 and a ragged 33 x 35 x 37 grid; one x0 warm start.
 4. Check that every kernel launched during its path and that no plain
-   version was given a CUDA tensor there; print the kernel table as JSON.
+   version was given a CUDA tensor there; print the kernel table as JSON
+   (a kernel's launches summed over the paths that run it).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -65,25 +80,38 @@ SOURCES = {
     "bell_spmv": "conjugategradient_tpu_torch/csrc/bell_spmv.cu",
     "dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "sym_dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
+    "stencil7": "conjugategradient_tpu_torch/csrc/stencil.cu",
+    "fused_stencil_dir_dot": "conjugategradient_tpu_torch/csrc/fused_stencil.cu",
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
     "fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:111",
-    "fused_update_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:608",
+    "fused_update_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:608 (fused_update_dot), "
+                        "conjugategradient_tpu/ops/pallas/fused_stencil.py:150 "
+                        "(fused_update_dot_3d)",
     "fused_update_dot_pcg": "conjugategradient_tpu/ops/pallas/fused_cg.py:555",
     "bell_spmv": "conjugategradient_tpu/ops/pallas/ell_spmv.py:57",
     "dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:181 (dia_spmv_pallas), "
                 "dia_spmv.py:130 (dia_spmv_pallas_2d), "
                 "dia_spmv.py:398 (dia_spmv_pallas_blocked)",
     "sym_dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
+    "stencil7": "conjugategradient_tpu/ops/pallas/stencil.py:136",
+    "fused_stencil_dir_dot": "conjugategradient_tpu/ops/pallas/fused_stencil.py:69",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv")
 DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
-# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate and
-# float32 outside the tensor cores
+STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
+# float32 and float64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12
+# BASELINE config 4: the 7-point Poisson stencil on a 256^3 grid
+STENCIL_GRID = (256, 256, 256)
+STENCIL_SMALL = ((5, 6, 7), (3, 9, 130), (2, 2, 2))
+STENCIL_STEPS = 256
+F32_TRUE_REL_FLOOR = 2e-2  # ||b - Ax|| / ||b|| after a float32 256^3 solve
 # the JAX package's symdia-big operator (bench.py bench_symdia_big)
 SYMDIA_N = 1 << 21
 SYMDIA_OFFSETS = tuple(k * 1024 for k in range(21))
@@ -156,6 +184,29 @@ def device_ms(fn, reps: int = 10):
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
+def kernel_profile(fn, top: int = 4):
+    """One call under torch.profiler: (device ms, kernels launched, the
+    ``top`` kernels by device time as (name, ms, count)), or None if the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            rows.append((e.key, us / 1e3, e.count))
+    if not rows or sum(r[1] for r in rows) <= 0:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
+
+
 def time_pair(kernel_fn, plain_fn) -> dict:
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain): CUDA-event time per call (host work included) and profiler
@@ -180,12 +231,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(moved: int, flops: int) -> dict:
+def bound(moved: int, flops: int, peak_flops: float = PEAK_F32_PER_S) -> dict:
     """The least time the card could take for a call: its bytes (each input
-    read once, each output written once) over the HBM rate, or its float32
-    operations over the f32 rate, whichever is larger."""
+    read once, each output written once) over the HBM rate, or its
+    operations over the rate for their type (float32 unless given),
+    whichever is larger."""
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -405,6 +457,8 @@ def check_k5(a, rng, errs, label):
 
 
 def check_update(shape, rng, pcg, errs, label, dev):
+    """Kernel 2 (or 3) against its plain version: x' and r' bit for bit,
+    the dots within TOL_DOT."""
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
@@ -423,17 +477,15 @@ def check_update(shape, rng, pcg, errs, label, dev):
         ok = fc.fused_update_dot(x, p, r, q, alpha)
         op = fc._update_plain(name, x, p, r, q, None, alpha, None, None)
     torch.cuda.synchronize()
+    check(torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1]),
+          f"{name} {label}: x' or r' not bit-equal to the plain version")
     worst = 0.0
-    for i, what in enumerate(("x'", "r'")):
-        e, m = rel_max_err(ok[i], op[i])
-        check(e <= TOL_ELEMWISE * m, f"{name} {label}: {what} err {e}")
-        worst = max(worst, e)
     for i, what in ((2, "rnorm"), (3, "rho"))[: 2 if pcg else 1]:
         e = abs(float(ok[i]) - float(op[i]))
         check(e <= TOL_DOT * abs(float(op[i])), f"{name} {label}: {what} {float(ok[i])} vs {float(op[i])}")
         worst = max(worst, e)
     errs[name] = max(errs[name], worst)
-    print(f"  {name:<21}{label:<14} max abs err {worst:.3g}")
+    print(f"  {name:<21}{label:<14} x', r' bit-equal; max abs err of the dots {worst:.3g}")
     return x, p, r, q, d, alpha
 
 
@@ -713,9 +765,10 @@ def run_tester(path, layout, precond, tol, dtype="float32", extra=()):
     summary, printed lines)."""
     from conjugategradient_tpu_torch import tester
 
+    src = path if path.startswith("stencil:") else os.path.join(ROOT, path)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = tester.main([os.path.join(ROOT, path), "--layout", layout,
+        rc = tester.main([src, "--layout", layout,
                           "--dtype", dtype, "--precond", precond,
                           "--tol", repr(tol), "--summary",
                           "--device", str(DEVICE), *extra])
@@ -1053,6 +1106,308 @@ def phase_dia_path(dev, ops, card):
     torch.cuda.synchronize()
 
 
+# ---- phase 2, stencil: kernels 11-13 against their plain versions ------------
+
+def conv3d_stencil(u, center, off):
+    """The 7-point stencil as one cuDNN 3-D convolution (3x3x3 weight,
+    zero padding 1): the library yardstick, which the port never calls."""
+    import torch
+
+    wgt = torch.zeros(1, 1, 3, 3, 3, dtype=u.dtype, device=u.device)
+    wgt[0, 0, 1, 1, 1] = center
+    for i, j, k in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        wgt[0, 0, i, j, k] = off
+    return lambda: torch.nn.functional.conv3d(u[None, None], wgt, padding=1)[0, 0]
+
+
+def nan_mask(shape, at, dev):
+    """Where a NaN at ``at`` must reach: the point and its six neighbours."""
+    import torch
+
+    want = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for d in ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)):
+        idx = tuple(a + b for a, b in zip(at, d))
+        if all(0 <= i < n for i, n in zip(idx, shape)):
+            want[idx] = True
+    return want
+
+
+def check_stencil7(shape, dtype, dev, errs, rng):
+    """stencil7 bit for bit against its plain version, and a NaN at one
+    point reaching only that point and its six neighbours in both."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    u = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+    yk, yp = ks.stencil7(u, 6.0, -1.0), ks._stencil7_plain(u, 6.0, -1.0)
+    torch.cuda.synchronize()
+    e, m = rel_max_err(yk, yp)
+    check(torch.equal(yk, yp), f"stencil7 {shape} {dtype}: not bit-equal to the plain version ({e})")
+    at = tuple(n // 2 for n in shape)
+    u[at] = float("nan")
+    yk, yp = ks.stencil7(u, 6.0, -1.0), ks._stencil7_plain(u, 6.0, -1.0)
+    want = nan_mask(shape, at, dev)
+    check(torch.equal(torch.isnan(yk), want) and torch.equal(torch.isnan(yp), want)
+          and torch.equal(yk.nan_to_num(), yp.nan_to_num()),
+          f"stencil7 {shape} {dtype}: a NaN reached other points than its neighbours")
+    errs["stencil7"] = max(errs["stencil7"], e)
+    print(f"  stencil7 {str(shape):<16} {str(dtype):<14} bit-equal (max|y| {m:.4g}); "
+          f"NaN reaches {int(want.sum())} points in both")
+    return u
+
+
+def check_fused_stencil(shape, dev, errs, rng):
+    """fused_stencil_dir_dot: p_new and q bit-equal to the plain version,
+    pap within TOL_DOT, two launches bit-identical, a no-op once not live."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_stencil as kfs
+
+    def vol():
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    r, pold = vol(), vol()
+    beta = torch.tensor([[0.37]], dtype=torch.float32, device=dev)
+    k1 = kfs.fused_stencil_dir_dot(r, pold, beta, 6.0, -1.0)
+    k2 = kfs.fused_stencil_dir_dot(r, pold, beta, 6.0, -1.0)
+    pl = kfs._fused_stencil_dir_plain(r, pold, beta, 6.0, -1.0, None, None)
+    torch.cuda.synchronize()
+    check(torch.equal(k1[0], pl[0]) and torch.equal(k1[1], pl[1]),
+          f"fused_stencil_dir_dot {shape}: p_new or q not bit-equal to the plain version")
+    e_pap = abs(float(k1[2]) - float(pl[2]))
+    check(e_pap <= TOL_DOT * abs(float(pl[2])),
+          f"fused_stencil_dir_dot {shape}: pap {float(k1[2])} vs {float(pl[2])}")
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"fused_stencil_dir_dot {shape}: two launches differ")
+    w = fc.FusedWork.new(dev, maxiter=4)
+    w.ctl[fc.C_LIVE] = 0
+    out = (torch.full_like(r, 7.0), torch.full_like(r, 7.0))
+    kept = [o.clone() for o in out] + [w.scal.clone()]
+    kfs.fused_stencil_dir_dot(r, pold, beta, 6.0, -1.0, out=out, work=w)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(kept, [*out, w.scal])),
+          f"fused_stencil_dir_dot {shape}: launched with live = 0, it changed its outputs")
+    errs["fused_stencil_dir_dot"] = max(errs["fused_stencil_dir_dot"], e_pap)
+    print(f"  fused_stencil_dir_dot {str(shape):<16} p_new, q bit-equal; |dpap|={e_pap:.3g} "
+          f"(pap {float(pl[2]):.6g}); repeat bit-identical; no-op at live = 0")
+    return r, pold, beta
+
+
+def phase_stencil_kernels(dev, errs, times, extra):
+    """Kernels 11-13 against their plain versions and timed, at 256^3 and at
+    small ragged shapes."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_stencil as kfs
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    rng = np.random.default_rng(4)
+    n = int(np.prod(STENCIL_GRID))
+    big = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in (STENCIL_GRID,) + STENCIL_SMALL:
+            u = check_stencil7(shape, dtype, dev, errs, rng)
+            if shape == STENCIL_GRID:
+                big[dtype] = u.nan_to_num_(0.0)
+    for shape in (STENCIL_GRID, STENCIL_SMALL[0]):
+        args = check_fused_stencil(shape, dev, errs, rng)
+        if shape == STENCIL_GRID:
+            r, pold, beta = args
+    for length in (210, 4097):  # n % 4 != 0: the kernel's scalar tail
+        check_update((length,), rng, False, errs, f"n={length}", dev)
+    x, p, rr, q, _, alpha = check_update((n,), rng, False, errs, "256^3", dev)
+
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick in full float32
+    for dtype, key in ((torch.float32, "stencil7"), (torch.float64, "stencil7 float64 256^3")):
+        u = big[dtype]
+        t = time_pair(lambda: ks.stencil7(u, 6.0, -1.0), lambda: ks._stencil7_plain(u, 6.0, -1.0))
+        t.update(bound(2 * nbytes(u), 8 * n,
+                       PEAK_F32_PER_S if dtype == torch.float32 else PEAK_F64_PER_S))
+        conv = conv3d_stencil(u, 6.0, -1.0)
+        e, m = rel_max_err(conv(), ks.stencil7(u, 6.0, -1.0))
+        check(e <= TOL_Q * m, f"conv3d yardstick {dtype}: differs from stencil7 by {e} (max {m})")
+        t["library_ms"] = library_ms(conv)
+        if key == "stencil7":
+            times[key] = t
+        else:
+            extra[key] = t
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    out = (torch.empty_like(r), torch.empty_like(r))
+    t = time_pair(lambda: kfs.fused_stencil_dir_dot(r, pold, beta, 6.0, -1.0, out=out, work=work),
+                  lambda: kfs._fused_stencil_dir_plain(r, pold, beta, 6.0, -1.0, None, None))
+    t.update(bound(4 * n * 4, 12 * n), library_ms=None)  # r, p_old in; p_new, q out
+    times["fused_stencil_dir_dot"] = t
+    out = (torch.empty_like(x), torch.empty_like(x))
+    t = time_pair(lambda: fc.fused_update_dot(x, p, rr, q, alpha, out=out, work=work),
+                  lambda: fc._update_plain("fused_update_dot", x, p, rr, q, None, alpha, None, None))
+    t.update(bound(6 * n * 4, 6 * n), library_ms=None)
+    extra["fused_update_dot 256^3"] = t
+    torch.cuda.synchronize()
+
+
+# ---- phase 3, stencil: the matrix-free path (BASELINE config 4) ---------------
+
+def stencil_rhs(n, dev, scale=1.0):
+    import torch
+
+    return torch.arange(1, n + 1, dtype=torch.float32, device=dev) / scale
+
+
+def phase_stencil_path(dev, card):
+    """The stencil path through its entry points (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import (StencilOperator, accuracy, cg_solve,
+                                             fused_stencil_cg_solve, multigrid_preconditioner)
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.utils import Timer
+
+    # (a) the tester: stencil:64 float32 takes the fused path
+    n64 = 64 ** 3
+    before = dict(_common.LAUNCHES)
+    dim, nnz, ms, rel, summ, _ = run_tester("stencil:64", "csr", "none", TOL_SOLVE_REL * bnorm(n64))
+    it = summ["iterations"][0]
+    fused = _common.LAUNCHES["fused_stencil_dir_dot"] - before["fused_stencil_dir_dot"]
+    check(summ["converged"][0] and math.isfinite(rel) and rel < REL_ERROR_BOUND,
+          f"tester stencil:64 f32: converged {summ['converged'][0]} rel_error {rel}")
+    check(fused >= 2 * it, f"tester stencil:64 f32: {fused} fused launches for 2 solves of {it}")
+    print(f"  tester stencil:64 --dtype float32: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its "
+          f"({ms / max(it, 1):.4f} ms/it), rel_error {rel:.3e}  [{card}]")
+    # (b) float64 stencil:48 (portable loop on the float64 kernel) twice, bitwise
+    n48 = 48 ** 3
+    runs = [run_tester("stencil:48", "csr", "none", 1e-8 * bnorm(n48), dtype="float64",
+                       extra=("--history",)) for _ in range(2)]
+    check(runs[0][4]["converged"][0] and runs[0][3] < REL_ERROR_BOUND,
+          f"tester stencil:48 f64: rel_error {runs[0][3]}")
+    check(runs[0][5][0].split()[3] == runs[1][5][0].split()[3] and runs[0][5][2] == runs[1][5][2],
+          "tester stencil:48 f64: the two runs differ")
+    print(f"  tester stencil:48 --dtype float64 twice: {runs[0][4]['iterations'][0]} its, "
+          f"{runs[0][2]:.3f} ms, rel_error {runs[0][3]:.3e}, history bitwise repeat ok  [{card}]")
+    # (c) the tester with Jacobi and with multigrid, both smoothers
+    for precond, extra in (("jacobi", ()), ("amg", ()), ("amg", ("--smoother", "chebyshev"))):
+        dim, nnz, ms, rel, summ, _ = run_tester("stencil:64", "csr", precond,
+                                                TOL_SOLVE_REL * bnorm(n64), extra=extra)
+        it = summ["iterations"][0]
+        what = f"tester stencil:64 --precond {precond} {' '.join(extra)}"
+        check(summ["converged"][0] and rel < REL_ERROR_BOUND, f"{what}: rel_error {rel}")
+        print(f"  {what}: {it} its, {ms:.3f} ms ({ms / max(it, 1):.4f} ms/it), "
+              f"rel_error {rel:.3e}  [{card}]")
+
+    # (d) 256^3: the fused stencil CG over STENCIL_STEPS full steps (tol = -1)
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    n = op.shape[0]
+    b = stencil_rhs(n, dev, scale=n)
+    fused_stencil_cg_solve(op, b, tol=-1.0, maxiter=16)
+    t = Timer(dev).start_measure()
+    _, info = fused_stencil_cg_solve(op, b, tol=-1.0, maxiter=STENCIL_STEPS)
+    t.stop_measure()
+    check(int(info.iterations) == STENCIL_STEPS, f"stencil fixed run took {int(info.iterations)}")
+    ms_it = t.get_duration() / STENCIL_STEPS
+    per_it = 10 * n * 4  # kernel 12: 4 volumes; kernel 2: 6
+    src = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    copy_gbps = 2 * src.numel() * 4 / cuda_ms(lambda: dst.copy_(src), reps=10) / 1e6
+    del src, dst
+    print(f"  fused stencil CG 256^3: {ms_it:.5f} ms/it, effective {per_it / ms_it / 1e6:.1f} "
+          f"GB/s on {per_it / 1e6:.1f} MB/it (bound {per_it / PEAK_BYTES_PER_S * 1e3:.4f} ms/it), "
+          f"{per_it / ms_it / 1e6 / copy_gbps:.3f} of the {copy_gbps:.1f} GB/s copy rate  [{card}]")
+    run64 = lambda: fused_stencil_cg_solve(op, b, tol=-1.0, maxiter=64)
+    t = Timer(dev).start_measure()
+    run64()
+    t.stop_measure()
+    busy = device_ms(run64, reps=1)
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.4f} of {t.get_duration():.4f} ms ({100 * busy / t.get_duration():.1f}%)"
+    print(f"  fused stencil CG 256^3, 64 steps: device busy {busy_s}  [{card}]")
+    _, info2 = fused_stencil_cg_solve(op, b, tol=-1.0, maxiter=STENCIL_STEPS)
+    check(torch.equal(info.rho_history.view(torch.int32), info2.rho_history.view(torch.int32)),
+          "two fused stencil runs gave different rho_history bits")
+    cg_solve(op, b, tol=-1.0, maxiter=4, fused="never")
+    t = Timer(dev).start_measure()
+    _, pi = cg_solve(op, b, tol=-1.0, maxiter=32, fused="never")
+    t.stop_measure()
+    plain_ms_it = t.get_duration() / 32
+    ok, used = trajectory_ok(info.rho_history, pi.rho_history, 25)
+    check(ok, f"stencil 256^3: fused vs portable rho_history differ beyond rtol {TRAJ_RTOL}")
+    print(f"  portable loop (fused='never') 256^3: {plain_ms_it:.5f} ms/it; fused vs portable "
+          f"25-step trajectory agrees on {used} entries  [{card}]")
+
+    # (e) bench.py's mgpcg comparison: time to tol 1e-5 ||b||, b = arange/n
+    bn_ = float(b.double().norm())
+    tol = TOL_SOLVE_REL * bn_
+    rows = {}
+    for label, M in (("plain fused CG", None),
+                     ("MG-PCG jacobi", multigrid_preconditioner(op)),
+                     ("MG-PCG chebyshev", multigrid_preconditioner(op, smoother="chebyshev"))):
+        cg_solve(op, b, tol=tol, M=M)
+        t = Timer(dev).start_measure()
+        x, info = cg_solve(op, b, tol=tol, M=M)
+        t.stop_measure()
+        true_rel = float((b - op.matvec(x)).double().norm()) / bn_
+        # float32's attainable accuracy here is ~eps * kappa ~ 3e-3 of ||b||
+        check(bool(info.converged) and true_rel < F32_TRUE_REL_FLOOR,
+              f"{label} 256^3: converged {bool(info.converged)}, true rel residual {true_rel}")
+        rows[label] = (t.get_duration(), int(info.iterations))
+        busy = device_ms(lambda: cg_solve(op, b, tol=tol, M=M), reps=1)
+        busy_s = "not measured" if busy is None else \
+            f"{busy:.2f} ms ({100 * busy / t.get_duration():.1f}%)"
+        print(f"  {label} 256^3 to 1e-5 ||b||: {t.get_duration():.2f} ms, {int(info.iterations)} its "
+              f"({t.get_duration() / int(info.iterations):.4f} ms/it), true rel residual "
+              f"{true_rel:.3e}; device busy {busy_s}  [{card}]")
+    # one V-cycle apply: host wall, device time, kernels and the longest ones
+    r = stencil_rhs(n, dev, scale=n)
+    for label, M in (("jacobi", multigrid_preconditioner(op)),
+                     ("chebyshev", multigrid_preconditioner(op, smoother="chebyshev"))):
+        wall = cuda_ms(lambda: M(r), reps=5, warm=1)
+        prof = kernel_profile(lambda: M(r))
+        if prof is None:
+            print(f"  V-cycle apply 256^3 {label}: {wall:.3f} ms; device time not measured")
+            continue
+        dev_ms, launched, top = prof
+        names = "; ".join(f"{k[:48]} {ms:.3f} ms x{c}" for k, ms, c in top)
+        print(f"  V-cycle apply 256^3 {label}: {wall:.3f} ms wall, {dev_ms:.3f} ms device "
+              f"({100 * dev_ms / wall:.1f}%), {launched} device launches; longest: {names}  [{card}]")
+    plain_it = rows["plain fused CG"][1]
+    for label in ("MG-PCG jacobi", "MG-PCG chebyshev"):
+        check(5 * rows[label][1] <= plain_it, f"{label}: {rows[label][1]} its vs plain {plain_it}")
+        print(f"  {label}: {plain_it / rows[label][1]:.1f}x fewer iterations, "
+              f"{rows['plain fused CG'][0] / rows[label][0]:.2f}x the plain solve's speed")
+
+    # (f) residual replacement every RESTART_EVERY steps, card against the
+    # plain versions on the CPU; a ragged grid too (kernel 2's scalar tail)
+    for grid in ((64, 64, 64), (33, 35, 37)):
+        sop = StencilOperator.poisson(grid, device=dev)
+        bs = stencil_rhs(sop.shape[0], dev)
+        _, ic = fused_stencil_cg_solve(sop, bs, tol=0.0, maxiter=32, recompute_r_every=RESTART_EVERY)
+        _, ip = fused_stencil_cg_solve(sop.to("cpu"), bs.cpu(), tol=0.0, maxiter=32,
+                                       recompute_r_every=RESTART_EVERY)
+        hc, hp = ic.rho_history.double().cpu().numpy(), ip.rho_history.double().numpy()
+        check(int(ic.iterations) == 32 and np.isfinite(hc).all(), f"restart stencil {grid}")
+        err = float(np.max(np.abs(hc - hp) / np.abs(hp)))
+        check(err <= RESTART_RTOL, f"restart stencil {grid}: card vs plain rel diff {err}")
+        print(f"  recompute_r_every={RESTART_EVERY} fused stencil {grid}: 32 steps, max rel diff "
+              f"to the plain versions on the CPU {err:.3g}")
+    # (g) x0 warm start: r0 = b - A x0 through stencil7
+    sop = StencilOperator.poisson((64, 64, 64), device=dev)
+    bs = stencil_rhs(sop.shape[0], dev)
+    x0 = torch.as_tensor(np.random.default_rng(6).standard_normal(sop.shape[0]),
+                         dtype=torch.float32, device=dev)
+    before = _common.LAUNCHES["stencil7"]
+    x, info = fused_stencil_cg_solve(sop, bs, x0, tol=TOL_SOLVE_REL * bnorm(sop.shape[0]))
+    r0 = (bs.cpu() - sop.to("cpu").matvec(x0.cpu())).double()
+    e0 = abs(float(info.rho_history[0]) / float(r0 @ r0) - 1)
+    rel = float(accuracy(sop, bs, x))
+    check(_common.LAUNCHES["stencil7"] > before, "x0 warm start did not launch stencil7")
+    check(bool(info.converged) and rel < REL_ERROR_BOUND and e0 <= TOL_DOT,
+          f"stencil x0 warm start: converged {bool(info.converged)}, rel_error {rel}, r0 {e0}")
+    print(f"  x0 warm start stencil 64^3: {int(info.iterations)} its, ||r0||^2 rel diff {e0:.3g}, "
+          f"rel_error {rel:.3e}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
 
@@ -1075,12 +1430,14 @@ def main() -> int:
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
     errs, times, extra, ops = phase_kernels(dev, big, big_full)
     dia_ops = phase_dia_kernels(dev, errs, times, extra)
+    phase_stencil_kernels(dev, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
         more = ""
         if "bound_ms" in t:
             more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']})"
         if t.get("library_ms") is not None:
-            more += f"; cuSPARSE {t['library_ms']:.5f}"
+            lib = "conv3d" if name.startswith("stencil7") else "cuSPARSE"
+            more += f"; {lib} {t['library_ms']:.5f}"
         print(f"  time {name:<28} kernel {fmt_ms(t['device_ms'])} device / "
               f"{t['event_ms']:.5f} per call; plain {fmt_ms(t['plain_device_ms'])} "
               f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
@@ -1092,6 +1449,7 @@ def main() -> int:
         ("blocked-ELL", BLOCKED_KERNELS,
          lambda: phase_main_path(dev, big, big_full, ops, card)),
         ("DIA / SELL", DIA_KERNELS, lambda: phase_dia_path(dev, dia_ops, card)),
+        ("stencil", STENCIL_KERNELS, lambda: phase_stencil_path(dev, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()
@@ -1100,7 +1458,7 @@ def main() -> int:
         print(f"  {label} path: launches {counts}, plain on CUDA {plain_on_cuda}")
         for name in kernels:
             check(counts[name] > 0, f"kernel {name} never launched on the {label} path")
-            launches[name] = counts[name]
+            launches[name] = launches.get(name, 0) + counts[name]  # summed over its paths
         for name, count in plain_on_cuda.items():
             check(count == 0, f"plain {name} ran on CUDA tensors in the {label} path")
 

@@ -3,12 +3,16 @@ conjugategradient_tpu for NVIDIA Hopper GPUs.
 
 Layouts: CSR, blocked-ELL in full or symmetric storage, DIA in full or
 symmetric storage, and SELL; ``load_matrix(layout="auto")`` picks one from
-the sparsity pattern.  Blocked-ELL CG and Jacobi PCG run as two
-hand-written CUDA kernels per iteration (``ops/cuda``, sources in
-``csrc/``); the full blocked-ELL SpMV and both DIA SpMVs are kernels of
-their own, under the portable loop.  CSR, SELL and the portable loop run
-in plain torch.  Entry points put operators on the card (``"cuda"``) unless
-the caller passes ``device="cpu"``.  Imports torch, never jax.
+the sparsity pattern.  The matrix-free 3-D 7-point ``StencilOperator``
+(the tester's ``stencil:<nx>[x<ny>x<nz>]`` input) has its own fused CG
+and the geometric-multigrid preconditioner ``multigrid_preconditioner``.
+Blocked-ELL CG and Jacobi PCG, and stencil CG, run as two hand-written
+CUDA kernels per iteration (``ops/cuda``, sources in ``csrc/``); the full
+blocked-ELL SpMV, both DIA SpMVs and the stencil apply (float32 and
+float64) are kernels of their own, under the portable loop and multigrid.
+CSR, SELL and the rest of the portable loop run in plain torch.  Entry
+points put operators on the card (``"cuda"``) unless the caller passes
+``device="cpu"``.  Imports torch, never jax.
 """
 
 from .io import load_matrix
@@ -19,7 +23,9 @@ from .solver import (
     expected_step_count,
     fused_bell_cg_solve,
     fused_bell_pcg_solve,
+    fused_stencil_cg_solve,
     jacobi_preconditioner,
+    multigrid_preconditioner,
 )
 from .types import (
     BlockedEllMatrix,
@@ -28,6 +34,7 @@ from .types import (
     DIAMatrix,
     LinearOperator,
     SellMatrix,
+    StencilOperator,
     SymBellMatrix,
     SymDIAMatrix,
     as_linear_operator,
@@ -41,6 +48,7 @@ __all__ = [
     "DenseOperator",
     "LinearOperator",
     "SellMatrix",
+    "StencilOperator",
     "SymBellMatrix",
     "SymDIAMatrix",
     "accuracy",
@@ -49,6 +57,8 @@ __all__ = [
     "expected_step_count",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
+    "fused_stencil_cg_solve",
     "jacobi_preconditioner",
     "load_matrix",
+    "multigrid_preconditioner",
 ]

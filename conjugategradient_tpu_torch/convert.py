@@ -20,6 +20,7 @@ from .types import (
     CSRMatrix,
     DIAMatrix,
     SellMatrix,
+    StencilOperator,
     SymBellMatrix,
     SymDIAMatrix,
 )
@@ -82,11 +83,20 @@ def sell_from_arrays(diag, pos, cols_flat, vals_flat, bucket_meta,
     )
 
 
+def stencil_from_arrays(center, off, grid_shape, device=DEFAULT_DEVICE) -> StencilOperator:
+    """A ``StencilOperator`` from the JAX one's ``center``/``off`` 0-d
+    arrays (as numpy; their dtype is the operator's) and ``grid_shape``."""
+    center = np.asarray(center)
+    dtype = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}[center.dtype]
+    return StencilOperator(float(center), float(np.asarray(off)), tuple(grid_shape), dtype, device)
+
+
 def fused_state_from_arrays(x, r, p, beta, rho, k: int, done: bool, hist,
                             tol: float = 0.0, device=DEFAULT_DEVICE) -> FusedCGState:
     """A plain-CG ``FusedCGState`` from the JAX ``FusedCGState`` fields:
-    (rows, bn) vectors x, r, p; scalars beta, rho (= ‖r‖²); k, done; the
-    history, whose length sets maxiter."""
+    vectors x, r, p of any one shape — (rows, bn) blocks of the blocked-ELL
+    loop or (nx, ny, nz) volumes of the stencil loop; scalars beta, rho
+    (= ‖r‖²); k, done; the history, whose length sets maxiter."""
     hist = np.array(hist, np.float32, copy=True)
     maxiter = len(hist) - 1
     rho = float(np.asarray(rho).reshape(-1)[0])

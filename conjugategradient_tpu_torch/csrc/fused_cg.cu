@@ -55,43 +55,6 @@
 
 namespace {
 
-// layout of the scalar buffers (ops/cuda/fused_cg.py keeps the same indices)
-enum { S_RHO = 0, S_RNORM = 1, S_BETA = 2, S_ALPHA = 3, S_TOL = 4 };
-enum { C_K = 0, C_DONE = 1, C_MAXITER = 2, C_LIVE = 3 };
-
-// Fixed-order block sum; the result is valid in thread 0.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kWarps; ++i) s += red[i];
-  }
-  return s;
-}
-
-// True in every thread of the last CTA to finish.  Each CTA's thread 0 has
-// written its partial before this call.
-__device__ bool arrive_last(unsigned* counter) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  return last;
-}
-
-// Sum of n partials in index order (per-thread strided, then block_sum);
-// valid in thread 0.  __ldcg reads L2, where the other CTAs' writes are.
-__device__ float sum_partials(const float* parts, int n, float* red) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += kThreads) s += __ldcg(parts + i);
-  return block_sum(s, red);
-}
-
 // p[i] = z[i] + beta * p_old[i], z = d * r (Jacobi) or r; no FMA contraction
 __device__ __forceinline__ float dir_elem(const float* r, const float* pold,
                                           const float* d, float beta,
@@ -160,14 +123,6 @@ __device__ __forceinline__ void mirror_reduce(const float (&tacc)[BN / 32],
     for (int i = 0; i < kWarps; ++i) s += red2[i][t];
     dst[t] = s;
   }
-}
-
-// last CTA of K1: pap, then alpha = rho / pap (alpha = 0 when rho == 0:
-// warm start at the solution keeps x intact)
-__device__ void finish_pap(float pap, float* pap_out, float* scal) {
-  pap_out[0] = pap;
-  const float rho = scal[S_RHO];
-  scal[S_ALPHA] = rho == 0.f ? 0.f : rho / pap;
 }
 
 // ---- K1, banded landing ---------------------------------------------------
@@ -388,8 +343,13 @@ sym_dir_land_kernel(float* q, const float* tparts, const int* __restrict__ mirro
 // with d != NULL, fused_update_dot_pcg (:555, _update_kernel_pcg :534).
 // Bound: 6 (CG) or 7 (PCG) vector streams of 4 n bytes, 6.3 MB at
 // n = 262,144 (L2-resident there), so a few microseconds of device time.
-// Design: float4 grid-stride pass with at most 1024 CTAs, per-CTA partials,
-// the last CTA does the solver's scalar step.
+// Design: float4 grid-stride pass with at most 1024 CTAs, then the last
+// n % 4 elements one by one (a stencil volume such as 5 x 6 x 7 has such a
+// tail; when n % 4 == 0 the tail loop adds nothing, so blocked-ELL lengths
+// give the bits they gave before it existed), per-CTA partials, and the
+// last CTA does the solver's scalar step.  On the stencil path this kernel
+// also closes fused_update_dot_3d (ops/pallas/fused_stencil.py:150), the
+// same function on an (nx, ny, nz) volume, through its flat view.
 // x/xo and r/ro may alias (in-place update): each element is read and
 // written by the same thread.
 
@@ -398,8 +358,9 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
               const float* r, const float* q, const float* d, float* xo,
               float* ro, float* rnorm_out, float* rho_out, float* partials,
               unsigned* counter, float* scal, int* ctl, float* hist,
-              int hist_len, int64_t n4) {
+              int hist_len, int64_t n) {
   if (ctl[C_LIVE] == 0) return;
+  const int64_t n4 = n / 4;
   __shared__ float red[kWarps];
   const float a = *alpha_p;
   float s1 = 0.f, s2 = 0.f;
@@ -432,6 +393,17 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
       s2 = fmaf(dv.x, e0, s2); s2 = fmaf(dv.y, e1, s2);
       s2 = fmaf(dv.z, e2, s2); s2 = fmaf(dv.w, e3, s2);
     }
+  }
+  // the scalar tail: at most 3 elements, one per thread of CTA 0
+  const int64_t t = 4 * n4 + (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (t < n) {
+    const float xn = __fadd_rn(x[t], __fmul_rn(a, p[t]));
+    const float rn = __fsub_rn(r[t], __fmul_rn(a, q[t]));
+    xo[t] = xn;
+    ro[t] = rn;
+    const float e = rn * rn;
+    s1 += e;
+    if (d) s2 = fmaf(d[t], e, s2);
   }
   const float b1 = block_sum(s1, red);
   const float b2 = d ? block_sum(s2, red) : 0.f;
@@ -558,8 +530,8 @@ int cg_sym_dir_general(const float* diag, const float* off, const int* off_cols,
   }
 }
 
-// K2 (d == NULL: plain CG; else Jacobi PCG).  n is a multiple of 4 and
-// every vector is 16-byte aligned (checked by the wrapper).
+// K2 (d == NULL: plain CG; else Jacobi PCG).  n is any length; every
+// vector is 16-byte aligned (checked by the wrapper).
 int cg_update(const float* alpha, const float* x, const float* p, const float* r,
               const float* q, const float* d, float* xo, float* ro,
               float* rnorm, float* rho, float* partials, unsigned* counter,
@@ -568,7 +540,7 @@ int cg_update(const float* alpha, const float* x, const float* p, const float* r
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   update_kernel<<<grid, kThreads, 0, s>>>(alpha, x, p, r, q, d, xo, ro, rnorm,
                                           rho, partials, counter, scal, ctl,
-                                          hist, hist_len, n / 4);
+                                          hist, hist_len, n);
   return cudaGetLastError();
 }
 

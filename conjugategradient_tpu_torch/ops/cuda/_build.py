@@ -36,6 +36,8 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
+_D = ctypes.c_double
 # argtypes of each C entry point (csrc/*.cu); every pointer is c_void_p so
 # ctypes never truncates it to 32 bits
 SIGNATURES = {
@@ -46,6 +48,9 @@ SIGNATURES = {
     "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
     "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
+    "cg_stencil7_f32": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],
+    "cg_stencil7_f64": [_P] * 2 + [_I] * 3 + [_D, _D, _I, _P],
+    "cg_fused_stencil_dir": [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
 

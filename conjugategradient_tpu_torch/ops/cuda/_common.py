@@ -23,6 +23,8 @@ LAUNCHES = {
     "bell_spmv": 0,
     "dia_spmv": 0,
     "sym_dia_spmv": 0,
+    "stencil7": 0,
+    "fused_stencil_dir_dot": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 

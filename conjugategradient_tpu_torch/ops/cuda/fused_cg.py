@@ -371,9 +371,11 @@ def fused_update_dot(
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     work: Optional[FusedWork] = None,
 ):
-    """(x', r', rnorm) = (x + α·p, r − α·q, r'·r'); vectors (rows, lanes)
-    f32, ``alpha`` one f32.  ``out``: (x', r') buffers, which may be ``x2d``
-    and ``r2d`` themselves (in-place update)."""
+    """(x', r', rnorm) = (x + α·p, r − α·q, r'·r'); vectors of one shape
+    and any length (the kernel reads float4 and finishes the last n % 4
+    entries one by one), f32, ``alpha`` one f32.  ``out``: (x', r')
+    buffers, which may be ``x2d`` and ``r2d`` themselves (in-place
+    update)."""
     return _update("fused_update_dot", x2d, p2d, r2d, q2d, None, alpha, out, work)
 
 
@@ -406,8 +408,6 @@ def _update(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
     args = (name, x2d, p2d, r2d, q2d, d2d, alpha, out, work)
     if not on_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, *_extra(out, work)):
         return _update_plain(*args)
-    if x2d.numel() % 4:
-        raise ValueError(f"{name}: the CUDA kernel needs a length divisible by 4")
     return _update_cuda(*args)
 
 

@@ -7,6 +7,8 @@ from .fused import (
     fused_cg_step,
     fused_supported,
 )
+from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
+from .multigrid import multigrid_preconditioner
 from .precond import jacobi_preconditioner
 
 __all__ = [
@@ -22,6 +24,9 @@ __all__ = [
     "fused_bell_pcg_solve",
     "fused_cg_init",
     "fused_cg_step",
+    "fused_stencil_cg_solve",
+    "fused_stencil_supported",
     "fused_supported",
     "jacobi_preconditioner",
+    "multigrid_preconditioner",
 ]

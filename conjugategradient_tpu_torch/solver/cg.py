@@ -172,12 +172,14 @@ def cg_solve(
 ) -> Tuple[torch.Tensor, CGInfo]:
     """Solve the SPD system ``A x = b`` with (preconditioned) CG.
 
-    ``fused="auto"`` sends a float32 symmetric blocked-ELL solve whose
-    tensors lie on a CUDA device to the two-kernel fused iteration
-    (solver/fused.py), including Jacobi PCG when ``M`` comes from
-    :func:`~.precond.jacobi_preconditioner`; ``"never"`` forces the portable
-    loop; ``"always"`` requires the fused path and raises where it cannot
-    run.  ``recompute_r_every`` (residual replacement) works on both.
+    ``fused="auto"`` sends a float32 blocked-ELL solve whose tensors lie on
+    a CUDA device to the two-kernel fused iteration (solver/fused.py),
+    including Jacobi PCG when ``M`` comes from
+    :func:`~.precond.jacobi_preconditioner`, and an unpreconditioned float32
+    :class:`StencilOperator` solve on a CUDA device to the fused stencil
+    iteration (solver/fused_stencil.py); ``"never"`` forces the portable
+    loop; ``"always"`` requires a fused path and raises where none can run.
+    ``recompute_r_every`` (residual replacement) works on all of them.
     """
     if fused not in FUSED_CHOICES:
         raise ValueError(f"fused must be one of {FUSED_CHOICES}, got {fused!r}")
@@ -188,6 +190,7 @@ def cg_solve(
     maxiter = N + 1 if maxiter is None else int(maxiter)
 
     from .fused import fused_bell_cg_solve, fused_bell_pcg_solve, fused_supported
+    from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
 
     inv_diag = getattr(M, "inv_diag", None)
     if fused != "never" and (M is None or inv_diag is not None):
@@ -197,12 +200,18 @@ def cg_solve(
                                            recompute_r_every=every)
             return fused_bell_pcg_solve(op, b, inv_diag, x0, tol=tol,
                                         maxiter=maxiter, recompute_r_every=every)
+        # no fused stencil PCG: a preconditioned stencil runs the portable loop
+        if M is None and fused_stencil_supported(op, dtype=b.dtype):
+            return fused_stencil_cg_solve(op, b, x0, tol=tol, maxiter=maxiter,
+                                          recompute_r_every=every)
     if fused == "always":
         raise ValueError(
-            "fused='always' needs a float32 BlockedEllMatrix or SymBellMatrix "
-            "on a CUDA device with square tiles of width 32/64/128/256 and a "
-            "square padded shape, float32 vectors, and no preconditioner or a "
-            "jacobi_preconditioner"
+            "fused='always' needs either a float32 BlockedEllMatrix or "
+            "SymBellMatrix on a CUDA device with square tiles of width "
+            "32/64/128/256 and a square padded shape, float32 vectors, and no "
+            "preconditioner or a jacobi_preconditioner; or a float32 "
+            "StencilOperator on a CUDA device with float32 vectors and no "
+            "preconditioner"
         )
 
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)

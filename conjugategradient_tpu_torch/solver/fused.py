@@ -47,9 +47,11 @@ BellOperator = Union[BlockedEllMatrix, SymBellMatrix]
 
 @dataclasses.dataclass
 class FusedCGState:
-    """Carry of the fused loop.  Vectors are (nrb, bn) float32; ``p`` is the
-    PREVIOUS direction (β folds into the next K1); ``d`` is the Jacobi
-    inverse diagonal (1 on padding rows) or None for plain CG."""
+    """Carry of the fused loop.  Vectors are float32, (nrb, bn) blocks for
+    blocked-ELL or (nx, ny, nz) volumes for the stencil
+    (solver/fused_stencil.py); ``p`` is the PREVIOUS direction (β folds
+    into the next K1); ``d`` is the Jacobi inverse diagonal (1 on padding
+    rows) or None for plain CG."""
 
     x: torch.Tensor
     r: torch.Tensor
@@ -210,12 +212,13 @@ def _update(state: FusedCGState, p_new, q) -> FusedCGState:
 
 def fused_replace(a: BellOperator, state: FusedCGState, bp: torch.Tensor,
                   every: int) -> None:
-    """The restart step on the fused state (JAX ``solver/fused.py``
-    ``replace``), in place: r ← b − A·x, β ← 0 (so the next K1 emits
-    p = z), ρ and ‖r‖² from the true residual (PCG: ρ = Σ d·r²) and
-    ``hist[k]`` ← the true ‖r‖².  Masked on the device to iterations k that
-    are multiples of ``every`` of a solve that is not done; ``bp`` is b
-    padded to the operator's width, as float32."""
+    """The restart step on the fused state (JAX ``solver/fused.py`` and
+    ``solver/fused_stencil.py`` ``replace``), in place: r ← b − A·x, β ← 0
+    (so the next K1 emits p = z), ρ and ‖r‖² from the true residual (PCG:
+    ρ = Σ d·r²) and ``hist[k]`` ← the true ‖r‖².  Masked on the device to
+    iterations k that are multiples of ``every`` of a solve that is not
+    done; ``bp`` is b padded to the operator's width, as float32.  The
+    state's vectors may be (nrb, bn) blocks or (nx, ny, nz) volumes."""
     w = state.work
     k = w.ctl[C_K]
     mask = (w.ctl[C_DONE] == 0) & (k % every == 0)
@@ -236,18 +239,25 @@ def fused_replace(a: BellOperator, state: FusedCGState, bp: torch.Tensor,
 
 def _solve(a, b, inv_diag, x0, tol, maxiter,
            recompute_r_every) -> Tuple[torch.Tensor, CGInfo]:
-    every = int(recompute_r_every)
     full_precision_matmul()
-    n = a.shape[0]
-    maxiter = n + 1 if maxiter is None else int(maxiter)
+    maxiter = a.shape[0] + 1 if maxiter is None else int(maxiter)
     state = fused_cg_init(a, b, x0, maxiter, tol=tol, inv_diag=inv_diag)
+    return run_fused(a, b, state, lambda: fused_cg_step(a, state), maxiter,
+                     int(recompute_r_every))
+
+
+def run_fused(a, b: torch.Tensor, state: FusedCGState, step, maxiter: int,
+              every: int) -> Tuple[torch.Tensor, CGInfo]:
+    """Drive a fused solve from ``state`` (``step()`` advances it in place),
+    with a :func:`fused_replace` restart every ``every`` iterations, and
+    return (x, info) in b's dtype."""
+    n = a.shape[0]
     bp = torch.nn.functional.pad(b.to(torch.float32), (0, state.r.numel() - n))
 
     def replace():
         fused_replace(a, state, bp, every)
 
-    run_chunked(lambda: fused_cg_step(a, state), lambda: state.live, maxiter,
-                every, replace)
+    run_chunked(step, lambda: state.live, maxiter, every, replace)
     rnorm = state.rnorm[0, 0]
     info = CGInfo(
         iterations=state.k.clone(),

@@ -1,13 +1,15 @@
 """End-to-end harness of the port — the reference's ``tester`` protocol
 (test/Tester.cpp:12-57), as the JAX package's ``tester.py`` runs it:
 
-* load the MatrixMarket matrix (symmetric storage expanded);
+* load the MatrixMarket matrix (symmetric storage expanded), or build the
+  matrix-free 7-point Poisson operator of a ``stencil:<nx>[x<ny>x<nz>]``
+  input (BASELINE config 4; nnz is the logical count);
 * b[i] = i + 1 (with ``--reorder``, permuted as the matrix is: b[perm]);
 * solve with absolute tolerance ``--tol`` (default 1e-24: run to the cap),
   after one untimed warm-up solve (which also builds the CUDA kernels);
 * print ``dim NNZ time_ms rel_error`` with rel_error = |Σ(b−Ax)²/Σx²|.
 
-Usage: ``python -m conjugategradient_tpu_torch.tester <file.mtx> [options]``
+Usage: ``python -m conjugategradient_tpu_torch.tester <file.mtx | stencil:N> [options]``
 (or ``cgtorch-tester``).  ``--device cuda`` (the default) needs a GPU and
 exits non-zero without one.  Flags of the JAX harness that this package has
 not ported yet exit with code 2 and "not yet ported".
@@ -23,13 +25,15 @@ import numpy as np
 
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
-_PRECONDS = ("none", "jacobi")
+_PRECONDS = ("none", "jacobi", "amg")
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
                                  allow_abbrev=False)
-    ap.add_argument("mtx", help="MatrixMarket .mtx file (SPD)")
+    ap.add_argument("mtx", help="MatrixMarket .mtx file (SPD), or the matrix-free "
+                    "pseudo-input 'stencil:<nx>[x<ny>x<nz>]' (7-point 3-D "
+                    "Poisson operator; no matrix is formed)")
     ap.add_argument("--tol", type=float, default=1e-24,
                     help="absolute tolerance on ||r||2 (reference: 1e-24)")
     ap.add_argument("--maxiter", type=int, default=None,
@@ -49,7 +53,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="residual-replacement full restart every N "
                          "iterations (0: never)")
     ap.add_argument("--dtype", default="float64", help="float32 or float64")
-    ap.add_argument("--precond", default="none", help="none or jacobi")
+    ap.add_argument("--precond", default="none",
+                    help="none, jacobi, or amg (the geometric multigrid "
+                         "V-cycle; stencil: inputs only)")
+    ap.add_argument("--smoother", choices=("jacobi", "chebyshev"), default="jacobi",
+                    help="multigrid smoother (with --precond amg): nu "
+                         "damped-Jacobi sweeps or the degree-nu Chebyshev "
+                         "semi-iteration")
     ap.add_argument("--bm", type=int, default=128,
                     help="blocked-ELL row tile (also read by --layout auto)")
     ap.add_argument("--bn", type=int, default=128,
@@ -68,6 +78,26 @@ def _not_ported(what: str) -> int:
     return 2
 
 
+def _stencil_dims(args):
+    """The grid of a ``stencil:<nx>[x<ny>x<nz>]`` input, or None after
+    printing why it is refused (the JAX tester's parsing and messages)."""
+    if args.layout != "csr" or args.reorder:
+        print("error: stencil: input is matrix-free (no --layout/--reorder)",
+              file=sys.stderr)
+        return None
+    try:
+        dims = tuple(int(t) for t in args.mtx[len("stencil:"):].split("x"))
+        if len(dims) == 1:
+            dims = dims * 3
+        if len(dims) != 3 or min(dims) < 2:
+            raise ValueError(args.mtx)
+    except ValueError:
+        print(f"error: cannot parse {args.mtx!r} (want stencil:<nx>[x<ny>x<nz>])",
+              file=sys.stderr)
+        return None
+    return dims
+
+
 def main(argv=None) -> int:
     args, unknown = _parser().parse_known_args(argv)
     if unknown:
@@ -80,7 +110,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import accuracy, cg_solve, jacobi_preconditioner, load_matrix
+    from . import (StencilOperator, accuracy, cg_solve, jacobi_preconditioner, load_matrix,
+                   multigrid_preconditioner)
     from .utils import Timer
 
     device = torch.device(args.device)
@@ -93,24 +124,37 @@ def main(argv=None) -> int:
         print("error: --recompute must be >= 0", file=sys.stderr)
         return 2
     perm = None
-    try:
-        A = load_matrix(args.mtx, layout=args.layout, dtype=np.dtype(args.dtype),
-                        bm=args.bm, bn=args.bn, reorder=args.reorder,
-                        device=device)
-        if args.reorder:
-            A, perm = A
-    except OSError as e:
-        print(f"error: cannot read {args.mtx}: {e}", file=sys.stderr)
-        return 2
-    except (ValueError, NotImplementedError) as e:
-        print(f"error: cannot parse {args.mtx}: {e}", file=sys.stderr)
-        return 2
+    if args.mtx.startswith("stencil:"):
+        dims = _stencil_dims(args)
+        if dims is None:
+            return 2
+        A = StencilOperator.poisson(dims, dtype=dtype, device=device)
+    else:
+        if args.precond == "amg":
+            return _not_ported("--precond amg on a matrix file (smoothed-aggregation AMG)")
+        try:
+            A = load_matrix(args.mtx, layout=args.layout, dtype=np.dtype(args.dtype),
+                            bm=args.bm, bn=args.bn, reorder=args.reorder,
+                            device=device)
+            if args.reorder:
+                A, perm = A
+        except OSError as e:
+            print(f"error: cannot read {args.mtx}: {e}", file=sys.stderr)
+            return 2
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: cannot parse {args.mtx}: {e}", file=sys.stderr)
+            return 2
     n, nnz = A.shape[0], A.nnz
 
     b = torch.arange(1, n + 1, dtype=dtype, device=device)
     if perm is not None:
         b = b[torch.from_numpy(perm).to(device)]
-    M = jacobi_preconditioner(A) if args.precond == "jacobi" else None
+    if args.precond == "jacobi":
+        M = jacobi_preconditioner(A)
+    elif args.precond == "amg":
+        M = multigrid_preconditioner(A, smoother=args.smoother)
+    else:
+        M = None
 
     def solve():
         return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,

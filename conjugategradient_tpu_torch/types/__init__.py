@@ -3,6 +3,7 @@ from .bell import BlockedEllMatrix, SymBellMatrix, mirror_index, pack_host_array
 from .csr import CSRMatrix
 from .dia import DIAMatrix, SymDIAMatrix
 from .sell import SellMatrix
+from .stencil import StencilOperator
 
 __all__ = [
     "DEFAULT_DEVICE",
@@ -12,6 +13,7 @@ __all__ = [
     "DenseOperator",
     "LinearOperator",
     "SellMatrix",
+    "StencilOperator",
     "SymBellMatrix",
     "SymDIAMatrix",
     "as_linear_operator",

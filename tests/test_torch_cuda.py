@@ -201,3 +201,101 @@ def test_entry_points_default_to_the_card(dev):
     for op in (load_matrix(path), load_matrix(path, layout="csr", dtype=np.float64),
                CSRMatrix.from_arrays(data, indices, indptr, shape)):
         assert op.device.type == "cuda"
+
+
+STENCIL_SHAPES = [(5, 6, 7), (3, 9, 130), (2, 2, 2), (1, 1, 1), (64, 33, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil7_kernel_bit_equal_to_plain(dev, dtype):
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    for shape in STENCIL_SHAPES:
+        u = torch.randn(shape, dtype=dtype, device=dev)
+        before = fc.LAUNCHES["stencil7"]
+        yk = ks.stencil7(u, 6.0, -1.0)
+        assert fc.LAUNCHES["stencil7"] == before + 1
+        yp = ks._stencil7_plain(u, 6.0, -1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yp), shape
+    u = torch.ones(6, 7, 8, dtype=dtype, device=dev)
+    u[3, 0, 5] = float("nan")
+    yk, yp = ks.stencil7(u, 4.25, -0.5), ks._stencil7_plain(u, 4.25, -0.5)
+    assert torch.equal(torch.isnan(yk), torch.isnan(yp)) and int(torch.isnan(yk).sum()) == 6
+    assert torch.equal(yk.nan_to_num(), yp.nan_to_num())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ks.stencil7(u.half(), 6.0, -1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.stencil7(u.transpose(0, 2), 6.0, -1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 6, 7), (16, 24, 100), (64, 64, 64)])
+def test_fused_stencil_dir_kernel_bit_equal_and_deterministic(dev, shape):
+    from conjugategradient_tpu_torch.ops.cuda import fused_stencil as kfs
+
+    r, p = torch.randn(shape, device=dev), torch.randn(shape, device=dev)
+    beta = torch.full((1, 1), 0.37, device=dev)
+    before = fc.LAUNCHES["fused_stencil_dir_dot"]
+    k1 = kfs.fused_stencil_dir_dot(r, p, beta, 6.0, -1.0)
+    k2 = kfs.fused_stencil_dir_dot(r, p, beta, 6.0, -1.0)
+    assert fc.LAUNCHES["fused_stencil_dir_dot"] == before + 2
+    pl = kfs._fused_stencil_dir_plain(r, p, beta, 6.0, -1.0, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], pl[0]) and torch.equal(k1[1], pl[1])
+    np.testing.assert_allclose(float(k1[2]), float(pl[2]), rtol=RTOL)
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+    # the scalar step, and a no-op once the solve is not live
+    w = fc.FusedWork.new(dev, maxiter=4)
+    w.scal[fc.S_RHO] = 2.5
+    out = (torch.empty_like(r), torch.empty_like(r))
+    _, _, pap = kfs.fused_stencil_dir_dot(r, p, w.beta, 6.0, -1.0, out=out, work=w)
+    np.testing.assert_allclose(float(w.scal[fc.S_ALPHA]), 2.5 / float(pap), rtol=1e-6)
+    w.ctl[fc.C_LIVE] = 0
+    kept = [o.clone() for o in out] + [w.scal.clone()]
+    kfs.fused_stencil_dir_dot(2 * r, p, w.beta, 6.0, -1.0, out=out, work=w)
+    torch.cuda.synchronize()
+    for a, b in zip(kept, [*out, w.scal]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 210, 4097, 262_144])
+def test_update_kernel_scalar_tail(dev, n):
+    x, p, r, q = (torch.randn(n, device=dev) for _ in range(4))
+    d = torch.rand(n, device=dev) + 0.5
+    alpha = torch.full((1, 1), 0.61, device=dev)
+    for dd, name in ((None, "fused_update_dot"), (d, "fused_update_dot_pcg")):
+        before = fc.LAUNCHES[name]
+        k = (fc.fused_update_dot(x, p, r, q, alpha) if dd is None
+             else fc.fused_update_dot_pcg(x, p, r, q, dd, alpha))
+        assert fc.LAUNCHES[name] == before + 1
+        pl = fc._update_plain(name, x, p, r, q, dd, alpha, None, None)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1])
+        for g, w in zip(k[2:], pl[2:]):
+            np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_stencil_solves_take_the_kernels(dev):
+    from conjugategradient_tpu_torch import cg_solve, multigrid_preconditioner
+    from conjugategradient_tpu_torch.types import StencilOperator
+
+    op = StencilOperator.poisson((20, 18, 33), device=dev)
+    b = torch.arange(1, op.shape[0] + 1, dtype=torch.float32, device=dev) / op.shape[0]
+    tol = 1e-5 * float(b.norm())
+    fc.reset_counts()
+    x, info = cg_solve(op, b, tol=tol)
+    assert bool(info.converged) and fc.LAUNCHES["fused_stencil_dir_dot"] >= int(info.iterations)
+    assert fc.LAUNCHES["fused_update_dot"] >= int(info.iterations)
+    _, again = cg_solve(op, b, tol=tol)
+    assert torch.equal(info.rho_history.view(torch.int32), again.rho_history.view(torch.int32))
+    xm, im = cg_solve(op, b, tol=tol, M=multigrid_preconditioner(op))
+    assert bool(im.converged) and int(im.iterations) * 5 <= int(info.iterations)
+    assert fc.LAUNCHES["stencil7"] > 0
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    with pytest.raises(ValueError, match="StencilOperator"):
+        cg_solve(op, b, M=multigrid_preconditioner(op), fused="always")

@@ -158,3 +158,47 @@ def test_new_layouts_f32_jacobi(capsys, layout):
 def test_symdia_on_a_nonsymmetric_file_exits_2(capsys):
     rc = tester.main([str(PROBLEMS / "convdiff_34.mtx"), "--layout", "symdia", "--device", "cpu"])
     assert rc == 2 and "not symmetric" in capsys.readouterr().err
+
+
+# the matrix-free stencil: input (the JAX tester's pseudo-input)
+def test_stencil_matches_the_jax_tester(capsys):
+    import tester as jtester
+
+    assert jtester.main(["stencil:16"]) == 0
+    jline = capsys.readouterr().out.strip().splitlines()[0].split()
+    rc = tester.main(["stencil:16", "--device", "cpu"])
+    tline = capsys.readouterr().out.strip().splitlines()[0].split()
+    assert rc == 0 and tline[:2] == jline[:2] == ["4096", "27136"]
+    assert 0 <= float(tline[3]) < 1e-20
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["stencil:16", "--layout", "bell"], "matrix-free"),
+    (["stencil:16", "--reorder"], "matrix-free"),
+    (["stencil:4x5"], "cannot parse"),
+    (["stencil:8x8x1"], "cannot parse"),
+    (["stencil:1"], "cannot parse"),
+    (["stencil:abc"], "cannot parse"),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else a)
+def test_stencil_refusals_exit_2(capsys, args, msg):
+    rc = tester.main([*args, "--device", "cpu"])
+    out = capsys.readouterr()
+    assert rc == 2 and not out.out and msg in out.err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--precond", "amg"], ["--precond", "amg", "--smoother", "chebyshev"],
+    ["--precond", "jacobi"], ["--dtype", "float32"],
+    ["--dtype", "float32", "--precond", "amg", "--smoother", "chebyshev"],
+], ids=lambda a: " ".join(a))
+def test_stencil_solves(capsys, extra):
+    rc = tester.main(["stencil:12x10x9", "--device", "cpu", "--tol", "1e-3", "--summary", *extra])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and len(lines) == 2
+    dim, nnz, ms, rel = lines[0].split()
+    assert (int(dim), int(nnz)) == (1080, 7560 - 2 * (90 + 108 + 120))
+    assert float(ms) > 0 and 0 <= float(rel) < 1e-8
+    summ = json.loads(lines[1])
+    assert summ["converged"] == [True]
+    if "amg" in extra:
+        assert summ["iterations"][0] <= 12
