@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the nine kernels against its plain-torch version on the
+2. Hold each of the twelve kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -20,7 +20,12 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    ``fused_stencil_dir_dot`` (p_new, q) and ``fused_update_dot(_pcg)``
    (x', r'; also at lengths 210, 4097 and 256^3) must be bit-equal to
    their plain versions; a NaN put into the stencil's input reaches only its point and
-   its six neighbours.
+   its six neighbours.  The fused MINRES kernels (full storage, symmetric
+   storage with the banded and the general landing, the update; with and
+   without the Jacobi diagonal, shift 0 and not 0, a first step without a
+   pending update) give v, w, x' and r2' bit-equal, q and the dots within
+   the stated tolerances, repeat bit for bit, and their last CTAs' scalar
+   steps agree with the plain versions' torch ops to ``TAIL_ULPS``.
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -47,9 +52,25 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    mgpcg comparison (plain fused CG against MG-PCG with each smoother, to
    1e-5 ||b||); residual replacement against the CPU's plain versions on
    64^3 and a ragged 33 x 35 x 37 grid; one x0 warm start.
+   Then the MINRES path, with its own reset and read: the tester with
+   ``--method minres`` on poisson3d_48 (symbell and bell, float32, with and
+   without Jacobi), once with ``--shift`` inside the spectrum, and on CSR
+   float64 twice (bitwise); the n = 262,144 operator in both storages for
+   256 timed steps (bench.py's minres protocol, b = arange(1, n+1)/n), the
+   busy share over 64, and the portable MINRES loop beside it; the fused
+   solve against the portable loop and twice against itself (bitwise); an
+   indefinite solve (shift between the Lanczos Ritz extremes) in both
+   storages; caps of 1, 2 and 7 steps against the portable loop; b = 0;
+   one x0 warm start.
+   The portable loops end at convergence: the steps launched are counted
+   against the iterations for MG-PCG at 256^3 and a portable DIA solve.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
+
+``python3 chip_smoke.py --fused-cg-only`` runs nothing but the fused CG
+loops at n = 262,144 (both storages) and at 256^3 and prints their ms/it
+and a hash of each history: for comparing two trees on one card.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -60,6 +81,7 @@ torch.profiler, on this card.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -72,6 +94,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FUSED_SOURCE = "conjugategradient_tpu_torch/csrc/fused_cg.cu"
+MINRES_SOURCE = "conjugategradient_tpu_torch/csrc/fused_minres.cu"
 SOURCES = {
     "sym_fused_dir_spmv_dot": FUSED_SOURCE,
     "fused_dir_spmv_dot": FUSED_SOURCE,
@@ -82,6 +105,9 @@ SOURCES = {
     "sym_dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "stencil7": "conjugategradient_tpu_torch/csrc/stencil.cu",
     "fused_stencil_dir_dot": "conjugategradient_tpu_torch/csrc/fused_stencil.cu",
+    "minres_dir_spmv_dot": MINRES_SOURCE,
+    "sym_minres_dir_spmv_dot": MINRES_SOURCE,
+    "minres_update_dot": MINRES_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -97,11 +123,16 @@ REPLACES = {
     "sym_dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
     "stencil7": "conjugategradient_tpu/ops/pallas/stencil.py:136",
     "fused_stencil_dir_dot": "conjugategradient_tpu/ops/pallas/fused_stencil.py:69",
+    "minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
+    "sym_minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:298",
+    "minres_update_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:425",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv")
 DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
 STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
+MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
+                  "bell_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
 # float32 and float64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -126,6 +157,16 @@ TRAJ_RTOL = 5e-2  # fused vs plain rho_history over 25 steps
 RESTART_RTOL = 2e-3  # card vs CPU plain versions, 32 steps with restarts
 RESTART_EVERY = 8
 ITER_SLACK = 8
+TAIL_ULPS = 2  # the kernels' scalar steps against torch 0-d ops, per slot
+MINRES_TRAJ_RTOL = 5e-3  # fused vs portable MINRES rnorm_history over 25 steps
+MINRES_STEPS = 256
+# an indefinite float32 solve to 1e-4 ||b||: the true residual may exceed the
+# estimate by this factor (MINRES loses ~eps * kappa^2 in its w recurrence)
+MINRES_INDEF_TOL_REL = 1e-4
+MINRES_TRUE_FACTOR = 10.0
+# a portable loop launches at most this many steps after the one that set
+# done (solver/restart.py: LOOKAHEAD - 1)
+STEPS_AFTER_DONE = 3
 N_BIG = 262_144
 MATRICES = ("problems/poisson3d_48.mtx", "problems/elasticity3d_16.mtx")
 DEVICE = "cuda:0"
@@ -750,6 +791,210 @@ def phase_dia_kernels(dev, errs, times, extra):
     return {"big": big, "big_sym": big_sym, "p3d": p3d, "p3d_sym": p3d_sym}
 
 
+# ---- phase 2, MINRES: kernels 14-16 against their plain versions -------------
+
+def minres_operands(nrb, bn, rng, dev, with_d, shift, first=False):
+    """Six random (nrb, bn) vectors, the (1, 8) scalar row (``first``: the
+    first step's, 1/gamma = phi = 0) and the Jacobi diagonal (or None)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    vecs = [torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32, device=dev)
+            for _ in range(6)]
+    su = torch.zeros(1, 8)
+    su[0, fm.SU_INV_BETA], su[0, fm.SU_SHIFT] = 0.31, shift
+    if not first:
+        su[0, fm.SU_OLDEPS], su[0, fm.SU_DELTA] = 0.11, 0.23
+        su[0, fm.SU_IGAMMA], su[0, fm.SU_PHI] = 0.57, 0.83
+    d = None
+    if with_d:
+        d = torch.as_tensor(0.5 + rng.random((nrb, bn)), dtype=torch.float32, device=dev)
+    return vecs, su.to(dev), d
+
+
+def minres_dir_pair(a, mirror, row_group=None):
+    """(name, kernel wrapper, plain version) of MINRES kernel 1 on ``a``:
+    kernel 14 on full storage, kernel 15 (with ``mirror``) on symmetric."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.spmv import bell_apply, sym_bell_apply
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix
+
+    if isinstance(a, BlockedEllMatrix):
+        name = "minres_dir_spmv_dot"
+        kern = lambda vecs, su, d, **kw: fm.minres_dir_spmv_dot(
+            a.blocks, a.block_cols, *vecs, su, d, row_group=row_group, **kw)
+        apply = lambda v: bell_apply(a.blocks, a.block_cols, v)
+    else:
+        name = "sym_minres_dir_spmv_dot"
+        kern = lambda vecs, su, d, **kw: fm.sym_minres_dir_spmv_dot(
+            a.diag_blocks, a.off_blocks, a.off_cols, *vecs, su, d, mirror=mirror,
+            mirror_src=a.mirror_src, row_group=row_group or 8, **kw)
+        apply = lambda v: sym_bell_apply(a.diag_blocks, a.off_blocks, a.off_cols,
+                                         a.mirror_src, v)
+    plain = lambda vecs, su, d: fm._dir_plain(name, apply, vecs, su, d, None, None)
+    return name, kern, plain
+
+
+def check_minres_dir(a, rng, mirror, with_d, shift, errs, label, first=False, row_group=None):
+    """MINRES kernel 1 against its plain version: v, w_new, x_new bit for
+    bit, q within TOL_Q of max|q|, v.q within TOL_DOT and v.r1 within
+    TOL_DOT of ||v|| ||r1|| (a dot of unrelated vectors can cancel); two
+    launches bit-identical; the last CTA's scalar step (c1, alpha,
+    alpha/beta) within TAIL_ULPS of torch's on the kernel's own dots."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    name, kern, plain = minres_dir_pair(a, mirror, row_group)
+    vecs, su, d = minres_operands(a.nrb, a.bn, rng, a.device, with_d, shift, first)
+    wk = fm.MinresWork.new(a.device, maxiter=4)
+    wk.scal[fm.M_OLDB] = 1.7
+    wk.start(torch.tensor(2.3, device=a.device))
+    wp_scal = wk.scal.clone()
+    k = kern(vecs, su, d, work=wk)
+    k2 = kern(vecs, su, d)
+    p = plain(vecs, su, d)
+    torch.cuda.synchronize()
+    for i, what in ((0, "v"), (2, "w_new"), (3, "x_new")):
+        check(torch.equal(k[i], p[i]), f"{name} {label}: {what} not bit-equal to the plain version")
+    check(all(torch.equal(x, y) for x, y in zip(k, k2)), f"{name} {label}: two launches differ")
+    if first:
+        check(torch.equal(k[3], vecs[5]) and not bool(k[2].any()),
+              f"{name} {label}: a first step (1/gamma = phi = 0) changed x or w")
+    e_q, m_q = rel_max_err(k[1], p[1])
+    check(e_q <= TOL_Q * m_q, f"{name} {label}: q err {e_q} vs max|q| {m_q}")
+    e_vq = abs(float(k[4]) - float(p[4]))
+    e_vr1 = abs(float(k[5]) - float(p[5]))
+    check(e_vq <= TOL_DOT * abs(float(p[4])), f"{name} {label}: vq {float(k[4])} vs {float(p[4])}")
+    vr1_scale = float(p[0].norm() * vecs[1].norm())
+    check(e_vr1 <= TOL_DOT * vr1_scale, f"{name} {label}: vr1 {float(k[5])} vs {float(p[5])}")
+    wp = fm.MinresWork.new(a.device, maxiter=4)
+    wp.scal.copy_(wp_scal)
+    fm.finish_dir(wp, k[4][0, 0], k[5][0, 0])
+    ulps = int((wk.scal[:fm.M_VQ].view(torch.int32) - wp.scal[:fm.M_VQ].view(torch.int32)).abs().max())
+    check(ulps <= TAIL_ULPS, f"{name} {label}: scalar step {ulps} ulps from torch's")
+    errs[name] = max(errs[name], e_q, e_vq, e_vr1)
+    print(f"  {name} {label:<34} v, w, x' bit-equal; |dq|={e_q:.3g} (max|q| {m_q:.4g}) "
+          f"|dvq|={e_vq:.3g} |dvr1|={e_vr1:.3g}; repeat ok; scalar step {ulps} ulp")
+    return vecs, su, d
+
+
+def check_minres_update(shape, rng, with_d, errs, label, dev):
+    """Kernel 16 against its plain version: r2' bit for bit (also written
+    over r1), beta^2 within TOL_DOT, and every scalar the last CTA writes
+    (the Givens step) within TAIL_ULPS of torch's on the kernel's own dot."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    q, r1, r2 = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    d = torch.as_tensor(0.5 + rng.random(shape), dtype=torch.float32, device=dev) if with_d else None
+
+    def work():
+        w = fm.MinresWork.new(dev, maxiter=9, tol=1e-3, shift=0.07)
+        w.scal[fm.M_OLDB], w.scal[fm.M_DBAR], w.scal[fm.M_EPSLN] = 1.7, 0.4, 0.2
+        w.scal[fm.M_CS], w.scal[fm.M_SN], w.scal[fm.M_ALFA] = -0.8, 0.6, 2.2
+        w.scal[fm.M_C1], w.scal[fm.M_IA] = 0.4, 0.9
+        w.start(torch.tensor(2.3, device=dev))
+        return w
+
+    wk, wp = work(), work()
+    yk, bk = fm.minres_update_dot(q, r1, r2, wk.c1, wk.ia, d, work=wk)
+    yp, bp = fm._update_plain(q, r1, r2, wp.c1, wp.ia, d, None, None)
+    r1c = r1.clone()
+    y2, b2 = fm.minres_update_dot(q, r1c, r2, wp.c1, wp.ia, d, out=r1c)
+    torch.cuda.synchronize()
+    check(torch.equal(yk, yp), f"minres_update_dot {label}: r2' not bit-equal to the plain version")
+    check(torch.equal(y2, yp) and torch.equal(b2, bk),
+          f"minres_update_dot {label}: in place over r1, or launched again, it differs")
+    e = abs(float(bk) - float(bp))
+    check(e <= TOL_DOT * abs(float(bp)), f"minres_update_dot {label}: bsq {float(bk)} vs {float(bp)}")
+    fm.finish_update(wp, bk[0, 0])
+    ulps = int((wk.scal[:fm.M_VQ].view(torch.int32) - wp.scal[:fm.M_VQ].view(torch.int32)).abs().max())
+    check(ulps <= TAIL_ULPS and torch.equal(wk.ctl, wp.ctl) and int(wk.ctl[fc.C_K]) == 1,
+          f"minres_update_dot {label}: scalar step {ulps} ulps from torch's, ctl {wk.ctl.tolist()} "
+          f"vs {wp.ctl.tolist()}")
+    errs["minres_update_dot"] = max(errs["minres_update_dot"], e)
+    print(f"  minres_update_dot {label:<20} r2' bit-equal (also over r1); |dbsq|={e:.3g}; "
+          f"Givens step {ulps} ulp, ctl equal")
+    return q, r1, r2, d
+
+
+def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
+    """Kernels 14-16 against their plain versions and timed, at the MINRES
+    path's shapes and at small ragged ones."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    rng = np.random.default_rng(14)
+    p3d = ops["p3d"]
+    for with_d in (False, True):
+        for shift in (0.0, 0.07):
+            tag = f"{'+d' if with_d else ''} shift={shift}"
+            full_args = check_minres_dir(big_full, rng, None, with_d, shift, errs,
+                                         f"tridiag n=262144 full{tag}")
+            band_args = check_minres_dir(big, rng, "banded", with_d, shift, errs,
+                                         f"tridiag n=262144 banded{tag}")
+            gen_args = check_minres_dir(p3d, rng, "scatter", with_d, shift, errs,
+                                        f"poisson3d_48 general{tag}")
+    check_minres_dir(big, rng, "scatter", True, 0.07, errs, "tridiag n=262144 general+d")
+    _, small_t = block_tridiag_ops(13 * 64, 64, dev)
+    small_g = random_block_sym(rng, 13, 32, 3, dev)
+    small_f = random_block_full(rng, 13, 32, 32, 3, dev)
+    for first in (False, True):
+        tag = " first step" if first else "+d"
+        for a, mirror, label in ((big_full, None, "tridiag n=262144 full"),
+                                 (big, "banded", "tridiag n=262144 banded"),
+                                 (small_f, None, "ragged nrb=13 bn=32 full"),
+                                 (small_t, "banded", "ragged nrb=13 bn=64 banded"),
+                                 (small_g, "scatter", "ragged nrb=13 bn=32 general")):
+            if first or a.nrb == 13:
+                check_minres_dir(a, rng, mirror, not first, 0.07, errs, label + tag, first=first,
+                                 row_group=4 if a.nrb == 13 else None)
+    upd = {}
+    for with_d in (False, True):
+        upd[with_d] = check_minres_update((N_BIG // 128, 128), rng, with_d, errs,
+                                          f"(2048, 128){'+d' if with_d else ''}", dev)
+        check_minres_update((13, 32), rng, with_d, errs, f"(13, 32){'+d' if with_d else ''}", dev)
+
+    # timing on the last shifted, unpreconditioned inputs, launched as the
+    # solver launches them: in place, with a work that never finishes
+    work = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    work.start(torch.tensor(2.3, device=dev))
+    n, v = N_BIG, N_BIG * 4
+    for key, a, mirror, args, table in (
+        ("minres_dir_spmv_dot", big_full, None, full_args, times),
+        ("sym_minres_dir_spmv_dot", big, "banded", band_args, times),
+        ("sym_minres_dir_spmv_dot general poisson3d_48", p3d, "scatter", gen_args, extra),
+    ):
+        _, kern, plain = minres_dir_pair(a, mirror)
+        vecs, su, _ = args
+        vecs = [t.clone() for t in vecs]
+        out = (vecs[2], torch.empty_like(vecs[0]), vecs[4], vecs[5])
+        su0 = su.clone()
+        su0[0, fm.SU_PHI] = 0.0  # x stays put over the timed launches
+        t = time_pair(lambda: kern(vecs, su0, None, out=out, work=work),
+                      lambda: plain(vecs, su0, None))
+        tiles = nbytes(a.blocks, a.block_cols) if mirror is None else \
+            nbytes(a.diag_blocks, a.off_blocks, a.off_cols)
+        flops = 2 * a.blocks.numel() if mirror is None else \
+            2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
+        t.update(bound(tiles + 10 * a.nrb * a.bn * 4, flops + 14 * a.nrb * a.bn),
+                 library_ms=None)  # an SpMV fused with updates and two dots: no one call
+        table[key] = t
+    q, r1, r2, _ = upd[False]
+    out = torch.empty_like(q)
+    t = time_pair(lambda: fm.minres_update_dot(q, r1, r2, work.c1, work.ia, out=out, work=work),
+                  lambda: fm._update_plain(q, r1, r2, work.c1, work.ia, None, None, None))
+    t.update(bound(4 * v, 7 * n), library_ms=None)  # q r1 r2 in, r2' out
+    times["minres_update_dot"] = t
+    torch.cuda.synchronize()
+
+
 # ---- phase 3: the main path ------------------------------------------------
 
 def fmt_ms(v) -> str:
@@ -1010,6 +1255,7 @@ def phase_dia_path(dev, ops, card):
     from conjugategradient_tpu_torch import SellMatrix, cg_solve, jacobi_preconditioner, load_matrix
     from conjugategradient_tpu_torch.io import read_csr_host
     from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import cg as cg_mod
     from conjugategradient_tpu_torch.utils import Timer
 
     # (a) the tester: --layout auto resolves poisson3d_48 to DIA, which the
@@ -1084,7 +1330,9 @@ def phase_dia_path(dev, ops, card):
     p3d, p3d_sym = ops["p3d"], ops["p3d_sym"]
     bb = torch.arange(1, p3d.n + 1, dtype=torch.float32, device=dev)
     tt = TOL_SOLVE_REL * bnorm(p3d.n)
-    _, i1 = cg_solve(p3d, bb, tol=tt)
+    with count_steps(cg_mod, "cg_step") as counter:
+        _, i1 = cg_solve(p3d, bb, tol=tt)
+    check_stops_at_done("portable DIA CG poisson3d_48", counter.calls, int(i1.iterations))
     _, i2 = cg_solve(p3d, bb, tol=tt)
     check(bool(i1.converged), "f32 DIA poisson3d_48 did not converge")
     check(torch.equal(i1.rho_history.view(torch.int32), i2.rho_history.view(torch.int32)),
@@ -1263,6 +1511,7 @@ def phase_stencil_path(dev, card):
     from conjugategradient_tpu_torch import (StencilOperator, accuracy, cg_solve,
                                              fused_stencil_cg_solve, multigrid_preconditioner)
     from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import cg as cg_mod
     from conjugategradient_tpu_torch.utils import Timer
 
     # (a) the tester: stencil:64 float32 takes the fused path
@@ -1343,9 +1592,12 @@ def phase_stencil_path(dev, card):
                      ("MG-PCG jacobi", multigrid_preconditioner(op)),
                      ("MG-PCG chebyshev", multigrid_preconditioner(op, smoother="chebyshev"))):
         cg_solve(op, b, tol=tol, M=M)
-        t = Timer(dev).start_measure()
-        x, info = cg_solve(op, b, tol=tol, M=M)
-        t.stop_measure()
+        with count_steps(cg_mod, "cg_step") as counter:  # the portable loop's steps
+            t = Timer(dev).start_measure()
+            x, info = cg_solve(op, b, tol=tol, M=M)
+            t.stop_measure()
+        if M is not None:
+            check_stops_at_done(f"{label} 256^3", counter.calls, int(info.iterations))
         true_rel = float((b - op.matvec(x)).double().norm()) / bn_
         # float32's attainable accuracy here is ~eps * kappa ~ 3e-3 of ||b||
         check(bool(info.converged) and true_rel < F32_TRUE_REL_FLOOR,
@@ -1408,6 +1660,261 @@ def phase_stencil_path(dev, card):
     torch.cuda.synchronize()
 
 
+# ---- phase 3, MINRES: the symmetric-indefinite path ---------------------------
+
+class count_steps(contextlib.AbstractContextManager):
+    """Count the calls of a portable loop's step function (``cg_step`` of
+    solver/cg.py or ``minres_step`` of solver/minres.py) while inside."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def check_stops_at_done(label, launched, iterations):
+    """The repair of the portable loop: steps launched against iterations."""
+    extra = launched - iterations
+    check(0 <= extra <= STEPS_AFTER_DONE,
+          f"{label}: {launched} steps launched for {iterations} iterations "
+          f"(more than {STEPS_AFTER_DONE} after done)")
+    print(f"  {label}: {launched} steps launched for {iterations} iterations "
+          f"({extra} after done; at most {STEPS_AFTER_DONE})")
+
+
+def ritz_shift(op, fraction):
+    """A shift strictly inside the spectrum: ``fraction`` of the way from
+    the smallest to the largest Ritz value of 30 Lanczos steps (both lie
+    inside the spectrum, so A - shift I is indefinite)."""
+    from conjugategradient_tpu_torch.solver.cg import _lanczos_ritz_extremes
+
+    lo, hi = _lanczos_ritz_extremes(op, 30, 0)
+    return lo + fraction * (hi - lo), lo, hi
+
+
+def phase_minres_path(dev, big, big_full, ops, card):
+    """The MINRES path through its entry points (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import (fused_minres_solve, jacobi_preconditioner,
+                                             minres_solve)
+    from conjugategradient_tpu_torch.io import read_csr_host
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import minres as minres_mod
+    from conjugategradient_tpu_torch.solver.fused_minres import fused_minres_init, fused_minres_step
+    from conjugategradient_tpu_torch.utils import Timer
+
+    p3d, p3d_full = ops["p3d"], ops["p3d_full"]
+    path = MATRICES[0]
+    n = read_csr_host(os.path.join(ROOT, path))[3][0]
+    tol = TOL_SOLVE_REL * bnorm(n)
+    minres = ("--method", "minres")
+    # (a) the tester with --method minres, both blocked layouts
+    for layout, kernel in (("symbell", "sym_minres_dir_spmv_dot"), ("bell", "minres_dir_spmv_dot")):
+        for precond in ("none", "jacobi"):
+            before = _common.LAUNCHES[kernel]
+            dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, tol, extra=minres)
+            it = summ["iterations"][0]
+            launched = _common.LAUNCHES[kernel] - before
+            what = f"tester {path} --method minres --layout {layout} --precond {precond}"
+            check(summ["converged"][0], f"{what}: not converged in {it}")
+            check(math.isfinite(rel) and rel < REL_ERROR_BOUND, f"{what}: rel_error {rel}")
+            check(launched >= 2 * it, f"{what}: {launched} {kernel} launches for 2 solves of {it}")
+            print(f"  {what}: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its ({ms / max(it, 1):.4f} "
+                  f"ms/it), rel_error {rel:.3e}  [{card}]")
+    # once with a shift inside the spectrum (indefinite)
+    shift, lo, hi = ritz_shift(p3d, 0.002)
+    dim, nnz, ms, rel, summ, _ = run_tester(path, "symbell", "none", tol,
+                                            extra=minres + ("--shift", repr(shift)))
+    it = summ["iterations"][0]
+    check(summ["converged"][0] and math.isfinite(rel) and rel < REL_ERROR_BOUND,
+          f"tester --method minres --shift {shift}: converged {summ['converged'][0]} "
+          f"in {it}, rel_error {rel}")
+    print(f"  tester {path} --method minres --layout symbell --shift {shift:.5f} (Ritz extremes "
+          f"{lo:.4f}, {hi:.4f}): {it} its, {ms:.3f} ms, rel_error {rel:.3e}  [{card}]")
+    # the float64 CSR path (portable loop) twice: bit for bit
+    runs = [run_tester(path, "csr", "none", 1e-8 * bnorm(n), dtype="float64",
+                       extra=minres + ("--history",)) for _ in range(2)]
+    check(runs[0][4]["converged"][0] and runs[0][3] < REL_ERROR_BOUND,
+          f"tester --method minres csr f64: rel_error {runs[0][3]}")
+    check(runs[0][5][0].split()[3] == runs[1][5][0].split()[3] and runs[0][5][2] == runs[1][5][2],
+          "tester --method minres csr f64: the two runs differ")
+    print(f"  tester {path} --method minres --layout csr --dtype float64 twice: "
+          f"{runs[0][4]['iterations'][0]} its, {runs[0][2]:.3f} ms, rel_error {runs[0][3]:.3e}, "
+          f"history bitwise repeat ok  [{card}]")
+
+    # (b) n = 262,144, both storages: MINRES_STEPS timed steps.  tol = -1: this
+    # operator (kappa ~ 1.004) drives the estimate to float32 underflow in
+    # ~16 steps, and 0 <= 0 would end a tol = 0 run there.
+    n = N_BIG
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    src = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    copy_gbps = 2 * src.numel() * 4 / cuda_ms(lambda: dst.copy_(src), reps=10) / 1e6
+    del src, dst
+    eff = big_full.tile_bytes() + 14 * n * 4
+    for label, a in (("symmetric", big), ("full", big_full)):
+        fused_minres_solve(a, b, tol=-1.0, maxiter=MINRES_STEPS)
+        # bench.py's protocol: the init and MINRES_STEPS steps (no exit work)
+        t = Timer(dev).start_measure()
+        state = fused_minres_init(a, b, None, MINRES_STEPS, tol=-1.0)
+        for _ in range(MINRES_STEPS):
+            fused_minres_step(a, state)
+        t.stop_measure()
+        check(int(state.k) == MINRES_STEPS, f"fused MINRES {label}: {int(state.k)} steps stepped")
+        ms_it = t.get_duration() / MINRES_STEPS
+        # and the whole solve: the flush and rnorm_true's extra SpMV included
+        t = Timer(dev).start_measure()
+        _, info = fused_minres_solve(a, b, tol=-1.0, maxiter=MINRES_STEPS)
+        t.stop_measure()
+        solve_ms = t.get_duration()
+        check(int(info.iterations) == MINRES_STEPS and bool(torch.isfinite(info.rnorm_history).all()),
+              f"fused MINRES {label}: {int(info.iterations)} steps, history finite "
+              f"{bool(torch.isfinite(info.rnorm_history).all())}")
+        check(torch.equal(info.rnorm_history.view(torch.int32), state.hist.view(torch.int32)),
+              f"fused MINRES {label}: stepping and solving gave different history bits")
+        streamed = a.tile_bytes() + 14 * n * 4
+        run64 = lambda: fused_minres_solve(a, b, tol=-1.0, maxiter=64)
+        t = Timer(dev).start_measure()
+        run64()
+        t.stop_measure()
+        busy = device_ms(run64, reps=1)
+        busy_s = "not measured" if busy is None else \
+            f"{busy:.4f} of {t.get_duration():.4f} ms ({100 * busy / t.get_duration():.1f}%)"
+        _, info2 = fused_minres_solve(a, b, tol=-1.0, maxiter=MINRES_STEPS)
+        check(torch.equal(info.rnorm_history.view(torch.int32), info2.rnorm_history.view(torch.int32)),
+              f"fused MINRES {label}: two runs gave different history bits")
+        minres_solve(a, b, tol=-1.0, maxiter=8, fused="never")
+        t = Timer(dev).start_measure()
+        _, pinfo = minres_solve(a, b, tol=-1.0, maxiter=32, fused="never")
+        t.stop_measure()
+        port_ms_it = t.get_duration() / 32
+        print(f"  fused MINRES n={n} {label}: {ms_it:.5f} ms/it (whole solve {solve_ms:.3f} ms for "
+              f"{MINRES_STEPS} steps), effective {eff / ms_it / 1e6:.1f} "
+              f"GB/s on {eff / 1e6:.1f} MB/it (full layout), streamed {streamed / ms_it / 1e6:.1f} "
+              f"GB/s ({streamed / 1e6:.1f} MB/it), {streamed / ms_it / 1e6 / copy_gbps:.3f} of the "
+              f"{copy_gbps:.1f} GB/s copy rate; 64 steps: device busy {busy_s}; bitwise repeat ok; "
+              f"portable MINRES loop {port_ms_it:.5f} ms/it  [{card}]")
+
+    # (c) fused against the portable loop on the card (the plain torch
+    # recurrence; on full storage its SpMV is kernel 5), and repeatability
+    for label, a, M in (("tridiag", big, None), ("tridiag full", big_full, None),
+                        ("poisson3d_48", p3d, None), ("poisson3d_48 jacobi", p3d, "jacobi"),
+                        ("poisson3d_48 full", p3d_full, None),
+                        ("poisson3d_48 full jacobi", p3d_full, "jacobi")):
+        bb = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
+        tt = TOL_SOLVE_REL * float(bb.double().norm())
+        Mf = jacobi_preconditioner(a) if M else None
+        _, fin = minres_solve(a, bb, tol=tt, M=Mf)
+        with count_steps(minres_mod, "minres_step") as counter:
+            _, pin = minres_solve(a, bb, tol=tt, M=Mf, fused="never")
+        _, f25 = minres_solve(a, bb, tol=0.0, maxiter=25, M=Mf)
+        _, p25 = minres_solve(a, bb, tol=0.0, maxiter=25, M=Mf, fused="never")
+        hf, hp = f25.rnorm_history.double().cpu().numpy(), p25.rnorm_history.double().cpu().numpy()
+        keep = np.isfinite(hp) & (hp > 1e-5 * hp[0])  # above the float32 floor
+        check(np.allclose(hf[keep], hp[keep], rtol=MINRES_TRAJ_RTOL, atol=0),
+              f"MINRES {label}: fused vs portable history differ beyond rtol {MINRES_TRAJ_RTOL}")
+        check(bool(fin.converged) and bool(pin.converged), f"MINRES {label}: a solve did not converge")
+        di = abs(int(fin.iterations) - int(pin.iterations))
+        check(di <= ITER_SLACK, f"MINRES {label}: iterations {int(fin.iterations)} vs {int(pin.iterations)}")
+        _, fin2 = minres_solve(a, bb, tol=tt, M=Mf)
+        check(torch.equal(fin.rnorm_history.view(torch.int32), fin2.rnorm_history.view(torch.int32)),
+              f"MINRES {label}: fused history not bitwise repeatable")
+        print(f"  MINRES {label}: fused {int(fin.iterations)} its vs portable {int(pin.iterations)}; "
+              f"25-step history agrees on {int(keep.sum())} entries; bitwise repeat ok")
+        check_stops_at_done(f"portable MINRES {label}", counter.calls, int(pin.iterations))
+
+    # (d) an indefinite solve in both storages: shift between the Ritz extremes
+    sym, full = load_symbell(MATRICES[1], dev), load_bell(MATRICES[1], dev)
+    shift, lo, hi = ritz_shift(sym, 0.01)
+    be = torch.arange(1, sym.n + 1, dtype=torch.float32, device=dev)
+    tt = MINRES_INDEF_TOL_REL * float(be.double().norm())
+    for label, a in (("symmetric", sym), ("full", full)):
+        x, info = minres_solve(a, be, tol=tt, shift=shift, maxiter=4 * a.n)
+        k = int(info.iterations)
+        h = info.rnorm_history.double().cpu().numpy()[: k + 1]
+        true_r = float((be - (a.matvec(x) - shift * x)).double().norm())
+        check(bool(info.converged), f"indefinite MINRES {label}: not converged in {k}")
+        check(bool(np.all(np.diff(h) <= 0)), f"indefinite MINRES {label}: the history increases")
+        check(abs(float(info.rnorm_true) - true_r) <= 1e-3 * true_r
+              and true_r <= MINRES_TRUE_FACTOR * max(float(info.rnorm), tt),
+              f"indefinite MINRES {label}: rnorm_true {float(info.rnorm_true)}, ||b - (A - sI)x|| "
+              f"{true_r}, estimate {float(info.rnorm)}")
+        print(f"  indefinite MINRES elasticity3d_16 {label}, shift {shift:.4f} (Ritz extremes "
+              f"{lo:.4f}, {hi:.4f}): {k} its to {MINRES_INDEF_TOL_REL:g} ||b||, history "
+              f"non-increasing, rnorm_true / rnorm = {float(info.rnorm_true) / float(info.rnorm):.2f} "
+              f"(at most {MINRES_TRUE_FACTOR:g})")
+
+    # (e) caps of 1, 2 and 7 steps: the pending update is flushed
+    bb = torch.arange(1, p3d.n + 1, dtype=torch.float32, device=dev) / p3d.n
+    for a, label in ((p3d, "symmetric"), (p3d_full, "full")):
+        for cap in (1, 2, 7):
+            xf, fi = fused_minres_solve(a, bb, tol=0.0, maxiter=cap)
+            xp, _ = minres_solve(a, bb, tol=0.0, maxiter=cap, fused="never")
+            e, m = rel_max_err(xf, xp)
+            check(int(fi.iterations) == cap and e <= 1e-4 * m,
+                  f"MINRES cap {cap} {label}: {int(fi.iterations)} steps, x differs by {e} (max {m})")
+    print("  fused MINRES capped at 1, 2, 7 steps (both storages): x equals the portable "
+          "loop's to 1e-4 of max|x|")
+    # (f) b = 0, and an x0 warm start (r0 through kernel 5 on full storage)
+    x, info = minres_solve(p3d, torch.zeros_like(bb), tol=1e-30)
+    check(int(info.iterations) == 0 and bool(info.converged) and not bool(x.any()),
+          f"MINRES b = 0: {int(info.iterations)} iterations")
+    x0 = torch.as_tensor(np.random.default_rng(5).standard_normal(p3d_full.n),
+                         dtype=torch.float32, device=dev)
+    bb = torch.arange(1, p3d_full.n + 1, dtype=torch.float32, device=dev)
+    before = _common.LAUNCHES["bell_spmv"]
+    x, info = minres_solve(p3d_full, bb, x0, tol=tol)
+    r0 = (bb.cpu() - p3d_full.to("cpu").matvec(x0.cpu())).double()
+    e0 = abs(float(info.rnorm_history[0]) / float(r0.norm()) - 1)
+    true_rel = float((bb - p3d_full.matvec(x)).double().norm()) / float(bb.double().norm())
+    check(_common.LAUNCHES["bell_spmv"] >= before + 2, "MINRES x0 warm start did not launch kernel 5")
+    check(bool(info.converged) and e0 <= TOL_DOT and true_rel < 1e-3,
+          f"MINRES x0 warm start: converged {bool(info.converged)}, ||r0|| off by {e0}, true "
+          f"relative residual {true_rel}")
+    print(f"  MINRES b = 0: 0 its; x0 warm start poisson3d_48 full: {int(info.iterations)} its, "
+          f"||r0|| rel diff {e0:.3g}, true relative residual {true_rel:.3e}")
+    torch.cuda.synchronize()
+
+
+def fused_cg_only(dev, card) -> None:
+    """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
+    and a hash of each history, for comparing two trees on one card."""
+    import torch
+
+    from conjugategradient_tpu_torch import StencilOperator, fused_bell_cg_solve, fused_stencil_cg_solve
+    from conjugategradient_tpu_torch.utils import Timer
+
+    big_full, big = block_tridiag_ops(N_BIG, 128, dev)
+    b = torch.arange(1, N_BIG + 1, dtype=torch.float32, device=dev)
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    bs = stencil_rhs(op.shape[0], dev, scale=op.shape[0])
+    for label, solve, a, rhs in (("n=262144 symmetric", fused_bell_cg_solve, big, b),
+                                 ("n=262144 full", fused_bell_cg_solve, big_full, b),
+                                 ("stencil 256^3", fused_stencil_cg_solve, op, bs)):
+        solve(a, rhs, tol=-1.0, maxiter=32)
+        best = float("inf")
+        for _ in range(3):
+            t = Timer(dev).start_measure()
+            _, info = solve(a, rhs, tol=-1.0, maxiter=256)
+            t.stop_measure()
+            best = min(best, t.get_duration() / 256)
+        digest = hashlib.sha256(info.rho_history.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"  fused CG {label}: {best:.5f} ms/it (best of 3 runs of 256 steps), "
+              f"rho_history sha256 {digest}  [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1425,12 +1932,16 @@ def main() -> int:
     lib = _build.build()
     _build.load_library()
     print(f"phase 1: built {os.path.relpath(str(lib), ROOT)} in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--fused-cg-only"]:
+        fused_cg_only(dev, card)
+        return 0
 
     print("phase 2: kernels vs plain versions")
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
     errs, times, extra, ops = phase_kernels(dev, big, big_full)
     dia_ops = phase_dia_kernels(dev, errs, times, extra)
     phase_stencil_kernels(dev, errs, times, extra)
+    phase_minres_kernels(dev, big, big_full, ops, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
         more = ""
         if "bound_ms" in t:
@@ -1450,6 +1961,7 @@ def main() -> int:
          lambda: phase_main_path(dev, big, big_full, ops, card)),
         ("DIA / SELL", DIA_KERNELS, lambda: phase_dia_path(dev, dia_ops, card)),
         ("stencil", STENCIL_KERNELS, lambda: phase_stencil_path(dev, card)),
+        ("MINRES", MINRES_KERNELS, lambda: phase_minres_path(dev, big, big_full, ops, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()
@@ -1462,7 +1974,7 @@ def main() -> int:
         for name, count in plain_on_cuda.items():
             check(count == 0, f"plain {name} ran on CUDA tensors in the {label} path")
 
-    print(f"phase 4: launches {launches}")
+    print(f"phase 4: launches {launches}; {time.perf_counter() - t0:.1f} s since the build began")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

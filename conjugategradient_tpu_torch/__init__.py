@@ -10,7 +10,10 @@ Blocked-ELL CG and Jacobi PCG, and stencil CG, run as two hand-written
 CUDA kernels per iteration (``ops/cuda``, sources in ``csrc/``); the full
 blocked-ELL SpMV, both DIA SpMVs and the stencil apply (float32 and
 float64) are kernels of their own, under the portable loop and multigrid.
-CSR, SELL and the rest of the portable loop run in plain torch.  Entry
+MINRES for symmetric indefinite systems (``minres_solve``, with a shift)
+runs on blocked-ELL as two more such kernels per iteration, and on every
+other layout as a portable loop.  CSR, SELL and the rest of the portable
+loops run in plain torch.  Entry
 points put operators on the card (``"cuda"``) unless the caller passes
 ``device="cpu"``.  Imports torch, never jax.
 """
@@ -18,13 +21,17 @@ points put operators on the card (``"cuda"``) unless the caller passes
 from .io import load_matrix
 from .solver import (
     CGInfo,
+    MinresInfo,
     accuracy,
     cg_solve,
     expected_step_count,
     fused_bell_cg_solve,
     fused_bell_pcg_solve,
+    fused_minres_solve,
+    fused_minres_supported,
     fused_stencil_cg_solve,
     jacobi_preconditioner,
+    minres_solve,
     multigrid_preconditioner,
 )
 from .types import (
@@ -47,6 +54,7 @@ __all__ = [
     "DIAMatrix",
     "DenseOperator",
     "LinearOperator",
+    "MinresInfo",
     "SellMatrix",
     "StencilOperator",
     "SymBellMatrix",
@@ -57,8 +65,11 @@ __all__ = [
     "expected_step_count",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
+    "fused_minres_solve",
+    "fused_minres_supported",
     "fused_stencil_cg_solve",
     "jacobi_preconditioner",
     "load_matrix",
+    "minres_solve",
     "multigrid_preconditioner",
 ]

@@ -12,8 +12,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .ops.cuda import fused_minres as fm
 from .ops.cuda.fused_cg import S_BETA, S_RHO, S_RNORM, FusedWork
 from .solver.fused import FusedCGState
+from .solver.fused_minres import FusedMinresState
 from .types import (
     DEFAULT_DEVICE,
     BlockedEllMatrix,
@@ -110,3 +112,41 @@ def fused_state_from_arrays(x, r, p, beta, rho, k: int, done: bool, hist,
     work.hist.copy_(torch.from_numpy(hist))
     x, r, p = (_t(v, device, np.float32) for v in (x, r, p))
     return FusedCGState(x=x, r=r, p=p, work=work)
+
+
+def fused_minres_state_from_arrays(
+        x, r1, r2, vprev, wm1, wm2, beta, oldb, dbar, epsln, phibar, cs, sn,
+        p_oldeps, p_delta, p_igamma, p_phi, k: int, done: bool, nan: bool, hist,
+        tol: float = 0.0, shift: float = 0.0, inv_diag2d=None,
+        device=DEFAULT_DEVICE) -> FusedMinresState:
+    """A ``FusedMinresState`` from the JAX ``FusedMinresState``'s fields:
+    the six (rows, bn) vectors (each gets a buffer of its own here: the
+    port's step updates them in place), the (1, 1) scalars, k, done, nan and
+    the history, whose length sets maxiter.  ``tol``, ``shift`` and the
+    padded Jacobi diagonal ``inv_diag2d`` are arguments of the JAX step
+    that the port keeps in the state."""
+    def f(v) -> float:
+        return float(np.asarray(v).reshape(-1)[0])
+
+    hist = np.array(hist, np.float32, copy=True)
+    maxiter = len(hist) - 1
+    k, done, nan = int(k), bool(done), bool(nan)
+    work = fm.MinresWork.new(device, maxiter=maxiter, tol=tol, shift=shift)
+    scal = np.zeros(fm.N_SCAL, np.float32)
+    for slot, val in (
+        (fm.SU_INV_BETA, np.float32(1.0) / np.float32(f(beta))), (fm.SU_SHIFT, shift),
+        (fm.SU_OLDEPS, f(p_oldeps)), (fm.SU_DELTA, f(p_delta)),
+        (fm.SU_IGAMMA, f(p_igamma)), (fm.SU_PHI, f(p_phi)),
+        (fm.M_BETA, f(beta)), (fm.M_OLDB, f(oldb)), (fm.M_DBAR, f(dbar)),
+        (fm.M_EPSLN, f(epsln)), (fm.M_PHIBAR, f(phibar)), (fm.M_CS, f(cs)),
+        (fm.M_SN, f(sn)), (fm.M_TOL, tol),
+    ):
+        scal[slot] = val
+    work.scal.copy_(torch.from_numpy(scal))
+    work.ctl.copy_(torch.tensor(
+        [k, int(done), maxiter, int(not done and k < maxiter), int(nan)],
+        dtype=torch.int32))
+    work.hist.copy_(torch.from_numpy(hist))
+    vecs = [_t(v, device, np.float32) for v in (x, r1, r2, vprev, wm1, wm2)]
+    d = None if inv_diag2d is None else _t(inv_diag2d, device, np.float32)
+    return FusedMinresState(*vecs, work=work, d=d, launched=k)

@@ -51,6 +51,10 @@ SIGNATURES = {
     "cg_stencil7_f32": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],
     "cg_stencil7_f64": [_P] * 2 + [_I] * 3 + [_D, _D, _I, _P],
     "cg_fused_stencil_dir": [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P],
+    "minres_full_dir": [_P] * 20 + [_I] * 4 + [_P],
+    "minres_sym_dir_banded": [_P] * 21 + [_I] * 3 + [_P],
+    "minres_sym_dir_general": [_P] * 23 + [_I] * 5 + [_P],
+    "minres_update": [_P] * 13 + [_I, _I64, _I, _P],
 }
 
 

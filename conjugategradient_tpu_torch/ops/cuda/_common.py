@@ -25,6 +25,9 @@ LAUNCHES = {
     "sym_dia_spmv": 0,
     "stencil7": 0,
     "fused_stencil_dir_dot": 0,
+    "minres_dir_spmv_dot": 0,
+    "sym_minres_dir_spmv_dot": 0,
+    "minres_update_dot": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 

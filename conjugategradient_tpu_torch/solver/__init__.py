@@ -7,7 +7,9 @@ from .fused import (
     fused_cg_step,
     fused_supported,
 )
+from .fused_minres import fused_minres_solve, fused_minres_supported
 from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
+from .minres import MinresInfo, minres_solve
 from .multigrid import multigrid_preconditioner
 from .precond import jacobi_preconditioner
 
@@ -15,6 +17,7 @@ __all__ = [
     "CGInfo",
     "CGState",
     "FusedCGState",
+    "MinresInfo",
     "accuracy",
     "cg_init",
     "cg_solve",
@@ -24,9 +27,12 @@ __all__ = [
     "fused_bell_pcg_solve",
     "fused_cg_init",
     "fused_cg_step",
+    "fused_minres_solve",
+    "fused_minres_supported",
     "fused_stencil_cg_solve",
     "fused_stencil_supported",
     "fused_supported",
     "jacobi_preconditioner",
+    "minres_solve",
     "multigrid_preconditioner",
 ]

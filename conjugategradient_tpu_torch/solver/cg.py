@@ -16,9 +16,10 @@
 
 The loop stays on the device: k, done, ρ and the history are tensors, a
 step after ``done`` (or at the iteration cap) is a masked no-op, and the
-host reads the ``done`` flag only every ``CHECK_EVERY`` steps
-(solver/restart.py) — the port of the JAX package's single jitted
-``lax.while_loop``.
+host follows the ``done`` flag through non-blocking copies, a few steps
+behind the device (solver/restart.py), so the loop ends at most
+``LOOKAHEAD - 1`` steps after convergence — the port of the JAX package's
+single jitted ``lax.while_loop``.
 """
 
 from __future__ import annotations
@@ -223,7 +224,8 @@ def cg_solve(
     def replace():
         box[0] = cg_replace(op, box[0], b, every, M=M)
 
-    run_chunked(step, lambda: box[0].live, maxiter, every, replace)
+    run_chunked(step, lambda: box[0].live, maxiter, every, replace,
+                done=lambda: box[0].done)
     s = box[0]
     info = CGInfo(
         iterations=s.k,

@@ -26,6 +26,7 @@ import numpy as np
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
 _PRECONDS = ("none", "jacobi", "amg")
+_METHODS = ("standard", "minres")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -60,6 +61,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="multigrid smoother (with --precond amg): nu "
                          "damped-Jacobi sweeps or the degree-nu Chebyshev "
                          "semi-iteration")
+    ap.add_argument("--method", default="standard",
+                    help="standard = CG; minres = Paige-Saunders MINRES for "
+                         "symmetric INDEFINITE systems (monotone residual "
+                         "norms; takes an SPD --precond; float32 blocked "
+                         "layouts run fused CUDA kernels on a GPU)")
+    ap.add_argument("--shift", type=float, default=0.0,
+                    help="solve (A - shift*I) x = b (with --method minres: "
+                         "the Paige-Saunders spectral shift)")
     ap.add_argument("--bm", type=int, default=128,
                     help="blocked-ELL row tile (also read by --layout auto)")
     ap.add_argument("--bn", type=int, default=128,
@@ -104,14 +113,15 @@ def main(argv=None) -> int:
         return _not_ported(" ".join(unknown))
     for flag, value, ported in (("--layout", args.layout, _LAYOUTS),
                                 ("--dtype", args.dtype, _DTYPES),
-                                ("--precond", args.precond, _PRECONDS)):
+                                ("--precond", args.precond, _PRECONDS),
+                                ("--method", args.method, _METHODS)):
         if value not in ported:
             return _not_ported(f"{flag} {value}")
 
     import torch
 
-    from . import (StencilOperator, accuracy, cg_solve, jacobi_preconditioner, load_matrix,
-                   multigrid_preconditioner)
+    from . import (CGInfo, StencilOperator, accuracy, cg_solve, jacobi_preconditioner,
+                   load_matrix, minres_solve, multigrid_preconditioner)
     from .utils import Timer
 
     device = torch.device(args.device)
@@ -122,6 +132,14 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     if args.recompute < 0:
         print("error: --recompute must be >= 0", file=sys.stderr)
+        return 2
+    if args.shift and args.method != "minres":
+        print("error: --shift drives --method minres (the Paige-Saunders "
+              "shifted solve)", file=sys.stderr)
+        return 2
+    if args.recompute > 0 and args.method != "standard":
+        print("error: --recompute drives the standard or pipelined "
+              "single-RHS loop", file=sys.stderr)
         return 2
     perm = None
     if args.mtx.startswith("stencil:"):
@@ -157,6 +175,15 @@ def main(argv=None) -> int:
         M = None
 
     def solve():
+        if args.method == "minres":
+            x, ninfo = minres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
+                                    shift=args.shift)
+            # the printing below reads a CGInfo, whose history holds squared
+            # norms; MINRES carries norm estimates
+            sq = ninfo.rnorm * ninfo.rnorm
+            return x, CGInfo(iterations=ninfo.iterations, converged=ninfo.converged,
+                             rho=sq, rnorm_sq=sq,
+                             rho_history=ninfo.rnorm_history * ninfo.rnorm_history)
         return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
                         recompute_r_every=args.recompute)
 
@@ -167,7 +194,12 @@ def main(argv=None) -> int:
 
     # with --reorder the solve runs in RCM ordering; the printed metrics are
     # permutation-invariant, so x is not mapped back
-    rel_err = float(accuracy(A, b, x))
+    if args.shift:
+        # the shifted solve's operator is A − σI: rel_error must use it
+        res = b - (A.matvec(x) - args.shift * x)
+        rel_err = float(torch.abs(torch.sum(res * res) / torch.sum(x * x)))
+    else:
+        rel_err = float(accuracy(A, b, x))
     print(f"{n} {nnz} {t.get_duration()} {rel_err}")
     hist_all = info.rho_history.double().cpu().numpy()
     k = int(info.iterations)

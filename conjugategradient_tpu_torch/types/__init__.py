@@ -1,4 +1,10 @@
-from .base import DEFAULT_DEVICE, DenseOperator, LinearOperator, as_linear_operator
+from .base import (
+    DEFAULT_DEVICE,
+    DenseOperator,
+    LinearOperator,
+    MatrixFreeOperator,
+    as_linear_operator,
+)
 from .bell import BlockedEllMatrix, SymBellMatrix, mirror_index, pack_host_arrays
 from .csr import CSRMatrix
 from .dia import DIAMatrix, SymDIAMatrix
@@ -12,6 +18,7 @@ __all__ = [
     "DIAMatrix",
     "DenseOperator",
     "LinearOperator",
+    "MatrixFreeOperator",
     "SellMatrix",
     "StencilOperator",
     "SymBellMatrix",

@@ -8,7 +8,7 @@ operators as plain dataclasses holding tensors on an explicit device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,11 +86,43 @@ class DenseOperator(LinearOperator):
         return torch.diagonal(self.a)
 
 
-def as_linear_operator(a: Any, device=None) -> LinearOperator:
-    """Coerce a LinearOperator or a dense square 2-D tensor/array into a
-    LinearOperator."""
+class MatrixFreeOperator(LinearOperator):
+    """Wrap an ``x -> A x`` callable on torch tensors of ``n`` entries."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], n: int,
+                 dtype: torch.dtype = torch.float32, device="cpu"):
+        self.fn = fn
+        self._n = int(n)
+        self._dtype = dtype
+        self._device = torch.device(device)
+
+    @property
+    def shape(self):
+        return (self._n, self._n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self):
+        return self._device
+
+    def matvec(self, x):
+        return self.fn(x)
+
+
+def as_linear_operator(a: Any, device=None, n: Optional[int] = None,
+                       dtype: Optional[torch.dtype] = None) -> LinearOperator:
+    """Coerce a LinearOperator, a dense square 2-D tensor/array or an
+    ``x -> A x`` callable (which needs ``n``, the system's dimension) into
+    a LinearOperator."""
     if isinstance(a, LinearOperator):
         return a
+    if callable(a) and not isinstance(a, (torch.Tensor, np.ndarray)):
+        if n is None:
+            raise ValueError("matrix-free callables need n= (system dimension)")
+        return MatrixFreeOperator(a, n, dtype or torch.float32, device or "cpu")
     t = torch.as_tensor(a, device=device)
     if t.ndim != 2 or t.shape[0] != t.shape[1]:
         raise ValueError(f"expected a square 2-D operator, got shape {tuple(t.shape)}")

@@ -299,3 +299,197 @@ def test_stencil_solves_take_the_kernels(dev):
     assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
     with pytest.raises(ValueError, match="StencilOperator"):
         cg_solve(op, b, M=multigrid_preconditioner(op), fused="always")
+
+
+# ---- kernels 14-16: the fused MINRES iteration ---------------------------------
+
+def _minres_operands(a, dev, seed, with_d, first=False):
+    """Six random (nrb, bn) vectors, the (1, 8) scalar row (``first``: the
+    first step's, with no pending update) and d (or None)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    g = torch.Generator().manual_seed(seed)
+    vecs = [torch.randn(a.nrb, a.bn, generator=g).to(dev) for _ in range(6)]
+    su = torch.zeros(1, 8)
+    su[0, fm.SU_INV_BETA], su[0, fm.SU_SHIFT] = 0.31, 0.07
+    if not first:
+        su[0, fm.SU_OLDEPS], su[0, fm.SU_DELTA] = 0.11, 0.23
+        su[0, fm.SU_IGAMMA], su[0, fm.SU_PHI] = 0.57, 0.83
+    d = (torch.rand(a.nrb, a.bn, generator=g) + 0.5).to(dev) if with_d else None
+    return vecs, su.to(dev), d
+
+
+def _check_minres_dir(k, pl):
+    """v, w, x' bit for bit; q and the dots to RTOL."""
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):
+        assert torch.equal(k[i], pl[i]), ("v", "q", "w", "x")[i]
+    _close(k[1], pl[1])
+    for i in (4, 5):
+        np.testing.assert_allclose(float(k[i]), float(pl[i]), rtol=RTOL,
+                                   atol=RTOL * float(pl[1].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("bn,row_group", [(32, None), (32, 3), (128, 1)])
+def test_minres_full_dir_kernel_matches_plain(dev, bn, row_group, with_d):
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.spmv import bell_apply
+
+    rng = np.random.default_rng(bn)
+    a = BlockedEllMatrix.from_csr_host(*_block_csr(rng, 13, bn, bn, 3), bm=bn, bn=bn, device=dev)
+    for first in (False, True):
+        vecs, su, d = _minres_operands(a, dev, 3, with_d, first)
+        before = fc.LAUNCHES["minres_dir_spmv_dot"]
+        k = fm.minres_dir_spmv_dot(a.blocks, a.block_cols, *vecs, su, d, row_group=row_group)
+        k2 = fm.minres_dir_spmv_dot(a.blocks, a.block_cols, *vecs, su, d, row_group=row_group)
+        assert fc.LAUNCHES["minres_dir_spmv_dot"] == before + 2
+        pl = fm._dir_plain("minres_dir_spmv_dot",
+                           lambda v: bell_apply(a.blocks, a.block_cols, v), vecs, su, d,
+                           None, None)
+        _check_minres_dir(k, pl)
+        assert all(torch.equal(x, y) for x, y in zip(k, k2))
+        if first:
+            assert torch.equal(k[3], vecs[5]) and not k[2].any()  # x kept, w = 0
+    with pytest.raises(TypeError, match="not ported"):
+        fm.minres_dir_spmv_dot(a.blocks.bfloat16(), a.block_cols, *vecs, su, d)
+    with pytest.raises(ValueError, match="alias"):
+        fm.minres_dir_spmv_dot(a.blocks, a.block_cols, *vecs, su, d,
+                               out=(vecs[0], *(torch.empty_like(vecs[0]) for _ in range(3))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("mirror", ["scatter", "banded"])
+def test_minres_sym_dir_kernel_matches_plain_in_place(dev, mirror, with_d):
+    """Kernel 15 against its plain version, launched in place as the solver
+    launches it (v over v_prev, w over w-2, x over x)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.spmv import sym_bell_apply
+
+    rng = np.random.default_rng(1)
+    bn, nrb = 32, 13
+    if mirror == "banded":
+        n = nrb * bn
+        blocks, bcols, nnz = block_tridiag_tiles(n, bn, bn, seed=2)
+        a = SymBellMatrix._pack_np(blocks, bcols.astype(np.int64), (n, n), (n, n), nnz,
+                                   check=False, device=dev)
+    else:
+        a = SymBellMatrix.from_bell(BlockedEllMatrix.from_csr_host(
+            *_block_csr(rng, nrb, bn, bn, 3), bm=bn, bn=bn, device=dev))
+    op = (a.diag_blocks, a.off_blocks, a.off_cols)
+    vecs, su, d = _minres_operands(a, dev, 5, with_d)
+    pl = fm._dir_plain(
+        "sym_minres_dir_spmv_dot",
+        lambda v: sym_bell_apply(*op, a.mirror_src, v), vecs, su, d, None, None)
+    for rg in (4, 8):
+        k = fm.sym_minres_dir_spmv_dot(*op, *vecs, su, d, mirror=mirror, row_group=rg,
+                                       mirror_src=a.mirror_src)
+        _check_minres_dir(k, pl)
+    r2, r1, vprev, wm1, wm2, x = (v.clone() for v in vecs)
+    q = torch.empty_like(r2)
+    before = fc.LAUNCHES["sym_minres_dir_spmv_dot"]
+    k = fm.sym_minres_dir_spmv_dot(*op, r2, r1, vprev, wm1, wm2, x, su, d, mirror=mirror,
+                                   row_group=4, mirror_src=a.mirror_src,
+                                   out=(vprev, q, wm2, x))
+    assert fc.LAUNCHES["sym_minres_dir_spmv_dot"] == before + 1
+    _check_minres_dir(k, pl)
+    assert torch.equal(r2, vecs[0]) and torch.equal(r1, vecs[1]) and torch.equal(wm1, vecs[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("shape", [(13, 32), (2048, 128)])
+def test_minres_update_kernel_and_scalar_steps(dev, shape, with_d):
+    """Kernel 16: r2' bit for bit (also written over r1), beta^2 to RTOL; the
+    scalar steps of both kernels' last CTAs against the plain versions'
+    torch ops on the same dots, to 2 ulp; a no-op once not live."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    q, r1, r2 = (torch.randn(shape, device=dev) for _ in range(3))
+    d = torch.rand(shape, device=dev) + 0.5 if with_d else None
+
+    def work():
+        w = fm.MinresWork.new(dev, maxiter=9, tol=1e-3, shift=0.07)
+        w.scal[fm.M_OLDB], w.scal[fm.M_DBAR], w.scal[fm.M_EPSLN] = 1.7, 0.4, 0.2
+        w.scal[fm.M_CS], w.scal[fm.M_SN], w.scal[fm.M_ALFA] = -0.8, 0.6, 2.2
+        w.scal[fm.M_C1], w.scal[fm.M_IA] = 0.4, 0.9
+        w.start(torch.tensor(2.3, device=dev))
+        return w
+
+    wk, wp = work(), work()
+    before = fc.LAUNCHES["minres_update_dot"]
+    yk, bk = fm.minres_update_dot(q, r1, r2, wk.c1, wk.ia, d, work=wk)
+    assert fc.LAUNCHES["minres_update_dot"] == before + 1
+    yp, bp = fm._update_plain(q, r1, r2, wp.c1, wp.ia, d, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp)
+    np.testing.assert_allclose(float(bk), float(bp), rtol=RTOL)
+    fm.finish_update(wp, bk[0, 0])  # the plain scalar step on the kernel's own dot
+    ulp = (wk.scal[:fm.M_VQ].view(torch.int32) - wp.scal[:fm.M_VQ].view(torch.int32)).abs().max()
+    assert int(ulp) <= 2, (wk.scal, wp.scal)
+    assert bk.data_ptr() == wk.dots[2].data_ptr()  # a solve's dots live in its work
+    assert torch.equal(wk.ctl, wp.ctl) and int(wk.ctl[fc.C_K]) == 1
+    for w in (wk, wp):  # hist[k] is the new estimate
+        assert float(w.hist[1]) == float(w.scal[fm.M_PHIBAR]) and torch.isnan(w.hist[2])
+    # in place over r1, as the solver launches it
+    r1c = r1.clone()
+    y2, _ = fm.minres_update_dot(q, r1c, r2, wp.c1, wp.ia, d, out=r1c)
+    assert torch.equal(y2, yp) and y2.data_ptr() == r1c.data_ptr()
+    # kernel 1's scalar step: c1, alpha, alpha / beta
+    fm.finish_dir(wp, torch.tensor(1.3, device=dev), torch.tensor(-0.4, device=dev))
+    beta, oldb = float(wp.scal[fm.M_BETA]), float(wp.scal[fm.M_OLDB])
+    np.testing.assert_allclose(float(wp.scal[fm.M_C1]), beta / oldb, rtol=1e-6)
+    # not live: nothing changes
+    wk.ctl[fc.C_LIVE] = 0
+    kept = (yk.clone(), wk.scal.clone(), wk.ctl.clone())
+    fm.minres_update_dot(2 * q, r1, r2, wk.c1, wk.ia, d, out=yk, work=wk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(kept, (yk, wk.scal, wk.ctl)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["full", "sym-banded", "sym-general"])
+def test_fused_minres_solve_takes_the_kernels(dev, storage):
+    """The fused solve on the card against the plain-version loop on the
+    CPU: history to 2e-3 over 24 steps (f32 sums in another order), bitwise
+    repeatable, x flushed at caps 1, 2 and 7, and dispatched to by
+    ``minres_solve``."""
+    from conjugategradient_tpu_torch import fused_minres_solve, jacobi_preconditioner, minres_solve
+
+    rng = np.random.default_rng(7)
+    bn, nrb = 32, 13
+    n = nrb * bn
+    if storage == "sym-general":
+        a = SymBellMatrix.from_bell(BlockedEllMatrix.from_csr_host(
+            *_block_csr(rng, nrb, bn, bn, 3), bm=bn, bn=bn, device=dev))
+    else:
+        blocks, bcols, nnz = block_tridiag_tiles(n, bn, bn, seed=2)
+        a = BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(bcols).to(dev),
+                             (n, n), nnz)
+        if storage == "sym-banded":
+            a = SymBellMatrix.from_bell(a)
+            assert a.banded
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    name = "minres_dir_spmv_dot" if storage == "full" else "sym_minres_dir_spmv_dot"
+    ac = a.to("cpu")
+    for shift, M in ((0.0, None), (1.0, None), (0.0, jacobi_preconditioner(a))):
+        inv = None if M is None else M.inv_diag
+        fc.reset_counts()
+        _, ik = minres_solve(a, b, tol=0.0, maxiter=24, shift=shift, M=M)
+        assert fc.LAUNCHES[name] == fc.LAUNCHES["minres_update_dot"] == 24
+        _, ik2 = fused_minres_solve(a, b, tol=0.0, maxiter=24, shift=shift, inv_diag=inv)
+        assert torch.equal(ik.rnorm_history.view(torch.int32), ik2.rnorm_history.view(torch.int32))
+        _, ip = fused_minres_solve(ac, b.cpu(), tol=0.0, maxiter=24, shift=shift,
+                                   inv_diag=None if inv is None else inv.cpu())
+        hk, hp = ik.rnorm_history.double().cpu().numpy(), ip.rnorm_history.double().numpy()
+        np.testing.assert_allclose(hk, hp, rtol=2e-3, atol=1e-6 * hp[0])
+        assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    for cap in (1, 2, 7):
+        xk, ik = fused_minres_solve(a, b, tol=0.0, maxiter=cap)
+        xp, _ = minres_solve(ac, b.cpu(), tol=0.0, maxiter=cap, fused="never")
+        assert int(ik.iterations) == cap
+        torch.testing.assert_close(xk.cpu(), xp, rtol=1e-4, atol=1e-6)
+    x, info = minres_solve(a, torch.zeros_like(b), tol=1e-30)
+    assert int(info.iterations) == 0 and not x.any()

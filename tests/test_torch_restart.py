@@ -12,7 +12,10 @@ Tolerances, with their reasons:
   in interpret mode: ``rho_history`` to rtol 2e-3 over 32 steps, as
   tests/test_fused.py holds the JAX fused restart against its unfused one
   (f32 sums in another order; the replaced slots included);
-* chunked against per-step host checks: bitwise (the same operations).
+* chunked against per-step host checks: bitwise (the same operations);
+* the portable loops end at convergence: on CPU tensors no step is launched
+  after the one that set ``done``; with a flag that arrives late (as on a
+  card) at most ``LOOKAHEAD - 1`` are.
 """
 
 import jax.numpy as jnp
@@ -195,6 +198,87 @@ def test_chunked_host_checks_match_per_step(poisson32, monkeypatch, path, every)
     assert bool(i1.converged) and int(i32.iterations) == k > 40
     assert torch.equal(i32.rho_history.view(torch.int32), i1.rho_history.view(torch.int32))
     assert torch.equal(x32, x1)
+
+
+@pytest.mark.parametrize("solver", ["cg", "pcg", "cg-restart", "minres"])
+def test_portable_loop_stops_at_convergence(monkeypatch, solver):
+    """Count the calls of the step: the portable loop launches none after
+    the step that set ``done`` (CPU tensors: the flag is read directly), and
+    ``iterations``, the history and x equal those of a run that launches
+    every step up to the next blocking read (no polling)."""
+    from conjugategradient_tpu_torch import minres_solve
+    from conjugategradient_tpu_torch.solver import cg, minres
+
+    rows, cols, vals, shape = poisson2d_coo(12)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, device="cpu")
+    b = torch.from_numpy(reference_rhs(shape[0]))
+    M = jacobi_preconditioner(A) if solver == "pcg" else None
+    mod, name = (minres, "minres_step") if solver == "minres" else (cg, "cg_step")
+    calls = []
+    real = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+
+    def solve():
+        del calls[:]
+        if solver == "minres":
+            x, info = minres_solve(A, b, tol=1e-6)
+            return x, info.iterations, info.rnorm_history, len(calls)
+        x, info = cg_solve(A, b, tol=1e-6, M=M,
+                           recompute_r_every=8 if solver == "cg-restart" else 0)
+        return x, info.iterations, info.rho_history, len(calls)
+
+    x, k, hist, launched = solve()
+    assert launched == int(k) and 8 < launched and launched % restart.CHECK_EVERY
+    monkeypatch.setattr(restart, "_DonePoll", lambda flag: None)  # the loop as it was
+    x0, k0, hist0, launched0 = solve()
+    assert launched0 == -(-int(k) // restart.CHECK_EVERY) * restart.CHECK_EVERY > launched
+    assert int(k0) == int(k) and torch.equal(x0, x)
+    assert torch.equal(hist0.view(torch.int64), hist.view(torch.int64))
+
+
+def test_done_poll_bounds_the_steps_after_done():
+    """A flag whose copy arrives late, as on a card where the host runs
+    ahead: the loop waits for the oldest copy once ``LOOKAHEAD`` are in
+    flight, so at most ``LOOKAHEAD - 1`` steps follow the one that set it."""
+
+    class LatePoll(restart._DonePoll):
+        """The CUDA path's bookkeeping with copies that land only when
+        waited for (``synchronize``) and never by themselves (``query``)."""
+
+        def __init__(self, flag):
+            self.flag, self.cuda = flag, True
+            self.slots = [None] * restart.LOOKAHEAD
+            self.events = [self] * restart.LOOKAHEAD
+            self.pending, self.pushed, self.waits = restart.collections.deque(), 0, 0
+            self.push()
+
+        def push(self):
+            i = self.pushed % restart.LOOKAHEAD
+            self.pushed += 1
+            self.slots[i] = bool(self.flag())
+            self.pending.append(i)
+
+        def synchronize(self):
+            self.waits += 1
+
+        def query(self):
+            return False
+
+    for done_at in (0, 1, 5, 31, 32, 33, 70):
+        state = {"steps": 0}
+
+        def step():
+            state["steps"] += 1
+
+        poll = LatePoll(lambda: torch.tensor(state["steps"] >= done_at))
+        orig, restart._DonePoll = restart._DonePoll, lambda flag: poll
+        try:
+            restart.run_chunked(step, lambda: torch.tensor(state["steps"] < done_at), 200,
+                                done=lambda: None)
+        finally:
+            restart._DonePoll = orig
+        assert done_at <= state["steps"] <= done_at + restart.LOOKAHEAD - 1, (done_at, state)
+    assert restart.LOOKAHEAD - 1 <= 4
 
 
 def test_negative_every_raises():

@@ -202,3 +202,68 @@ def test_stencil_solves(capsys, extra):
     assert summ["converged"] == [True]
     if "amg" in extra:
         assert summ["iterations"][0] <= 12
+
+
+# --method minres and --shift (the JAX tester's lane for symmetric indefinite systems)
+@pytest.mark.parametrize("extra", [
+    [], ["--precond", "jacobi"], ["--layout", "symbell", "--dtype", "float32", "--tol", "1e-1"],
+    ["--layout", "bell", "--dtype", "float32", "--tol", "1e-1", "--precond", "jacobi"],
+], ids=lambda a: " ".join(a) or "csr-f64")
+def test_minres_matches_the_jax_tester(capsys, extra):
+    import tester as jtester
+
+    args = [MTX, "--method", "minres", "--tol", "1e-8", "--summary", *extra]
+    assert jtester.main(args) == 0
+    jlines = capsys.readouterr().out.strip().splitlines()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlines = capsys.readouterr().out.strip().splitlines()
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    js, ts = json.loads(jlines[1]), json.loads(tlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    if "float32" in extra:  # f32 counts are not pinned: a few steps apart at most
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 4
+    else:
+        assert ts["iterations"] == js["iterations"]
+        np.testing.assert_allclose(ts["final_rnorm"], js["final_rnorm"], rtol=1e-6)
+    assert 0 <= float(tlines[0].split()[3]) < (1e-8 if "float32" in extra else 1e-20)
+
+
+def test_minres_shift_history_is_norms_and_rel_error_uses_the_shifted_operator(capsys):
+    """--shift inside the spectrum (indefinite): the history line holds the
+    estimates themselves (the adapter squares them, the printing takes the
+    root), non-increasing, and rel_error is that of (A - shift I) x = b."""
+    import tester as jtester
+
+    args = [MTX, "--method", "minres", "--shift", "0.5", "--tol", "1e-6", "--maxiter", "5000",
+            "--history", "--summary"]
+    assert jtester.main(args) == 0
+    jlines = capsys.readouterr().out.strip().splitlines()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlines = capsys.readouterr().out.strip().splitlines()
+    th, jh = json.loads(tlines[2]), json.loads(jlines[2])
+    assert th["converged"] is True and jh["converged"] is True
+    norms = np.array(th["residual_norms"], float)
+    assert len(norms) == th["iterations"] + 1 and norms[-1] <= 1e-6 < norms[0]
+    assert np.all(np.diff(norms) <= 1e-12 * norms[0])
+    np.testing.assert_allclose(norms[:40], np.array(jh["residual_norms"], float)[:40], rtol=1e-9)
+    assert 0 <= float(tlines[0].split()[3]) < 1e-16 and float(jlines[0].split()[3]) < 1e-16
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["--shift", "0.5"], "--shift drives --method minres"),
+    (["--method", "minres", "--recompute", "8"], "--recompute drives the standard"),
+    (["--method", "bicgstab"], "not yet ported"),
+    (["--method", "gmres"], "not yet ported"),
+    (["--method", "sstep"], "not yet ported"),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
+def test_method_refusals_exit_2(capsys, args, msg):
+    rc, lines, err = _run(capsys, "--device", "cpu", *args)
+    assert rc == 2 and not lines and msg in err
+
+
+def test_minres_on_the_stencil_with_multigrid(capsys):
+    rc = tester.main(["stencil:12x10x9", "--device", "cpu", "--method", "minres",
+                      "--precond", "amg", "--tol", "1e-6", "--summary"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and json.loads(lines[1])["converged"] == [True]
+    assert json.loads(lines[1])["iterations"][0] <= 12 and float(lines[0].split()[3]) < 1e-12
