@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the twelve kernels against its plain-torch version on the
+2. Hold each of the fifteen kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -25,7 +25,17 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    without the Jacobi diagonal, shift 0 and not 0, a first step without a
    pending update) give v, w, x' and r2' bit-equal, q and the dots within
    the stated tolerances, repeat bit for bit, and their last CTAs' scalar
-   steps agree with the plain versions' torch ops to ``TAIL_ULPS``.
+   steps agree with the plain versions' torch ops to ``TAIL_ULPS``.  The
+   fused BiCGStab kernels, on bench.py's bicgstab-bell operator (n =
+   262,144, 128 x 128, nonsymmetric), on the timed path's convection-
+   diffusion operator (nx = 512, kmax 5, padding slots on column block 0;
+   kernels 18 and 19 timed there too) and at a ragged nrb = 13 with bn = 32
+   and 64 (with and without the Jacobi diagonal, with alpha, beta and omega
+   0, and with a NaN alpha and omega, which their tails clamp to 0 so that
+   the next update is a no-op; the update kernel at lengths 210, 4097 and
+   n): p', p^, s, s^, x_h, x' and r' bit-equal, v', t and the dots within
+   the stated tolerances, two launches bit-identical, the tails within
+   ``TAIL_ULPS``.
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -62,8 +72,25 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    indefinite solve (shift between the Lanczos Ritz extremes) in both
    storages; caps of 1, 2 and 7 steps against the portable loop; b = 0;
    one x0 warm start.
+   Then the BiCGStab path, with its own reset and read: the tester with
+   ``--method bicgstab`` on the general ``problems/convdiff_34.mtx`` (bell
+   float32, dia float32 with Jacobi, auto, CSR float64 twice, bitwise),
+   each float32 line run again through ``bicgstab_solve`` on the card (the
+   same history; its true residual held to the residual-gap law that a
+   sweep of renumbered host solves reads) and on the host (where the two
+   trajectories part);
+   ``bicgstab_solve(fused="always")`` on the bicgstab-bell operator, which
+   ends in a few steps, against the portable loop's flags; the steady-state
+   timing on bench.py's convection-diffusion operator at nx = 512 (n =
+   262,144) as full 128 x 128 blocked-ELL, 256 live steps at tol = 0, fused
+   and portable, with the busy share and the three kernels' device times;
+   the portable loop on bench.py's DIA lane (nx = 2048, n = 4,194,304) for
+   64 steps; fused against portable over 25 steps and twice against itself
+   (bitwise); the skew breakdown; the half-step exit; caps of 1, 2 and 7;
+   b = 0; one x0 warm start.
    The portable loops end at convergence: the steps launched are counted
-   against the iterations for MG-PCG at 256^3 and a portable DIA solve.
+   against the iterations for MG-PCG at 256^3, a portable DIA solve and a
+   portable BiCGStab solve.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -95,6 +122,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FUSED_SOURCE = "conjugategradient_tpu_torch/csrc/fused_cg.cu"
 MINRES_SOURCE = "conjugategradient_tpu_torch/csrc/fused_minres.cu"
+BICGSTAB_SOURCE = "conjugategradient_tpu_torch/csrc/fused_bicgstab.cu"
 SOURCES = {
     "sym_fused_dir_spmv_dot": FUSED_SOURCE,
     "fused_dir_spmv_dot": FUSED_SOURCE,
@@ -108,6 +136,9 @@ SOURCES = {
     "minres_dir_spmv_dot": MINRES_SOURCE,
     "sym_minres_dir_spmv_dot": MINRES_SOURCE,
     "minres_update_dot": MINRES_SOURCE,
+    "bicgstab_dir_spmv_dot": BICGSTAB_SOURCE,
+    "bicgstab_s_spmv_dot": BICGSTAB_SOURCE,
+    "bicgstab_update_dot": BICGSTAB_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -126,6 +157,9 @@ REPLACES = {
     "minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
     "sym_minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:298",
     "minres_update_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:425",
+    "bicgstab_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:84",
+    "bicgstab_s_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:200",
+    "bicgstab_update_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:293",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv")
@@ -133,6 +167,8 @@ DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
 STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
                   "bell_spmv")
+BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
+                    "bell_spmv", "dia_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
 # float32 and float64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -167,6 +203,30 @@ MINRES_TRUE_FACTOR = 10.0
 # a portable loop launches at most this many steps after the one that set
 # done (solver/restart.py: LOOKAHEAD - 1)
 STEPS_AFTER_DONE = 3
+# BiCGStab: bench.py:1367's operator ends in ~4 steps (kappa ~ 1.015); the
+# timed convection-diffusion runs BICG_STEPS live steps at tol = 0
+BICG_BENCH_MAX_K = 4
+BICG_STEPS = 256
+BICG_DIA_STEPS = 64
+# fused vs portable BiCGStab rnorm_history over 25 f32 steps: 5e-3 over the
+# first 10 (the JAX package's bound for its two loops), 5e-2 over steps
+# 11-15, and finite after: the two loops' sums run in another order and its
+# products amplify that.  On the card, convdiff nx=512 parts by 1.2e-2 at
+# step 21 and then spikes (273 against 12.2 at step 23); nx=64 by 3e-3 at
+# step 15, 1.4e-2 at 16, 0.11 at 19
+BICG_TRAJ_RTOL = 5e-3
+BICG_TRAJ_MID_RTOL = 5e-2
+# float32 BiCGStab's true residual stalls at the residual gap, a multiple
+# of eps * max_k ||r_k||: the recurrence can spike to hundreds of ||b|| on
+# convdiff_34, and where it does rel_error = ||b - Ax||^2 / ||x||^2 rises
+# with the square of the spike.  bicg_gap_sweep reads the multiple on the
+# host, over the tester's system with its unknowns renumbered (every sum
+# then rounds another way), and each float32 tester line is held to
+# REL_ERROR_BOUND, or where its own recurrence spiked to the gap law with
+# GAP_ULPS (the run's true residual within tol + GAP_ULPS eps max_k ||r_k||)
+GAP_ULPS = 64
+GAP_SEEDS = 32
+CONVDIFF = "problems/convdiff_34.mtx"
 N_BIG = 262_144
 MATRICES = ("problems/poisson3d_48.mtx", "problems/elasticity3d_16.mtx")
 DEVICE = "cuda:0"
@@ -993,6 +1053,281 @@ def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
     t.update(bound(4 * v, 7 * n), library_ms=None)  # q r1 r2 in, r2' out
     times["minres_update_dot"] = t
     torch.cuda.synchronize()
+
+
+# ---- phase 2, BiCGStab: kernels 18-20 against their plain versions -----------
+
+def nonsym_tridiag(n, bn, dev, seed=0):
+    """bench.py:1367-1403's nonsymmetric block-tridiagonal operator (the JAX
+    lane bicgstab-bell): up/lo tiles 0.08 N(0, 1) from the seed, the
+    diagonal (2 + sum|up| + sum|lo|) I, as full blocked-ELL."""
+    import torch
+
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix
+
+    nrb = n // bn
+    rng = np.random.default_rng(seed)
+    up = (0.08 * rng.standard_normal((bn, bn))).astype(np.float32)
+    lo = (0.08 * rng.standard_normal((bn, bn))).astype(np.float32)
+    diag = np.eye(bn, dtype=np.float32) * (2.0 + np.abs(up).sum() + np.abs(lo).sum())
+    blocks = np.zeros((nrb, 3, bn, bn), dtype=np.float32)
+    cols = np.zeros((nrb, 3), dtype=np.int32)
+    for i in range(nrb):
+        blocks[i, 0], cols[i, 0] = diag, i
+        k = 1
+        for c, t in ((i - 1, lo), (i + 1, up)):
+            if 0 <= c < nrb:
+                blocks[i, k], cols[i, k] = t, c
+                k += 1
+    return BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(cols).to(dev),
+                            (n, n), nrb * 3 * bn * bn)
+
+
+def convdiff_csr(nx):
+    """bench.py:1113-1138's operator: the 5-point upwind convection-diffusion
+    stencil on an nx x nx grid, peclet 10, as float32 host CSR."""
+    from conjugategradient_tpu_torch.problems import convection_diffusion_2d_coo
+
+    rows, cols, vals, shape = convection_diffusion_2d_coo(nx, peclet=10.0)
+    order = np.lexsort((cols, rows))
+    r, c, v = rows[order], cols[order], vals[order].astype(np.float32)
+    indptr = np.zeros(shape[0] + 1, np.int64)
+    np.add.at(indptr, r + 1, 1)
+    return v, c, np.cumsum(indptr), shape
+
+
+def convdiff_bell(nx, dev):
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix
+
+    return BlockedEllMatrix.from_csr_host(*convdiff_csr(nx), bm=128, bn=128, device=dev)
+
+
+def bicg_work(dev, maxiter=5, tol=1e-3):
+    """A live BiCGStab work with non-trivial scalars (rho_k = 1.7, beta from
+    ||r0||^2 = 2.3)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    w = fb.BicgstabWork.new(dev, maxiter=maxiter, tol=tol)
+    w.scal[fb.B_RHO_NEXT] = 1.7
+    w.start(torch.tensor(2.3, device=dev))
+    return w
+
+
+def tail_ulps(wk, wp) -> int:
+    """The largest distance in ulps between two works' scalar slots (the
+    kernels' last CTA against torch's 0-d ops), the dots left out."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    return int((wk.scal[:fb.B_RV].view(torch.int32)
+                - wp.scal[:fb.B_RV].view(torch.int32)).abs().max())
+
+
+def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_group=None,
+                     nan=False):
+    """Kernels 18 and 19 against their plain versions: p', p^, s, s^, x_h
+    bit for bit, v' and t within TOL_Q of their largest entry, the dots
+    within TOL_DOT of the product of their operands' norms (dots of
+    unrelated vectors can cancel), two launches bit-identical, and the last
+    CTAs' scalar steps within TAIL_ULPS of torch's on the kernels' own dots.
+    ``nan``: r^ = 0 and rho_k = 0 make alpha = 0/0 in kernel 18's tail, and
+    r = v' = 0 make omega = 0/0 in kernel 19's: both are clamped to 0, and
+    the next kernel's update is an exact no-op."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    dev, nrb, bn = a.device, a.nrb, a.bn
+
+    def vec():
+        return torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32, device=dev)
+
+    r, p, v, rhat, x = vec(), vec(), vec(), vec(), vec()
+    if nan:
+        rhat.zero_()
+    d = padded_inv_diag(a, nrb * bn).reshape(nrb, bn) if with_d else None
+    beta = torch.tensor([[beta_v]], dtype=torch.float32, device=dev)
+    omega = torch.tensor([[omega_v]], dtype=torch.float32, device=dev)
+    wk, wp = bicg_work(dev), bicg_work(dev)
+    if nan:
+        wk.scal[fb.B_RHO_NEXT] = wp.scal[fb.B_RHO_NEXT] = 0.0
+    k1 = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
+                                  row_group=row_group, work=wk)
+    k1b = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
+                                   row_group=row_group)
+    p1 = fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d, None, None)
+    torch.cuda.synchronize()
+    check(torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1]),
+          f"K18 {label}: p' or p^ not bit-equal to the plain version")
+    check(all(torch.equal(s_, t_) for s_, t_ in zip(k1, k1b)), f"K18 {label}: two launches differ")
+    e_v, m_v = rel_max_err(k1[2], p1[2])
+    e_rv = abs(float(k1[3]) - float(p1[3]))
+    check(e_v <= TOL_Q * m_v, f"K18 {label}: v' err {e_v} vs max {m_v}")
+    check(e_rv <= TOL_DOT * float(rhat.norm() * p1[2].norm()),
+          f"K18 {label}: rv {float(k1[3])} vs {float(p1[3])}")
+    fb.finish_dir(wp, k1[3][0, 0])
+    u1 = tail_ulps(wk, wp)
+    check(u1 <= TAIL_ULPS, f"K18 {label}: scalar step {u1} ulps from torch's")
+    if nan:
+        check(math.isnan(float(wk.scal[fb.B_ALPHA])) and float(wk.scal[fb.B_ALPHA_C]) == 0.0,
+              f"K18 {label}: alpha = 0/0 was not clamped to 0")
+        r.zero_()
+    alpha = wk.alpha_c if nan else torch.tensor([[alpha_v]], dtype=torch.float32, device=dev)
+    vn = torch.zeros_like(r) if nan else k1[2]
+    k2 = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d,
+                                row_group=row_group, work=wk)
+    k2b = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d,
+                                 row_group=row_group)
+    p2 = fb._s_plain(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d, None, None)
+    torch.cuda.synchronize()
+    check(all(torch.equal(k2[i], p2[i]) for i in range(3)),
+          f"K19 {label}: s, s^ or x_h not bit-equal to the plain version")
+    check(all(torch.equal(s_, t_) for s_, t_ in zip(k2, k2b)), f"K19 {label}: two launches differ")
+    e_t, m_t = rel_max_err(k2[3], p2[3])
+    check(e_t <= TOL_Q * max(m_t, 1e-30), f"K19 {label}: t err {e_t} vs max {m_t}")
+    scale = float(p2[0].norm() * p2[0].norm() + p2[3].norm() * p2[0].norm()
+                  + p2[3].norm() * p2[3].norm())
+    e_d = max(abs(float(k2[i]) - float(p2[i])) for i in range(4, 7))
+    check(e_d <= TOL_DOT * scale, f"K19 {label}: dots {[float(t) for t in k2[4:]]} vs "
+          f"{[float(t) for t in p2[4:]]}")
+    fb.finish_s(wp, k2[4][0, 0], k2[5][0, 0], k2[6][0, 0])
+    u2 = tail_ulps(wk, wp)
+    check(u2 <= TAIL_ULPS and torch.equal(wk.ctl, wp.ctl),
+          f"K19 {label}: scalar step {u2} ulps from torch's, ctl {wk.ctl.tolist()} vs "
+          f"{wp.ctl.tolist()}")
+    if nan:
+        check(torch.equal(k2[0], r) and torch.equal(k2[2], x),
+              f"K19 {label}: a clamped alpha changed s or x_h")
+        check(math.isnan(float(wk.scal[fb.B_OMEGA])) and float(wk.scal[fb.B_OMEGA_C]) == 0.0,
+              f"K19 {label}: omega = 0/0 was not clamped to 0")
+        k3 = fb.bicgstab_update_dot(k2[2], k2[1], k2[0], k2[3], rhat, wk.omega_c)
+        torch.cuda.synchronize()
+        check(torch.equal(k3[0], k2[2]) and torch.equal(k3[1], k2[0]),
+              f"K20 {label}: a clamped omega changed x_h or s")
+    for name, e in (("bicgstab_dir_spmv_dot", max(e_v, e_rv)), ("bicgstab_s_spmv_dot", max(e_t, e_d))):
+        errs[name] = max(errs[name], e)
+    print(f"  K18/K19 {label:<40} p', p^, s, s^, x_h bit-equal; |dv'|={e_v:.3g} (max {m_v:.4g}) "
+          f"|dt|={e_t:.3g} (max {m_t:.4g}) |drv|={e_rv:.3g} |ddots|={e_d:.3g}; repeat ok; "
+          f"scalar steps {u1}, {u2} ulp{'; NaN alpha and omega clamped, updates no-ops' if nan else ''}")
+    return r, p, v, rhat, x, k1, beta, omega, alpha
+
+
+def check_bicg_update(n, rng, errs, label, dev):
+    """Kernel 20 against its plain version: x', r' bit for bit (also in place
+    over x_h and s), the dots within TOL_DOT, its scalar step within
+    TAIL_ULPS and its control words equal; omega = 0 returns x_h and s."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    xh, sh, s, t, rhat = (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+                          for _ in range(5))
+    w = torch.tensor([[0.45]], dtype=torch.float32, device=dev)
+    wk, wp = bicg_work(dev), bicg_work(dev)
+    k = fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, work=wk)
+    p = fb._update_plain(xh, sh, s, t, rhat, w, None, None)
+    xc, sc = xh.clone(), s.clone()
+    k2 = fb.bicgstab_update_dot(xc, sh, sc, t, rhat, w, out=(xc, sc))
+    z = fb.bicgstab_update_dot(xh, sh, s, t, rhat, torch.zeros(1, 1, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k2[0], p[0])
+          and torch.equal(k2[1], p[1]), f"K20 {label}: x' or r' not bit-equal to the plain version")
+    check(torch.equal(z[0], xh) and torch.equal(z[1], s), f"K20 {label}: omega = 0 changed x_h or s")
+    e = max(abs(float(k[i]) - float(p[i])) for i in (2, 3))
+    scale = float(p[1].norm() * (p[1].norm() + rhat.norm()))
+    check(e <= TOL_DOT * scale, f"K20 {label}: dots {float(k[2])}, {float(k[3])} vs "
+          f"{float(p[2])}, {float(p[3])}")
+    fb.finish_update(wp, k[2][0, 0], k[3][0, 0])
+    u = tail_ulps(wk, wp)
+    check(u <= TAIL_ULPS and torch.equal(wk.ctl, wp.ctl),
+          f"K20 {label}: scalar step {u} ulps from torch's, ctl {wk.ctl.tolist()} vs {wp.ctl.tolist()}")
+    errs["bicgstab_update_dot"] = max(errs["bicgstab_update_dot"], e)
+    print(f"  K20 n={n:<10}{label:<14} x', r' bit-equal (also in place); omega = 0 keeps x_h, s; "
+          f"|ddots|={e:.3g}; scalar step {u} ulp, ctl equal")
+    return xh, sh, s, t, rhat, w
+
+
+def time_bicg_tiles(a, args, work) -> tuple:
+    """Kernels 18 and 19 timed against their plain versions on the operands
+    ``check_bicg_tiles`` returned, launched as the solver launches them
+    (outputs made once, ``work`` live), each with its bound: each input
+    read once, each output written once."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    r, p, v, rhat, x, k1, beta, omega, alpha = args
+    out1 = tuple(torch.empty_like(r) for _ in range(3))
+    out2 = tuple(torch.empty_like(r) for _ in range(4))
+    t1 = time_pair(
+        lambda: fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega,
+                                         out=out1, work=work),
+        lambda: fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, None, None, None))
+    t2 = time_pair(
+        lambda: fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha,
+                                       out=out2, work=work),
+        lambda: fb._s_plain(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, None, None, None))
+    n, vb, tiles = r.numel(), r.numel() * 4, nbytes(a.blocks, a.block_cols)
+    t1.update(bound(tiles + 7 * vb, 2 * a.blocks.numel() + 6 * n))
+    t2.update(bound(tiles + 8 * vb, 2 * a.blocks.numel() + 10 * n))
+    for t in (t1, t2):
+        # an SpMV fused with updates and dots: no one call
+        t["library_ms"] = None
+    return t1, t2
+
+
+def phase_bicgstab_kernels(dev, errs, times, extra):
+    """Kernels 18-20 against their plain versions and timed, on bench.py's
+    bicgstab-bell operator (n = 262,144, 128 x 128), on the timed main
+    path's convection-diffusion operator and at ragged shapes."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    rng = np.random.default_rng(18)
+    a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
+    print(f"  bicgstab-bell operator: tiles {tuple(a.blocks.shape)}, {a.tile_bytes() / 1e6:.1f} MB")
+    for with_d in (False, True):
+        tag = "+d" if with_d else ""
+        args = check_bicg_tiles(a, rng, with_d, 0.4, 0.25, 0.6, errs, f"n=262144{tag}")
+        check_bicg_tiles(a, rng, with_d, 0.0, 0.0, 0.0, errs, f"n=262144{tag} beta=omega=alpha=0")
+    check_bicg_tiles(a, rng, False, 0.4, 0.25, 0.6, errs, "n=262144 NaN alpha, omega", nan=True)
+    # the timed main path's operator: kmax 5, its padding slots point at
+    # column block 0
+    cd = convdiff_bell(512, dev)
+    check(cd.kmax == 5, f"convdiff 512 blocked-ELL: kmax {cd.kmax}, expected 5")
+    print(f"  convdiff-512 operator: tiles {tuple(cd.blocks.shape)}, {cd.tile_bytes() / 1e6:.1f} MB")
+    cd_args = check_bicg_tiles(cd, rng, False, 0.4, 0.25, 0.6, errs, "convdiff-512 (main path)")
+    for bn in (32, 64):
+        small = nonsym_tridiag(13 * bn, bn, dev, seed=bn)
+        for with_d in (False, True):
+            check_bicg_tiles(small, rng, with_d, 0.4, 0.25, 0.6, errs,
+                             f"ragged nrb=13 bn={bn}{'+d' if with_d else ''}", row_group=3)
+        check_bicg_tiles(small, rng, True, 0.4, 0.25, 0.6, errs, f"ragged nrb=13 bn={bn} NaN",
+                         nan=True)
+    for n in (210, 4097):
+        check_bicg_update(n, rng, errs, "", dev)
+    upd = check_bicg_update(N_BIG, rng, errs, "(main path)", dev)
+
+    # timing on a work that never finishes (tol = -1, maxiter 2^20)
+    work = fb.BicgstabWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    work.start(torch.sum(args[0] * args[0]))
+    times["bicgstab_dir_spmv_dot"], times["bicgstab_s_spmv_dot"] = time_bicg_tiles(a, args, work)
+    extra["K18 convdiff-512"], extra["K19 convdiff-512"] = time_bicg_tiles(cd, cd_args, work)
+    xh, sh, s, t, rh, w = upd
+    out3 = (torch.empty_like(xh), torch.empty_like(xh))
+    times["bicgstab_update_dot"] = time_pair(
+        lambda: fb.bicgstab_update_dot(xh, sh, s, t, rh, w, out=out3, work=work),
+        lambda: fb._update_plain(xh, sh, s, t, rh, w, None, None))
+    torch.cuda.synchronize()
+    check(int(work.ctl[fb.C_LIVE]) == 1, "BiCGStab timing: the timing work stopped being live")
+    times["bicgstab_update_dot"].update(bound(7 * N_BIG * 4, 8 * N_BIG))
+    # two axpys and two dots: no one call
+    times["bicgstab_update_dot"]["library_ms"] = None
+    return {"bench_bell": a, "convdiff": cd}
 
 
 # ---- phase 3: the main path ------------------------------------------------
@@ -1888,6 +2223,338 @@ def phase_minres_path(dev, big, big_full, ops, card):
     torch.cuda.synchronize()
 
 
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def residual_norm(host, x) -> float:
+    """||b - A x|| in float64 on the host, b = 1..n as the tester's."""
+    data, indices, indptr, shape = host
+    rows = np.repeat(np.arange(shape[0]), np.diff(indptr))
+    ax = np.bincount(rows, weights=data * x[indices], minlength=shape[0])
+    return float(np.linalg.norm(np.arange(1, shape[0] + 1) - ax))
+
+
+def rel_error(host, x) -> float:
+    return residual_norm(host, x) ** 2 / float(x @ x)
+
+
+def bicg_tester_rerun(path, layout, precond, tol, device):
+    """The tester's float32 BiCGStab solve (b = 1..n, its default 128 x 128
+    tiles) run again through bicgstab_solve on ``device``: the history as
+    the tester prints it (norms through their float32 squares; None for
+    NaN) and x as float64 on the host."""
+    import torch
+
+    from conjugategradient_tpu_torch import bicgstab_solve, jacobi_preconditioner, load_matrix
+
+    a = load_matrix(os.path.join(ROOT, path), layout=layout, dtype=np.float32, bm=128, bn=128,
+                    device=device)
+    b = torch.arange(1, a.shape[0] + 1, dtype=torch.float32, device=device)
+    m = jacobi_preconditioner(a) if precond == "jacobi" else None
+    x, info = bicgstab_solve(a, b, tol=tol, M=m)
+    k = int(info.iterations)
+    sq = np.sqrt((info.rnorm_history * info.rnorm_history).double().cpu().numpy()[:k + 1])
+    return [float(h) if np.isfinite(h) else None for h in sq], x.double().cpu().numpy()
+
+
+def bicg_gap_sweep(host, tol, seeds):
+    """BiCGStab's float32 residual gap on the host: the system with its
+    unknowns renumbered ``seeds`` ways (every dot and row sum then rounds
+    another way), each solved without and with Jacobi.  Returns the gap
+    ||b - Ax|| / (eps max_k ||r_k||) and max_k ||r_k|| / ||b|| of every
+    converged solve, and the count of those that broke down."""
+    import torch
+
+    from conjugategradient_tpu_torch import CSRMatrix, bicgstab_solve, jacobi_preconditioner
+
+    data, indices, indptr, shape = host
+    n = shape[0]
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    b0 = np.arange(1, n + 1, dtype=np.float64)
+    ks, peaks, broke = [], [], 0
+    for seed in range(seeds):
+        perm = np.random.default_rng(seed).permutation(n)
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        a = CSRMatrix.from_coo(inv[rows], inv[indices], data, shape, dtype=torch.float32,
+                               device="cpu")
+        b = torch.from_numpy(b0[perm].astype(np.float32))
+        for m in (None, jacobi_preconditioner(a)):
+            x, info = bicgstab_solve(a, b, tol=tol, M=m)
+            if not bool(info.converged):  # a breakdown: no converged x to read
+                broke += 1
+                continue
+            peak = float(info.rnorm_history[:int(info.iterations) + 1].max())
+            ks.append(residual_norm(host, x.double().numpy()[inv]) / (F32_EPS * peak))
+            peaks.append(peak / float(np.linalg.norm(b0)))
+    return ks, peaks, broke
+
+
+def phase_bicgstab_path(dev, bic_ops, card):
+    """The BiCGStab path through its entry points (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import (bicgstab_solve, fused_bicgstab_solve,
+                                             jacobi_preconditioner)
+    from conjugategradient_tpu_torch.io import loader
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.solver import bicgstab as bicgstab_mod
+    from conjugategradient_tpu_torch.solver.fused_bicgstab import (fused_bicgstab_init,
+                                                                   fused_bicgstab_step)
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix, DIAMatrix
+    from conjugategradient_tpu_torch.utils import Timer
+
+    # (a) the tester with --method bicgstab on the general convdiff_34.mtx;
+    # each float32 line is run again through bicgstab_solve on the card (the
+    # same history, and x for the true residual) and on the host (where the
+    # two trajectories part)
+    path, nb = CONVDIFF, bnorm(1156)
+    tol = TOL_SOLVE_REL * nb
+    host = loader.read_csr_host(os.path.join(ROOT, path))  # float64 CSR
+    ks, peaks, broke = bicg_gap_sweep(host, tol, GAP_SEEDS)
+    check(len(ks) >= GAP_SEEDS and max(ks) <= GAP_ULPS, f"BiCGStab float32 on the host: ||b - Ax|| up to {max(ks):.1f} "
+          f"eps max_k ||r_k||, above GAP_ULPS = {GAP_ULPS}")
+    print(f"  BiCGStab float32 residual gap on the host, convdiff_34 renumbered {GAP_SEEDS} ways "
+          f"x (none, jacobi), {broke} breakdowns: ||b - Ax|| = {min(ks):.1f}-{max(ks):.1f} eps "
+          f"max_k ||r_k|| (GAP_ULPS {GAP_ULPS}), max_k ||r_k|| = {min(peaks):.3g}-{max(peaks):.3g} "
+          f"||b||")
+    bicg = ("--method", "bicgstab")
+    for layout, precond, kernel in (("bell", "none", "bell_spmv"), ("dia", "jacobi", "dia_spmv"),
+                                    ("auto", "none", "dia_spmv")):
+        before = _common.LAUNCHES[kernel]
+        dim, nnz, ms, rel, summ, lines = run_tester(path, layout, precond, tol,
+                                                    extra=bicg + ("--history",))
+        it = summ["iterations"][0]
+        printed = json.loads(lines[2])["residual_norms"]
+        launched = _common.LAUNCHES[kernel] - before
+        what = f"tester {path} --method bicgstab --layout {layout} --precond {precond}"
+        hist, x = bicg_tester_rerun(path, layout, precond, tol, dev)
+        check(hist == printed, f"{what}: bicgstab_solve on the same inputs gave another history")
+        hist_host, x_host = bicg_tester_rerun(path, layout, precond, tol, "cpu")
+        peak, true_r = max(h for h in hist if h is not None), residual_norm(host, x)
+        gap = true_r / (F32_EPS * peak)
+        bound_ = max(REL_ERROR_BOUND, ((tol + GAP_ULPS * F32_EPS * peak) / np.linalg.norm(x)) ** 2)
+        check(summ["converged"][0] and math.isfinite(rel) and rel < bound_,
+              f"{what}: converged {summ['converged'][0]} in {it}, rel_error {rel} >= {bound_:.3g}")
+        check(gap <= GAP_ULPS, f"{what}: ||b - Ax|| = {gap:.1f} eps max_k ||r_k||")
+        check(launched >= 2 * 2 * it, f"{what}: {launched} {kernel} launches for 2 solves of {it}")
+        peak_host = max(h for h in hist_host if h is not None)
+        part = next((k for k, (c, h) in enumerate(zip(hist, hist_host))
+                     if c is None or h is None or abs(c - h) > 1e-3 * h), None)
+        print(f"  {what}: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its ({ms / max(it, 1):.4f} ms/it), "
+              f"rel_error {rel:.3e} (bound {bound_:.3g}), largest ||r_k|| {peak / nb:.3g} ||b|| at "
+              f"step {hist.index(peak)}, ||b - Ax|| {true_r / nb:.3g} ||b|| = {gap:.1f} eps "
+              f"max_k ||r_k||; on the host {len(hist_host) - 1} its, largest ||r_k|| "
+              f"{peak_host / nb:.3g} ||b||, rel_error {rel_error(host, x_host):.3e}; the card's "
+              f"history parts from the host's by 1e-3 at step {part}  [{card}]")
+    runs = [run_tester(path, "csr", "none", 1e-8 * nb, dtype="float64", extra=bicg + ("--history",))
+            for _ in range(2)]
+    check(runs[0][4]["converged"][0] and runs[0][3] < REL_ERROR_BOUND,
+          f"tester --method bicgstab csr f64: rel_error {runs[0][3]}")
+    check(runs[0][5][0].split()[3] == runs[1][5][0].split()[3] and runs[0][5][2] == runs[1][5][2],
+          "tester --method bicgstab csr f64: the two runs differ")
+    print(f"  tester {path} --method bicgstab --layout csr --dtype float64 twice: "
+          f"{runs[0][4]['iterations'][0]} its, {runs[0][2]:.3f} ms, rel_error {runs[0][3]:.3e}, "
+          f"history bitwise repeat ok  [{card}]")
+
+    # (b) fused="always" on bench.py:1367's operator, b = arange(1, n+1)/n:
+    # diagonally dominant (kappa ~ 1.015), so a few steps
+    a = bic_ops["bench_bell"]
+    n = a.n
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    bn_ = float(b.double().norm())
+    for tol in (TOL_SOLVE_REL * bn_, 0.0):
+        before = _common.LAUNCHES["bicgstab_dir_spmv_dot"]
+        xf, fi = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
+        launched = _common.LAUNCHES["bicgstab_dir_spmv_dot"] - before
+        xp, pi = bicgstab_solve(a, b, tol=tol, maxiter=64)
+        true_r = float((b - a.matvec(xf)).double().norm())
+        k = int(fi.iterations)
+        check(launched >= k and torch.isfinite(xf).all(), f"fused BiCGStab tol={tol}: {launched} launches, x finite "
+              f"{bool(torch.isfinite(xf).all())}")
+        check(k <= BICG_BENCH_MAX_K and true_r <= TOL_SOLVE_REL * bn_
+              and abs(float(fi.rnorm_true) - true_r) <= 1e-3 * true_r + 1e-7 * bn_,
+              f"fused BiCGStab tol={tol}: {k} its, ||b - Ax|| {true_r}, rnorm_true {float(fi.rnorm_true)}")
+        check(bool(fi.converged) == bool(pi.converged) and bool(fi.breakdown) == bool(pi.breakdown),
+              f"fused BiCGStab tol={tol}: converged/breakdown {bool(fi.converged)}/{bool(fi.breakdown)}, "
+              f"portable {bool(pi.converged)}/{bool(pi.breakdown)}")
+        e, m = rel_max_err(xf, xp)
+        check(e <= 1e-4 * m, f"fused BiCGStab tol={tol}: x differs from the portable loop's by {e}")
+        print(f"  fused BiCGStab bicgstab-bell n={n}, tol {tol:.3g}: {k} its (portable "
+              f"{int(pi.iterations)}), converged {bool(fi.converged)}, breakdown {bool(fi.breakdown)} "
+              f"as the portable loop; history {[float(h) for h in fi.rnorm_history[:k + 1]]}; "
+              f"rnorm_true {float(fi.rnorm_true):.4g} = ||b - Ax||")
+
+    # (c) the steady-state timing: bench.py's bicgstab-bell lane times 128
+    # steps that its operator does not have (it ends in ~4), so the timed
+    # operator is bench.py:1113's convection-diffusion at n = 262,144 (nx =
+    # 512) as full blocked-ELL 128 x 128.  Its right-hand side is a seeded
+    # standard normal: with b = arange(1, n+1)/n (or ones) the shadow
+    # residual decorrelates and rho = r^.r comes out exactly 0 in float32 after
+    # 90-202 steps, a Lanczos breakdown, while with this b every one of the
+    # 256 steps at tol = 0 stays live (checked below)
+    cd = bic_ops["convdiff"]
+    n = cd.n
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    eff = 2 * cd.tile_bytes() + 17 * n * 4
+    fused_bicgstab_solve(cd, b, tol=0.0, maxiter=8)
+    t = Timer(dev).start_measure()
+    state = fused_bicgstab_init(cd, b, None, BICG_STEPS)
+    for _ in range(BICG_STEPS):
+        fused_bicgstab_step(cd, state)
+    t.stop_measure()
+    k = int(state.k)
+    check(k == BICG_STEPS and not bool(state.done),
+          f"fused BiCGStab convdiff: {k} of {BICG_STEPS} steps live, done {bool(state.done)}")
+    ms_it = t.get_duration() / BICG_STEPS
+    t = Timer(dev).start_measure()
+    _, info = fused_bicgstab_solve(cd, b, tol=0.0, maxiter=BICG_STEPS)
+    t.stop_measure()
+    solve_ms = t.get_duration()
+    check(int(info.iterations) == BICG_STEPS and not bool(info.breakdown)
+          and bool(torch.isfinite(info.rnorm_history).all()),
+          f"fused BiCGStab convdiff solve: {int(info.iterations)} its, breakdown {bool(info.breakdown)}")
+    check(torch.equal(info.rnorm_history.view(torch.int32), state.hist.view(torch.int32)),
+          "fused BiCGStab convdiff: stepping and solving gave different history bits")
+    run64 = lambda: fused_bicgstab_solve(cd, b, tol=0.0, maxiter=64)
+    t = Timer(dev).start_measure()
+    run64()
+    t.stop_measure()
+    busy = device_ms(run64, reps=1)
+    busy_s = "not measured" if busy is None else \
+        f"{busy:.4f} of {t.get_duration():.4f} ms ({100 * busy / t.get_duration():.1f}%)"
+    prof = kernel_profile(lambda: fused_bicgstab_solve(cd, b, tol=0.0, maxiter=32), top=12)
+    per_kernel = "not measured"
+    if prof is not None:
+        got = {}
+        for key, ms, count in prof[2]:
+            for short, tag in (("K18", "bicg_dir_kernel"), ("K19", "bicg_s_kernel"),
+                               ("K20", "bicg_update_kernel")):
+                if tag in key:
+                    got[short] = ms / 32
+        per_kernel = ", ".join(f"{k_} {v_:.5f}" for k_, v_ in sorted(got.items())) + " ms/it"
+    bicgstab_solve(cd, b, tol=0.0, maxiter=8)
+    with count_steps(bicgstab_mod, "bicgstab_step") as counter:
+        t = Timer(dev).start_measure()
+        _, pinfo = bicgstab_solve(cd, b, tol=0.0, maxiter=BICG_STEPS)
+        t.stop_measure()
+    check(int(pinfo.iterations) == BICG_STEPS and counter.calls == BICG_STEPS,
+          f"portable BiCGStab convdiff: {int(pinfo.iterations)} its in {counter.calls} steps")
+    port_ms_it = t.get_duration() / BICG_STEPS
+    print(f"  fused BiCGStab convdiff nx=512 (n={n}, 128x128, kmax 5, {cd.tile_bytes() / 1e6:.1f} MB "
+          f"of tiles): {k} steps all live, {ms_it:.5f} ms/it (init + {BICG_STEPS} steps; whole solve "
+          f"{solve_ms:.3f} ms), effective {eff / ms_it / 1e6:.1f} GB/s on {eff / 1e6:.1f} MB/it "
+          f"(2 tile streams + 17 vectors); 64 steps: device busy {busy_s}; kernels' device time "
+          f"{per_kernel}; bitwise step/solve ok; portable loop {port_ms_it:.5f} ms/it "
+          f"({port_ms_it / ms_it:.1f}x the fused)  [{card}]")
+
+    # (d) the portable loop on bench.py:1141's DIA lane (n = 4,194,304)
+    dia = DIAMatrix.from_csr_host(*convdiff_csr(2048), device=dev)
+    bd = torch.arange(1, dia.n + 1, dtype=torch.float32, device=dev) / dia.n
+    bicgstab_solve(dia, bd, tol=0.0, maxiter=4)
+    before = _common.LAUNCHES["dia_spmv"]
+    t = Timer(dev).start_measure()
+    _, dinfo = bicgstab_solve(dia, bd, tol=0.0, maxiter=BICG_DIA_STEPS)
+    t.stop_measure()
+    check(int(dinfo.iterations) == BICG_DIA_STEPS and _common.LAUNCHES["dia_spmv"] - before
+          >= 2 * BICG_DIA_STEPS, f"portable BiCGStab DIA: {int(dinfo.iterations)} its")
+    print(f"  portable BiCGStab DIA convdiff nx=2048 (n={dia.n}, {len(dia.offsets)} diagonals): "
+          f"{BICG_DIA_STEPS} steps, {t.get_duration() / BICG_DIA_STEPS:.5f} ms/it  [{card}]")
+    del dia, bd
+
+    # (e) fused against the portable loop, and twice against itself
+    small = convdiff_bell(64, dev)
+    bs = torch.arange(1, small.n + 1, dtype=torch.float32, device=dev) / small.n
+    for label, op, rhs, M in (("convdiff nx=512", cd, b, None),
+                              ("convdiff nx=512 jacobi", cd, b, jacobi_preconditioner(cd)),
+                              ("convdiff nx=64", small, bs, None)):
+        _, f25 = bicgstab_solve(op, rhs, tol=0.0, maxiter=25, M=M, fused="always")
+        _, p25 = bicgstab_solve(op, rhs, tol=0.0, maxiter=25, M=M)
+        _, f25b = bicgstab_solve(op, rhs, tol=0.0, maxiter=25, M=M, fused="always")
+        hf, hp = f25.rnorm_history.double().cpu().numpy(), p25.rnorm_history.double().cpu().numpy()
+        check(np.allclose(hf[:11], hp[:11], rtol=BICG_TRAJ_RTOL, atol=0)
+              and np.allclose(hf[11:16], hp[11:16], rtol=BICG_TRAJ_MID_RTOL, atol=0)
+              and np.isfinite(hf).all() and np.isfinite(hp).all(),
+              f"BiCGStab {label}: fused vs portable history {hf.tolist()} vs {hp.tolist()}")
+        check(torch.equal(f25.rnorm_history.view(torch.int32), f25b.rnorm_history.view(torch.int32)),
+              f"BiCGStab {label}: fused history not bitwise repeatable")
+        print(f"  BiCGStab {label}: fused vs portable 25-step history within {BICG_TRAJ_RTOL:g} over "
+              f"10 steps, {BICG_TRAJ_MID_RTOL:g} to step 15 (largest difference there "
+              f"{np.abs(hf[:16] / hp[:16] - 1).max():.2g}, to step 25 "
+              f"{np.abs(hf / hp - 1).max():.2g}), finite after; bitwise repeat ok")
+
+    # (f) a breakdown: the skew matrix [[0, 1], [-1, 0]] as blocked-ELL
+    skew = BlockedEllMatrix.from_csr_host(np.array([1.0, -1.0], np.float32), np.array([1, 0]),
+                                          np.array([0, 1, 2]), (2, 2), bm=32, bn=32, device=dev)
+    b2 = torch.tensor([1.0, 0.0], device=dev)
+    xf, fi = bicgstab_solve(skew, b2, tol=1e-12, maxiter=10, fused="always")
+    xp, pi = bicgstab_solve(skew, b2, tol=1e-12, maxiter=10)
+    check(bool(fi.breakdown) and bool(pi.breakdown) and not bool(fi.converged)
+          and int(fi.iterations) == int(pi.iterations) == 1 and torch.equal(xf, xp)
+          and bool(torch.isfinite(xf).all()),
+          f"BiCGStab skew breakdown: fused {bool(fi.breakdown)} {int(fi.iterations)} {xf.tolist()}, "
+          f"portable {bool(pi.breakdown)} {int(pi.iterations)} {xp.tolist()}")
+    print(f"  BiCGStab skew breakdown: 1 step, breakdown flagged, the last finite iterate "
+          f"{xf.tolist()} returned (as the portable loop)")
+
+    # (g) the half-step exit: the first step whose ||s|| undercuts every
+    # norm before it, with tol just above it
+    st = fused_bicgstab_init(small, bs, None, 40)
+    seen, j = [float(st.rnorm)], None
+    for step in range(1, 41):
+        fused_bicgstab_step(small, st)
+        snorm = float(torch.sqrt(st.work.scal[fb.B_SS]))
+        if snorm < 0.999 * min(seen) and float(st.rnorm) < snorm:
+            j = step
+            break
+        seen += [snorm, float(st.rnorm)]
+    check(j is not None, "BiCGStab half-step exit: no step to exit at")
+    tol = snorm * (1 + 1e-6)
+    _, hf_ = bicgstab_solve(small, bs, tol=tol, maxiter=40, fused="always")
+    _, hp_ = bicgstab_solve(small, bs, tol=tol, maxiter=40)
+    check(int(hf_.iterations) == j and bool(hf_.converged) and abs(float(hf_.rnorm) - snorm)
+          <= 1e-5 * snorm and int(hp_.iterations) == j,
+          f"BiCGStab half-step exit at {j}: fused {int(hf_.iterations)} its rnorm {float(hf_.rnorm)}, "
+          f"portable {int(hp_.iterations)}, ||s|| {snorm}")
+    print(f"  BiCGStab half-step exit: step {j} ends at its half step (rnorm = ||s|| = {snorm:.5g}), "
+          f"fused and portable")
+
+    # (h) caps of 1, 2 and 7 steps; b = 0; an x0 warm start (r0 through kernel 5)
+    for cap in (1, 2, 7):
+        xf, fi = bicgstab_solve(small, bs, tol=0.0, maxiter=cap, fused="always")
+        xp, _ = bicgstab_solve(small, bs, tol=0.0, maxiter=cap)
+        e, m = rel_max_err(xf, xp)
+        check(int(fi.iterations) == cap and e <= 1e-4 * m,
+              f"BiCGStab cap {cap}: {int(fi.iterations)} steps, x differs by {e} (max {m})")
+    x, info = bicgstab_solve(small, torch.zeros_like(bs), tol=1e-30, fused="always")
+    check(int(info.iterations) == 0 and bool(info.converged) and not bool(x.any()),
+          f"BiCGStab b = 0: {int(info.iterations)} iterations")
+    x0 = torch.as_tensor(0.01 * np.random.default_rng(5).standard_normal(small.n),
+                         dtype=torch.float32, device=dev)
+    before = _common.LAUNCHES["bell_spmv"]
+    tw = TOL_SOLVE_REL * float(bs.double().norm())
+    x, info = bicgstab_solve(small, bs, x0, tol=tw, maxiter=400, fused="always")
+    r0 = (bs.cpu() - small.to("cpu").matvec(x0.cpu())).double()
+    e0 = abs(float(info.rnorm_history[0]) / float(r0.norm()) - 1)
+    true_rel = float((bs - small.matvec(x)).double().norm()) / float(bs.double().norm())
+    check(_common.LAUNCHES["bell_spmv"] >= before + 2, "BiCGStab x0 warm start did not launch kernel 5")
+    check(bool(info.converged) and e0 <= TOL_DOT and true_rel < 1e-3,
+          f"BiCGStab x0 warm start: converged {bool(info.converged)}, ||r0|| off by {e0}, true "
+          f"relative residual {true_rel}")
+    print(f"  BiCGStab caps 1, 2, 7: x equals the portable loop's to 1e-4 of max|x|; b = 0: 0 its; "
+          f"x0 warm start: {int(info.iterations)} its, ||r0|| rel diff {e0:.3g}, true relative "
+          f"residual {true_rel:.3e}")
+
+    # (i) the portable loop ends at convergence
+    with count_steps(bicgstab_mod, "bicgstab_step") as counter:
+        _, pin = bicgstab_solve(small, bs, tol=tw, maxiter=400)
+    check(bool(pin.converged), "portable BiCGStab convdiff nx=64: not converged")
+    check_stops_at_done("portable BiCGStab convdiff nx=64", counter.calls, int(pin.iterations))
+    torch.cuda.synchronize()
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
     and a hash of each history, for comparing two trees on one card."""
@@ -1942,6 +2609,7 @@ def main() -> int:
     dia_ops = phase_dia_kernels(dev, errs, times, extra)
     phase_stencil_kernels(dev, errs, times, extra)
     phase_minres_kernels(dev, big, big_full, ops, errs, times, extra)
+    bic_ops = phase_bicgstab_kernels(dev, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
         more = ""
         if "bound_ms" in t:
@@ -1962,6 +2630,7 @@ def main() -> int:
         ("DIA / SELL", DIA_KERNELS, lambda: phase_dia_path(dev, dia_ops, card)),
         ("stencil", STENCIL_KERNELS, lambda: phase_stencil_path(dev, card)),
         ("MINRES", MINRES_KERNELS, lambda: phase_minres_path(dev, big, big_full, ops, card)),
+        ("BiCGStab", BICGSTAB_KERNELS, lambda: phase_bicgstab_path(dev, bic_ops, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

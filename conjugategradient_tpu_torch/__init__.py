@@ -12,21 +12,30 @@ blocked-ELL SpMV, both DIA SpMVs and the stencil apply (float32 and
 float64) are kernels of their own, under the portable loop and multigrid.
 MINRES for symmetric indefinite systems (``minres_solve``, with a shift)
 runs on blocked-ELL as two more such kernels per iteration, and on every
-other layout as a portable loop.  CSR, SELL and the rest of the portable
+other layout as a portable loop.  BiCGStab for nonsymmetric systems
+(``bicgstab_solve``) runs as a portable loop on every layout, and with
+``fused="always"`` as three kernels per iteration on full blocked-ELL.  CSR, SELL and the rest of the portable
 loops run in plain torch.  Entry
 points put operators on the card (``"cuda"``) unless the caller passes
 ``device="cpu"``.  Imports torch, never jax.
 """
 
-from .io import load_matrix
+from .io import load_matrix, read_mtx_csr, write_mtx
 from .solver import (
+    BicgstabInfo,
     CGInfo,
+    CGState,
     MinresInfo,
     accuracy,
+    bicgstab_solve,
+    cg_init,
     cg_solve,
+    cg_step,
     expected_step_count,
     fused_bell_cg_solve,
     fused_bell_pcg_solve,
+    fused_bicgstab_solve,
+    fused_bicgstab_supported,
     fused_minres_solve,
     fused_minres_supported,
     fused_stencil_cg_solve,
@@ -40,6 +49,7 @@ from .types import (
     DenseOperator,
     DIAMatrix,
     LinearOperator,
+    MatrixFreeOperator,
     SellMatrix,
     StencilOperator,
     SymBellMatrix,
@@ -47,24 +57,35 @@ from .types import (
     as_linear_operator,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "BicgstabInfo",
     "BlockedEllMatrix",
     "CGInfo",
+    "CGState",
     "CSRMatrix",
     "DIAMatrix",
     "DenseOperator",
     "LinearOperator",
+    "MatrixFreeOperator",
     "MinresInfo",
     "SellMatrix",
     "StencilOperator",
     "SymBellMatrix",
     "SymDIAMatrix",
     "accuracy",
+    "__version__",
     "as_linear_operator",
+    "bicgstab_solve",
+    "cg_init",
     "cg_solve",
+    "cg_step",
     "expected_step_count",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
+    "fused_bicgstab_solve",
+    "fused_bicgstab_supported",
     "fused_minres_solve",
     "fused_minres_supported",
     "fused_stencil_cg_solve",
@@ -72,4 +93,6 @@ __all__ = [
     "load_matrix",
     "minres_solve",
     "multigrid_preconditioner",
+    "read_mtx_csr",
+    "write_mtx",
 ]

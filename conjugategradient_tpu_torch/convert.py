@@ -12,9 +12,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .ops.cuda import fused_bicgstab as fb
 from .ops.cuda import fused_minres as fm
 from .ops.cuda.fused_cg import S_BETA, S_RHO, S_RNORM, FusedWork
 from .solver.fused import FusedCGState
+from .solver.fused_bicgstab import FusedBicgstabState
 from .solver.fused_minres import FusedMinresState
 from .types import (
     DEFAULT_DEVICE,
@@ -150,3 +152,35 @@ def fused_minres_state_from_arrays(
     vecs = [_t(v, device, np.float32) for v in (x, r1, r2, vprev, wm1, wm2)]
     d = None if inv_diag2d is None else _t(inv_diag2d, device, np.float32)
     return FusedMinresState(*vecs, work=work, d=d, launched=k)
+
+
+def fused_bicgstab_state_from_arrays(
+        x, xprev, r, rhat, p, v, rho, rho_next, alpha, omega, rnorm, rnorm_prev,
+        k: int, done: bool, broke: bool, hist, tol: float = 0.0, inv_diag2d=None,
+        device=DEFAULT_DEVICE) -> FusedBicgstabState:
+    """A ``FusedBicgstabState`` from the JAX ``FusedBicgstabState``'s
+    fields: the six (rows, bn) vectors (each gets a buffer of its own), the
+    (1, 1) scalars, k, done, broke and the history, whose length sets
+    maxiter.  The JAX step computes β from ρ, ρ_next, α and ω at its start;
+    the port's kernels find it computed in the state, so it is derived here
+    the same way.  ``tol`` and the padded Jacobi diagonal ``inv_diag2d`` are
+    arguments of the JAX step that the port keeps in the state."""
+    def f(v) -> float:
+        return float(np.asarray(v).reshape(-1)[0])
+
+    hist = np.array(hist, np.float32, copy=True)
+    maxiter = len(hist) - 1
+    k, done, broke = int(k), bool(done), bool(broke)
+    work = fb.BicgstabWork.new(device, maxiter=maxiter, tol=tol)
+    scal = work.scal
+    for slot, val in ((fb.B_RHO, rho), (fb.B_RHO_NEXT, rho_next), (fb.B_ALPHA, alpha),
+                      (fb.B_OMEGA, omega), (fb.B_RNORM, rnorm), (fb.B_RNORM_PREV, rnorm_prev)):
+        scal[slot] = f(val)
+    fb.set_beta(scal, scal[fb.B_RHO_NEXT].clone())
+    work.ctl.copy_(torch.tensor(
+        [k, int(done), maxiter, int(not done and k < maxiter), int(broke), 0],
+        dtype=torch.int32))
+    work.hist.copy_(torch.from_numpy(hist))
+    vecs = [_t(a, device, np.float32) for a in (x, xprev, r, rhat, p, v)]
+    d = None if inv_diag2d is None else _t(inv_diag2d, device, np.float32)
+    return FusedBicgstabState(*vecs, work=work, d=d, launched=k)

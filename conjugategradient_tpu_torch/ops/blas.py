@@ -24,6 +24,11 @@ def norm_sq(x: torch.Tensor) -> torch.Tensor:
     return dot(x, x)
 
 
+def norm(x: torch.Tensor) -> torch.Tensor:
+    """‖x‖₂."""
+    return torch.sqrt(norm_sq(x))
+
+
 def saxpby(a, x: torch.Tensor, b, y: torch.Tensor) -> torch.Tensor:
     """a·x + b·y."""
     return a * x + b * y

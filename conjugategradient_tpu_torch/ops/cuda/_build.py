@@ -55,6 +55,9 @@ SIGNATURES = {
     "minres_sym_dir_banded": [_P] * 21 + [_I] * 3 + [_P],
     "minres_sym_dir_general": [_P] * 23 + [_I] * 5 + [_P],
     "minres_update": [_P] * 13 + [_I, _I64, _I, _P],
+    "bicgstab_dir": [_P] * 17 + [_I] * 4 + [_P],
+    "bicgstab_s": [_P] * 19 + [_I] * 4 + [_P],
+    "bicgstab_update": [_P] * 15 + [_I, _I64, _I, _P],
 }
 
 

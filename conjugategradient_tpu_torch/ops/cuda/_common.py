@@ -28,6 +28,9 @@ LAUNCHES = {
     "minres_dir_spmv_dot": 0,
     "sym_minres_dir_spmv_dot": 0,
     "minres_update_dot": 0,
+    "bicgstab_dir_spmv_dot": 0,
+    "bicgstab_s_spmv_dot": 0,
+    "bicgstab_update_dot": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 

@@ -99,12 +99,14 @@ class FusedWork:
 
 
 def _extra(out, work) -> tuple:
-    """The caller-provided buffers, for the device check."""
+    """The caller-provided buffers, for the device check (any fused
+    iteration's work: ``scal`` and ``ctl``)."""
     return (*(out or ()), *((work.scal, work.ctl) if work is not None else ()))
 
 
-def _live(work: FusedWork) -> bool:
-    # host read; the plain versions are the CPU path (free there)
+def _live(work) -> bool:
+    """Whether a fused iteration's ``ctl`` says to step; a host read, on the
+    plain versions' CPU path only (free there)."""
     return bool(work.ctl[C_LIVE])
 
 

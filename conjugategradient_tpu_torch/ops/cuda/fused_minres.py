@@ -47,7 +47,7 @@ from ._common import (
     raise_on_error,
     stream,
 )
-from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, auto_row_group  # noqa: F401
+from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live, auto_row_group  # noqa: F401
 
 # slots of the (1, 8) scalar row kernel 1 reads (the JAX kernels' SU_* row)
 SU_INV_BETA = 0
@@ -126,16 +126,6 @@ class MinresWork:
         ctl[C_NAN] = nan.to(torch.int32)
         ctl[C_DONE] = done.to(torch.int32)
         ctl[C_LIVE] = ((~done) & (ctl[C_K] < ctl[C_MAXITER])).to(torch.int32)
-
-
-def _extra(out, work) -> tuple:
-    """The caller-provided buffers, for the device check."""
-    return (*(out or ()), *((work.scal, work.ctl) if work is not None else ()))
-
-
-def _live(work: MinresWork) -> bool:
-    # host read; the plain versions are the CPU path (free there)
-    return bool(work.ctl[C_LIVE])
 
 
 def finish_dir(work: MinresWork, vq: torch.Tensor, vr1: torch.Tensor) -> None:

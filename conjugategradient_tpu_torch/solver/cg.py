@@ -168,10 +168,15 @@ def cg_solve(
     tol: float = 0.0,
     maxiter: Optional[int] = None,
     M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    n: Optional[int] = None,
     recompute_r_every: int = 0,
     fused: str = "auto",
 ) -> Tuple[torch.Tensor, CGInfo]:
     """Solve the SPD system ``A x = b`` with (preconditioned) CG.
+
+    ``A``: an operator, a dense or sparse matrix, or an ``x -> A x``
+    callable with ``n=`` (the system's dimension), as ``as_linear_operator``
+    takes them.
 
     ``fused="auto"`` sends a float32 blocked-ELL solve whose tensors lie on
     a CUDA device to the two-kernel fused iteration (solver/fused.py),
@@ -186,7 +191,7 @@ def cg_solve(
         raise ValueError(f"fused must be one of {FUSED_CHOICES}, got {fused!r}")
     every = int(recompute_r_every)
     full_precision_matmul()
-    op = as_linear_operator(A, device=b.device)
+    op = as_linear_operator(A, device=b.device, n=n, dtype=b.dtype)
     N = op.shape[0]
     maxiter = N + 1 if maxiter is None else int(maxiter)
 
@@ -237,10 +242,11 @@ def cg_solve(
     return s.x, info
 
 
-def accuracy(A: Any, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def accuracy(A: Any, b: torch.Tensor, x: torch.Tensor,
+             n: Optional[int] = None) -> torch.Tensor:
     """|Σ(b−Ax)² / Σx²| — the reference's ``accuracy()`` (a ratio of
     SQUARED norms, CG.hpp:463-515), printed by the tester as rel_error."""
-    op = as_linear_operator(A, device=b.device)
+    op = as_linear_operator(A, device=b.device, n=n, dtype=b.dtype)
     res = b - op.matvec(x)
     return torch.abs(dot(res, res) / dot(x, x))
 
@@ -281,16 +287,19 @@ def _lanczos_ritz_extremes(op: LinearOperator, iters: int, seed: int):
 def expected_step_count(
     A: Any,
     accuracy: float,
+    n: Optional[int] = None,
     lanczos_iters: int = 30,
     seed: int = 0,
+    device=None,
 ) -> int:
     """Predicted CG iteration count to reduce the A-norm error by
     ``accuracy``: κ from a short Lanczos run, then the classic bound
-    k = ⌈ln(2/ε) / ln((√κ+1)/(√κ−1))⌉."""
+    k = ⌈ln(2/ε) / ln((√κ+1)/(√κ−1))⌉.  ``n``: the dimension of a callable
+    ``A``, whose vectors go to ``device`` (None: ``DEFAULT_DEVICE``)."""
     if not (0 < accuracy < 1):
         raise ValueError(f"accuracy must be in (0, 1), got {accuracy}")
     full_precision_matmul()
-    op = as_linear_operator(A)
+    op = as_linear_operator(A, device=device, n=n)
     lam_min, lam_max = _lanczos_ritz_extremes(op, lanczos_iters, seed)
     lam_min = max(lam_min, lam_max * 1e-8)
     kappa = max(lam_max / lam_min, 1.0)

@@ -26,13 +26,14 @@ import numpy as np
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
 _PRECONDS = ("none", "jacobi", "amg")
-_METHODS = ("standard", "minres")
+_METHODS = ("standard", "minres", "bicgstab")
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0],
                                  allow_abbrev=False)
-    ap.add_argument("mtx", help="MatrixMarket .mtx file (SPD), or the matrix-free "
+    ap.add_argument("mtx", help="MatrixMarket .mtx file (SPD; general with "
+                    "--method bicgstab), or the matrix-free "
                     "pseudo-input 'stencil:<nx>[x<ny>x<nz>]' (7-point 3-D "
                     "Poisson operator; no matrix is formed)")
     ap.add_argument("--tol", type=float, default=1e-24,
@@ -65,7 +66,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="standard = CG; minres = Paige-Saunders MINRES for "
                          "symmetric INDEFINITE systems (monotone residual "
                          "norms; takes an SPD --precond; float32 blocked "
-                         "layouts run fused CUDA kernels on a GPU)")
+                         "layouts run fused CUDA kernels on a GPU); bicgstab "
+                         "= van der Vorst BiCGStab for NONSYMMETRIC systems "
+                         "(general .mtx inputs; 2 SpMVs/iteration; takes "
+                         "--precond; the portable loop)")
     ap.add_argument("--shift", type=float, default=0.0,
                     help="solve (A - shift*I) x = b (with --method minres: "
                          "the Paige-Saunders spectral shift)")
@@ -120,8 +124,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import (CGInfo, StencilOperator, accuracy, cg_solve, jacobi_preconditioner,
-                   load_matrix, minres_solve, multigrid_preconditioner)
+    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, cg_solve,
+                   jacobi_preconditioner, load_matrix, minres_solve, multigrid_preconditioner)
     from .utils import Timer
 
     device = torch.device(args.device)
@@ -175,11 +179,14 @@ def main(argv=None) -> int:
         M = None
 
     def solve():
-        if args.method == "minres":
-            x, ninfo = minres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
-                                    shift=args.shift)
+        if args.method in ("minres", "bicgstab"):
+            if args.method == "minres":
+                x, ninfo = minres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
+                                        shift=args.shift)
+            else:
+                x, ninfo = bicgstab_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M)
             # the printing below reads a CGInfo, whose history holds squared
-            # norms; MINRES carries norm estimates
+            # norms; MINRES and BiCGStab carry norms
             sq = ninfo.rnorm * ninfo.rnorm
             return x, CGInfo(iterations=ninfo.iterations, converged=ninfo.converged,
                              rho=sq, rnorm_sq=sq,

@@ -58,6 +58,21 @@ class LinearOperator:
     def device(self) -> torch.device:  # pragma: no cover - interface
         raise NotImplementedError
 
+    def memory_footprint(self) -> int:
+        """Bytes of device memory this operator occupies; 0 for matrix-free."""
+        return 0
+
+    def astype(self, dtype) -> "LinearOperator":
+        """Copy with the VALUES cast to ``dtype`` (index arrays keep their
+        integer types)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support astype; "
+            "construct the operator at the target dtype instead."
+        )
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
@@ -85,12 +100,19 @@ class DenseOperator(LinearOperator):
     def diagonal(self):
         return torch.diagonal(self.a)
 
+    def memory_footprint(self) -> int:
+        return self.a.numel() * self.a.element_size()
+
+    def astype(self, dtype) -> "DenseOperator":
+        return DenseOperator(self.a.to(dtype))
+
 
 class MatrixFreeOperator(LinearOperator):
-    """Wrap an ``x -> A x`` callable on torch tensors of ``n`` entries."""
+    """Wrap an ``x -> A x`` callable on torch tensors of ``n`` entries;
+    ``device`` is where the solvers put the vectors they hand it."""
 
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], n: int,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device=DEFAULT_DEVICE):
         self.fn = fn
         self._n = int(n)
         self._dtype = dtype
@@ -112,17 +134,34 @@ class MatrixFreeOperator(LinearOperator):
         return self.fn(x)
 
 
+def _is_scipy_sparse(a: Any) -> bool:
+    """Duck-typed scipy.sparse check (no scipy import): every scipy sparse
+    class has ``tocsr``, ``shape`` and ``nnz``; arrays and tensors have not
+    the first."""
+    return (hasattr(a, "tocsr") and hasattr(a, "shape") and hasattr(a, "nnz")
+            and not isinstance(a, (torch.Tensor, np.ndarray)))
+
+
 def as_linear_operator(a: Any, device=None, n: Optional[int] = None,
                        dtype: Optional[torch.dtype] = None) -> LinearOperator:
-    """Coerce a LinearOperator, a dense square 2-D tensor/array or an
-    ``x -> A x`` callable (which needs ``n``, the system's dimension) into
-    a LinearOperator."""
+    """Coerce into a LinearOperator: an operator as it is; a scipy sparse
+    matrix or a sparse torch tensor into a ``CSRMatrix``, and an ``x -> A x``
+    callable, which needs ``n`` (the system's dimension), into a
+    ``MatrixFreeOperator``, each on ``device`` (None: ``DEFAULT_DEVICE``);
+    a dense square 2-D tensor or array into a ``DenseOperator``."""
+    # local import: csr imports LinearOperator from here
+    from .csr import CSRMatrix
+
     if isinstance(a, LinearOperator):
         return a
+    if _is_scipy_sparse(a):
+        return CSRMatrix.from_scipy(a, dtype=dtype, device=device or DEFAULT_DEVICE)
+    if isinstance(a, torch.Tensor) and a.layout != torch.strided:
+        return CSRMatrix.from_torch(a, dtype=dtype, device=device or DEFAULT_DEVICE)
     if callable(a) and not isinstance(a, (torch.Tensor, np.ndarray)):
         if n is None:
             raise ValueError("matrix-free callables need n= (system dimension)")
-        return MatrixFreeOperator(a, n, dtype or torch.float32, device or "cpu")
+        return MatrixFreeOperator(a, n, dtype or torch.float32, device or DEFAULT_DEVICE)
     t = torch.as_tensor(a, device=device)
     if t.ndim != 2 or t.shape[0] != t.shape[1]:
         raise ValueError(f"expected a square 2-D operator, got shape {tuple(t.shape)}")

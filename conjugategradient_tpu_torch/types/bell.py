@@ -433,6 +433,34 @@ class SymBellMatrix(LinearOperator):
         d = self.diag_blocks[rows // bm, rows % bm, rows % bn]
         return d[: self.n]
 
+    def to_dense(self) -> torch.Tensor:
+        """D + U + Uᵀ as a dense (n, n) tensor."""
+        nrb, bm, bn = self.diag_blocks.shape
+        np_ = self.padded_shape[0]
+        out = torch.zeros((np_, np_), dtype=self.dtype, device=self.device)
+        for i in range(nrb):
+            out[i * bm:(i + 1) * bm, i * bn:(i + 1) * bn] += self.diag_blocks[i]
+        for i, k in zip(*np.nonzero(self.off_cols.cpu().numpy() != np.arange(nrb)[:, None])):
+            c = int(self.off_cols[i, k])
+            blk = self.off_blocks[i, k]
+            out[i * bm:(i + 1) * bm, c * bn:(c + 1) * bn] += blk
+            out[c * bn:(c + 1) * bn, i * bm:(i + 1) * bm] += blk.T
+        return out[: self.shape[0], : self.shape[1]]
+
+    def memory_footprint(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.diag_blocks, self.off_blocks, self.off_cols, self.mirror_src))
+
+    def padding_ratio(self) -> float:
+        """Stored values (each upper tile counted twice, for the two full-
+        layout tiles it stands for) / true nnz."""
+        stored = self.diag_blocks.numel() + 2 * self.off_blocks.numel()
+        return float(stored) / max(self.nnz, 1)
+
+    def astype(self, dtype) -> "SymBellMatrix":
+        return dataclasses.replace(self, diag_blocks=self.diag_blocks.to(dtype),
+                                   off_blocks=self.off_blocks.to(dtype))
+
     def tile_bytes(self) -> int:
         """Operator bytes one symmetric pass streams (diag + upper tiles)."""
         return (self.diag_blocks.numel() + self.off_blocks.numel()) * \

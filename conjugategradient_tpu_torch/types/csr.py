@@ -5,12 +5,12 @@ default (``--layout csr --dtype float64``).  Counterpart of
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, _is_scipy_sparse, as_numpy_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +85,85 @@ class CSRMatrix(LinearOperator):
         return CSRMatrix.from_arrays(vals, cols, indptr, shape, dtype=dtype,
                                      device=device)
 
+    @staticmethod
+    def from_dense(a, dtype=None, device=DEFAULT_DEVICE) -> "CSRMatrix":
+        """The nonzeros of a dense 2-D array."""
+        a = np.asarray(a)
+        rows, cols = np.nonzero(a)
+        return CSRMatrix.from_coo(rows, cols, a[rows, cols], a.shape, dtype=dtype,
+                                  device=device)
+
+    @staticmethod
+    def from_scipy(a: Any, dtype=None, device=DEFAULT_DEVICE) -> "CSRMatrix":
+        """A scipy.sparse matrix of any format (duck-typed: no scipy import),
+        canonicalized as the JAX package does: duplicates summed, column
+        indices sorted, on a copy, never on the caller's matrix."""
+        if not _is_scipy_sparse(a):
+            raise TypeError(f"not a scipy.sparse-like matrix: {type(a)!r}")
+        if not hasattr(a, "indptr") or getattr(a, "format", "csr") != "csr":
+            a = a.tocsr()
+        elif hasattr(a, "copy"):
+            a = a.copy()
+        if hasattr(a, "sum_duplicates"):
+            a.sum_duplicates()
+        if hasattr(a, "sort_indices"):
+            a.sort_indices()
+        return CSRMatrix.from_arrays(np.asarray(a.data), np.asarray(a.indices),
+                                     np.asarray(a.indptr), tuple(a.shape), dtype=dtype,
+                                     device=device)
+
+    @staticmethod
+    def from_torch(a: Any, dtype=None, device=DEFAULT_DEVICE) -> "CSRMatrix":
+        """A sparse torch tensor (``sparse_csr``, ``sparse_coo``, CSC or a
+        blocked layout), through the host once: COO is coalesced
+        (duplicates summed), the other layouts go through torch's own
+        ``to_sparse_csr``.  bfloat16 values stay bfloat16 unless ``dtype``
+        says otherwise.  Complex and dense tensors are refused, as in the
+        JAX package."""
+        if not isinstance(a, torch.Tensor):
+            raise TypeError(f"not a torch.Tensor: {type(a)!r}")
+        if a.is_complex():
+            raise ValueError(
+                "complex torch operators are not supported: the solvers cover "
+                "real systems (the MatrixMarket ingest's contract, io/mtx.py)")
+        if a.dim() != 2:
+            raise ValueError(f"expected a 2-D sparse matrix, got shape {tuple(a.shape)}")
+        if a.layout == torch.strided:
+            raise ValueError(
+                "dense (strided) torch tensor: pass it to as_linear_operator "
+                "(dense operators stay dense: DenseOperator), or call "
+                ".to_sparse_csr() first if CSR is really wanted")
+        a = a.detach().cpu()
+        shape = tuple(int(s) for s in a.shape)
+        target = dtype
+        if target is None and a.dtype == torch.bfloat16:
+            target = torch.bfloat16
+        if target == torch.bfloat16:  # numpy has no bfloat16: widen in transit
+            a = a.to(torch.float32)
+            dtype = None
+        if a.layout == torch.sparse_coo:
+            a = a.coalesce()
+            idx = a.indices().numpy()
+            out = CSRMatrix.from_coo(idx[0], idx[1], a.values().numpy(), shape, dtype=dtype,
+                                     device=device)
+        else:
+            if a.layout != torch.sparse_csr:
+                try:
+                    a = a.to_sparse_csr()
+                except (RuntimeError, NotImplementedError) as e:
+                    raise ValueError(f"torch layout {a.layout} has no CSR conversion in "
+                                     f"this torch build: {e}") from e
+            out = CSRMatrix.from_arrays(a.values().numpy(), a.col_indices().numpy(),
+                                        a.crow_indices().numpy(), shape, dtype=dtype,
+                                        device=device)
+        return out.astype(torch.bfloat16) if target == torch.bfloat16 else out
+
+    def to_torch(self) -> torch.Tensor:
+        """A CPU ``torch.sparse_csr_tensor`` with int64 indices (the round
+        trip of :meth:`from_torch`)."""
+        return torch.sparse_csr_tensor(self.indptr.long().cpu(), self.indices.long().cpu(),
+                                       self.data.cpu(), size=self.shape)
+
     @property
     def nnz(self) -> int:
         return int(self.data.shape[0])
@@ -120,3 +199,12 @@ class CSRMatrix(LinearOperator):
         return out.index_put_(
             (self.row_ids.long(), self.indices.long()), self.data, accumulate=True
         )
+
+    def memory_footprint(self) -> int:
+        """Bytes on the device: the JAX package's four arrays (data,
+        indices, indptr, row_ids) and the port's int64 row lengths."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.data, self.indices, self.indptr, self.row_ids, self.lengths))
+
+    def astype(self, dtype) -> "CSRMatrix":
+        return dataclasses.replace(self, data=self.data.to(dtype))

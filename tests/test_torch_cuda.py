@@ -493,3 +493,161 @@ def test_fused_minres_solve_takes_the_kernels(dev, storage):
         torch.testing.assert_close(xk.cpu(), xp, rtol=1e-4, atol=1e-6)
     x, info = minres_solve(a, torch.zeros_like(b), tol=1e-30)
     assert int(info.iterations) == 0 and not x.any()
+
+
+# ---- kernels 18-20: the fused BiCGStab iteration ---------------------------------------
+
+def _nonsym_tridiag(n, bn, dev, seed=0):
+    """The nonsymmetric block-tridiagonal operator of the JAX bench lane
+    bicgstab-bell (bench.py:1385-1403): up/lo tiles 0.08 N(0, 1), the
+    diagonal (2 + sum|up| + sum|lo|) I."""
+    nrb = n // bn
+    rng = np.random.default_rng(seed)
+    up = (0.08 * rng.standard_normal((bn, bn))).astype(np.float32)
+    lo = (0.08 * rng.standard_normal((bn, bn))).astype(np.float32)
+    diag = np.eye(bn, dtype=np.float32) * (2.0 + np.abs(up).sum() + np.abs(lo).sum())
+    blocks = np.zeros((nrb, 3, bn, bn), np.float32)
+    cols = np.zeros((nrb, 3), np.int32)
+    for i in range(nrb):
+        blocks[i, 0], cols[i, 0] = diag, i
+        k = 1
+        for c, t in ((i - 1, lo), (i + 1, up)):
+            if 0 <= c < nrb:
+                blocks[i, k], cols[i, k] = t, c
+                k += 1
+    return BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(cols).to(dev),
+                            (n, n), nrb * 3 * bn * bn)
+
+
+def _bicg_work(dev):
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    w = fb.BicgstabWork.new(dev, maxiter=5, tol=1e-3)
+    w.scal[fb.B_RHO_NEXT] = 1.7
+    w.start(torch.tensor(2.3, device=dev))
+    return w
+
+
+def _tail_ulps(wk, wp):
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    return int((wk.scal[:fb.B_RV].view(torch.int32)
+                - wp.scal[:fb.B_RV].view(torch.int32)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("bn,row_group", [(32, None), (64, 3), (128, 1)])
+def test_bicgstab_tile_kernels_match_plain(dev, bn, row_group, with_d):
+    """Kernels 18 and 19 on a ragged nrb = 13: p', p̂, s, ŝ, x_h bit for bit,
+    v' and t to RTOL of their largest entry, the dots to RTOL, two launches
+    bit-identical, and the last CTAs' scalar steps within 2 ulp of torch's
+    on the kernels' own dots."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    a = _nonsym_tridiag(13 * bn, bn, dev, seed=bn)
+    g = torch.Generator().manual_seed(bn)
+    r, p, v, rhat, x = (torch.randn(a.nrb, bn, generator=g).to(dev) for _ in range(5))
+    d = (torch.rand(a.nrb, bn, generator=g) + 0.5).to(dev) if with_d else None
+    beta, omega = torch.full((1, 1), 0.4, device=dev), torch.full((1, 1), 0.25, device=dev)
+    wk, wp = _bicg_work(dev), _bicg_work(dev)
+    k1 = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
+                                  row_group=row_group, work=wk)
+    k1b = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
+                                   row_group=row_group)
+    p1 = fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1])
+    _close(k1[2], p1[2])
+    np.testing.assert_allclose(float(k1[3]), float(p1[3]), rtol=RTOL,
+                               atol=RTOL * float(rhat.norm() * p1[2].norm()))
+    assert all(torch.equal(s, t) for s, t in zip(k1, k1b))
+    fb.finish_dir(wp, k1[3][0, 0])
+    assert _tail_ulps(wk, wp) <= 2
+    alpha = torch.full((1, 1), 0.6, device=dev)
+    k2 = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d,
+                                row_group=row_group, work=wk)
+    k2b = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d,
+                                 row_group=row_group)
+    p2 = fb._s_plain(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d, None, None)
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert torch.equal(k2[i], p2[i]), ("s", "shat", "xh")[i]
+    _close(k2[3], p2[3])
+    for i in range(4, 7):
+        np.testing.assert_allclose(float(k2[i]), float(p2[i]), rtol=RTOL,
+                                   atol=RTOL * float(p2[3].norm() * p2[0].norm()))
+    assert all(torch.equal(s, t) for s, t in zip(k2, k2b))
+    fb.finish_s(wp, k2[4][0, 0], k2[5][0, 0], k2[6][0, 0])
+    assert _tail_ulps(wk, wp) <= 2 and torch.equal(wk.ctl, wp.ctl)
+    assert fc.PLAIN_ON_CUDA["bicgstab_dir_spmv_dot"] >= 1  # the comparisons above
+    with pytest.raises(ValueError, match="gather"):
+        fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega,
+                                 out=(torch.empty_like(r), torch.empty_like(r), v))
+    with pytest.raises(ValueError, match="gather"):
+        fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha,
+                               out=(r, torch.empty_like(r), torch.empty_like(r),
+                                    torch.empty_like(r)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 210, 4097, 262_144])
+def test_bicgstab_update_kernel_matches_plain(dev, n):
+    """Kernel 20 at lengths with and without a scalar tail: x', r' bit for
+    bit (also in place over x_h and s), the dots to RTOL, the step's scalars
+    within 2 ulp and its control words equal; ω = 0 returns x_h and s."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    g = torch.Generator().manual_seed(n)
+    xh, sh, s, t, rhat = (torch.randn(n, generator=g).to(dev) for _ in range(5))
+    w = torch.full((1, 1), 0.45, device=dev)
+    wk, wp = _bicg_work(dev), _bicg_work(dev)
+    k = fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, work=wk)
+    p = fb._update_plain(xh, sh, s, t, rhat, w, None, None)
+    xc, sc = xh.clone(), s.clone()
+    k2 = fb.bicgstab_update_dot(xc, sh, sc, t, rhat, w, out=(xc, sc))
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(k2[0], p[0]) and torch.equal(k2[1], p[1])
+    for i in (2, 3):
+        np.testing.assert_allclose(float(k[i]), float(p[i]), rtol=RTOL,
+                                   atol=RTOL * float(p[1].norm() * (p[1] if i == 2 else rhat).norm()))
+    fb.finish_update(wp, k[2][0, 0], k[3][0, 0])
+    assert _tail_ulps(wk, wp) <= 2 and torch.equal(wk.ctl, wp.ctl) and int(wk.ctl[0]) == 1
+    z = fb.bicgstab_update_dot(xh, sh, s, t, rhat, torch.zeros(1, 1, device=dev))
+    assert torch.equal(z[0], xh) and torch.equal(z[1], s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+def test_fused_bicgstab_solve_takes_the_kernels(dev, with_d):
+    """``bicgstab_solve(fused="always")`` on the card: three launches a step
+    and no plain version, bitwise repeatable, its history against the
+    portable loop on the card to 5e-3 over 10 steps, and against the plain
+    versions on the CPU."""
+    from conjugategradient_tpu_torch import (bicgstab_solve, fused_bicgstab_solve,
+                                             jacobi_preconditioner)
+
+    bn = 32
+    a = _nonsym_tridiag(13 * bn, bn, dev, seed=3)
+    # a weaker diagonal than the bench lane's, so that BiCGStab needs steps
+    a.blocks[:, 0] *= 0.1
+    n = a.n
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    M = jacobi_preconditioner(a) if with_d else None
+    fc.reset_counts()
+    xk, ik = bicgstab_solve(a, b, tol=0.0, maxiter=10, M=M, fused="always")
+    assert all(fc.LAUNCHES[k] == 10 for k in ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot",
+                                              "bicgstab_update_dot"))
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    xk2, ik2 = bicgstab_solve(a, b, tol=0.0, maxiter=10, M=M, fused="always")
+    assert torch.equal(xk, xk2) and torch.equal(ik.rnorm_history.view(torch.int32),
+                                                 ik2.rnorm_history.view(torch.int32))
+    _, ip = bicgstab_solve(a, b, tol=0.0, maxiter=10, M=M)
+    _, ic = fused_bicgstab_solve(a.to("cpu"), b.cpu(), tol=0.0, maxiter=10,
+                                 inv_diag=None if M is None else M.inv_diag.cpu())
+    hk = ik.rnorm_history.double().cpu().numpy()
+    np.testing.assert_allclose(hk, ip.rnorm_history.double().cpu().numpy(), rtol=5e-3)
+    np.testing.assert_allclose(hk, ic.rnorm_history.double().numpy(), rtol=5e-3)
+    x, info = bicgstab_solve(a, torch.zeros_like(b), tol=1e-30, fused="always")
+    assert int(info.iterations) == 0 and not x.any()

@@ -252,7 +252,10 @@ def test_minres_shift_history_is_norms_and_rel_error_uses_the_shifted_operator(c
 @pytest.mark.parametrize("args,msg", [
     (["--shift", "0.5"], "--shift drives --method minres"),
     (["--method", "minres", "--recompute", "8"], "--recompute drives the standard"),
-    (["--method", "bicgstab"], "not yet ported"),
+    # BiCGStab is ported: this case now holds the shift refusal on it
+    pytest.param(["--method", "bicgstab", "--shift", "0.5"], "--shift drives --method minres",
+                 id="--method bicgstab"),
+    (["--method", "bicgstab", "--recompute", "8"], "--recompute drives the standard"),
     (["--method", "gmres"], "not yet ported"),
     (["--method", "sstep"], "not yet ported"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
@@ -267,3 +270,58 @@ def test_minres_on_the_stencil_with_multigrid(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert rc == 0 and json.loads(lines[1])["converged"] == [True]
     assert json.loads(lines[1])["iterations"][0] <= 12 and float(lines[0].split()[3]) < 1e-12
+
+
+# --method bicgstab (the JAX tester's lane for nonsymmetric systems)
+CONVDIFF = str(pathlib.Path(__file__).resolve().parents[1] / "problems" / "convdiff_34.mtx")
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--precond", "jacobi"],
+    ["--layout", "bell", "--dtype", "float32", "--tol", "1e-3"],
+    ["--layout", "dia", "--dtype", "float32", "--tol", "1e-3", "--precond", "jacobi"],
+    ["--layout", "auto", "--dtype", "float32", "--tol", "1e-3"],
+    ["--layout", "sell", "--dtype", "float32", "--tol", "1e-3", "--precond", "jacobi"],
+], ids=lambda a: " ".join(a) or "csr-f64")
+def test_bicgstab_matches_the_jax_tester(capsys, extra):
+    """convdiff_34.mtx is a general (nonsymmetric) file: the reference line
+    and the summary of the root tester, iteration counts equal in float64
+    and a few steps apart at most in float32."""
+    import tester as jtester
+
+    # f64 to 1e-4 (4e-9 of ||b||): nearer the roundoff floor the two
+    # packages' sum orders can part by a few steps
+    args = [CONVDIFF, "--method", "bicgstab", "--tol", "1e-4", "--summary", *extra]
+    assert jtester.main(args) == 0
+    jlines = capsys.readouterr().out.strip().splitlines()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlines = capsys.readouterr().out.strip().splitlines()
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    js, ts = json.loads(jlines[1]), json.loads(tlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    trel, jrel = float(tlines[0].split()[3]), float(jlines[0].split()[3])
+    if "float32" in extra:
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 4
+        assert 0 <= trel < 1e-8
+    else:
+        assert ts["iterations"] == js["iterations"]
+        # the final norm is ~1e-9 of ||b||: it agrees to the roundoff of the
+        # run, 1e-10 of ||b|| (tests/test_torch_bicgstab.py's bound)
+        bnorm = np.linalg.norm(np.arange(1, 1157, dtype=float))
+        np.testing.assert_allclose(ts["final_rnorm"], js["final_rnorm"], rtol=0,
+                                   atol=1e-10 * bnorm)
+        np.testing.assert_allclose(trel, jrel, rtol=1e-2)
+        assert trel < 1e-12
+
+
+def test_bicgstab_history_holds_norms(capsys):
+    rc = tester.main([CONVDIFF, "--method", "bicgstab", "--tol", "1e-6", "--device", "cpu",
+                      "--history", "--summary"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    summ, hist = json.loads(lines[1]), json.loads(lines[2])
+    norms = np.array(hist["residual_norms"], float)
+    assert rc == 0 and len(norms) == hist["iterations"] + 1 == summ["iterations"][0] + 1
+    b = np.arange(1, 1157, dtype=float)
+    np.testing.assert_allclose(norms[0], np.linalg.norm(b), rtol=1e-12)
+    assert norms[-1] <= 1e-6 < norms[0]
+    np.testing.assert_allclose(summ["final_rnorm"][0], norms[-1], rtol=1e-9)
