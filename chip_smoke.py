@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the fifteen kernels against its plain-torch version on the
+2. Hold each of the seventeen kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -35,7 +35,15 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    the next update is a no-op; the update kernel at lengths 210, 4097 and
    n): p', p^, s, s^, x_h, x' and r' bit-equal, v', t and the dots within
    the stated tolerances, two launches bit-identical, the tails within
-   ``TAIL_ULPS``.
+   ``TAIL_ULPS``.  The row-sharded kernels 6 (``bell_spmv_dot``) and 17
+   (``minres_shard_spmv_dot``), on shards 0 and 3 of the n = 262,144
+   operator split into 4 (``split_tridiag_tiles``) and at a ragged nrb = 13
+   with bn = 32 and 64 at a row offset that is not 0 (kernel 17 also with a
+   shift, with su = 0 and with a Jacobi-scaled v): q within TOL_Q, w and x'
+   bit-equal (also written over w-2 and x), the dots within TOL_DOT, two
+   launches bit-identical; kernels 2, 3 and 16 in the sharded loop's
+   partials-only mode bit-equal to their full-tail launches; kernels 6 and
+   17 timed on a shard of P = 4 (and P = 8).
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -88,9 +96,20 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    64 steps; fused against portable over 25 steps and twice against itself
    (bitwise); the skew breakdown; the half-step exit; caps of 1, 2 and 7;
    b = 0; one x0 warm start.
+   Then the sharded path, with its own reset and read: ``sharded_cg_solve``
+   on the n = 262,144 operator split into 4 and 8 shards on the card (the
+   in-process shard group): the fused CG for 256 steps at each P beside the
+   single-card fused CG (ms/it, effective GB/s on the same 413.1 MB/it, the
+   busy share over 64 steps and each kernel's device ms/it), the fused
+   Jacobi PCG and the fused MINRES at P = 4, the portable sharded CG at P = 4;
+   the fused sharded CG against the single-card one over 25 steps and twice
+   against itself (bitwise); the float64 portable sharded CG on poisson3d_48
+   (``partition_csr_rows``, P = 4) against ``cg_solve`` (equal iterations, x
+   to 1e-11); sharded MINRES on indefinite operators against
+   ``minres_solve``; caps of 1, 2 and 7; b = 0; one x0 warm start.
    The portable loops end at convergence: the steps launched are counted
-   against the iterations for MG-PCG at 256^3, a portable DIA solve and a
-   portable BiCGStab solve.
+   against the iterations for MG-PCG at 256^3, a portable DIA solve, a
+   portable BiCGStab solve and a portable sharded CG solve.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -139,6 +158,8 @@ SOURCES = {
     "bicgstab_dir_spmv_dot": BICGSTAB_SOURCE,
     "bicgstab_s_spmv_dot": BICGSTAB_SOURCE,
     "bicgstab_update_dot": BICGSTAB_SOURCE,
+    "bell_spmv_dot": FUSED_SOURCE,
+    "minres_shard_spmv_dot": MINRES_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -160,6 +181,8 @@ REPLACES = {
     "bicgstab_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:84",
     "bicgstab_s_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:200",
     "bicgstab_update_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:293",
+    "bell_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:467",
+    "minres_shard_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:528",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv")
@@ -169,6 +192,8 @@ MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_upda
                   "bell_spmv")
 BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
                     "bell_spmv", "dia_spmv")
+SHARDED_KERNELS = ("bell_spmv_dot", "minres_shard_spmv_dot", "fused_update_dot",
+                   "fused_update_dot_pcg", "minres_update_dot", "bell_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
 # float32 and float64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -190,6 +215,7 @@ TOL_DOT = 1e-5  # pap, rnorm, rho: relative
 TOL_SOLVE_REL = 1e-5  # solve tolerance: 1e-5 * ||b||
 REL_ERROR_BOUND = 1e-8  # tester rel_error = ||b - Ax||^2 / ||x||^2
 TRAJ_RTOL = 5e-2  # fused vs plain rho_history over 25 steps
+PARITY_MIN_USED = 10  # sharded vs one card: entries above the float32 floor
 RESTART_RTOL = 2e-3  # card vs CPU plain versions, 32 steps with restarts
 RESTART_EVERY = 8
 ITER_SLACK = 8
@@ -409,6 +435,48 @@ def block_tridiag_ops(n, bn, device):
     sym = SymBellMatrix._pack_np(blocks, cols.astype(np.int64), (n, n), (n, n),
                                  nnz, check=False, device=device)
     return full, sym
+
+
+def split_tridiag_tiles(n, n_shards, bn=128, seed=0):
+    """``problems.block_tridiag_tiles(n)`` split by block-rows into shards:
+    (n_shards, nrb / n_shards, 3, bn, bn) tiles and (n_shards, nrb /
+    n_shards, 3) GLOBAL column blocks (numpy views, no copy).  The sharded
+    path's operator: building the CSR of ~100 M nonzeros to partition it
+    would take most of a minute on the host, and the CPU tests hold this
+    split equal, as an operator, to ``partition_csr_rows`` on that CSR."""
+    from conjugategradient_tpu_torch.problems import block_tridiag_tiles
+
+    blocks, cols, _ = block_tridiag_tiles(n, bn, bn, seed=seed)
+    nrb = blocks.shape[0]
+    if nrb % n_shards:
+        raise ValueError(f"{nrb} block-rows do not split into {n_shards} shards")
+    return (blocks.reshape(n_shards, nrb // n_shards, 3, bn, bn),
+            cols.reshape(n_shards, nrb // n_shards, 3))
+
+
+def cut_tridiag_ops(blocks4, cols4, nnz, seed=11):
+    """The sharded path's operator with its diagonal tiles cut to
+    rho_off * (2.05 + 0.5 u) I, u uniform per row (seeded), rho_off the
+    coupling tile's spectral radius: SPD (the couplings add at most
+    2 rho_off) with a condition number of at most 91 and a diagonal that
+    varies by row, so CG and Jacobi PCG stay above the float32 floor for
+    about 20 of 25 steps (the original diagonal, ~1000 times the coupling,
+    ends CG in two).  Returns the one-card full-storage matrix, the P = 4
+    and P = 8 shard views of the same tiles, and 1/diag."""
+    import torch
+
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix
+
+    n_shards, nrb, _, bn, _ = blocks4.shape
+    n = n_shards * nrb * bn
+    rho_off = float(np.abs(np.linalg.eigvalsh(blocks4[0, 0, 1].double().cpu().numpy())).max())
+    d = torch.as_tensor(rho_off * (2.05 + 0.5 * np.random.default_rng(seed).random(n)),
+                        dtype=torch.float32, device=blocks4.device)
+    cut = blocks4.clone()
+    cut[:, :, 0] = torch.diag_embed(d.view(n_shards, nrb, bn))
+    full = BlockedEllMatrix(cut.view(-1, 3, bn, bn), cols4.reshape(-1, 3), (n, n), nnz)
+    ops = {4: (cut, cols4), 8: (cut.view(8, -1, 3, bn, bn), cols4.view(8, -1, 3))}
+    return full, ops, 1.0 / d
 
 
 def random_block_csr(rng, nrb, bm, bn, per_row, ncols=None):
@@ -2555,6 +2623,446 @@ def phase_bicgstab_path(dev, bic_ops, card):
     torch.cuda.synchronize()
 
 
+# ---- phase 2, sharded: kernels 6 and 17 against their plain versions ------------
+
+def sharded_ops(dev, n_shards):
+    """The n = 262,144 block-tridiagonal operator split into ``n_shards``
+    row shards on the card (split_tridiag_tiles)."""
+    import torch
+
+    blocks, cols = split_tridiag_tiles(N_BIG, n_shards, 128)
+    return torch.from_numpy(blocks).to(dev), torch.from_numpy(cols).to(dev)
+
+
+def random_shard(rng, nrb, bn, n_shards, shard, dev):
+    """A ragged random shard: tiles with GLOBAL column blocks over
+    ``n_shards * nrb`` block-rows, and its row offset."""
+    import torch
+
+    ncb = n_shards * nrb
+    blocks = torch.as_tensor(rng.standard_normal((nrb, 3, bn, bn)), dtype=torch.float32,
+                             device=dev)
+    cols = torch.as_tensor(rng.integers(0, ncb, (nrb, 3)), dtype=torch.int32, device=dev)
+    return blocks, cols, ncb, shard * nrb * bn
+
+
+def check_k6(blocks, cols, full, off, errs, label):
+    """Kernel 6 against its plain version: q within TOL_Q of max|q|, pap
+    within TOL_DOT, two launches bit-identical."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    qk, pk = fc.bell_spmv_dot(blocks, cols, full, off)
+    qk2, pk2 = fc.bell_spmv_dot(blocks, cols, full, off)
+    qp, pp = fc._spmv_dot_plain(blocks, cols, full, off, None, None)
+    torch.cuda.synchronize()
+    e_q, m_q = rel_max_err(qk, qp)
+    e_pap = abs(float(pk) - float(pp))
+    check(e_q <= TOL_Q * m_q, f"K6 {label}: q err {e_q} vs max|q| {m_q}")
+    check(e_pap <= TOL_DOT * abs(float(pp)), f"K6 {label}: pap {float(pk)} vs {float(pp)}")
+    check(torch.equal(qk, qk2) and torch.equal(pk, pk2), f"K6 {label}: two launches differ")
+    errs["bell_spmv_dot"] = max(errs["bell_spmv_dot"], e_q, e_pap)
+    print(f"  K6 {label:<40} |dq|={e_q:.3g} (max|q| {m_q:.4g}) |dpap|={e_pap:.3g} "
+          f"(pap {float(pp):.6g}); repeat ok")
+
+
+def check_k17(blocks, cols, full, off, rng, errs, label, shift=0.07, first=False, jacobi=False):
+    """Kernel 17 against its plain version: w and x' bit for bit (also
+    written over w-2 and x), q within TOL_Q of max|q|, v.q within TOL_DOT
+    and v.r1 within TOL_DOT of ||v_win|| ||r1||; two launches bit-identical.
+    ``first``: su = 0 (no pending update: w = 0, x unchanged); ``jacobi``: v
+    scaled as the loop scales it, (d * r2) / beta."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    nrb, bn = blocks.shape[0], blocks.shape[3]
+    dev = blocks.device
+
+    def vec(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    if jacobi:
+        full = (torch.as_tensor(0.5 + rng.random(full.shape), dtype=torch.float32, device=dev)
+                * full) * 0.31
+    vecs = [vec((nrb, bn)) for _ in range(5)]
+    su = torch.zeros(1, 8, device=dev)
+    su[0, fm.SU_SHIFT] = shift
+    if not first:
+        su[0, fm.SU_OLDEPS:fm.SU_PHI + 1] = torch.tensor([0.11, 0.23, 0.57, 0.83])
+    k = fm.minres_shard_spmv_dot(blocks, cols, full, *vecs, su, off)
+    k2 = fm.minres_shard_spmv_dot(blocks, cols, full, *vecs, su, off)
+    p = fm._shard_plain(blocks, cols, full, tuple(vecs), su, off, None, None)
+    w_in, x_in = vecs[3].clone(), vecs[4].clone()
+    q_o, dots = torch.empty_like(w_in), torch.empty(2, device=dev)
+    k3 = fm.minres_shard_spmv_dot(blocks, cols, full, *vecs[:3], w_in, x_in, su, off,
+                                  out=(q_o, w_in, x_in, dots))
+    torch.cuda.synchronize()
+    check(torch.equal(k[1], p[1]) and torch.equal(k[2], p[2]),
+          f"K17 {label}: w or x' not bit-equal to the plain version")
+    check(torch.equal(k3[1], p[1]) and torch.equal(k3[2], p[2]),
+          f"K17 {label}: w or x' written over w-2 and x differ")
+    check(all(torch.equal(a, b) for a, b in zip(k, k2)), f"K17 {label}: two launches differ")
+    if first:
+        check(not bool(k[1].any()) and torch.equal(k[2], vecs[4]),
+              f"K17 {label}: a first step (su = 0) changed x or w")
+    e_q, m_q = rel_max_err(k[0], p[0])
+    check(e_q <= TOL_Q * m_q, f"K17 {label}: q err {e_q} vs max|q| {m_q}")
+    e_vq = abs(float(k[3]) - float(p[3]))
+    e_vr1 = abs(float(k[4]) - float(p[4]))
+    vwin = full[off // bn:off // bn + nrb]
+    check(e_vq <= TOL_DOT * abs(float(p[3])), f"K17 {label}: vq {float(k[3])} vs {float(p[3])}")
+    check(e_vr1 <= TOL_DOT * float(vwin.norm() * vecs[0].norm()),
+          f"K17 {label}: vr1 {float(k[4])} vs {float(p[4])}")
+    errs["minres_shard_spmv_dot"] = max(errs["minres_shard_spmv_dot"], e_q, e_vq, e_vr1)
+    print(f"  K17 {label:<39} w, x' bit-equal (also in place); |dq|={e_q:.3g} "
+          f"(max|q| {m_q:.4g}) |dvq|={e_vq:.3g} |dvr1|={e_vr1:.3g}; repeat ok")
+    return vecs, su
+
+
+def check_partials_only(shape, rng, dev, label):
+    """Kernels 2, 3 and 16 in the sharded loop's partials-only mode against
+    their full-tail launches: x', r' and r2' bit-equal, the same partial
+    sums, and the solve's scalars and control words untouched."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    x, p, r, q = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+                  for _ in range(4))
+    d = torch.as_tensor(0.5 + rng.random(shape), dtype=torch.float32, device=dev)
+    alpha = torch.full((1, 1), 0.61, device=dev)
+    for name, kern in (
+        ("fused_update_dot", lambda **kw: fc.fused_update_dot(x, p, r, q, alpha, **kw)),
+        ("fused_update_dot_pcg", lambda **kw: fc.fused_update_dot_pcg(x, p, r, q, d, alpha, **kw)),
+    ):
+        full = kern(work=fc.FusedWork.new(dev, maxiter=4))
+        work = fc.FusedWork.new(dev, maxiter=4)
+        before = (work.scal.clone(), work.ctl.clone(), work.hist.clone())
+        part = kern(work=work, partials_only=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(full, part)),
+              f"{name} {label}: partials-only launch differs from the full-tail one")
+        check(torch.equal(work.scal, before[0]) and torch.equal(work.ctl, before[1])
+              and torch.equal(work.hist.isnan(), before[2].isnan()),
+              f"{name} {label}: partials-only launch changed the solve's scalars")
+    c1, ia = torch.full((1, 1), 0.4, device=dev), torch.full((1, 1), 0.9, device=dev)
+    for dd in (None, d):
+        wf, wp = fm.MinresWork.new(dev, maxiter=4), fm.MinresWork.new(dev, maxiter=4)
+        for w in (wf, wp):
+            w.start(torch.tensor(2.3, device=dev))
+        before = (wp.scal.clone(), wp.ctl.clone())
+        yf, bf = fm.minres_update_dot(q, r, p, c1, ia, dd, work=wf)
+        yp, bp = fm.minres_update_dot(q, r, p, c1, ia, dd, work=wp, partials_only=True)
+        torch.cuda.synchronize()
+        check(torch.equal(yf, yp) and torch.equal(bf, bp),
+              f"minres_update_dot {label}: partials-only launch differs from the full-tail one")
+        check(torch.equal(wp.scal, before[0]) and torch.equal(wp.ctl, before[1]),
+              f"minres_update_dot {label}: partials-only launch changed the solve's scalars")
+    print(f"  partials-only kernels 2, 3, 16 {label:<12} x', r', r2' and partials bit-equal "
+          "to the full-tail launches; scalars untouched")
+
+
+def phase_sharded_kernels(dev, errs, times, extra):
+    """Kernels 6 and 17 against their plain versions and timed on the
+    sharded path's shards (the n = 262,144 operator in 4 and 8 shards), at
+    a ragged nrb = 13, and the partials-only modes of kernels 2, 3 and 16.
+    Returns the split operator."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    rng = np.random.default_rng(17)
+    blocks4, cols4 = sharded_ops(dev, 4)
+    m4 = N_BIG // 4
+    full = torch.as_tensor(rng.standard_normal((N_BIG // 128, 128)), dtype=torch.float32,
+                           device=dev)
+    for s in (0, 3):
+        check_k6(blocks4[s], cols4[s], full, s * m4, errs, f"tridiag n=262144 P=4 shard {s}")
+    for bn in (32, 64):
+        b13, c13, ncb, off = random_shard(rng, 13, bn, 3, 2, dev)
+        full13 = torch.as_tensor(rng.standard_normal((ncb, bn)), dtype=torch.float32, device=dev)
+        check_k6(b13, c13, full13, off, errs, f"ragged nrb=13 bn={bn} offset {off}")
+    for s in (0, 3):
+        args4 = check_k17(blocks4[s], cols4[s], full, s * m4, rng, errs,
+                          f"tridiag n=262144 P=4 shard {s}")
+    check_k17(blocks4[1], cols4[1], full, m4, rng, errs, "tridiag P=4 shard 1 first step",
+              first=True)
+    check_k17(blocks4[2], cols4[2], full, 2 * m4, rng, errs, "tridiag P=4 shard 2 jacobi v",
+              shift=0.0, jacobi=True)
+    for bn in (32, 64):
+        b13, c13, ncb, off = random_shard(rng, 13, bn, 3, 1, dev)
+        full13 = torch.as_tensor(rng.standard_normal((ncb, bn)), dtype=torch.float32, device=dev)
+        for first, jacobi in ((False, False), (True, False), (False, True)):
+            tag = " first step" if first else (" jacobi v" if jacobi else "")
+            check_k17(b13, c13, full13, off, rng, errs, f"ragged nrb=13 bn={bn}{tag}",
+                      first=first, jacobi=jacobi)
+    check_partials_only((N_BIG // 128, 128), rng, dev, "(2048, 128)")
+    check_partials_only((13, 32), rng, dev, "(13, 32)")
+
+    # timing at the path's shapes, launched as the loop launches them: into
+    # its buffers, on a solve's work that never finishes
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork.start(torch.tensor(2.3, device=dev))
+    blocks8, cols8 = blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
+    for n_shards, bl, cl, table, k6, k17 in (
+        (4, blocks4, cols4, times, "bell_spmv_dot", "minres_shard_spmv_dot"),
+        (8, blocks8, cols8, extra, "K6 tridiag P=8", "K17 tridiag P=8"),
+    ):
+        m = N_BIG // n_shards
+        q, pap = torch.empty(m // 128, 128, device=dev), torch.empty(1, 1, device=dev)
+        b0, c0 = bl[0], cl[0]
+        t = time_pair(lambda: fc.bell_spmv_dot(b0, c0, full, 0, out=(q, pap), work=work),
+                      lambda: fc._spmv_dot_plain(b0, c0, full, 0, None, None))
+        # tiles and columns of the shard, the gathered operand, q
+        t.update(bound(nbytes(b0, c0, full) + m * 4, 2 * b0.numel() + 2 * m),
+                 library_ms=None)  # an SpMV fused with a window dot: no one call
+        table[k6] = t
+        vecs = [torch.as_tensor(rng.standard_normal((m // 128, 128)), dtype=torch.float32,
+                                device=dev) for _ in range(5)]
+        su = args4[1].clone()
+        su[0, fm.SU_PHI] = 0.0  # x stays put over the timed launches
+        dots = torch.empty(2, device=dev)
+        out = (torch.empty_like(vecs[0]), vecs[3], vecs[4], dots)
+        t = time_pair(lambda: fm.minres_shard_spmv_dot(b0, c0, full, *vecs, su, 0, out=out,
+                                                       work=mwork),
+                      lambda: fm._shard_plain(b0, c0, full, tuple(vecs), su, 0, None, None))
+        # the shard's tiles, v, five local vectors in and three out
+        t.update(bound(nbytes(b0, c0, full, su) + 8 * m * 4, 2 * b0.numel() + 12 * m),
+                 library_ms=None)  # an SpMV fused with two axpys, a shift, two dots
+        table[k17] = t
+    torch.cuda.synchronize()
+    print(f"  kernels 6 / 17 at P = 4: bound {times['bell_spmv_dot']['bound_ms']:.5f} / "
+          f"{times['minres_shard_spmv_dot']['bound_ms']:.5f} ms per launch "
+          f"(x{4}: {4 * times['bell_spmv_dot']['bound_ms']:.5f} / "
+          f"{4 * times['minres_shard_spmv_dot']['bound_ms']:.5f} per iteration)")
+    return blocks4, cols4
+
+
+# ---- phase 3, sharded: the row-sharded solve ------------------------------------------
+
+def kernel_rows(fn, steps, top=6):
+    """The device ms and CUDA kernel launches per step over one call of
+    ``fn`` (a solve of ``steps`` steps), and the ``top`` kernels' device ms
+    per step, or 'not measured'."""
+    prof = kernel_profile(fn, top=top)
+    if prof is None:
+        return "not measured"
+    total, launched, rows = prof
+    short = []
+    for name, ms, _ in rows:
+        name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        short.append((name.split("<")[0].split("(")[0].split("::")[-1][:24], ms / steps))
+    return (f"device {total / steps:.5f} ms/it in {launched / steps:.1f} launches/it; top: "
+            + ", ".join(f"{n} {ms:.5f}" for n, ms in short))
+
+
+def phase_sharded_path(dev, big_full, shard_ops, card):
+    """The row-sharded path through ``sharded_cg_solve`` (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import (CSRMatrix, cg_solve, fused_bell_cg_solve,
+                                             fused_bell_pcg_solve, load_matrix, minres_solve)
+    from conjugategradient_tpu_torch.io import read_csr_host
+    from conjugategradient_tpu_torch.parallel import loops, make_row_mesh, partition_csr_rows
+    from conjugategradient_tpu_torch.parallel import sharded_cg_solve
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+    from conjugategradient_tpu_torch.utils import Timer
+
+    blocks4, cols4 = shard_ops
+    n = N_BIG
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    bm = b / n  # bench.py's minres right-hand side
+    eff = big_full.tile_bytes() + 10 * n * 4  # the single-card fused CG's 413.1 MB/it
+    ops = {4: (blocks4, cols4), 8: (blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3))}
+    inv_diag = 1.0 / big_full.diagonal()
+
+    def solve(n_shards, rhs, steps, **kw):
+        bl, cl = ops[n_shards]
+        return sharded_cg_solve(bl, cl, rhs, mesh=make_row_mesh(n_shards, dev), tol=-1.0,
+                                maxiter=steps, **kw)
+
+    def timed(label, n_shards, rhs, steps, **kw):
+        """ms per live step; every step must be live, except for MINRES,
+        whose Lanczos beta may reach 0 (done): then the live steps are
+        counted and the time is over those."""
+        solve(n_shards, rhs, 16, **kw)
+        t = Timer(dev).start_measure()
+        x, info = solve(n_shards, rhs, steps, **kw)
+        t.stop_measure()
+        k = int(info.iterations)
+        check(k == steps or (kw.get("method") == "minres" and k > 0),
+              f"sharded {label} P={n_shards}: {k} of {steps} steps live")
+        ms_it = t.get_duration() / k
+        run64 = lambda: solve(n_shards, rhs, 64, **kw)
+        t = Timer(dev).start_measure()
+        run64()
+        t.stop_measure()
+        busy = device_ms(run64, reps=1)
+        busy_s = "not measured" if busy is None else \
+            f"{busy:.4f} of {t.get_duration():.4f} ms ({100 * busy / t.get_duration():.1f}%)"
+        print(f"  sharded {label} n={n} P={n_shards}: k = {k} of {steps}, {ms_it:.5f} ms/it, effective "
+              f"{eff / ms_it / 1e6:.1f} GB/s on {eff / 1e6:.1f} MB/it; 64 steps: device busy "
+              f"{busy_s}; {kernel_rows(run64, 64)}  [{card}]")
+        return x, info, ms_it
+
+    # (a) the fused sharded CG at P = 4 and 8, the single-card fused CG beside
+    fused_bell_cg_solve(big_full, b, tol=-1.0, maxiter=32)
+    t = Timer(dev).start_measure()
+    _, info1 = fused_bell_cg_solve(big_full, b, tol=-1.0, maxiter=256)
+    t.stop_measure()
+    one_ms = t.get_duration() / 256
+    print(f"  single-card fused CG n={n} full storage: {one_ms:.5f} ms/it, effective "
+          f"{eff / one_ms / 1e6:.1f} GB/s  [{card}]")
+    for n_shards in (4, 8):
+        timed("fused CG", n_shards, b, 256)
+    # (b) fused Jacobi PCG and fused MINRES at P = 4, the portable CG beside
+    timed("fused Jacobi PCG", 4, b, 256, inv_diag=inv_diag)
+    timed("fused MINRES", 4, bm, 256, method="minres")
+    solve(4, b, 8, use_fused="never")
+    t = Timer(dev).start_measure()
+    _, ip = solve(4, b, 64, use_fused="never")
+    t.stop_measure()
+    check(int(ip.iterations) == 64, f"portable sharded CG: {int(ip.iterations)} steps")
+    print(f"  portable sharded CG n={n} P=4: {t.get_duration() / 64:.5f} ms/it  [{card}]")
+
+    # (c) against the single-card fused CG and Jacobi PCG at P = 4 and 8: the
+    # 25-step trajectory on the cut operator (cut_tridiag_ops), at least
+    # PARITY_MIN_USED entries above the float32 floor; then twice, bitwise
+    cut_full, cut_ops, cut_inv = cut_tridiag_ops(blocks4, cols4, big_full.nnz)
+    rhs = torch.as_tensor(np.random.default_rng(9).standard_normal(n), dtype=torch.float32,
+                          device=dev)
+    used_all = []
+    for n_shards in (4, 8):
+        for jac in (None, cut_inv):
+            what = f"sharded fused {'Jacobi PCG' if jac is not None else 'CG'} P={n_shards}"
+            _, i25 = sharded_cg_solve(*cut_ops[n_shards], rhs, mesh=make_row_mesh(n_shards, dev),
+                                      tol=-1.0, maxiter=25, inv_diag=jac)
+            if jac is None:
+                _, o25 = fused_bell_cg_solve(cut_full, rhs, tol=-1.0, maxiter=25)
+            else:
+                _, o25 = fused_bell_pcg_solve(cut_full, rhs, jac, tol=-1.0, maxiter=25)
+            ok, used = trajectory_ok(i25.rho_history, o25.rho_history, 25)
+            check(ok and used >= PARITY_MIN_USED,
+                  f"{what} vs the single card: rho_history beyond rtol {TRAJ_RTOL} or only "
+                  f"{used} entries above the float32 floor")
+            hs, ho = (h[1:26].double().cpu().numpy() for h in (i25.rho_history,
+                                                              o25.rho_history))
+            keep = ho > 1e-10 * float(o25.rho_history[0])
+            used_all.append(f"{used} ({np.abs(hs[keep] / ho[keep] - 1).max():.2g})")
+    for n_shards in (4, 8):
+        x1, r1 = solve(n_shards, b, 256)
+        x2, r2 = solve(n_shards, b, 256)
+        check(torch.equal(x1, x2) and torch.equal(r1.rho_history.view(torch.int32),
+                                                  r2.rho_history.view(torch.int32)),
+              f"sharded fused CG P={n_shards}: two runs differ")
+    print(f"  sharded vs single-card fused CG and Jacobi PCG, P=4 and 8, cut operator: 25-step "
+          f"rho_history agrees on {', '.join(used_all)} entries above the float32 floor (largest "
+          f"relative difference); P=4 and P=8 "
+          f"repeat bit for bit")
+
+    # (d) float64 portable sharded CG on poisson3d_48 at P = 4 against cg_solve
+    path = os.path.join(ROOT, MATRICES[0])
+    data, indices, indptr, shape = read_csr_host(path)
+    blocks, bcols, n_pad = partition_csr_rows(data, indices, indptr, shape, 4, bm=8, bn=8)
+    np3 = shape[0]
+    b64 = torch.zeros(n_pad, dtype=torch.float64, device=dev)
+    b64[:np3] = torch.arange(1, np3 + 1, dtype=torch.float64, device=dev)
+    tol64 = 1e-8 * bnorm(np3)
+    with count_steps(loops, "_pcg_body_fn") as counter:
+        xs, is_ = sharded_cg_solve(blocks, bcols, b64, mesh=make_row_mesh(4, dev), tol=tol64)
+    csr = load_matrix(path, layout="csr", dtype=np.float64, device=dev)
+    x1, i1 = cg_solve(csr, b64[:np3], tol=tol64)
+    e, m = rel_max_err(xs[:np3], x1)
+    check(bool(is_.converged) and int(is_.iterations) == int(i1.iterations) and e <= 1e-11 * m,
+          f"float64 sharded CG poisson3d_48: {int(is_.iterations)} vs {int(i1.iterations)} its, "
+          f"x differs by {e} (max {m})")
+    print(f"  float64 portable sharded CG poisson3d_48 P=4 (8 x 8 tiles): {int(is_.iterations)} "
+          f"its as cg_solve, x to {e / m:.3g} of max|x|")
+    check_stops_at_done("portable sharded CG poisson3d_48", counter.calls, int(is_.iterations))
+
+    # (e) sharded MINRES on indefinite operators against the single-card
+    # minres_solve, fused (128 x 128 tiles) and portable (32 x 32: a float32
+    # SpMV on the card is kernel 5, which takes bn in CUDA_BN): poisson2d(24)
+    # - 3I (__graft_entry__.py:481; singular, so only its first three phibars,
+    # as there) and poisson2d(20) - 3I (tests/test_sharded_minres.py:38) to
+    # MINRES_INDEF_TOL_REL ||b||
+    import scipy.sparse as sp
+
+    for nx, steps in ((24, 3), (20, None)):
+        rows, cols, vals, shp = poisson2d_coo(nx)
+        vals = np.asarray(vals, np.float64).copy()
+        vals[np.asarray(rows) == np.asarray(cols)] -= 3.0
+        a = sp.csr_matrix((vals.astype(np.float32), (rows, cols)), shape=shp)
+        a.sort_indices()
+        na = shp[0]
+        one = CSRMatrix.from_arrays(a.data, a.indices, a.indptr, shp, device=dev)
+        bb = torch.ones(na, dtype=torch.float32, device=dev)
+        tt = 0.0 if steps else MINRES_INDEF_TOL_REL * float(bb.norm())
+        _, i_one = minres_solve(one, bb, tol=tt, maxiter=steps or 4 * na)
+        for tile, fused in ((128, "always"), (32, "never")):
+            bl, bc, npd = partition_csr_rows(a.data, a.indices, a.indptr, shp, 4, bm=tile, bn=tile)
+            bp = torch.zeros(npd, dtype=torch.float32, device=dev)
+            bp[:na] = 1.0
+            x, info = sharded_cg_solve(bl, bc, bp, mesh=make_row_mesh(4, dev), tol=tt,
+                                       maxiter=steps or 4 * na, method="minres", use_fused=fused)
+            k, k1 = int(info.iterations), int(i_one.iterations)
+            h = np.sqrt(info.rho_history.double().cpu().numpy()[:4])
+            h1 = i_one.rnorm_history.double().cpu().numpy()[:4]
+            true_r = float((bb - one.matvec(x[:na])).double().norm())
+            what = (f"indefinite sharded MINRES poisson2d({nx}) - 3I P=4 {tile}x{tile} "
+                    f"use_fused={fused}")
+            check(np.allclose(h, h1, rtol=1e-3), f"{what}: phibar {h} vs {h1}")
+            if steps:
+                check(k == steps, f"{what}: {k} of {steps} steps")
+                print(f"  {what}: {k} steps, the first phibars to 1e-3 of the single card's")
+                continue
+            check(bool(info.converged) and abs(k - k1) <= ITER_SLACK
+                  and true_r <= MINRES_TRUE_FACTOR * tt,
+                  f"{what}: {k} its against {k1}, ||b - Ax|| {true_r}")
+            print(f"  {what}: {k} its (single card {k1}), ||b - Ax|| = {true_r:.3e} "
+                  f"({tt:.3e} asked)")
+
+    # (f) caps of 1, 2 and 7 against the portable loop (cut operator, P = 4
+    # and 8, with and without Jacobi); b = 0; an x0 warm start (fused, P = 4)
+    for n_shards in (4, 8):
+        for jac in (None, cut_inv):
+            for method in ("standard", "minres"):
+                for cap in (1, 2, 7):
+                    kw = dict(mesh=make_row_mesh(n_shards, dev), tol=-1.0, maxiter=cap,
+                              method=method, inv_diag=jac)
+                    xf, fi = sharded_cg_solve(*cut_ops[n_shards], rhs, **kw)
+                    xp, _ = sharded_cg_solve(*cut_ops[n_shards], rhs, use_fused="never", **kw)
+                    e, m = rel_max_err(xf, xp)
+                    check(int(fi.iterations) == cap and e <= 1e-4 * m,
+                          f"sharded {method} P={n_shards} jacobi={jac is not None} cap {cap}: "
+                          f"{int(fi.iterations)} steps, x differs by {e}")
+    del cut_full, cut_ops
+    for method in ("standard", "minres"):
+        x, info = sharded_cg_solve(*ops[4], torch.zeros_like(b), mesh=make_row_mesh(4, dev),
+                                   tol=1e-30, method=method)
+        check(not bool(x.any()) and bool(info.converged) and int(info.iterations) <= 1,
+              f"sharded {method} b = 0: {int(info.iterations)} its")
+    x0 = torch.as_tensor(np.random.default_rng(5).standard_normal(n), dtype=torch.float32,
+                         device=dev)
+    x, info = sharded_cg_solve(*ops[4], b, x0, mesh=make_row_mesh(4, dev),
+                               tol=TOL_SOLVE_REL * bnorm(n))
+    r0 = b - big_full.matvec(x0)
+    e0 = abs(float(info.rho_history[0]) / float(r0.double() @ r0.double()) - 1)
+    true_rel = float((b - big_full.matvec(x)).double().norm()) / bnorm(n)
+    check(bool(info.converged) and e0 <= TOL_DOT and true_rel < 1e-4,
+          f"sharded x0 warm start: converged {bool(info.converged)}, ||r0||^2 off by {e0}, "
+          f"true relative residual {true_rel}")
+    print(f"  sharded CG and MINRES capped at 1, 2, 7 steps, P=4 and 8, with and without "
+          f"Jacobi: x equals the portable loop's to 1e-4 of max|x|; b = 0 ends at once; x0 warm start {int(info.iterations)} its, "
+          f"||r0||^2 rel diff {e0:.3g}, true relative residual {true_rel:.3e}")
+    torch.cuda.synchronize()
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
     and a hash of each history, for comparing two trees on one card."""
@@ -2610,6 +3118,7 @@ def main() -> int:
     phase_stencil_kernels(dev, errs, times, extra)
     phase_minres_kernels(dev, big, big_full, ops, errs, times, extra)
     bic_ops = phase_bicgstab_kernels(dev, errs, times, extra)
+    shard_ops = phase_sharded_kernels(dev, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
         more = ""
         if "bound_ms" in t:
@@ -2631,6 +3140,7 @@ def main() -> int:
         ("stencil", STENCIL_KERNELS, lambda: phase_stencil_path(dev, card)),
         ("MINRES", MINRES_KERNELS, lambda: phase_minres_path(dev, big, big_full, ops, card)),
         ("BiCGStab", BICGSTAB_KERNELS, lambda: phase_bicgstab_path(dev, bic_ops, card)),
+        ("sharded", SHARDED_KERNELS, lambda: phase_sharded_path(dev, big_full, shard_ops, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

@@ -53,6 +53,14 @@ def sym_bell_from_arrays(diag_blocks, off_blocks, off_cols,
     )
 
 
+def sharded_bell_from_arrays(blocks, block_cols,
+                             device=DEFAULT_DEVICE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``parallel.partition_csr_rows`` output (``blocks`` (P, nrb,
+    kmax, bm, bn), ``block_cols`` (P, nrb, kmax)) as this package's
+    ``sharded_cg_solve`` operands on ``device``."""
+    return _t(blocks, device), _t(block_cols, device, np.int32)
+
+
 def csr_from_arrays(data, indices, indptr, shape: Tuple[int, int],
                     device=DEFAULT_DEVICE) -> CSRMatrix:
     """A ``CSRMatrix`` from the JAX one's ``data``/``indices``/``indptr``."""

@@ -7,6 +7,11 @@
 //       (A as symmetric tiles D + U + U^T, or as full blocked-ELL tiles)
 //   K2  x += alpha*p;  r -= alpha*q;  rnorm = r.r  (PCG: rho = sum d*r*r)
 //
+// The row-sharded loop (parallel/loops.py) runs each shard's iteration as
+// the per-shard SpMV + window dot (spmv_dot_kernel, the TPU's
+// bell_spmv_dot) and K2 in its partials-only mode, with the partials
+// summed over the shards between them.
+//
 // Every kernel launches on the caller's stream, allocates nothing, and the
 // C entry points return cudaGetLastError() so the Python wrapper can raise.
 // All tile products are FP32 FMA on the CUDA cores: no tensor cores, no
@@ -204,6 +209,64 @@ full_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
   }
 }
 
+// ---- per-shard SpMV + dot of the row-sharded loop ------------------------
+// Replaces conjugategradient_tpu/ops/pallas/fused_cg.py:bell_spmv_dot
+// (:467, _spmv_dot_kernel :437-464): q = A_loc x on one shard's full
+// blocked-ELL tiles (nrb, kmax, bn, bn) with GLOBAL column blocks, x the
+// all-gathered operand (ncb, bn); pap = x[row0 + i] . q[i], the window of
+// the same operand at this shard's first row row0 = row_offset / bn.  No
+// direction update (it ran before the gather) and no scalar step: pap is
+// this shard's partial, which the loop sums over the shards.
+// Bound: the shard's tile stream, 4 * bn^2 * kmax bytes per block-row, plus
+// x and q (101.97 MB per launch at n = 262,144 block-tridiagonal split in
+// 4, bn = 128).  Design: kernel 4's strip (one CTA per R block-rows, every
+// slot read with streaming loads, padding included) without the recompute:
+// the gathered rows are read straight from x, which sits in L2; the window
+// is read from x as the TPU kernel reads it.  ctl (may be NULL) makes a
+// step after the end a no-op, as in every kernel of a solve.
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+spmv_dot_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+                const float* x, int64_t row0, float* q, float* pap_out,
+                float* partials, unsigned* counter, const int* ctl, int nrb,
+                int kmax, int R) {
+  if (ctl && ctl[C_LIVE] == 0) return;
+  __shared__ float qacc[BN];
+  __shared__ float red[kWarps];
+  const int base = blockIdx.x * R;
+  const int end = min(base + R, nrb);
+  const int64_t TT = (int64_t)BN * BN;
+  float unused[BN / 32];
+  float pap_acc = 0.f;
+  for (int row = base; row < end; ++row) {
+    __syncthreads();  // the previous row's readers of qacc are done
+    for (int t = threadIdx.x; t < BN; t += kThreads) qacc[t] = 0.f;
+    __syncthreads();
+    for (int k = 0; k < kmax; ++k) {
+      const int64_t slot = (int64_t)row * kmax + k;
+      tile_apply<BN, true, false>(blocks + slot * TT, x + (int64_t)cols[slot] * BN,
+                                  nullptr, qacc, unused);
+    }
+    __syncthreads();
+    const float* xw = x + (row0 + row) * BN;
+    for (int t = threadIdx.x; t < BN; t += kThreads) {
+      const float qv = qacc[t];
+      q[(int64_t)row * BN + t] = qv;
+      pap_acc += xw[t] * qv;
+    }
+  }
+  const float s = block_sum(pap_acc, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  if (arrive_last(counter)) {
+    const float pap = sum_partials(partials, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      pap_out[0] = pap;
+      *counter = 0u;
+    }
+  }
+}
+
 // ---- K1, general landing: stage A (tile products) -------------------------
 // Replaces sym_fused_dir_spmv_dot with mirror="scatter"/"split"
 // (_sym_dir_spmv_kernel :253-268, :299-325): both land the same way here.
@@ -301,7 +364,11 @@ sym_dir_land_kernel(float* q, const float* tparts, const int* __restrict__ mirro
 // also closes fused_update_dot_3d (ops/pallas/fused_stencil.py:150), the
 // same function on an (nx, ny, nz) volume, through its flat view.
 // x/xo and r/ro may alias (in-place update): each element is read and
-// written by the same thread.
+// written by the same thread.  scal == NULL is the partials-only mode of
+// the row-sharded loop (parallel/loops.py): the last CTA writes this
+// shard's sums and stops, since the scalar step needs every shard's sum
+// (it runs after the psum); ctl[C_LIVE] still makes a step after the end a
+// no-op.
 
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const float* alpha_p, const float* x, const float* p,
@@ -365,18 +432,20 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
     const float rn = sum_partials(partials, gridDim.x, red);
     const float rz = d ? sum_partials(partials + gridDim.x, gridDim.x, red) : rn;
     if (threadIdx.x == 0) {
-      // the solver's scalar step (solver/fused.py): termination tests the
-      // PRE-update ||r||^2, beta = rho_next / rho with the rho == 0 guard
-      const float rn_pre = scal[S_RNORM], rho = scal[S_RHO];
-      const int done = isnan(rn_pre) || sqrtf(rn_pre) <= scal[S_TOL];
-      const int k = ctl[C_K] + 1;
-      ctl[C_K] = k;
-      ctl[C_DONE] = done;
-      ctl[C_LIVE] = !done && k < ctl[C_MAXITER];
-      if (k < hist_len) hist[k] = rn;
-      scal[S_BETA] = rho == 0.f ? 0.f : rz / rho;
-      scal[S_RHO] = rz;
-      scal[S_RNORM] = rn;
+      if (scal) {
+        // the solver's scalar step (solver/fused.py): termination tests the
+        // PRE-update ||r||^2, beta = rho_next / rho with the rho == 0 guard
+        const float rn_pre = scal[S_RNORM], rho = scal[S_RHO];
+        const int done = isnan(rn_pre) || sqrtf(rn_pre) <= scal[S_TOL];
+        const int k = ctl[C_K] + 1;
+        ctl[C_K] = k;
+        ctl[C_DONE] = done;
+        ctl[C_LIVE] = !done && k < ctl[C_MAXITER];
+        if (k < hist_len) hist[k] = rn;
+        scal[S_BETA] = rho == 0.f ? 0.f : rz / rho;
+        scal[S_RHO] = rz;
+        scal[S_RNORM] = rn;
+      }
       rnorm_out[0] = rn;
       if (rho_out) rho_out[0] = rz;
       *counter = 0u;
@@ -427,9 +496,36 @@ cudaError_t launch_full(const float* blocks, const int* cols, const float* r,
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_spmv_dot(const float* blocks, const int* cols, const float* x,
+                            int64_t row0, float* q, float* pap, float* partials,
+                            unsigned* counter, const int* ctl, int nrb, int kmax,
+                            int R, cudaStream_t s) {
+  const int grid = (nrb + R - 1) / R;
+  spmv_dot_kernel<BN><<<grid, kThreads, 0, s>>>(blocks, cols, x, row0, q, pap,
+                                                partials, counter, ctl, nrb, kmax, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Per-shard SpMV + window dot (row0 = row_offset / bn).  Returns a
+// cudaError_t.
+int cg_bell_spmv_dot(const float* blocks, const int* cols, const float* x,
+                     int64_t row0, float* q, float* pap, float* partials,
+                     unsigned* counter, const int* ctl, int nrb, int kmax, int bn,
+                     int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_spmv_dot<32>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 64: return launch_spmv_dot<64>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 128: return launch_spmv_dot<128>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 256: return launch_spmv_dot<256>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // K1 on full blocked-ELL storage.  Returns a cudaError_t.
 int cg_full_dir(const float* blocks, const int* cols, const float* r,
@@ -480,8 +576,9 @@ int cg_sym_dir_general(const float* diag, const float* off, const int* off_cols,
   }
 }
 
-// K2 (d == NULL: plain CG; else Jacobi PCG).  n is any length; every
-// vector is 16-byte aligned (checked by the wrapper).
+// K2 (d == NULL: plain CG; else Jacobi PCG; scal == NULL: partials only).
+// n is any length; every vector is 16-byte aligned (checked by the
+// wrapper).
 int cg_update(const float* alpha, const float* x, const float* p, const float* r,
               const float* q, const float* d, float* xo, float* ro,
               float* rnorm, float* rho, float* partials, unsigned* counter,

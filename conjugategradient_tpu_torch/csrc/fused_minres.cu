@@ -10,6 +10,11 @@
 //       (A as full blocked-ELL tiles, or as symmetric tiles D + U + U^T)
 //   K2  r2' = q - c1*r1 - ia*r2;  bsq = r2'.(d*r2')
 //
+// The row-sharded loop (parallel/loops.py) runs each shard's iteration as
+// minres_shard_kernel (the TPU's minres_shard_spmv_dot: the pending update
+// and the SpMV on the all-gathered v) and K2 in its partials-only mode,
+// with the partials summed over the shards after each.
+//
 // Launch rules, tile products (tile.cuh) and the fixed-order two-stage dots
 // are those of fused_cg.cu.  What the TPU kernels relied on and Hopper
 // lacks, and what replaces it:
@@ -313,6 +318,94 @@ minres_land_kernel(const float* tparts, const int* __restrict__ mirror_src, DirA
   reduce_dir(vq_acc, vr1_acc, a, red);
 }
 
+// ---- K1 of the row-sharded loop -------------------------------------------
+// Replaces conjugategradient_tpu/ops/pallas/fused_minres.py:
+// minres_shard_spmv_dot (:528, _minres_shard_kernel :470-525): on one
+// shard, the pending solution update of the local rows,
+//   w = (v_prev - eps*w_2 - delta*w_1) * (1/gamma);  x' = x + phi*w,
+// then q = A_loc v - sigma*v_win with v the all-gathered, already normalised
+// Lanczos vector (ncb, bn) and v_win its window at this shard's first row
+// row0 = row_offset / bn, and the partials v_win.q and v_win.r1 (dots[0],
+// dots[1]).  No 1/beta (v was normalised before the gather) and no scalar
+// step: the loop sums the partials over the shards and steps after that.
+// Bound: the shard's tile stream and eight local vectors (r1, v_prev, w_1,
+// w_2, x in; q, w, x' out) and v (103.81 MB per launch at n = 262,144
+// block-tridiagonal split in 4, bn = 128).  Design: kernel 6's strip.  The
+// TPU kernel formed w and x' whole in a g == 0 prologue; a CUDA grid has
+// none, so each CTA updates the w and x' rows of its own strip (the local
+// vectors have q's rows: square tiles).  __fmul_rn / __fsub_rn / __fadd_rn
+// in the plain version's order make w, x' and the shift bit-equal to its
+// torch ops.  w may be written over w_2 and x' over x (each element is
+// read and written by one thread); nothing else may alias (the wrapper
+// checks): other CTAs read v, and a row's r1 is read after its w is
+// written.  ctl (may be NULL) makes a step after the end a no-op.
+
+struct ShardArgs {
+  const float *vfull, *r1, *vprev, *wm1, *wm2, *x, *su;
+  float *q, *w, *xo, *dots, *partials;
+  unsigned* counter;
+  const int* ctl;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+minres_shard_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+                    ShardArgs a, int64_t row0, int nrb, int kmax, int R) {
+  if (a.ctl && a.ctl[C_LIVE] == 0) return;
+  __shared__ float qacc[BN];
+  __shared__ float red[kWarps];
+  __shared__ float su[8];
+  if (threadIdx.x < 8) su[threadIdx.x] = a.su[threadIdx.x];
+  const int base = blockIdx.x * R;
+  const int end = min(base + R, nrb);
+  const int64_t TT = (int64_t)BN * BN;
+  float unused[BN / 32];
+  float vq_acc = 0.f, vr1_acc = 0.f;
+  for (int row = base; row < end; ++row) {
+    __syncthreads();  // su is loaded; the previous row's readers of qacc are done
+    for (int t = threadIdx.x; t < BN; t += kThreads) {
+      const int64_t i = (int64_t)row * BN + t;
+      const float w = __fmul_rn(
+          __fsub_rn(__fsub_rn(a.vprev[i], __fmul_rn(su[SU_OLDEPS], a.wm2[i])),
+                    __fmul_rn(su[SU_DELTA], a.wm1[i])),
+          su[SU_IGAMMA]);
+      a.w[i] = w;
+      a.xo[i] = __fadd_rn(a.x[i], __fmul_rn(su[SU_PHI], w));
+      qacc[t] = 0.f;
+    }
+    __syncthreads();
+    for (int k = 0; k < kmax; ++k) {
+      const int64_t slot = (int64_t)row * kmax + k;
+      tile_apply<BN, true, false>(blocks + slot * TT, a.vfull + (int64_t)cols[slot] * BN,
+                                  nullptr, qacc, unused);
+    }
+    __syncthreads();
+    const float* vw = a.vfull + (row0 + row) * BN;
+    for (int t = threadIdx.x; t < BN; t += kThreads) {
+      const int64_t i = (int64_t)row * BN + t;
+      const float qv = __fsub_rn(qacc[t], __fmul_rn(su[SU_SHIFT], vw[t]));
+      a.q[i] = qv;
+      vq_acc += vw[t] * qv;
+      vr1_acc += vw[t] * a.r1[i];
+    }
+  }
+  const float s1 = block_sum(vq_acc, red);
+  const float s2 = block_sum(vr1_acc, red);
+  if (threadIdx.x == 0) {
+    a.partials[blockIdx.x] = s1;
+    a.partials[gridDim.x + blockIdx.x] = s2;
+  }
+  if (arrive_last(a.counter)) {
+    const float vq = sum_partials(a.partials, gridDim.x, red);
+    const float vr1 = sum_partials(a.partials + gridDim.x, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      a.dots[0] = vq;
+      a.dots[1] = vr1;
+      *a.counter = 0u;
+    }
+  }
+}
+
 // ---- K2: r2' = q - c1 r1 - ia r2, bsq = r2'.(d r2') ------------------------
 // Replaces minres_update_dot (fused_minres.py:425, _minres_update_kernel
 // :398).  Bound: 4 (5 with d) vector streams of 4 n bytes, L2-resident at
@@ -320,6 +413,10 @@ minres_land_kernel(const float* tparts, const int* __restrict__ mirror_src, DirA
 // (n % 4 == 0, which blocked-ELL lengths satisfy; the wrapper checks),
 // per-CTA partials, and the last CTA does the solver's scalar step.  r2o
 // may be any of the inputs: each element is read and written by one thread.
+// scal == NULL is the partials-only mode of the row-sharded loop
+// (parallel/loops.py): the last CTA writes this shard's bsq and stops; the
+// scalar step runs after the sum over the shards.  ctl[C_LIVE] still makes
+// a step after the end a no-op.
 
 __device__ __forceinline__ float update_elem(float q, float r1, float r2, float c1,
                                              float ia) {
@@ -403,7 +500,7 @@ minres_update_kernel(const float* c1_p, const float* ia_p, const float* q,
     const float bsq = sum_partials(partials, gridDim.x, red);
     if (threadIdx.x == 0) {
       bsq_out[0] = bsq;
-      finish_update(bsq, scal, ctl, hist, hist_len);
+      if (scal) finish_update(bsq, scal, ctl, hist, hist_len);
       *counter = 0u;
     }
   }
@@ -435,6 +532,14 @@ cudaError_t launch_general(const float* diag, const float* off, const int* off_c
   if (e != cudaSuccess) return e;
   minres_land_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(tparts, mirror_src, a,
                                                                 nrb, kin, R);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_shard(const float* blocks, const int* cols, const ShardArgs& a,
+                         int64_t row0, int nrb, int kmax, int R, cudaStream_t s) {
+  minres_shard_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, row0,
+                                                                 nrb, kmax, R);
   return cudaGetLastError();
 }
 
@@ -492,8 +597,23 @@ int minres_sym_dir_general(const float* diag, const float* off, const int* off_c
 #undef CALL
 }
 
-// K2 (d == NULL: no preconditioner).  n % 4 == 0; every vector is 16-byte
-// aligned (checked by the wrapper).
+// K1 of the row-sharded loop (row0 = row_offset / bn).  Returns a
+// cudaError_t.
+int minres_shard_dir(const float* blocks, const int* cols, const float* vfull,
+                     const float* r1, const float* vprev, const float* wm1,
+                     const float* wm2, const float* x, const float* su, float* q,
+                     float* w, float* xo, float* dots, float* partials,
+                     unsigned* counter, const int* ctl, int64_t row0, int nrb,
+                     int kmax, int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ShardArgs a{vfull, r1, vprev, wm1, wm2, x, su, q, w, xo, dots, partials, counter, ctl};
+#define CALL(B) launch_shard<B>(blocks, cols, a, row0, nrb, kmax, R, s)
+  BN_SWITCH(CALL)
+#undef CALL
+}
+
+// K2 (d == NULL: no preconditioner; scal == NULL: partials only).  n % 4
+// == 0; every vector is 16-byte aligned (checked by the wrapper).
 int minres_update(const float* c1, const float* ia, const float* q, const float* r1,
                   const float* r2, const float* d, float* r2o, float* bsq,
                   float* partials, unsigned* counter, float* scal, int* ctl,

@@ -45,6 +45,7 @@ SIGNATURES = {
     "cg_sym_dir_general": [_P] * 16 + [_I, _I, _I, _I, _I, _P],
     "cg_full_dir": [_P] * 13 + [_I, _I, _I, _I, _P],
     "cg_update": [_P] * 15 + [_I, _I64, _I, _P],
+    "cg_bell_spmv_dot": [_P] * 3 + [_I64] + [_P] * 5 + [_I] * 4 + [_P],
     "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
     "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
@@ -55,6 +56,7 @@ SIGNATURES = {
     "minres_sym_dir_banded": [_P] * 21 + [_I] * 3 + [_P],
     "minres_sym_dir_general": [_P] * 23 + [_I] * 5 + [_P],
     "minres_update": [_P] * 13 + [_I, _I64, _I, _P],
+    "minres_shard_dir": [_P] * 16 + [_I64] + [_I] * 4 + [_P],
     "bicgstab_dir": [_P] * 17 + [_I] * 4 + [_P],
     "bicgstab_s": [_P] * 19 + [_I] * 4 + [_P],
     "bicgstab_update": [_P] * 15 + [_I, _I64, _I, _P],

@@ -21,6 +21,7 @@ LAUNCHES = {
     "fused_update_dot": 0,
     "fused_update_dot_pcg": 0,
     "bell_spmv": 0,
+    "bell_spmv_dot": 0,
     "dia_spmv": 0,
     "sym_dia_spmv": 0,
     "stencil7": 0,
@@ -28,6 +29,7 @@ LAUNCHES = {
     "minres_dir_spmv_dot": 0,
     "sym_minres_dir_spmv_dot": 0,
     "minres_update_dot": 0,
+    "minres_shard_spmv_dot": 0,
     "bicgstab_dir_spmv_dot": 0,
     "bicgstab_s_spmv_dot": 0,
     "bicgstab_update_dot": 0,

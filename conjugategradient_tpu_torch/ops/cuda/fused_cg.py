@@ -11,7 +11,10 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
 * :func:`fused_update_dot` — (x + α·p, r − α·q, r'·r') (replaces
   ``fused_update_dot``, fused_cg.py:608);
 * :func:`fused_update_dot_pcg` — the same plus ρ = Σ d·r'² (replaces
-  ``fused_update_dot_pcg``, fused_cg.py:555).
+  ``fused_update_dot_pcg``, fused_cg.py:555);
+* :func:`bell_spmv_dot` — (q, pap) = (A_loc·x, x[window]·q) on one shard of
+  the row-sharded loop, x the all-gathered operand (replaces
+  ``bell_spmv_dot``, fused_cg.py:467).
 
 Dispatch: a wrapper runs its plain version when the tensors it is given lie
 on the CPU, and launches its CUDA kernel when they lie on a CUDA device;
@@ -26,6 +29,13 @@ perform the solver's scalar step on the device (K1: α; K2: done, β, k,
 hist[k], live), and every kernel is a no-op once ``live`` is 0 — so steps
 after convergence change nothing and the host reads the flag only every few
 steps.  The plain versions perform the same scalar step with torch ops.
+
+The row-sharded loop (``parallel/loops.py``) steps only after summing every
+shard's dots, so there K2 runs with ``partials_only=True``: it updates x and
+r and returns this shard's sums, reads the solve's ``live`` flag from
+``work.ctl`` and leaves the rest of ``work`` alone; :func:`bell_spmv_dot`
+never steps.  The loop then runs :func:`finish_dir` and :func:`finish_update`
+on the summed dots.
 """
 
 from __future__ import annotations
@@ -207,10 +217,7 @@ def _dir_plain(name, apply, r2d, pold2d, beta, inv_diag2d, out, work):
         out[1].copy_(q)
         p_new, q = out
     if work is not None:
-        rho = work.scal[S_RHO]
-        exact = rho == 0
-        work.scal[S_ALPHA] = torch.where(
-            exact, 0.0, rho / torch.where(exact, 1.0, pap[0, 0]))
+        finish_dir(work, pap[0, 0])
     return p_new, q, pap
 
 
@@ -361,6 +368,106 @@ def _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out,
     return p_new, q, pap
 
 
+# ---- kernel 6 --------------------------------------------------------------
+
+def bell_spmv_dot(
+    blocks: torch.Tensor,
+    block_cols: torch.Tensor,
+    x2d: torch.Tensor,
+    row_offset: int,
+    *,
+    row_group: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    work: Optional[FusedWork] = None,
+):
+    """(q, pap) = (A_loc·x, x[row_offset : row_offset + nrb·bm]·q): one
+    shard's SpMV on the all-gathered operand and its dot partial.
+
+    ``blocks`` (nrb, kmax, bn, bn) float32, ``block_cols`` (nrb, kmax) int32
+    GLOBAL column blocks; ``x2d`` the gathered operand as (ncb, bn) float32;
+    ``row_offset`` this shard's first global row, a multiple of bn (a host
+    int: it is fixed when the operator is partitioned).  Returns q (nrb, bn)
+    and pap (1, 1).  ``out``: (q, pap) buffers to fill; q must not lie on
+    ``x2d``.  ``work``: scratch, and the solve's ``ctl`` (a step after the
+    end is a no-op); the kernel does no scalar step.  ``row_group``:
+    block-rows per CTA (None: :func:`auto_row_group`).
+    """
+    name = "bell_spmv_dot"
+    if blocks.dim() != 4:
+        raise ValueError(f"{name}: blocks must be (nrb, kmax, bm, bn), got "
+                         f"{tuple(blocks.shape)}")
+    nrb, kmax, bm, bn = blocks.shape
+    if bm != bn:
+        raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
+    if blocks.dtype != torch.float32:
+        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
+                        "(bf16 tiles are not ported yet)")
+    if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
+        raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
+    if x2d.dim() != 2 or x2d.shape[1] != bn or x2d.dtype != torch.float32:
+        raise ValueError(f"{name}: x2d must be (ncb, {bn}) float32, got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    row_offset = int(row_offset)
+    if row_offset % bn or not 0 <= row_offset <= (x2d.shape[0] - nrb) * bn:
+        raise ValueError(f"{name}: row_offset {row_offset} must be a multiple of "
+                         f"{bn} with its {nrb} block-rows inside x2d")
+    if row_group is not None and row_group < 1:
+        raise ValueError(f"{name}: row_group must be >= 1")
+    if out is not None:
+        q, pap = out
+        if tuple(q.shape) != (nrb, bn) or q.dtype != torch.float32 or pap.numel() != 1:
+            raise ValueError(f"{name}: out must be (nrb, bn) and one float32")
+        if q.data_ptr() == x2d.data_ptr():
+            raise ValueError(f"{name}: q must not alias x2d")
+    args = (blocks, block_cols, x2d, row_offset, out, work)
+    if not on_cuda(name, blocks, block_cols, x2d, *_extra(out, work)):
+        return _spmv_dot_plain(*args)
+    if bn not in CUDA_BN:
+        raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
+    if row_group is None:
+        row_group = auto_row_group(nrb, x2d.device)
+    return _spmv_dot_cuda(*args, row_group)
+
+
+def _spmv_dot_plain(blocks, block_cols, x2d, row_offset, out, work):
+    name = "bell_spmv_dot"
+    if x2d.is_cuda:
+        PLAIN_ON_CUDA[name] += 1
+    nrb, bn = blocks.shape[0], blocks.shape[3]
+    if work is not None and not _live(work):
+        return out if out is not None else (x2d.new_zeros(nrb, bn), x2d.new_zeros(1, 1))
+    q = bell_apply(blocks, block_cols, x2d)
+    r0 = row_offset // bn
+    pap = torch.sum(x2d[r0:r0 + nrb] * q).reshape(1, 1)
+    if out is None:
+        return q, pap
+    out[0].copy_(q)
+    out[1].copy_(pap.reshape(out[1].shape))
+    return out
+
+
+def _spmv_dot_cuda(blocks, block_cols, x2d, row_offset, out, work, row_group):
+    from ._build import load_library
+
+    name = "bell_spmv_dot"
+    nrb, kmax, _, bn = blocks.shape
+    dev = x2d.device
+    if work is None:
+        work = FusedWork.new(dev)
+    q, pap = out if out is not None else (x2d.new_empty(nrb, bn), x2d.new_empty(1, 1))
+    check_cuda_operands(name, (blocks, block_cols, x2d, q, pap))
+    grid = -(-nrb // row_group)
+    if work.partials.numel() < grid:
+        work.partials = torch.empty(grid, device=dev)
+    err = load_library().cg_bell_spmv_dot(
+        ptr(blocks), ptr(block_cols), ptr(x2d), row_offset // bn, ptr(q), ptr(pap),
+        ptr(work.partials), ptr(work.counter), ptr(work.ctl), nrb, kmax, bn,
+        row_group, stream(dev))
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
+    return q, pap
+
+
 # ---- kernels 2 and 3 -------------------------------------------------------
 
 def fused_update_dot(
@@ -372,13 +479,16 @@ def fused_update_dot(
     *,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     work: Optional[FusedWork] = None,
+    partials_only: bool = False,
 ):
     """(x', r', rnorm) = (x + α·p, r − α·q, r'·r'); vectors of one shape
     and any length (the kernel reads float4 and finishes the last n % 4
     entries one by one), f32, ``alpha`` one f32.  ``out``: (x', r')
     buffers, which may be ``x2d`` and ``r2d`` themselves (in-place
-    update)."""
-    return _update("fused_update_dot", x2d, p2d, r2d, q2d, None, alpha, out, work)
+    update).  ``partials_only`` (with a ``work``): no scalar step, see the
+    module doc."""
+    return _update("fused_update_dot", x2d, p2d, r2d, q2d, None, alpha, out, work,
+                   partials_only)
 
 
 def fused_update_dot_pcg(
@@ -391,13 +501,14 @@ def fused_update_dot_pcg(
     *,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     work: Optional[FusedWork] = None,
+    partials_only: bool = False,
 ):
     """(x', r', rnorm, rho) with rho = r'·(d⊙r') — the Jacobi-PCG update."""
     return _update("fused_update_dot_pcg", x2d, p2d, r2d, q2d, d2d, alpha,
-                   out, work)
+                   out, work, partials_only)
 
 
-def _update(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
+def _update(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work, partials_only):
     for v in (x2d, p2d, r2d, q2d, d2d):
         if v is not None and (v.shape != x2d.shape or v.dtype != torch.float32):
             raise ValueError(f"{name}: vectors must share shape {tuple(x2d.shape)} and "
@@ -407,34 +518,59 @@ def _update(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
     for o in out or ():
         if o.shape != x2d.shape or o.dtype != torch.float32:
             raise ValueError(f"{name}: out buffers must match the vectors")
-    args = (name, x2d, p2d, r2d, q2d, d2d, alpha, out, work)
+    if partials_only and work is None:
+        raise ValueError(f"{name}: partials_only needs the solve's work")
+    args = (name, x2d, p2d, r2d, q2d, d2d, alpha, out, work, partials_only)
     if not on_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, *_extra(out, work)):
         return _update_plain(*args)
     return _update_cuda(*args)
 
 
-def _finish_update(work: FusedWork, rn, rz):
-    """The solver's scalar step after K2 (same as the kernel's last CTA)."""
-    scal, ctl = work.scal, work.ctl
-    rn_pre, rho = scal[S_RNORM].clone(), scal[S_RHO].clone()
+def put_hist(hist: torch.Tensor, k: torch.Tensor, live: torch.Tensor,
+             value: torch.Tensor) -> None:
+    """hist[k] = value where ``live`` (k a device int; no host read)."""
+    kk = k.long().reshape(1)
+    hist.index_put_((kk,), torch.where(live, value, hist.gather(0, kk)[0]).reshape(1))
+
+
+def finish_dir(work: FusedWork, pap: torch.Tensor) -> None:
+    """The solver's scalar step after K1 (its last CTA does the same): α =
+    ρ/(p·q), 0 when ρ == 0.  Not masked: once the solve is not live, K2 and
+    :func:`finish_update` ignore α."""
+    scal = work.scal
+    rho = scal[S_RHO]
     exact = rho == 0
-    done = torch.isnan(rn_pre) | (torch.sqrt(rn_pre) <= scal[S_TOL])
-    k = ctl[C_K] + 1
-    ctl[C_K] = k
-    ctl[C_DONE] = done.to(torch.int32)
-    ctl[C_LIVE] = ((~done) & (k < ctl[C_MAXITER])).to(torch.int32)
-    work.hist.index_put_((k.long().reshape(1),), rn.reshape(1))
-    scal[S_BETA] = torch.where(exact, 0.0, rz / torch.where(exact, 1.0, rho))
-    scal[S_RHO] = rz
-    scal[S_RNORM] = rn
+    scal[S_ALPHA] = torch.where(exact, 0.0, rho / torch.where(exact, 1.0, pap))
 
 
-def _update_plain(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
+def finish_update(work: FusedWork, rn: torch.Tensor, rz: torch.Tensor) -> None:
+    """The solver's scalar step after K2 (its last CTA does the same) from
+    the updated residual's ‖r‖² ``rn`` and ρ = r·z ``rz`` (0-d float32):
+    done from the PRE-update ‖r‖², β with the ρ == 0 guard, k, hist[k] and
+    live; a no-op once the solve is not live."""
+    scal, ctl = work.scal, work.ctl
+    live = ctl[C_LIVE] != 0
+    rn_pre, rho, tol = scal[S_RNORM], scal[S_RHO], scal[S_TOL]
+    exact = rho == 0
+    done = torch.isnan(rn_pre) | (torch.sqrt(rn_pre) <= tol)
+    beta = torch.where(exact, 0.0, rz / torch.where(exact, 1.0, rho))
+    k = ctl[C_K] + live.to(torch.int32)
+    put_hist(work.hist, k, live, rn)
+    new_ctl = torch.stack([
+        k, torch.where(live, done.to(torch.int32), ctl[C_DONE]), ctl[C_MAXITER],
+        (live & ~done & (k < ctl[C_MAXITER])).to(torch.int32)])
+    new_scal = torch.where(live, torch.stack([rz, rn, beta, scal[S_ALPHA], tol]), scal)
+    ctl.copy_(new_ctl)
+    scal.copy_(new_scal)
+
+
+def _update_plain(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work, partials_only=False):
     if x2d.is_cuda:
         PLAIN_ON_CUDA[name] += 1
     if work is not None and not _live(work):
         z = work.scal.new_zeros(1, 1)
-        return (*out, z) if d2d is None else (*out, z, z)
+        xr = out if out is not None else (x2d, r2d)
+        return (*xr, z) if d2d is None else (*xr, z, z)
     a = alpha.reshape(())
     x_new = x2d + a * p2d
     r_new = r2d - a * q2d
@@ -445,12 +581,12 @@ def _update_plain(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
         out[0].copy_(x_new)
         out[1].copy_(r_new)
         x_new, r_new = out
-    if work is not None:
-        _finish_update(work, rnorm[0, 0], rnorm[0, 0] if rho is None else rho[0, 0])
+    if work is not None and not partials_only:
+        finish_update(work, rnorm[0, 0], rnorm[0, 0] if rho is None else rho[0, 0])
     return (x_new, r_new, rnorm) if rho is None else (x_new, r_new, rnorm, rho)
 
 
-def _update_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
+def _update_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work, partials_only):
     from ._build import load_library
 
     dev = x2d.device
@@ -468,8 +604,8 @@ def _update_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work):
     err = load_library().cg_update(
         ptr(alpha), ptr(x2d), ptr(p2d), ptr(r2d), ptr(q2d), ptr(d2d),
         ptr(xo), ptr(ro), ptr(rnorm), ptr(rho), ptr(work.partials),
-        ptr(work.counter), ptr(work.scal), ptr(work.ctl), ptr(work.hist),
-        work.hist.numel(), n, grid, stream(dev))
+        ptr(work.counter), None if partials_only else ptr(work.scal), ptr(work.ctl),
+        ptr(work.hist), work.hist.numel(), n, grid, stream(dev))
     LAUNCHES[name] += 1
     raise_on_error(name, err)
     return (xo, ro, rnorm) if rho is None else (xo, ro, rnorm, rho)

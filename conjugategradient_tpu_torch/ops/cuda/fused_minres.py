@@ -11,7 +11,11 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_minres.py``:
 * :func:`sym_minres_dir_spmv_dot` — the same on symmetric tiles D + U + Uᵀ
   (replaces ``sym_minres_dir_spmv_dot``, fused_minres.py:298);
 * :func:`minres_update_dot` — r2' = q − c1·r1 − ia·r2 and β² = r2'·(d⊙r2')
-  (replaces ``minres_update_dot``, fused_minres.py:425).
+  (replaces ``minres_update_dot``, fused_minres.py:425);
+* :func:`minres_shard_spmv_dot` — one shard of the row-sharded loop: the
+  pending w/x update on the shard's rows, q = A_loc·v − σ·v_window on the
+  all-gathered v, and the partials v·q and v·r1 (replaces
+  ``minres_shard_spmv_dot``, fused_minres.py:528).
 
 Dispatch is that of ``ops/cuda/fused_cg.py``: the plain version for CPU
 tensors, the CUDA kernel for CUDA tensors, no fallback between them;
@@ -27,11 +31,18 @@ returns are then views of the work's scalars, valid until the solve's next
 step.  The plain versions do the same
 scalar steps with torch 0-d float32 ops, one rounding per product and sum,
 as the kernels' ``__fmul_rn``/``__fadd_rn`` tails do.
+
+The row-sharded loop (``parallel/loops.py``) steps only after summing every
+shard's dots: there kernel 2 runs with ``partials_only=True`` (this shard's
+β² only; ``work.ctl`` still makes a step after the end a no-op), and
+:func:`minres_shard_spmv_dot` never steps; the loop runs :func:`finish_dir`
+and :func:`finish_update` on the summed dots.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -47,7 +58,8 @@ from ._common import (
     raise_on_error,
     stream,
 )
-from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live, auto_row_group  # noqa: F401
+from .fused_cg import (C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live,  # noqa: F401
+                       auto_row_group, put_hist)
 
 # slots of the (1, 8) scalar row kernel 1 reads (the JAX kernels' SU_* row)
 SU_INV_BETA = 0
@@ -131,26 +143,37 @@ class MinresWork:
 def finish_dir(work: MinresWork, vq: torch.Tensor, vr1: torch.Tensor) -> None:
     """The scalar step after kernel 1 (its last CTA does the same): c1 =
     β/β_old (0 on the first step, which has no v_{k−1} term), α = v·q −
-    c1·(v·r1), and α/β for kernel 2.  ``vq``, ``vr1``: 0-d float32."""
+    c1·(v·r1), and α/β for kernel 2.  ``vq``, ``vr1``: 0-d float32.  Not
+    masked: once the solve is not live, kernel 2 and :func:`finish_update`
+    ignore these three."""
     scal = work.scal
     beta, oldb = scal[M_BETA], scal[M_OLDB]
     noprev = oldb == 0
     c1 = torch.where(noprev, 0.0, beta / torch.where(noprev, 1.0, oldb))
     alfa = vq - c1 * vr1
     ia = alfa / beta
-    scal[M_C1] = c1
-    scal[M_ALFA] = alfa
-    scal[M_IA] = ia
+    scal[M_C1:M_ALFA + 1] = torch.stack([c1, ia, alfa])
+
+
+#: the scalar slots :func:`finish_update` writes, in the order it stacks them
+_UPDATE_SLOTS = (SU_OLDEPS, SU_DELTA, SU_IGAMMA, SU_PHI, SU_INV_BETA, M_OLDB, M_BETA,
+                 M_DBAR, M_EPSLN, M_PHIBAR, M_CS, M_SN)
+
+
+@functools.lru_cache(maxsize=None)
+def _update_slots(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_UPDATE_SLOTS, dtype=torch.long, device=device)
 
 
 def finish_update(work: MinresWork, bsq: torch.Tensor) -> None:
     """The scalar step after kernel 2 (its last CTA does the same): β' =
     √β², the Givens rotation, the scalars of the solution update that the
-    next kernel 1 applies, hist[k], k, done, the NaN flag and live."""
+    next kernel 1 applies, hist[k] = φ̄, k, done, the NaN flag and live; a
+    no-op once the solve is not live."""
     scal, ctl = work.scal, work.ctl
+    live = ctl[C_LIVE] != 0
     (beta, dbar0, oldeps, phibar0, cs0, sn0, tol, alfa) = (
-        scal[i].clone() for i in (M_BETA, M_DBAR, M_EPSLN, M_PHIBAR, M_CS, M_SN,
-                                  M_TOL, M_ALFA))
+        scal[i] for i in (M_BETA, M_DBAR, M_EPSLN, M_PHIBAR, M_CS, M_SN, M_TOL, M_ALFA))
     beta_new = torch.sqrt(bsq)  # NaN iff M is not SPD
     delta = cs0 * dbar0 + sn0 * alfa
     gbar = sn0 * dbar0 - cs0 * alfa
@@ -162,26 +185,18 @@ def finish_update(work: MinresWork, bsq: torch.Tensor) -> None:
     phi = cs_new * phibar0
     phibar_new = sn_new * phibar0
     one = torch.ones_like(gamma)
-    k = ctl[C_K] + 1
-    ctl[C_K] = k
-    work.hist.index_put_((k.long().reshape(1),), phibar_new.reshape(1))
+    k = ctl[C_K] + live.to(torch.int32)
+    put_hist(work.hist, k, live, phibar_new)
     is_nan = torch.isnan(phibar_new) | torch.isnan(beta_new)
     done = is_nan | (phibar_new <= tol) | (beta_new == 0)
-    ctl[C_NAN] = ctl[C_NAN] | is_nan.to(torch.int32)
-    ctl[C_DONE] = done.to(torch.int32)
-    ctl[C_LIVE] = ((~done) & (k < ctl[C_MAXITER])).to(torch.int32)
-    scal[SU_OLDEPS] = oldeps
-    scal[SU_DELTA] = delta
-    scal[SU_IGAMMA] = torch.div(one, gamma)
-    scal[SU_PHI] = phi
-    scal[SU_INV_BETA] = torch.div(one, beta_new)
-    scal[M_OLDB] = beta
-    scal[M_BETA] = beta_new
-    scal[M_DBAR] = dbar_new
-    scal[M_EPSLN] = epsln_new
-    scal[M_PHIBAR] = phibar_new
-    scal[M_CS] = cs_new
-    scal[M_SN] = sn_new
+    vals = torch.stack([oldeps, delta, torch.div(one, gamma), phi, torch.div(one, beta_new),
+                        beta, beta_new, dbar_new, epsln_new, phibar_new, cs_new, sn_new])
+    slots = _update_slots(scal.device)
+    scal.index_put_((slots,), torch.where(live, vals, scal[slots]))
+    ctl.copy_(torch.stack([
+        k, torch.where(live, done.to(torch.int32), ctl[C_DONE]), ctl[C_MAXITER],
+        (live & ~done & (k < ctl[C_MAXITER])).to(torch.int32),
+        ctl[C_NAN] | (live & is_nan).to(torch.int32)]))
 
 
 # ---- kernels 14 and 15 ------------------------------------------------------
@@ -409,6 +424,159 @@ def _dir_cuda(name, operator, vecs, su, inv_diag2d, out, work, grid, launch):
     return (*out, vq, vr1)
 
 
+# ---- kernel 17 ---------------------------------------------------------------
+
+def minres_shard_spmv_dot(
+    blocks: torch.Tensor,
+    block_cols: torch.Tensor,
+    vfull2d: torch.Tensor,
+    r1_2d: torch.Tensor,
+    vprev2d: torch.Tensor,
+    wm1_2d: torch.Tensor,
+    wm2_2d: torch.Tensor,
+    x2d: torch.Tensor,
+    su: torch.Tensor,
+    row_offset: int,
+    *,
+    row_group: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, ...]] = None,
+    work: Optional[MinresWork] = None,
+):
+    """One shard's kernel 1 of the row-sharded MINRES loop:
+    ``(q, w_new, x_new, vq, vr1)``.
+
+    ``blocks`` (nrb, kmax, bn, bn) float32 and ``block_cols`` (nrb, kmax)
+    int32 GLOBAL column blocks; ``vfull2d`` the all-gathered, normalised
+    Lanczos vector (ncb, bn); ``r1_2d``, ``vprev2d``, ``wm1_2d``,
+    ``wm2_2d``, ``x2d`` this shard's (nrb, bn) float32 slices; ``su``
+    (1, 8) float32, the ``SU_*`` slots (``SU_INV_BETA`` unused: v is
+    normalised before the gather); ``row_offset`` this shard's first global
+    row, a multiple of bn (a host int).  w_new = (v_prev − ε̄·w₋₂ −
+    δ̄·w₋₁)·(1/γ̄), x_new = x + φ̄·w_new, q = A_loc·v − σ·v[window], and the
+    partials vq = v[window]·q, vr1 = v[window]·r1 as (1, 1) views of one
+    (2,) buffer.
+
+    ``out``: (q, w_new, x_new, dots) buffers, dots a (2,) float32.  w_new
+    may be ``wm2_2d`` and x_new may be ``x2d`` (each element is read and
+    written by one thread); no other aliasing is allowed.  ``work``:
+    scratch, and the solve's ``ctl`` (a step after the end is a no-op); the
+    kernel does no scalar step.  ``row_group``: block-rows per CTA (None:
+    ``auto_row_group``).
+    """
+    name = "minres_shard_spmv_dot"
+    if blocks.dim() != 4:
+        raise ValueError(f"{name}: blocks must be (nrb, kmax, bm, bn), got "
+                         f"{tuple(blocks.shape)}")
+    nrb, kmax, bm, bn = blocks.shape
+    if bm != bn:
+        raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
+    if blocks.dtype != torch.float32:
+        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
+                        "(bf16 tiles are not ported yet)")
+    if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
+        raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
+    if vfull2d.dim() != 2 or vfull2d.shape[1] != bn or vfull2d.dtype != torch.float32:
+        raise ValueError(f"{name}: vfull2d must be (ncb, {bn}) float32, got "
+                         f"{tuple(vfull2d.shape)} {vfull2d.dtype}")
+    row_offset = int(row_offset)
+    if row_offset % bn or not 0 <= row_offset <= (vfull2d.shape[0] - nrb) * bn:
+        raise ValueError(f"{name}: row_offset {row_offset} must be a multiple of "
+                         f"{bn} with its {nrb} block-rows inside vfull2d")
+    vecs = (r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
+    for v in vecs:
+        if tuple(v.shape) != (nrb, bn) or v.dtype != torch.float32:
+            raise ValueError(f"{name}: local vectors must be ({nrb}, {bn}) float32, "
+                             f"got {tuple(v.shape)} {v.dtype}")
+    if tuple(su.shape) != (1, 8) or su.dtype != torch.float32:
+        raise ValueError(f"{name}: su must be (1, 8) float32")
+    if row_group is not None and row_group < 1:
+        raise ValueError(f"{name}: row_group must be >= 1")
+    if out is not None:
+        _check_shard_out(name, nrb, bn, vfull2d, vecs, out)
+    args = (blocks, block_cols, vfull2d, vecs, su, row_offset, out, work)
+    if not on_cuda(name, blocks, block_cols, vfull2d, *vecs, su, *_extra(out, work)):
+        return _shard_plain(*args)
+    if bn not in CUDA_BN:
+        raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
+    if row_group is None:
+        row_group = auto_row_group(nrb, vfull2d.device)
+    return _shard_cuda(*args, row_group)
+
+
+def _check_shard_out(name, nrb, bn, vfull2d, vecs, out):
+    if len(out) != 4:
+        raise ValueError(f"{name}: out must be (q, w_new, x_new, dots)")
+    q, w, xo, dots = out
+    for o in (q, w, xo):
+        if tuple(o.shape) != (nrb, bn) or o.dtype != torch.float32:
+            raise ValueError(f"{name}: out vectors must be ({nrb}, {bn}) float32")
+    if dots.numel() != 2 or dots.dtype != torch.float32 or not dots.is_contiguous():
+        raise ValueError(f"{name}: dots must be two contiguous float32")
+    ptrs = [o.data_ptr() for o in out]
+    if len(set(ptrs)) != 4:
+        raise ValueError(f"{name}: out buffers must be distinct")
+    # other CTAs read v; a row's r1 is read after its w is written.  An
+    # output may only lie on the input it replaces.
+    inputs = {v.data_ptr() for v in (vfull2d, *vecs)}
+    r1, vprev, wm1, wm2, x = vecs
+    for p, own, what in zip(ptrs, (None, wm2.data_ptr(), x.data_ptr(), None),
+                            ("q", "w_new", "x_new", "dots")):
+        if p in inputs and p != own:
+            raise ValueError(f"{name}: {what} must not alias an input other than the "
+                             "one it replaces (w_new: w-2, x_new: x)")
+
+
+def _shard_plain(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work):
+    name = "minres_shard_spmv_dot"
+    r1, vprev, wm1, wm2, x = vecs
+    if r1.is_cuda:
+        PLAIN_ON_CUDA[name] += 1
+    if out is None:
+        out = (torch.empty_like(r1), torch.empty_like(r1), torch.empty_like(r1),
+               r1.new_zeros(2))
+    q_o, w_o, x_o, dots = out
+    if work is None or _live(work):
+        nrb, bn = blocks.shape[0], blocks.shape[3]
+        s = su.reshape(-1)
+        w_new = (vprev - s[SU_OLDEPS] * wm2 - s[SU_DELTA] * wm1) * s[SU_IGAMMA]
+        x_new = x + s[SU_PHI] * w_new
+        r0 = row_offset // bn
+        vwin = vfull2d[r0:r0 + nrb]
+        q = bell_apply(blocks, block_cols, vfull2d) - s[SU_SHIFT] * vwin
+        dots.copy_(torch.stack([torch.sum(vwin * q), torch.sum(vwin * r1)]).reshape(dots.shape))
+        q_o.copy_(q)
+        w_o.copy_(w_new)
+        x_o.copy_(x_new)
+    flat = dots.reshape(-1)
+    return q_o, w_o, x_o, flat[0:1].view(1, 1), flat[1:2].view(1, 1)
+
+
+def _shard_cuda(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work, row_group):
+    from ._build import load_library
+
+    name = "minres_shard_spmv_dot"
+    nrb, kmax, _, bn = blocks.shape
+    r1 = vecs[0]
+    dev = r1.device
+    if work is None:
+        work = MinresWork.new(dev)
+    if out is None:
+        out = (torch.empty_like(r1), torch.empty_like(r1), torch.empty_like(r1),
+               r1.new_empty(2))
+    check_cuda_operands(name, (blocks, block_cols, vfull2d, *vecs, su, *out))
+    grid = -(-nrb // row_group)
+    if work.partials.numel() < 2 * grid:
+        work.partials = torch.empty(2 * grid, device=dev)
+    err = load_library().minres_shard_dir(
+        ptr(blocks), ptr(block_cols), ptr(vfull2d), *(ptr(v) for v in vecs), ptr(su),
+        *(ptr(o) for o in out), ptr(work.partials), ptr(work.counter), ptr(work.ctl),
+        row_offset // bn, nrb, kmax, bn, row_group, stream(dev))
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
+    flat = out[3].reshape(-1)
+    return (*out[:3], flat[0:1].view(1, 1), flat[1:2].view(1, 1))
+
+
 # ---- kernel 16 ---------------------------------------------------------------
 
 def minres_update_dot(
@@ -421,6 +589,7 @@ def minres_update_dot(
     *,
     out: Optional[torch.Tensor] = None,
     work: Optional[MinresWork] = None,
+    partials_only: bool = False,
 ):
     """Kernel 2: ``(r2', βsq) = (q − c1·r1 − ia·r2, r2'·(d⊙r2'))``.
 
@@ -428,7 +597,8 @@ def minres_update_dot(
     (= β/β_old) and ``ia`` (= α/β) one float32 each.  ``out``: the r2'
     buffer, which may be any of the inputs (each element is read and
     written by one thread): the solver passes r1's.  Returns r2' and βsq
-    (1, 1).  ``work``: see module doc.
+    (1, 1).  ``work``: see module doc; ``partials_only`` (with a ``work``):
+    no scalar step, and βsq in a (1, 1) of its own.
     """
     name = "minres_update_dot"
     for v in (r1_2d, r2_2d, inv_diag2d, out):
@@ -440,28 +610,31 @@ def minres_update_dot(
     for s in (c1, ia):
         if s.numel() != 1 or s.dtype != torch.float32:
             raise ValueError(f"{name}: c1 and ia must be one float32 each")
+    if partials_only and work is None:
+        raise ValueError(f"{name}: partials_only needs the solve's work")
     extra = _extra(None if out is None else (out,), work)
+    args = (q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work, partials_only)
     if not on_cuda(name, q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, *extra):
-        return _update_plain(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work)
-    return _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work)
+        return _update_plain(*args)
+    return _update_cuda(*args)
 
 
-def _update_plain(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work):
+def _update_plain(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work, partials_only=False):
     if q2d.is_cuda:
         PLAIN_ON_CUDA["minres_update_dot"] += 1
     if work is not None and not _live(work):
-        return out, work.scal.new_zeros(1, 1)
+        return (out if out is not None else r2_2d), work.scal.new_zeros(1, 1)
     y = q2d - c1.reshape(()) * r1_2d - ia.reshape(()) * r2_2d
     bsq = torch.sum((y if inv_diag2d is None else inv_diag2d * y) * y).reshape(1, 1)
     if out is not None:
         out.copy_(y)
         y = out
-    if work is not None:
+    if work is not None and not partials_only:
         finish_update(work, bsq[0, 0])
     return y, bsq
 
 
-def _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work):
+def _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work, partials_only):
     from ._build import load_library
 
     name = "minres_update_dot"
@@ -472,8 +645,8 @@ def _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work):
     if work is None:
         work = MinresWork.new(dev)
         bsq = q2d.new_empty(1, 1)
-    else:
-        bsq = work.dots[2]
+    else:  # a solve's βsq lives in its work, a shard's in a (1, 1) of its own
+        bsq = q2d.new_empty(1, 1) if partials_only else work.dots[2]
     if out is None:
         out = torch.empty_like(q2d)
     vecs = (q2d, r1_2d, r2_2d, inv_diag2d, out)
@@ -483,8 +656,9 @@ def _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work):
         work.partials = torch.empty(grid, device=dev)
     err = load_library().minres_update(
         ptr(c1), ptr(ia), ptr(q2d), ptr(r1_2d), ptr(r2_2d), ptr(inv_diag2d),
-        ptr(out), ptr(bsq), ptr(work.partials), ptr(work.counter), ptr(work.scal),
-        ptr(work.ctl), ptr(work.hist), work.hist.numel(), n, grid, stream(dev))
+        ptr(out), ptr(bsq), ptr(work.partials), ptr(work.counter),
+        None if partials_only else ptr(work.scal), ptr(work.ctl), ptr(work.hist),
+        work.hist.numel(), n, grid, stream(dev))
     LAUNCHES[name] += 1
     raise_on_error(name, err)
     return out, bsq

@@ -1,7 +1,8 @@
 """Stopwatch in milliseconds (the reference harness's Timer).  On a CUDA
 device it records CUDA events on the current stream and synchronises on
 stop, so the time covers the device work; on the CPU it is the host
-clock."""
+clock.  Like every entry point of the port it defaults to the card
+(``types.base.DEFAULT_DEVICE``); a CPU caller passes ``"cpu"``."""
 
 from __future__ import annotations
 
@@ -10,9 +11,11 @@ from typing import Optional
 
 import torch
 
+from ..types.base import DEFAULT_DEVICE
+
 
 class Timer:
-    def __init__(self, device="cpu"):
+    def __init__(self, device=DEFAULT_DEVICE):
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._t0: Optional[float] = None

@@ -651,3 +651,169 @@ def test_fused_bicgstab_solve_takes_the_kernels(dev, with_d):
     np.testing.assert_allclose(hk, ic.rnorm_history.double().numpy(), rtol=5e-3)
     x, info = bicgstab_solve(a, torch.zeros_like(b), tol=1e-30, fused="always")
     assert int(info.iterations) == 0 and not x.any()
+
+
+# ---- the row-sharded loop: kernels 6 and 17, partials-only modes ----------------
+
+def _shard_operands(dev, nrb, bn, n_shards, shard, seed):
+    """One shard's tiles (GLOBAL column blocks over n_shards * nrb block
+    rows) and the gathered operand, as the sharded loop hands them over."""
+    rng = np.random.default_rng(seed)
+    ncb = n_shards * nrb
+    blocks = torch.as_tensor(rng.standard_normal((nrb, 3, bn, bn)), dtype=torch.float32,
+                             device=dev)
+    cols = torch.as_tensor(rng.integers(0, ncb, (nrb, 3)), dtype=torch.int32, device=dev)
+    full = torch.as_tensor(rng.standard_normal((ncb, bn)), dtype=torch.float32, device=dev)
+    return blocks, cols, full, shard * nrb * bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,row_group", [(32, None), (64, 3), (128, 1)])
+def test_bell_spmv_dot_kernel_matches_plain(dev, bn, row_group):
+    """Kernel 6: q to 1e-5 of max|q| and pap to 1e-5 relative of the plain
+    version (f32 sums in another order), two launches bit-identical, a
+    ragged nrb = 13 at a shard offset that is not 0."""
+    blocks, cols, full, off = _shard_operands(dev, 13, bn, 3, 1, bn)
+    before = fc.LAUNCHES["bell_spmv_dot"]
+    qk, pk = fc.bell_spmv_dot(blocks, cols, full, off, row_group=row_group)
+    qk2, pk2 = fc.bell_spmv_dot(blocks, cols, full, off, row_group=row_group)
+    assert fc.LAUNCHES["bell_spmv_dot"] == before + 2
+    qp, pp = fc._spmv_dot_plain(blocks, cols, full, off, None, None)
+    torch.cuda.synchronize()
+    _close(qk, qp)
+    np.testing.assert_allclose(float(pk), float(pp), rtol=RTOL)
+    assert torch.equal(qk, qk2) and torch.equal(pk, pk2)
+    with pytest.raises(TypeError, match="not ported"):
+        fc.bell_spmv_dot(blocks.bfloat16(), cols, full, off)
+    with pytest.raises(ValueError, match="alias"):
+        fc.bell_spmv_dot(blocks, cols, full, off, out=(full[:13], pk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [32, 64, 128])
+@pytest.mark.parametrize("case", ["pending", "first", "jacobi"])
+def test_minres_shard_kernel_matches_plain(dev, bn, case):
+    """Kernel 17: w and x' bit-equal to the plain version (also written
+    over w-2 and x), q to 1e-5 of max|q|, the dots to 1e-5 relative (v·r1
+    of ||v|| ||r1||), two launches bit-identical; with a shift, with su = 0
+    (a first step: w = 0, x unchanged) and with a Jacobi-scaled v."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    nrb = 13
+    blocks, cols, full, off = _shard_operands(dev, nrb, bn, 2, 1, bn + 1)
+    rng = np.random.default_rng(bn)
+    r1, vprev, wm1, wm2, x = (torch.as_tensor(rng.standard_normal((nrb, bn)),
+                                              dtype=torch.float32, device=dev)
+                              for _ in range(5))
+    if case == "jacobi":
+        full = full * (torch.rand_like(full) + 0.5) * 0.31
+    su = torch.zeros(1, 8, device=dev)
+    su[0, fm.SU_SHIFT] = 0.07
+    if case != "first":
+        su[0, fm.SU_OLDEPS:fm.SU_PHI + 1] = torch.tensor([0.11, 0.23, 0.57, 0.83])
+    args = (blocks, cols, full, r1, vprev, wm1, wm2, x, su, off)
+    k = fm.minres_shard_spmv_dot(*args)
+    k2 = fm.minres_shard_spmv_dot(*args)
+    p = fm._shard_plain(blocks, cols, full, (r1, vprev, wm1, wm2, x), su, off, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    assert all(torch.equal(a, b) for a, b in zip(k, k2))
+    _close(k[0], p[0])
+    np.testing.assert_allclose(float(k[3]), float(p[3]), rtol=RTOL)
+    np.testing.assert_allclose(float(k[4]), float(p[4]), rtol=0,
+                               atol=RTOL * float(full[off // bn:off // bn + nrb].norm() * r1.norm()))
+    if case == "first":
+        assert not k[1].any() and torch.equal(k[2], x)
+    w_in, x_in = wm2.clone(), x.clone()
+    dots = torch.empty(2, device=dev)
+    q = torch.empty_like(r1)
+    k3 = fm.minres_shard_spmv_dot(blocks, cols, full, r1, vprev, wm1, w_in, x_in, su, off,
+                                  out=(q, w_in, x_in, dots))
+    torch.cuda.synchronize()
+    assert torch.equal(k3[1], p[1]) and torch.equal(k3[2], p[2])
+    for bad, what in (((q, r1, x_in, dots), "w_new"), ((q, w_in, r1, dots), "x_new"),
+                      ((full[:nrb], w_in, x_in, dots), "q")):
+        with pytest.raises(ValueError, match=f"{what} must not alias"):
+            fm.minres_shard_spmv_dot(blocks, cols, full, r1, vprev, wm1, w_in, x_in, su, off,
+                                     out=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13 * 32, 2048 * 128])
+def test_partials_only_updates_match_full_tail(dev, n):
+    """Kernels 2, 3 and 16 in partials-only mode: x', r' and r2' bit-equal
+    to their full-tail launches, the same partial sums, and the solve's
+    scalars and control words untouched; a no-op on a solve that is
+    done."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x, p, r, q, d = (torch.randn(n, generator=g).to(dev) for _ in range(5))
+    d = d.abs() + 0.5
+    alpha = torch.full((1, 1), 0.61, device=dev)
+    for name, kern in (("fused_update_dot", lambda **kw: fc.fused_update_dot(x, p, r, q, alpha, **kw)),
+                       ("fused_update_dot_pcg",
+                        lambda **kw: fc.fused_update_dot_pcg(x, p, r, q, d, alpha, **kw))):
+        full = kern(work=fc.FusedWork.new(dev, maxiter=4))
+        work = fc.FusedWork.new(dev, maxiter=4)
+        scal, ctl = work.scal.clone(), work.ctl.clone()
+        part = kern(work=work, partials_only=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(full, part)), name
+        assert torch.equal(work.scal, scal) and torch.equal(work.ctl, ctl), name
+        work.ctl[fc.C_LIVE] = 0
+        xo, ro = torch.zeros_like(x), torch.zeros_like(r)
+        kern(work=work, partials_only=True, out=(xo, ro))
+        torch.cuda.synchronize()
+        assert not xo.any() and not ro.any(), name
+    c1, ia = torch.full((1, 1), 0.4, device=dev), torch.full((1, 1), 0.9, device=dev)
+    for dd in (None, d):
+        wf = fm.MinresWork.new(dev, maxiter=4)
+        wf.start(torch.tensor(2.3, device=dev))
+        wp = fm.MinresWork.new(dev, maxiter=4)
+        wp.start(torch.tensor(2.3, device=dev))
+        scal, ctl = wp.scal.clone(), wp.ctl.clone()
+        yf, bf = fm.minres_update_dot(q, r, p, c1, ia, dd, work=wf)
+        yp, bp = fm.minres_update_dot(q, r, p, c1, ia, dd, work=wp, partials_only=True)
+        torch.cuda.synchronize()
+        assert torch.equal(yf, yp) and torch.equal(bf, bp)
+        assert torch.equal(wp.scal, scal) and torch.equal(wp.ctl, ctl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["standard", "minres"])
+def test_sharded_fused_solve_takes_the_kernels_bitwise(dev, method):
+    """The fused sharded loop on the card, four shards in one process: P
+    launches of each kernel a step (plus one per shard for r0) and no plain
+    version, twice bit for bit, and its history against the plain versions
+    on the CPU (5e-3 over 12 steps, above the float32 floor).  The
+    diagonal tiles are cut to 2.5 times the coupling tile's spectral radius
+    (condition number ~9), so the history stays above that floor."""
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
+
+    n_shards, bn, nrb = 4, 128, 2
+    n = n_shards * nrb * bn
+    blocks, cols, _ = block_tridiag_tiles(n, bn, bn, seed=5)
+    rho_off = float(np.abs(np.linalg.eigvalsh(blocks[1, 1].astype(np.float64))).max())
+    blocks[:, 0] = np.eye(bn, dtype=np.float32) * np.float32(2.5 * rho_off)
+    blocks = torch.from_numpy(blocks).reshape(n_shards, nrb, 3, bn, bn).to(dev)
+    cols = torch.from_numpy(cols).reshape(n_shards, nrb, 3).to(dev)
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    kernel = "bell_spmv_dot" if method == "standard" else "minres_shard_spmv_dot"
+    fc.reset_counts()
+    x1, i1 = sharded_cg_solve(blocks, cols, b, mesh=make_row_mesh(n_shards, dev), tol=-1.0,
+                              maxiter=12, method=method)
+    assert int(i1.iterations) == 12
+    assert fc.LAUNCHES[kernel] == n_shards * 13
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    x2, i2 = sharded_cg_solve(blocks, cols, b, mesh=make_row_mesh(n_shards, dev), tol=-1.0,
+                              maxiter=12, method=method)
+    assert torch.equal(x1, x2)
+    assert torch.equal(i1.rho_history.view(torch.int32), i2.rho_history.view(torch.int32))
+    xc, ic = sharded_cg_solve(blocks.cpu(), cols.cpu(), b.cpu(),
+                              mesh=make_row_mesh(n_shards, "cpu"), tol=-1.0, maxiter=12,
+                              method=method, use_fused="always")
+    hk, hc = i1.rho_history.cpu().numpy(), ic.rho_history.numpy()
+    keep = hc > 1e-10 * hc[0]
+    assert keep.sum() >= 3
+    np.testing.assert_allclose(hk[keep], hc[keep], rtol=5e-3)
