@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the seventeen kernels against its plain-torch version on the
+2. Hold each of the nineteen kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -43,12 +43,28 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    bit-equal (also written over w-2 and x), the dots within TOL_DOT, two
    launches bit-identical; kernels 2, 3 and 16 in the sharded loop's
    partials-only mode bit-equal to their full-tail launches; kernels 6 and
-   17 timed on a shard of P = 4 (and P = 8).
+   17 timed on a shard of P = 4 (and P = 8).  Kernels 5 and 4 on the packed
+   nonzeros of sparse tiles (``bell_spmv_packed``,
+   ``fused_dir_spmv_dot_packed``) on poisson3d_48 (kernel 5 at 128 x 128
+   and 8 x 128, kernel 4 at 128 x 128 with and without the Jacobi
+   diagonal, beta 0 and not 0) and on its 8 x 8 tiles, a float32 width
+   the dense kernels do not take: y and q within TOL_Q of the plain
+   versions (built to agree bit for bit, which is printed) and of the
+   dense tiles' plain products, p_new bit-equal, pap within TOL_DOT,
+   repeats bit-identical; both timed beside the dense kernels on the same
+   operator, cuSPARSE and their bound on the bytes the nonzeros need, and
+   the one-time pack timed; the two designs against each other on the
+   n = 262,144 tiles with entries zeroed down to a fill of 0.05 (the
+   crossover).
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
    both blocked layouts (symbell and bell, float32, plain CG and Jacobi
-   PCG); the n = 262,144 operator in both storages for 256 timed steps;
+   PCG); fused CG and Jacobi PCG on poisson3d_48 in full storage once on
+   the dense-tile route and once on the packed route (iterations,
+   rel_error, ms/it, the kernels launched, the two trajectories); the
+   n = 262,144 operator in both storages for 256 timed steps, its dense
+   tiles held to the dense kernels;
    the fused solves against the plain-torch loop on the same card, and
    twice against themselves (bitwise); the portable loop on
    ``load_matrix(layout="bell")`` (8 x 128 tiles); residual replacement
@@ -160,6 +176,8 @@ SOURCES = {
     "bicgstab_update_dot": BICGSTAB_SOURCE,
     "bell_spmv_dot": FUSED_SOURCE,
     "minres_shard_spmv_dot": MINRES_SOURCE,
+    "bell_spmv_packed": "conjugategradient_tpu_torch/csrc/bell_spmv.cu",
+    "fused_dir_spmv_dot_packed": FUSED_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -183,15 +201,19 @@ REPLACES = {
     "bicgstab_update_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:293",
     "bell_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:467",
     "minres_shard_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:528",
+    # the packed kernels compute the same functions as 5 and 4 on sparse tiles
+    "bell_spmv_packed": "conjugategradient_tpu/ops/pallas/ell_spmv.py:57",
+    "fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:111",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
-                   "fused_update_dot_pcg", "bell_spmv")
+                   "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
+                   "fused_dir_spmv_dot_packed")
 DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
 STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
-                  "bell_spmv")
+                  "bell_spmv", "bell_spmv_packed")
 BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
-                    "bell_spmv", "dia_spmv")
+                    "bell_spmv", "dia_spmv", "bell_spmv_packed")
 SHARDED_KERNELS = ("bell_spmv_dot", "minres_shard_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "minres_update_dot", "bell_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
@@ -369,6 +391,13 @@ def bound(moved: int, flops: int, peak_flops: float = PEAK_F32_PER_S) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def needed_bound(nnz: int, vec_bytes: int) -> float:
+    """The least time for a sparse-tile kernel's function on what its
+    inputs need: a 4-byte value and a 4-byte int32 column per nonzero, and
+    the vectors it reads and writes, each once, over the HBM rate (ms)."""
+    return (8 * nnz + vec_bytes) / PEAK_BYTES_PER_S * 1e3
+
+
 def library_ms(fn) -> float:
     """One PyTorch call's time, as ``time_pair`` reports a kernel's: device
     time when the profiler sees it, else CUDA-event time."""
@@ -530,11 +559,11 @@ def load_symbell(path, device):
                        dtype=np.float32, bn=128, device=device)
 
 
-def load_bell(path, device, bm=128):
+def load_bell(path, device, bm=128, bn=128):
     from conjugategradient_tpu_torch import load_matrix
 
     return load_matrix(os.path.join(ROOT, path), layout="bell",
-                       dtype=np.float32, bm=bm, bn=128, device=device)
+                       dtype=np.float32, bm=bm, bn=bn, device=device)
 
 
 def padded_inv_diag(a, rows):
@@ -625,6 +654,181 @@ def check_k5(a, rng, errs, label):
     return x2d
 
 
+def check_k5_packed(a, rng, errs, label):
+    """Packed kernel 5 against its plain version (built to agree bit for
+    bit; held to TOL_Q) and against the dense tiles' plain product, a
+    repeat bit-identical.  Returns the operand."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import bell_spmv as kb
+
+    pk = a.packed()
+    x = torch.as_tensor(rng.standard_normal(pk.ncols), dtype=torch.float32, device=a.device)
+    yk = kb.bell_spmv_packed(pk, x)
+    yk2 = kb.bell_spmv_packed(pk, x)
+    yp = kb.packed_apply(pk, x)
+    yd = kb._bell_plain(a.blocks, a.block_cols, x.view(-1, a.bn))
+    torch.cuda.synchronize()
+    e, m = rel_max_err(yk, yp)
+    ed, md = rel_max_err(yk, yd)
+    check(e <= TOL_Q * m, f"K5 packed {label}: y err {e} vs max|y| {m}")
+    check(ed <= TOL_Q * md, f"K5 packed {label}: y vs the dense tiles err {ed} vs {md}")
+    check(torch.equal(yk, yk2), f"K5 packed {label}: a repeat is not bit-identical")
+    errs["bell_spmv_packed"] = max(errs["bell_spmv_packed"], e)
+    print(f"  K5 packed {label:<31} |dy|={e:.3g} (bit-equal {torch.equal(yk, yp)}), "
+          f"vs dense tiles {ed:.3g}; view {pk.nbytes() / 1e6:.2f} MB for {pk.nnz} "
+          f"nonzeros ({pk.vals.numel() / max(pk.nnz, 1):.4f} slots each), tiles "
+          f"{a.tile_bytes() / 1e6:.1f} MB")
+    return x
+
+
+def check_k4_packed(a, rng, with_d, beta_v, errs, label):
+    """Packed kernel 4 against its plain version: p_new bit for bit, q to
+    TOL_Q (built to agree bit for bit), pap to TOL_DOT; a repeat
+    bit-identical; q against the dense tiles' plain version to TOL_Q."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    pk = a.packed()
+    nrb, bn = a.nrb, a.bn
+
+    def vec():
+        return torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32,
+                               device=a.device)
+
+    r, pold = vec(), vec()
+    d = padded_inv_diag(a, nrb * bn).reshape(nrb, bn) if with_d else None
+    beta = torch.tensor([[beta_v]], dtype=torch.float32, device=a.device)
+    k = fc.fused_dir_spmv_dot_packed(pk, r, pold, beta, d)
+    k2 = fc.fused_dir_spmv_dot_packed(pk, r, pold, beta, d)
+    pl = fc._packed_dir_plain(pk, r, pold, beta, d, None, None)
+    qd = fc._full_dir_plain(a.blocks, a.block_cols, r, pold, beta, d, None, None)[1]
+    torch.cuda.synchronize()
+    e_q, m_q = rel_max_err(k[1], pl[1])
+    e_d, _ = rel_max_err(k[1], qd)
+    e_pap = abs(float(k[2]) - float(pl[2]))
+    check(torch.equal(k[0], pl[0]), f"K4 packed {label}: p_new not bit-equal to the plain version")
+    check(e_q <= TOL_Q * m_q, f"K4 packed {label}: q err {e_q} vs max|q| {m_q}")
+    check(e_d <= TOL_Q * m_q, f"K4 packed {label}: q vs the dense tiles err {e_d}")
+    check(e_pap <= TOL_DOT * abs(float(pl[2])), f"K4 packed {label}: pap {float(k[2])} vs {float(pl[2])}")
+    check(all(torch.equal(u, v) for u, v in zip(k, k2)),
+          f"K4 packed {label}: a repeat is not bit-identical")
+    errs["fused_dir_spmv_dot_packed"] = max(errs["fused_dir_spmv_dot_packed"], e_q, e_pap)
+    print(f"  K4 packed {label:<31} p_new bit-equal |dq|={e_q:.3g} (bit-equal "
+          f"{torch.equal(k[1], pl[1])}, max|q| {m_q:.4g}) vs dense tiles {e_d:.3g} "
+          f"|dpap|={e_pap:.3g}")
+    return r, pold, beta, d
+
+
+def crossover(big_full, rng):
+    """Packed against dense kernels 4 and 5 on the n = 262,144
+    block-tridiagonal tiles with entries zeroed at random, at falling
+    fills: where the packed kernels start to win (CUDA-event ms a launch,
+    inputs as one solve step has them)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import bell_spmv as kb
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix
+
+    dev = big_full.device
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    x = torch.randn(big_full.padded_shape[1], device=dev, generator=gen)
+    r, pold = x.view(-1, big_full.bn), torch.randn_like(x).view(-1, big_full.bn)
+    beta = torch.full((1, 1), 0.37, device=dev)
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    out = (torch.empty_like(r), torch.empty_like(r))
+    rows = []
+    for fill in (1.0, 0.5, 0.4, 0.3, 0.25, 0.15, 0.05):
+        keep = torch.rand(big_full.blocks.shape, device=dev, generator=gen) < fill
+        blocks = torch.where(keep, big_full.blocks, 0.0) if fill < 1 else big_full.blocks
+        nnz = int(torch.count_nonzero(blocks))
+        a = BlockedEllMatrix(blocks, big_full.block_cols, big_full.shape, nnz)
+        pk = a.packed()
+        t5d = cuda_ms(lambda: kb.bell_spmv_tiles(a.blocks, a.block_cols, r))
+        t5p = cuda_ms(lambda: kb.bell_spmv_packed(pk, x))
+        t4d = cuda_ms(lambda: fc.fused_dir_spmv_dot(a.blocks, a.block_cols, r, pold, beta,
+                                                    out=out, work=work))
+        t4p = cuda_ms(lambda: fc.fused_dir_spmv_dot_packed(pk, r, pold, beta, out=out,
+                                                           work=work))
+        rows.append((fill, nnz / big_full.blocks.numel(), t5d, t5p, t4d, t4p,
+                     bell_packed_route(a)))
+        del a, pk, blocks, keep
+    torch.cuda.synchronize()
+    return rows
+
+
+# The design the packed view was weighed against: CSR, one warp per row,
+# lanes striding over the row's nonzeros.  A yardstick built and timed
+# here only; the port does not carry it.
+CSR_YARDSTICK = r"""
+extern "C" __global__ void csr_warp_row(const int* __restrict__ ptr,
+                                        const int* __restrict__ cols,
+                                        const float* __restrict__ vals,
+                                        const float* __restrict__ x,
+                                        float* __restrict__ y, int rows) {
+  const int row = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int e = ptr[row] + lane; e < ptr[row + 1]; e += 32)
+    acc = fmaf(__ldg(vals + e), __ldg(x + __ldg(cols + e)), acc);
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) y[row] = acc;
+}
+extern "C" int csr_warp_row_launch(const int* ptr, const int* cols, const float* vals,
+                                   const float* x, float* y, int rows, void* stream) {
+  const long long threads = 256, total = (long long)rows * 32;
+  csr_warp_row<<<(unsigned)((total + threads - 1) / threads), (unsigned)threads, 0,
+                 (cudaStream_t)stream>>>(ptr, cols, vals, x, y, rows);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def csr_yardstick(pk, x):
+    """The CSR warp-per-row SpMV on the packed view's nonzeros (put in row
+    order here), checked against packed kernel 5 to TOL_Q: its device ms a
+    launch."""
+    import ctypes
+
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+    from conjugategradient_tpu_torch.ops.cuda import bell_spmv as kb
+
+    out = _build.BUILD_DIR / "csr_yardstick.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = _build.BUILD_DIR / "csr_yardstick.cu"
+        src.write_text(CSR_YARDSTICK)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(src)],
+                       check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).csr_warp_row_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = x.device
+    lens = pk.row_len.long()
+    ptr = torch.zeros(pk.rows + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = lens.cumsum(0)
+    row = torch.repeat_interleave(torch.arange(pk.rows, device=dev), lens)
+    k = torch.arange(row.numel(), device=dev) - ptr[row]
+    at = pk.chunk_off[row // 32] + 32 * k + row % 32
+    vals, cols, ptr32 = pk.vals[at].contiguous(), pk.cols[at].contiguous(), ptr.int()
+    y = torch.empty(pk.rows, device=dev)
+
+    def launch():
+        return fn(ptr32.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                  pk.rows, torch.cuda.current_stream(dev).cuda_stream)
+
+    check(launch() == 0, "CSR yardstick: launch failed")
+    e, m = rel_max_err(y, kb.bell_spmv_packed(pk, x))
+    check(e <= TOL_Q * m, f"CSR yardstick: y differs from packed kernel 5 by {e} (max {m})")
+    return library_ms(launch)
+
+
 def check_update(shape, rng, pcg, errs, label, dev):
     """Kernel 2 (or 3) against its plain version: x' and r' bit for bit,
     the dots within TOL_DOT."""
@@ -665,9 +869,10 @@ def phase_kernels(dev, big, big_full):
 
     from conjugategradient_tpu_torch.ops.cuda import bell_spmv as kb
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.types.bell import pack_nonzeros
 
     rng = np.random.default_rng(0)
-    errs = dict.fromkeys(fc.LAUNCHES, 0.0)
+    errs = dict.fromkeys(SOURCES, 0.0)
     times, extra = {}, {}
     p3d = load_symbell(MATRICES[0], dev)
     p3d_full = load_bell(MATRICES[0], dev)
@@ -760,6 +965,61 @@ def phase_kernels(dev, big, big_full):
             csr_from_bell(a), x.reshape(-1)[:a.shape[1]],
             kb.bell_spmv_tiles(a.blocks, a.block_cols, x)[:a.n], label)
 
+    # kernels 4 and 5 on the packed nonzeros of sparse tiles: poisson3d_48
+    # (both tile shapes of the main path) and a float32 operator of bn = 8,
+    # which had no kernel before
+    pk_ms = {}
+    for label, a in (("poisson3d_48 128x128", p3d_full), ("poisson3d_48 8x128", p3d_8)):
+        pk_ms[label] = cuda_ms(lambda: pack_nonzeros(a.blocks, a.block_cols, a.padded_shape[1]),
+                               reps=3, warm=1)
+    p3d_bn8 = load_bell(MATRICES[0], dev, bm=8, bn=8)
+    xk5 = {}
+    for label, a in (("poisson3d_48 128x128", p3d_full), ("poisson3d_48 8x128", p3d_8),
+                     ("poisson3d_48 8x8", p3d_bn8)):
+        xk5[label] = check_k5_packed(a, rng, errs, label)
+    before = fc.LAUNCHES["bell_spmv_packed"]
+    y8 = p3d_bn8.matvec(xk5["poisson3d_48 8x8"][:p3d_bn8.n])
+    check(fc.LAUNCHES["bell_spmv_packed"] == before + 1 and bool(torch.isfinite(y8).all()),
+          "bn = 8 float32 operator: matvec did not take the packed kernel")
+    for with_d in (False, True):
+        for beta_v in (0.0, 0.37):
+            tag = f"{'+d' if with_d else ''} beta={beta_v}"
+            k4p_args = check_k4_packed(p3d_full, rng, with_d, beta_v, errs,
+                                       f"poisson3d_48{tag}")
+    check_k4_packed(p3d_bn8, rng, True, 0.37, errs, "poisson3d_48 8x8+d beta=0.37")
+    r4, pold4, beta4, d4 = k4p_args
+    pk = p3d_full.packed()
+    out_p = (torch.empty_like(r4), torch.empty_like(r4))
+    vec_b = p3d_full.nrb * 128 * 4
+    times["fused_dir_spmv_dot_packed"] = time_pair(
+        lambda: fc.fused_dir_spmv_dot_packed(pk, r4, pold4, beta4, out=out_p, work=work),
+        lambda: fc._packed_dir_plain(pk, r4, pold4, beta4, None, None, None))
+    times["fused_dir_spmv_dot_packed"].update(bound(8 * pk.nnz + 4 * vec_b, 2 * pk.nnz + 4 * p3d_full.n))
+    times["fused_dir_spmv_dot_packed"]["library_ms"] = None  # as kernel 4: no one call
+    extra["K4 packed poisson3d_48 +d"] = time_pair(
+        lambda: fc.fused_dir_spmv_dot_packed(pk, r4, pold4, beta4, d4, out=out_p, work=work),
+        lambda: fc._packed_dir_plain(pk, r4, pold4, beta4, d4, None, None))
+    extra["K4 packed poisson3d_48 +d"].update(bound(8 * pk.nnz + 5 * vec_b, 2 * pk.nnz + 6 * p3d_full.n))
+    for label, a in (("poisson3d_48 128x128", p3d_full), ("poisson3d_48 8x128", p3d_8)):
+        pka, x = a.packed(), xk5[label]
+        key = "bell_spmv_packed" if a is p3d_full else f"K5 packed {label}"
+        table = times if a is p3d_full else extra
+        table[key] = time_pair(lambda: kb.bell_spmv_packed(pka, x),
+                               lambda: kb.packed_apply(pka, x))
+        table[key].update(bound(8 * pka.nnz + 4 * (pka.ncols + a.n), 2 * pka.nnz))
+        table[key]["library_ms"] = library_spmv(
+            csr_from_bell(a), x[:a.shape[1]], kb.bell_spmv_packed(pka, x)[:a.n], label)
+        if a is p3d_full:
+            print(f"  CSR, one warp per row, on the same nonzeros: {csr_yardstick(pka, x):.5f} ms "
+                  f"a launch; packed (SELL-32) kernel 5 {table[key]['ms']:.5f}  [{card_line()}]")
+        print(f"  pack {label}: {pk_ms[label]:.4f} ms once per operator; view "
+              f"{pka.nbytes() / 1e6:.3f} MB ({pka.nnz} nonzeros), tiles "
+              f"{a.tile_bytes() / 1e6:.1f} MB")
+    for fill, got, t5d, t5p, t4d, t4p, route in crossover(big_full, rng):
+        print(f"  crossover, n=262144 tiles at fill {fill:.2f} ({got:.4f} of the slots): "
+              f"K5 dense {t5d:.5f} packed {t5p:.5f}; K4 dense {t4d:.5f} packed {t4p:.5f} "
+              f"(ms, events); the route picks {'packed' if route else 'dense'}  [{card_line()}]")
+
     # bounds from this run's inputs: every vector is n float32 entries
     n, v = N_BIG, N_BIG * 4
     times["sym_fused_dir_spmv_dot"].update(bound(
@@ -776,6 +1036,14 @@ def phase_kernels(dev, big, big_full):
     extra["K4 poisson3d_48"].update(bound(
         nbytes(p3d_full.blocks, p3d_full.block_cols) + 4 * p3d_full.nrb * 128 * 4,
         2 * p3d_full.blocks.numel() + 4 * p3d_full.nrb * 128))
+    # the sparse-tile rows' bounds on what these inputs need (the nonzeros
+    # and the vectors), beside the tile-stream bounds above
+    extra["K4 poisson3d_48"]["needed_ms"] = needed_bound(pk.nnz, 4 * vec_b)
+    extra["K1 general poisson3d_48"]["needed_ms"] = needed_bound(
+        int(torch.count_nonzero(p3d.diag_blocks)) + int(torch.count_nonzero(p3d.off_blocks)),
+        4 * vec_b)
+    for label, a in (("K5 poisson3d_48 128x128", p3d_full), ("K5 poisson3d_48 8x128", p3d_8)):
+        extra[label]["needed_ms"] = needed_bound(a.packed().nnz, 4 * (a.padded_shape[1] + a.n))
     times["bell_spmv"].update(bound(nbytes(big_full.blocks, big_full.block_cols) + 2 * v,
                                     2 * big_full.blocks.numel()))
     # kernels 1-4 fuse an SpMV with vector updates and dots: no one PyTorch
@@ -786,7 +1054,8 @@ def phase_kernels(dev, big, big_full):
         csr_from_bell(big_full), x_big.reshape(-1),
         kb.bell_spmv_tiles(big_full.blocks, big_full.block_cols, x_big), "tridiag n=262144")
     torch.cuda.synchronize()
-    return errs, times, extra, {"p3d": p3d, "p3d_full": p3d_full, "p3d_8": p3d_8}
+    return errs, times, extra, {"p3d": p3d, "p3d_full": p3d_full, "p3d_8": p3d_8,
+                                "p3d_bn8": p3d_bn8}
 
 
 # ---- phase 2, DIA: kernels 7-10 against their plain versions -----------------
@@ -1113,6 +1382,10 @@ def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
             2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
         t.update(bound(tiles + 10 * a.nrb * a.bn * 4, flops + 14 * a.nrb * a.bn),
                  library_ms=None)  # an SpMV fused with updates and two dots: no one call
+        if a is p3d:  # sparse tiles: the bound on the stored nonzeros too
+            t["needed_ms"] = needed_bound(
+                int(torch.count_nonzero(a.diag_blocks)) + int(torch.count_nonzero(a.off_blocks)),
+                10 * a.nrb * a.bn * 4)
         table[key] = t
     q, r1, r2, _ = upd[False]
     out = torch.empty_like(q)
@@ -1385,6 +1658,10 @@ def phase_bicgstab_kernels(dev, errs, times, extra):
     work.start(torch.sum(args[0] * args[0]))
     times["bicgstab_dir_spmv_dot"], times["bicgstab_s_spmv_dot"] = time_bicg_tiles(a, args, work)
     extra["K18 convdiff-512"], extra["K19 convdiff-512"] = time_bicg_tiles(cd, cd_args, work)
+    # sparse tiles: the bound on the nonzeros too (7 and 8 vectors, as above)
+    cd_nnz, vb = int(torch.count_nonzero(cd.blocks)), N_BIG * 4
+    extra["K18 convdiff-512"]["needed_ms"] = needed_bound(cd_nnz, 7 * vb)
+    extra["K19 convdiff-512"]["needed_ms"] = needed_bound(cd_nnz, 8 * vb)
     xh, sh, s, t, rh, w = upd
     out3 = (torch.empty_like(xh), torch.empty_like(xh))
     times["bicgstab_update_dot"] = time_pair(
@@ -1439,11 +1716,94 @@ def trajectory_ok(h_fused, h_plain, k, floor_rel=1e-10):
     return ok, int(keep.sum())
 
 
+@contextlib.contextmanager
+def forced_route(packed: bool):
+    """Send every float32 full blocked-ELL operator down one route, the
+    packed nonzeros or the dense tiles, to compare the two on one operator
+    (the port itself picks by tile fill and has no switch for it)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops import spmv
+    from conjugategradient_tpu_torch.solver import fused
+
+    saved = spmv.bell_packed_route
+    spmv.bell_packed_route = fused.bell_packed_route = (
+        lambda a: packed and a.dtype == torch.float32)
+    try:
+        yield
+    finally:
+        spmv.bell_packed_route = fused.bell_packed_route = saved
+
+
+def kernel5_launches() -> int:
+    """Launches of kernel 5 in either form (dense tiles or packed)."""
+    from conjugategradient_tpu_torch.ops.cuda import _common
+
+    return _common.LAUNCHES["bell_spmv"] + _common.LAUNCHES["bell_spmv_packed"]
+
+
+ROUTE_KERNELS = ("fused_dir_spmv_dot", "fused_dir_spmv_dot_packed", "bell_spmv",
+                 "bell_spmv_packed")
+
+
+def route_comparison(dev, a, card):
+    """Fused CG and Jacobi PCG on poisson3d_48 in full 128 x 128 storage,
+    the tester's protocol (b = 1..n, tol 1e-5 ||b||), once on the dense
+    route and once on the packed route in this process: iterations,
+    rel_error, ms/it, the kernels each launched, and the two 25-step
+    trajectories against each other.  Returns {(precond, route): ms/it}."""
+    import torch
+
+    from conjugategradient_tpu_torch import accuracy, cg_solve, jacobi_preconditioner
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.utils import Timer
+
+    bb = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev)
+    tt = TOL_SOLVE_REL * bnorm(a.n)
+    out = {}
+    for precond in ("none", "jacobi"):
+        M = jacobi_preconditioner(a) if precond == "jacobi" else None
+        runs = {}
+        for route in ("dense", "packed"):
+            with forced_route(route == "packed"):
+                cg_solve(a, bb, tol=tt, M=M, maxiter=8)
+                before = {k: fc.LAUNCHES[k] for k in ROUTE_KERNELS}
+                t = Timer(dev).start_measure()
+                x, info = cg_solve(a, bb, tol=tt, M=M)
+                t.stop_measure()
+                rel = float(accuracy(a, bb, x))
+                _, h25 = cg_solve(a, bb, tol=0.0, maxiter=25, M=M)
+                used = {k: fc.LAUNCHES[k] - before[k] for k in ROUTE_KERNELS}
+            k = int(info.iterations)
+            what = f"poisson3d_48 bell 128x128 precond {precond}, {route} route"
+            check(bool(info.converged) and rel < REL_ERROR_BOUND,
+                  f"{what}: converged {bool(info.converged)}, rel_error {rel}")
+            mine = [n for n in ROUTE_KERNELS if n.endswith("_packed") == (route == "packed")]
+            check(used[mine[0]] >= k + 25 and used[mine[1]] >= 1
+                  and all(used[n] == 0 for n in ROUTE_KERNELS if n not in mine),
+                  f"{what}: launches {used}")
+            ms_it = t.get_duration() / k
+            runs[route] = (k, h25)
+            out[(precond, route)] = ms_it
+            print(f"  {what}: {k} its, {ms_it:.5f} ms/it, rel_error {rel:.3e}, "
+                  f"launches {used}  [{card}]")
+        ok, n_used = trajectory_ok(runs["packed"][1].rho_history, runs["dense"][1].rho_history, 25)
+        check(ok, f"poisson3d_48 {precond}: packed vs dense rho_history beyond rtol {TRAJ_RTOL}")
+        check(abs(runs["packed"][0] - runs["dense"][0]) <= ITER_SLACK,
+              f"poisson3d_48 {precond}: iterations packed {runs['packed'][0]} vs dense "
+              f"{runs['dense'][0]}")
+        print(f"  poisson3d_48 {precond}: the two routes' 25-step trajectories agree on "
+              f"{n_used} entries")
+    return out
+
+
 def phase_main_path(dev, big, big_full, ops, card):
     import torch
 
-    from conjugategradient_tpu_torch import cg_solve, fused_bell_cg_solve, jacobi_preconditioner
+    from conjugategradient_tpu_torch import (accuracy, cg_solve, fused_bell_cg_solve,
+                                             jacobi_preconditioner)
     from conjugategradient_tpu_torch.io import read_csr_host
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.utils import Timer
 
     p3d, p3d_full = ops["p3d"], ops["p3d_full"]
@@ -1464,6 +1824,8 @@ def phase_main_path(dev, big, big_full, ops, card):
                 print(f"  {what}: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its "
                       f"({ms / max(it, 1):.4f} ms/it), rel_error {rel:.3e}  [{card}]")
                 results[(path, layout, precond)] = (ms, it)
+    # (a') full storage on poisson3d_48: the dense route against the packed
+    results["routes"] = route_comparison(dev, ops["p3d_full"], card)
 
     # (b) n = 262,144 block-tridiagonal: 256 timed steps, then to tolerance
     n = N_BIG
@@ -1527,6 +1889,15 @@ def phase_main_path(dev, big, big_full, ops, card):
     _, infof2 = fused_bell_cg_solve(big_full, b, tol=-1.0, maxiter=steps)
     check(torch.equal(infof.rho_history.view(torch.int32), infof2.rho_history.view(torch.int32)),
           "two full-storage fused runs gave different rho_history bits")
+    # dense tiles keep the dense kernels: 8 steps and rel_error's SpMV
+    before = dict(fc.LAUNCHES)
+    xf, _ = fused_bell_cg_solve(big_full, b, tol=-1.0, maxiter=8)
+    accuracy(big_full, b, xf)
+    used = {k: fc.LAUNCHES[k] - before[k] for k in ROUTE_KERNELS + ("bell_pack",)}
+    check(used == {"fused_dir_spmv_dot": 8, "fused_dir_spmv_dot_packed": 0, "bell_spmv": 1,
+                   "bell_spmv_packed": 0, "bell_pack": 0},
+          f"n={n} full storage (dense tiles): launches {used}")
+    print(f"  fused CG n={n} full storage, dense tiles: the dense kernels ({used})")
     results["big_full"] = (ms_it_full, streamed_full, copy_gbps)
 
     cg_solve(big, b, tol=-1.0, maxiter=32, fused="never")
@@ -1594,23 +1965,24 @@ def phase_bell_paths(dev, ops, card):
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.utils import Timer
 
-    # (c) the portable loop on full storage with bm != bn: kernel 5 once a step
+    # (c) the portable loop on full storage with bm != bn: packed kernel 5
+    # once a step (sparse tiles)
     p8 = ops["p3d_8"]
     check((p8.bm, p8.bn) == (8, 128), f"load_matrix default tiles {p8.bm}x{p8.bn}")
     bb = torch.arange(1, p8.n + 1, dtype=torch.float32, device=dev)
     tt = TOL_SOLVE_REL * bnorm(p8.n)
     cg_solve(p8, bb, tol=tt, maxiter=8)
-    before = fc.LAUNCHES["bell_spmv"]
+    before = fc.LAUNCHES["bell_spmv_packed"]
     t = Timer(dev).start_measure()
     x, info = cg_solve(p8, bb, tol=tt)
     t.stop_measure()
     k = int(info.iterations)
-    launched = fc.LAUNCHES["bell_spmv"] - before
+    launched = fc.LAUNCHES["bell_spmv_packed"] - before
     rel = float(accuracy(p8, bb, x))
     check(bool(info.converged), f"portable bell 8x128: not converged in {k}")
     check(launched >= k + 1, f"portable bell 8x128: {launched} SpMV launches for {k} steps")
     check(rel < REL_ERROR_BOUND, f"portable bell 8x128: rel_error {rel}")
-    print(f"  portable loop poisson3d_48 bell 8x128: {k} its, {launched} kernel-5 launches, "
+    print(f"  portable loop poisson3d_48 bell 8x128: {k} its, {launched} packed kernel-5 launches, "
           f"{t.get_duration() / k:.4f} ms/it, rel_error {rel:.3e}  [{card}]")
 
     # (d) recompute_r_every on the fused symmetric and full solves and the
@@ -1633,17 +2005,17 @@ def phase_bell_paths(dev, ops, card):
         print(f"  recompute_r_every={RESTART_EVERY} {label} elasticity3d_16: 32 steps, "
               f"max rel diff to the plain versions {err:.3g}")
 
-    # (e) x0 warm start: r0 = b - A x0 through kernel 5
+    # (e) x0 warm start: r0 = b - A x0 through packed kernel 5
     p3f = ops["p3d_full"]
     x0 = torch.as_tensor(np.random.default_rng(5).standard_normal(p3f.n),
                          dtype=torch.float32, device=dev)
     bb = torch.arange(1, p3f.n + 1, dtype=torch.float32, device=dev)
-    before = fc.LAUNCHES["bell_spmv"]
+    before = fc.LAUNCHES["bell_spmv_packed"]
     x, info = fused_bell_cg_solve(p3f, bb, x0, tol=TOL_SOLVE_REL * bnorm(p3f.n))
     r0 = (bb.cpu() - p3f.to("cpu").matvec(x0.cpu())).double()
     e0 = abs(float(info.rho_history[0]) / float(r0 @ r0) - 1)
     rel = float(accuracy(p3f, bb, x))
-    check(fc.LAUNCHES["bell_spmv"] > before, "x0 warm start did not launch kernel 5")
+    check(fc.LAUNCHES["bell_spmv_packed"] > before, "x0 warm start did not launch packed kernel 5")
     check(bool(info.converged) and rel < REL_ERROR_BOUND,
           f"x0 warm start: converged {bool(info.converged)}, rel_error {rel}")
     check(e0 <= TOL_DOT, f"x0 warm start: ||r0||^2 off the plain version by {e0}")
@@ -2277,12 +2649,12 @@ def phase_minres_path(dev, big, big_full, ops, card):
     x0 = torch.as_tensor(np.random.default_rng(5).standard_normal(p3d_full.n),
                          dtype=torch.float32, device=dev)
     bb = torch.arange(1, p3d_full.n + 1, dtype=torch.float32, device=dev)
-    before = _common.LAUNCHES["bell_spmv"]
+    before = kernel5_launches()
     x, info = minres_solve(p3d_full, bb, x0, tol=tol)
     r0 = (bb.cpu() - p3d_full.to("cpu").matvec(x0.cpu())).double()
     e0 = abs(float(info.rnorm_history[0]) / float(r0.norm()) - 1)
     true_rel = float((bb - p3d_full.matvec(x)).double().norm()) / float(bb.double().norm())
-    check(_common.LAUNCHES["bell_spmv"] >= before + 2, "MINRES x0 warm start did not launch kernel 5")
+    check(kernel5_launches() >= before + 2, "MINRES x0 warm start did not launch kernel 5")
     check(bool(info.converged) and e0 <= TOL_DOT and true_rel < 1e-3,
           f"MINRES x0 warm start: converged {bool(info.converged)}, ||r0|| off by {e0}, true "
           f"relative residual {true_rel}")
@@ -2388,7 +2760,7 @@ def phase_bicgstab_path(dev, bic_ops, card):
           f"max_k ||r_k|| (GAP_ULPS {GAP_ULPS}), max_k ||r_k|| = {min(peaks):.3g}-{max(peaks):.3g} "
           f"||b||")
     bicg = ("--method", "bicgstab")
-    for layout, precond, kernel in (("bell", "none", "bell_spmv"), ("dia", "jacobi", "dia_spmv"),
+    for layout, precond, kernel in (("bell", "none", "bell_spmv_packed"), ("dia", "jacobi", "dia_spmv"),
                                     ("auto", "none", "dia_spmv")):
         before = _common.LAUNCHES[kernel]
         dim, nnz, ms, rel, summ, lines = run_tester(path, layout, precond, tol,
@@ -2601,13 +2973,13 @@ def phase_bicgstab_path(dev, bic_ops, card):
           f"BiCGStab b = 0: {int(info.iterations)} iterations")
     x0 = torch.as_tensor(0.01 * np.random.default_rng(5).standard_normal(small.n),
                          dtype=torch.float32, device=dev)
-    before = _common.LAUNCHES["bell_spmv"]
+    before = kernel5_launches()
     tw = TOL_SOLVE_REL * float(bs.double().norm())
     x, info = bicgstab_solve(small, bs, x0, tol=tw, maxiter=400, fused="always")
     r0 = (bs.cpu() - small.to("cpu").matvec(x0.cpu())).double()
     e0 = abs(float(info.rnorm_history[0]) / float(r0.norm()) - 1)
     true_rel = float((bs - small.matvec(x)).double().norm()) / float(bs.double().norm())
-    check(_common.LAUNCHES["bell_spmv"] >= before + 2, "BiCGStab x0 warm start did not launch kernel 5")
+    check(kernel5_launches() >= before + 2, "BiCGStab x0 warm start did not launch kernel 5")
     check(bool(info.converged) and e0 <= TOL_DOT and true_rel < 1e-3,
           f"BiCGStab x0 warm start: converged {bool(info.converged)}, ||r0|| off by {e0}, true "
           f"relative residual {true_rel}")
@@ -3122,7 +3494,10 @@ def main() -> int:
     for name, t in list(times.items()) + list(extra.items()):
         more = ""
         if "bound_ms" in t:
-            more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']})"
+            more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']}, {t['bound_ms'] / t['ms']:.3f} of it)"
+        if "needed_ms" in t:
+            more += (f"; needed-bytes bound {t['needed_ms']:.5f} "
+                     f"({t['needed_ms'] / t['ms']:.4f} of it)")
         if t.get("library_ms") is not None:
             lib = "conv3d" if name.startswith("stencil7") else "cuSPARSE"
             more += f"; {lib} {t['library_ms']:.5f}"
@@ -3160,7 +3535,7 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"]}
-        for name in fc.LAUNCHES
+        for name in SOURCES
     ]}
     print(json.dumps(table))
     print(card)

@@ -22,6 +22,22 @@
 // and the warp reduces by butterfly, so every run gives the same bits.
 // Padding slots (zero tiles at column block 0) are read like real ones, as
 // on the TPU.  TMA rings and wider per-thread loads are later work.
+//
+// The packed kernel (bell_spmv_packed_kernel) computes the same function
+// from the operator's nonzeros only (types/bell.py PackedBell: SELL-32,
+// values and int32 global columns column-major within each 32-row chunk).
+// On a sparse-tile matrix the dense kernel's tile stream is mostly zeros:
+// poisson3d_48 at 128 x 128 streams 283.1 MB for 760,320 nonzeros, which
+// need 6.1 MB of values and columns.  What bounds the packed kernel: those
+// bytes, plus x read and y written (x is gathered, but it stays in the
+// 50 MB L2).  Design: one lane per row, a warp per chunk, so each step k of
+// a warp loads 32 consecutive values and 32 consecutive columns; a lane
+// issues four nonzeros' loads before it uses them, and reads x through the
+// read-only path.  A lane sums its row in k order with one rounding per
+// product and per sum (__fmul_rn / __fadd_rn), the plain version's order
+// and rounding, so the two agree bit for bit; entries past a row's length
+// are never read, so 0 * Inf never enters a row that has no such nonzero.
+// It takes any bm and bn.
 
 #include <stdint.h>
 
@@ -65,9 +81,51 @@ cudaError_t launch_bell_spmv(const float* blocks, const int* cols, const float* 
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kThreads)
+bell_spmv_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                        const int* __restrict__ row_len,
+                        const long long* __restrict__ chunk_off,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        int64_t rows) {
+  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const int len = __ldg(row_len + r);
+  const int64_t base = __ldg(chunk_off + (r >> 5)) + (r & 31);
+  const float* v = vals + base;
+  const int* c = cols + base;
+  float acc = 0.f;
+  int k = 0;
+  for (; k + 4 <= len; k += 4) {
+    float vv[4], xx[4];
+    int cc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      vv[u] = __ldg(v + 32 * (k + u));
+      cc[u] = __ldg(c + 32 * (k + u));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) xx[u] = __ldg(x + cc[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], xx[u]));
+  }
+  for (; k < len; ++k) acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), __ldg(x + __ldg(c + 32 * k))));
+  y[r] = acc;
+}
+
 }  // namespace
 
 extern "C" {
+
+// y = A x from the packed nonzeros; rows = nrb * bm.  Returns a cudaError_t.
+int cg_bell_spmv_packed(const float* vals, const int* cols, const int* row_len,
+                        const long long* chunk_off, const float* x, float* y,
+                        int64_t rows, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bell_spmv_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, x, y, rows);
+  return cudaGetLastError();
+}
 
 // y = A x on blocked-ELL tiles; rows = nrb * bm.  Returns a cudaError_t.
 int cg_bell_spmv(const float* blocks, const int* cols, const float* x, float* y,

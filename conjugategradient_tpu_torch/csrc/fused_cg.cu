@@ -209,6 +209,76 @@ full_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
   }
 }
 
+// ---- K1 on full storage, packed nonzeros ----------------------------------
+// Replaces the same fused_dir_spmv_dot (:111) where the tiles are sparse:
+// the same p_new, q, pap (and alpha in the last CTA), from the operator's
+// packed view (types/bell.py PackedBell: SELL-32, values and int32 global
+// columns column-major within each 32-row chunk) instead of the tile
+// stream.  Bound: the view's values and columns (8 bytes a stored entry)
+// and row lengths, r and p_old (and d) read once, p_new and q written
+// once: 7.85 MB per call on poisson3d_48 (8.29 MB with d) against the
+// dense kernel's 283.1 MB of tiles.  Design: one lane per row, a warp per
+// chunk, so the view's loads are coalesced.  The lane of row i forms
+// p_new_i with dir_elem and stores it; each gathered p_new_j is recomputed
+// with dir_elem from r, p_old and d (three reads from L2 in place of one
+// tile slot), bit-identical to the stored value.  A row sums in k order
+// with one rounding per product and per sum, as the plain version does, so
+// q matches it bit for bit; pap goes through per-CTA partials that the last
+// CTA sums in index order (no float atomics).
+
+__global__ void __launch_bounds__(kThreads)
+full_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                       const int* __restrict__ row_len,
+                       const long long* __restrict__ chunk_off,
+                       const float* __restrict__ r, const float* __restrict__ pold,
+                       const float* __restrict__ d, const float* beta_p,
+                       float* __restrict__ pnew, float* __restrict__ q,
+                       float* pap_out, float* partials, unsigned* counter,
+                       float* scal, const int* ctl, int64_t rows) {
+  if (ctl[C_LIVE] == 0) return;
+  __shared__ float red[kWarps];
+  const float beta = *beta_p;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float pap_acc = 0.f;
+  if (i < rows) {
+    const float pi = dir_elem(r, pold, d, beta, i);
+    pnew[i] = pi;
+    const int len = __ldg(row_len + i);
+    const int64_t base = __ldg(chunk_off + (i >> 5)) + (i & 31);
+    const float* v = vals + base;
+    const int* c = cols + base;
+    float acc = 0.f;
+    int k = 0;
+    for (; k + 4 <= len; k += 4) {
+      float vv[4], pc[4];
+      int cc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        vv[u] = __ldg(v + 32 * (k + u));
+        cc[u] = __ldg(c + 32 * (k + u));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pc[u] = dir_elem(r, pold, d, beta, cc[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], pc[u]));
+    }
+    for (; k < len; ++k) {
+      acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), dir_elem(r, pold, d, beta, __ldg(c + 32 * k))));
+    }
+    q[i] = acc;
+    pap_acc = pi * acc;
+  }
+  const float s = block_sum(pap_acc, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  if (arrive_last(counter)) {
+    const float pap = sum_partials(partials, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      finish_pap(pap, pap_out, scal);
+      *counter = 0u;
+    }
+  }
+}
+
 // ---- per-shard SpMV + dot of the row-sharded loop ------------------------
 // Replaces conjugategradient_tpu/ops/pallas/fused_cg.py:bell_spmv_dot
 // (:467, _spmv_dot_kernel :437-464): q = A_loc x on one shard's full
@@ -525,6 +595,21 @@ int cg_bell_spmv_dot(const float* blocks, const int* cols, const float* x,
     case 256: return launch_spmv_dot<256>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K1 on the packed nonzeros of full blocked-ELL storage; rows = nrb * bn.
+// Returns a cudaError_t.
+int cg_full_dir_packed(const float* vals, const int* cols, const int* row_len,
+                       const long long* chunk_off, const float* r, const float* pold,
+                       const float* d, const float* beta, float* pnew, float* q,
+                       float* pap, float* partials, unsigned* counter, float* scal,
+                       const int* ctl, int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  full_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, r, pold, d, beta, pnew, q, pap, partials,
+      counter, scal, ctl, rows);
+  return cudaGetLastError();
 }
 
 // K1 on full blocked-ELL storage.  Returns a cudaError_t.

@@ -44,9 +44,11 @@ SIGNATURES = {
     "cg_sym_dir_banded": [_P] * 14 + [_I, _I, _I, _P],
     "cg_sym_dir_general": [_P] * 16 + [_I, _I, _I, _I, _I, _P],
     "cg_full_dir": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "cg_full_dir_packed": [_P] * 15 + [_I64, _P],
     "cg_update": [_P] * 15 + [_I, _I64, _I, _P],
     "cg_bell_spmv_dot": [_P] * 3 + [_I64] + [_P] * 5 + [_I] * 4 + [_P],
     "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
+    "cg_bell_spmv_packed": [_P] * 6 + [_I64, _P],
     "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
     "cg_stencil7_f32": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],

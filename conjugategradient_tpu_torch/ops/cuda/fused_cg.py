@@ -7,7 +7,9 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
   (D+U+Uᵀ)·p_new, p_new·q) with z = d⊙r (Jacobi) or r, on symmetric
   blocked-ELL tiles (replaces ``sym_fused_dir_spmv_dot``, fused_cg.py:338);
 * :func:`fused_dir_spmv_dot` — the same on full blocked-ELL tiles
-  (replaces ``fused_dir_spmv_dot``, fused_cg.py:111);
+  (replaces ``fused_dir_spmv_dot``, fused_cg.py:111), and
+  :func:`fused_dir_spmv_dot_packed`, the same function on the tiles'
+  packed nonzeros (``types/bell.PackedBell``), for sparse tiles;
 * :func:`fused_update_dot` — (x + α·p, r − α·q, r'·r') (replaces
   ``fused_update_dot``, fused_cg.py:608);
 * :func:`fused_update_dot_pcg` — the same plus ρ = Σ d·r'² (replaces
@@ -47,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..spmv import bell_apply, sym_bell_apply
+from .bell_spmv import check_packed, packed_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
@@ -363,6 +366,73 @@ def _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out,
         ptr(beta), ptr(p_new), ptr(q), ptr(pap), ptr(work.partials),
         ptr(work.counter), ptr(work.scal), ptr(work.ctl), nrb, kmax, bn,
         row_group, stream(dev))
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
+    return p_new, q, pap
+
+
+def fused_dir_spmv_dot_packed(
+    pk,
+    r2d: torch.Tensor,
+    pold2d: torch.Tensor,
+    beta: torch.Tensor,
+    inv_diag2d: Optional[torch.Tensor] = None,
+    *,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    work: Optional[FusedWork] = None,
+):
+    """(p_new, q, pap) on full blocked-ELL storage read as its packed
+    nonzeros ``pk`` (``BlockedEllMatrix.packed()``, float32): the contract
+    of :func:`fused_dir_spmv_dot` for a square padded system of
+    ``pk.rows`` rows, vectors as (nrb, bn) float32 with nrb·bn =
+    ``pk.rows``.  Any tile width."""
+    name = "fused_dir_spmv_dot_packed"
+    check_packed(name, pk)
+    if pk.ncols != pk.rows:
+        raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
+                         f"{pk.ncols} columns")
+    shape = r2d.shape
+    for v in (r2d, pold2d, inv_diag2d):
+        if v is not None and (v.dim() != 2 or v.shape != shape or v.numel() != pk.rows
+                              or v.dtype != torch.float32):
+            raise ValueError(f"{name}: vectors must be one (nrb, bn) float32 shape of "
+                             f"{pk.rows} entries, got {tuple(v.shape)} {v.dtype}")
+    if beta.numel() != 1 or beta.dtype != torch.float32:
+        raise ValueError(f"{name}: beta must be one float32")
+    if out is not None and out[0].data_ptr() == pold2d.data_ptr():
+        raise ValueError(f"{name}: p_new must not alias p_old")
+    args = (pk, r2d, pold2d, beta, inv_diag2d, out, work)
+    if not on_cuda(name, pk.vals, pk.cols, pk.row_len, pk.chunk_off, r2d, pold2d, beta,
+                   inv_diag2d, *_extra(out, work)):
+        return _packed_dir_plain(*args)
+    return _packed_dir_cuda(*args)
+
+
+def _packed_dir_plain(pk, r2d, pold2d, beta, inv_diag2d, out, work):
+    return _dir_plain("fused_dir_spmv_dot_packed",
+                      lambda p: packed_apply(pk, p.reshape(-1)).reshape(p.shape),
+                      r2d, pold2d, beta, inv_diag2d, out, work)
+
+
+def _packed_dir_cuda(pk, r2d, pold2d, beta, inv_diag2d, out, work):
+    from ._build import load_library
+
+    name = "fused_dir_spmv_dot_packed"
+    dev = r2d.device
+    if work is None:
+        work = FusedWork.new(dev)
+    p_new, q = out if out is not None else (torch.empty_like(r2d), torch.empty_like(r2d))
+    pap = r2d.new_empty(1, 1)
+    check_cuda_operands(name, (pk.vals, pk.cols, pk.row_len, pk.chunk_off, r2d, pold2d,
+                               beta, inv_diag2d, p_new, q))
+    grid = -(-pk.rows // _THREADS)
+    if work.partials.numel() < grid:
+        work.partials = torch.empty(grid, device=dev)
+    err = load_library().cg_full_dir_packed(
+        ptr(pk.vals), ptr(pk.cols), ptr(pk.row_len), ptr(pk.chunk_off), ptr(r2d),
+        ptr(pold2d), ptr(inv_diag2d), ptr(beta), ptr(p_new), ptr(q), ptr(pap),
+        ptr(work.partials), ptr(work.counter), ptr(work.scal), ptr(work.ctl), pk.rows,
+        stream(dev))
     LAUNCHES[name] += 1
     raise_on_error(name, err)
     return p_new, q, pap

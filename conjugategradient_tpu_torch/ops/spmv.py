@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from .cuda._common import CUDA_BN
+
 
 def full_precision_matmul() -> None:
     """Turn TF32 off for matmuls and cuDNN.  TF32 keeps ~10 mantissa bits,
@@ -76,23 +78,44 @@ def bell_apply(blocks, block_cols, x2d):
     return torch.einsum("rkmn,rkn->rkm", blocks, gathered).sum(dim=1)
 
 
+def bell_packed_route(a) -> bool:
+    """Whether SpMVs on a full blocked-ELL operator read its packed
+    nonzeros (``BlockedEllMatrix.packed``) instead of the tile stream:
+    float32 tiles whose view, 8 bytes a nonzero and 4 a row, takes at most
+    half of ``tile_bytes()``, or whose width bn the dense kernels do not
+    take.  ``a.nnz`` and the shapes decide, so choosing reads no tiles; the
+    rule is the same on every device, so the CPU runs the packed kernels'
+    plain versions where the card runs the kernels."""
+    if a.dtype != torch.float32:
+        return False
+    return a.bn not in CUDA_BN or 2 * (8 * a.nnz + 4 * a.nrb * a.bm) <= a.tile_bytes()
+
+
 def bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     """Full blocked-ELL SpMV (``BlockedEllMatrix.matvec``): x padded to the
     operator's padded width, y cut to its ``n`` rows.
 
-    ``use_kernel`` follows the JAX package's dispatch (:func:`_kernel_route`:
-    float32 on a CUDA device takes the hand-written kernel, float64 and CPU
-    tensors the plain einsum).  The JAX package's TPU gates (x fits VMEM ≤ 8 MB,
-    ``kmax <= 64``, ``bm % 8``/``bn % 128``) are dropped: the CUDA kernel
-    reads x from L2/HBM, loops over the slots at run time and takes any
-    ``bm`` with ``bn`` in ``CUDA_BN``.
+    A float32 result on an operator that :func:`bell_packed_route` sends to
+    the packed view takes the packed kernel (its plain version on CPU
+    tensors) unless ``use_kernel="never"``.  Otherwise ``use_kernel``
+    follows the JAX package's dispatch (:func:`_kernel_route`: float32 on a
+    CUDA device takes the dense-tile kernel, float64 and CPU tensors the
+    plain einsum).  The JAX package's TPU gates (x fits VMEM ≤ 8 MB,
+    ``kmax <= 64``, ``bm % 8``/``bn % 128``) are dropped: the CUDA kernels
+    read x from L2/HBM, loop over the slots at run time, and the dense one
+    takes any ``bm`` with ``bn`` in ``CUDA_BN``.
     """
     n, _ = a.shape
     _, mp = a.padded_shape
     xp = x if mp == x.shape[0] else torch.nn.functional.pad(x, (0, mp - x.shape[0]))
     x2d = xp.reshape(mp // a.bn, a.bn)
     out_dtype = torch.promote_types(a.dtype, x.dtype)
-    if _kernel_route(use_kernel, x, out_dtype):
+    kernel = _kernel_route(use_kernel, x, out_dtype)
+    if use_kernel != "never" and out_dtype == torch.float32 and bell_packed_route(a):
+        from .cuda.bell_spmv import bell_spmv_packed
+
+        return bell_spmv_packed(a.packed(), xp.to(torch.float32))[:n]
+    if kernel:
         from .cuda.bell_spmv import bell_spmv_tiles
 
         y = bell_spmv_tiles(a.blocks, a.block_cols, x2d.to(torch.float32))

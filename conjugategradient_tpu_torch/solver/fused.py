@@ -33,11 +33,12 @@ from ..ops.cuda.fused_cg import (
     S_RNORM,
     FusedWork,
     fused_dir_spmv_dot,
+    fused_dir_spmv_dot_packed,
     fused_update_dot,
     fused_update_dot_pcg,
     sym_fused_dir_spmv_dot,
 )
-from ..ops.spmv import full_precision_matmul
+from ..ops.spmv import bell_packed_route, full_precision_matmul
 from ..types import BlockedEllMatrix, SymBellMatrix
 from .cg import CGInfo
 from .restart import run_chunked
@@ -170,15 +171,23 @@ def fused_cg_init(
 def fused_cg_step(a: BellOperator, state: FusedCGState,
                   mirror: str = "auto") -> FusedCGState:
     """One CG (or Jacobi-PCG) iteration in two fused kernels, updating
-    ``state`` in place.  On symmetric storage ``mirror="auto"`` picks the
-    Bᵀ landing from the pattern (:func:`_auto_mirror`); full storage has no
-    mirror and ignores it."""
+    ``state`` in place.  Full storage reads its packed nonzeros where
+    ``ops/spmv.bell_packed_route`` says so (sparse tiles), else the tile
+    stream.  On symmetric storage ``mirror="auto"`` picks the Bᵀ landing
+    from the pattern (:func:`_auto_mirror`); full storage has no mirror and
+    ignores it."""
     w = state.work
     if isinstance(a, BlockedEllMatrix):
-        p_new, q, _ = fused_dir_spmv_dot(
-            a.blocks, a.block_cols, state.r, state.p, w.beta, state.d,
-            out=(state.p_next, state.q), work=w,
-        )
+        if bell_packed_route(a):
+            p_new, q, _ = fused_dir_spmv_dot_packed(
+                a.packed(), state.r, state.p, w.beta, state.d,
+                out=(state.p_next, state.q), work=w,
+            )
+        else:
+            p_new, q, _ = fused_dir_spmv_dot(
+                a.blocks, a.block_cols, state.r, state.p, w.beta, state.d,
+                out=(state.p_next, state.q), work=w,
+            )
         return _update(state, p_new, q)
     if mirror == "auto":
         mirror = _auto_mirror(a)

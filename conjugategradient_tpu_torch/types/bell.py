@@ -84,6 +84,69 @@ def pack_host_arrays(
     return blocks, block_cols, nnz
 
 
+#: rows per chunk of the packed view: one warp, one lane per row
+PACK_CHUNK = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBell:
+    """The nonzeros of a full blocked-ELL operator's tiles, as SELL-32.
+
+    Rows (``rows = nrb * bm``, padding rows included) go in chunks of
+    ``PACK_CHUNK``; row ``r``'s k-th nonzero sits at entry
+    ``chunk_off[r // 32] + 32 * k + r % 32`` of ``vals`` and ``cols``, for
+    ``k < row_len[r]``: column-major within a chunk, so a warp's loads of
+    one k are one coalesced run.  ``cols`` are global columns (block column
+    · bn + column in the tile) into x padded to ``ncols``.  Within a row
+    the nonzeros keep the dense kernels' visiting order: slot, then column
+    in the tile.  Exact zeros, and with them the padding tiles, are
+    dropped; entries past a row's length are zero and never read.
+    """
+
+    vals: torch.Tensor  # (total,) tile dtype
+    cols: torch.Tensor  # (total,) int32
+    row_len: torch.Tensor  # (rows,) int32
+    chunk_off: torch.Tensor  # (ceil(rows / 32) + 1,) int64
+    nnz: int  # nonzeros kept
+    ncols: int  # padded operand length
+
+    @property
+    def rows(self) -> int:
+        return int(self.row_len.shape[0])
+
+    def nbytes(self) -> int:
+        """Bytes of the view: what one packed SpMV reads of the operator."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.vals, self.cols, self.row_len, self.chunk_off))
+
+
+def pack_nonzeros(blocks: torch.Tensor, block_cols: torch.Tensor, ncols: int) -> PackedBell:
+    """Full blocked-ELL tiles -> :class:`PackedBell` for an operand padded
+    to ``ncols``, with torch ops on the tiles' device (one-time set-up: it
+    reads the whole tile stream)."""
+    nrb, kmax, bm, bn = blocks.shape
+    dev = blocks.device
+    rows = nrb * bm
+    c = PACK_CHUNK
+    # nonzero walks the (block-row, row in tile, slot, column in tile)
+    # view in order: each row's nonzeros come out in visiting order
+    rb, m, k, j = torch.nonzero(blocks.permute(0, 2, 1, 3) != 0, as_tuple=True)
+    row = rb * bm + m
+    row_len = torch.bincount(row, minlength=rows)
+    pos = torch.arange(row.numel(), device=dev) - (torch.cumsum(row_len, 0) - row_len)[row]
+    nchunk = _cdiv(rows, c)
+    width = torch.nn.functional.pad(row_len, (0, nchunk * c - rows)).view(nchunk, c).amax(dim=1)
+    chunk_off = torch.zeros(nchunk + 1, dtype=torch.int64, device=dev)
+    chunk_off[1:] = torch.cumsum(width * c, 0)
+    total = int(chunk_off[-1])
+    at = chunk_off[row // c] + pos * c + row % c
+    vals = blocks.new_zeros(total)
+    vals[at] = blocks[rb, k, m, j]
+    cols = torch.zeros(total, dtype=torch.int32, device=dev)
+    cols[at] = (block_cols[rb, k].long() * bn + j).to(torch.int32)
+    return PackedBell(vals, cols, row_len.to(torch.int32), chunk_off, int(row.numel()), ncols)
+
+
 def mirror_index(off_cols: np.ndarray) -> np.ndarray:
     """Transposed index of the upper tiles: row ``c`` lists the flat slots
     ``row * ku + k`` whose tile mirrors into block-row ``c``
@@ -236,6 +299,23 @@ class BlockedEllMatrix(LinearOperator):
     def padding_ratio(self) -> float:
         """Stored slots / true nnz — the bandwidth overhead of the layout."""
         return float(self.blocks.numel()) / max(self.nnz, 1)
+
+    def packed(self) -> PackedBell:
+        """The tiles' nonzeros as a :class:`PackedBell`, built once per
+        operator on its device and kept with it (counted in
+        ``LAUNCHES["bell_pack"]``).  Keyed on the tiles' storage and
+        version, so an in-place change of ``blocks`` or ``block_cols``
+        rebuilds it."""
+        key = (self.blocks.data_ptr(), self.blocks._version,
+               self.block_cols.data_ptr(), self.block_cols._version)
+        hit = self.__dict__.get("_packed")
+        if hit is None or hit[0] != key:
+            from ..ops.cuda._common import LAUNCHES
+
+            hit = (key, pack_nonzeros(self.blocks, self.block_cols, self.padded_shape[1]))
+            object.__setattr__(self, "_packed", hit)
+            LAUNCHES["bell_pack"] += 1
+        return hit[1]
 
     def astype(self, dtype) -> "BlockedEllMatrix":
         return dataclasses.replace(self, blocks=self.blocks.to(dtype))

@@ -817,3 +817,125 @@ def test_sharded_fused_solve_takes_the_kernels_bitwise(dev, method):
     keep = hc > 1e-10 * hc[0]
     assert keep.sum() >= 3
     np.testing.assert_allclose(hk[keep], hc[keep], rtol=5e-3)
+
+
+# ---- kernels 4 and 5 on the packed nonzeros of sparse tiles ---------------------
+
+def _sparse_csr(rng, n, ncols, per_row, spd):
+    """Random sparse host CSR with ~per_row scattered nonzeros a row: the
+    pattern that leaves blocked-ELL tiles mostly empty.  ``spd``: square,
+    symmetric, diagonally dominant."""
+    A = np.zeros((n, ncols), np.float32)
+    for i in range(n):
+        js = rng.choice(ncols, size=per_row, replace=False)
+        A[i, js] = rng.standard_normal(per_row)
+    if spd:
+        A = A + A.T
+        A[np.arange(n), np.arange(n)] = np.abs(A).sum(axis=1) + 1
+    rows, cols = np.nonzero(A)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    return A[rows, cols], cols, indptr, A.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", [(8, 8), (32, 32), (8, 128), (128, 128), (32, 8)])
+def test_bell_spmv_packed_kernel_bit_equal_to_plain(dev, bm, bn):
+    """Kernel 5 on the packed view: bit-equal to its plain version (one
+    rounding per product and per sum, in the same order), bit-identical on
+    a repeat, within RTOL of the dense tiles' plain product; any tile
+    shape, a ragged last block-row and a rectangular operand."""
+    from conjugategradient_tpu_torch.ops.spmv import bell_apply, bell_packed_route
+
+    rng = np.random.default_rng(bm * 1000 + bn)
+    n = (5 if bm == 128 else 13) * bm - 3
+    a = BlockedEllMatrix.from_csr_host(*_sparse_csr(rng, n, n + 37, 4, spd=False),
+                                       bm=bm, bn=bn, device=dev)
+    assert bell_packed_route(a)
+    fc.reset_counts()
+    pk = a.packed()
+    x = torch.randn(pk.ncols, device=dev)
+    y = kb.bell_spmv_packed(pk, x)
+    y2 = kb.bell_spmv_packed(pk, x)
+    assert fc.LAUNCHES["bell_spmv_packed"] == 2 and fc.LAUNCHES["bell_pack"] == 1
+    yp = kb.packed_apply(pk, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(y, yp)
+    _close(y, bell_apply(a.blocks, a.block_cols, x.view(-1, bn)).reshape(-1))
+    # the operator's matvec takes the packed kernel (bn = 8 included: the
+    # dense kernel takes bn in CUDA_BN only)
+    _close(a.matvec(x[:a.shape[1]]), yp[:n])
+    assert fc.LAUNCHES["bell_spmv_packed"] == 3 and fc.LAUNCHES["bell_spmv"] == 0
+    assert fc.LAUNCHES["bell_pack"] == 1 and fc.PLAIN_ON_CUDA["bell_spmv_packed"] == 1
+    with pytest.raises(ValueError, match="x must be"):
+        kb.bell_spmv_packed(pk, x[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [8, 32, 128])
+def test_full_dir_packed_kernel_bit_equal_to_plain(dev, bn):
+    """Kernel 4 on the packed view, ± Jacobi d, β = 0 and β ≠ 0: p_new and q
+    bit-equal to the plain version, pap within RTOL, repeats bit-identical."""
+    rng = np.random.default_rng(bn)
+    nrb = 5 if bn == 128 else 13
+    n = nrb * bn - 3
+    a = BlockedEllMatrix.from_csr_host(*_sparse_csr(rng, n, n, 3, spd=True), bm=bn, bn=bn,
+                                       device=dev)
+    pk = a.packed()
+    r, p = torch.randn(nrb, bn, device=dev), torch.randn(nrb, bn, device=dev)
+    d = torch.rand(nrb, bn, device=dev) + 0.5
+    for beta_v in (0.0, 0.37):
+        beta = torch.full((1, 1), beta_v, device=dev)
+        for dd in (None, d):
+            before = fc.LAUNCHES["fused_dir_spmv_dot_packed"]
+            k = fc.fused_dir_spmv_dot_packed(pk, r, p, beta, dd)
+            k2 = fc.fused_dir_spmv_dot_packed(pk, r, p, beta, dd)
+            assert fc.LAUNCHES["fused_dir_spmv_dot_packed"] == before + 2
+            pl = fc._packed_dir_plain(pk, r, p, beta, dd, None, None)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(k, k2))
+            assert torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1])
+            np.testing.assert_allclose(float(k[2]), float(pl[2]), rtol=RTOL)
+    with pytest.raises(ValueError, match="alias"):
+        fc.fused_dir_spmv_dot_packed(pk, r, p, beta, out=(p, torch.empty_like(p)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [8, 32])
+def test_fused_solve_routes_by_tile_fill(dev, bn):
+    """A sparse-tile float32 operator: the fused CG and PCG read the packed
+    view (built once for the whole solve, again after an in-place change of
+    the tiles), bitwise repeatable, against the plain versions on the CPU;
+    a dense-tile operator keeps the dense kernels."""
+    from conjugategradient_tpu_torch import fused_bell_cg_solve, fused_bell_pcg_solve
+
+    rng = np.random.default_rng(3)
+    n = 13 * bn - 3
+    a = BlockedEllMatrix.from_csr_host(*_sparse_csr(rng, n, n, 3, spd=True), bm=bn, bn=bn,
+                                       device=dev)
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    inv = 1.0 / a.diagonal()
+    for solve, extra in ((fused_bell_cg_solve, ()), (fused_bell_pcg_solve, (inv,))):
+        fc.reset_counts()
+        _, ik = solve(a, b, *extra, tol=0.0, maxiter=20)
+        assert fc.LAUNCHES["fused_dir_spmv_dot_packed"] == 20
+        assert fc.LAUNCHES["fused_dir_spmv_dot"] == 0 and fc.LAUNCHES["bell_pack"] <= 1
+        _, ik2 = solve(a, b, *extra, tol=0.0, maxiter=20)
+        assert torch.equal(ik.rho_history.view(torch.int32), ik2.rho_history.view(torch.int32))
+        _, ip = solve(a.to("cpu"), b.cpu(), *(e.cpu() for e in extra), tol=0.0, maxiter=20)
+        hk, hp = ik.rho_history.double().cpu().numpy(), ip.rho_history.double().numpy()
+        keep = hp > 1e-10 * hp[0]
+        np.testing.assert_allclose(hk[keep], hp[keep], rtol=2e-3)
+        assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    before = fc.LAUNCHES["bell_pack"]
+    a.blocks.mul_(2.0)
+    fused_bell_cg_solve(a, b, tol=0.0, maxiter=2)
+    assert fc.LAUNCHES["bell_pack"] == before + 1
+    if bn in (32, 64, 128, 256):
+        blocks, bcols, nnz = block_tridiag_tiles(13 * bn, bn, bn, seed=2)
+        t = BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(bcols).to(dev),
+                             (13 * bn, 13 * bn), nnz)
+        fc.reset_counts()
+        x, _ = fused_bell_cg_solve(t, b.new_ones(13 * bn), tol=0.0, maxiter=5)
+        t.matvec(x)
+        assert fc.LAUNCHES["fused_dir_spmv_dot"] == 5 and fc.LAUNCHES["bell_spmv"] == 1
+        assert fc.LAUNCHES["fused_dir_spmv_dot_packed"] == fc.LAUNCHES["bell_pack"] == 0
