@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the nineteen kernels against its plain-torch version on the
+2. Hold each of the twenty-one kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -55,7 +55,15 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    operator, cuSPARSE and their bound on the bytes the nonzeros need, and
    the one-time pack timed; the two designs against each other on the
    n = 262,144 tiles with entries zeroed down to a fill of 0.05 (the
-   crossover).
+   crossover).  Kernels 18 and 19 on the packed nonzeros
+   (``bicgstab_dir_spmv_dot_packed``, ``bicgstab_s_spmv_dot_packed``) on
+   the convection-diffusion operators at nx = 512 and 64 (128 x 128) and
+   at nx = 37 with bn = 32 (n not a multiple of 32), with and without the
+   Jacobi diagonal, with alpha, beta and omega 0 and with a NaN alpha and
+   omega: p', p^, v', s, s^, x_h and t bit-equal to the plain versions,
+   the dots within TOL_DOT, the tails within ``TAIL_ULPS``; both timed on
+   nx = 512 beside the dense kernels 18 and 19 on the same operator, with
+   their bound on the bytes the nonzeros need.
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -104,10 +112,14 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    sweep of renumbered host solves reads) and on the host (where the two
    trajectories part);
    ``bicgstab_solve(fused="always")`` on the bicgstab-bell operator, which
-   ends in a few steps, against the portable loop's flags; the steady-state
-   timing on bench.py's convection-diffusion operator at nx = 512 (n =
-   262,144) as full 128 x 128 blocked-ELL, 256 live steps at tol = 0, fused
-   and portable, with the busy share and the three kernels' device times;
+   ends in a few steps (dense tiles: the dense kernels 18 and 19), against
+   the portable loop's flags; the steady-state timing on bench.py's
+   convection-diffusion operator at nx = 512 (n = 262,144) as full 128 x
+   128 blocked-ELL (sparse tiles: the packed kernels 18 and 19), 256 live
+   steps at tol = 0, fused and portable, with the busy share and the three
+   kernels' device times; the fused solve there on each route
+   (``forced_route``), unpreconditioned and with Jacobi: ms/it, the kernels
+   launched, and the two routes' 25-step histories;
    the portable loop on bench.py's DIA lane (nx = 2048, n = 4,194,304) for
    64 steps; fused against portable over 25 steps and twice against itself
    (bitwise); the skew breakdown; the half-step exit; caps of 1, 2 and 7;
@@ -132,7 +144,9 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 
 ``python3 chip_smoke.py --fused-cg-only`` runs nothing but the fused CG
 loops at n = 262,144 (both storages) and at 256^3 and prints their ms/it
-and a hash of each history: for comparing two trees on one card.
+and a hash of each history, then a hash of the fused BiCGStab's history
+and x on the bicgstab-bell operator (dense tiles): for comparing two trees
+on one card.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -178,6 +192,8 @@ SOURCES = {
     "minres_shard_spmv_dot": MINRES_SOURCE,
     "bell_spmv_packed": "conjugategradient_tpu_torch/csrc/bell_spmv.cu",
     "fused_dir_spmv_dot_packed": FUSED_SOURCE,
+    "bicgstab_dir_spmv_dot_packed": BICGSTAB_SOURCE,
+    "bicgstab_s_spmv_dot_packed": BICGSTAB_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -201,9 +217,12 @@ REPLACES = {
     "bicgstab_update_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:293",
     "bell_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:467",
     "minres_shard_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:528",
-    # the packed kernels compute the same functions as 5 and 4 on sparse tiles
+    # the packed kernels compute the same functions as 5, 4, 18 and 19 on
+    # sparse tiles
     "bell_spmv_packed": "conjugategradient_tpu/ops/pallas/ell_spmv.py:57",
     "fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:111",
+    "bicgstab_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:84",
+    "bicgstab_s_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:200",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
@@ -213,7 +232,8 @@ STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
                   "bell_spmv", "bell_spmv_packed")
 BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
-                    "bell_spmv", "dia_spmv", "bell_spmv_packed")
+                    "bell_spmv", "dia_spmv", "bell_spmv_packed", "bicgstab_dir_spmv_dot_packed",
+                    "bicgstab_s_spmv_dot_packed")
 SHARDED_KERNELS = ("bell_spmv_dot", "minres_shard_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "minres_update_dot", "bell_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
@@ -1437,10 +1457,10 @@ def convdiff_csr(nx):
     return v, c, np.cumsum(indptr), shape
 
 
-def convdiff_bell(nx, dev):
+def convdiff_bell(nx, dev, bn=128):
     from conjugategradient_tpu_torch.types import BlockedEllMatrix
 
-    return BlockedEllMatrix.from_csr_host(*convdiff_csr(nx), bm=128, bn=128, device=dev)
+    return BlockedEllMatrix.from_csr_host(*convdiff_csr(nx), bm=bn, bn=bn, device=dev)
 
 
 def bicg_work(dev, maxiter=5, tol=1e-3):
@@ -1467,11 +1487,32 @@ def tail_ulps(wk, wp) -> int:
                 - wp.scal[:fb.B_RV].view(torch.int32)).abs().max())
 
 
+def bicg_forms(a, packed, row_group=None):
+    """Kernels 18 and 19 on ``a`` in one form, the dense tiles or the packed
+    nonzeros: (kernel 18, its plain version, kernel 19, its plain version),
+    each taking the vector operands of the dense wrappers."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    if packed:
+        pk = a.packed()
+        return (lambda *v, **kw: fb.bicgstab_dir_spmv_dot_packed(pk, *v, **kw),
+                lambda *v: fb._packed_dir_plain(pk, *v),
+                lambda *v, **kw: fb.bicgstab_s_spmv_dot_packed(pk, *v, **kw),
+                lambda *v: fb._packed_s_plain(pk, *v))
+    return (lambda *v, **kw: fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, *v,
+                                                      row_group=row_group, **kw),
+            lambda *v: fb._tile_dir_plain(a.blocks, a.block_cols, *v),
+            lambda *v, **kw: fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, *v,
+                                                    row_group=row_group, **kw),
+            lambda *v: fb._tile_s_plain(a.blocks, a.block_cols, *v))
+
+
 def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_group=None,
-                     nan=False):
-    """Kernels 18 and 19 against their plain versions: p', p^, s, s^, x_h
-    bit for bit, v' and t within TOL_Q of their largest entry, the dots
-    within TOL_DOT of the product of their operands' norms (dots of
+                     nan=False, packed=False):
+    """Kernels 18 and 19 (``packed``: their packed forms) against their
+    plain versions: p', p^, s, s^, x_h bit for bit, v' and t within TOL_Q of
+    their largest entry (packed: bit for bit, which they are built to be),
+    the dots within TOL_DOT of the product of their operands' norms (dots of
     unrelated vectors can cancel), two launches bit-identical, and the last
     CTAs' scalar steps within TAIL_ULPS of torch's on the kernels' own dots.
     ``nan``: r^ = 0 and rho_k = 0 make alpha = 0/0 in kernel 18's tail, and
@@ -1482,6 +1523,9 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
 
     dev, nrb, bn = a.device, a.nrb, a.bn
+    k18, p18, k19, p19 = bicg_forms(a, packed, row_group)
+    tag = "K18p/K19p" if packed else "K18/K19"
+    suffix = "_packed" if packed else ""
 
     def vec():
         return torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32, device=dev)
@@ -1495,14 +1539,14 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
     wk, wp = bicg_work(dev), bicg_work(dev)
     if nan:
         wk.scal[fb.B_RHO_NEXT] = wp.scal[fb.B_RHO_NEXT] = 0.0
-    k1 = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
-                                  row_group=row_group, work=wk)
-    k1b = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
-                                   row_group=row_group)
-    p1 = fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d, None, None)
+    k1 = k18(r, p, v, rhat, beta, omega, d, work=wk)
+    k1b = k18(r, p, v, rhat, beta, omega, d)
+    p1 = p18(r, p, v, rhat, beta, omega, d, None, None)
     torch.cuda.synchronize()
     check(torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1]),
           f"K18 {label}: p' or p^ not bit-equal to the plain version")
+    check(not packed or torch.equal(k1[2], p1[2]),
+          f"K18 packed {label}: v' not bit-equal to the plain version")
     check(all(torch.equal(s_, t_) for s_, t_ in zip(k1, k1b)), f"K18 {label}: two launches differ")
     e_v, m_v = rel_max_err(k1[2], p1[2])
     e_rv = abs(float(k1[3]) - float(p1[3]))
@@ -1518,14 +1562,14 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
         r.zero_()
     alpha = wk.alpha_c if nan else torch.tensor([[alpha_v]], dtype=torch.float32, device=dev)
     vn = torch.zeros_like(r) if nan else k1[2]
-    k2 = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d,
-                                row_group=row_group, work=wk)
-    k2b = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d,
-                                 row_group=row_group)
-    p2 = fb._s_plain(a.blocks, a.block_cols, r, vn, x, k1[1], alpha, d, None, None)
+    k2 = k19(r, vn, x, k1[1], alpha, d, work=wk)
+    k2b = k19(r, vn, x, k1[1], alpha, d)
+    p2 = p19(r, vn, x, k1[1], alpha, d, None, None)
     torch.cuda.synchronize()
     check(all(torch.equal(k2[i], p2[i]) for i in range(3)),
           f"K19 {label}: s, s^ or x_h not bit-equal to the plain version")
+    check(not packed or torch.equal(k2[3], p2[3]),
+          f"K19 packed {label}: t not bit-equal to the plain version")
     check(all(torch.equal(s_, t_) for s_, t_ in zip(k2, k2b)), f"K19 {label}: two launches differ")
     e_t, m_t = rel_max_err(k2[3], p2[3])
     check(e_t <= TOL_Q * max(m_t, 1e-30), f"K19 {label}: t err {e_t} vs max {m_t}")
@@ -1548,12 +1592,14 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
         torch.cuda.synchronize()
         check(torch.equal(k3[0], k2[2]) and torch.equal(k3[1], k2[0]),
               f"K20 {label}: a clamped omega changed x_h or s")
-    for name, e in (("bicgstab_dir_spmv_dot", max(e_v, e_rv)), ("bicgstab_s_spmv_dot", max(e_t, e_d))):
+    for name, e in ((f"bicgstab_dir_spmv_dot{suffix}", max(e_v, e_rv)),
+                    (f"bicgstab_s_spmv_dot{suffix}", max(e_t, e_d))):
         errs[name] = max(errs[name], e)
-    print(f"  K18/K19 {label:<40} p', p^, s, s^, x_h bit-equal; |dv'|={e_v:.3g} (max {m_v:.4g}) "
+    bits = "p', p^, v', s, s^, x_h, t" if packed else "p', p^, s, s^, x_h"
+    print(f"  {tag} {label:<38} {bits} bit-equal; |dv'|={e_v:.3g} (max {m_v:.4g}) "
           f"|dt|={e_t:.3g} (max {m_t:.4g}) |drv|={e_rv:.3g} |ddots|={e_d:.3g}; repeat ok; "
           f"scalar steps {u1}, {u2} ulp{'; NaN alpha and omega clamped, updates no-ops' if nan else ''}")
-    return r, p, v, rhat, x, k1, beta, omega, alpha
+    return r, p, v, rhat, x, k1, beta, omega, alpha, d
 
 
 def check_bicg_update(n, rng, errs, label, dev):
@@ -1591,29 +1637,33 @@ def check_bicg_update(n, rng, errs, label, dev):
     return xh, sh, s, t, rhat, w
 
 
-def time_bicg_tiles(a, args, work) -> tuple:
-    """Kernels 18 and 19 timed against their plain versions on the operands
-    ``check_bicg_tiles`` returned, launched as the solver launches them
-    (outputs made once, ``work`` live), each with its bound: each input
-    read once, each output written once."""
+def time_bicg_tiles(a, args, work, packed=False, with_d=False) -> tuple:
+    """Kernels 18 and 19 (``packed``: their packed forms) timed against
+    their plain versions on the operands ``check_bicg_tiles`` returned,
+    launched as the solver launches them (outputs made once, ``work``
+    live), each with its bound: each input read once, each output written
+    once (the dense forms' tiles; the packed forms' 8 bytes a nonzero)."""
     import torch
 
-    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
-
-    r, p, v, rhat, x, k1, beta, omega, alpha = args
+    r, p, v, rhat, x, k1, beta, omega, alpha, d = args
+    d = d if with_d else None
+    k18, p18, k19, p19 = bicg_forms(a, packed)
     out1 = tuple(torch.empty_like(r) for _ in range(3))
     out2 = tuple(torch.empty_like(r) for _ in range(4))
-    t1 = time_pair(
-        lambda: fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega,
-                                         out=out1, work=work),
-        lambda: fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, None, None, None))
-    t2 = time_pair(
-        lambda: fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha,
-                                       out=out2, work=work),
-        lambda: fb._s_plain(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, None, None, None))
-    n, vb, tiles = r.numel(), r.numel() * 4, nbytes(a.blocks, a.block_cols)
-    t1.update(bound(tiles + 7 * vb, 2 * a.blocks.numel() + 6 * n))
-    t2.update(bound(tiles + 8 * vb, 2 * a.blocks.numel() + 10 * n))
+    t1 = time_pair(lambda: k18(r, p, v, rhat, beta, omega, d, out=out1, work=work),
+                   lambda: p18(r, p, v, rhat, beta, omega, d, None, None))
+    t2 = time_pair(lambda: k19(r, k1[2], x, k1[1], alpha, d, out=out2, work=work),
+                   lambda: p19(r, k1[2], x, k1[1], alpha, d, None, None))
+    n, vb = r.numel(), r.numel() * 4
+    nd = int(d is not None)
+    if packed:
+        nnz = a.packed().nnz
+        t1.update(bound(8 * nnz + (7 + nd) * vb, 2 * nnz + 6 * n))
+        t2.update(bound(8 * nnz + (8 + nd) * vb, 2 * nnz + 10 * n))
+    else:
+        tiles = nbytes(a.blocks, a.block_cols)
+        t1.update(bound(tiles + (7 + nd) * vb, 2 * a.blocks.numel() + 6 * n))
+        t2.update(bound(tiles + (8 + nd) * vb, 2 * a.blocks.numel() + 10 * n))
     for t in (t1, t2):
         # an SpMV fused with updates and dots: no one call
         t["library_ms"] = None
@@ -1623,10 +1673,13 @@ def time_bicg_tiles(a, args, work) -> tuple:
 def phase_bicgstab_kernels(dev, errs, times, extra):
     """Kernels 18-20 against their plain versions and timed, on bench.py's
     bicgstab-bell operator (n = 262,144, 128 x 128), on the timed main
-    path's convection-diffusion operator and at ragged shapes."""
+    path's convection-diffusion operator and at ragged shapes; kernels 18
+    and 19 in their packed forms on convection-diffusion operators, timed
+    beside the dense forms on nx = 512."""
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
 
     rng = np.random.default_rng(18)
     a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
@@ -1641,7 +1694,26 @@ def phase_bicgstab_kernels(dev, errs, times, extra):
     cd = convdiff_bell(512, dev)
     check(cd.kmax == 5, f"convdiff 512 blocked-ELL: kmax {cd.kmax}, expected 5")
     print(f"  convdiff-512 operator: tiles {tuple(cd.blocks.shape)}, {cd.tile_bytes() / 1e6:.1f} MB")
-    cd_args = check_bicg_tiles(cd, rng, False, 0.4, 0.25, 0.6, errs, "convdiff-512 (main path)")
+    cd_args = check_bicg_tiles(cd, rng, False, 0.4, 0.25, 0.6, errs, "convdiff-512 dense")
+    cd_args_d = check_bicg_tiles(cd, rng, True, 0.4, 0.25, 0.6, errs, "convdiff-512+d dense")
+    # the packed forms, which the main path takes on these sparse tiles: on
+    # the same operator, on nx = 64, and on nx = 37 at bn = 32 (n = 1369, not
+    # a multiple of 32); with and without d, with the scalars 0, and with a
+    # NaN alpha and omega
+    cd_packed = {}
+    for op, name in ((cd, "convdiff-512 (main path)"), (convdiff_bell(64, dev), "convdiff-64"),
+                     (convdiff_bell(37, dev, bn=32), "ragged convdiff-37 bn=32")):
+        check(bell_packed_route(op), f"{name}: the route does not take the packed view")
+        for with_d in (False, True):
+            tag = "+d" if with_d else ""
+            got = check_bicg_tiles(op, rng, with_d, 0.4, 0.25, 0.6, errs, f"{name}{tag}",
+                                   packed=True)
+            if op is cd:
+                cd_packed[with_d] = got
+            check_bicg_tiles(op, rng, with_d, 0.0, 0.0, 0.0, errs,
+                             f"{name}{tag} beta=omega=alpha=0", packed=True)
+        check_bicg_tiles(op, rng, True, 0.4, 0.25, 0.6, errs, f"{name} NaN alpha, omega",
+                         nan=True, packed=True)
     for bn in (32, 64):
         small = nonsym_tridiag(13 * bn, bn, dev, seed=bn)
         for with_d in (False, True):
@@ -1657,11 +1729,21 @@ def phase_bicgstab_kernels(dev, errs, times, extra):
     work = fb.BicgstabWork.new(dev, maxiter=1 << 20, tol=-1.0)
     work.start(torch.sum(args[0] * args[0]))
     times["bicgstab_dir_spmv_dot"], times["bicgstab_s_spmv_dot"] = time_bicg_tiles(a, args, work)
+    # convdiff-512, both forms side by side (the packed ones are the main
+    # path's); sparse tiles: the dense forms' bound on the nonzeros too (7
+    # and 8 vectors, 8 and 9 with d, as the packed forms' bound_ms counts)
     extra["K18 convdiff-512"], extra["K19 convdiff-512"] = time_bicg_tiles(cd, cd_args, work)
-    # sparse tiles: the bound on the nonzeros too (7 and 8 vectors, as above)
-    cd_nnz, vb = int(torch.count_nonzero(cd.blocks)), N_BIG * 4
-    extra["K18 convdiff-512"]["needed_ms"] = needed_bound(cd_nnz, 7 * vb)
-    extra["K19 convdiff-512"]["needed_ms"] = needed_bound(cd_nnz, 8 * vb)
+    extra["K18 convdiff-512 +d"], extra["K19 convdiff-512 +d"] = time_bicg_tiles(
+        cd, cd_args_d, work, with_d=True)
+    times["bicgstab_dir_spmv_dot_packed"], times["bicgstab_s_spmv_dot_packed"] = \
+        time_bicg_tiles(cd, cd_packed[False], work, packed=True)
+    extra["K18 packed convdiff-512 +d"], extra["K19 packed convdiff-512 +d"] = time_bicg_tiles(
+        cd, cd_packed[True], work, packed=True, with_d=True)
+    cd_nnz, vb = cd.packed().nnz, N_BIG * 4
+    check(cd_nnz == int(torch.count_nonzero(cd.blocks)), "convdiff-512: the view lost nonzeros")
+    for key, nvec in (("K18 convdiff-512", 7), ("K19 convdiff-512", 8),
+                      ("K18 convdiff-512 +d", 8), ("K19 convdiff-512 +d", 9)):
+        extra[key]["needed_ms"] = needed_bound(cd_nnz, nvec * vb)
     xh, sh, s, t, rh, w = upd
     out3 = (torch.empty_like(xh), torch.empty_like(xh))
     times["bicgstab_update_dot"] = time_pair(
@@ -1724,15 +1806,17 @@ def forced_route(packed: bool):
     import torch
 
     from conjugategradient_tpu_torch.ops import spmv
-    from conjugategradient_tpu_torch.solver import fused
+    from conjugategradient_tpu_torch.solver import fused, fused_bicgstab
 
+    users = (spmv, fused, fused_bicgstab)
     saved = spmv.bell_packed_route
-    spmv.bell_packed_route = fused.bell_packed_route = (
-        lambda a: packed and a.dtype == torch.float32)
+    for mod in users:
+        mod.bell_packed_route = lambda a: packed and a.dtype == torch.float32
     try:
         yield
     finally:
-        spmv.bell_packed_route = fused.bell_packed_route = saved
+        for mod in users:
+            mod.bell_packed_route = saved
 
 
 def kernel5_launches() -> int:
@@ -2730,6 +2814,54 @@ def bicg_gap_sweep(host, tol, seeds):
     return ks, peaks, broke
 
 
+BICG_ROUTE_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot",
+                      "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot_packed")
+
+
+def bicg_route_comparison(dev, cd, b, card):
+    """The fused BiCGStab on convdiff-512 once on the dense route and once
+    on the packed route (``forced_route``), unpreconditioned and with
+    Jacobi: ms/it over BICG_STEPS steps at tol = 0 (init included), the
+    kernels each launched, and the two 25-step histories against each
+    other (section (e)'s bounds)."""
+    import torch
+
+    from conjugategradient_tpu_torch import fused_bicgstab_solve, jacobi_preconditioner
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.utils import Timer
+
+    for precond in ("none", "jacobi"):
+        inv = jacobi_preconditioner(cd).inv_diag if precond == "jacobi" else None
+        hist = {}
+        for route in ("dense", "packed"):
+            what = f"fused BiCGStab convdiff nx=512 precond {precond}, {route} route"
+            with forced_route(route == "packed"):
+                fused_bicgstab_solve(cd, b, tol=0.0, maxiter=8, inv_diag=inv)
+                before = {k: _common.LAUNCHES[k] for k in BICG_ROUTE_KERNELS}
+                t = Timer(dev).start_measure()
+                _, info = fused_bicgstab_solve(cd, b, tol=0.0, maxiter=BICG_STEPS, inv_diag=inv)
+                t.stop_measure()
+                used = {k: _common.LAUNCHES[k] - before[k] for k in BICG_ROUTE_KERNELS}
+                _, h25 = fused_bicgstab_solve(cd, b, tol=0.0, maxiter=25, inv_diag=inv)
+            k = int(info.iterations)
+            check(k == BICG_STEPS and not bool(info.breakdown),
+                  f"{what}: {k} of {BICG_STEPS} steps, breakdown {bool(info.breakdown)}")
+            check(all(used[n] == (BICG_STEPS if n.endswith("_packed") == (route == "packed") else 0)
+                      for n in BICG_ROUTE_KERNELS), f"{what}: launches {used}")
+            hist[route] = h25.rnorm_history.double().cpu().numpy()
+            print(f"  {what}: {t.get_duration() / BICG_STEPS:.5f} ms/it over {BICG_STEPS} steps, "
+                  f"launches {used}  [{card}]")
+        hd, hp = hist["dense"], hist["packed"]
+        check(np.allclose(hp[:11], hd[:11], rtol=BICG_TRAJ_RTOL, atol=0)
+              and np.isfinite(hp).all() and np.isfinite(hd).all(),
+              f"fused BiCGStab convdiff nx=512 {precond}: packed vs dense history {hp.tolist()} vs "
+              f"{hd.tolist()}")
+        print(f"  fused BiCGStab convdiff nx=512 {precond}: the two routes' 25-step histories agree "
+              f"within {BICG_TRAJ_RTOL:g} over 10 steps (largest difference there "
+              f"{np.abs(hp[:11] / hd[:11] - 1).max():.2g}, to step 25 {np.abs(hp / hd - 1).max():.2g})")
+    torch.cuda.synchronize()
+
+
 def phase_bicgstab_path(dev, bic_ops, card):
     """The BiCGStab path through its entry points (module doc, phase 3)."""
     import torch
@@ -2739,6 +2871,7 @@ def phase_bicgstab_path(dev, bic_ops, card):
     from conjugategradient_tpu_torch.io import loader
     from conjugategradient_tpu_torch.ops.cuda import _common
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
     from conjugategradient_tpu_torch.solver import bicgstab as bicgstab_mod
     from conjugategradient_tpu_torch.solver.fused_bicgstab import (fused_bicgstab_init,
                                                                    fused_bicgstab_step)
@@ -2805,9 +2938,13 @@ def phase_bicgstab_path(dev, bic_ops, card):
     b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
     bn_ = float(b.double().norm())
     for tol in (TOL_SOLVE_REL * bn_, 0.0):
-        before = _common.LAUNCHES["bicgstab_dir_spmv_dot"]
+        before = {k: _common.LAUNCHES[k] for k in BICG_ROUTE_KERNELS}
         xf, fi = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
-        launched = _common.LAUNCHES["bicgstab_dir_spmv_dot"] - before
+        used = {k: _common.LAUNCHES[k] - before[k] for k in BICG_ROUTE_KERNELS}
+        launched = used["bicgstab_dir_spmv_dot"]
+        check(used["bicgstab_s_spmv_dot"] == launched and not bell_packed_route(a)
+              and all(used[k] == 0 for k in BICG_ROUTE_KERNELS if k.endswith("_packed")),
+              f"fused BiCGStab bicgstab-bell (dense tiles): launches {used}")
         xp, pi = bicgstab_solve(a, b, tol=tol, maxiter=64)
         true_r = float((b - a.matvec(xf)).double().norm())
         k = int(fi.iterations)
@@ -2838,13 +2975,26 @@ def phase_bicgstab_path(dev, bic_ops, card):
     n = cd.n
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(n), dtype=torch.float32,
                         device=dev)
+    # the operator's sparse tiles take the packed kernels 18 and 19.  The
+    # effective rate keeps bench.py's convention (the full layout's bytes:
+    # 2 tile streams + 17 vectors), which is not a stream rate on this
+    # route; the needed-bytes rate counts the nonzeros the two products
+    # read (8 bytes each) and the same 17 vectors
+    check(bell_packed_route(cd), "convdiff-512: the route does not take the packed view")
     eff = 2 * cd.tile_bytes() + 17 * n * 4
+    needed = 2 * 8 * cd.packed().nnz + 17 * n * 4
     fused_bicgstab_solve(cd, b, tol=0.0, maxiter=8)
+    before = {k_: _common.LAUNCHES[k_] for k_ in BICG_ROUTE_KERNELS}
     t = Timer(dev).start_measure()
     state = fused_bicgstab_init(cd, b, None, BICG_STEPS)
     for _ in range(BICG_STEPS):
         fused_bicgstab_step(cd, state)
     t.stop_measure()
+    used = {k_: _common.LAUNCHES[k_] - before[k_] for k_ in BICG_ROUTE_KERNELS}
+    check(used == {"bicgstab_dir_spmv_dot": 0, "bicgstab_s_spmv_dot": 0,
+                   "bicgstab_dir_spmv_dot_packed": BICG_STEPS,
+                   "bicgstab_s_spmv_dot_packed": BICG_STEPS},
+          f"fused BiCGStab convdiff: launches {used} in {BICG_STEPS} steps")
     k = int(state.k)
     check(k == BICG_STEPS and not bool(state.done),
           f"fused BiCGStab convdiff: {k} of {BICG_STEPS} steps live, done {bool(state.done)}")
@@ -2871,6 +3021,8 @@ def phase_bicgstab_path(dev, bic_ops, card):
         got = {}
         for key, ms, count in prof[2]:
             for short, tag in (("K18", "bicg_dir_kernel"), ("K19", "bicg_s_kernel"),
+                               ("K18 packed", "bicg_dir_packed_kernel"),
+                               ("K19 packed", "bicg_s_packed_kernel"),
                                ("K20", "bicg_update_kernel")):
                 if tag in key:
                     got[short] = ms / 32
@@ -2884,11 +3036,14 @@ def phase_bicgstab_path(dev, bic_ops, card):
           f"portable BiCGStab convdiff: {int(pinfo.iterations)} its in {counter.calls} steps")
     port_ms_it = t.get_duration() / BICG_STEPS
     print(f"  fused BiCGStab convdiff nx=512 (n={n}, 128x128, kmax 5, {cd.tile_bytes() / 1e6:.1f} MB "
-          f"of tiles): {k} steps all live, {ms_it:.5f} ms/it (init + {BICG_STEPS} steps; whole solve "
-          f"{solve_ms:.3f} ms), effective {eff / ms_it / 1e6:.1f} GB/s on {eff / 1e6:.1f} MB/it "
-          f"(2 tile streams + 17 vectors); 64 steps: device busy {busy_s}; kernels' device time "
-          f"{per_kernel}; bitwise step/solve ok; portable loop {port_ms_it:.5f} ms/it "
-          f"({port_ms_it / ms_it:.1f}x the fused)  [{card}]")
+          f"of tiles, packed route): {k} steps all live, {ms_it:.5f} ms/it (init + {BICG_STEPS} "
+          f"steps; whole solve {solve_ms:.3f} ms), effective {eff / ms_it / 1e6:.1f} GB/s on "
+          f"{eff / 1e6:.1f} MB/it (2 tile streams + 17 vectors: bench.py's convention, not a "
+          f"stream rate here), needed-bytes rate {needed / ms_it / 1e6:.1f} GB/s on "
+          f"{needed / 1e6:.1f} MB/it (2 x 8 bytes a nonzero + 17 vectors); 64 steps: device busy "
+          f"{busy_s}; kernels' device time {per_kernel}; bitwise step/solve ok; portable loop "
+          f"{port_ms_it:.5f} ms/it ({port_ms_it / ms_it:.1f}x the fused)  [{card}]")
+    bicg_route_comparison(dev, cd, b, card)
 
     # (d) the portable loop on bench.py:1141's DIA lane (n = 4,194,304)
     dia = DIAMatrix.from_csr_host(*convdiff_csr(2048), device=dev)
@@ -3437,10 +3592,14 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
 
 def fused_cg_only(dev, card) -> None:
     """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
-    and a hash of each history, for comparing two trees on one card."""
+    and a hash of each history; then the fused BiCGStab on bench.py's
+    bicgstab-bell operator (dense tiles), a hash of its history and x.  For
+    comparing the dense routes of two trees on one card (this file run
+    beside another tree's package gives that tree's hashes)."""
     import torch
 
-    from conjugategradient_tpu_torch import StencilOperator, fused_bell_cg_solve, fused_stencil_cg_solve
+    from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, fused_bell_cg_solve,
+                                             fused_stencil_cg_solve)
     from conjugategradient_tpu_torch.utils import Timer
 
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
@@ -3460,6 +3619,14 @@ def fused_cg_only(dev, card) -> None:
         digest = hashlib.sha256(info.rho_history.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"  fused CG {label}: {best:.5f} ms/it (best of 3 runs of 256 steps), "
               f"rho_history sha256 {digest}  [{card}]")
+    a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
+    b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
+    for tol in (TOL_SOLVE_REL * float(b.double().norm()), 0.0):
+        x, info = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
+        digest = hashlib.sha256(info.rnorm_history.cpu().numpy().tobytes()
+                                + x.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"  fused BiCGStab bicgstab-bell tol {tol:.3g}: {int(info.iterations)} its, "
+              f"rnorm_history and x sha256 {digest}  [{card}]")
 
 
 def main() -> int:

@@ -42,6 +42,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -89,27 +90,7 @@ bell_spmv_packed_kernel(const float* __restrict__ vals, const int* __restrict__ 
                         int64_t rows) {
   const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= rows) return;
-  const int len = __ldg(row_len + r);
-  const int64_t base = __ldg(chunk_off + (r >> 5)) + (r & 31);
-  const float* v = vals + base;
-  const int* c = cols + base;
-  float acc = 0.f;
-  int k = 0;
-  for (; k + 4 <= len; k += 4) {
-    float vv[4], xx[4];
-    int cc[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      vv[u] = __ldg(v + 32 * (k + u));
-      cc[u] = __ldg(c + 32 * (k + u));
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) xx[u] = __ldg(x + cc[u]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], xx[u]));
-  }
-  for (; k < len; ++k) acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), __ldg(x + __ldg(c + 32 * k))));
-  y[r] = acc;
+  y[r] = packed_row(vals, cols, row_len, chunk_off, r, [&](int c) { return __ldg(x + c); });
 }
 
 }  // namespace

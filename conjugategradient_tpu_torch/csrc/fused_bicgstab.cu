@@ -43,7 +43,10 @@
 // What bounds them on the H100: K1 and K2 stream the stored tiles once
 // (402.7 MB at n = 262,144 block-tridiagonal, bn = 128; 671.1 MB for the
 // 512 x 512 convection-diffusion operator) and 7-9 vectors (1 MB each there,
-// L2-resident): memory bandwidth.  K3 streams 7 vectors.
+// L2-resident): memory bandwidth.  K3 streams 7 vectors.  Where the tiles
+// are sparse (ops/spmv.bell_packed_route), K1 and K2 have packed forms that
+// read the operator's nonzeros instead (bicg_dir_packed_kernel,
+// bicg_s_packed_kernel below), with the same outputs and tails.
 
 #include <math.h>
 #include <stdint.h>
@@ -90,6 +93,38 @@ __device__ __forceinline__ float dir_elem(const DirArgs& a, float beta, float om
   return __fadd_rn(a.r[i], __fmul_rn(beta, __fsub_rn(a.p[i], __fmul_rn(omega, a.v[i]))));
 }
 
+// p^[i] = d p'[i] or p'[i]: a gathered entry, bit-identical to the stored one
+__device__ __forceinline__ float phat_elem(const DirArgs& a, float beta, float omega,
+                                           int64_t i) {
+  const float pn = dir_elem(a, beta, omega, i);
+  return a.d ? __fmul_rn(a.d[i], pn) : pn;
+}
+
+// The owner's elementwise part of K1 for row i: p' and p^ stored
+__device__ __forceinline__ void dir_own(const DirArgs& a, float beta, float omega, int64_t i) {
+  const float pn = dir_elem(a, beta, omega, i);
+  a.pnew[i] = pn;
+  a.phat[i] = a.d ? __fmul_rn(a.d[i], pn) : pn;
+}
+
+// The end of K1 (tile or packed): this CTA's rv partial, and in the last
+// CTA the sum of all partials in index order and the solver's step after
+// K1: alpha = rho_k / rv and its clamp.
+__device__ void finish_dir(float rv_acc, const DirArgs& a, float* red) {
+  const float s = block_sum(rv_acc, red);
+  if (threadIdx.x == 0) a.partials[blockIdx.x] = s;
+  if (arrive_last(a.counter)) {
+    const float rv = sum_partials(a.partials, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      a.rv[0] = rv;
+      const float alpha = a.scal[B_RHO_NEXT] / rv;
+      a.scal[B_ALPHA] = alpha;
+      a.scal[B_ALPHA_C] = finite_or_zero(alpha);
+      *a.counter = 0u;
+    }
+  }
+}
+
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
 bicg_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, DirArgs a,
@@ -106,20 +141,14 @@ bicg_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, 
   for (int row = base; row < end; ++row) {
     __syncthreads();  // the previous row's readers of qacc are done
     for (int t = threadIdx.x; t < BN; t += kThreads) {
-      const int64_t i = (int64_t)row * BN + t;
-      const float pn = dir_elem(a, beta, omega, i);
-      a.pnew[i] = pn;
-      a.phat[i] = a.d ? __fmul_rn(a.d[i], pn) : pn;
+      dir_own(a, beta, omega, (int64_t)row * BN + t);
       qacc[t] = 0.f;
     }
     for (int k = 0; k < kmax; ++k) {
       const int64_t slot = (int64_t)row * kmax + k;
       __syncthreads();  // every warp is done reading xc
       const int64_t c0 = (int64_t)cols[slot] * BN;
-      for (int t = threadIdx.x; t < BN; t += kThreads) {
-        const float pn = dir_elem(a, beta, omega, c0 + t);
-        xc[t] = a.d ? __fmul_rn(a.d[c0 + t], pn) : pn;
-      }
+      for (int t = threadIdx.x; t < BN; t += kThreads) xc[t] = phat_elem(a, beta, omega, c0 + t);
       __syncthreads();
       tile_apply<BN, true, false>(blocks + slot * TT, xc, nullptr, qacc, unused);
     }
@@ -130,19 +159,7 @@ bicg_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, 
       rv_acc += a.rhat[i] * qacc[t];
     }
   }
-  const float s = block_sum(rv_acc, red);
-  if (threadIdx.x == 0) a.partials[blockIdx.x] = s;
-  if (arrive_last(a.counter)) {
-    const float rv = sum_partials(a.partials, gridDim.x, red);
-    if (threadIdx.x == 0) {
-      // the solver's step after K1: alpha = rho_k / rv and its clamp
-      a.rv[0] = rv;
-      const float alpha = a.scal[B_RHO_NEXT] / rv;
-      a.scal[B_ALPHA] = alpha;
-      a.scal[B_ALPHA_C] = finite_or_zero(alpha);
-      *a.counter = 0u;
-    }
-  }
+  finish_dir(rv_acc, a, red);
 }
 
 // ---- K2 -------------------------------------------------------------------
@@ -157,6 +174,58 @@ struct SArgs {
   float* scal;
   int* ctl;
 };
+
+// s[i] = r - alpha v'[i]: the plain version's two roundings
+__device__ __forceinline__ float s_elem(const SArgs& a, float alpha, int64_t i) {
+  return __fsub_rn(a.r[i], __fmul_rn(alpha, a.vnew[i]));
+}
+
+// s^[i] = d s[i] or s[i]: a gathered entry, bit-identical to the stored one
+__device__ __forceinline__ float shat_elem(const SArgs& a, float alpha, int64_t i) {
+  const float s = s_elem(a, alpha, i);
+  return a.d ? __fmul_rn(a.d[i], s) : s;
+}
+
+// The owner's elementwise part of K2 for row i: s, s^ and x_h stored; s returned
+__device__ __forceinline__ float s_own(const SArgs& a, float alpha, int64_t i) {
+  const float s = s_elem(a, alpha, i);
+  a.s[i] = s;
+  a.shat[i] = a.d ? __fmul_rn(a.d[i], s) : s;
+  a.xh[i] = __fadd_rn(a.x[i], __fmul_rn(alpha, a.phat[i]));
+  return s;
+}
+
+// The end of K2 (tile or packed): this CTA's three partials, and in the
+// last CTA their sums in index order and the solver's step after K2: the
+// half-step exit, omega and its clamp (0 on the half-step exit: K3 then
+// returns x_h and s).
+__device__ void finish_s(float ss_acc, float ts_acc, float tt_acc, const SArgs& a,
+                         float* red) {
+  const float b1 = block_sum(ss_acc, red);
+  const float b2 = block_sum(ts_acc, red);
+  const float b3 = block_sum(tt_acc, red);
+  if (threadIdx.x == 0) {
+    a.partials[blockIdx.x] = b1;
+    a.partials[gridDim.x + blockIdx.x] = b2;
+    a.partials[2 * gridDim.x + blockIdx.x] = b3;
+  }
+  if (arrive_last(a.counter)) {
+    const float ss = sum_partials(a.partials, gridDim.x, red);
+    const float ts = sum_partials(a.partials + gridDim.x, gridDim.x, red);
+    const float tt = sum_partials(a.partials + 2 * gridDim.x, gridDim.x, red);
+    if (threadIdx.x == 0) {
+      a.ss[0] = ss;
+      a.ts[0] = ts;
+      a.tt[0] = tt;
+      const int half = sqrtf(ss) <= a.scal[B_TOL];
+      const float omega = ts / tt;
+      a.ctl[C_HALF] = half;
+      a.scal[B_OMEGA] = omega;
+      a.scal[B_OMEGA_C] = (isfinite(omega) && !half) ? omega : 0.f;
+      *a.counter = 0u;
+    }
+  }
+}
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -174,11 +243,7 @@ bicg_s_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, SA
   for (int row = base; row < end; ++row) {
     __syncthreads();  // the previous row's readers of xr and qacc are done
     for (int t = threadIdx.x; t < BN; t += kThreads) {
-      const int64_t i = (int64_t)row * BN + t;
-      const float s = __fsub_rn(a.r[i], __fmul_rn(alpha, a.vnew[i]));
-      a.s[i] = s;
-      a.shat[i] = a.d ? __fmul_rn(a.d[i], s) : s;
-      a.xh[i] = __fadd_rn(a.x[i], __fmul_rn(alpha, a.phat[i]));
+      const float s = s_own(a, alpha, (int64_t)row * BN + t);
       xr[t] = s;
       ss_acc += s * s;
       qacc[t] = 0.f;
@@ -187,10 +252,7 @@ bicg_s_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, SA
       const int64_t slot = (int64_t)row * kmax + k;
       __syncthreads();  // every warp is done reading xc
       const int64_t c0 = (int64_t)cols[slot] * BN;
-      for (int t = threadIdx.x; t < BN; t += kThreads) {
-        const float s = __fsub_rn(a.r[c0 + t], __fmul_rn(alpha, a.vnew[c0 + t]));
-        xc[t] = a.d ? __fmul_rn(a.d[c0 + t], s) : s;
-      }
+      for (int t = threadIdx.x; t < BN; t += kThreads) xc[t] = shat_elem(a, alpha, c0 + t);
       __syncthreads();
       tile_apply<BN, true, false>(blocks + slot * TT, xc, nullptr, qacc, unused);
     }
@@ -202,32 +264,66 @@ bicg_s_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, SA
       tt_acc += tv * tv;
     }
   }
-  const float b1 = block_sum(ss_acc, red);
-  const float b2 = block_sum(ts_acc, red);
-  const float b3 = block_sum(tt_acc, red);
-  if (threadIdx.x == 0) {
-    a.partials[blockIdx.x] = b1;
-    a.partials[gridDim.x + blockIdx.x] = b2;
-    a.partials[2 * gridDim.x + blockIdx.x] = b3;
+  finish_s(ss_acc, ts_acc, tt_acc, a, red);
+}
+
+// ---- K1 and K2 on the packed nonzeros --------------------------------------
+// Replace the same bicgstab_dir_spmv_dot (:84) and bicgstab_s_spmv_dot
+// (:200) where the tiles are sparse: the same outputs and last-CTA steps,
+// from the operator's packed view (types/bell.py PackedBell) instead of the
+// tile stream.  Bound: the view's values and columns (8 bytes a stored
+// entry) and row lengths, and the vectors, each read or written once: 7
+// (K1; 8 with d) or 8 (K2; 9 with d).  On the 512 x 512 convection-
+// diffusion operator that is 10.5 MB of values and columns and ~8 MB of
+// vectors against the dense kernels' 671.1 MB of tiles (0.8% full).
+// Design: fused_cg.cu's full_dir_packed_kernel: one lane per row and a warp
+// per 32-row chunk (packed_row, tile.cuh).  The lane of row i stores its
+// p' and p^ (K1) or s, s^ and x_h (K2); each gathered p^[c] is recomputed
+// with phat_elem from r, p, v and d (K1), each s^[c] with shat_elem from r,
+// v' and d (K2): four or three L2 reads in place of one, bit-identical to
+// the stored value.  A row sums in k order with one rounding per product
+// and per sum, as the plain version does, so v' and t match it bit for
+// bit; the dots go through per-CTA partials that the last CTA sums in
+// index order (finish_dir, finish_s: the dense kernels' own tails).
+
+__global__ void __launch_bounds__(kThreads)
+bicg_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                       const int* __restrict__ row_len,
+                       const long long* __restrict__ chunk_off, DirArgs a, int64_t rows) {
+  if (a.ctl[C_LIVE] == 0) return;
+  __shared__ float red[kWarps];
+  const float beta = *a.beta, omega = *a.omega;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float rv_acc = 0.f;
+  if (i < rows) {
+    dir_own(a, beta, omega, i);
+    const float vi = packed_row(vals, cols, row_len, chunk_off, i,
+                                [&](int c) { return phat_elem(a, beta, omega, c); });
+    a.vout[i] = vi;
+    rv_acc = a.rhat[i] * vi;
   }
-  if (arrive_last(a.counter)) {
-    const float ss = sum_partials(a.partials, gridDim.x, red);
-    const float ts = sum_partials(a.partials + gridDim.x, gridDim.x, red);
-    const float tt = sum_partials(a.partials + 2 * gridDim.x, gridDim.x, red);
-    if (threadIdx.x == 0) {
-      // the solver's step after K2: the half-step exit, omega and its clamp
-      // (0 on the half-step exit: K3 then returns x_h and s)
-      a.ss[0] = ss;
-      a.ts[0] = ts;
-      a.tt[0] = tt;
-      const int half = sqrtf(ss) <= a.scal[B_TOL];
-      const float omega = ts / tt;
-      a.ctl[C_HALF] = half;
-      a.scal[B_OMEGA] = omega;
-      a.scal[B_OMEGA_C] = (isfinite(omega) && !half) ? omega : 0.f;
-      *a.counter = 0u;
-    }
+  finish_dir(rv_acc, a, red);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bicg_s_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                     const int* __restrict__ row_len,
+                     const long long* __restrict__ chunk_off, SArgs a, int64_t rows) {
+  if (a.ctl[C_LIVE] == 0) return;
+  __shared__ float red[kWarps];
+  const float alpha = *a.alpha;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float ss_acc = 0.f, ts_acc = 0.f, tt_acc = 0.f;
+  if (i < rows) {
+    const float s = s_own(a, alpha, i);
+    const float ti = packed_row(vals, cols, row_len, chunk_off, i,
+                                [&](int c) { return shat_elem(a, alpha, c); });
+    a.t[i] = ti;
+    ss_acc = s * s;
+    ts_acc = ti * s;
+    tt_acc = ti * ti;
   }
+  finish_s(ss_acc, ts_acc, tt_acc, a, red);
 }
 
 // ---- K3 -------------------------------------------------------------------
@@ -380,6 +476,40 @@ int bicgstab_s(const float* blocks, const int* cols, const float* r, const float
 #define CALL(B) launch_s<B>(blocks, cols, a, nrb, kmax, R, s)
   BN_SWITCH(CALL)
 #undef CALL
+}
+
+// K1 on the packed nonzeros (d == NULL: no preconditioner); rows = nrb * bn.
+// Returns a cudaError_t.
+int bicgstab_dir_packed(const float* vals, const int* cols, const int* row_len,
+                        const long long* chunk_off, const float* r, const float* p,
+                        const float* v, const float* rhat, const float* d, const float* beta,
+                        const float* omega, float* pnew, float* phat, float* vout, float* rv,
+                        float* partials, unsigned* counter, float* scal, const int* ctl,
+                        int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const DirArgs a{r, p, v, rhat, d, beta, omega, pnew, phat, vout, rv, partials, counter,
+                  scal, ctl};
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bicg_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, a, rows);
+  return cudaGetLastError();
+}
+
+// K2 on the packed nonzeros (d == NULL: no preconditioner); rows = nrb * bn.
+// Returns a cudaError_t.
+int bicgstab_s_packed(const float* vals, const int* cols, const int* row_len,
+                      const long long* chunk_off, const float* r, const float* vnew,
+                      const float* x, const float* phat, const float* d, const float* alpha,
+                      float* sv, float* shat, float* xh, float* t, float* ss, float* ts,
+                      float* tt, float* partials, unsigned* counter, float* scal, int* ctl,
+                      int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const SArgs a{r, vnew, x, phat, d, alpha, sv, shat, xh, t, ss, ts, tt, partials, counter,
+                scal, ctl};
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bicg_s_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, a, rows);
+  return cudaGetLastError();
 }
 
 // K3.  n is any length; every vector is 16-byte aligned (checked by the

@@ -243,28 +243,8 @@ full_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ c
   if (i < rows) {
     const float pi = dir_elem(r, pold, d, beta, i);
     pnew[i] = pi;
-    const int len = __ldg(row_len + i);
-    const int64_t base = __ldg(chunk_off + (i >> 5)) + (i & 31);
-    const float* v = vals + base;
-    const int* c = cols + base;
-    float acc = 0.f;
-    int k = 0;
-    for (; k + 4 <= len; k += 4) {
-      float vv[4], pc[4];
-      int cc[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        vv[u] = __ldg(v + 32 * (k + u));
-        cc[u] = __ldg(c + 32 * (k + u));
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) pc[u] = dir_elem(r, pold, d, beta, cc[u]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], pc[u]));
-    }
-    for (; k < len; ++k) {
-      acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), dir_elem(r, pold, d, beta, __ldg(c + 32 * k))));
-    }
+    const float acc = packed_row(vals, cols, row_len, chunk_off, i,
+                                 [&](int c) { return dir_elem(r, pold, d, beta, c); });
     q[i] = acc;
     pap_acc = pi * acc;
   }

@@ -1,5 +1,7 @@
 // Tile products shared by the fused blocked-ELL kernels (fused_cg.cu,
-// fused_minres.cu): one (BN, BN) tile applied forward, mirrored, or both.
+// fused_minres.cu, fused_bicgstab.cu): one (BN, BN) tile applied forward,
+// mirrored, or both; and one row of the packed view of sparse tiles
+// (bell_spmv.cu, fused_cg.cu, fused_bicgstab.cu).
 #pragma once
 
 #include <stdint.h>
@@ -57,6 +59,41 @@ __device__ __forceinline__ void mirror_reduce(const float (&tacc)[BN / 32],
     for (int i = 0; i < kWarps; ++i) s += red2[i][t];
     dst[t] = s;
   }
+}
+
+// Row i of A y from the packed view (types/bell.py PackedBell: SELL-32,
+// values and int32 global columns column-major within each 32-row chunk),
+// y[c] = gather(c): the row's nonzeros in k order, one rounding per product
+// and per sum (ops/cuda/bell_spmv.packed_apply's), four nonzeros' loads in
+// flight.  Lane i % 32 of a warp takes row i, so a warp's loads of one k
+// are one coalesced run.
+template <class Gather>
+__device__ __forceinline__ float packed_row(const float* __restrict__ vals,
+                                            const int* __restrict__ cols,
+                                            const int* __restrict__ row_len,
+                                            const long long* __restrict__ chunk_off,
+                                            int64_t i, Gather gather) {
+  const int len = __ldg(row_len + i);
+  const int64_t base = __ldg(chunk_off + (i >> 5)) + (i & 31);
+  const float* v = vals + base;
+  const int* c = cols + base;
+  float acc = 0.f;
+  int k = 0;
+  for (; k + 4 <= len; k += 4) {
+    float vv[4], yy[4];
+    int cc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      vv[u] = __ldg(v + 32 * (k + u));
+      cc[u] = __ldg(c + 32 * (k + u));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) yy[u] = gather(cc[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], yy[u]));
+  }
+  for (; k < len; ++k) acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), gather(__ldg(c + 32 * k))));
+  return acc;
 }
 
 }  // namespace

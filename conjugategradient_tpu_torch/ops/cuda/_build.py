@@ -61,6 +61,8 @@ SIGNATURES = {
     "minres_shard_dir": [_P] * 16 + [_I64] + [_I] * 4 + [_P],
     "bicgstab_dir": [_P] * 17 + [_I] * 4 + [_P],
     "bicgstab_s": [_P] * 19 + [_I] * 4 + [_P],
+    "bicgstab_dir_packed": [_P] * 19 + [_I64, _P],
+    "bicgstab_s_packed": [_P] * 21 + [_I64, _P],
     "bicgstab_update": [_P] * 15 + [_I, _I64, _I, _P],
 }
 

@@ -35,6 +35,8 @@ LAUNCHES = {
     "bicgstab_update_dot": 0,
     "bell_spmv_packed": 0,
     "fused_dir_spmv_dot_packed": 0,
+    "bicgstab_dir_spmv_dot_packed": 0,
+    "bicgstab_s_spmv_dot_packed": 0,
     # not a kernel: builds of BlockedEllMatrix.packed() (torch ops, once
     # per operator)
     "bell_pack": 0,

@@ -128,6 +128,12 @@ def packed_apply(pk, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def packed_product(pk):
+    """:func:`packed_apply` as a product on the fused kernels' (nrb, bn)
+    vectors: the plain versions of the packed fused kernels take it."""
+    return lambda y: packed_apply(pk, y.reshape(-1)).reshape(y.shape)
+
+
 def _packed_cuda(pk, x):
     from ._build import load_library
 

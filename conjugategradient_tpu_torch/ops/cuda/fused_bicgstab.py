@@ -13,6 +13,14 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_bicgstab.py``:
   r̂₀·r', the next iteration's ρ (replaces ``bicgstab_update_dot``,
   fused_bicgstab.py:293).
 
+The first two have packed forms, :func:`bicgstab_dir_spmv_dot_packed` and
+:func:`bicgstab_s_spmv_dot_packed`: the same functions on the operator's
+packed nonzeros (``BlockedEllMatrix.packed()``), for sparse tiles
+(``ops/spmv.bell_packed_route``).  Each pair shares one plain body, which
+takes the product as a callable: the tiles' ``bell_apply`` or the view's
+``packed_apply``, whose order and rounding the packed kernels copy, so they
+match their plain versions bit for bit in every vector.
+
 Dispatch is that of ``ops/cuda/fused_cg.py``: the plain version for CPU
 tensors, the CUDA kernel for CUDA tensors, no fallback between them;
 ``LAUNCHES`` and ``PLAIN_ON_CUDA`` (``_common``) count per wrapper.
@@ -52,6 +60,7 @@ from ._common import (
     raise_on_error,
     stream,
 )
+from .bell_spmv import check_packed, packed_product
 from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live, auto_row_group
 
 # BicgstabWork.scal, shared with csrc/fused_bicgstab.cu: the recurrence
@@ -242,27 +251,65 @@ def _check_out(name, out, n_out, gathered, own=()):
                              "rows gather (double-buffer it)")
 
 
-def _tile_launch_cuda(name, blocks, block_cols, vecs, scalars, outs, dots, work, row_group,
-                      entry):
+def _check_packed_vectors(name, pk, r2d):
+    """The packed forms' operator and the shape of their vectors: a square
+    padded system of ``pk.rows`` rows, vectors (nrb, bn) with nrb·bn =
+    ``pk.rows``."""
+    check_packed(name, pk)
+    if pk.ncols != pk.rows:
+        raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
+                         f"{pk.ncols} columns")
+    if r2d.dim() != 2 or r2d.numel() != pk.rows:
+        raise ValueError(f"{name}: vectors must be one (nrb, bn) float32 shape of "
+                         f"{pk.rows} entries, got {tuple(r2d.shape)}")
+    return r2d.shape
+
+
+def _operands(r2d, work, out, dots, n_out):
+    """A launch's work, dot outputs and vector outputs: a solve's own (its
+    dots live in its work, valid until its next step), or new ones."""
+    if work is None:
+        work = BicgstabWork.new(r2d.device)
+        dots = tuple(r2d.new_empty(1, 1) for _ in dots)
+    else:
+        dots = tuple(work.dots[i] for i in dots)
+    if out is None:
+        out = tuple(torch.empty_like(r2d) for _ in range(n_out))
+    return work, dots, out
+
+
+def _launch_cuda(name, entry, operator, vecs, scalars, outs, dots, work, grid, sizes):
+    """One launch of a tile or packed kernel: ``operator`` (tiles and
+    columns, or the packed view's four tensors) and ``sizes`` lead and end
+    the C arguments; ``work.partials`` grows to ``len(dots)`` per CTA."""
     from ._build import load_library
 
-    nrb, kmax, bm, bn = blocks.shape
-    if bn not in CUDA_BN:
-        raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
-    dev = blocks.device
-    if row_group is None:
-        row_group = auto_row_group(nrb, dev)
-    check_cuda_operands(name, (blocks, block_cols, *vecs, *scalars, *outs))
-    grid = -(-nrb // row_group)
+    dev = vecs[0].device
+    check_cuda_operands(name, (*operator, *vecs, *scalars, *outs))
     if work.partials.numel() < len(dots) * grid:
         work.partials = torch.empty(len(dots) * grid, device=dev)
     err = getattr(load_library(), entry)(
-        ptr(blocks), ptr(block_cols), *(ptr(v) for v in vecs), *(ptr(s) for s in scalars),
+        *(ptr(t) for t in operator), *(ptr(v) for v in vecs), *(ptr(s) for s in scalars),
         *(ptr(o) for o in outs), *(ptr(d) for d in dots), ptr(work.partials),
-        ptr(work.counter), ptr(work.scal), ptr(work.ctl), nrb, kmax, bn, row_group,
-        stream(dev))
+        ptr(work.counter), ptr(work.scal), ptr(work.ctl), *sizes, stream(dev))
     LAUNCHES[name] += 1
     raise_on_error(name, err)
+
+
+def _tile_launch_cuda(name, entry, blocks, block_cols, vecs, scalars, outs, dots, work,
+                      row_group):
+    nrb, kmax, _, bn = blocks.shape
+    if bn not in CUDA_BN:
+        raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
+    if row_group is None:
+        row_group = auto_row_group(nrb, blocks.device)
+    _launch_cuda(name, entry, (blocks, block_cols), vecs, scalars, outs, dots, work,
+                 -(-nrb // row_group), (nrb, kmax, bn, row_group))
+
+
+def _packed_launch_cuda(name, entry, pk, vecs, scalars, outs, dots, work):
+    _launch_cuda(name, entry, (pk.vals, pk.cols, pk.row_len, pk.chunk_off), vecs, scalars,
+                 outs, dots, work, -(-pk.rows // _THREADS), (pk.rows,))
 
 
 # ---- kernel 18 -----------------------------------------------------------------
@@ -296,36 +343,76 @@ def bicgstab_dir_spmv_dot(
     """
     name = "bicgstab_dir_spmv_dot"
     nrb, _, bn = _check_tiles(name, blocks, block_cols)
-    vecs = (r2d, p2d, v2d, rhat2d, inv_diag2d)
-    _check_vectors(name, (nrb, bn), (*vecs, *(out or ())))
-    _one_f32(name, beta=beta, omega=omega)
-    _check_out(name, out, 3, (r2d, p2d, v2d, rhat2d, inv_diag2d))
+    vecs = _check_dir(name, (nrb, bn), r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out)
     if row_group is not None and row_group < 1:
         raise ValueError(f"{name}: row_group must be >= 1")
     if not on_cuda(name, blocks, block_cols, *vecs, beta, omega, *_extra(out, work)):
-        return _dir_plain(blocks, block_cols, r2d, p2d, v2d, rhat2d, beta, omega,
-                          inv_diag2d, out, work)
-    if work is None:
-        work = BicgstabWork.new(r2d.device)
-        rv = r2d.new_empty(1, 1)
-    else:  # a solve's dots live in its work: valid until its next step
-        rv = work.dots[0]
-    if out is None:
-        out = tuple(torch.empty_like(r2d) for _ in range(3))
-    _tile_launch_cuda(name, blocks, block_cols, vecs, (beta, omega), out, (rv,), work,
-                      row_group, "bicgstab_dir")
-    return (*out, rv)
+        return _tile_dir_plain(blocks, block_cols, r2d, p2d, v2d, rhat2d, beta, omega,
+                               inv_diag2d, out, work)
+    work, dots, out = _operands(r2d, work, out, (0,), 3)
+    _tile_launch_cuda(name, "bicgstab_dir", blocks, block_cols, vecs, (beta, omega), out, dots,
+                      work, row_group)
+    return (*out, *dots)
 
 
-def _dir_plain(blocks, block_cols, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work):
-    name = "bicgstab_dir_spmv_dot"
+def bicgstab_dir_spmv_dot_packed(
+    pk,
+    r2d: torch.Tensor,
+    p2d: torch.Tensor,
+    v2d: torch.Tensor,
+    rhat2d: torch.Tensor,
+    beta: torch.Tensor,
+    omega: torch.Tensor,
+    inv_diag2d: Optional[torch.Tensor] = None,
+    *,
+    out: Optional[Tuple[torch.Tensor, ...]] = None,
+    work: Optional[BicgstabWork] = None,
+):
+    """Kernel 1 on full blocked-ELL storage read as its packed nonzeros
+    ``pk`` (``BlockedEllMatrix.packed()``, float32): the contract of
+    :func:`bicgstab_dir_spmv_dot` for a square padded system of ``pk.rows``
+    rows, vectors (nrb, bn) float32 with nrb·bn = ``pk.rows``.  Any tile
+    width."""
+    name = "bicgstab_dir_spmv_dot_packed"
+    shape = _check_packed_vectors(name, pk, r2d)
+    vecs = _check_dir(name, shape, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out)
+    if not on_cuda(name, pk.vals, pk.cols, pk.row_len, pk.chunk_off, *vecs, beta, omega,
+                   *_extra(out, work)):
+        return _packed_dir_plain(pk, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work)
+    work, dots, out = _operands(r2d, work, out, (0,), 3)
+    _packed_launch_cuda(name, "bicgstab_dir_packed", pk, vecs, (beta, omega), out, dots, work)
+    return (*out, *dots)
+
+
+def _check_dir(name, shape, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out):
+    vecs = (r2d, p2d, v2d, rhat2d, inv_diag2d)
+    _check_vectors(name, shape, (*vecs, *(out or ())))
+    _one_f32(name, beta=beta, omega=omega)
+    _check_out(name, out, 3, vecs)
+    return vecs
+
+
+def _tile_dir_plain(blocks, block_cols, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out,
+                    work):
+    return _dir_plain("bicgstab_dir_spmv_dot", lambda y: bell_apply(blocks, block_cols, y),
+                      r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work)
+
+
+def _packed_dir_plain(pk, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work):
+    return _dir_plain("bicgstab_dir_spmv_dot_packed", packed_product(pk),
+                      r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work)
+
+
+def _dir_plain(name, apply, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work):
+    """Plain kernel 1 with the product ``apply`` (the tiles' or the packed
+    view's), and its scalar step (α) on ``work``."""
     if r2d.is_cuda:
         PLAIN_ON_CUDA[name] += 1
     if work is not None and not _live(work):
         return (*out, work.scal.new_zeros(1, 1))
     pn = r2d + beta.reshape(()) * (p2d - omega.reshape(()) * v2d)
     ph = pn if inv_diag2d is None else inv_diag2d * pn
-    vn = bell_apply(blocks, block_cols, ph)
+    vn = apply(ph)
     rv = torch.sum(rhat2d * vn).reshape(1, 1)
     res = (pn, ph, vn)
     if out is not None:
@@ -364,30 +451,65 @@ def bicgstab_s_spmv_dot(
     """
     name = "bicgstab_s_spmv_dot"
     nrb, _, bn = _check_tiles(name, blocks, block_cols)
-    vecs = (r2d, vnew2d, x2d, phat2d, inv_diag2d)
-    _check_vectors(name, (nrb, bn), (*vecs, *(out or ())))
-    _one_f32(name, alpha=alpha)
-    _check_out(name, out, 4, (r2d, vnew2d, inv_diag2d, phat2d, x2d),
-               own=((2, x2d.data_ptr()),))
+    vecs = _check_s(name, (nrb, bn), r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out)
     if row_group is not None and row_group < 1:
         raise ValueError(f"{name}: row_group must be >= 1")
     if not on_cuda(name, blocks, block_cols, *vecs, alpha, *_extra(out, work)):
-        return _s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d,
-                        out, work)
-    if work is None:
-        work = BicgstabWork.new(r2d.device)
-        dots = tuple(r2d.new_empty(1, 1) for _ in range(3))
-    else:
-        dots = work.dots[1:4]
-    if out is None:
-        out = tuple(torch.empty_like(r2d) for _ in range(4))
-    _tile_launch_cuda(name, blocks, block_cols, vecs, (alpha,), out, dots, work, row_group,
-                      "bicgstab_s")
+        return _tile_s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d,
+                             out, work)
+    work, dots, out = _operands(r2d, work, out, (1, 2, 3), 4)
+    _tile_launch_cuda(name, "bicgstab_s", blocks, block_cols, vecs, (alpha,), out, dots, work,
+                      row_group)
     return (*out, *dots)
 
 
-def _s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
-    name = "bicgstab_s_spmv_dot"
+def bicgstab_s_spmv_dot_packed(
+    pk,
+    r2d: torch.Tensor,
+    vnew2d: torch.Tensor,
+    x2d: torch.Tensor,
+    phat2d: torch.Tensor,
+    alpha: torch.Tensor,
+    inv_diag2d: Optional[torch.Tensor] = None,
+    *,
+    out: Optional[Tuple[torch.Tensor, ...]] = None,
+    work: Optional[BicgstabWork] = None,
+):
+    """Kernel 2 on the packed nonzeros ``pk``: the contract of
+    :func:`bicgstab_s_spmv_dot` with the operator and vectors of
+    :func:`bicgstab_dir_spmv_dot_packed`."""
+    name = "bicgstab_s_spmv_dot_packed"
+    shape = _check_packed_vectors(name, pk, r2d)
+    vecs = _check_s(name, shape, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out)
+    if not on_cuda(name, pk.vals, pk.cols, pk.row_len, pk.chunk_off, *vecs, alpha,
+                   *_extra(out, work)):
+        return _packed_s_plain(pk, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work)
+    work, dots, out = _operands(r2d, work, out, (1, 2, 3), 4)
+    _packed_launch_cuda(name, "bicgstab_s_packed", pk, vecs, (alpha,), out, dots, work)
+    return (*out, *dots)
+
+
+def _check_s(name, shape, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out):
+    vecs = (r2d, vnew2d, x2d, phat2d, inv_diag2d)
+    _check_vectors(name, shape, (*vecs, *(out or ())))
+    _one_f32(name, alpha=alpha)
+    _check_out(name, out, 4, (r2d, vnew2d, inv_diag2d, phat2d, x2d), own=((2, x2d.data_ptr()),))
+    return vecs
+
+
+def _tile_s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
+    return _s_plain("bicgstab_s_spmv_dot", lambda y: bell_apply(blocks, block_cols, y),
+                    r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work)
+
+
+def _packed_s_plain(pk, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
+    return _s_plain("bicgstab_s_spmv_dot_packed", packed_product(pk),
+                    r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work)
+
+
+def _s_plain(name, apply, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
+    """Plain kernel 2 with the product ``apply``, and its scalar step (the
+    half-step test, ω) on ``work``."""
     if r2d.is_cuda:
         PLAIN_ON_CUDA[name] += 1
     if work is not None and not _live(work):
@@ -397,7 +519,7 @@ def _s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, ou
     s = r2d - a * vnew2d
     sh = s if inv_diag2d is None else inv_diag2d * s
     xh = x2d + a * phat2d
-    t = bell_apply(blocks, block_cols, sh)
+    t = apply(sh)
     ss, ts, tt = (torch.sum(u * w).reshape(1, 1) for u, w in ((s, s), (t, s), (t, t)))
     res = (s, sh, xh, t)
     if out is not None:

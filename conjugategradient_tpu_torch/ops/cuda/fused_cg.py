@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..spmv import bell_apply, sym_bell_apply
-from .bell_spmv import check_packed, packed_apply
+from .bell_spmv import check_packed, packed_product
 from ._common import (
     CUDA_BN,
     LAUNCHES,
@@ -409,8 +409,7 @@ def fused_dir_spmv_dot_packed(
 
 
 def _packed_dir_plain(pk, r2d, pold2d, beta, inv_diag2d, out, work):
-    return _dir_plain("fused_dir_spmv_dot_packed",
-                      lambda p: packed_apply(pk, p.reshape(-1)).reshape(p.shape),
+    return _dir_plain("fused_dir_spmv_dot_packed", packed_product(pk),
                       r2d, pold2d, beta, inv_diag2d, out, work)
 
 

@@ -3,7 +3,8 @@ path for NONSYMMETRIC systems).  Counterpart of
 ``conjugategradient_tpu/solver/fused_bicgstab.py``: the algorithm of
 solver/bicgstab.py (both half-steps per body, the half-step exit, the ρ /
 ω / NaN breakdown exits returning the last finite iterate), with the
-iteration body as three kernels (ops/cuda/fused_bicgstab.py):
+iteration body as three kernels (ops/cuda/fused_bicgstab.py; K1 and K2 in
+their packed forms where the tiles are sparse, ``ops/spmv.bell_packed_route``):
 
     K1  p' = r + β(p − ω v);  p̂ = d⊙p' or p';  v' = A p̂;  rv = r̂₀·v'
     K2  s = r − α v';  ŝ = d⊙s or s;  x_h = x + α p̂;  t = A ŝ;  ss/ts/tt
@@ -43,10 +44,12 @@ from ..ops.cuda.fused_bicgstab import (
     C_LIVE,
     BicgstabWork,
     bicgstab_dir_spmv_dot,
+    bicgstab_dir_spmv_dot_packed,
     bicgstab_s_spmv_dot,
+    bicgstab_s_spmv_dot_packed,
     bicgstab_update_dot,
 )
-from ..ops.spmv import full_precision_matmul
+from ..ops.spmv import bell_packed_route, full_precision_matmul
 from ..types import BlockedEllMatrix
 from .bicgstab import BicgstabInfo
 from .fused import fused_supported
@@ -167,12 +170,21 @@ def fused_bicgstab_init(
 def fused_bicgstab_step(a: BlockedEllMatrix, s: FusedBicgstabState) -> FusedBicgstabState:
     """One full BiCGStab iteration in three fused kernels, updating ``s``
     in place; the same semantics as solver/bicgstab.bicgstab_step, with the
-    breakdown select moved after the loop (module doc)."""
+    breakdown select moved after the loop (module doc).  The two products
+    read the operator's packed nonzeros where ``ops/spmv.bell_packed_route``
+    says so (sparse tiles), else the tile stream."""
     w = s.work
-    bicgstab_dir_spmv_dot(a.blocks, a.block_cols, s.r, s.p, s.v, s.rhat, w.beta_c, w.omega,
-                          s.d, out=(s.p_next, s.phat, s.v_next), work=w)
-    bicgstab_s_spmv_dot(a.blocks, a.block_cols, s.r, s.v_next, s.x, s.phat, w.alpha_c, s.d,
-                        out=(s.s, s.shat, s.xprev, s.t), work=w)
+    if bell_packed_route(a):
+        pk = a.packed()
+        bicgstab_dir_spmv_dot_packed(pk, s.r, s.p, s.v, s.rhat, w.beta_c, w.omega, s.d,
+                                     out=(s.p_next, s.phat, s.v_next), work=w)
+        bicgstab_s_spmv_dot_packed(pk, s.r, s.v_next, s.x, s.phat, w.alpha_c, s.d,
+                                   out=(s.s, s.shat, s.xprev, s.t), work=w)
+    else:
+        bicgstab_dir_spmv_dot(a.blocks, a.block_cols, s.r, s.p, s.v, s.rhat, w.beta_c,
+                              w.omega, s.d, out=(s.p_next, s.phat, s.v_next), work=w)
+        bicgstab_s_spmv_dot(a.blocks, a.block_cols, s.r, s.v_next, s.x, s.phat, w.alpha_c,
+                            s.d, out=(s.s, s.shat, s.xprev, s.t), work=w)
     bicgstab_update_dot(s.xprev, s.shat, s.s, s.t, s.rhat, w.omega_c, out=(s.xprev, s.r),
                         work=w)
     _trade(s)

@@ -555,7 +555,7 @@ def test_bicgstab_tile_kernels_match_plain(dev, bn, row_group, with_d):
                                   row_group=row_group, work=wk)
     k1b = fb.bicgstab_dir_spmv_dot(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d,
                                    row_group=row_group)
-    p1 = fb._dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d, None, None)
+    p1 = fb._tile_dir_plain(a.blocks, a.block_cols, r, p, v, rhat, beta, omega, d, None, None)
     torch.cuda.synchronize()
     assert torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1])
     _close(k1[2], p1[2])
@@ -569,7 +569,7 @@ def test_bicgstab_tile_kernels_match_plain(dev, bn, row_group, with_d):
                                 row_group=row_group, work=wk)
     k2b = fb.bicgstab_s_spmv_dot(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d,
                                  row_group=row_group)
-    p2 = fb._s_plain(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d, None, None)
+    p2 = fb._tile_s_plain(a.blocks, a.block_cols, r, k1[2], x, k1[1], alpha, d, None, None)
     torch.cuda.synchronize()
     for i in range(3):
         assert torch.equal(k2[i], p2[i]), ("s", "shat", "xh")[i]
@@ -652,6 +652,107 @@ def test_fused_bicgstab_solve_takes_the_kernels(dev, with_d):
     x, info = bicgstab_solve(a, torch.zeros_like(b), tol=1e-30, fused="always")
     assert int(info.iterations) == 0 and not x.any()
 
+
+
+# ---- kernels 18 and 19 on the packed nonzeros of sparse tiles -------------------
+
+def _convdiff(nx, bn, dev):
+    """The 5-point upwind convection-diffusion operator (peclet 10) on an
+    nx x nx grid as float32 blocked-ELL with bn x bn tiles: sparse tiles."""
+    from conjugategradient_tpu_torch.problems import convection_diffusion_2d_coo
+
+    rows, cols, vals, shape = convection_diffusion_2d_coo(nx, peclet=10.0)
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=shape[0]))])
+    return BlockedEllMatrix.from_csr_host(vals[order].astype(np.float32), cols[order], indptr,
+                                          shape, bm=bn, bn=bn, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,bn", [(64, 128), (37, 32)], ids=["convdiff64", "ragged37-bn32"])
+def test_bicgstab_packed_kernels_bit_equal_to_plain(dev, nx, bn):
+    """Kernels 18 and 19 on the packed view, ± Jacobi d: p', p̂, v', s, ŝ,
+    x_h and t bit-equal to the plain versions (one rounding per product
+    and per sum, in the same order), the dots to RTOL, the last CTAs'
+    scalar steps within 2 ulp of torch's on the kernels' own dots, repeats
+    bit-identical; outputs over gathered inputs refused."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+
+    a = _convdiff(nx, bn, dev)
+    assert bell_packed_route(a)
+    pk = a.packed()
+    g = torch.Generator().manual_seed(nx)
+    r, p, v, rhat, x = (torch.randn(a.nrb, bn, generator=g).to(dev) for _ in range(5))
+    d = torch.ones(a.nrb * bn, device=dev)
+    d[:a.n] = 1.0 / a.diagonal()
+    beta, omega = torch.full((1, 1), 0.4, device=dev), torch.full((1, 1), 0.25, device=dev)
+    alpha = torch.full((1, 1), 0.6, device=dev)
+    for dd in (None, d.view(a.nrb, bn)):
+        fc.reset_counts()
+        wk, wp = _bicg_work(dev), _bicg_work(dev)
+        k1 = fb.bicgstab_dir_spmv_dot_packed(pk, r, p, v, rhat, beta, omega, dd, work=wk)
+        k1b = fb.bicgstab_dir_spmv_dot_packed(pk, r, p, v, rhat, beta, omega, dd)
+        p1 = fb._packed_dir_plain(pk, r, p, v, rhat, beta, omega, dd, None, None)
+        torch.cuda.synchronize()
+        for i in range(3):
+            assert torch.equal(k1[i], p1[i]), ("p'", "phat", "v'")[i]
+        assert all(torch.equal(s, t) for s, t in zip(k1, k1b))
+        np.testing.assert_allclose(float(k1[3]), float(p1[3]), rtol=RTOL,
+                                   atol=RTOL * float(rhat.norm() * p1[2].norm()))
+        fb.finish_dir(wp, k1[3][0, 0])
+        assert _tail_ulps(wk, wp) <= 2
+        k2 = fb.bicgstab_s_spmv_dot_packed(pk, r, k1[2], x, k1[1], alpha, dd, work=wk)
+        k2b = fb.bicgstab_s_spmv_dot_packed(pk, r, k1[2], x, k1[1], alpha, dd)
+        p2 = fb._packed_s_plain(pk, r, k1[2], x, k1[1], alpha, dd, None, None)
+        torch.cuda.synchronize()
+        for i in range(4):
+            assert torch.equal(k2[i], p2[i]), ("s", "shat", "xh", "t")[i]
+        assert all(torch.equal(s, t) for s, t in zip(k2, k2b))
+        for i in range(4, 7):
+            np.testing.assert_allclose(float(k2[i]), float(p2[i]), rtol=RTOL,
+                                       atol=RTOL * float(p2[3].norm() * p2[0].norm()))
+        fb.finish_s(wp, k2[4][0, 0], k2[5][0, 0], k2[6][0, 0])
+        assert _tail_ulps(wk, wp) <= 2 and torch.equal(wk.ctl, wp.ctl)
+        assert fc.LAUNCHES["bicgstab_dir_spmv_dot_packed"] == 2
+        assert fc.LAUNCHES["bicgstab_s_spmv_dot_packed"] == 2
+        assert fc.LAUNCHES["bicgstab_dir_spmv_dot"] == fc.LAUNCHES["bicgstab_s_spmv_dot"] == 0
+    with pytest.raises(ValueError, match="gather"):
+        fb.bicgstab_dir_spmv_dot_packed(pk, r, p, v, rhat, beta, omega,
+                                        out=(torch.empty_like(r), torch.empty_like(r), p))
+    with pytest.raises(ValueError, match="gather"):
+        fb.bicgstab_s_spmv_dot_packed(pk, r, k1[2], x, k1[1], alpha,
+                                      out=(torch.empty_like(r), torch.empty_like(r),
+                                           torch.empty_like(r), k1[2]))
+
+
+@pytest.mark.cuda
+def test_fused_bicgstab_solve_takes_the_packed_kernels(dev):
+    """``bicgstab_solve(fused="always")`` on convection-diffusion nx = 64
+    (sparse 128 x 128 tiles): the packed kernels 18 and 19 and kernel 20
+    once a step each, no dense kernel and no plain version on CUDA, the view
+    built once, bitwise repeatable; its history against the portable loop
+    on the card to 5e-3 over 10 steps."""
+    from conjugategradient_tpu_torch import bicgstab_solve, jacobi_preconditioner
+
+    a = _convdiff(64, 128, dev)
+    b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
+    for M in (None, jacobi_preconditioner(a)):
+        a.packed()
+        fc.reset_counts()
+        xk, ik = bicgstab_solve(a, b, tol=0.0, maxiter=12, M=M, fused="always")
+        assert int(ik.iterations) == 12
+        assert all(fc.LAUNCHES[k] == 12 for k in (
+            "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot_packed", "bicgstab_update_dot"))
+        assert fc.LAUNCHES["bicgstab_dir_spmv_dot"] == fc.LAUNCHES["bicgstab_s_spmv_dot"] == 0
+        assert fc.LAUNCHES["bell_pack"] == 0  # built once, before the counts were reset
+        assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+        xk2, ik2 = bicgstab_solve(a, b, tol=0.0, maxiter=12, M=M, fused="always")
+        assert torch.equal(xk, xk2) and torch.equal(ik.rnorm_history.view(torch.int32),
+                                                     ik2.rnorm_history.view(torch.int32))
+        _, ip = bicgstab_solve(a, b, tol=0.0, maxiter=12, M=M)
+        np.testing.assert_allclose(ik.rnorm_history[:11].double().cpu().numpy(),
+                                   ip.rnorm_history[:11].double().cpu().numpy(), rtol=5e-3)
 
 # ---- the row-sharded loop: kernels 6 and 17, partials-only modes ----------------
 
