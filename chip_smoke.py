@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the twenty-one kernels against its plain-torch version on the
+2. Hold each of the twenty-three kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -63,7 +63,16 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    omega: p', p^, v', s, s^, x_h and t bit-equal to the plain versions,
    the dots within TOL_DOT, the tails within ``TAIL_ULPS``; both timed on
    nx = 512 beside the dense kernels 18 and 19 on the same operator, with
-   their bound on the bytes the nonzeros need.
+   their bound on the bytes the nonzeros need.  Kernels 14 and 15 on the
+   packed nonzeros (``minres_dir_spmv_dot_packed``: one kernel on full
+   storage's view or on symmetric storage's view of D + U + U^T) on
+   poisson3d_48 at 128 x 128 in both storages and on a ragged 2-D Poisson
+   nx = 37 at bn = 32, with and without the Jacobi diagonal, shift 0 and
+   not 0, a first step and NaN scalars: v, q, w and x' bit-equal to the
+   plain versions, the dots within TOL_DOT, the tail 0 ulps from torch's,
+   a launch with live = 0 a no-op; timed on poisson3d_48 beside the dense
+   kernel 14 (full) and the dense kernel 15's general landing, with the
+   bound on the bytes the storage's nonzeros need.
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -98,8 +107,12 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    ``--method minres`` on poisson3d_48 (symbell and bell, float32, with and
    without Jacobi), once with ``--shift`` inside the spectrum, and on CSR
    float64 twice (bitwise); the n = 262,144 operator in both storages for
-   256 timed steps (bench.py's minres protocol, b = arange(1, n+1)/n), the
-   busy share over 64, and the portable MINRES loop beside it; the fused
+   256 timed steps (bench.py's minres protocol, b = arange(1, n+1)/n; the
+   dense tiles, no packed launch), the busy share over 64, and the
+   portable MINRES loop beside it; poisson3d_48 in both storages on its
+   own route (the packed kernel 1) and forced onto the dense tiles:
+   ms/it over 256 steps, the busy share over 64, the kernels launched and
+   the two routes' 25-step histories; the fused
    solve against the portable loop and twice against itself (bitwise); an
    indefinite solve (shift between the Lanczos Ritz extremes) in both
    storages; caps of 1, 2 and 7 steps against the portable loop; b = 0;
@@ -144,9 +157,10 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 
 ``python3 chip_smoke.py --fused-cg-only`` runs nothing but the fused CG
 loops at n = 262,144 (both storages) and at 256^3 and prints their ms/it
-and a hash of each history, then a hash of the fused BiCGStab's history
-and x on the bicgstab-bell operator (dense tiles): for comparing two trees
-on one card.
+and a hash of each history, then a hash of the fused MINRES's history and
+x at n = 262,144 in both storages and of the fused BiCGStab's on the
+bicgstab-bell operator (dense tiles all): for comparing two trees on one
+card.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -194,6 +208,8 @@ SOURCES = {
     "fused_dir_spmv_dot_packed": FUSED_SOURCE,
     "bicgstab_dir_spmv_dot_packed": BICGSTAB_SOURCE,
     "bicgstab_s_spmv_dot_packed": BICGSTAB_SOURCE,
+    "minres_dir_spmv_dot_packed": MINRES_SOURCE,
+    "sym_minres_dir_spmv_dot_packed": MINRES_SOURCE,
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -217,12 +233,14 @@ REPLACES = {
     "bicgstab_update_dot": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:293",
     "bell_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:467",
     "minres_shard_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:528",
-    # the packed kernels compute the same functions as 5, 4, 18 and 19 on
-    # sparse tiles
+    # the packed kernels compute the same functions as 5, 4, 18, 19, 14 and
+    # 15 on sparse tiles (14 and 15: one kernel on either storage's view)
     "bell_spmv_packed": "conjugategradient_tpu/ops/pallas/ell_spmv.py:57",
     "fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:111",
     "bicgstab_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:84",
     "bicgstab_s_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_bicgstab.py:200",
+    "minres_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
+    "sym_minres_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_minres.py:298",
 }
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
@@ -230,7 +248,8 @@ BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update
 DIA_KERNELS = ("dia_spmv", "sym_dia_spmv")
 STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
-                  "bell_spmv", "bell_spmv_packed")
+                  "bell_spmv", "bell_spmv_packed", "minres_dir_spmv_dot_packed",
+                  "sym_minres_dir_spmv_dot_packed")
 BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
                     "bell_spmv", "dia_spmv", "bell_spmv_packed", "bicgstab_dir_spmv_dot_packed",
                     "bicgstab_s_spmv_dot_packed")
@@ -1230,14 +1249,21 @@ def minres_operands(nrb, bn, rng, dev, with_d, shift, first=False):
     return vecs, su.to(dev), d
 
 
-def minres_dir_pair(a, mirror, row_group=None):
+def minres_dir_pair(a, mirror, row_group=None, packed=False):
     """(name, kernel wrapper, plain version) of MINRES kernel 1 on ``a``:
-    kernel 14 on full storage, kernel 15 (with ``mirror``) on symmetric."""
+    kernel 14 on full storage, kernel 15 (with ``mirror``) on symmetric;
+    ``packed``: the packed kernel on ``a.packed()`` (either storage)."""
     from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.cuda.bell_spmv import packed_product
     from conjugategradient_tpu_torch.ops.spmv import bell_apply, sym_bell_apply
     from conjugategradient_tpu_torch.types import BlockedEllMatrix
 
-    if isinstance(a, BlockedEllMatrix):
+    if packed:
+        pk = a.packed()
+        name = "sym_minres_dir_spmv_dot_packed" if pk.symmetric else "minres_dir_spmv_dot_packed"
+        kern = lambda vecs, su, d, **kw: fm.minres_dir_spmv_dot_packed(pk, *vecs, su, d, **kw)
+        apply = packed_product(pk)
+    elif isinstance(a, BlockedEllMatrix):
         name = "minres_dir_spmv_dot"
         kern = lambda vecs, su, d, **kw: fm.minres_dir_spmv_dot(
             a.blocks, a.block_cols, *vecs, su, d, row_group=row_group, **kw)
@@ -1253,18 +1279,32 @@ def minres_dir_pair(a, mirror, row_group=None):
     return name, kern, plain
 
 
-def check_minres_dir(a, rng, mirror, with_d, shift, errs, label, first=False, row_group=None):
+def same_bits(a, b) -> bool:
+    """Equal, NaN where the other is NaN (a NaN's payload aside)."""
+    import torch
+
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def check_minres_dir(a, rng, mirror, with_d, shift, errs, label, first=False, row_group=None,
+                     packed=False, nan=False):
     """MINRES kernel 1 against its plain version: v, w_new, x_new bit for
-    bit, q within TOL_Q of max|q|, v.q within TOL_DOT and v.r1 within
-    TOL_DOT of ||v|| ||r1|| (a dot of unrelated vectors can cancel); two
-    launches bit-identical; the last CTA's scalar step (c1, alpha,
-    alpha/beta) within TAIL_ULPS of torch's on the kernel's own dots."""
+    bit (``packed``: q too, which the packed kernel is built to match), q
+    within TOL_Q of max|q|, v.q within TOL_DOT and v.r1 within TOL_DOT of
+    ||v|| ||r1|| (a dot of unrelated vectors can cancel); two launches
+    bit-identical; the last CTA's scalar step (c1, alpha, alpha/beta)
+    within TAIL_ULPS of torch's on the kernel's own dots (``packed``: 0
+    ulps).  ``nan``: 1/beta and phi NaN, so every output is NaN exactly
+    where the plain version's is."""
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
 
-    name, kern, plain = minres_dir_pair(a, mirror, row_group)
+    name, kern, plain = minres_dir_pair(a, mirror, row_group, packed)
     vecs, su, d = minres_operands(a.nrb, a.bn, rng, a.device, with_d, shift, first)
+    if nan:
+        su[0, fm.SU_INV_BETA] = su[0, fm.SU_PHI] = float("nan")
     wk = fm.MinresWork.new(a.device, maxiter=4)
     wk.scal[fm.M_OLDB] = 1.7
     wk.start(torch.tensor(2.3, device=a.device))
@@ -1273,9 +1313,16 @@ def check_minres_dir(a, rng, mirror, with_d, shift, errs, label, first=False, ro
     k2 = kern(vecs, su, d)
     p = plain(vecs, su, d)
     torch.cuda.synchronize()
-    for i, what in ((0, "v"), (2, "w_new"), (3, "x_new")):
-        check(torch.equal(k[i], p[i]), f"{name} {label}: {what} not bit-equal to the plain version")
-    check(all(torch.equal(x, y) for x, y in zip(k, k2)), f"{name} {label}: two launches differ")
+    bitwise = ((0, "v"), (1, "q"), (2, "w_new"), (3, "x_new")) if packed else \
+        ((0, "v"), (2, "w_new"), (3, "x_new"))
+    for i, what in bitwise:
+        check(same_bits(k[i], p[i]), f"{name} {label}: {what} not bit-equal to the plain version")
+    check(all(same_bits(x, y) for x, y in zip(k, k2)), f"{name} {label}: two launches differ")
+    if nan:
+        check(bool(torch.isnan(k[0]).all()) and math.isnan(float(k[4])),
+              f"{name} {label}: a NaN 1/beta left finite entries")
+        print(f"  {name} {label:<34} v, q, w, x' bit-equal with NaN 1/beta and phi; repeat ok")
+        return vecs, su, d
     if first:
         check(torch.equal(k[3], vecs[5]) and not bool(k[2].any()),
               f"{name} {label}: a first step (1/gamma = phi = 0) changed x or w")
@@ -1290,11 +1337,50 @@ def check_minres_dir(a, rng, mirror, with_d, shift, errs, label, first=False, ro
     wp.scal.copy_(wp_scal)
     fm.finish_dir(wp, k[4][0, 0], k[5][0, 0])
     ulps = int((wk.scal[:fm.M_VQ].view(torch.int32) - wp.scal[:fm.M_VQ].view(torch.int32)).abs().max())
-    check(ulps <= TAIL_ULPS, f"{name} {label}: scalar step {ulps} ulps from torch's")
+    check(ulps <= (0 if packed else TAIL_ULPS), f"{name} {label}: scalar step {ulps} ulps from "
+          "torch's")
     errs[name] = max(errs[name], e_q, e_vq, e_vr1)
-    print(f"  {name} {label:<34} v, w, x' bit-equal; |dq|={e_q:.3g} (max|q| {m_q:.4g}) "
-          f"|dvq|={e_vq:.3g} |dvr1|={e_vr1:.3g}; repeat ok; scalar step {ulps} ulp")
+    print(f"  {name} {label:<34} v, {'q, ' if packed else ''}w, x' bit-equal; |dq|={e_q:.3g} "
+          f"(max|q| {m_q:.4g}) |dvq|={e_vq:.3g} |dvr1|={e_vr1:.3g}; repeat ok; scalar step "
+          f"{ulps} ulp")
     return vecs, su, d
+
+
+def check_minres_idle(a, rng, label):
+    """The packed kernel 1 on a solve that is no longer live: no output and
+    no scalar written."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    name, kern, _ = minres_dir_pair(a, None, packed=True)
+    vecs, su, d = minres_operands(a.nrb, a.bn, rng, a.device, True, 0.07)
+    wk = fm.MinresWork.new(a.device, maxiter=4)
+    wk.start(torch.tensor(2.3, device=a.device))
+    wk.ctl[fc.C_LIVE] = 0
+    kept = wk.scal.clone()
+    out = tuple(torch.full_like(vecs[0], 7.0) for _ in range(4))
+    kern(vecs, su, d, out=out, work=wk)
+    torch.cuda.synchronize()
+    check(all(bool((o == 7.0).all()) for o in out)
+          and torch.equal(wk.scal.view(torch.int32), kept.view(torch.int32)),
+          f"{name} {label}: a launch with live = 0 wrote something")
+    print(f"  {name} {label:<34} live = 0: nothing written")
+
+
+def poisson2d_ops(nx, bn, dev):
+    """The 5-point 2-D Poisson operator on an nx x nx grid as float32 full
+    and symmetric blocked-ELL with bn x bn tiles (sparse tiles)."""
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+    from conjugategradient_tpu_torch.types import BlockedEllMatrix, SymBellMatrix
+
+    rows, cols, vals, shape = poisson2d_coo(nx)
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=shape[0]))])
+    full = BlockedEllMatrix.from_csr_host(vals[order].astype(np.float32), cols[order], indptr,
+                                          shape, bm=bn, bn=bn, device=dev)
+    return full, SymBellMatrix.from_bell(full)
 
 
 def check_minres_update(shape, rng, with_d, errs, label, dev):
@@ -1372,6 +1458,35 @@ def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
             if first or a.nrb == 13:
                 check_minres_dir(a, rng, mirror, not first, 0.07, errs, label + tag, first=first,
                                  row_group=4 if a.nrb == 13 else None)
+    # the packed kernel, the route of fused MINRES on sparse tiles, on both
+    # storages' views: poisson3d_48 at 128 x 128 (the main path) and a
+    # ragged 2-D Poisson nx = 37 at bn = 32 (n = 1369); with and without d,
+    # shift 0 and not 0, a first step, NaN scalars, live = 0
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+
+    p3f = ops["p3d_full"]
+    dense_full_args = check_minres_dir(p3f, rng, None, False, 0.07, errs,
+                                       "poisson3d_48 full (dense route)")
+    rag_full, rag_sym = poisson2d_ops(37, 32, dev)
+    packed_args = {}
+    for a, label in ((p3f, "poisson3d_48 full"), (p3d, "poisson3d_48 sym"),
+                     (rag_full, "ragged poisson2d-37 bn=32 full"),
+                     (rag_sym, "ragged poisson2d-37 bn=32 sym")):
+        check(bell_packed_route(a), f"{label}: the route does not take the packed view")
+        for with_d in (False, True):
+            for shift in (0.0, 0.07):
+                got = check_minres_dir(a, rng, None, with_d, shift, errs,
+                                       f"{label}{'+d' if with_d else ''} shift={shift}",
+                                       packed=True)
+                if not with_d and shift:
+                    packed_args[label] = got
+        check_minres_dir(a, rng, None, True, 0.07, errs, f"{label}+d first step", first=True,
+                         packed=True)
+        check_minres_dir(a, rng, None, False, 0.07, errs, f"{label} NaN", packed=True, nan=True)
+        check_minres_idle(a, rng, label)
+    stored = int(torch.count_nonzero(p3d.diag_blocks)) + int(torch.count_nonzero(p3d.off_blocks))
+    check(p3f.packed().nnz == p3d.packed().nnz == int(torch.count_nonzero(p3f.blocks)),
+          f"poisson3d_48: views hold {p3f.packed().nnz} and {p3d.packed().nnz} nonzeros")
     upd = {}
     for with_d in (False, True):
         upd[with_d] = check_minres_update((N_BIG // 128, 128), rng, with_d, errs,
@@ -1383,12 +1498,16 @@ def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
     work = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
     work.start(torch.tensor(2.3, device=dev))
     n, v = N_BIG, N_BIG * 4
-    for key, a, mirror, args, table in (
-        ("minres_dir_spmv_dot", big_full, None, full_args, times),
-        ("sym_minres_dir_spmv_dot", big, "banded", band_args, times),
-        ("sym_minres_dir_spmv_dot general poisson3d_48", p3d, "scatter", gen_args, extra),
+    for key, a, mirror, args, table, packed in (
+        ("minres_dir_spmv_dot", big_full, None, full_args, times, False),
+        ("sym_minres_dir_spmv_dot", big, "banded", band_args, times, False),
+        ("sym_minres_dir_spmv_dot general poisson3d_48", p3d, "scatter", gen_args, extra, False),
+        ("minres_dir_spmv_dot poisson3d_48 full", p3f, None, dense_full_args, extra, False),
+        ("minres_dir_spmv_dot_packed", p3f, None, packed_args["poisson3d_48 full"], times, True),
+        ("sym_minres_dir_spmv_dot_packed", p3d, None, packed_args["poisson3d_48 sym"], times,
+         True),
     ):
-        _, kern, plain = minres_dir_pair(a, mirror)
+        _, kern, plain = minres_dir_pair(a, mirror, packed=packed)
         vecs, su, _ = args
         vecs = [t.clone() for t in vecs]
         out = (vecs[2], torch.empty_like(vecs[0]), vecs[4], vecs[5])
@@ -1396,16 +1515,27 @@ def phase_minres_kernels(dev, big, big_full, ops, errs, times, extra):
         su0[0, fm.SU_PHI] = 0.0  # x stays put over the timed launches
         t = time_pair(lambda: kern(vecs, su0, None, out=out, work=work),
                       lambda: plain(vecs, su0, None))
-        tiles = nbytes(a.blocks, a.block_cols) if mirror is None else \
-            nbytes(a.diag_blocks, a.off_blocks, a.off_cols)
-        flops = 2 * a.blocks.numel() if mirror is None else \
-            2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
-        t.update(bound(tiles + 10 * a.nrb * a.bn * 4, flops + 14 * a.nrb * a.bn),
-                 library_ms=None)  # an SpMV fused with updates and two dots: no one call
-        if a is p3d:  # sparse tiles: the bound on the stored nonzeros too
-            t["needed_ms"] = needed_bound(
-                int(torch.count_nonzero(a.diag_blocks)) + int(torch.count_nonzero(a.off_blocks)),
-                10 * a.nrb * a.bn * 4)
+        vb = 10 * a.nrb * a.bn * 4  # r2 r1 v_prev w-1 w-2 x in; v q w x' out
+        if packed:
+            # the function's own nonzeros: full storage's tiles', or the
+            # stored diagonal and upper ones (the view holds the upper
+            # ones twice)
+            nnz = stored if a.packed().symmetric else a.packed().nnz
+            t.update(bound(8 * nnz + vb, 2 * a.packed().nnz + 14 * a.nrb * a.bn),
+                     library_ms=None)
+            t["needed_ms"] = needed_bound(nnz, vb)
+            t["view_ms"] = needed_bound(a.packed().nnz, vb)
+        else:
+            tiles = nbytes(a.blocks, a.block_cols) if mirror is None else \
+                nbytes(a.diag_blocks, a.off_blocks, a.off_cols)
+            flops = 2 * a.blocks.numel() if mirror is None else \
+                2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
+            t.update(bound(tiles + vb, flops + 14 * a.nrb * a.bn),
+                     library_ms=None)  # an SpMV fused with updates and two dots: no one call
+        if a is p3d and not packed:  # sparse tiles: the bound on the stored nonzeros too
+            t["needed_ms"] = needed_bound(stored, vb)
+        if a is p3f and not packed:
+            t["needed_ms"] = needed_bound(p3f.packed().nnz, vb)
         table[key] = t
     q, r1, r2, _ = upd[False]
     out = torch.empty_like(q)
@@ -1800,15 +1930,16 @@ def trajectory_ok(h_fused, h_plain, k, floor_rel=1e-10):
 
 @contextlib.contextmanager
 def forced_route(packed: bool):
-    """Send every float32 full blocked-ELL operator down one route, the
-    packed nonzeros or the dense tiles, to compare the two on one operator
-    (the port itself picks by tile fill and has no switch for it)."""
+    """Send every float32 full blocked-ELL operator (and symmetric one in
+    the fused MINRES step) down one route, the packed nonzeros or the dense
+    tiles, to compare the two on one operator (the port itself picks by
+    tile fill and has no switch for it)."""
     import torch
 
     from conjugategradient_tpu_torch.ops import spmv
-    from conjugategradient_tpu_torch.solver import fused, fused_bicgstab
+    from conjugategradient_tpu_torch.solver import fused, fused_bicgstab, fused_minres
 
-    users = (spmv, fused, fused_bicgstab)
+    users = (spmv, fused, fused_bicgstab, fused_minres)
     saved = spmv.bell_packed_route
     for mod in users:
         mod.bell_packed_route = lambda a: packed and a.dtype == torch.float32
@@ -2562,6 +2693,70 @@ def ritz_shift(op, fraction):
     return lo + fraction * (hi - lo), lo, hi
 
 
+MINRES_DENSE_K1 = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot")
+MINRES_PACKED_K1 = ("minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot_packed")
+
+
+def minres_route_comparison(dev, p3d, p3d_full, copy_gbps, card):
+    """The fused MINRES on poisson3d_48 in both storages, once on the route
+    the port picks (the packed kernel 1) and once forced onto the dense
+    tiles (``forced_route``): ms/it over MINRES_STEPS steps at tol = -1
+    (bench.py's protocol: the init and the steps), the device's busy share
+    over 64 steps, the kernels each launched, and the two routes' 25-step
+    histories against each other (``trajectory_ok``)."""
+    import torch
+
+    from conjugategradient_tpu_torch import fused_minres_solve
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+    from conjugategradient_tpu_torch.solver.fused_minres import fused_minres_init, fused_minres_step
+    from conjugategradient_tpu_torch.utils import Timer
+
+    n = p3d.n
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    watched = MINRES_DENSE_K1 + MINRES_PACKED_K1 + ("minres_update_dot",)
+    for label, a in (("full", p3d_full), ("symmetric", p3d)):
+        check(bell_packed_route(a), f"poisson3d_48 {label}: not on the packed route")
+        hist = {}
+        for route in ("packed", "dense"):
+            what = f"fused MINRES poisson3d_48 {label}, {route} route"
+            with (contextlib.nullcontext() if route == "packed" else forced_route(False)):
+                fused_minres_solve(a, b, tol=-1.0, maxiter=8)
+                before = {k: _common.LAUNCHES[k] for k in watched}
+                t = Timer(dev).start_measure()
+                state = fused_minres_init(a, b, None, MINRES_STEPS, tol=-1.0)
+                for _ in range(MINRES_STEPS):
+                    fused_minres_step(a, state)
+                t.stop_measure()
+                used = {k: _common.LAUNCHES[k] - before[k] for k in watched}
+                check(int(state.k) == MINRES_STEPS, f"{what}: {int(state.k)} steps stepped")
+                ms_it = t.get_duration() / MINRES_STEPS
+                run64 = lambda: fused_minres_solve(a, b, tol=-1.0, maxiter=64)
+                t = Timer(dev).start_measure()
+                run64()
+                t.stop_measure()
+                busy = device_ms(run64, reps=1)
+                _, h25 = fused_minres_solve(a, b, tol=0.0, maxiter=25)
+            mine = [k for k in MINRES_DENSE_K1 + MINRES_PACKED_K1 if used[k]]
+            check(len(mine) == 1 and used[mine[0]] == MINRES_STEPS
+                  and used["minres_update_dot"] == MINRES_STEPS
+                  and mine[0].endswith("_packed") == (route == "packed"),
+                  f"{what}: launches {used}")
+            hist[route] = h25.rnorm_history
+            busy_s = "not measured" if busy is None else \
+                f"{busy:.4f} of {t.get_duration():.4f} ms ({100 * busy / t.get_duration():.1f}%)"
+            print(f"  {what}: {ms_it:.5f} ms/it over {MINRES_STEPS} steps; 64 steps: device busy "
+                  f"{busy_s}; launches {used}  [{card}]")
+        ok, n_used = trajectory_ok(hist["packed"], hist["dense"], 25)
+        check(ok and n_used >= PARITY_MIN_USED,
+              f"fused MINRES poisson3d_48 {label}: packed vs dense history beyond rtol "
+              f"{TRAJ_RTOL} ({n_used} entries above the floor)")
+        hp, hd = (hist[r][1:26].double().cpu().numpy() for r in ("packed", "dense"))
+        print(f"  fused MINRES poisson3d_48 {label}: the two routes' 25-step histories agree on "
+              f"{n_used} entries (largest relative difference {np.abs(hp / hd - 1).max():.2g})")
+    torch.cuda.synchronize()
+
+
 def phase_minres_path(dev, big, big_full, ops, card):
     """The MINRES path through its entry points (module doc, phase 3)."""
     import torch
@@ -2579,17 +2774,21 @@ def phase_minres_path(dev, big, big_full, ops, card):
     n = read_csr_host(os.path.join(ROOT, path))[3][0]
     tol = TOL_SOLVE_REL * bnorm(n)
     minres = ("--method", "minres")
-    # (a) the tester with --method minres, both blocked layouts
-    for layout, kernel in (("symbell", "sym_minres_dir_spmv_dot"), ("bell", "minres_dir_spmv_dot")):
+    # (a) the tester with --method minres, both blocked layouts: sparse
+    # tiles, so the packed kernel 1 in both
+    for layout, kernel in (("symbell", "sym_minres_dir_spmv_dot_packed"),
+                           ("bell", "minres_dir_spmv_dot_packed")):
         for precond in ("none", "jacobi"):
-            before = _common.LAUNCHES[kernel]
+            before = dict(_common.LAUNCHES)
             dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, tol, extra=minres)
             it = summ["iterations"][0]
-            launched = _common.LAUNCHES[kernel] - before
+            launched = _common.LAUNCHES[kernel] - before[kernel]
+            dense = sum(_common.LAUNCHES[k] - before[k] for k in MINRES_DENSE_K1)
             what = f"tester {path} --method minres --layout {layout} --precond {precond}"
             check(summ["converged"][0], f"{what}: not converged in {it}")
             check(math.isfinite(rel) and rel < REL_ERROR_BOUND, f"{what}: rel_error {rel}")
-            check(launched >= 2 * it, f"{what}: {launched} {kernel} launches for 2 solves of {it}")
+            check(launched >= 2 * it and dense == 0,
+                  f"{what}: {launched} {kernel} launches for 2 solves of {it}, {dense} dense")
             print(f"  {what}: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its ({ms / max(it, 1):.4f} "
                   f"ms/it), rel_error {rel:.3e}  [{card}]")
     # once with a shift inside the spectrum (indefinite)
@@ -2623,6 +2822,7 @@ def phase_minres_path(dev, big, big_full, ops, card):
     copy_gbps = 2 * src.numel() * 4 / cuda_ms(lambda: dst.copy_(src), reps=10) / 1e6
     del src, dst
     eff = big_full.tile_bytes() + 14 * n * 4
+    before = dict(_common.LAUNCHES)
     for label, a in (("symmetric", big), ("full", big_full)):
         fused_minres_solve(a, b, tol=-1.0, maxiter=MINRES_STEPS)
         # bench.py's protocol: the init and MINRES_STEPS steps (no exit work)
@@ -2665,6 +2865,13 @@ def phase_minres_path(dev, big, big_full, ops, card):
               f"GB/s ({streamed / 1e6:.1f} MB/it), {streamed / ms_it / 1e6 / copy_gbps:.3f} of the "
               f"{copy_gbps:.1f} GB/s copy rate; 64 steps: device busy {busy_s}; bitwise repeat ok; "
               f"portable MINRES loop {port_ms_it:.5f} ms/it  [{card}]")
+    packed_used = sum(_common.LAUNCHES[k] - before[k] for k in MINRES_PACKED_K1)
+    check(packed_used == 0, f"fused MINRES n={n}: the dense tiles took the packed kernel "
+          f"{packed_used} times")
+
+    # (b2) poisson3d_48 (sparse tiles) in both storages on its own route,
+    # the packed kernel, and forced onto the dense tiles
+    minres_route_comparison(dev, p3d, p3d_full, copy_gbps, card)
 
     # (c) fused against the portable loop on the card (the plain torch
     # recurrence; on full storage its SpMV is kernel 5), and repeatability
@@ -3592,14 +3799,16 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
 
 def fused_cg_only(dev, card) -> None:
     """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
-    and a hash of each history; then the fused BiCGStab on bench.py's
-    bicgstab-bell operator (dense tiles), a hash of its history and x.  For
-    comparing the dense routes of two trees on one card (this file run
-    beside another tree's package gives that tree's hashes)."""
+    and a hash of each history; then the fused MINRES at n = 262,144 in
+    both storages (dense tiles; bench.py's protocol, 256 steps at tol = -1)
+    and the fused BiCGStab on bench.py's bicgstab-bell operator (dense
+    tiles), a hash of each one's history and x.  For comparing the dense
+    routes of two trees on one card (this file run beside another tree's
+    package gives that tree's hashes)."""
     import torch
 
     from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, fused_bell_cg_solve,
-                                             fused_stencil_cg_solve)
+                                             fused_minres_solve, fused_stencil_cg_solve)
     from conjugategradient_tpu_torch.utils import Timer
 
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
@@ -3619,6 +3828,13 @@ def fused_cg_only(dev, card) -> None:
         digest = hashlib.sha256(info.rho_history.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"  fused CG {label}: {best:.5f} ms/it (best of 3 runs of 256 steps), "
               f"rho_history sha256 {digest}  [{card}]")
+    bm = b / N_BIG  # bench.py's minres protocol
+    for label, a in (("n=262144 symmetric", big), ("n=262144 full", big_full)):
+        x, info = fused_minres_solve(a, bm, tol=-1.0, maxiter=MINRES_STEPS)
+        digest = hashlib.sha256(info.rnorm_history.cpu().numpy().tobytes()
+                                + x.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"  fused MINRES {label}: {int(info.iterations)} its, rnorm_history and x "
+              f"sha256 {digest}  [{card}]")
     a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
     b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
     for tol in (TOL_SOLVE_REL * float(b.double().norm()), 0.0):
@@ -3665,6 +3881,8 @@ def main() -> int:
         if "needed_ms" in t:
             more += (f"; needed-bytes bound {t['needed_ms']:.5f} "
                      f"({t['needed_ms'] / t['ms']:.4f} of it)")
+        if "view_ms" in t:
+            more += f"; the view's own bound {t['view_ms']:.5f}"
         if t.get("library_ms") is not None:
             lib = "conv3d" if name.startswith("stencil7") else "cuSPARSE"
             more += f"; {lib} {t['library_ms']:.5f}"

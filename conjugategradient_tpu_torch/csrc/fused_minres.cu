@@ -45,7 +45,10 @@
 // What bounds them on the H100: K1 streams the stored tiles once (402.7 MB
 // full, 268.4 MB symmetric at n = 262,144 block-tridiagonal, bn = 128) and
 // ten or eleven vectors (1 MB each there, L2-resident): memory bandwidth.
-// K2 streams four or five vectors.
+// K2 streams four or five vectors.  Where the tiles are sparse
+// (ops/spmv.bell_packed_route), K1 has a packed form on either storage
+// (minres_dir_packed_kernel below) that reads the operator's nonzeros
+// instead, with the same outputs and tail.
 
 #include <math.h>
 #include <stdint.h>
@@ -84,21 +87,25 @@ __device__ void lanczos_row(float* xs, int row, const DirArgs& a, float inv_beta
     xs[t] = lanczos_elem(a.r2, a.d, inv_beta, (int64_t)row * BN + t);
 }
 
-// The owner's row: the pending w/x update, then v into xs and memory.
+// The owner's element i: the pending w/x update, then v[i] stored and
+// returned.  v_prev[i], w-2[i] and x[i] are read before their aliases are
+// written.
+__device__ __forceinline__ float own_elem(int64_t i, const DirArgs& a, const float* su) {
+  const float w = __fmul_rn(
+      __fsub_rn(__fsub_rn(a.vprev[i], __fmul_rn(su[SU_OLDEPS], a.wm2[i])),
+                __fmul_rn(su[SU_DELTA], a.wm1[i])),
+      su[SU_IGAMMA]);
+  a.w[i] = w;
+  a.xo[i] = __fadd_rn(a.x[i], __fmul_rn(su[SU_PHI], w));
+  const float v = lanczos_elem(a.r2, a.d, su[SU_INV_BETA], i);
+  a.v[i] = v;
+  return v;
+}
+
+// The owner's row: own_elem over the row, v into xs.
 template <int BN>
 __device__ void own_row(float* xs, int row, const DirArgs& a, const float* su) {
-  for (int t = threadIdx.x; t < BN; t += kThreads) {
-    const int64_t i = (int64_t)row * BN + t;
-    const float w = __fmul_rn(
-        __fsub_rn(__fsub_rn(a.vprev[i], __fmul_rn(su[SU_OLDEPS], a.wm2[i])),
-                  __fmul_rn(su[SU_DELTA], a.wm1[i])),
-        su[SU_IGAMMA]);
-    a.w[i] = w;
-    a.xo[i] = __fadd_rn(a.x[i], __fmul_rn(su[SU_PHI], w));
-    const float v = lanczos_elem(a.r2, a.d, su[SU_INV_BETA], i);
-    xs[t] = v;
-    a.v[i] = v;
-  }
+  for (int t = threadIdx.x; t < BN; t += kThreads) xs[t] = own_elem((int64_t)row * BN + t, a, su);
 }
 
 // K1's last CTA, thread 0: the dots, then c1 = beta/beta_old (0 on the
@@ -133,13 +140,18 @@ __device__ void reduce_dir(float vq_acc, float vr1_acc, const DirArgs& a, float*
   }
 }
 
+// q = A v - sigma v from a row's product: two roundings
+__device__ __forceinline__ float shifted(float av, float shift, float v) {
+  return __fsub_rn(av, __fmul_rn(shift, v));
+}
+
 // A row's final q: shift, store, and both dot terms (xs holds the row's v).
 template <int BN>
 __device__ __forceinline__ void store_q(int row, int t, float qv, const float* xs,
                                         float shift, const DirArgs& a, float& vq_acc,
                                         float& vr1_acc) {
   const int64_t i = (int64_t)row * BN + t;
-  qv = __fsub_rn(qv, __fmul_rn(shift, xs[t]));
+  qv = shifted(qv, shift, xs[t]);
   a.q[i] = qv;
   vq_acc += xs[t] * qv;
   vr1_acc += xs[t] * a.r1[i];
@@ -309,11 +321,59 @@ minres_land_kernel(const float* tparts, const int* __restrict__ mirror_src, DirA
         qv += tparts[(int64_t)s * BN + t];
       }
       const float v = a.v[i];
-      qv = __fsub_rn(qv, __fmul_rn(shift, v));
+      qv = shifted(qv, shift, v);
       a.q[i] = qv;
       vq_acc += v * qv;
       vr1_acc += v * a.r1[i];
     }
+  }
+  reduce_dir(vq_acc, vr1_acc, a, red);
+}
+
+// ---- K1 on the packed nonzeros, full or symmetric storage ------------------
+// Replaces the same minres_dir_spmv_dot (:113) and sym_minres_dir_spmv_dot
+// (:298) where the tiles are sparse: the same v, q, w, x' and dots (and c1,
+// alpha, alpha/beta in the last CTA), from the operator's packed view
+// (types/bell.py PackedBell) instead of the tile stream.  Full storage's
+// view holds its tiles' nonzeros; symmetric storage's holds D + U + U^T, each
+// stored upper nonzero in its own row and in its mirror row, so no mirror
+// lands anywhere: one launch, no scratch, a fixed order per row.  Bound: the
+// view's values and columns (8 bytes a stored entry) and row lengths, and
+// ten vectors (eleven with d), each read or written once: 10.5 MB per call
+// on poisson3d_48 (760,320 nonzeros) against the dense kernels' 283.1 MB
+// (full) and 169.9 MB (symmetric) of tiles.  Symmetric storage stores
+// 612,288 of those nonzeros, so its view reads the off-diagonal ones twice:
+// at best 0.89 of the bound on what that storage needs.  Design: fused_cg.cu's
+// full_dir_packed_kernel: one lane per row and a warp per 32-row chunk
+// (packed_row, tile.cuh).  The lane of row i does own_elem (the pending w/x
+// update and v[i]); each gathered v[c] is recomputed with lanczos_elem from
+// r2 and d, bit-identical to the owner's store, so gathers read only r2 and
+// d, which no lane writes.  A row sums in k order with one rounding per
+// product and per sum, as the plain version does, so q matches it bit for
+// bit; the dots go through per-CTA partials that the last CTA sums in index
+// order and the dense kernels' tail (reduce_dir, finish_dir).  Padding rows
+// (no entries, r2 = 0, d = 1) give v = q = 0.
+
+__global__ void __launch_bounds__(kThreads)
+minres_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                         const int* __restrict__ row_len,
+                         const long long* __restrict__ chunk_off, DirArgs a, int64_t rows) {
+  if (a.ctl[C_LIVE] == 0) return;
+  __shared__ float red[kWarps];
+  __shared__ float su[8];
+  if (threadIdx.x < 8) su[threadIdx.x] = a.su[threadIdx.x];
+  __syncthreads();
+  const float inv_beta = su[SU_INV_BETA];
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float vq_acc = 0.f, vr1_acc = 0.f;
+  if (i < rows) {
+    const float v = own_elem(i, a, su);
+    const float av = packed_row(vals, cols, row_len, chunk_off, i,
+                                [&](int c) { return lanczos_elem(a.r2, a.d, inv_beta, c); });
+    const float qv = shifted(av, su[SU_SHIFT], v);
+    a.q[i] = qv;
+    vq_acc = v * qv;
+    vr1_acc = v * a.r1[i];
   }
   reduce_dir(vq_acc, vr1_acc, a, red);
 }
@@ -595,6 +655,18 @@ int minres_sym_dir_general(const float* diag, const float* off, const int* off_c
 #define CALL(B) launch_general<B>(diag, off, off_cols, mirror_src, a, tparts, nrb, ku, kin, R, s)
   BN_SWITCH(CALL)
 #undef CALL
+}
+
+// K1 on the packed nonzeros of either storage; rows = nrb * bn.  Returns a
+// cudaError_t.
+int minres_dir_packed(const float* vals, const int* cols, const int* row_len,
+                      const long long* chunk_off, DIR_PARAMS, int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const DirArgs a = DIR_ARGS;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  minres_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, a, rows);
+  return cudaGetLastError();
 }
 
 // K1 of the row-sharded loop (row0 = row_offset / bn).  Returns a

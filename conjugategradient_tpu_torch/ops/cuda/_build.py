@@ -59,6 +59,7 @@ SIGNATURES = {
     "minres_sym_dir_general": [_P] * 23 + [_I] * 5 + [_P],
     "minres_update": [_P] * 13 + [_I, _I64, _I, _P],
     "minres_shard_dir": [_P] * 16 + [_I64] + [_I] * 4 + [_P],
+    "minres_dir_packed": [_P] * 22 + [_I64, _P],
     "bicgstab_dir": [_P] * 17 + [_I] * 4 + [_P],
     "bicgstab_s": [_P] * 19 + [_I] * 4 + [_P],
     "bicgstab_dir_packed": [_P] * 19 + [_I64, _P],

@@ -37,8 +37,10 @@ LAUNCHES = {
     "fused_dir_spmv_dot_packed": 0,
     "bicgstab_dir_spmv_dot_packed": 0,
     "bicgstab_s_spmv_dot_packed": 0,
-    # not a kernel: builds of BlockedEllMatrix.packed() (torch ops, once
-    # per operator)
+    "minres_dir_spmv_dot_packed": 0,
+    "sym_minres_dir_spmv_dot_packed": 0,
+    # not a kernel: builds of BlockedEllMatrix.packed() and
+    # SymBellMatrix.packed() (torch ops, once per operator)
     "bell_pack": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)

@@ -110,6 +110,20 @@ def check_packed(name: str, pk) -> None:
                          f"entry per {PACK_CHUNK} rows and one more")
 
 
+def check_packed_vectors(name: str, pk, r2d: torch.Tensor):
+    """The packed fused kernels' operator and the shape of their vectors:
+    a square padded system of ``pk.rows`` rows, vectors (nrb, bn) with
+    nrb·bn = ``pk.rows``.  Returns that shape."""
+    check_packed(name, pk)
+    if pk.ncols != pk.rows:
+        raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
+                         f"{pk.ncols} columns")
+    if r2d.dim() != 2 or r2d.numel() != pk.rows:
+        raise ValueError(f"{name}: vectors must be one (nrb, bn) float32 shape of "
+                         f"{pk.rows} entries, got {tuple(r2d.shape)}")
+    return r2d.shape
+
+
 def packed_apply(pk, x: torch.Tensor) -> torch.Tensor:
     """The plain packed product: y[r] = Σ_k vals[e]·x[cols[e]] over
     e = chunk_off[r // 32] + 32 k + r % 32, k < row_len[r], in k order,

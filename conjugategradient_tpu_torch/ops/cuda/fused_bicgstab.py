@@ -60,7 +60,7 @@ from ._common import (
     raise_on_error,
     stream,
 )
-from .bell_spmv import check_packed, packed_product
+from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live, auto_row_group
 
 # BicgstabWork.scal, shared with csrc/fused_bicgstab.cu: the recurrence
@@ -251,20 +251,6 @@ def _check_out(name, out, n_out, gathered, own=()):
                              "rows gather (double-buffer it)")
 
 
-def _check_packed_vectors(name, pk, r2d):
-    """The packed forms' operator and the shape of their vectors: a square
-    padded system of ``pk.rows`` rows, vectors (nrb, bn) with nrb·bn =
-    ``pk.rows``."""
-    check_packed(name, pk)
-    if pk.ncols != pk.rows:
-        raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
-                         f"{pk.ncols} columns")
-    if r2d.dim() != 2 or r2d.numel() != pk.rows:
-        raise ValueError(f"{name}: vectors must be one (nrb, bn) float32 shape of "
-                         f"{pk.rows} entries, got {tuple(r2d.shape)}")
-    return r2d.shape
-
-
 def _operands(r2d, work, out, dots, n_out):
     """A launch's work, dot outputs and vector outputs: a solve's own (its
     dots live in its work, valid until its next step), or new ones."""
@@ -374,7 +360,7 @@ def bicgstab_dir_spmv_dot_packed(
     rows, vectors (nrb, bn) float32 with nrb·bn = ``pk.rows``.  Any tile
     width."""
     name = "bicgstab_dir_spmv_dot_packed"
-    shape = _check_packed_vectors(name, pk, r2d)
+    shape = check_packed_vectors(name, pk, r2d)
     vecs = _check_dir(name, shape, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out)
     if not on_cuda(name, pk.vals, pk.cols, pk.row_len, pk.chunk_off, *vecs, beta, omega,
                    *_extra(out, work)):
@@ -479,7 +465,7 @@ def bicgstab_s_spmv_dot_packed(
     :func:`bicgstab_s_spmv_dot` with the operator and vectors of
     :func:`bicgstab_dir_spmv_dot_packed`."""
     name = "bicgstab_s_spmv_dot_packed"
-    shape = _check_packed_vectors(name, pk, r2d)
+    shape = check_packed_vectors(name, pk, r2d)
     vecs = _check_s(name, shape, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out)
     if not on_cuda(name, pk.vals, pk.cols, pk.row_len, pk.chunk_off, *vecs, alpha,
                    *_extra(out, work)):

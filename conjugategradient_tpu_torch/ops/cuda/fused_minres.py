@@ -10,6 +10,15 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_minres.py``:
   fused_minres.py:113);
 * :func:`sym_minres_dir_spmv_dot` — the same on symmetric tiles D + U + Uᵀ
   (replaces ``sym_minres_dir_spmv_dot``, fused_minres.py:298);
+* :func:`minres_dir_spmv_dot_packed` — the same as either of the two on
+  the operator's packed nonzeros (``BlockedEllMatrix.packed()`` or
+  ``SymBellMatrix.packed()``, whose view holds D + U + Uᵀ), for sparse
+  tiles (``ops/spmv.bell_packed_route``): one kernel for both storages,
+  counted as ``minres_dir_spmv_dot_packed`` or
+  ``sym_minres_dir_spmv_dot_packed`` by the view's storage.  The three
+  share one plain body, which takes the product as a callable; the packed
+  form's is ``bell_spmv.packed_apply``, whose order and rounding the
+  kernel copies, so the two match bit for bit in every vector;
 * :func:`minres_update_dot` — r2' = q − c1·r1 − ia·r2 and β² = r2'·(d⊙r2')
   (replaces ``minres_update_dot``, fused_minres.py:425);
 * :func:`minres_shard_spmv_dot` — one shard of the row-sharded loop: the
@@ -58,6 +67,7 @@ from ._common import (
     raise_on_error,
     stream,
 )
+from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import (C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live,  # noqa: F401
                        auto_row_group, put_hist)
 
@@ -372,6 +382,43 @@ def sym_minres_dir_spmv_dot(
 
     return _dir_cuda(name, (diag_blocks, off_blocks, off_cols, mirror_src), vecs, su,
                      inv_diag2d, out, work, -(-nrb // row_group), launch)
+
+
+def minres_dir_spmv_dot_packed(
+    pk,
+    r2_2d: torch.Tensor,
+    r1_2d: torch.Tensor,
+    vprev2d: torch.Tensor,
+    wm1_2d: torch.Tensor,
+    wm2_2d: torch.Tensor,
+    x2d: torch.Tensor,
+    su: torch.Tensor,
+    inv_diag2d: Optional[torch.Tensor] = None,
+    *,
+    out: Optional[Tuple[torch.Tensor, ...]] = None,
+    work: Optional[MinresWork] = None,
+):
+    """Kernel 1 on the packed nonzeros ``pk`` (``types/bell.PackedBell``,
+    float32) of either storage: the contract of :func:`minres_dir_spmv_dot`
+    (the same returns and aliasing rules) for a square padded system of
+    ``pk.rows`` rows, vectors (nrb, bn) float32 with nrb·bn = ``pk.rows``.
+    Any tile width.  Launches are counted as ``sym_minres_dir_spmv_dot_packed``
+    when ``pk.symmetric`` (kernel 15's function), else as
+    ``minres_dir_spmv_dot_packed`` (kernel 14's)."""
+    name = "sym_minres_dir_spmv_dot_packed" if pk.symmetric else "minres_dir_spmv_dot_packed"
+    nrb, bn = check_packed_vectors(name, pk, r2_2d)
+    vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
+    _check_dir_operands(name, nrb, bn, vecs, su, inv_diag2d, out)
+    view = (pk.vals, pk.cols, pk.row_len, pk.chunk_off)
+    if not on_cuda(name, *view, *vecs, su, inv_diag2d, *_extra(out, work)):
+        return _dir_plain(name, packed_product(pk), vecs, su, inv_diag2d, out, work)
+
+    def launch(lib, common, w):
+        return lib.minres_dir_packed(*(ptr(t) for t in view), *common, pk.rows,
+                                     stream(r2_2d.device))
+
+    return _dir_cuda(name, view, vecs, su, inv_diag2d, out, work, -(-pk.rows // _THREADS),
+                     launch)
 
 
 def _dir_plain(name, apply, vecs, su, inv_diag2d, out, work):

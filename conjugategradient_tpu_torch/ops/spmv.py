@@ -79,13 +79,17 @@ def bell_apply(blocks, block_cols, x2d):
 
 
 def bell_packed_route(a) -> bool:
-    """Whether SpMVs on a full blocked-ELL operator read its packed
-    nonzeros (``BlockedEllMatrix.packed``) instead of the tile stream:
-    float32 tiles whose view, 8 bytes a nonzero and 4 a row, takes at most
-    half of ``tile_bytes()``, or whose width bn the dense kernels do not
-    take.  ``a.nnz`` and the shapes decide, so choosing reads no tiles; the
-    rule is the same on every device, so the CPU runs the packed kernels'
-    plain versions where the card runs the kernels."""
+    """Whether products with a blocked-ELL operator read its packed
+    nonzeros (``a.packed()``) instead of the tile stream: float32 tiles
+    whose view, 8 bytes a nonzero and 4 a row, takes at most half of
+    ``tile_bytes()``, or whose width bn the dense kernels do not take.
+    ``a.nnz`` (the whole operator's, also for symmetric storage, whose
+    view holds D + U + Uᵀ) and the shapes decide, so choosing reads no
+    tiles; the rule is the same on every device, so the CPU runs the
+    packed kernels' plain versions where the card runs the kernels.  Full
+    storage (``BlockedEllMatrix``) is read so by every SpMV and fused step;
+    symmetric storage (``SymBellMatrix``, ``tile_bytes()`` = diagonal and
+    upper tiles) by the fused MINRES step only."""
     if a.dtype != torch.float32:
         return False
     return a.bn not in CUDA_BN or 2 * (8 * a.nnz + 4 * a.nrb * a.bm) <= a.tile_bytes()

@@ -3,7 +3,8 @@ storage (the GPU fast path).  Counterpart of
 ``conjugategradient_tpu/solver/fused_minres.py``: the algorithm and
 semantics of solver/minres.py (Paige–Saunders Lanczos + Givens recurrence,
 absolute-φ̄ termination, NaN and β = 0 exits), with the iteration body as
-two kernels (ops/cuda/fused_minres.py):
+two kernels (ops/cuda/fused_minres.py; K1 reads the operator's packed
+nonzeros where its tiles are sparse, ``ops/spmv.bell_packed_route``):
 
     K1  [apply the PREVIOUS iteration's solution update]
         v = (d⊙r2)/β;  q = (A − σI)·v;  vq = v·q;  vr1 = v·r1
@@ -40,10 +41,11 @@ from ..ops.cuda.fused_minres import (
     SU_PHI,
     MinresWork,
     minres_dir_spmv_dot,
+    minres_dir_spmv_dot_packed,
     minres_update_dot,
     sym_minres_dir_spmv_dot,
 )
-from ..ops.spmv import full_precision_matmul
+from ..ops.spmv import bell_packed_route, full_precision_matmul
 from ..types import BlockedEllMatrix, SymBellMatrix
 from .fused import BellOperator, _auto_mirror, fused_supported
 from .minres import MinresInfo
@@ -159,22 +161,26 @@ def fused_minres_step(a: BellOperator, s: FusedMinresState,
                       mirror: str = "auto") -> FusedMinresState:
     """One MINRES iteration in two fused kernels, updating ``s`` in place;
     the same recurrence and exits as solver/minres.minres_step, with x one
-    update behind.  On symmetric storage ``mirror="auto"`` picks the Bᵀ
-    landing from the pattern; full storage has no mirror and ignores it."""
+    update behind.  Either storage reads its packed nonzeros where
+    ``ops/spmv.bell_packed_route`` says so (sparse tiles), else the tile
+    stream.  On symmetric storage's tiles ``mirror="auto"`` picks the Bᵀ
+    landing from the pattern; full storage and the packed view have no
+    mirror and ignore it."""
     w = s.work
     out = (s.vprev, s.q, s.wm2, s.x)
     vecs = (s.r2, s.r1, s.vprev, s.wm1, s.wm2, s.x, w.su, s.d)
-    if isinstance(a, BlockedEllMatrix):
+    if isinstance(a, SymBellMatrix) and mirror == "banded" and not a.banded:
+        raise ValueError(
+            "mirror='banded' requires a block-tridiagonal operator "
+            "(SymBellMatrix.banded); this pattern has off-band tiles")
+    if bell_packed_route(a):
+        minres_dir_spmv_dot_packed(a.packed(), *vecs, out=out, work=w)
+    elif isinstance(a, BlockedEllMatrix):
         minres_dir_spmv_dot(a.blocks, a.block_cols, *vecs, out=out, work=w)
     else:
-        if mirror == "auto":
-            mirror = _auto_mirror(a)
-        elif mirror == "banded" and not a.banded:
-            raise ValueError(
-                "mirror='banded' requires a block-tridiagonal operator "
-                "(SymBellMatrix.banded); this pattern has off-band tiles")
         sym_minres_dir_spmv_dot(a.diag_blocks, a.off_blocks, a.off_cols, *vecs,
-                                mirror=mirror, mirror_src=a.mirror_src, out=out, work=w)
+                                mirror=_auto_mirror(a) if mirror == "auto" else mirror,
+                                mirror_src=a.mirror_src, out=out, work=w)
     minres_update_dot(s.q, s.r1, s.r2, w.c1, w.ia, s.d, out=s.r1, work=w)
     s.r1, s.r2 = s.r2, s.r1
     s.wm1, s.wm2 = s.wm2, s.wm1

@@ -90,17 +90,19 @@ PACK_CHUNK = 32
 
 @dataclasses.dataclass(frozen=True)
 class PackedBell:
-    """The nonzeros of a full blocked-ELL operator's tiles, as SELL-32.
+    """The nonzeros of a blocked-ELL operator, as SELL-32: a full
+    operator's tiles (:func:`pack_nonzeros`), or symmetric storage's
+    D + U + Uᵀ (:func:`pack_symmetric`, ``symmetric=True``).
 
     Rows (``rows = nrb * bm``, padding rows included) go in chunks of
     ``PACK_CHUNK``; row ``r``'s k-th nonzero sits at entry
     ``chunk_off[r // 32] + 32 * k + r % 32`` of ``vals`` and ``cols``, for
     ``k < row_len[r]``: column-major within a chunk, so a warp's loads of
     one k are one coalesced run.  ``cols`` are global columns (block column
-    · bn + column in the tile) into x padded to ``ncols``.  Within a row
-    the nonzeros keep the dense kernels' visiting order: slot, then column
-    in the tile.  Exact zeros, and with them the padding tiles, are
-    dropped; entries past a row's length are zero and never read.
+    · bn + column in the tile) into x padded to ``ncols``.  Exact zeros,
+    and with them the padding tiles, are dropped; entries past a row's
+    length are zero and never read.  The order within a row is the one a
+    product sums in; each packing function states its own.
     """
 
     vals: torch.Tensor  # (total,) tile dtype
@@ -109,6 +111,7 @@ class PackedBell:
     chunk_off: torch.Tensor  # (ceil(rows / 32) + 1,) int64
     nnz: int  # nonzeros kept
     ncols: int  # padded operand length
+    symmetric: bool = False  # built from symmetric storage: D + U + Uᵀ
 
     @property
     def rows(self) -> int:
@@ -120,18 +123,12 @@ class PackedBell:
                    for t in (self.vals, self.cols, self.row_len, self.chunk_off))
 
 
-def pack_nonzeros(blocks: torch.Tensor, block_cols: torch.Tensor, ncols: int) -> PackedBell:
-    """Full blocked-ELL tiles -> :class:`PackedBell` for an operand padded
-    to ``ncols``, with torch ops on the tiles' device (one-time set-up: it
-    reads the whole tile stream)."""
-    nrb, kmax, bm, bn = blocks.shape
-    dev = blocks.device
-    rows = nrb * bm
+def _sell_layout(row, col, val, rows: int, ncols: int, symmetric: bool = False) -> PackedBell:
+    """(row, column, value) triples -> :class:`PackedBell`.  The triples
+    come sorted by row, each row's in the order its product is to sum
+    them; ``row`` and ``col`` are int64 on ``val``'s device."""
+    dev = val.device
     c = PACK_CHUNK
-    # nonzero walks the (block-row, row in tile, slot, column in tile)
-    # view in order: each row's nonzeros come out in visiting order
-    rb, m, k, j = torch.nonzero(blocks.permute(0, 2, 1, 3) != 0, as_tuple=True)
-    row = rb * bm + m
     row_len = torch.bincount(row, minlength=rows)
     pos = torch.arange(row.numel(), device=dev) - (torch.cumsum(row_len, 0) - row_len)[row]
     nchunk = _cdiv(rows, c)
@@ -140,11 +137,65 @@ def pack_nonzeros(blocks: torch.Tensor, block_cols: torch.Tensor, ncols: int) ->
     chunk_off[1:] = torch.cumsum(width * c, 0)
     total = int(chunk_off[-1])
     at = chunk_off[row // c] + pos * c + row % c
-    vals = blocks.new_zeros(total)
-    vals[at] = blocks[rb, k, m, j]
+    vals = val.new_zeros(total)
+    vals[at] = val
     cols = torch.zeros(total, dtype=torch.int32, device=dev)
-    cols[at] = (block_cols[rb, k].long() * bn + j).to(torch.int32)
-    return PackedBell(vals, cols, row_len.to(torch.int32), chunk_off, int(row.numel()), ncols)
+    cols[at] = col.to(torch.int32)
+    return PackedBell(vals, cols, row_len.to(torch.int32), chunk_off, int(row.numel()), ncols,
+                      symmetric)
+
+
+def pack_nonzeros(blocks: torch.Tensor, block_cols: torch.Tensor, ncols: int) -> PackedBell:
+    """Full blocked-ELL tiles -> :class:`PackedBell` for an operand padded
+    to ``ncols``, with torch ops on the tiles' device (one-time set-up: it
+    reads the whole tile stream).  Within a row the nonzeros keep the dense
+    kernels' visiting order: slot, then column in the tile."""
+    nrb, kmax, bm, bn = blocks.shape
+    # nonzero walks the (block-row, row in tile, slot, column in tile)
+    # view in order: each row's nonzeros come out in visiting order
+    rb, m, k, j = torch.nonzero(blocks.permute(0, 2, 1, 3) != 0, as_tuple=True)
+    return _sell_layout(rb * bm + m, block_cols[rb, k].long() * bn + j, blocks[rb, k, m, j],
+                        nrb * bm, ncols)
+
+
+def pack_symmetric(diag_blocks: torch.Tensor, off_blocks: torch.Tensor, off_cols: torch.Tensor,
+                   ncols: int) -> PackedBell:
+    """Symmetric blocked-ELL storage -> :class:`PackedBell` of the whole
+    operator D + U + Uᵀ, with torch ops on the tiles' device (one-time
+    set-up).  Each diagonal tile's nonzeros enter once; each upper tile's
+    nonzero (r, c) enters as (r, c) and as its mirror (c, r), so the
+    off-diagonal nonzeros are stored twice and a product needs no landing
+    of mirrored rows.  Padding slots (zero tiles pointing at their own
+    block-row) are dropped.  Within a row the nonzeros go in ascending
+    global column (the three sources never share a column)."""
+    nrb, bm, bn = diag_blocks.shape
+    i, m, j = torch.nonzero(diag_blocks != 0, as_tuple=True)
+    rows_d, cols_d, vals_d = i * bm + m, i * bn + j, diag_blocks[i, m, j]
+    i, k, m, j = torch.nonzero(off_blocks != 0, as_tuple=True)
+    tgt = off_cols[i, k].long()
+    real = tgt != i  # a slot pointing at its own row is padding
+    i, k, m, j, tgt = i[real], k[real], m[real], j[real], tgt[real]
+    rows_u, cols_u, vals_u = i * bm + m, tgt * bn + j, off_blocks[i, k, m, j]
+    row = torch.cat([rows_d, rows_u, cols_u])
+    col = torch.cat([cols_d, cols_u, rows_u])
+    order = torch.argsort(row * ncols + col)  # keys are distinct
+    return _sell_layout(row[order], col[order], torch.cat([vals_d, vals_u, vals_u])[order],
+                        nrb * bm, ncols, symmetric=True)
+
+
+def _cached_pack(op, tensors, build) -> PackedBell:
+    """``op``'s packed view, built by ``build()`` once and kept with the
+    operator, keyed on the storage and version of ``tensors`` (an in-place
+    change rebuilds it); builds are counted in ``LAUNCHES["bell_pack"]``."""
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    hit = op.__dict__.get("_packed")
+    if hit is None or hit[0] != key:
+        from ..ops.cuda._common import LAUNCHES
+
+        hit = (key, build())
+        object.__setattr__(op, "_packed", hit)
+        LAUNCHES["bell_pack"] += 1
+    return hit[1]
 
 
 def mirror_index(off_cols: np.ndarray) -> np.ndarray:
@@ -306,16 +357,9 @@ class BlockedEllMatrix(LinearOperator):
         ``LAUNCHES["bell_pack"]``).  Keyed on the tiles' storage and
         version, so an in-place change of ``blocks`` or ``block_cols``
         rebuilds it."""
-        key = (self.blocks.data_ptr(), self.blocks._version,
-               self.block_cols.data_ptr(), self.block_cols._version)
-        hit = self.__dict__.get("_packed")
-        if hit is None or hit[0] != key:
-            from ..ops.cuda._common import LAUNCHES
-
-            hit = (key, pack_nonzeros(self.blocks, self.block_cols, self.padded_shape[1]))
-            object.__setattr__(self, "_packed", hit)
-            LAUNCHES["bell_pack"] += 1
-        return hit[1]
+        return _cached_pack(self, (self.blocks, self.block_cols),
+                            lambda: pack_nonzeros(self.blocks, self.block_cols,
+                                                  self.padded_shape[1]))
 
     def astype(self, dtype) -> "BlockedEllMatrix":
         return dataclasses.replace(self, blocks=self.blocks.to(dtype))
@@ -540,6 +584,16 @@ class SymBellMatrix(LinearOperator):
     def astype(self, dtype) -> "SymBellMatrix":
         return dataclasses.replace(self, diag_blocks=self.diag_blocks.to(dtype),
                                    off_blocks=self.off_blocks.to(dtype))
+
+    def packed(self) -> PackedBell:
+        """The whole operator D + U + Uᵀ as a :class:`PackedBell`
+        (:func:`pack_symmetric`), built once per operator on its device and
+        kept with it (counted in ``LAUNCHES["bell_pack"]``).  Keyed on the
+        storage and version of ``diag_blocks``, ``off_blocks`` and
+        ``off_cols``, so an in-place change of any of them rebuilds it."""
+        return _cached_pack(self, (self.diag_blocks, self.off_blocks, self.off_cols),
+                            lambda: pack_symmetric(self.diag_blocks, self.off_blocks,
+                                                   self.off_cols, self.padded_shape[1]))
 
     def tile_bytes(self) -> int:
         """Operator bytes one symmetric pass streams (diag + upper tiles)."""

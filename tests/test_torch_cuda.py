@@ -13,6 +13,7 @@ ops per element, the same on both sides); q and y to 1e-5 of their largest
 entry and the dots to 1e-5 relative (f32 sums in another order).
 """
 
+import math
 import pathlib
 
 import numpy as np
@@ -1040,3 +1041,132 @@ def test_fused_solve_routes_by_tile_fill(dev, bn):
         t.matvec(x)
         assert fc.LAUNCHES["fused_dir_spmv_dot"] == 5 and fc.LAUNCHES["bell_spmv"] == 1
         assert fc.LAUNCHES["fused_dir_spmv_dot_packed"] == fc.LAUNCHES["bell_pack"] == 0
+
+
+# ---- kernels 14 and 15 on the packed nonzeros of sparse tiles -------------------
+
+def _poisson_ops(nx, bn, dev):
+    """The 5-point 2-D Poisson operator on an nx x nx grid as float32
+    blocked-ELL with bn x bn tiles, in full and symmetric storage: sparse
+    tiles."""
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(nx)
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=shape[0]))])
+    full = BlockedEllMatrix.from_csr_host(vals[order].astype(np.float32), cols[order], indptr,
+                                          shape, bm=bn, bn=bn, device=dev)
+    return full, SymBellMatrix.from_bell(full)
+
+
+def _same_bits(a, b):
+    """Equal, NaN where the other is NaN (a NaN's payload aside)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["full", "sym"])
+@pytest.mark.parametrize("nx,bn", [(64, 128), (37, 32)], ids=["poisson64", "ragged37-bn32"])
+def test_minres_packed_kernel_bit_equal_to_plain(dev, nx, bn, storage):
+    """Kernel 14 (full storage's view) and kernel 15 (symmetric storage's
+    D + U + Uᵀ) on the packed kernel, ± Jacobi d, shift 0 and not 0, a first
+    step and a pending one, NaN scalars: v, q, w and x' bit-equal to the
+    plain version, the dots to RTOL, the last CTA's scalar step 0 ulps from
+    torch's on the kernel's own dots, repeats bit-identical, in place as
+    the solver launches it; a no-op once not live."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+
+    full, sym = _poisson_ops(nx, bn, dev)
+    a = full if storage == "full" else sym
+    assert bell_packed_route(a)
+    name = "minres_dir_spmv_dot_packed" if storage == "full" else "sym_minres_dir_spmv_dot_packed"
+    pk = a.packed()
+    assert pk.symmetric == (storage == "sym")
+    nrb = pk.rows // bn
+    d = torch.ones(pk.rows, device=dev)
+    d[:a.n] = 1.0 / a.diagonal()
+    cases = [(dd, shift, first) for dd in (None, d.view(nrb, bn)) for shift in (0.0, 0.07)
+             for first in (False, True)]
+    for dd, shift, first in cases + [(None, float("nan"), False)]:
+        vecs, su, _ = _minres_operands(a, dev, nx, False, first)
+        su[0, fm.SU_SHIFT] = shift
+        if math.isnan(shift):  # NaN 1/beta and phi: every output NaN where the plain's is
+            su[0, fm.SU_INV_BETA] = su[0, fm.SU_PHI] = float("nan")
+        fc.reset_counts()
+        wk, wp = fm.MinresWork.new(dev, maxiter=4), fm.MinresWork.new(dev, maxiter=4)
+        for w in (wk, wp):
+            w.scal[fm.M_OLDB] = 1.7
+            w.start(torch.tensor(2.3, device=dev))
+        k = fm.minres_dir_spmv_dot_packed(pk, *vecs, su, dd, work=wk)
+        k2 = fm.minres_dir_spmv_dot_packed(pk, *vecs, su, dd)
+        pl = fm._dir_plain(name, kb.packed_product(pk), vecs, su, dd, None, None)
+        torch.cuda.synchronize()
+        assert fc.LAUNCHES[name] == 2 and sum(fc.LAUNCHES.values()) == 2
+        for i in range(4):
+            assert _same_bits(k[i], pl[i]), ("v", "q", "w", "x")[i]
+            assert _same_bits(k[i], k2[i])
+        if math.isnan(shift):
+            assert torch.isnan(k[0]).all() and math.isnan(float(k[4]))
+            continue
+        for i in (4, 5):
+            np.testing.assert_allclose(float(k[i]), float(pl[i]), rtol=RTOL,
+                                       atol=RTOL * float(pl[0].norm() * vecs[1].norm()))
+        assert torch.equal(k[4], k2[4]) and torch.equal(k[5], k2[5])
+        if first:
+            assert torch.equal(k[3], vecs[5]) and not k[2].any()  # x kept, w = 0
+        fm.finish_dir(wp, k[4][0, 0], k[5][0, 0])
+        assert torch.equal(wk.scal[:fm.M_VQ].view(torch.int32), wp.scal[:fm.M_VQ].view(torch.int32))
+    # in place, as the solver launches it: v over v_prev, w over w-2, x over x
+    r2, r1, vprev, wm1, wm2, x = (v.clone() for v in vecs)
+    kin = fm.minres_dir_spmv_dot_packed(pk, r2, r1, vprev, wm1, wm2, x, su, dd,
+                                        out=(vprev, torch.empty_like(r2), wm2, x))
+    torch.cuda.synchronize()
+    assert all(_same_bits(u, v) for u, v in zip(kin[:4], pl[:4]))
+    assert torch.equal(r2, vecs[0]) and torch.equal(r1, vecs[1]) and torch.equal(wm1, vecs[3])
+    # not live: nothing is written
+    vecs, su, _ = _minres_operands(a, dev, 1, False)
+    wk.ctl[fc.C_LIVE] = 0
+    out = tuple(torch.full_like(vecs[0], 7.0) for _ in range(4))
+    kept = wk.scal.clone()
+    fm.minres_dir_spmv_dot_packed(pk, *vecs, su, out=out, work=wk)
+    torch.cuda.synchronize()
+    assert all(bool((o == 7.0).all()) for o in out)
+    assert torch.equal(wk.scal.view(torch.int32), kept.view(torch.int32))  # NaN slots too
+    with pytest.raises(ValueError, match="alias"):
+        fm.minres_dir_spmv_dot_packed(pk, *vecs, su,
+                                      out=(vecs[0], *(torch.empty_like(vecs[0]) for _ in range(3))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["full", "sym"])
+def test_fused_minres_solve_takes_the_packed_kernel(dev, storage):
+    """``minres_solve`` on a sparse-tile operator (2-D Poisson nx = 64 at
+    128 x 128) in either storage: the packed kernel and kernel 16 once a
+    step, no tile kernel and no plain version on CUDA, the view built once,
+    bitwise repeatable; its history against the same solve's plain versions
+    on the CPU to 2e-3 over 24 steps, plain, shifted and with Jacobi."""
+    from conjugategradient_tpu_torch import fused_minres_solve, jacobi_preconditioner, minres_solve
+
+    full, sym = _poisson_ops(64, 128, dev)
+    a = full if storage == "full" else sym
+    name = "minres_dir_spmv_dot_packed" if storage == "full" else "sym_minres_dir_spmv_dot_packed"
+    b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
+    ac = a.to("cpu")
+    for shift, M in ((0.0, None), (0.5, None), (0.0, jacobi_preconditioner(a))):
+        inv = None if M is None else M.inv_diag
+        a.packed()
+        fc.reset_counts()
+        xk, ik = minres_solve(a, b, tol=0.0, maxiter=24, shift=shift, M=M)
+        assert fc.LAUNCHES[name] == fc.LAUNCHES["minres_update_dot"] == 24
+        assert fc.LAUNCHES["minres_dir_spmv_dot"] == fc.LAUNCHES["sym_minres_dir_spmv_dot"] == 0
+        assert fc.LAUNCHES["bell_pack"] == 0  # built once, before the counts were reset
+        xk2, ik2 = fused_minres_solve(a, b, tol=0.0, maxiter=24, shift=shift, inv_diag=inv)
+        assert torch.equal(xk, xk2)
+        assert torch.equal(ik.rnorm_history.view(torch.int32), ik2.rnorm_history.view(torch.int32))
+        assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+        _, ip = fused_minres_solve(ac, b.cpu(), tol=0.0, maxiter=24, shift=shift,
+                                   inv_diag=None if inv is None else inv.cpu())
+        hk, hp = ik.rnorm_history.double().cpu().numpy(), ip.rnorm_history.double().numpy()
+        np.testing.assert_allclose(hk, hp, rtol=2e-3, atol=1e-6 * hp[0])
