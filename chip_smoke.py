@@ -42,8 +42,14 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    shift, with su = 0 and with a Jacobi-scaled v): q within TOL_Q, w and x'
    bit-equal (also written over w-2 and x), the dots within TOL_DOT, two
    launches bit-identical; kernels 2, 3 and 16 in the sharded loop's
-   partials-only mode bit-equal to their full-tail launches; kernels 6 and
-   17 timed on a shard of P = 4 (and P = 8).  Kernels 5 and 4 on the packed
+   partials-only mode bit-equal to their full-tail launches, and at the
+   lengths of one shard (n / 4, n / 8) bit-equal to their plain versions in
+   x', r' and r2' (the dots within TOL_DOT); a launch of kernel 2, 3 or 16
+   that is not live writes nothing (n and n / 8, with and without the
+   scalar step); kernels 6 and 17 timed on a shard of P = 4 (and P = 8),
+   kernels 2, 3 and 16 in partials-only mode at n / 4 and n / 8, and the
+   floor of one elementwise launch at n (``torch.add``; no library time of
+   theirs).  Kernels 5 and 4 on the packed
    nonzeros of sparse tiles (``bell_spmv_packed``,
    ``fused_dir_spmv_dot_packed``) on poisson3d_48 (kernel 5 at 128 x 128
    and 8 x 128, kernel 4 at 128 x 128 with and without the Jacobi
@@ -169,12 +175,20 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
 
-``python3 chip_smoke.py --fused-cg-only`` runs nothing but the fused CG
-loops at n = 262,144 (both storages) and at 256^3 and prints their ms/it
-and a hash of each history, then a hash of the fused MINRES's history and
-x at n = 262,144 in both storages and of the fused BiCGStab's on the
-bicgstab-bell operator (dense tiles all): for comparing two trees on one
-card.
+``python3 chip_smoke.py --fused-cg-only`` runs nothing but the fused
+loops and kernels 2, 3 and 16, for comparing two trees on one card (run
+beside another tree's package, it gives that tree's numbers): the ms/it
+and a hash of each history of the fused CG at n = 262,144 (both storages)
+and at 256^3, of the fused Jacobi PCG at n = 262,144 (symmetric storage),
+of the fused MINRES there in both storages (history and x), of the fused
+CG, PCG and MINRES on poisson3d_48 (the packed route) and of
+``sharded_cg_solve`` at P = 4 on the fused kernels (CG, Jacobi PCG and
+MINRES; history and x); the fused BiCGStab's hash on the bicgstab-bell
+operator; one hash of each of kernels 2, 3 and 16 on seeded inputs (at n
+with the scalar step, there again on inputs whose squares tie below
+FLT_MIN, and at n / 8 partials only); their device times at n (with and
+without the scalar step), 256^3, n / 4 and n / 8, and the elementwise
+floor.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -1528,15 +1542,7 @@ def check_minres_update(shape, rng, with_d, errs, label, dev):
                  for _ in range(3))
     d = torch.as_tensor(0.5 + rng.random(shape), dtype=torch.float32, device=dev) if with_d else None
 
-    def work():
-        w = fm.MinresWork.new(dev, maxiter=9, tol=1e-3, shift=0.07)
-        w.scal[fm.M_OLDB], w.scal[fm.M_DBAR], w.scal[fm.M_EPSLN] = 1.7, 0.4, 0.2
-        w.scal[fm.M_CS], w.scal[fm.M_SN], w.scal[fm.M_ALFA] = -0.8, 0.6, 2.2
-        w.scal[fm.M_C1], w.scal[fm.M_IA] = 0.4, 0.9
-        w.start(torch.tensor(2.3, device=dev))
-        return w
-
-    wk, wp = work(), work()
+    wk, wp = minres_update_work(dev), minres_update_work(dev)
     yk, bk = fm.minres_update_dot(q, r1, r2, wk.c1, wk.ia, d, work=wk)
     yp, bp = fm._update_plain(q, r1, r2, wp.c1, wp.ia, d, None, None)
     r1c = r1.clone()
@@ -3688,6 +3694,19 @@ def phase_sharded_kernels(dev, errs, times, extra):
                       first=first, jacobi=jacobi)
     check_partials_only((N_BIG // 128, 128), rng, dev, "(2048, 128)")
     check_partials_only((13, 32), rng, dev, "(13, 32)")
+    # kernels 2, 3 and 16 at the lengths of one shard (n / P): against their
+    # plain versions, partials-only against full-tail, and not live
+    rng_u = np.random.default_rng(41)
+    for n_shards in UPDATE_SHARDS:
+        shape, label = (N_BIG // 128 // n_shards, 128), f"n/{n_shards}"
+        for pcg in (False, True):
+            check_update(shape, rng_u, pcg, errs, label, dev)
+        for with_d in (False, True):
+            check_minres_update(shape, rng_u, with_d, errs, label + ("+d" if with_d else ""), dev)
+        check_partials_only(shape, rng_u, dev, label)
+    for n in (N_BIG, N_BIG // 8):
+        check_update_not_live(n, dev, f"n={n}")
+    extra.update(update_rows(dev, sharded_only=True))
 
     # timing at the path's shapes, launched as the loop launches them: into
     # its buffers, on a solve's work that never finishes
@@ -3949,19 +3968,245 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
     torch.cuda.synchronize()
 
 
+# ---- kernels 2, 3 and 16: per-call hashes, not-live launches, timing rows ----------
+
+UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (16 hex digits)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def update_operands(n, seed, dev, ties=False):
+    """Seeded x, p, r, q (standard normal) and d (in [0.5, 1.5)) of n
+    float32 entries, and alpha = 0.61.  ``ties``: x, p, r, q small
+    integers times 2^-75 and alpha = 0.5, so r' is exact and many of its
+    squares are ties below FLT_MIN, where a rounded square and an FMA
+    part."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if ties:
+        vecs = [torch.as_tensor(rng.integers(-15, 16, n) * 2.0 ** -75, dtype=torch.float32,
+                                device=dev) for _ in range(4)]
+    else:
+        vecs = [torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+                for _ in range(4)]
+    vecs.append(torch.as_tensor(0.5 + rng.random(n), dtype=torch.float32, device=dev))
+    return (*vecs, torch.full((1, 1), 0.5 if ties else 0.61, dtype=torch.float32, device=dev))
+
+
+def minres_update_work(dev, maxiter=9, tol=1e-3):
+    """A MINRES solve's work part-way: every scalar kernel 16's step reads
+    set to a value that is not 0."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    w = fm.MinresWork.new(dev, maxiter=maxiter, tol=tol, shift=0.07)
+    w.scal[fm.M_OLDB], w.scal[fm.M_DBAR], w.scal[fm.M_EPSLN] = 1.7, 0.4, 0.2
+    w.scal[fm.M_CS], w.scal[fm.M_SN], w.scal[fm.M_ALFA] = -0.8, 0.6, 2.2
+    w.scal[fm.M_C1], w.scal[fm.M_IA] = 0.4, 0.9
+    w.start(torch.tensor(2.3, device=dev))
+    return w
+
+
+def update_launches(dev, x, p, r, q, d, alpha):
+    """(label, launch(work, partials_only, out) -> outputs, new work) for
+    kernels 2, 3, 16 and 16 with d, on these operands (kernel 16 reads q,
+    r and p as its q, r1 and r2)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    def fused_work():
+        w = fc.FusedWork.new(dev, maxiter=9, tol=1e-3)
+        w.scal[fc.S_RNORM], w.scal[fc.S_RHO] = 2.5, 1.5
+        return w
+
+    def k16(dd):
+        return lambda w, po, out: fm.minres_update_dot(q, r, p, w.c1, w.ia, dd, out=out, work=w,
+                                                       partials_only=po)
+
+    return (
+        ("fused_update_dot",
+         lambda w, po, out: fc.fused_update_dot(x, p, r, q, alpha, out=out, work=w,
+                                                partials_only=po), fused_work),
+        ("fused_update_dot_pcg",
+         lambda w, po, out: fc.fused_update_dot_pcg(x, p, r, q, d, alpha, out=out, work=w,
+                                                    partials_only=po), fused_work),
+        ("minres_update_dot", k16(None), lambda: minres_update_work(dev)),
+        ("minres_update_dot+d", k16(d), lambda: minres_update_work(dev)),
+    )
+
+
+def update_hashes(dev, card) -> None:
+    """A hash of each of kernels 2, 3 and 16 on seeded inputs: at n =
+    262,144 with the scalar step (its outputs, then the work's scalars,
+    control words and history after it), there again on inputs whose
+    squares tie below FLT_MIN (update_operands), and at n / 8 in
+    partials-only mode (its outputs); for comparing two trees on one
+    card."""
+    for n, partials, ties in ((N_BIG, False, False), (N_BIG, False, True),
+                              (N_BIG // 8, True, False)):
+        for label, launch, new_work in update_launches(dev, *update_operands(n, 5, dev, ties)):
+            w = new_work()
+            outs = launch(w, partials, None)
+            h = digest(*outs, w.scal, w.ctl, w.hist) if not partials else digest(*outs)
+            mode = "partials only" if partials else "with the scalar step"
+            print(f"  per-call hash {label} n={n} {mode}{', ties' if ties else ''}: {h}  "
+                  f"[{card}]")
+
+
+def check_update_not_live(n, dev, label) -> None:
+    """Kernels 2, 3 and 16 on a solve that is not live, with and without
+    the scalar step: nothing changes (the inputs, the outputs' buffers, the
+    partials, the counter, scal, ctl, hist)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    ops = update_operands(n, 23, dev)
+    for name, launch, new_work in update_launches(dev, *ops):
+        for partials in (False, True):
+            w = new_work()
+            w.ctl[fc.C_LIVE] = 0
+            w.partials.fill_(7.0)
+            outs = [torch.full_like(ops[0], 3.0) for _ in range(1 if "minres" in name else 2)]
+            bufs = (*ops, *outs, w.partials, w.counter, w.scal, w.ctl, w.hist)
+            kept = [t.clone() for t in bufs]
+            launch(w, partials, outs[0] if len(outs) == 1 else tuple(outs))
+            torch.cuda.synchronize()
+            check(all(same_bits(a, b) for a, b in zip(kept, bufs)),
+                  f"{name} {label} partials_only={partials}: a launch that is not live wrote")
+    print(f"  kernels 2, 3, 16 {label}: a launch that is not live writes nothing, "
+          "with and without the scalar step")
+
+
+def update_rows(dev, sharded_only=False) -> dict:
+    """Kernels 2, 3 and 16 timed against their plain versions (time_pair),
+    launched as their loops launch them (into their buffers, on a solve's
+    work that never finishes): in partials-only mode at n / 4 and n / 8,
+    which the sharded loop launches P times a step; unless
+    ``sharded_only``, also with the scalar step at n = 262,144 (kernel 16
+    with and without d), kernels 2 and 16 there without it, and kernel 2
+    at 256^3 (the row of kernel 13).
+    Each with the bound on the bytes of its vectors."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork.start(torch.tensor(2.3, device=dev))
+    cases = [(N_BIG // P, f"n/{P} partials", True, ("K2", "K3", "K16")) for P in UPDATE_SHARDS]
+    if not sharded_only:  # and at n without the scalar step, to part bytes from the tail
+        cases = [(N_BIG, "n=262144", False, ("K2", "K3", "K16", "K16+d")),
+                 (N_BIG, "n=262144 partials", True, ("K2", "K16")),
+                 (math.prod(STENCIL_GRID), "256^3", False, ("K2",))] + cases
+    rows = {}
+    for n, tag, partials, kernels in cases:
+        x, p, r, q, d, alpha = update_operands(n, 31, dev)
+        xo, ro = torch.empty_like(x), torch.empty_like(r)
+        fns = {
+            "K2": (lambda: fc.fused_update_dot(x, p, r, q, alpha, out=(xo, ro), work=work,
+                                               partials_only=partials),
+                   lambda: fc._update_plain("fused_update_dot", x, p, r, q, None, alpha, None,
+                                            None), 6, 6),
+            "K3": (lambda: fc.fused_update_dot_pcg(x, p, r, q, d, alpha, out=(xo, ro), work=work,
+                                                   partials_only=partials),
+                   lambda: fc._update_plain("fused_update_dot_pcg", x, p, r, q, d, alpha, None,
+                                            None), 7, 9),
+            "K16": (lambda: fm.minres_update_dot(q, r, p, mwork.c1, mwork.ia, out=ro, work=mwork,
+                                                 partials_only=partials),
+                    lambda: fm._update_plain(q, r, p, mwork.c1, mwork.ia, None, None, None), 4, 7),
+            "K16+d": (lambda: fm.minres_update_dot(q, r, p, mwork.c1, mwork.ia, d, out=ro,
+                                                   work=mwork, partials_only=partials),
+                      lambda: fm._update_plain(q, r, p, mwork.c1, mwork.ia, d, None, None), 5, 9),
+        }
+        for k in kernels:
+            kern, plain, streams, flops = fns[k]
+            t = time_pair(kern, plain)
+            # vectors in and out, 4 bytes an entry; no one call computes it
+            t.update(bound(streams * n * 4, flops * n), library_ms=None)
+            rows[f"{k} {tag}"] = t
+    torch.cuda.synchronize()
+    check(int(work.ctl[fc.C_LIVE]) == 1 and int(mwork.ctl[fc.C_LIVE]) == 1,
+          "update timing: a timed solve stopped being live, so later launches were no-ops")
+    return rows
+
+
+def elementwise_floor(dev, card) -> None:
+    """The floor of one elementwise launch at n = 262,144: the device time
+    of torch.add(x, p, alpha=a, out=xo) over float32 (12 bytes an entry).
+    Not a library time for kernels 2, 3 or 16: one axpy, no dot, no
+    scalar step."""
+    import torch
+
+    x, p, _, _, _, _ = update_operands(N_BIG, 37, dev)
+    xo = torch.empty_like(x)
+    fn = lambda: torch.add(x, p, alpha=0.61, out=xo)
+    dev_ms, ev_ms = device_ms(fn), cuda_ms(fn)
+    b = bound(3 * N_BIG * 4, 2 * N_BIG)["bound_ms"]
+    print(f"  time floor: torch.add n=262144 (one elementwise launch; no library time of "
+          f"kernels 2, 3, 16) {fmt_ms(dev_ms)} device / {ev_ms:.5f} per call; bound "
+          f"{b:.5f} (ms)  [{card}]")
+
+
+def print_time_row(name, t, card) -> None:
+    more = ""
+    if "bound_ms" in t:
+        more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']}, {t['bound_ms'] / t['ms']:.3f} of it)"
+    if "needed_ms" in t:
+        more += (f"; needed-bytes bound {t['needed_ms']:.5f} "
+                 f"({t['needed_ms'] / t['ms']:.4f} of it)")
+    if "view_ms" in t:
+        more += f"; the view's own bound {t['view_ms']:.5f}"
+    if t.get("library_ms") is not None:
+        lib = "conv3d" if name.startswith("stencil7") else "cuSPARSE"
+        more += f"; {lib} {t['library_ms']:.5f}"
+    print(f"  time {name:<28} kernel {fmt_ms(t['device_ms'])} device / "
+          f"{t['event_ms']:.5f} per call; plain {fmt_ms(t['plain_device_ms'])} "
+          f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
+
+
 def fused_cg_only(dev, card) -> None:
-    """The fused CG loops alone (``--fused-cg-only``): ms/it over 256 steps
-    and a hash of each history; then the fused MINRES at n = 262,144 in
-    both storages (dense tiles; bench.py's protocol, 256 steps at tol = -1)
-    and the fused BiCGStab on bench.py's bicgstab-bell operator (dense
-    tiles), a hash of each one's history and x.  For comparing the dense
-    routes of two trees on one card (this file run beside another tree's
-    package gives that tree's hashes)."""
+    """The fused loops alone (``--fused-cg-only``), for comparing two trees
+    on one card (this file run beside another tree's package gives that
+    tree's numbers).  ms/it (the best of 3 solves after a warm-up) and a
+    hash of each history: fused CG at n = 262,144 in both storages and at
+    256^3, fused Jacobi PCG at n = 262,144 in symmetric storage (256 steps
+    at tol = -1, dense tiles); the fused MINRES at n = 262,144 in both
+    storages (bench.py's protocol), hash of history and x; fused CG, PCG
+    and MINRES on poisson3d_48 (symmetric storage, the packed route);
+    ``sharded_cg_solve`` at P = 4 with the fused kernels (CG, Jacobi PCG,
+    MINRES), hash of history and x; the fused BiCGStab on bench.py's
+    bicgstab-bell operator; then the per-call hashes of kernels 2, 3 and
+    16 (update_hashes), their timing rows (update_rows) and the
+    elementwise floor."""
     import torch
 
     from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, fused_bell_cg_solve,
-                                             fused_minres_solve, fused_stencil_cg_solve)
+                                             fused_bell_pcg_solve, fused_minres_solve,
+                                             fused_stencil_cg_solve)
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
+
+    def timed(solve, *args, steps=256, **kw):
+        """(ms per step, the best of 3 solves of ``steps`` steps at tol =
+        -1 after a warm-up; x; info of the last)."""
+        solve(*args, tol=-1.0, maxiter=32, **kw)
+        best = float("inf")
+        for _ in range(3):
+            t = Timer(dev).start_measure()
+            x, info = solve(*args, tol=-1.0, maxiter=steps, **kw)
+            t.stop_measure()
+            best = min(best, t.get_duration() / int(info.iterations))
+        return best, x, info
 
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
     b = torch.arange(1, N_BIG + 1, dtype=torch.float32, device=dev)
@@ -3970,31 +4215,46 @@ def fused_cg_only(dev, card) -> None:
     for label, solve, a, rhs in (("n=262144 symmetric", fused_bell_cg_solve, big, b),
                                  ("n=262144 full", fused_bell_cg_solve, big_full, b),
                                  ("stencil 256^3", fused_stencil_cg_solve, op, bs)):
-        solve(a, rhs, tol=-1.0, maxiter=32)
-        best = float("inf")
-        for _ in range(3):
-            t = Timer(dev).start_measure()
-            _, info = solve(a, rhs, tol=-1.0, maxiter=256)
-            t.stop_measure()
-            best = min(best, t.get_duration() / 256)
-        digest = hashlib.sha256(info.rho_history.cpu().numpy().tobytes()).hexdigest()[:16]
-        print(f"  fused CG {label}: {best:.5f} ms/it (best of 3 runs of 256 steps), "
-              f"rho_history sha256 {digest}  [{card}]")
+        ms, _, info = timed(solve, a, rhs)
+        print(f"  fused CG {label}: {ms:.5f} ms/it (best of 3 runs of 256 steps), "
+              f"rho_history sha256 {digest(info.rho_history)}  [{card}]")
+    ms, _, info = timed(fused_bell_pcg_solve, big, b, 1.0 / big.diagonal())
+    print(f"  fused Jacobi PCG n=262144 symmetric: {ms:.5f} ms/it (best of 3 runs of 256 "
+          f"steps), rho_history sha256 {digest(info.rho_history)}  [{card}]")
     bm = b / N_BIG  # bench.py's minres protocol
     for label, a in (("n=262144 symmetric", big), ("n=262144 full", big_full)):
-        x, info = fused_minres_solve(a, bm, tol=-1.0, maxiter=MINRES_STEPS)
-        digest = hashlib.sha256(info.rnorm_history.cpu().numpy().tobytes()
-                                + x.cpu().numpy().tobytes()).hexdigest()[:16]
-        print(f"  fused MINRES {label}: {int(info.iterations)} its, rnorm_history and x "
-              f"sha256 {digest}  [{card}]")
+        ms, x, info = timed(fused_minres_solve, a, bm, steps=MINRES_STEPS)
+        print(f"  fused MINRES {label}: {int(info.iterations)} its, {ms:.5f} ms/it, "
+              f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
+    p3d = load_symbell(MATRICES[0], dev)
+    bp = torch.arange(1, p3d.n + 1, dtype=torch.float32, device=dev)
+    for label, solve, args in (("CG", fused_bell_cg_solve, (p3d, bp)),
+                               ("Jacobi PCG", fused_bell_pcg_solve,
+                                (p3d, bp, 1.0 / p3d.diagonal())),
+                               ("MINRES", fused_minres_solve, (p3d, bp / p3d.n))):
+        ms, x, info = timed(solve, *args)
+        hist = info.rnorm_history if label == "MINRES" else info.rho_history
+        print(f"  fused {label} poisson3d_48 symmetric (packed route): {int(info.iterations)} "
+              f"its, {ms:.5f} ms/it, history and x sha256 {digest(hist, x)}  [{card}]")
+    blocks4, cols4 = sharded_ops(dev, 4)
+    mesh = make_row_mesh(4, dev)
+    for label, rhs, kw in (("CG", b, {}),
+                           ("Jacobi PCG", b, {"inv_diag": 1.0 / big_full.diagonal()}),
+                           ("MINRES", bm, {"method": "minres"})):
+        ms, x, info = timed(sharded_cg_solve, blocks4, cols4, rhs, mesh=mesh, use_fused="always",
+                            **kw)
+        print(f"  sharded fused {label} n=262144 P=4: {int(info.iterations)} its, {ms:.5f} ms/it, "
+              f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
     a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
     b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
     for tol in (TOL_SOLVE_REL * float(b.double().norm()), 0.0):
         x, info = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
-        digest = hashlib.sha256(info.rnorm_history.cpu().numpy().tobytes()
-                                + x.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"  fused BiCGStab bicgstab-bell tol {tol:.3g}: {int(info.iterations)} its, "
-              f"rnorm_history and x sha256 {digest}  [{card}]")
+              f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
+    update_hashes(dev, card)
+    for name, t in update_rows(dev).items():
+        print_time_row(name, t, card)
+    elementwise_floor(dev, card)
 
 
 def main() -> int:
@@ -4027,20 +4287,8 @@ def main() -> int:
     bic_ops = phase_bicgstab_kernels(dev, errs, times, extra)
     shard_ops = phase_sharded_kernels(dev, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
-        more = ""
-        if "bound_ms" in t:
-            more = f"; bound {t['bound_ms']:.5f} ({t['bound_by']}, {t['bound_ms'] / t['ms']:.3f} of it)"
-        if "needed_ms" in t:
-            more += (f"; needed-bytes bound {t['needed_ms']:.5f} "
-                     f"({t['needed_ms'] / t['ms']:.4f} of it)")
-        if "view_ms" in t:
-            more += f"; the view's own bound {t['view_ms']:.5f}"
-        if t.get("library_ms") is not None:
-            lib = "conv3d" if name.startswith("stencil7") else "cuSPARSE"
-            more += f"; {lib} {t['library_ms']:.5f}"
-        print(f"  time {name:<28} kernel {fmt_ms(t['device_ms'])} device / "
-              f"{t['event_ms']:.5f} per call; plain {fmt_ms(t['plain_device_ms'])} "
-              f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
+        print_time_row(name, t, card)
+    elementwise_floor(dev, card)
 
     # phase 3: each path with the counters set to 0 just before it and read
     # just after; a kernel's launches are those of its own path

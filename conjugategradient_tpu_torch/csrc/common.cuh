@@ -52,6 +52,85 @@ __device__ float sum_partials(const float* parts, int n, float* red) {
   return block_sum(s, red);
 }
 
+// The update kernels' tail (K2/K3, K16).  block_sum2 and sum_partials2
+// reduce two values in one pass, each in exactly the order block_sum and
+// sum_partials give it, so every bit is theirs; publish_last replaces
+// arrive_last: only thread 0, whose partials are the only writes another
+// CTA reads, publishes them.
+
+// Loads the compiler keeps where they are written: issued before a branch
+// that would otherwise delay them (a not-live return, the last CTA's test),
+// so their round trips overlap.  The same ld.global as a plain load.
+__device__ __forceinline__ float4 ld_now(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_now(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int ld_now(const int* p) {
+  int v;
+  asm volatile("ld.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// block_sum of a and of b in one butterfly and one pair of barriers;
+// valid in thread 0.
+__device__ float2 block_sum2(float a, float b, float (*red)[kWarps]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) {
+    red[0][w] = a;
+    red[1][w] = b;
+  }
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWarps; ++i) {
+      s.x += red[0][i];
+      s.y += red[1][i];
+    }
+  }
+  return s;
+}
+
+// sum_partials of parts1 and of parts2, both partials of an index loaded
+// in one round; valid in thread 0.
+__device__ float2 sum_partials2(const float* parts1, const float* parts2, int n,
+                                float (*red)[kWarps]) {
+  float a = 0.f, b = 0.f;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    a += __ldcg(parts1 + i);
+    b += __ldcg(parts2 + i);
+  }
+  return block_sum2(a, b, red);
+}
+
+// True in every thread of the last CTA of a 1-D grid to arrive.  Thread 0
+// has stored this CTA's partials; its one acq_rel ticket releases them and,
+// in the last CTA, acquires every other CTA's.  No other thread fences: its
+// stores are read by the next launch only, which the kernel boundary orders.
+__device__ bool publish_last(unsigned* counter) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(counter), "r"(1u) : "memory");
+    last = old == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
 // last CTA of a direction kernel (K1): pap, then alpha = rho / pap
 // (alpha = 0 when rho == 0: a warm start at the solution keeps x intact)
 __device__ void finish_pap(float pap, float* pap_out, float* scal) {

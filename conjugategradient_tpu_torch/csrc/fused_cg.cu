@@ -43,8 +43,10 @@
 //     (increasing source row).  tparts is 1/bn of the tile bytes.
 //   - padding slots (zero tiles pointing at their own row) are skipped,
 //     so their tiles are never read.
-// * No-op steps after convergence: every kernel reads ctl[LIVE] first and
-//   returns at once when it is 0; the host checks ctl only every K steps.
+// * No-op steps after convergence: every kernel writes nothing when
+//   ctl[LIVE] is 0 (K1 reads it first and returns; K2 issues its first
+//   loads beside that read, then returns); the host checks ctl only every
+//   K steps.
 //
 // What bounds it on the H100: K1 streams the stored tiles once (268 MB per
 // iteration at n = 262,144 block-tridiagonal, bn = 128), so it is a
@@ -405,7 +407,8 @@ sym_dir_land_kernel(float* q, const float* tparts, const int* __restrict__ mirro
 // Replaces fused_update_dot (fused_cg.py:608, _update_kernel :519) and,
 // with d != NULL, fused_update_dot_pcg (:555, _update_kernel_pcg :534).
 // Bound: 6 (CG) or 7 (PCG) vector streams of 4 n bytes, 6.3 MB at
-// n = 262,144 (L2-resident there), so a few microseconds of device time.
+// n = 262,144 (L2-resident there): about 2 microseconds, less than the
+// chain of dependent round trips from launch to the scalar step.
 // Design: float4 grid-stride pass with at most 1024 CTAs, then the last
 // n % 4 elements one by one (a stencil volume such as 5 x 6 x 7 has such a
 // tail; when n % 4 == 0 the tail loop adds nothing, so blocked-ELL lengths
@@ -413,12 +416,49 @@ sym_dir_land_kernel(float* q, const float* tparts, const int* __restrict__ mirro
 // last CTA does the solver's scalar step.  On the stencil path this kernel
 // also closes fused_update_dot_3d (ops/pallas/fused_stencil.py:150), the
 // same function on an (nx, ny, nz) volume, through its flat view.
+// The chain is cut, the reduction tree kept: ctl[C_LIVE], alpha, the first
+// float4s and (thread 0) the scalar step's inputs are loaded at once, before
+// the not-live return; PCG's two sums share one block_sum2 and one
+// sum_partials2; only thread 0 publishes (publish_last: one acq_rel ticket,
+// no fence in the other threads).  Each sum keeps its per-thread order,
+// butterfly and in-order CTA and partial sums, so every output keeps its
+// bits.
 // x/xo and r/ro may alias (in-place update): each element is read and
 // written by the same thread.  scal == NULL is the partials-only mode of
 // the row-sharded loop (parallel/loops.py): the last CTA writes this
 // shard's sums and stops, since the scalar step needs every shard's sum
 // (it runs after the psum); ctl[C_LIVE] still makes a step after the end a
-// no-op.
+// no-op: nothing is written, the counter is not touched.
+
+// One float4 of K2: x' and r', and r'.r' (and d r'.r') accumulated.
+// Every rounding of the sums is written out, none left to the compiler's
+// contraction: with d each square is rounded, then added (and taken into
+// the Jacobi sum by an FMA); without d one FMA an entry.  The two forms
+// differ where a square is a tie (below FLT_MIN), and the fused solves'
+// pinned histories hold these.
+__device__ __forceinline__ void update4(float a, float4 xv, float4 pv, float4 rv,
+                                        float4 qv, float4 dv, bool has_d, float4& xn,
+                                        float4& rn, float& s1, float& s2) {
+  xn.x = __fadd_rn(xv.x, __fmul_rn(a, pv.x));
+  xn.y = __fadd_rn(xv.y, __fmul_rn(a, pv.y));
+  xn.z = __fadd_rn(xv.z, __fmul_rn(a, pv.z));
+  xn.w = __fadd_rn(xv.w, __fmul_rn(a, pv.w));
+  rn.x = __fsub_rn(rv.x, __fmul_rn(a, qv.x));
+  rn.y = __fsub_rn(rv.y, __fmul_rn(a, qv.y));
+  rn.z = __fsub_rn(rv.z, __fmul_rn(a, qv.z));
+  rn.w = __fsub_rn(rv.w, __fmul_rn(a, qv.w));
+  if (has_d) {
+    const float e0 = __fmul_rn(rn.x, rn.x), e1 = __fmul_rn(rn.y, rn.y),
+                e2 = __fmul_rn(rn.z, rn.z), e3 = __fmul_rn(rn.w, rn.w);
+    s1 = __fadd_rn(s1, e0); s1 = __fadd_rn(s1, e1);
+    s1 = __fadd_rn(s1, e2); s1 = __fadd_rn(s1, e3);
+    s2 = fmaf(dv.x, e0, s2); s2 = fmaf(dv.y, e1, s2);
+    s2 = fmaf(dv.z, e2, s2); s2 = fmaf(dv.w, e3, s2);
+  } else {
+    s1 = fmaf(rn.x, rn.x, s1); s1 = fmaf(rn.y, rn.y, s1);
+    s1 = fmaf(rn.z, rn.z, s1); s1 = fmaf(rn.w, rn.w, s1);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const float* alpha_p, const float* x, const float* p,
@@ -426,11 +466,7 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
               float* ro, float* rnorm_out, float* rho_out, float* partials,
               unsigned* counter, float* scal, int* ctl, float* hist,
               int hist_len, int64_t n) {
-  if (ctl[C_LIVE] == 0) return;
-  const int64_t n4 = n / 4;
-  __shared__ float red[kWarps];
-  const float a = *alpha_p;
-  float s1 = 0.f, s2 = 0.f;
+  const int64_t n4 = n / 4, stride = (int64_t)gridDim.x * kThreads;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const float4* p4 = reinterpret_cast<const float4*>(p);
   const float4* r4 = reinterpret_cast<const float4*>(r);
@@ -438,28 +474,34 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
   const float4* d4 = reinterpret_cast<const float4*>(d);
   float4* xo4 = reinterpret_cast<float4*>(xo);
   float4* ro4 = reinterpret_cast<float4*>(ro);
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * kThreads) {
-    const float4 xv = x4[i], pv = p4[i], rv = r4[i], qv = q4[i];
-    float4 xn, rn;
-    xn.x = __fadd_rn(xv.x, __fmul_rn(a, pv.x));
-    xn.y = __fadd_rn(xv.y, __fmul_rn(a, pv.y));
-    xn.z = __fadd_rn(xv.z, __fmul_rn(a, pv.z));
-    xn.w = __fadd_rn(xv.w, __fmul_rn(a, pv.w));
-    rn.x = __fsub_rn(rv.x, __fmul_rn(a, qv.x));
-    rn.y = __fsub_rn(rv.y, __fmul_rn(a, qv.y));
-    rn.z = __fsub_rn(rv.z, __fmul_rn(a, qv.z));
-    rn.w = __fsub_rn(rv.w, __fmul_rn(a, qv.w));
+  // every independent load at once; nothing is written before the live test
+  const int live = ld_now(ctl + C_LIVE);
+  const float a = ld_now(alpha_p);
+  int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float4 xv, pv, rv, qv, dv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < n4) {
+    xv = ld_now(x4 + i); pv = ld_now(p4 + i); rv = ld_now(r4 + i); qv = ld_now(q4 + i);
+    if (d) dv = ld_now(d4 + i);
+  }
+  float rn_pre = 0.f, rho = 0.f, tol = 0.f;  // the scalar step's inputs
+  int k0 = 0, maxiter = 0;
+  if (scal && threadIdx.x == 0) {
+    rn_pre = ld_now(scal + S_RNORM); rho = ld_now(scal + S_RHO); tol = ld_now(scal + S_TOL);
+    k0 = ld_now(ctl + C_K); maxiter = ld_now(ctl + C_MAXITER);
+  }
+  if (live == 0) return;
+  float s1 = 0.f, s2 = 0.f;
+  float4 xn, rn;
+  if (i < n4) {
+    update4(a, xv, pv, rv, qv, dv, d != nullptr, xn, rn, s1, s2);
     xo4[i] = xn;
     ro4[i] = rn;
-    const float e0 = rn.x * rn.x, e1 = rn.y * rn.y, e2 = rn.z * rn.z,
-                e3 = rn.w * rn.w;
-    s1 += e0; s1 += e1; s1 += e2; s1 += e3;
-    if (d) {
-      const float4 dv = d4[i];
-      s2 = fmaf(dv.x, e0, s2); s2 = fmaf(dv.y, e1, s2);
-      s2 = fmaf(dv.z, e2, s2); s2 = fmaf(dv.w, e3, s2);
-    }
+    i += stride;
+  }
+  for (; i < n4; i += stride) {
+    update4(a, x4[i], p4[i], r4[i], q4[i], d ? d4[i] : dv, d != nullptr, xn, rn, s1, s2);
+    xo4[i] = xn;
+    ro4[i] = rn;
   }
   // the scalar tail: at most 3 elements, one per thread of CTA 0
   const int64_t t = 4 * n4 + (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -468,38 +510,41 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
     const float rn = __fsub_rn(r[t], __fmul_rn(a, q[t]));
     xo[t] = xn;
     ro[t] = rn;
-    const float e = rn * rn;
-    s1 += e;
+    const float e = __fmul_rn(rn, rn);
+    s1 = __fadd_rn(s1, e);
     if (d) s2 = fmaf(d[t], e, s2);
   }
-  const float b1 = block_sum(s1, red);
-  const float b2 = d ? block_sum(s2, red) : 0.f;
+  __shared__ float red[2][kWarps];
+  const float2 b = d ? block_sum2(s1, s2, red) : make_float2(block_sum(s1, red[0]), 0.f);
   if (threadIdx.x == 0) {
-    partials[blockIdx.x] = b1;
-    partials[gridDim.x + blockIdx.x] = b2;
+    partials[blockIdx.x] = b.x;
+    if (d) partials[gridDim.x + blockIdx.x] = b.y;
   }
-  if (arrive_last(counter)) {
-    const float rn = sum_partials(partials, gridDim.x, red);
-    const float rz = d ? sum_partials(partials + gridDim.x, gridDim.x, red) : rn;
-    if (threadIdx.x == 0) {
-      if (scal) {
-        // the solver's scalar step (solver/fused.py): termination tests the
-        // PRE-update ||r||^2, beta = rho_next / rho with the rho == 0 guard
-        const float rn_pre = scal[S_RNORM], rho = scal[S_RHO];
-        const int done = isnan(rn_pre) || sqrtf(rn_pre) <= scal[S_TOL];
-        const int k = ctl[C_K] + 1;
-        ctl[C_K] = k;
-        ctl[C_DONE] = done;
-        ctl[C_LIVE] = !done && k < ctl[C_MAXITER];
-        if (k < hist_len) hist[k] = rn;
-        scal[S_BETA] = rho == 0.f ? 0.f : rz / rho;
-        scal[S_RHO] = rz;
-        scal[S_RNORM] = rn;
-      }
-      rnorm_out[0] = rn;
-      if (rho_out) rho_out[0] = rz;
-      *counter = 0u;
+  if (!publish_last(counter)) return;
+  float2 sums;
+  if (d) {
+    sums = sum_partials2(partials, partials + gridDim.x, gridDim.x, red);
+  } else {
+    sums.x = sums.y = sum_partials(partials, gridDim.x, red[0]);
+  }
+  if (threadIdx.x == 0) {
+    const float rn = sums.x, rz = sums.y;
+    if (scal) {
+      // the solver's scalar step (solver/fused.py): termination tests the
+      // PRE-update ||r||^2, beta = rho_next / rho with the rho == 0 guard
+      const int done = isnan(rn_pre) || sqrtf(rn_pre) <= tol;
+      const int k = k0 + 1;
+      ctl[C_K] = k;
+      ctl[C_DONE] = done;
+      ctl[C_LIVE] = !done && k < maxiter;
+      if (k < hist_len) hist[k] = rn;
+      scal[S_BETA] = rho == 0.f ? 0.f : rz / rho;
+      scal[S_RHO] = rz;
+      scal[S_RNORM] = rn;
     }
+    rnorm_out[0] = rn;
+    if (rho_out) rho_out[0] = rz;
+    *counter = 0u;
   }
 }
 

@@ -40,7 +40,8 @@
 //   and live (finish_update).  Products and sums there are __fmul_rn /
 //   __fadd_rn, division and sqrtf round correctly (no fast-math), so the
 //   plain version's torch 0-d float32 ops give the same bits.
-// * Every kernel returns at once when ctl[C_LIVE] is 0.
+// * Every kernel writes nothing when ctl[C_LIVE] is 0 (K2 issues its
+//   first loads beside that read, then returns).
 //
 // What bounds them on the H100: K1 streams the stored tiles once (402.7 MB
 // full, 268.4 MB symmetric at n = 262,144 block-tridiagonal, bn = 128) and
@@ -469,26 +470,63 @@ minres_shard_kernel(const float* __restrict__ blocks, const int* __restrict__ co
 // ---- K2: r2' = q - c1 r1 - ia r2, bsq = r2'.(d r2') ------------------------
 // Replaces minres_update_dot (fused_minres.py:425, _minres_update_kernel
 // :398).  Bound: 4 (5 with d) vector streams of 4 n bytes, L2-resident at
-// n = 262,144.  Design: float4 grid-stride pass with at most 1024 CTAs
-// (n % 4 == 0, which blocked-ELL lengths satisfy; the wrapper checks),
-// per-CTA partials, and the last CTA does the solver's scalar step.  r2o
-// may be any of the inputs: each element is read and written by one thread.
+// n = 262,144: about 1.3 microseconds, less than the chain of dependent
+// round trips from launch to the scalar step.  Design: float4 grid-stride
+// pass with at most 1024 CTAs (n % 4 == 0, which blocked-ELL lengths
+// satisfy; the wrapper checks), per-CTA partials, and the last CTA does the
+// solver's scalar step.  The chain is cut as in fused_cg.cu's K2: ctl[C_LIVE],
+// c1, ia, the first float4s and (thread 0) every input of the scalar step are
+// loaded at once, before the not-live return, and only thread 0 publishes
+// (publish_last); the reduction tree and so every bit stay.  r2o may be any
+// of the inputs: each element is read and written by one thread.
 // scal == NULL is the partials-only mode of the row-sharded loop
 // (parallel/loops.py): the last CTA writes this shard's bsq and stops; the
 // scalar step runs after the sum over the shards.  ctl[C_LIVE] still makes
-// a step after the end a no-op.
+// a step after the end a no-op: nothing is written, the counter is not
+// touched.
 
 __device__ __forceinline__ float update_elem(float q, float r1, float r2, float c1,
                                              float ia) {
   return __fsub_rn(__fsub_rn(q, __fmul_rn(c1, r1)), __fmul_rn(ia, r2));
 }
 
+// One float4 of K2: r2', and r2'.(d r2') accumulated.
+__device__ __forceinline__ void minres_update4(float c1, float ia, float4 qv, float4 av,
+                                               float4 bv, float4 dv, bool has_d,
+                                               float4& y, float& s) {
+  y.x = update_elem(qv.x, av.x, bv.x, c1, ia);
+  y.y = update_elem(qv.y, av.y, bv.y, c1, ia);
+  y.z = update_elem(qv.z, av.z, bv.z, c1, ia);
+  y.w = update_elem(qv.w, av.w, bv.w, c1, ia);
+  if (has_d) {
+    s = fmaf(__fmul_rn(dv.x, y.x), y.x, s); s = fmaf(__fmul_rn(dv.y, y.y), y.y, s);
+    s = fmaf(__fmul_rn(dv.z, y.z), y.z, s); s = fmaf(__fmul_rn(dv.w, y.w), y.w, s);
+  } else {
+    s = fmaf(y.x, y.x, s); s = fmaf(y.y, y.y, s);
+    s = fmaf(y.z, y.z, s); s = fmaf(y.w, y.w, s);
+  }
+}
+
+// What K2's scalar step reads, loaded by thread 0 at the kernel's start
+struct UpdateIn {
+  float beta, dbar0, oldeps, phibar0, cs0, sn0, tol, alfa;
+  int k, nan, maxiter;
+};
+
+__device__ UpdateIn load_update_in(const float* scal, const int* ctl) {
+  UpdateIn in;
+  in.beta = ld_now(scal + M_BETA); in.dbar0 = ld_now(scal + M_DBAR);
+  in.oldeps = ld_now(scal + M_EPSLN); in.phibar0 = ld_now(scal + M_PHIBAR);
+  in.cs0 = ld_now(scal + M_CS); in.sn0 = ld_now(scal + M_SN);
+  in.tol = ld_now(scal + M_TOL); in.alfa = ld_now(scal + M_ALFA);
+  in.k = ld_now(ctl + C_K); in.nan = ld_now(ctl + C_NAN); in.maxiter = ld_now(ctl + C_MAXITER);
+  return in;
+}
+
 // K2's last CTA, thread 0 (solver/fused_minres.py's step after kernel 2)
-__device__ void finish_update(float bsq, float* scal, int* ctl, float* hist,
-                              int hist_len) {
-  const float beta = scal[M_BETA], dbar0 = scal[M_DBAR], oldeps = scal[M_EPSLN];
-  const float phibar0 = scal[M_PHIBAR], cs0 = scal[M_CS], sn0 = scal[M_SN];
-  const float tol = scal[M_TOL], alfa = scal[M_ALFA];
+__device__ void finish_update(float bsq, const UpdateIn& in, float* scal, int* ctl,
+                              float* hist, int hist_len) {
+  const float cs0 = in.cs0, sn0 = in.sn0, dbar0 = in.dbar0, alfa = in.alfa;
   const float beta_new = sqrtf(bsq);  // NaN iff M is not SPD
   const float delta = __fadd_rn(__fmul_rn(cs0, dbar0), __fmul_rn(sn0, alfa));
   const float gbar = __fsub_rn(__fmul_rn(sn0, dbar0), __fmul_rn(cs0, alfa));
@@ -498,22 +536,22 @@ __device__ void finish_update(float bsq, float* scal, int* ctl, float* hist,
   if (!isnan(gamma)) gamma = fmaxf(gamma, 1.17549435e-38f);  // FLT_MIN; a NaN stays
   const float cs_new = gbar / gamma;
   const float sn_new = beta_new / gamma;
-  const float phi = __fmul_rn(cs_new, phibar0);
-  const float phibar_new = __fmul_rn(sn_new, phibar0);
-  const int k = ctl[C_K] + 1;
+  const float phi = __fmul_rn(cs_new, in.phibar0);
+  const float phibar_new = __fmul_rn(sn_new, in.phibar0);
+  const int k = in.k + 1;
   ctl[C_K] = k;
   if (k < hist_len) hist[k] = phibar_new;
   const int is_nan = isnan(phibar_new) || isnan(beta_new);
-  const int done = is_nan || phibar_new <= tol || beta_new == 0.f;
-  ctl[C_NAN] = ctl[C_NAN] | is_nan;
+  const int done = is_nan || phibar_new <= in.tol || beta_new == 0.f;
+  ctl[C_NAN] = in.nan | is_nan;
   ctl[C_DONE] = done;
-  ctl[C_LIVE] = !done && k < ctl[C_MAXITER];
-  scal[SU_OLDEPS] = oldeps;
+  ctl[C_LIVE] = !done && k < in.maxiter;
+  scal[SU_OLDEPS] = in.oldeps;
   scal[SU_DELTA] = delta;
   scal[SU_IGAMMA] = 1.0f / gamma;
   scal[SU_PHI] = phi;
   scal[SU_INV_BETA] = 1.0f / beta_new;
-  scal[M_OLDB] = beta;
+  scal[M_OLDB] = in.beta;
   scal[M_BETA] = beta_new;
   scal[M_DBAR] = dbar_new;
   scal[M_EPSLN] = epsln_new;
@@ -527,42 +565,44 @@ minres_update_kernel(const float* c1_p, const float* ia_p, const float* q,
                      const float* r1, const float* r2, const float* d, float* r2o,
                      float* bsq_out, float* partials, unsigned* counter, float* scal,
                      int* ctl, float* hist, int hist_len, int64_t n) {
-  if (ctl[C_LIVE] == 0) return;
-  __shared__ float red[kWarps];
-  const float c1 = *c1_p, ia = *ia_p;
+  const int64_t n4 = n / 4, stride = (int64_t)gridDim.x * kThreads;
   const float4* q4 = reinterpret_cast<const float4*>(q);
   const float4* r14 = reinterpret_cast<const float4*>(r1);
   const float4* r24 = reinterpret_cast<const float4*>(r2);
   const float4* d4 = reinterpret_cast<const float4*>(d);
   float4* o4 = reinterpret_cast<float4*>(r2o);
-  float s = 0.f;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n / 4;
-       i += (int64_t)gridDim.x * kThreads) {
-    const float4 qv = q4[i], av = r14[i], bv = r24[i];
-    float4 y;
-    y.x = update_elem(qv.x, av.x, bv.x, c1, ia);
-    y.y = update_elem(qv.y, av.y, bv.y, c1, ia);
-    y.z = update_elem(qv.z, av.z, bv.z, c1, ia);
-    y.w = update_elem(qv.w, av.w, bv.w, c1, ia);
-    o4[i] = y;
-    if (d) {
-      const float4 dv = d4[i];
-      s = fmaf(dv.x * y.x, y.x, s); s = fmaf(dv.y * y.y, y.y, s);
-      s = fmaf(dv.z * y.z, y.z, s); s = fmaf(dv.w * y.w, y.w, s);
-    } else {
-      s = fmaf(y.x, y.x, s); s = fmaf(y.y, y.y, s);
-      s = fmaf(y.z, y.z, s); s = fmaf(y.w, y.w, s);
-    }
+  // every independent load at once; nothing is written before the live test
+  const int live = ld_now(ctl + C_LIVE);
+  const float c1 = ld_now(c1_p), ia = ld_now(ia_p);
+  int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float4 qv, av, bv, dv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < n4) {
+    qv = ld_now(q4 + i); av = ld_now(r14 + i); bv = ld_now(r24 + i);
+    if (d) dv = ld_now(d4 + i);
   }
+  UpdateIn in{};
+  if (scal && threadIdx.x == 0) in = load_update_in(scal, ctl);
+  if (live == 0) return;
+  float s = 0.f;
+  float4 y;
+  if (i < n4) {
+    minres_update4(c1, ia, qv, av, bv, dv, d != nullptr, y, s);
+    o4[i] = y;
+    i += stride;
+  }
+  for (; i < n4; i += stride) {
+    minres_update4(c1, ia, q4[i], r14[i], r24[i], d ? d4[i] : dv, d != nullptr, y, s);
+    o4[i] = y;
+  }
+  __shared__ float red[kWarps];
   const float b = block_sum(s, red);
   if (threadIdx.x == 0) partials[blockIdx.x] = b;
-  if (arrive_last(counter)) {
-    const float bsq = sum_partials(partials, gridDim.x, red);
-    if (threadIdx.x == 0) {
-      bsq_out[0] = bsq;
-      if (scal) finish_update(bsq, scal, ctl, hist, hist_len);
-      *counter = 0u;
-    }
+  if (!publish_last(counter)) return;
+  const float bsq = sum_partials(partials, gridDim.x, red);
+  if (threadIdx.x == 0) {
+    bsq_out[0] = bsq;
+    if (scal) finish_update(bsq, in, scal, ctl, hist, hist_len);
+    *counter = 0u;
   }
 }
 

@@ -14,6 +14,9 @@ import torch
 
 #: tile widths the kernels are compiled for
 CUDA_BN = (32, 64, 128, 256)
+#: most CTAs of an update kernel (K2/K3, K16, K20); a grid-stride loop beyond
+UPDATE_MAX_GRID = 1024
+_UPDATE_THREADS = 256
 
 LAUNCHES = {
     "sym_fused_dir_spmv_dot": 0,
@@ -78,6 +81,13 @@ def check_cuda_operands(name, tensors, vec4=()):
         if t is not None:
             if t.data_ptr() % 16:
                 raise ValueError(f"{name}: vectors must be 16-byte aligned")
+
+
+def update_grid(n: int) -> int:
+    """CTAs of an update kernel over ``n`` entries: one float4 a thread of
+    256, so ceil(n / 1024), at least 1 and at most :data:`UPDATE_MAX_GRID`.
+    The grid fixes the kernels' reduction tree, and so their bits."""
+    return max(1, min(-(-n // (4 * _UPDATE_THREADS)), UPDATE_MAX_GRID))
 
 
 def raise_on_error(name: str, err: int) -> None:

@@ -53,12 +53,14 @@ from ..spmv import bell_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
     on_cuda,
     ptr,
     raise_on_error,
     stream,
+    update_grid,
 )
 from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live, auto_row_group
@@ -75,7 +77,6 @@ N_SCAL = 17
 # exit of the current step (kernel 2 sets it, kernel 3 reads it)
 C_BROKE, C_HALF = 4, 5
 
-_UPDATE_MAX_GRID = 1024
 _THREADS = 256
 
 
@@ -107,7 +108,7 @@ class BicgstabWork:
             scal=scal.to(device),
             ctl=ctl.to(device),
             hist=torch.full((maxiter + 1,), float("nan"), device=device),
-            partials=torch.empty(3 * _UPDATE_MAX_GRID, device=device),
+            partials=torch.empty(3 * UPDATE_MAX_GRID, device=device),
             counter=torch.zeros(1, dtype=torch.int32, device=device),
         )
 
@@ -556,7 +557,7 @@ def bicgstab_update_dot(
         out = (torch.empty_like(xh2d), torch.empty_like(xh2d))
     check_cuda_operands(name, vecs + (omega,) + out, vec4=vecs + out)
     n = xh2d.numel()
-    grid = max(1, min(-(-n // (4 * _THREADS)), _UPDATE_MAX_GRID))
+    grid = update_grid(n)
     if work.partials.numel() < 2 * grid:
         work.partials = torch.empty(2 * grid, device=dev)
     err = load_library().bicgstab_update(

@@ -54,6 +54,7 @@ from .bell_spmv import check_packed, packed_product
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
     on_cuda,
@@ -61,6 +62,7 @@ from ._common import (
     raise_on_error,
     reset_counts,  # noqa: F401  (re-exported with the counters)
     stream,
+    update_grid,
 )
 
 # scalar-buffer layout shared with csrc/fused_cg.cu
@@ -70,7 +72,6 @@ C_K, C_DONE, C_MAXITER, C_LIVE = range(4)
 MIRRORS = ("scatter", "split", "banded")
 #: most block-rows per CTA of the full-storage K1 (its automatic row group)
 DIR_ROW_GROUP = 4
-_UPDATE_MAX_GRID = 1024
 _THREADS = 256
 
 
@@ -99,7 +100,7 @@ class FusedWork:
             scal=scal.to(device),
             ctl=ctl.to(device),
             hist=torch.full((maxiter + 1,), float("nan"), device=device),
-            partials=torch.empty(2 * _UPDATE_MAX_GRID, device=device),
+            partials=torch.empty(2 * UPDATE_MAX_GRID, device=device),
             counter=torch.zeros(1, dtype=torch.int32, device=device),
         )
 
@@ -676,7 +677,7 @@ def _update_cuda(name, x2d, p2d, r2d, q2d, d2d, alpha, out, work, partials_only)
     vecs = (x2d, p2d, r2d, q2d, d2d, xo, ro)
     check_cuda_operands(name, vecs + (alpha,), vec4=vecs)
     n = x2d.numel()
-    grid = max(1, min(-(-n // (4 * _THREADS)), _UPDATE_MAX_GRID))
+    grid = update_grid(n)
     if work.partials.numel() < 2 * grid:
         work.partials = torch.empty(2 * grid, device=dev)
     err = load_library().cg_update(

@@ -60,12 +60,14 @@ from ..spmv import bell_apply, sym_bell_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
     on_cuda,
     ptr,
     raise_on_error,
     stream,
+    update_grid,
 )
 from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import (C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live,  # noqa: F401
@@ -87,7 +89,6 @@ N_SCAL = 24
 C_NAN = 4
 
 MIRRORS = ("scatter", "banded")
-_UPDATE_MAX_GRID = 1024
 _THREADS = 256
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -121,7 +122,7 @@ class MinresWork:
             scal=scal.to(device),
             ctl=ctl.to(device),
             hist=torch.full((maxiter + 1,), float("nan"), device=device),
-            partials=torch.empty(2 * _UPDATE_MAX_GRID, device=device),
+            partials=torch.empty(2 * UPDATE_MAX_GRID, device=device),
             counter=torch.zeros(1, dtype=torch.int32, device=device),
         )
 
@@ -698,7 +699,7 @@ def _update_cuda(q2d, r1_2d, r2_2d, c1, ia, inv_diag2d, out, work, partials_only
         out = torch.empty_like(q2d)
     vecs = (q2d, r1_2d, r2_2d, inv_diag2d, out)
     check_cuda_operands(name, vecs + (c1, ia), vec4=vecs)
-    grid = max(1, min(-(-n // (4 * _THREADS)), _UPDATE_MAX_GRID))
+    grid = update_grid(n)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)
     err = load_library().minres_update(

@@ -1289,3 +1289,126 @@ def test_sym_dia_tiled_kernel_bit_equal_to_plain(dev, label, offsets, n):
     dneg = -d.abs()
     assert torch.equal(kd.sym_dia_spmv_diags(dneg, offsets, od, z).view(torch.int32),
                        kd._sym_dia_plain(dneg, offsets, z).view(torch.int32))
+
+
+# ---- kernels 2, 3 and 16: the update kernels' chain and what it must keep ------------------
+
+def _update_operands(dev, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x, p, r, q, d = (torch.randn(n, generator=g).to(dev) for _ in range(5))
+    return x, p, r, q, d.abs() + 0.5, torch.full((1, 1), 0.61, device=dev)
+
+
+def _update_works(dev, maxiter=9, tol=1e-3):
+    """A fused CG and a fused MINRES work part-way (every scalar the
+    kernels' steps read is not 0)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    w = fc.FusedWork.new(dev, maxiter=maxiter, tol=tol)
+    w.scal[fc.S_RNORM], w.scal[fc.S_RHO] = 2.5, 1.5
+    m = fm.MinresWork.new(dev, maxiter=maxiter, tol=tol, shift=0.07)
+    m.scal[fm.M_OLDB], m.scal[fm.M_DBAR], m.scal[fm.M_EPSLN] = 1.7, 0.4, 0.2
+    m.scal[fm.M_CS], m.scal[fm.M_SN], m.scal[fm.M_ALFA] = -0.8, 0.6, 2.2
+    m.scal[fm.M_C1], m.scal[fm.M_IA] = 0.4, 0.9
+    m.start(torch.tensor(2.3, device=dev))
+    return w, m
+
+
+def _same_bits_all(before, after):
+    return all(_same_bits(a, b) for a, b in zip(before, after))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partials_only", [False, True], ids=["scalar-step", "partials-only"])
+@pytest.mark.parametrize("n", [2048 * 128, 256 * 128])
+def test_update_kernels_write_nothing_when_not_live(dev, n, partials_only):
+    """Kernels 2, 3 and 16 load their first operands before they read
+    ctl[C_LIVE]: on a solve that is not live, written in place as the
+    loops launch them, nothing changes (x, r, r1, the partials, the
+    counter, scal, ctl, hist)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    x, p, r, q, d, alpha = _update_operands(dev, n, 3)
+    for dd in (None, d):
+        w, m = _update_works(dev)
+        for work in (w, m):
+            work.ctl[fc.C_LIVE] = 0
+            work.partials.fill_(7.0)
+        xs, rs = x.clone(), r.clone()
+        bufs = (xs, rs, w.partials, w.counter, w.scal, w.ctl, w.hist)
+        kept = [t.clone() for t in bufs]
+        if dd is None:
+            fc.fused_update_dot(xs, p, rs, q, alpha, out=(xs, rs), work=w,
+                                partials_only=partials_only)
+        else:
+            fc.fused_update_dot_pcg(xs, p, rs, q, dd, alpha, out=(xs, rs), work=w,
+                                    partials_only=partials_only)
+        r1 = r.clone()
+        mbufs = (r1, m.partials, m.counter, m.scal, m.ctl, m.hist)
+        mkept = [t.clone() for t in mbufs]
+        fm.minres_update_dot(q, r1, p, m.c1, m.ia, dd, out=r1, work=m,
+                             partials_only=partials_only)
+        torch.cuda.synchronize()
+        assert _same_bits_all(kept, bufs), "kernel 2/3 wrote on a solve that is not live"
+        assert _same_bits_all(mkept, mbufs), "kernel 16 wrote on a solve that is not live"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partials_only", [False, True], ids=["scalar-step", "partials-only"])
+def test_update_kernels_repeat_bit_identical(dev, partials_only):
+    """Three launches back to back give the same outputs: the last CTA
+    resets the ticket every time."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    x, p, r, q, d, alpha = _update_operands(dev, 2048 * 128, 5)
+    w, m = _update_works(dev, maxiter=1 << 10, tol=-1.0)
+    runs = []
+    for _ in range(3):
+        k2 = fc.fused_update_dot(x, p, r, q, alpha, work=w, partials_only=partials_only)
+        k3 = fc.fused_update_dot_pcg(x, p, r, q, d, alpha, work=w, partials_only=partials_only)
+        k16 = [fm.minres_update_dot(q, r, p, m.c1, m.ia, dd, work=m, partials_only=partials_only)
+               for dd in (None, d)]
+        runs.append([t.clone() for t in (*k2, *k3, *k16[0], *k16[1])])
+    torch.cuda.synchronize()
+    assert int(w.counter) == 0 and int(m.counter) == 0
+    assert int(w.ctl[fc.C_LIVE]) == 1 and int(m.ctl[fc.C_LIVE]) == 1
+    assert _same_bits_all(runs[0], runs[1]) and _same_bits_all(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partials_only", [False, True], ids=["scalar-step", "partials-only"])
+@pytest.mark.parametrize("n", [210, 4097, 256 * 128, 512 * 128, 2048 * 128])
+def test_update_kernels_in_place_match_plain(dev, n, partials_only):
+    """Kernels 2, 3 (any length: n % 4 != 0 too) and 16 (n % 4 == 0)
+    written in place, as the loops launch them, at n = 262,144, the
+    sharded lengths n/8 and n/4 and ragged lengths: x', r' and r2'
+    bit-equal to the plain versions, the dots within RTOL."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    x, p, r, q, d, alpha = _update_operands(dev, n, n)
+    for dd, name in ((None, "fused_update_dot"), (d, "fused_update_dot_pcg")):
+        w, _ = _update_works(dev)
+        xs, rs = x.clone(), r.clone()
+        if dd is None:
+            k = fc.fused_update_dot(xs, p, rs, q, alpha, out=(xs, rs), work=w,
+                                    partials_only=partials_only)
+        else:
+            k = fc.fused_update_dot_pcg(xs, p, rs, q, dd, alpha, out=(xs, rs), work=w,
+                                        partials_only=partials_only)
+        pl = fc._update_plain(name, x, p, r, q, dd, alpha, None, None)
+        torch.cuda.synchronize()
+        assert k[0].data_ptr() == xs.data_ptr() and k[1].data_ptr() == rs.data_ptr()
+        assert torch.equal(xs, pl[0]) and torch.equal(rs, pl[1]), name
+        for g, want in zip(k[2:], pl[2:]):
+            np.testing.assert_allclose(float(g), float(want), rtol=RTOL)
+    if n % 4:
+        return
+    for dd in (None, d):
+        _, m = _update_works(dev)
+        r1 = r.clone()
+        y, bsq = fm.minres_update_dot(q, r1, p, m.c1, m.ia, dd, out=r1, work=m,
+                                      partials_only=partials_only)
+        yp, bp = fm._update_plain(q, r, p, m.c1, m.ia, dd, None, None)
+        torch.cuda.synchronize()
+        assert y.data_ptr() == r1.data_ptr() and torch.equal(y, yp)
+        np.testing.assert_allclose(float(bsq), float(bp), rtol=RTOL)

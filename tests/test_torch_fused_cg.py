@@ -159,6 +159,55 @@ def test_update_dot_matches_jax(shape, pcg):
         np.testing.assert_allclose(float(t), float(j[0, 0]), rtol=RTOL)
 
 
+@pytest.mark.parametrize("n,ctas", [(262_144, 256), (65_536, 64), (32_768, 32),
+                                    (256 ** 3, 1024), (1023, 1), (1, 1), (4097, 5)])
+def test_update_grid(n, ctas):
+    """The update kernels' grid (K2/K3, K16, K20): one float4 a thread of
+    256, at most 1024 CTAs; n = 262,144, its shards n/4 and n/8, 256^3."""
+    from conjugategradient_tpu_torch.ops.cuda import _common, fused_bicgstab, fused_minres
+
+    assert _common.update_grid(n) == ctas
+    for mod in (tfc, fused_minres, fused_bicgstab):  # one helper for the three wrappers
+        assert mod.update_grid is _common.update_grid
+
+
+@pytest.mark.parametrize("n_shards", [4, 8])
+@pytest.mark.parametrize("pcg", [False, True], ids=["cg", "pcg"])
+def test_update_partials_only_over_shards_matches_jax(pcg, n_shards):
+    """The sharded loop's K2/K3: each shard's partials-only call, summed
+    over the shards, against the JAX kernel on the whole vector; the
+    solve's scalars untouched."""
+    rng = np.random.default_rng(11 + n_shards)
+    shape = (32, 128)
+    x, p, r, q = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    d = (np.abs(rng.standard_normal(shape)) + 0.1).astype(np.float32)
+    alpha = np.full((1, 1), 0.61, np.float32)
+    J = jnp.asarray
+    if pcg:
+        jout = jfc.fused_update_dot_pcg(J(x), J(p), J(r), J(q), J(d), J(alpha), interpret=True)
+    else:
+        jout = jfc.fused_update_dot(J(x), J(p), J(r), J(q), J(alpha), interpret=True)
+    work = tfc.FusedWork.new("cpu", maxiter=4, tol=1e-3)
+    kept = (work.scal.clone(), work.ctl.clone())
+    rows = shape[0] // n_shards
+    outs = []
+    for s in range(n_shards):
+        sl = [torch.from_numpy(v[s * rows:(s + 1) * rows]) for v in (x, p, r, q, d)]
+        if pcg:
+            outs.append(tfc.fused_update_dot_pcg(*sl, torch.from_numpy(alpha), work=work,
+                                                 partials_only=True))
+        else:
+            outs.append(tfc.fused_update_dot(*sl[:4], torch.from_numpy(alpha), work=work,
+                                             partials_only=True))
+    assert torch.equal(work.scal, kept[0]) and torch.equal(work.ctl, kept[1])
+    for i in range(2):  # x', r'
+        np.testing.assert_allclose(torch.cat([o[i] for o in outs]).numpy(), np.asarray(jout[i]),
+                                   rtol=RTOL, atol=1e-6)
+    for i in range(2, len(jout)):  # rnorm (and rho), summed over the shards
+        got = sum(float(o[i]) for o in outs)
+        np.testing.assert_allclose(got, float(jout[i][0, 0]), rtol=RTOL)
+
+
 def test_fused_step_from_jax_state(operators):
     """A JAX fused state carried across (convert.fused_state_from_arrays),
     stepped by both packages: the kernels' scalar step (α; done, β, k,

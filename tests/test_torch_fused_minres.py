@@ -167,6 +167,38 @@ def test_update_plain_matches_pallas(rows, with_d):
     np.testing.assert_allclose(float(got_b), float(want_b[0, 0]), rtol=1e-5)
 
 
+@pytest.mark.parametrize("n_shards", [4, 8])
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+def test_update_partials_only_over_shards_matches_pallas(with_d, n_shards):
+    """The sharded loop's K16: each shard's partials-only call, summed over
+    the shards, against the JAX kernel on the whole vector; the solve's
+    scalars untouched."""
+    rng = np.random.default_rng(5 + n_shards)
+    q, r1, r2 = (rng.standard_normal((32, 128)).astype(np.float32) for _ in range(3))
+    d = (0.5 + rng.random((32, 128))).astype(np.float32)
+    c1, ia = np.full((1, 1), 0.4, np.float32), np.full((1, 1), 0.9, np.float32)
+    want_y, want_b = jk.minres_update_dot(
+        jnp.asarray(q), jnp.asarray(r1), jnp.asarray(r2), jnp.asarray(c1), jnp.asarray(ia),
+        inv_diag2d=jnp.asarray(d) if with_d else None, interpret=True)
+    work = tk.MinresWork.new("cpu", maxiter=4)
+    work.start(torch.tensor(2.3))
+    kept = (work.scal.clone(), work.ctl.clone())
+    rows = 32 // n_shards
+    ys, bsq = [], 0.0
+    for s in range(n_shards):
+        q_s, r1_s, r2_s, d_s = (torch.from_numpy(v[s * rows:(s + 1) * rows])
+                                for v in (q, r1, r2, d))
+        y, b = tk.minres_update_dot(q_s, r1_s, r2_s, torch.from_numpy(c1), torch.from_numpy(ia),
+                                    d_s if with_d else None, work=work, partials_only=True)
+        ys.append(y)
+        bsq += float(b)
+    assert torch.equal(work.scal, kept[0]) and torch.equal(work.ctl, kept[1])
+    scale = max(np.abs(q).max(), np.abs(r1).max(), np.abs(r2).max())
+    np.testing.assert_allclose(torch.cat(ys).numpy(), np.asarray(want_y), rtol=0,
+                               atol=1e-6 * scale)
+    np.testing.assert_allclose(bsq, float(want_b[0, 0]), rtol=1e-5)
+
+
 def test_wrappers_validate_their_operands(banded):
     _, tb = banded[0]["full"]
     _, ts = banded[0]["sym"]
