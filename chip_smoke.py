@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the twenty-five kernels against its plain-torch version on the
+2. Hold each of the twenty-six kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -35,7 +35,8 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    the next update is a no-op; the update kernel at lengths 210, 4097 and
    n): p', p^, s, s^, x_h, x' and r' bit-equal, v', t and the dots within
    the stated tolerances, two launches bit-identical, the tails within
-   ``TAIL_ULPS``.  The row-sharded kernels 6 (``bell_spmv_dot``) and 17
+   ``TAIL_ULPS``; a launch of the update kernel that is not live writes
+   nothing (n and 4097).  The row-sharded kernels 6 (``bell_spmv_dot``) and 17
    (``minres_shard_spmv_dot``), on shards 0 and 3 of the n = 262,144
    operator split into 4 (``split_tridiag_tiles``) and at a ragged nrb = 13
    with bn = 32 and 64 at a row offset that is not 0 (kernel 17 also with a
@@ -86,8 +87,16 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    the plain version, pap within TOL_DOT, q within TOL_Q of the tiles'
    general landing, repeats bit-identical; timed on poisson3d_48 beside
    the general landing, with the bound on the stored nonzeros and the
-   view's own bound.  Kernel 10 in both forms (``sym_dia_spmv_tiled``, the
-   tiled kernel, on its geometry, and ``sym_dia_spmv``) bit-equal to the
+   view's own bound.  Kernel 7 in both forms (``dia_spmv_rows``, the
+   offsets by value, four rows a thread, on operators of at most 32
+   diagonals; ``dia_spmv``, one thread a row) bit-equal to the plain
+   version, the routed call too, on the shapes below and at n = 3, 1001
+   and 110,592 with offsets beyond n on both sides, ncols equal to n,
+   above and below it, a NaN in x, and x or the diagonals not 16-byte
+   aligned; both timed on poisson3d_48 (``dia_spmv_rows`` is its route),
+   ``dia_spmv`` on symdia-big (its route: 41 diagonals).  Kernel 10 in
+   both forms (``sym_dia_spmv_tiled``, the tiled kernel, on its geometry,
+   and ``sym_dia_spmv``) bit-equal to the
    plain version on symdia-big, poisson3d_48, dense_256 and a ragged
    n = 1001 (offsets 0, 3, 300), the routed call too; both timed on
    symdia-big and poisson3d_48.
@@ -107,12 +116,12 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    loop, against the same solves run by the plain versions on the CPU; one
    x0 warm start; the tester's default CSR float64 path twice (bitwise).
    Then the DIA / SELL path, with its own reset and read: the tester with
-   ``--layout auto`` (resolves to DIA) and ``--layout symdia --precond
+   ``--layout auto`` (resolves to DIA: kernel 7's ``dia_spmv_rows``) and ``--layout symdia --precond
    jacobi`` on poisson3d_48, ``--layout auto --reorder`` on powerlaw_1138
    (SELL), the float64 ``--layout auto`` tester on poisson2d_34 twice
    (bitwise); CG on symdia-big in both storages for 64 timed steps (the
-   symmetric one on the tiled kernel 10, poisson3d_48's symdia tester on
-   sym_dia_spmv: the route by shape); a
+   full one on ``dia_spmv``, the symmetric one on the tiled kernel 10,
+   poisson3d_48's symdia tester on sym_dia_spmv: the route by shape); a
    float32 DIA solve twice (bitwise) and against the plain versions on the
    CPU (trajectory, with and without residual replacement).
    Then the stencil path, with its own reset and read: the tester on
@@ -184,10 +193,17 @@ of the fused MINRES there in both storages (history and x), of the fused
 CG, PCG and MINRES on poisson3d_48 (the packed route) and of
 ``sharded_cg_solve`` at P = 4 on the fused kernels (CG, Jacobi PCG and
 MINRES; history and x); the fused BiCGStab's hash on the bicgstab-bell
-operator; one hash of each of kernels 2, 3 and 16 on seeded inputs (at n
-with the scalar step, there again on inputs whose squares tie below
-FLT_MIN, and at n / 8 partials only); their device times at n (with and
-without the scalar step), 256^3, n / 4 and n / 8, and the elementwise
+operator and its ms/it and hash (history and x) on convdiff-512 on each
+route (the packed one, its own, and the dense one); the portable DIA CG
+on poisson3d_48 as ``--layout auto`` loads it (history hash at the
+tester's tolerance, ms/it and hash over 256 steps); one hash of each of
+kernels 2, 3 and 16 on seeded inputs (at n with the scalar step, there
+again on inputs whose squares tie below FLT_MIN, and at n / 8 partials
+only), of kernel 20 (at n with the scalar
+step, on the tie inputs, and not live) and of kernel 7's y on
+poisson3d_48 and symdia-big; their device times (kernels 2, 3 and 16 at
+n, with and without the scalar step, 256^3, n / 4 and n / 8; kernel 20 at
+n; kernel 7 on both operators, cuSPARSE beside it), and the elementwise
 floor.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -221,6 +237,7 @@ SOURCES = {
     "fused_update_dot_pcg": FUSED_SOURCE,
     "bell_spmv": "conjugategradient_tpu_torch/csrc/bell_spmv.cu",
     "dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
+    "dia_spmv_rows": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "sym_dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "stencil7": "conjugategradient_tpu_torch/csrc/stencil.cu",
     "fused_stencil_dir_dot": "conjugategradient_tpu_torch/csrc/fused_stencil.cu",
@@ -253,6 +270,10 @@ REPLACES = {
                 "dia_spmv.py:130 (dia_spmv_pallas_2d), "
                 "dia_spmv.py:398 (dia_spmv_pallas_blocked)",
     "sym_dia_spmv": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
+    # the by-value kernel 7: the same function as dia_spmv, up to 32 diagonals
+    "dia_spmv_rows": "conjugategradient_tpu/ops/pallas/dia_spmv.py:181 (dia_spmv_pallas), "
+                     "dia_spmv.py:130 (dia_spmv_pallas_2d), "
+                     "dia_spmv.py:398 (dia_spmv_pallas_blocked)",
     "stencil7": "conjugategradient_tpu/ops/pallas/stencil.py:136",
     "fused_stencil_dir_dot": "conjugategradient_tpu/ops/pallas/fused_stencil.py:69",
     "minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
@@ -280,14 +301,14 @@ REPLACES = {
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
                    "fused_dir_spmv_dot_packed", "sym_fused_dir_spmv_dot_packed")
-DIA_KERNELS = ("dia_spmv", "sym_dia_spmv", "sym_dia_spmv_tiled")
+DIA_KERNELS = ("dia_spmv", "dia_spmv_rows", "sym_dia_spmv", "sym_dia_spmv_tiled")
 STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
                   "bell_spmv", "bell_spmv_packed", "minres_dir_spmv_dot_packed",
                   "sym_minres_dir_spmv_dot_packed")
 BICGSTAB_KERNELS = ("bicgstab_dir_spmv_dot", "bicgstab_s_spmv_dot", "bicgstab_update_dot",
-                    "bell_spmv", "dia_spmv", "bell_spmv_packed", "bicgstab_dir_spmv_dot_packed",
-                    "bicgstab_s_spmv_dot_packed")
+                    "bell_spmv", "dia_spmv_rows", "bell_spmv_packed",
+                    "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot_packed")
 SHARDED_KERNELS = ("bell_spmv_dot", "minres_shard_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "minres_update_dot", "bell_spmv")
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 rate, and
@@ -1242,25 +1263,43 @@ def sym_dia_pair(n, offs_pos, rng, dev, scale=0.05):
     return full, sym
 
 
-def check_dia(a, sym, rng, errs, label):
-    """dia_spmv on ``a`` (and on ``sym``, its symmetric half, when given:
+def check_dia(a, sym, rng, errs, label, x=None):
+    """Both kernels 7 on ``a`` (``dia_spmv_rows`` where its parameter holds
+    the offsets, and ``dia_spmv``; the routed call too) bit for bit against
+    the plain version (and on ``sym``, its symmetric half, when given:
     both kernels 10, the tiled one on its geometry whether or not the route
-    takes it there, and the one the route picks) bit for bit against the
-    plain versions on one random x; returns x and the kernel's y."""
+    takes it there, and the one the route picks), on one random x or the
+    one given; returns x and the routed y."""
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
 
-    x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=torch.float32, device=a.device)
+    if x is None:
+        x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=torch.float32,
+                            device=a.device)
+    offs = tuple(a.offsets)
+    route = kd.dia_route(offs)
+    before = kd.LAUNCHES[route]
     yk = kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x)
+    check(kd.LAUNCHES[route] == before + 1, f"{label}: dia_spmv_diags did not take {route}")
     yp = kd._dia_plain(a.diags, a.offsets, x)
-    torch.cuda.synchronize()
-    e, m = rel_max_err(yk, yp)
-    check(torch.equal(yk, yp), f"dia_spmv {label}: not bit-equal to the plain version ({e})")
-    errs["dia_spmv"] = max(errs["dia_spmv"], e)
-    msg = (f"  dia_spmv {label:<30} bit-equal (max|y| {m:.4g}); {a.ndiag} diagonals, "
-           f"{a.shape[0]} x {a.shape[1]}, {nbytes(a.diags) / 1e6:.1f} MB")
+    same = lambda u, v: torch.equal(u.view(torch.int32), v.view(torch.int32))  # noqa: E731
+    kernels = ["dia_spmv"] + (["dia_spmv_rows"] if a.ndiag <= kd.MAX_PARAM_DIAGS else [])
+    for name in kernels:
+        y1 = kd.dia_cuda(a.diags, offs, a.offsets_dev, x, name)
+        y2 = kd.dia_cuda(a.diags, offs, a.offsets_dev, x, name)
+        torch.cuda.synchronize()
+        e = float((y1.double() - yp.double()).abs().nan_to_num().max())  # NaN rows: NaN - NaN
+        check(same(y1, yp), f"{name} {label}: not bit-equal to the plain version ({e})")
+        check(same(y1, y2), f"{name} {label}: a repeat differs")
+        errs[name] = max(errs[name], e)
+    check(same(yk, yp), f"{route} {label}: the routed call differs from the plain version")
+    msg = (f"  dia_spmv {label:<30} {' and '.join(kernels)} bit-equal to the plain version "
+           f"(max|y| {float(yp.abs().nan_to_num().max()):.4g}, {int(torch.isnan(yp).sum())} NaN "
+           f"rows), the route takes {route}; {a.ndiag} diagonals, {a.shape[0]} x {a.shape[1]}, "
+           f"{nbytes(a.diags) / 1e6:.1f} MB")
     if sym is not None:
+        m = float(yp.abs().max())
         tiling = kd.sym_dia_tiling(sym.offsets, sym.n)
         check(tiling is not None, f"{label}: no geometry for the tiled kernel 10")
         route = "sym_dia_spmv_tiled" if tiling.pays(sym.n) else "sym_dia_spmv"
@@ -1290,12 +1329,40 @@ def check_dia(a, sym, rng, errs, label):
     return x, yk
 
 
+def check_dia_edges(dev, rng, errs):
+    """Both kernels 7 bit-equal to the plain version at n = 3, 1001 and
+    110,592: offsets beyond n on both sides, ncols equal to n, above and
+    below it, a NaN in x, and x (a view at offset 1) or the diagonals not
+    16-byte aligned."""
+    import torch
+
+    from conjugategradient_tpu_torch.types import DIAMatrix
+
+    for n in (3, 1001, 110592):
+        offs = (-n - 3, -5, -1, 0, 1, 4, 48, n + 2)
+        flat = torch.as_tensor(rng.standard_normal(len(offs) * n + 1), dtype=torch.float32,
+                               device=dev)
+        for shift in (0, 1):  # the diagonals aligned, then a view at offset 1
+            diags = flat[shift:shift + len(offs) * n].view(len(offs), n)
+            for ncols in (n, n + 37, max(1, n - 2)):
+                a = DIAMatrix(diags, offs, (n, ncols), diags.numel())
+                xb = torch.as_tensor(rng.standard_normal(ncols + 1), dtype=torch.float32,
+                                     device=dev)
+                xb[1 + ncols // 2] = float("nan")
+                for xs in (0, 1):
+                    x = xb[xs:xs + ncols]
+                    check_dia(a, None, rng, errs, f"n={n} ncols={ncols} diags+{shift} x+{xs} NaN",
+                              x=x)
+
+
 def dia_bounds(a, sym):
     """Bounds of one call: dia_spmv reads its diagonals, offsets and x once
     and writes y; sym_dia_spmv the same on its stored half-band, with two
-    multiply-adds per stored off-diagonal entry."""
+    multiply-adds per stored off-diagonal entry (None without ``sym``)."""
     n, ncols = a.shape
     full = bound(nbytes(a.diags, a.offsets_dev) + (ncols + n) * 4, 2 * a.ndiag * n)
+    if sym is None:
+        return full, None
     half = bound(nbytes(sym.diags, sym.offsets_dev) + 2 * n * 4, 2 * (2 * sym.ndiag - 1) * n)
     return full, half
 
@@ -1341,12 +1408,18 @@ def phase_dia_kernels(dev, errs, times, extra):
     neg = rng.standard_normal((3, 777)).astype(np.float32)
     check_dia(dia_from_arrays(neg, (-300, -3, -1), (777, 777), neg.size, device=dev),
               None, rng, errs, "negative offsets only")
+    check_dia_edges(dev, rng, errs)
 
     for label, a, sym, x, y in (("symdia-big", big, big_sym, x_big, y_big),
                                 ("poisson3d_48", p3d, p3d_sym, x_p3d, y_p3d)):
         full_b, half_b = dia_bounds(a, sym)
-        tf = time_pair(lambda: kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x),
-                       lambda: kd._dia_plain(a.diags, a.offsets, x))
+        # both kernels 7 where the by-value one takes the offsets; the route
+        # takes dia_spmv_rows on poisson3d_48 (7) and dia_spmv on symdia-big (41)
+        t7 = {name: time_pair(lambda: kd.dia_cuda(a.diags, a.offsets, a.offsets_dev, x, name),
+                              lambda: kd._dia_plain(a.diags, a.offsets, x))
+              for name in ("dia_spmv", "dia_spmv_rows") if name == "dia_spmv"
+              or a.ndiag <= kd.MAX_PARAM_DIAGS}
+        tf = t7[kd.dia_route(a.offsets)]
         tiling = kd.sym_dia_tiling(sym.offsets, sym.n)
         ts = time_pair(lambda: kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, tiling),
                        lambda: kd._sym_dia_plain(sym.diags, sym.offsets, x))
@@ -1356,7 +1429,8 @@ def phase_dia_kernels(dev, errs, times, extra):
         csr = csr_from_dia(a)
         lib = library_spmv(csr, x, y, label)  # the same y = A x for both storages
         del csr
-        tf.update(full_b, library_ms=lib)
+        for t in t7.values():
+            t.update(full_b, library_ms=lib)
         ts.update(half_b, library_ms=lib)
         to.update(half_b, library_ms=lib)
         full_bytes = nbytes(a.diags) + (a.shape[1] + a.n) * 4
@@ -1367,10 +1441,39 @@ def phase_dia_kernels(dev, errs, times, extra):
         if label == "symdia-big":
             times["dia_spmv"], times["sym_dia_spmv_tiled"], times["sym_dia_spmv"] = tf, ts, to
         else:
-            extra[f"dia_spmv {label}"], extra[f"sym_dia_spmv_tiled {label}"] = tf, ts
-            extra[f"sym_dia_spmv {label}"] = to
+            times["dia_spmv_rows"], extra[f"dia_spmv {label}"] = tf, t7["dia_spmv"]
+            extra[f"sym_dia_spmv_tiled {label}"], extra[f"sym_dia_spmv {label}"] = ts, to
+    dia_route_rows(p3d, rng, errs, extra)
     torch.cuda.synchronize()
     return {"big": big, "big_sym": big_sym, "p3d": p3d, "p3d_sym": p3d_sym}
+
+
+def dia_route_rows(p3d, rng, errs, extra):
+    """The route's evidence at poisson3d_48's size: both kernels 7, checked
+    bit for bit and timed against each other, on a 27-point stencil's 27
+    diagonals (n = 110,592), on poisson3d_48's offsets at a ragged n =
+    110,591, and on poisson3d_48 with x a view at offset 1."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+    from conjugategradient_tpu_torch.types import DIAMatrix
+
+    n, dev = p3d.n, p3d.device
+    o27 = tuple(sorted(i + 48 * j + 2304 * k for i in (-1, 0, 1) for j in (-1, 0, 1)
+                       for k in (-1, 0, 1)))
+    d27 = torch.as_tensor(rng.standard_normal((27, n)), dtype=torch.float32, device=dev)
+    ragged = p3d.diags[:, :n - 1].contiguous()
+    xb = torch.as_tensor(rng.standard_normal(n + 1), dtype=torch.float32, device=dev)
+    for label, a, x in (("27-point n=110592", DIAMatrix(d27, o27, (n, n), d27.numel()), xb[:n]),
+                        ("poisson3d_48 n=110591",
+                         DIAMatrix(ragged, p3d.offsets, (n - 1, n - 1), p3d.nnz), xb[:n - 1]),
+                        ("poisson3d_48 x+1", p3d, xb[1:])):
+        check_dia(a, None, rng, errs, label, x=x)
+        for name in ("dia_spmv_rows", "dia_spmv"):
+            t = time_pair(lambda: kd.dia_cuda(a.diags, a.offsets, a.offsets_dev, x, name),
+                          lambda: kd._dia_plain(a.diags, a.offsets, x))
+            t.update(dia_bounds(a, None)[0], library_ms=None)
+            extra[f"{name} {label}"] = t
 
 
 # ---- phase 2, MINRES: kernels 14-16 against their plain versions -------------
@@ -1905,6 +2008,35 @@ def check_bicg_update(n, rng, errs, label, dev):
     return xh, sh, s, t, rhat, w
 
 
+def bicg_update_not_live(n, dev):
+    """Kernel 20 launched as the solver launches it (x' over x_h, r' over
+    s) on a work that is not live, on seeded inputs: the buffers it could
+    write (x_h, s, the partials filled with 7, the counter, scal, ctl,
+    hist) before and after."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    xh, sh, s, t, rhat, w = update_operands(n, 41, dev)
+    work = bicg_work(dev)
+    work.ctl[fb.C_LIVE] = 0
+    work.partials.fill_(7.0)
+    bufs = (xh, s, work.partials, work.counter, work.scal, work.ctl, work.hist)
+    kept = [b.clone() for b in bufs]
+    fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, out=(xh, s), work=work)
+    torch.cuda.synchronize()
+    return kept, bufs
+
+
+def check_bicg_update_not_live(n, dev) -> None:
+    """A launch of kernel 20 that is not live writes nothing."""
+    kept, bufs = bicg_update_not_live(n, dev)
+    check(all(same_bits(a, b) for a, b in zip(kept, bufs)),
+          f"K20 n={n}: a launch that is not live wrote")
+    print(f"  K20 n={n:<10}a launch that is not live writes nothing (x_h, s, partials, counter, "
+          "scal, ctl, hist)")
+
+
 def time_bicg_tiles(a, args, work, packed=False, with_d=False) -> tuple:
     """Kernels 18 and 19 (``packed``: their packed forms) timed against
     their plain versions on the operands ``check_bicg_tiles`` returned,
@@ -1992,6 +2124,8 @@ def phase_bicgstab_kernels(dev, errs, times, extra):
     for n in (210, 4097):
         check_bicg_update(n, rng, errs, "", dev)
     upd = check_bicg_update(N_BIG, rng, errs, "(main path)", dev)
+    for n in (N_BIG, 4097):
+        check_bicg_update_not_live(n, dev)
 
     # timing on a work that never finishes (tol = -1, maxiter 2^20)
     work = fb.BicgstabWork.new(dev, maxiter=1 << 20, tol=-1.0)
@@ -2405,11 +2539,12 @@ def phase_dia_path(dev, ops, card):
     from conjugategradient_tpu_torch.utils import Timer
 
     # (a) the tester: --layout auto resolves poisson3d_48 to DIA, which the
-    # dia_spmv counter shows; symdia with Jacobi PCG (a small operator: the
-    # route by shape takes sym_dia_spmv, not the tiled kernel)
+    # dia_spmv_rows counter shows (7 diagonals: the by-value kernel 7);
+    # symdia with Jacobi PCG (a small operator: the route by shape takes
+    # sym_dia_spmv, not the tiled kernel)
     path = MATRICES[0]
     n = read_csr_host(os.path.join(ROOT, path))[3][0]
-    for layout, precond, kernel in (("auto", "none", "dia_spmv"),
+    for layout, precond, kernel in (("auto", "none", "dia_spmv_rows"),
                                     ("symdia", "jacobi", "sym_dia_spmv")):
         before = _common.LAUNCHES[kernel]
         dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, TOL_SOLVE_REL * bnorm(n))
@@ -3258,8 +3393,9 @@ def phase_bicgstab_path(dev, bic_ops, card):
           f"max_k ||r_k|| (GAP_ULPS {GAP_ULPS}), max_k ||r_k|| = {min(peaks):.3g}-{max(peaks):.3g} "
           f"||b||")
     bicg = ("--method", "bicgstab")
-    for layout, precond, kernel in (("bell", "none", "bell_spmv_packed"), ("dia", "jacobi", "dia_spmv"),
-                                    ("auto", "none", "dia_spmv")):
+    for layout, precond, kernel in (("bell", "none", "bell_spmv_packed"),
+                                    ("dia", "jacobi", "dia_spmv_rows"),
+                                    ("auto", "none", "dia_spmv_rows")):
         before = _common.LAUNCHES[kernel]
         dim, nnz, ms, rel, summ, lines = run_tester(path, layout, precond, tol,
                                                     extra=bicg + ("--history",))
@@ -3414,11 +3550,11 @@ def phase_bicgstab_path(dev, bic_ops, card):
     dia = DIAMatrix.from_csr_host(*convdiff_csr(2048), device=dev)
     bd = torch.arange(1, dia.n + 1, dtype=torch.float32, device=dev) / dia.n
     bicgstab_solve(dia, bd, tol=0.0, maxiter=4)
-    before = _common.LAUNCHES["dia_spmv"]
+    before = _common.LAUNCHES["dia_spmv_rows"]
     t = Timer(dev).start_measure()
     _, dinfo = bicgstab_solve(dia, bd, tol=0.0, maxiter=BICG_DIA_STEPS)
     t.stop_measure()
-    check(int(dinfo.iterations) == BICG_DIA_STEPS and _common.LAUNCHES["dia_spmv"] - before
+    check(int(dinfo.iterations) == BICG_DIA_STEPS and _common.LAUNCHES["dia_spmv_rows"] - before
           >= 2 * BICG_DIA_STEPS, f"portable BiCGStab DIA: {int(dinfo.iterations)} its")
     print(f"  portable BiCGStab DIA convdiff nx=2048 (n={dia.n}, {len(dia.offsets)} diagonals): "
           f"{BICG_DIA_STEPS} steps, {t.get_duration() / BICG_DIA_STEPS:.5f} ms/it  [{card}]")
@@ -4140,6 +4276,80 @@ def update_rows(dev, sharded_only=False) -> dict:
     return rows
 
 
+def dia_operators(dev) -> dict:
+    """poisson3d_48 as DIA (7 diagonals) and symdia-big in full storage (41),
+    as phase 2 builds them."""
+    from conjugategradient_tpu_torch import load_matrix
+
+    p3d = load_matrix(os.path.join(ROOT, MATRICES[0]), layout="dia", dtype=np.float32, device=dev)
+    big, _ = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)
+    return {"poisson3d_48": p3d, "symdia-big": big}
+
+
+def bicg_dia_hashes(dev, card) -> None:
+    """Per-call hashes of kernels 20 and 7 on seeded inputs, for comparing
+    two trees on one card: kernel 20 at n = 262,144 with the scalar step
+    (its outputs, then the work's scalars, control words and history), on
+    inputs whose squares tie below FLT_MIN (update_operands), and not live
+    (every buffer it could write; also checked unchanged); y of kernel 7
+    (the route each tree takes) on poisson3d_48 and symdia-big."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    for ties in (False, True):
+        xh, sh, s, t, rhat, w = update_operands(N_BIG, 5, dev, ties)
+        work = bicg_work(dev)
+        outs = fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, work=work)
+        print(f"  per-call hash bicgstab_update_dot n={N_BIG} with the scalar step"
+              f"{', ties' if ties else ''}: {digest(*outs, work.scal, work.ctl, work.hist)}  "
+              f"[{card}]")
+    kept, bufs = bicg_update_not_live(N_BIG, dev)
+    check(all(same_bits(a, b) for a, b in zip(kept, bufs)),
+          "K20: a launch that is not live wrote")
+    print(f"  per-call hash bicgstab_update_dot n={N_BIG} not live: {digest(*bufs)} "
+          f"(unchanged)  [{card}]")
+    for label, a in dia_operators(dev).items():
+        x = torch.as_tensor(np.random.default_rng(7).standard_normal(a.shape[1]),
+                            dtype=torch.float32, device=dev)
+        y = kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x)
+        print(f"  per-call hash dia_spmv {label} ({a.ndiag} diagonals): {digest(y)}  [{card}]")
+
+
+def bicg_dia_rows(dev) -> dict:
+    """Kernel 20 at n = 262,144 on a work that stays live, launched as the
+    solver launches it, and kernel 7 through ``dia_spmv_diags`` (the route
+    each tree takes) on poisson3d_48 and symdia-big, timed against their
+    plain versions (time_pair), with their bounds; cuSPARSE beside kernel 7."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    rows = {}
+    xh, sh, s, t, rhat, w = update_operands(N_BIG, 31, dev)
+    work = fb.BicgstabWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    work.start(torch.tensor(2.3, device=dev))
+    out = (torch.empty_like(xh), torch.empty_like(xh))
+    r = time_pair(lambda: fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, out=out, work=work),
+                  lambda: fb._update_plain(xh, sh, s, t, rhat, w, None, None))
+    torch.cuda.synchronize()
+    check(int(work.ctl[fb.C_LIVE]) == 1, "K20 timing: the timing work stopped being live")
+    r.update(bound(7 * N_BIG * 4, 8 * N_BIG), library_ms=None)
+    rows["K20 n=262144"] = r
+    for label, a in dia_operators(dev).items():
+        x = torch.as_tensor(np.random.default_rng(7).standard_normal(a.shape[1]),
+                            dtype=torch.float32, device=dev)
+        r = time_pair(lambda: kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x),
+                      lambda: kd._dia_plain(a.diags, a.offsets, x))
+        y = kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x)
+        lib = library_spmv(csr_from_dia(a), x, y, label)
+        r.update(dia_bounds(a, None)[0], library_ms=lib)
+        rows[f"K7 {label}"] = r
+    return rows
+
+
 def elementwise_floor(dev, card) -> None:
     """The floor of one elementwise launch at n = 262,144: the device time
     of torch.add(x, p, alpha=a, out=xo) over float32 (12 bytes an entry).
@@ -4185,14 +4395,18 @@ def fused_cg_only(dev, card) -> None:
     and MINRES on poisson3d_48 (symmetric storage, the packed route);
     ``sharded_cg_solve`` at P = 4 with the fused kernels (CG, Jacobi PCG,
     MINRES), hash of history and x; the fused BiCGStab on bench.py's
-    bicgstab-bell operator; then the per-call hashes of kernels 2, 3 and
-    16 (update_hashes), their timing rows (update_rows) and the
-    elementwise floor."""
+    bicgstab-bell operator and on convdiff-512 (ms/it on each route);
+    the portable DIA CG on poisson3d_48 (``--layout auto``: at the tester's
+    tolerance, and ms/it over 256 steps); then the per-call hashes of
+    kernels 2, 3 and 16 (update_hashes) and of kernels 20 and 7
+    (bicg_dia_hashes), their timing rows (update_rows, bicg_dia_rows) and
+    the elementwise floor."""
     import torch
 
-    from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, fused_bell_cg_solve,
-                                             fused_bell_pcg_solve, fused_minres_solve,
-                                             fused_stencil_cg_solve)
+    from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, cg_solve,
+                                             fused_bell_cg_solve, fused_bell_pcg_solve,
+                                             fused_bicgstab_solve, fused_minres_solve,
+                                             fused_stencil_cg_solve, load_matrix)
     from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
 
@@ -4251,8 +4465,32 @@ def fused_cg_only(dev, card) -> None:
         x, info = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
         print(f"  fused BiCGStab bicgstab-bell tol {tol:.3g}: {int(info.iterations)} its, "
               f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
+    # phase 3's convdiff-512 solve on each route (its sparse tiles take the
+    # packed kernels 18 and 19 unless forced), then kernel 20; every step live
+    cd = convdiff_bell(512, dev)
+    bc = torch.as_tensor(np.random.default_rng(0).standard_normal(cd.n), dtype=torch.float32,
+                         device=dev)
+    for route in ("packed", "dense"):
+        with forced_route(route == "packed"):
+            ms, x, info = timed(fused_bicgstab_solve, cd, bc, steps=BICG_STEPS)
+        print(f"  fused BiCGStab convdiff-512 ({route} route): {int(info.iterations)} its, "
+              f"{ms:.5f} ms/it, rnorm_history and x sha256 {digest(info.rnorm_history, x)}  "
+              f"[{card}]")
+    # the portable DIA loop on poisson3d_48 as --layout auto loads it: the
+    # tester's tolerance, then 256 full passes
+    p3dia = load_matrix(os.path.join(ROOT, MATRICES[0]), layout="auto", dtype=np.float32,
+                        device=dev)
+    _, info = cg_solve(p3dia, bp, tol=TOL_SOLVE_REL * bnorm(p3dia.n))
+    print(f"  portable DIA CG poisson3d_48 (--layout auto, tol 1e-5 ||b||): "
+          f"{int(info.iterations)} its, rho_history sha256 {digest(info.rho_history)}  [{card}]")
+    ms, x, info = timed(cg_solve, p3dia, bp)
+    print(f"  portable DIA CG poisson3d_48 (--layout auto): {ms:.5f} ms/it over 256 steps, "
+          f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
     update_hashes(dev, card)
+    bicg_dia_hashes(dev, card)
     for name, t in update_rows(dev).items():
+        print_time_row(name, t, card)
+    for name, t in bicg_dia_rows(dev).items():
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
 

@@ -32,6 +32,27 @@
 // nearby CTA streamed just before (k * 4 bytes back per diagonal), which is
 // what the TPU kernel's halo did in VMEM; here it is meant to hit L2.
 //
+// dia_spmv_rows is the redesign of dia_spmv for operators of at most 32
+// diagonals (same function, same bits).  On an operator that sits in L2
+// (poisson3d_48: 7 diagonals, n = 110,592, 4 MB) the time of dia_spmv_kernel
+// is chain, not bytes: every CTA first loads the offsets from
+// global memory into shared memory and waits at a barrier, and a runtime
+// loop unrolled by 4 puts the 7 diagonals' loads in two rounds.  Here the
+// offsets are a kernel parameter (the host copies them from a cached host
+// array, ops/cuda/dia_spmv.host_offsets), indexed by compile-time indices
+// only (the kernel is compiled for 8, 16 and 32 of them): a runtime index
+// into the parameter compiled to a chain of uniform loads.  Each thread
+// owns 4 consecutive rows: one streaming float4 of each diagonal (n % 4 ==
+// 0 and aligned diagonals; else 4 masked loads) and x as a float4 where
+// its window is aligned and inside [0, ncols), else 4 loads; a chunk of up
+// to 16 diagonals' loads is in flight before its first product.  128-thread
+// CTAs: 216 of them on poisson3d_48, so every SM gets work.  chip_smoke.py
+// times both kernels on poisson3d_48, a 27-point stencil, a ragged n and a
+// misaligned x.  Above 32 diagonals one thread a row, with four times the warps
+// to hide latency, was the faster of the two (a build with a 64-offset
+// bucket lost to it at 41 and 64 diagonals), so dia_spmv keeps those
+// operators (ops/cuda/dia_spmv.dia_route).
+//
 // sym_dia_spmv_tiled is the redesign of sym_dia_spmv (same function, same
 // bits).  One thread per row reads 82 words a row on an operator with 21
 // stored offsets k * 1024 (d_k[i], d_k[i-k], x[i+k], x[i-k]): ~690 MB a call
@@ -100,6 +121,117 @@ dia_spmv_kernel(const float* __restrict__ diags, const int* __restrict__ offs,
     acc = __fadd_rn(acc, __fmul_rn(__ldcs(diags + (int64_t)d * n + i), xv));
   }
   y[i] = acc;
+}
+
+// dia_spmv_rows: the offsets by value, kDiaRows consecutive rows a thread.
+constexpr int kDiaThreads = 128;
+constexpr int kDiaRows = 4;
+constexpr int kDiaChunk = 16;     // diagonals whose loads are in flight together
+constexpr int kDiaMaxOffs = 32;   // ops/cuda/dia_spmv.MAX_PARAM_DIAGS
+
+// The offsets as a kernel parameter (constant bank): NMAX of them, ndiag
+// used.  The kernel indexes them with compile-time indices only: a runtime
+// index into a parameter compiles to a chain of uniform loads, or to an
+// indexed constant load whose latency each chunk then waits on.
+template <int NMAX>
+struct DiaOffsets {
+  int off[NMAX];
+};
+
+// Rows i0 .. i0 + 3 of one diagonal (i0 < n): one streaming float4 where
+// n % 4 == 0 and the diagonals are 16-byte aligned (VEC), else four loads,
+// 0 past n (those rows are not stored).
+template <bool VEC>
+__device__ __forceinline__ float4 diag_rows(const float* __restrict__ dg, int64_t i0, int64_t n) {
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(dg + i0));
+  float4 v;
+  v.x = __ldcs(dg + i0);
+  v.y = i0 + 1 < n ? __ldcs(dg + i0 + 1) : 0.f;
+  v.z = i0 + 2 < n ? __ldcs(dg + i0 + 2) : 0.f;
+  v.w = i0 + 3 < n ? __ldcs(dg + i0 + 3) : 0.f;
+  return v;
+}
+
+// x[c0 .. c0 + 3], 0 outside [0, ncols) (never a clamped index): one
+// float4 where the window lies inside and is 16-byte aligned (xvec: x is),
+// else four loads.
+__device__ __forceinline__ float4 x_window(const float* __restrict__ x, int64_t c0,
+                                           int64_t ncols, bool xvec) {
+  if (xvec && (c0 & 3) == 0 && c0 >= 0 && c0 + 4 <= ncols) {
+    return __ldg(reinterpret_cast<const float4*>(x + c0));
+  }
+  float4 v;
+  v.x = c0 >= 0 && c0 < ncols ? __ldg(x + c0) : 0.f;
+  v.y = c0 + 1 >= 0 && c0 + 1 < ncols ? __ldg(x + c0 + 1) : 0.f;
+  v.z = c0 + 2 >= 0 && c0 + 2 < ncols ? __ldg(x + c0 + 2) : 0.f;
+  v.w = c0 + 3 >= 0 && c0 + 3 < ncols ? __ldg(x + c0 + 3) : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ float term(float acc, float d, float xv) {
+  return __fadd_rn(acc, __fmul_rn(d, xv));
+}
+
+template <bool VEC, int NMAX>
+__global__ void __launch_bounds__(kDiaThreads)
+dia_rows_kernel(const float* __restrict__ diags, const DiaOffsets<NMAX> offs,
+                const float* __restrict__ x, float* __restrict__ y, int64_t n, int64_t ncols,
+                int ndiag, bool xvec) {
+  constexpr int C = NMAX < kDiaChunk ? NMAX : kDiaChunk;
+  const int64_t i0 = kDiaRows * ((int64_t)blockIdx.x * kDiaThreads + threadIdx.x);
+  if (i0 >= n) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int d0 = 0; d0 < NMAX; d0 += C) {
+    if (d0 >= ndiag) break;
+    // a chunk's diagonal and x loads, all issued before its first product
+    float4 dv[C], xv[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (d0 + j < ndiag) {
+        dv[j] = diag_rows<VEC>(diags + (int64_t)(d0 + j) * n, i0, n);
+        xv[j] = x_window(x, i0 + offs.off[d0 + j], ncols, xvec);
+      }
+    }
+    // each row in stored-offset order, one rounding a product and a sum
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (d0 + j < ndiag) {
+        acc.x = term(acc.x, dv[j].x, xv[j].x);
+        acc.y = term(acc.y, dv[j].y, xv[j].y);
+        acc.z = term(acc.z, dv[j].z, xv[j].z);
+        acc.w = term(acc.w, dv[j].w, xv[j].w);
+      }
+    }
+  }
+  if (VEC) {
+    *reinterpret_cast<float4*>(y + i0) = acc;
+  } else {
+    y[i0] = acc.x;
+    if (i0 + 1 < n) y[i0 + 1] = acc.y;
+    if (i0 + 2 < n) y[i0 + 2] = acc.z;
+    if (i0 + 3 < n) y[i0 + 3] = acc.w;
+  }
+}
+
+template <int NMAX>
+cudaError_t launch_dia_rows(const float* diags, const int* offs_host, const float* x, float* y,
+                            int64_t n, int64_t ncols, int ndiag, cudaStream_t s) {
+  DiaOffsets<NMAX> o{};
+  for (int d = 0; d < ndiag; ++d) o.off[d] = offs_host[d];
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(diags) % 16) == 0 &&
+                   (reinterpret_cast<uintptr_t>(y) % 16) == 0;
+  const bool xvec = (reinterpret_cast<uintptr_t>(x) % 16) == 0;
+  const int64_t threads = (n + kDiaRows - 1) / kDiaRows;
+  const unsigned grid = (unsigned)((threads + kDiaThreads - 1) / kDiaThreads);
+  if (vec) {
+    dia_rows_kernel<true, NMAX><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols, ndiag,
+                                                             xvec);
+  } else {
+    dia_rows_kernel<false, NMAX><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols, ndiag,
+                                                              xvec);
+  }
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -236,6 +368,19 @@ int cg_dia_spmv(const float* diags, const int* offs, const float* x, float* y,
   dia_spmv_kernel<<<(unsigned)grid, kThreads, ndiag * sizeof(int), s>>>(
       diags, offs, x, y, n, ncols, ndiag);
   return cudaGetLastError();
+}
+
+// y = DIA x by dia_rows_kernel.  offs_host: ndiag int32 offsets in host
+// memory (at most kDiaMaxOffs), copied into the launch's parameters; the
+// kernel is compiled for 8, 16 and 32 of them.  Returns a cudaError_t.
+int cg_dia_spmv_rows(const float* diags, const int* offs_host, const float* x, float* y,
+                     int64_t n, int64_t ncols, int ndiag, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return cudaSuccess;
+  if (ndiag < 0 || ndiag > kDiaMaxOffs) return cudaErrorInvalidValue;
+  if (ndiag <= 8) return launch_dia_rows<8>(diags, offs_host, x, y, n, ncols, ndiag, s);
+  if (ndiag <= 16) return launch_dia_rows<16>(diags, offs_host, x, y, n, ncols, ndiag, s);
+  return launch_dia_rows<32>(diags, offs_host, x, y, n, ncols, ndiag, s);
 }
 
 // y = SymDIA x over the stored offsets >= 0.  Returns a cudaError_t.

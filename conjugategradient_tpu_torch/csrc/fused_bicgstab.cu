@@ -38,7 +38,8 @@
 //   Division and sqrtf round correctly (no fast-math) and products are
 //   __fmul_rn.  isfinite is tested on the unclamped values, BEFORE any
 //   clamp (fmaxf would drop a NaN where jnp.maximum keeps it).
-// * Every kernel returns at once when ctl[C_LIVE] is 0.
+// * Every kernel returns, having written nothing, when ctl[C_LIVE] is 0
+//   (K3 after its first loads, which it issues before the test).
 //
 // What bounds them on the H100: K1 and K2 stream the stored tiles once
 // (402.7 MB at n = 262,144 block-tridiagonal, bn = 128; 671.1 MB for the
@@ -63,13 +64,6 @@ enum { B_RHO = 0, B_RHO_NEXT = 1, B_ALPHA = 2, B_OMEGA = 3, B_BETA = 4, B_BETA_C
 constexpr int C_BROKE = 4, C_HALF = 5;  // after fused_cg's four control words
 
 __device__ __forceinline__ float finite_or_zero(float v) { return isfinite(v) ? v : 0.f; }
-
-// beta of the coming step, (rho_k / rho_{k-1}) (alpha / omega), and its clamp
-__device__ void set_beta(float* scal, float rho_next) {
-  const float beta = __fmul_rn(rho_next / scal[B_RHO], scal[B_ALPHA] / scal[B_OMEGA]);
-  scal[B_BETA] = beta;
-  scal[B_BETA_C] = finite_or_zero(beta);
-}
 
 // ---- K1 -------------------------------------------------------------------
 // Replaces conjugategradient_tpu/ops/pallas/fused_bicgstab.py:bicgstab_dir_spmv_dot
@@ -329,37 +323,74 @@ bicg_s_packed_kernel(const float* __restrict__ vals, const int* __restrict__ col
 // ---- K3 -------------------------------------------------------------------
 // Replaces bicgstab_update_dot (fused_bicgstab.py:293, _update_kernel :274).
 // Bound: 7 vector streams of 4 n bytes (x_h, s^, s, t, rhat in; x', r' out),
-// L2-resident at n = 262,144.  Design: fused_cg.cu's update_kernel: float4
-// grid-stride pass with at most 1024 CTAs, then the last n % 4 elements one
-// by one, two partials per CTA, and the last CTA does the solver's step.
+// 7.3 MB at n = 262,144 (L2-resident there): about 2 microseconds, less
+// than the chain of dependent round trips from launch to the scalar step.
+// Design: fused_cg.cu's update_kernel: float4 grid-stride pass with at
+// most 1024 CTAs, then the last n % 4 elements one by one, two partials
+// per CTA, and the last CTA does the solver's step.  The chain is cut as
+// there, the reduction tree kept: ctl[C_LIVE], omega, the first float4 of
+// each input and (thread 0) every input of the scalar step are loaded at
+// once, before the not-live return (a launch that is not live writes
+// nothing and leaves the counter alone); the two sums share one
+// block_sum2 and one sum_partials2; only thread 0 publishes (publish_last).
+// Each sum keeps its per-thread order, butterfly and in-order CTA and
+// partial sums, so every output keeps its bits.
 // Each element is read and written by one thread, so an output may lie on
 // any input.
 
-// K3's last CTA, thread 0 (solver/fused_bicgstab.py's step after K3)
-__device__ void finish_update(float rn, float rho_pref, float* scal, int* ctl, float* hist,
-                              int hist_len) {
-  const float rnorm = sqrtf(rn);
-  const float beta = scal[B_BETA], alpha = scal[B_ALPHA], omega = scal[B_OMEGA];
-  const float rho_new = scal[B_RHO_NEXT], tol = scal[B_TOL];
-  const int half = ctl[C_HALF];
-  const int finite = isfinite(beta) && isfinite(alpha) && isfinite(omega) && isfinite(rnorm);
-  const int converged = half || (finite && rnorm <= tol);
-  const int broke = (!finite && !half) ||
-                    (finite && (omega == 0.f || rho_new == 0.f) && !converged);
-  const int k = ctl[C_K] + 1;
-  ctl[C_K] = k;
-  if (k < hist_len) hist[k] = rnorm;
-  const int done = ctl[C_DONE] || converged || broke;
-  ctl[C_DONE] = done;
-  ctl[C_BROKE] = ctl[C_BROKE] | broke;
-  ctl[C_LIVE] = !done && k < ctl[C_MAXITER];
-  scal[B_RNORM_PREV] = scal[B_RNORM];
-  scal[B_RNORM] = rnorm;
-  scal[B_RHO] = rho_new;
-  scal[B_RHO_NEXT] = rho_pref;
-  set_beta(scal, rho_pref);
+// The scalar step's inputs, loaded by thread 0 beside the first operands
+struct UpdateIn {
+  float beta, alpha, omega, rho_new, tol, rnorm;
+  int half, k, done, broke, maxiter;
+};
+
+__device__ __forceinline__ UpdateIn load_update_in(const float* scal, const int* ctl) {
+  UpdateIn in;
+  in.beta = ld_now(scal + B_BETA);
+  in.alpha = ld_now(scal + B_ALPHA);
+  in.omega = ld_now(scal + B_OMEGA);
+  in.rho_new = ld_now(scal + B_RHO_NEXT);
+  in.tol = ld_now(scal + B_TOL);
+  in.rnorm = ld_now(scal + B_RNORM);
+  in.half = ld_now(ctl + C_HALF);
+  in.k = ld_now(ctl + C_K);
+  in.done = ld_now(ctl + C_DONE);
+  in.broke = ld_now(ctl + C_BROKE);
+  in.maxiter = ld_now(ctl + C_MAXITER);
+  return in;
 }
 
+// K3's last CTA, thread 0 (solver/fused_bicgstab.py's step after K3), on
+// the values K3 loaded at its start: nothing it reads is written before it
+// by this launch.  beta of the coming step, (rho_k / rho_{k-1})
+// (alpha / omega), divides by the rho it stores (rho_new), as the torch
+// step's set_beta does.
+__device__ void finish_update(float rn, float rho_pref, const UpdateIn& in, float* scal, int* ctl,
+                              float* hist, int hist_len) {
+  const float rnorm = sqrtf(rn);
+  const int finite = isfinite(in.beta) && isfinite(in.alpha) && isfinite(in.omega) &&
+                     isfinite(rnorm);
+  const int converged = in.half || (finite && rnorm <= in.tol);
+  const int broke = (!finite && !in.half) ||
+                    (finite && (in.omega == 0.f || in.rho_new == 0.f) && !converged);
+  const int k = in.k + 1;
+  ctl[C_K] = k;
+  if (k < hist_len) hist[k] = rnorm;
+  const int done = in.done || converged || broke;
+  ctl[C_DONE] = done;
+  ctl[C_BROKE] = in.broke | broke;
+  ctl[C_LIVE] = !done && k < in.maxiter;
+  scal[B_RNORM_PREV] = in.rnorm;
+  scal[B_RNORM] = rnorm;
+  scal[B_RHO] = in.rho_new;
+  scal[B_RHO_NEXT] = rho_pref;
+  const float beta = __fmul_rn(rho_pref / in.rho_new, in.alpha / in.omega);
+  scal[B_BETA] = beta;
+  scal[B_BETA_C] = finite_or_zero(beta);
+}
+
+// One element of K3: x' and r', and r'.r' and rhat.r' accumulated, every
+// rounding written out (one FMA a term, as the first design wrote them)
 __device__ __forceinline__ void update_elem(float xh, float sh, float s, float t, float rh,
                                             float w, float& xo, float& ro, float& rn,
                                             float& rho) {
@@ -369,15 +400,20 @@ __device__ __forceinline__ void update_elem(float xh, float sh, float s, float t
   rho = fmaf(rh, ro, rho);
 }
 
+__device__ __forceinline__ void update4(float w, float4 a, float4 b, float4 c, float4 e,
+                                       float4 f, float4& x, float4& r, float& rn, float& rho) {
+  update_elem(a.x, b.x, c.x, e.x, f.x, w, x.x, r.x, rn, rho);
+  update_elem(a.y, b.y, c.y, e.y, f.y, w, x.y, r.y, rn, rho);
+  update_elem(a.z, b.z, c.z, e.z, f.z, w, x.z, r.z, rn, rho);
+  update_elem(a.w, b.w, c.w, e.w, f.w, w, x.w, r.w, rn, rho);
+}
+
 __global__ void __launch_bounds__(kThreads)
 bicg_update_kernel(const float* omega_p, const float* xh, const float* shat, const float* s,
                    const float* t, const float* rhat, float* xo, float* ro, float* rn_out,
                    float* rho_out, float* partials, unsigned* counter, float* scal, int* ctl,
                    float* hist, int hist_len, int64_t n) {
-  if (ctl[C_LIVE] == 0) return;
-  __shared__ float red[kWarps];
-  const float w = *omega_p;
-  const int64_t n4 = n / 4;
+  const int64_t n4 = n / 4, stride = (int64_t)gridDim.x * kThreads;
   const float4* xh4 = reinterpret_cast<const float4*>(xh);
   const float4* sh4 = reinterpret_cast<const float4*>(shat);
   const float4* s4 = reinterpret_cast<const float4*>(s);
@@ -385,41 +421,52 @@ bicg_update_kernel(const float* omega_p, const float* xh, const float* shat, con
   const float4* rh4 = reinterpret_cast<const float4*>(rhat);
   float4* xo4 = reinterpret_cast<float4*>(xo);
   float4* ro4 = reinterpret_cast<float4*>(ro);
+  // every independent load at once; nothing is written before the live test
+  const int live = ld_now(ctl + C_LIVE);
+  const float w = ld_now(omega_p);
+  int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  float4 a, b, c, e, f;
+  if (i < n4) {
+    a = ld_now(xh4 + i); b = ld_now(sh4 + i); c = ld_now(s4 + i); e = ld_now(t4 + i);
+    f = ld_now(rh4 + i);
+  }
+  UpdateIn in{};
+  if (threadIdx.x == 0) in = load_update_in(scal, ctl);
+  if (live == 0) return;
   float rn = 0.f, rho = 0.f;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * kThreads) {
-    const float4 a = xh4[i], b = sh4[i], c = s4[i], e = t4[i], f = rh4[i];
-    float4 x, r;
-    update_elem(a.x, b.x, c.x, e.x, f.x, w, x.x, r.x, rn, rho);
-    update_elem(a.y, b.y, c.y, e.y, f.y, w, x.y, r.y, rn, rho);
-    update_elem(a.z, b.z, c.z, e.z, f.z, w, x.z, r.z, rn, rho);
-    update_elem(a.w, b.w, c.w, e.w, f.w, w, x.w, r.w, rn, rho);
+  float4 x, r;
+  if (i < n4) {
+    update4(w, a, b, c, e, f, x, r, rn, rho);
+    xo4[i] = x;
+    ro4[i] = r;
+    i += stride;
+  }
+  for (; i < n4; i += stride) {
+    update4(w, xh4[i], sh4[i], s4[i], t4[i], rh4[i], x, r, rn, rho);
     xo4[i] = x;
     ro4[i] = r;
   }
   // the scalar tail: at most 3 elements, one per thread of CTA 0
-  const int64_t i = 4 * n4 + (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) {
-    float x, r;
-    update_elem(xh[i], shat[i], s[i], t[i], rhat[i], w, x, r, rn, rho);
-    xo[i] = x;
-    ro[i] = r;
+  const int64_t tl = 4 * n4 + (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (tl < n) {
+    float xt, rt;
+    update_elem(xh[tl], shat[tl], s[tl], t[tl], rhat[tl], w, xt, rt, rn, rho);
+    xo[tl] = xt;
+    ro[tl] = rt;
   }
-  const float b1 = block_sum(rn, red);
-  const float b2 = block_sum(rho, red);
+  __shared__ float red[2][kWarps];
+  const float2 bs = block_sum2(rn, rho, red);
   if (threadIdx.x == 0) {
-    partials[blockIdx.x] = b1;
-    partials[gridDim.x + blockIdx.x] = b2;
+    partials[blockIdx.x] = bs.x;
+    partials[gridDim.x + blockIdx.x] = bs.y;
   }
-  if (arrive_last(counter)) {
-    const float rn_all = sum_partials(partials, gridDim.x, red);
-    const float rho_all = sum_partials(partials + gridDim.x, gridDim.x, red);
-    if (threadIdx.x == 0) {
-      rn_out[0] = rn_all;
-      rho_out[0] = rho_all;
-      finish_update(rn_all, rho_all, scal, ctl, hist, hist_len);
-      *counter = 0u;
-    }
+  if (!publish_last(counter)) return;
+  const float2 sums = sum_partials2(partials, partials + gridDim.x, gridDim.x, red);
+  if (threadIdx.x == 0) {
+    rn_out[0] = sums.x;
+    rho_out[0] = sums.y;
+    finish_update(sums.x, sums.y, in, scal, ctl, hist, hist_len);
+    *counter = 0u;
   }
 }
 

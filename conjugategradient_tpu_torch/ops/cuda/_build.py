@@ -50,6 +50,7 @@ SIGNATURES = {
     "cg_bell_spmv": [_P] * 4 + [_I64, _I, _I, _I, _P],
     "cg_bell_spmv_packed": [_P] * 6 + [_I64, _P],
     "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
+    "cg_dia_spmv_rows": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
     "cg_sym_dia_spmv_tiled": [_P] * 4 + [_I64, _I, _I64, _I, _P],
     "cg_stencil7_f32": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],

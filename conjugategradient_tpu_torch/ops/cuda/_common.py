@@ -26,6 +26,7 @@ LAUNCHES = {
     "bell_spmv": 0,
     "bell_spmv_dot": 0,
     "dia_spmv": 0,
+    "dia_spmv_rows": 0,
     "sym_dia_spmv": 0,
     "sym_dia_spmv_tiled": 0,
     "stencil7": 0,

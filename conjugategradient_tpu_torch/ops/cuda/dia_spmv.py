@@ -19,10 +19,21 @@ instead of twice (its row and its mirror) and x a few times instead of
 from the offsets and n alone) pays.  ``sym_dia_spmv``, one thread per row
 reading everything from L2, takes the rest: small operators and halos
 beyond shared memory.  The launch counters tell the two routes apart.
+
+The general product has two kernels too, one function and the same bits.
+``dia_spmv_rows`` takes the offsets by value, as a kernel parameter filled
+from the host tuple (:func:`host_offsets`, made once per tuple), so no CTA
+waits on a global load and a barrier before its first diagonal load, and
+gives each thread four consecutive rows, with a chunk of diagonals' loads
+in flight before the first product.  ``dia_spmv``, one thread a row with
+the offsets staged in shared memory, takes the operators :func:`dia_route`
+gives it: more than 32 diagonals, where its 4x more warps hide latency
+better.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -45,6 +56,9 @@ from ._common import (
 #: most 48 KB) shared memory; ``sym_dia_spmv_tiled`` reads them from global
 #: memory and has no such limit
 MAX_CUDA_DIAGS = 12288
+#: offsets ``dia_spmv_rows`` takes as a kernel parameter (csrc/dia_spmv.cu
+#: kDiaMaxOffs; compiled for 8, 16 and 32 of them)
+MAX_PARAM_DIAGS = 32
 #: the tiled kernel's CTA (csrc/dia_spmv.cu): TILE_COLS columns x
 #: TILE_PLANES planes spaced by the pitch
 TILE_COLS = 32
@@ -108,6 +122,25 @@ def sym_dia_tiling(offsets: tuple, n: int) -> Optional[SymDiaTiling]:
     return tiling if tiling.smem_bytes <= MAX_TILE_SMEM else None
 
 
+def dia_route(offsets: tuple) -> str:
+    """The kernel that computes y = DIA x for these offsets: the launch
+    counter's name, ``dia_spmv_rows`` wherever its parameter holds them (at
+    most ``MAX_PARAM_DIAGS``), else ``dia_spmv``.  Only the count decides:
+    on an H100 the by-value kernel was the faster one on every shape
+    measured up to 32 diagonals, ragged n, rectangular operators and
+    misaligned operands included (``chip_smoke.py`` times both), and one
+    thread a row beyond, where its four times the warps hide latency
+    better.  Pure Python: the same on every device."""
+    return "dia_spmv_rows" if len(offsets) <= MAX_PARAM_DIAGS else "dia_spmv"
+
+
+@functools.lru_cache(maxsize=256)
+def host_offsets(offsets: tuple):
+    """The offsets as an int32 ctypes array in host memory, made once per
+    tuple: ``cg_dia_spmv_rows`` copies it into the launch's parameters."""
+    return (ctypes.c_int32 * len(offsets))(*offsets)
+
+
 def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS):
     if diags.dim() != 2:
         raise ValueError(f"{name}: diags must be (ndiag, n), got {tuple(diags.shape)}")
@@ -142,18 +175,35 @@ def dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
     ``diags`` (ndiag, n) float32 (bf16 on the CPU only), ``offsets`` the
     tuple of ints and ``offsets_dev`` the same as an int32 tensor beside
     ``diags``; ``x`` float32 of any length ncols (rectangular operators).
+    On a CUDA device the kernel :func:`dia_route` names runs.
     """
-    name = "dia_spmv"
-    if not _check(name, diags, offsets, offsets_dev, x, None):
+    if not _check("dia_spmv", diags, offsets, offsets_dev, x, None):
         return _dia_plain(diags, offsets, x)
+    offsets = tuple(offsets)
+    return dia_cuda(diags, offsets, offsets_dev, x, dia_route(offsets))
+
+
+def dia_cuda(diags, offsets: tuple, offsets_dev, x, route: str):
+    """Launch one of the two general kernels on checked CUDA operands:
+    ``dia_spmv_rows`` (the offsets from the host tuple) or ``dia_spmv``
+    (from ``offsets_dev``)."""
     from ._build import load_library
 
     ndiag, n = diags.shape
     y = x.new_empty(n)
-    err = load_library().cg_dia_spmv(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y),
-                                     n, x.shape[0], ndiag, stream(x.device))
-    LAUNCHES[name] += 1
-    raise_on_error(name, err)
+    lib = load_library()
+    if route == "dia_spmv_rows":
+        if ndiag > MAX_PARAM_DIAGS:
+            raise ValueError(f"{route}: at most {MAX_PARAM_DIAGS} offsets, got {ndiag}")
+        err = lib.cg_dia_spmv_rows(ptr(diags), host_offsets(offsets), ptr(x), ptr(y), n,
+                                   x.shape[0], ndiag, stream(x.device))
+    elif route == "dia_spmv":
+        err = lib.cg_dia_spmv(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, x.shape[0],
+                              ndiag, stream(x.device))
+    else:
+        raise ValueError(f"dia_spmv: no kernel {route!r}")
+    LAUNCHES[route] += 1
+    raise_on_error(route, err)
     return y
 
 

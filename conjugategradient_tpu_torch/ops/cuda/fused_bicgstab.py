@@ -574,7 +574,7 @@ def _update_plain(xh2d, shat2d, s2d, t2d, rhat2d, omega, out, work):
         PLAIN_ON_CUDA["bicgstab_update_dot"] += 1
     if work is not None and not _live(work):
         z = work.scal.new_zeros(1, 1)
-        return (*out, z, z)
+        return (*(out if out is not None else (xh2d, s2d)), z, z)
     w = omega.reshape(())
     x_new = xh2d + w * shat2d
     r_new = s2d - w * t2d

@@ -177,9 +177,11 @@ def test_dia_kernels_bit_equal_to_plain(dev):
         d = torch.from_numpy(diags).to(dev)
         od = torch.tensor(offsets, dtype=torch.int32, device=dev)
         x = torch.randn(ncols, device=dev)
-        before = fc.LAUNCHES["dia_spmv"]
+        route = kd.dia_route(offsets)
+        assert route == ("dia_spmv" if len(offsets) > kd.MAX_PARAM_DIAGS else "dia_spmv_rows")
+        before = fc.LAUNCHES[route]
         yk = kd.dia_spmv_diags(d, offsets, od, x)
-        assert fc.LAUNCHES["dia_spmv"] == before + 1
+        assert fc.LAUNCHES[route] == before + 1, label
         yp = kd._dia_plain(d, offsets, x)
         torch.cuda.synchronize()
         assert torch.equal(yk, yp), label
@@ -188,6 +190,47 @@ def test_dia_kernels_bit_equal_to_plain(dev):
             assert torch.equal(ys, kd._sym_dia_plain(d, offsets, x)), label
     with pytest.raises(TypeError, match="not ported"):
         kd.dia_spmv_diags(d.bfloat16(), offsets, od, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 1001, 110_592])
+def test_dia_rows_kernel_bit_equal_to_plain_and_to_dia_spmv(dev, n):
+    """Both kernels 7 on the same operands, bit for bit against the plain
+    version: offsets beyond n on both sides, ncols equal to n, above and
+    below it, a NaN in x, x (a view at offset 1) or the diagonals (a view
+    at offset 1) not 16-byte aligned; a repeat gives the same bits."""
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    g = torch.Generator().manual_seed(n)
+    offsets = (-n - 3, -5, -1, 0, 1, 4, 48, n + 2)
+    od = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    flat = torch.randn(len(offsets) * n + 1, generator=g).to(dev)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731  (NaN rows compare too)
+    for shift in (0, 1):
+        d = flat[shift:shift + len(offsets) * n].view(len(offsets), n)
+        for ncols in (n, n + 37, max(1, n - 2)):
+            xb = torch.randn(ncols + 1, generator=g).to(dev)
+            xb[1 + ncols // 2] = float("nan")
+            for xs in (0, 1):
+                x = xb[xs:xs + ncols]
+                before = fc.LAUNCHES["dia_spmv_rows"]
+                y = kd.dia_cuda(d, offsets, od, x, "dia_spmv_rows")
+                y2 = kd.dia_cuda(d, offsets, od, x, "dia_spmv_rows")
+                yo = kd.dia_cuda(d, offsets, od, x, "dia_spmv")
+                yp = kd._dia_plain(d, offsets, x)
+                torch.cuda.synchronize()
+                what = f"diags+{shift} ncols={ncols} x+{xs}"
+                assert fc.LAUNCHES["dia_spmv_rows"] == before + 2, what
+                assert torch.equal(bits(y), bits(yp)), what
+                assert torch.equal(bits(y), bits(y2)) and torch.equal(bits(y), bits(yo)), what
+                # the NaN at column c reaches rows c - off only, never a clamped one
+                c = 1 + ncols // 2 - xs
+                rows = {c - o for o in offsets if 0 <= c < ncols and 0 <= c - o < n}
+                assert set(torch.isnan(y).nonzero().flatten().tolist()) == rows, what
+    with pytest.raises(ValueError, match="at most"):
+        kd.dia_cuda(torch.zeros(33, n, device=dev), tuple(range(33)),
+                    torch.arange(33, dtype=torch.int32, device=dev), torch.zeros(n, device=dev),
+                    "dia_spmv_rows")
 
 
 @pytest.mark.cuda
@@ -596,7 +639,9 @@ def test_bicgstab_tile_kernels_match_plain(dev, bn, row_group, with_d):
 def test_bicgstab_update_kernel_matches_plain(dev, n):
     """Kernel 20 at lengths with and without a scalar tail: x', r' bit for
     bit (also in place over x_h and s), the dots to RTOL, the step's scalars
-    within 2 ulp and its control words equal; ω = 0 returns x_h and s."""
+    within 2 ulp and its control words equal; two more launches on a fresh
+    work repeat every output and scalar bit for bit and leave the ticket at
+    0; ω = 0 returns x_h and s."""
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
 
     g = torch.Generator().manual_seed(n)
@@ -607,9 +652,18 @@ def test_bicgstab_update_kernel_matches_plain(dev, n):
     p = fb._update_plain(xh, sh, s, t, rhat, w, None, None)
     xc, sc = xh.clone(), s.clone()
     k2 = fb.bicgstab_update_dot(xc, sh, sc, t, rhat, w, out=(xc, sc))
+    reps = []
+    for _ in range(2):
+        wr = _bicg_work(dev)
+        out = fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, work=wr)
+        reps.append([v.clone() for v in (*out, wr.scal, wr.ctl, wr.hist, wr.counter)])
     torch.cuda.synchronize()
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert torch.equal(k2[0], p[0]) and torch.equal(k2[1], p[1])
+    assert k2[0].data_ptr() == xc.data_ptr() and k2[1].data_ptr() == sc.data_ptr()
+    first = [v.clone() for v in (*k, wk.scal, wk.ctl, wk.hist, wk.counter)]
+    for r in reps:
+        assert all(_same_bits(a, b) for a, b in zip(first, r)) and int(r[-1]) == 0
     for i in (2, 3):
         np.testing.assert_allclose(float(k[i]), float(p[i]), rtol=RTOL,
                                    atol=RTOL * float(p[1].norm() * (p[1] if i == 2 else rhat).norm()))
@@ -617,6 +671,29 @@ def test_bicgstab_update_kernel_matches_plain(dev, n):
     assert _tail_ulps(wk, wp) <= 2 and torch.equal(wk.ctl, wp.ctl) and int(wk.ctl[0]) == 1
     z = fb.bicgstab_update_dot(xh, sh, s, t, rhat, torch.zeros(1, 1, device=dev))
     assert torch.equal(z[0], xh) and torch.equal(z[1], s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 262_144])
+def test_bicgstab_update_kernel_writes_nothing_when_not_live(dev, n):
+    """Kernel 20 loads its operands and the step's scalars before it reads
+    ctl[C_LIVE]: on a solve that is not live, written in place as the loop
+    launches it (x' over x_h, r' over s), nothing changes (x_h, s, the
+    partials, scal, ctl, hist) and the ticket stays at 0."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    g = torch.Generator().manual_seed(n)
+    xh, sh, s, t, rhat = (torch.randn(n, generator=g).to(dev) for _ in range(5))
+    w = torch.full((1, 1), 0.45, device=dev)
+    work = _bicg_work(dev)
+    work.ctl[fb.C_LIVE] = 0
+    work.partials.fill_(7.0)
+    bufs = (xh, s, work.partials, work.counter, work.scal, work.ctl, work.hist)
+    kept = [b.clone() for b in bufs]
+    fb.bicgstab_update_dot(xh, sh, s, t, rhat, w, out=(xh, s), work=work)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(kept, bufs))
+    assert int(work.counter) == 0
 
 
 @pytest.mark.cuda

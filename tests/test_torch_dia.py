@@ -395,3 +395,79 @@ def test_sym_dia_route_by_shape_on_the_cpu_runs_the_plain_version():
         y = tk.sym_dia_spmv_diags(d, offsets, od, x)
         assert _common.LAUNCHES == before
         assert torch.equal(y, tspmv.sym_dia_apply(d, offsets, x))
+
+
+# ---- kernel 7's route (ops/cuda/dia_spmv.dia_route) ------------------------
+
+O27 = tuple(sorted(i + 48 * j + 2304 * k for i in (-1, 0, 1) for j in (-1, 0, 1)
+                   for k in (-1, 0, 1)))
+
+
+@pytest.mark.parametrize("label,offsets,want", [
+    # poisson3d_48 as --layout auto loads it: 7 diagonals, the by-value kernel
+    ("poisson3d_48", (-2304, -48, -1, 0, 1, 48, 2304), "dia_spmv_rows"),
+    # symdia-big in full storage: 41 diagonals, one thread a row
+    ("symdia-big", tuple(k * 1024 for k in range(-20, 21)), "dia_spmv"),
+    ("dense_256", tuple(range(-255, 256)), "dia_spmv"),
+    ("27-point stencil", O27, "dia_spmv_rows"),
+    ("at the cap", tuple(range(32)), "dia_spmv_rows"),
+    ("above the cap", tuple(range(33)), "dia_spmv"),
+    # the shape does not enter: a ragged n (1001), a rectangular operator
+    # (1001 x 1300) and misaligned operands take the by-value kernel, which
+    # handles them itself (test_dia_route_on_the_cpu_runs_the_plain_version
+    # and the card tests drive them)
+    ("n % 4 != 0", (-1, 0, 1), "dia_spmv_rows"),
+    ("rectangular 1001 x 1300", (-7, 0, 5, 299), "dia_spmv_rows"),
+    ("negative offsets only", (-300, -3, -1), "dia_spmv_rows"),
+    ("no diagonal", (), "dia_spmv_rows"),
+])
+def test_dia_route_choice(label, offsets, want):
+    assert tk.dia_route(offsets) == want, label
+    # pure Python on the offsets: the same answer for numpy ints
+    assert tk.dia_route(tuple(np.int64(o) for o in offsets)) == want, label
+    assert (len(offsets) <= tk.MAX_PARAM_DIAGS) == (want == "dia_spmv_rows")
+
+
+def test_dia_route_on_the_problem_files(host_csr):
+    """Every file ``choose_layout`` stores as DIA: the stencils and the
+    convection-diffusion operator (5 or 7 diagonals) take the by-value
+    kernel, the wide bands (bcsstk17 69, elasticity 99, dense_256 511)
+    one thread a row."""
+    wide = {"bcsstk17_profile.mtx", "elasticity3d_16.mtx", "elasticity3d_8.mtx",
+            "dense_256.mtx"}
+    for p in MTX:
+        if AUTO_PLAIN[p.name] != "dia":
+            continue
+        data, indices, indptr, shape = host_csr[p.name, False]
+        d = DIAMatrix.from_csr_host(data.astype(np.float32), indices, indptr, shape, device="cpu")
+        want = "dia_spmv" if p.name in wide else "dia_spmv_rows"
+        assert tk.dia_route(d.offsets) == want, (p.name, d.ndiag)
+
+
+def test_host_offsets_are_made_once_per_tuple():
+    offsets = (-2304, -48, -1, 0, 1, 48, 2304)
+    buf = tk.host_offsets(offsets)
+    assert list(buf) == list(offsets) and len(buf) == len(offsets)
+    # an equal tuple built anew, or of numpy ints, finds the same buffer
+    assert tk.host_offsets(tuple(list(offsets))) is buf
+    assert tk.host_offsets(tuple(np.int32(o) for o in offsets)) is buf
+    assert tk.host_offsets((0, 1)) is not buf and list(tk.host_offsets((0, 1))) == [0, 1]
+
+
+@pytest.mark.parametrize("ndiag", [7, 32, 33])
+@pytest.mark.parametrize("n,ncols,xshift", [(1001, 1001, 0), (1001, 1300, 1), (110592, 110592, 1)])
+def test_dia_route_on_the_cpu_runs_the_plain_version(ndiag, n, ncols, xshift):
+    """On CPU tensors the wrapper runs ``dia_apply`` whichever kernel the
+    route names (x a view at offset 1 too), and counts no launch."""
+    rng = np.random.default_rng(ndiag + n)
+    offsets = tuple(int(o) for o in rng.choice(np.arange(-n - 3, ncols + 3), ndiag,
+                                               replace=False))
+    d = torch.from_numpy(rng.standard_normal((ndiag, n)).astype(np.float32))
+    xb = torch.from_numpy(rng.standard_normal(ncols + 1).astype(np.float32))
+    x = xb[xshift:xshift + ncols]
+    od = torch.tensor(offsets, dtype=torch.int32)
+    launches, plain = dict(_common.LAUNCHES), dict(_common.PLAIN_ON_CUDA)
+    y = tk.dia_spmv_diags(d, offsets, od, x)
+    assert _common.LAUNCHES == launches and _common.PLAIN_ON_CUDA == plain
+    assert "dia_spmv_rows" in _common.LAUNCHES
+    assert torch.equal(y, tspmv.dia_apply(d, offsets, x))

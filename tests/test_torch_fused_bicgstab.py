@@ -157,6 +157,39 @@ def test_update_plain_matches_pallas(rows, lanes):
     _close_dot(got[3], want[3])
 
 
+@pytest.mark.parametrize("out", [True, False], ids=["in-place", "no-out"])
+def test_update_plain_not_live_returns_its_inputs(out):
+    """Kernel 20's plain version at a length that is not a multiple of 1024
+    (7 x 150 = 1050): live, it matches the Pallas kernel and takes the
+    solver's step; on a work that is not live it returns x_h and s (or the
+    out buffers, which hold them) untouched, zero dots, and the work as it
+    was."""
+    rng = np.random.default_rng(1050)
+    xh, sh, s, t, rhat = (rng.standard_normal((7, 150)).astype(np.float32) for _ in range(5))
+    w = _s11(0.45)
+    want = jk.bicgstab_update_dot(*map(jnp.asarray, (xh, sh, s, t, rhat, w)), interpret=True)
+    args = [torch.from_numpy(v.copy()) for v in (xh, sh, s, t, rhat, w)]
+    live = tk.BicgstabWork.new("cpu", maxiter=9, tol=0.5)
+    live.start(torch.tensor(4.0))
+    got = tk.bicgstab_update_dot(*args, out=(args[0], args[2]) if out else None, work=live)
+    for i in range(2):
+        _close_elem(got[i], want[i], (xh, sh, s, t))
+    _close_dot(got[2], want[2])
+    _close_dot(got[3], want[3])
+    assert int(live.ctl[tk.C_K]) == 1
+    idle = tk.BicgstabWork.new("cpu", maxiter=9, tol=0.5)
+    idle.ctl[tk.C_LIVE] = 0
+    kept = [t_.clone() for t_ in (idle.scal, idle.ctl, idle.hist)]
+    args = [torch.from_numpy(v.copy()) for v in (xh, sh, s, t, rhat, w)]
+    got = tk.bicgstab_update_dot(*args, out=(args[0], args[2]) if out else None, work=idle)
+    assert got[0] is args[0] and got[1] is args[2]
+    assert np.array_equal(got[0].numpy(), xh) and np.array_equal(got[1].numpy(), s)
+    assert float(got[2]) == float(got[3]) == 0.0
+    # bit for bit (hist holds NaN past k)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(kept, (idle.scal, idle.ctl, idle.hist)))
+
+
 def test_clamped_scalars_make_exact_no_ops(cd16):
     """α = 0 (a clamped non-finite α) leaves s = r and x_h = x bit for bit;
     ω = 0 gives x' = x_h and r' = s; β = 0 gives p' = r."""
