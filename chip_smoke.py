@@ -177,6 +177,26 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    (``partition_csr_rows``, P = 4) against ``cg_solve`` (equal iterations, x
    to 1e-11); sharded MINRES on indefinite operators against
    ``minres_solve``; caps of 1, 2 and 7; b = 0; one x0 warm start.
+   Then the GMRES / preconditioner / API path, with its own reset and
+   read: GMRES(32) on bench.py's convection-diffusion DIA lane (nx = 1024,
+   n = 1,048,576, 5 diagonals: kernel 7's ``dia_spmv_rows``) for 128 inner
+   steps at tol = 0 (4 cycles, the Givens estimates not rising within a
+   cycle, info.rnorm against ||b - Ax|| recomputed on the card and in
+   float64; ms per step, bench.py's byte model over the copy rate of
+   ``utils.hbm_bandwidth_gbps``, the busy share, the Givens chain's share
+   timed alone, ``utils.memory_stats``); GMRES(32) on convdiff-512 as
+   128 x 128 blocked-ELL (packed kernel 5) for 128 steps against the same
+   float32 solve on the CPU (``trajectory_ok``, the final true residual to
+   1e-3); Chebyshev PCG (degree 8, ``estimate_spectral_bounds``) on the
+   256^3 stencil (``stencil7``) to 1e-5 ||b|| beside plain CG, in fewer
+   iterations; block-Jacobi PCG (b = 8) through the tester on poisson3d_48
+   ``--layout auto`` (DIA: kernel 7 for A and for the apply); the
+   reference's object API (``CG.createCG(torch.float32)``) on poisson3d_48's
+   host CSR arrays; ``run_cg`` in 4 chunks of 64 steps through a checkpoint
+   file (``save_state`` / ``load_state``) on the fused CG at n = 262,144 in
+   both storages, and in chunks of 64 on the portable DIA CG on
+   poisson3d_48, each history hash equal to one uninterrupted solve's; the
+   tester's ``--estimate-steps`` and ``--progress 64``.
    The portable loops end at convergence: the steps launched are counted
    against the iterations for MG-PCG at 256^3, a portable DIA solve, a
    portable BiCGStab solve and a portable sharded CG solve.
@@ -2980,9 +3000,10 @@ def ritz_shift(op, fraction):
     """A shift strictly inside the spectrum: ``fraction`` of the way from
     the smallest to the largest Ritz value of 30 Lanczos steps (both lie
     inside the spectrum, so A - shift I is indefinite)."""
-    from conjugategradient_tpu_torch.solver.cg import _lanczos_ritz_extremes
+    from conjugategradient_tpu_torch.solver.eigs import _lanczos_ritz
 
-    lo, hi = _lanczos_ritz_extremes(op, 30, 0)
+    ritz = _lanczos_ritz(op, 30, None, 0, None)[2]
+    lo, hi = float(ritz[0]), float(ritz[-1])
     return lo + fraction * (hi - lo), lo, hi
 
 
@@ -4106,6 +4127,293 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
 
 # ---- kernels 2, 3 and 16: per-call hashes, not-live launches, timing rows ----------
 
+# GMRES, the block-Jacobi and Chebyshev preconditioners, the CG object API,
+# checkpointed solves and the tester's new flags
+GMRES_NX = 1024  # bench.py:1224's lane: the convection-diffusion DIA operator, n = 1,048,576
+GMRES_RESTART = 32
+GMRES_STEPS = 128
+GMRES_BELL_NX = 512  # convdiff-512 as 128 x 128 blocked-ELL (the packed route)
+GMRES_RNORM_RTOL = 1e-5  # info.rnorm against ||b - Ax|| recomputed in float64
+GMRES_TWIN_RTOL = 1e-3  # the final true residual, card against the CPU's
+GIVENS_SLACK = 1e-6  # a Givens estimate may exceed the one before by this (rounding)
+F32_EPS = 2.0 ** -23
+CHEB_DEGREE = 8
+BJ_BLOCK = 8
+CKPT_CHUNKS = 4  # run_cg chunks of 64 steps, through a file between each
+GMRES_KERNELS = ("dia_spmv_rows", "bell_spmv_packed", "stencil7")
+
+
+def gmres_bytes_per_step(dia, n: int, m: int) -> int:
+    """bench.py:1272's byte model of one inner step: the operator, the
+    matvec's in and out, CGS2 over the live rows (the cycle average of
+    4 (m+3)/2 rows), the basis write and the rotations' vectors."""
+    return dia.diags.numel() * 4 + 2 * n * 4 + 4 * ((m + 3) // 2) * n * 4 + 5 * n * 4
+
+
+def rotation_chain_ms(m: int, dev) -> float:
+    """CUDA-event ms per inner step of the Givens chain alone, averaged over
+    a cycle of m steps (step j applies its j previous rotations, each one
+    2 x 2 product and its copy, as solver/gmres.py does)."""
+    import torch
+
+    col = torch.randn(m + 1, device=dev)
+    G = torch.eye(2, device=dev).repeat(m, 1, 1)
+
+    def cycle():
+        for j in range(m):
+            for i in range(j):
+                col[i: i + 2] = G[i] @ col[i: i + 2]
+
+    return cuda_ms(cycle, reps=3, warm=1) / m
+
+
+def givens_monotone(hist, k: int, m: int) -> bool:
+    """Within each cycle the Givens estimates do not rise: hist[c m] (the
+    true norm the cycle starts from) down to hist[c m + m - 1]."""
+    h = hist[: k + 1].double().cpu().numpy()
+    for c in range(0, k, m):
+        seg = h[c: min(c + m, k + 1)]
+        if np.any(np.diff(seg) > GIVENS_SLACK * seg[:-1]):
+            return False
+    return True
+
+
+def log_records(logger_name):
+    """A handler that keeps the records of one logger, and its remover."""
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logger = logging.getLogger(logger_name)
+    h = Keep(level=logging.DEBUG)
+    logger.addHandler(h)
+    return records, lambda: logger.removeHandler(h)
+
+
+def phase_gmres_path(dev, big, big_full, card):
+    """GMRES(32) on the DIA lane and on convdiff-512's packed tiles,
+    Chebyshev PCG on stencil:256, block-Jacobi PCG through the tester,
+    the CG object API, chunked checkpointed solves and the tester's
+    --estimate-steps and --progress."""
+    import torch
+
+    from conjugategradient_tpu_torch import (CG, DIAMatrix, StencilOperator, cg_solve,
+                                             fused_bell_cg_solve, gmres_solve, load_matrix,
+                                             memory_footprint, read_mtx_csr, utils)
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+    from conjugategradient_tpu_torch.solver import (cg_init, chebyshev_preconditioner,
+                                                    estimate_spectral_bounds, fused_cg_init,
+                                                    load_state, run_cg, save_state)
+    from conjugategradient_tpu_torch.utils import Timer
+
+    # (a) GMRES(32) on bench.py's DIA lane: 128 inner steps at tol = 0
+    v, c, p, shape = convdiff_csr(GMRES_NX)
+    dia = DIAMatrix.from_csr_host(v, c, p, shape, device=dev)
+    n, m = shape[0], GMRES_RESTART
+    check(len(dia.offsets) == 5, f"convdiff DIA: {len(dia.offsets)} diagonals")
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    gmres_solve(dia, b, tol=0.0, maxiter=m, restart=m)  # warm-up
+    before = _common.LAUNCHES["dia_spmv_rows"]
+    t = Timer(dev).start_measure()
+    x, info = gmres_solve(dia, b, tol=0.0, maxiter=GMRES_STEPS, restart=m)
+    t.stop_measure()
+    launched = _common.LAUNCHES["dia_spmv_rows"] - before
+    k, cycles = int(info.iterations), int(info.cycles)
+    check(k == GMRES_STEPS and cycles == GMRES_STEPS // m,
+          f"GMRES DIA: {k} iterations, {cycles} cycles")
+    check(givens_monotone(info.rnorm_history, k, m), "GMRES DIA: a Givens estimate rose in a cycle")
+    r_card = float((b - dia.matvec(x)).double().norm())  # the kernel, float32
+    check(abs(float(info.rnorm) - r_card) <= GMRES_RNORM_RTOL * r_card,
+          f"GMRES DIA: rnorm {float(info.rnorm)} against recomputed {r_card}")
+    # float64 (plain torch): within float32's rounding of b - Ax, a few
+    # eps32 (||b|| + || |A| |x| ||)
+    d64 = DIAMatrix(dia.diags.double(), dia.offsets, dia.shape, dia.nnz)
+    r64 = float((b.double() - d64.matvec(x.double())).norm())
+    ax_abs = DIAMatrix(d64.diags.abs(), dia.offsets, dia.shape, dia.nnz).matvec(x.double().abs())
+    slack = 4 * F32_EPS * (float(b.double().norm()) + float(ax_abs.norm()))
+    check(abs(float(info.rnorm) - r64) <= GMRES_RNORM_RTOL * r64 + slack,
+          f"GMRES DIA: rnorm {float(info.rnorm)} against float64 {r64} (slack {slack})")
+    check(launched >= GMRES_STEPS + GMRES_STEPS // m,
+          f"GMRES DIA: dia_spmv_rows launched {launched} times")
+    ms_step = t.get_duration() / k
+    copy_gbps = utils.hbm_bandwidth_gbps(1 << 30, 10, device=dev)
+    model = gmres_bytes_per_step(dia, n, m)
+    eff = model / ms_step / 1e6
+    chain = rotation_chain_ms(m, dev)
+    busy = device_ms(lambda: gmres_solve(dia, b, tol=0.0, maxiter=GMRES_STEPS, restart=m),
+                     reps=1)
+    busy_s = "not measured" if busy is None else \
+        f"{busy / k:.4f} ms/step ({100 * busy / t.get_duration():.1f}%)"
+    mem = utils.memory_stats(dev)
+    check(mem.get("peak_bytes_in_use", 0) > 0, f"memory_stats on the card: {mem}")
+    print(f"  GMRES({m}) convdiff DIA n={n} (5 diagonals), {k} steps, {cycles} cycles: "
+          f"{ms_step:.5f} ms/step ({launched} dia_spmv_rows launches); byte model "
+          f"{model / 1e6:.1f} MB/step -> {eff:.1f} GB/s, {eff / copy_gbps:.4f} of the "
+          f"{copy_gbps:.1f} GB/s copy rate (utils.hbm_bandwidth_gbps); device busy {busy_s}; "
+          f"Givens chain alone {chain:.5f} ms/step ({100 * chain / ms_step:.1f}% of the step); "
+          f"rnorm {float(info.rnorm):.6e}, recomputed {r_card:.6e} (float64 {r64:.6e}); "
+          f"peak memory {mem['peak_bytes_in_use'] / 2**30:.2f} GiB  [{card}]")
+    del dia, d64, ax_abs, x, b
+
+    # (b) GMRES(32) on convdiff-512's sparse tiles (packed kernel 5), against
+    # the same float32 solve on the CPU
+    cd = convdiff_bell(GMRES_BELL_NX, dev)
+    check(bell_packed_route(cd), "convdiff-512 blocked-ELL is not on the packed route")
+    bc = torch.as_tensor(np.random.default_rng(0).standard_normal(cd.n), dtype=torch.float32)
+    gmres_solve(cd, bc.to(dev), tol=0.0, maxiter=m, restart=m)
+    before = _common.LAUNCHES["bell_spmv_packed"]
+    t = Timer(dev).start_measure()
+    xg, ig = gmres_solve(cd, bc.to(dev), tol=0.0, maxiter=GMRES_STEPS, restart=m)
+    t.stop_measure()
+    launched = _common.LAUNCHES["bell_spmv_packed"] - before
+    cd_cpu = convdiff_bell(GMRES_BELL_NX, "cpu")
+    xc, ic = gmres_solve(cd_cpu, bc, tol=0.0, maxiter=GMRES_STEPS, restart=m)
+    ok, used = trajectory_ok(ig.rnorm_history, ic.rnorm_history, GMRES_STEPS)
+    check(int(ig.iterations) == GMRES_STEPS and ok,
+          f"GMRES convdiff-512 packed: {int(ig.iterations)} its; history against the CPU's "
+          f"beyond rtol {TRAJ_RTOL}")
+    rel = abs(float(ig.rnorm) - float(ic.rnorm)) / float(ic.rnorm)
+    check(rel <= GMRES_TWIN_RTOL, f"GMRES convdiff-512: final true residual {float(ig.rnorm)} "
+          f"against the CPU's {float(ic.rnorm)}")
+    check(launched >= GMRES_STEPS, f"GMRES convdiff-512: bell_spmv_packed launched {launched}")
+    print(f"  GMRES({m}) convdiff-512 128x128 blocked-ELL (packed route), {GMRES_STEPS} steps: "
+          f"{t.get_duration() / GMRES_STEPS:.5f} ms/step ({launched} bell_spmv_packed launches); "
+          f"history within rtol {TRAJ_RTOL} of the CPU's float32 solve on {used} entries, final "
+          f"true residual "
+          f"{float(ig.rnorm):.6e} vs CPU {float(ic.rnorm):.6e} (rel {rel:.2e})  [{card}]")
+    del cd, cd_cpu, xg, xc
+
+    # (c) Chebyshev PCG (degree 8, the Lanczos interval) on stencil:256 against
+    # plain CG (the fused stencil loop), to 1e-5 ||b||
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    n = op.shape[0]
+    b = stencil_rhs(n, dev, scale=n)
+    bn_ = float(b.double().norm())
+    tol = TOL_SOLVE_REL * bn_
+    t = Timer(dev).start_measure()
+    lo, hi = estimate_spectral_bounds(op)
+    t.stop_measure()
+    est_ms = t.get_duration()
+    rows = {}
+    for label, M in (("plain CG (fused)", None),
+                     (f"Chebyshev PCG degree {CHEB_DEGREE}",
+                      chebyshev_preconditioner(op, lo, hi, degree=CHEB_DEGREE))):
+        cg_solve(op, b, tol=tol, M=M, maxiter=8)
+        t = Timer(dev).start_measure()
+        x, info = cg_solve(op, b, tol=tol, M=M)
+        t.stop_measure()
+        true_rel = float((b - op.matvec(x)).double().norm()) / bn_
+        check(bool(info.converged) and true_rel < F32_TRUE_REL_FLOOR,
+              f"{label} 256^3: converged {bool(info.converged)}, true rel residual {true_rel}")
+        rows[label] = int(info.iterations)
+        print(f"  {label} 256^3 to 1e-5 ||b||: {t.get_duration():.2f} ms, "
+              f"{int(info.iterations)} its ({t.get_duration() / int(info.iterations):.4f} ms/it), "
+              f"true rel residual {true_rel:.3e}  [{card}]")
+    its = list(rows.values())
+    check(its[1] < its[0], f"Chebyshev PCG took {its[1]} iterations, plain CG {its[0]}")
+    print(f"  estimate_spectral_bounds 256^3: [{lo:.6g}, {hi:.6g}] in {est_ms:.2f} ms  [{card}]")
+    del op, b, x
+
+    # (d) block-Jacobi PCG (b = 8) through the tester: poisson3d_48 as DIA
+    # (kernel 7 for A and for the apply)
+    path = MATRICES[0]
+    n3 = 110_592
+    before = _common.LAUNCHES["dia_spmv_rows"]
+    dim, nnz, ms, rel, summ, _ = run_tester(path, "auto", "blockjacobi", TOL_SOLVE_REL * bnorm(n3),
+                                            extra=("--block-size", str(BJ_BLOCK)))
+    launched = _common.LAUNCHES["dia_spmv_rows"] - before
+    its = summ["iterations"][0]
+    check(summ["converged"] == [True] and rel < REL_ERROR_BOUND,
+          f"tester {path} auto blockjacobi: {summ}, rel_error {rel}")
+    check(launched >= 2 * 2 * its, f"block-Jacobi tester: dia_spmv_rows launched {launched} "
+          f"times for 2 solves of {its} iterations")
+    print(f"  tester {path} --layout auto --precond blockjacobi --block-size {BJ_BLOCK}: "
+          f"{dim} {nnz} {ms:.3f} ms, {its} its, rel_error {rel:.3e} ({launched} dia_spmv_rows "
+          f"launches over the warm-up and the timed solve)  [{card}]")
+
+    # (e) the reference's object API on poisson3d_48's host CSR arrays
+    data, indices, indptr, _ = read_mtx_csr(os.path.join(ROOT, path), dtype=np.float32)
+    cg = CG.createCG(torch.float32, device=dev)
+    cg.setMatrix(data, indices, indptr)
+    cg.setTarget(np.arange(1, n3 + 1, dtype=np.float32))
+    t = Timer(dev).start_measure()
+    cg.solve(TOL_SOLVE_REL * bnorm(n3))
+    t.stop_measure()
+    acc = cg.accuracy()
+    fp = cg.memoryFootprint()
+    check(cg.converged and acc < REL_ERROR_BOUND and cg.getDimension() == n3
+          and fp == memory_footprint(n3, len(data), torch.float32)
+          and fp == (2 * len(data) + 4 * n3) * 4 + 2 * n3 * 4,
+          f"CG API: converged {cg.converged}, accuracy {acc}, footprint {fp}")
+    print(f"  CG.createCG(float32) poisson3d_48 CSR: {cg.iterations} its in "
+          f"{t.get_duration():.2f} ms, accuracy {acc:.3e}, memoryFootprint {fp} B  [{card}]")
+
+    # (f) run_cg in 4 chunks of 64 with save_state / load_state between: the
+    # history hash of one uninterrupted solve (the --fused-cg-only hashes)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_checkpoint.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    bb = torch.arange(1, N_BIG + 1, dtype=torch.float32, device=dev)
+    steps = 64 * CKPT_CHUNKS
+    for label, a in (("n=262144 symmetric", big), ("n=262144 full", big_full)):
+        _, whole = fused_bell_cg_solve(a, bb, tol=-1.0, maxiter=steps)
+        state = fused_cg_init(a, bb, maxiter=steps, tol=-1.0)
+        for _ in range(CKPT_CHUNKS):
+            state = run_cg(a, state, -1.0, steps=64)
+            save_state(ckpt, state)
+            state = load_state(ckpt, device=dev)
+        h_whole, h_chunks = digest(whole.rho_history), digest(state.hist)
+        check(h_whole == h_chunks, f"fused CG {label}: chunked history {h_chunks} against one "
+              f"solve's {h_whole}")
+        print(f"  fused CG {label}: {CKPT_CHUNKS} run_cg chunks of 64 through a checkpoint file, "
+              f"rho_history sha256 {h_chunks} (one solve: {h_whole})  [{card}]")
+    p3dia = load_matrix(os.path.join(ROOT, path), layout="auto", dtype=np.float32, device=dev)
+    bp = torch.arange(1, n3 + 1, dtype=torch.float32, device=dev)
+    tol3 = TOL_SOLVE_REL * bnorm(n3)
+    _, whole = cg_solve(p3dia, bp, tol=tol3)
+    state = cg_init(p3dia, bp, maxiter=n3 + 1)
+    chunks = 0
+    while not bool(state.done) and int(state.k) < n3 + 1:
+        state = run_cg(p3dia, state, tol3, steps=64)
+        save_state(ckpt, state)
+        state = load_state(ckpt, device=dev)
+        chunks += 1
+    h_whole, h_chunks = digest(whole.rho_history), digest(state.hist)
+    check(h_whole == h_chunks and int(state.k) == int(whole.iterations),
+          f"portable DIA CG poisson3d_48: chunked {h_chunks} against {h_whole}")
+    print(f"  portable DIA CG poisson3d_48 (tol 1e-5 ||b||): {chunks} run_cg chunks of 64, "
+          f"{int(state.k)} its, rho_history sha256 {h_chunks} (one solve: {h_whole})  [{card}]")
+    os.remove(ckpt)
+
+    # (g) the tester's --estimate-steps and --progress 64 on the card
+    from conjugategradient_tpu_torch import tester
+
+    records, remove = log_records("conjugategradient_tpu")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = tester.main([os.path.join(ROOT, path), "--layout", "auto", "--dtype", "float32",
+                              "--tol", repr(tol3), "--summary", "--estimate-steps",
+                              "--progress", "64", "--device", str(DEVICE)])
+    finally:
+        remove()
+    lines = buf.getvalue().strip().splitlines()
+    trace = [r for r in records if r.startswith("iter ")]
+    check(rc == 0 and len(lines) == 3 and lines[0].startswith("expected_steps ")
+          and len(trace) >= 2, f"tester --estimate-steps --progress 64: rc {rc}, {lines}, "
+          f"{len(trace)} progress lines")
+    k_last = int(trace[-1].split()[1])
+    rel = float(lines[1].split()[3])
+    check(k_last == json.loads(lines[2])["iterations"][0] and rel < REL_ERROR_BOUND,
+          f"--progress: last line {trace[-1]!r} against {lines[2]}, rel_error {rel}")
+    print(f"  tester {path} --layout auto --estimate-steps --progress 64: {lines[0]}; "
+          f"{len(trace)} progress lines, the last {trace[-1]!r}; {lines[1]}  [{card}]")
+
+
 UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
 
 
@@ -4539,6 +4847,8 @@ def main() -> int:
         ("MINRES", MINRES_KERNELS, lambda: phase_minres_path(dev, big, big_full, ops, card)),
         ("BiCGStab", BICGSTAB_KERNELS, lambda: phase_bicgstab_path(dev, bic_ops, card)),
         ("sharded", SHARDED_KERNELS, lambda: phase_sharded_path(dev, big_full, shard_ops, card)),
+        ("GMRES / preconditioners / API", GMRES_KERNELS,
+         lambda: phase_gmres_path(dev, big, big_full, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

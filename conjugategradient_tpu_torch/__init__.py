@@ -14,23 +14,35 @@ MINRES for symmetric indefinite systems (``minres_solve``, with a shift)
 runs on blocked-ELL as two more such kernels per iteration, and on every
 other layout as a portable loop.  BiCGStab for nonsymmetric systems
 (``bicgstab_solve``) runs as a portable loop on every layout, and with
-``fused="always"`` as three kernels per iteration on full blocked-ELL.  CSR, SELL and the rest of the portable
+``fused="always"`` as three kernels per iteration on full blocked-ELL.
+GMRES(m) (``gmres_solve``, right-preconditioned, FGMRES with
+``flexible=True``) is a portable loop on every layout.  The
+preconditioners are Jacobi, block-Jacobi (a DIA product, the DIA kernel on
+the card, for blocks up to 16), Chebyshev (its interval from the device
+Lanczos of ``lanczos_eigs``) and the stencil's multigrid; ``CG`` is the
+reference's object API, and ``solver.save_state`` / ``load_state`` /
+``run_cg`` checkpoint a solve.  CSR, SELL and the rest of the portable
 loops run in plain torch.  Entry
 points put operators on the card (``"cuda"``) unless the caller passes
 ``device="cpu"``.  Imports torch, never jax.
 """
 
+from .compat import CG
 from .io import load_matrix, read_mtx_csr, write_mtx
 from .solver import (
     BicgstabInfo,
     CGInfo,
     CGState,
+    EigsResult,
+    GmresInfo,
     MinresInfo,
     accuracy,
     bicgstab_solve,
+    block_jacobi_preconditioner,
     cg_init,
     cg_solve,
     cg_step,
+    condition_estimate,
     expected_step_count,
     fused_bell_cg_solve,
     fused_bell_pcg_solve,
@@ -39,7 +51,10 @@ from .solver import (
     fused_minres_solve,
     fused_minres_supported,
     fused_stencil_cg_solve,
+    gmres_solve,
     jacobi_preconditioner,
+    lanczos_eigs,
+    memory_footprint,
     minres_solve,
     multigrid_preconditioner,
 )
@@ -62,11 +77,14 @@ __version__ = "0.1.0"
 __all__ = [
     "BicgstabInfo",
     "BlockedEllMatrix",
+    "CG",
     "CGInfo",
     "CGState",
     "CSRMatrix",
     "DIAMatrix",
     "DenseOperator",
+    "EigsResult",
+    "GmresInfo",
     "LinearOperator",
     "MatrixFreeOperator",
     "MinresInfo",
@@ -78,9 +96,11 @@ __all__ = [
     "__version__",
     "as_linear_operator",
     "bicgstab_solve",
+    "block_jacobi_preconditioner",
     "cg_init",
     "cg_solve",
     "cg_step",
+    "condition_estimate",
     "expected_step_count",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
@@ -89,8 +109,11 @@ __all__ = [
     "fused_minres_solve",
     "fused_minres_supported",
     "fused_stencil_cg_solve",
+    "gmres_solve",
     "jacobi_preconditioner",
+    "lanczos_eigs",
     "load_matrix",
+    "memory_footprint",
     "minres_solve",
     "multigrid_preconditioner",
     "read_mtx_csr",

@@ -1,5 +1,8 @@
 from .bicgstab import BicgstabInfo, bicgstab_solve
-from .cg import CGInfo, CGState, accuracy, cg_init, cg_solve, cg_step, expected_step_count
+from .cg import (CGInfo, CGState, accuracy, cg_init, cg_solve, cg_step, expected_step_count,
+                 memory_footprint)
+from .checkpoint import load_state, run_cg, save_state
+from .eigs import EigsResult, condition_estimate, lanczos_eigs
 from .fused import (
     FusedCGState,
     fused_bell_cg_solve,
@@ -11,21 +14,34 @@ from .fused import (
 from .fused_bicgstab import fused_bicgstab_solve, fused_bicgstab_supported
 from .fused_minres import fused_minres_solve, fused_minres_supported
 from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
+from .gmres import GmresInfo, gmres_solve
 from .minres import MinresInfo, minres_solve
 from .multigrid import multigrid_preconditioner
-from .precond import jacobi_preconditioner
+from .precond import (
+    block_jacobi_preconditioner,
+    chebyshev_preconditioner,
+    estimate_spectral_bounds,
+    identity_preconditioner,
+    jacobi_preconditioner,
+)
 
 __all__ = [
     "BicgstabInfo",
     "CGInfo",
     "CGState",
+    "EigsResult",
     "FusedCGState",
+    "GmresInfo",
     "MinresInfo",
     "accuracy",
     "bicgstab_solve",
+    "block_jacobi_preconditioner",
     "cg_init",
     "cg_solve",
     "cg_step",
+    "chebyshev_preconditioner",
+    "condition_estimate",
+    "estimate_spectral_bounds",
     "expected_step_count",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
@@ -38,7 +54,14 @@ __all__ = [
     "fused_stencil_cg_solve",
     "fused_stencil_supported",
     "fused_supported",
+    "gmres_solve",
+    "identity_preconditioner",
     "jacobi_preconditioner",
+    "lanczos_eigs",
+    "load_state",
+    "memory_footprint",
     "minres_solve",
     "multigrid_preconditioner",
+    "run_cg",
+    "save_state",
 ]

@@ -28,7 +28,6 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..ops.blas import dot
@@ -251,39 +250,6 @@ def accuracy(A: Any, b: torch.Tensor, x: torch.Tensor,
     return torch.abs(dot(res, res) / dot(x, x))
 
 
-def _lanczos_ritz_extremes(op: LinearOperator, iters: int, seed: int):
-    """(smallest, largest) Ritz value of ``iters`` Lanczos steps with full
-    reorthogonalization, started from a numpy-seeded normal vector."""
-    m = op.shape[0]
-    k = int(min(iters, m))
-    dt = torch.promote_types(op.dtype, torch.float32)
-    v0 = torch.as_tensor(np.random.default_rng(seed).standard_normal(m),
-                         dtype=dt, device=op.device)
-    v = v0 / torch.linalg.vector_norm(v0)
-    breakdown_tol = 1e-12 if dt == torch.float64 else 1e-6
-    V = torch.zeros((k, m), dtype=dt, device=op.device)
-    alphas, betas = [], []
-    v_prev = torch.zeros_like(v)
-    beta = torch.zeros((), dtype=dt, device=op.device)
-    for j in range(k):
-        V[j] = v
-        w = op.matvec(v.to(op.dtype)).to(dt)
-        alpha = torch.dot(v, w)
-        w = w - alpha * v - beta * v_prev
-        w = w - V.T @ (V @ w)
-        beta_new = torch.linalg.vector_norm(w)
-        alphas.append(alpha)
-        betas.append(beta_new)
-        if float(beta_new) <= breakdown_tol:  # invariant subspace: exact
-            break
-        v_prev, v, beta = v, w / beta_new, beta_new
-    a = torch.stack(alphas).double().cpu().numpy()
-    b = torch.stack(betas).double().cpu().numpy()[: len(a) - 1]
-    T = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
-    vals = np.linalg.eigvalsh(T)
-    return float(vals[0]), float(vals[-1])
-
-
 def expected_step_count(
     A: Any,
     accuracy: float,
@@ -293,18 +259,29 @@ def expected_step_count(
     device=None,
 ) -> int:
     """Predicted CG iteration count to reduce the A-norm error by
-    ``accuracy``: κ from a short Lanczos run, then the classic bound
+    ``accuracy``: κ from a short Lanczos run on the device
+    (precond.estimate_spectral_bounds, unpadded), then the classic bound
     k = ⌈ln(2/ε) / ln((√κ+1)/(√κ−1))⌉.  ``n``: the dimension of a callable
     ``A``, whose vectors go to ``device`` (None: ``DEFAULT_DEVICE``)."""
     if not (0 < accuracy < 1):
         raise ValueError(f"accuracy must be in (0, 1), got {accuracy}")
+    from .precond import estimate_spectral_bounds
+
     full_precision_matmul()
-    op = as_linear_operator(A, device=device, n=n)
-    lam_min, lam_max = _lanczos_ritz_extremes(op, lanczos_iters, seed)
-    lam_min = max(lam_min, lam_max * 1e-8)
+    # the raw Ritz interval: Chebyshev's padding would inflate kappa
+    lam_min, lam_max = estimate_spectral_bounds(A, n=n, iters=lanczos_iters, seed=seed,
+                                                safety=1.0, min_margin=1.0, device=device)
     kappa = max(lam_max / lam_min, 1.0)
     sk = math.sqrt(kappa)
     if sk <= 1.0 + 1e-12:
         return 1
     k = math.log(2.0 / accuracy) / math.log((sk + 1.0) / (sk - 1.0))
     return max(int(math.ceil(k)), 1)
+
+
+def memory_footprint(n: int, nnz: int, dtype=torch.float32, index_bytes: int = 4) -> int:
+    """The reference's analytic workspace estimate
+    ``(2·NNZ + 4·N)·sizeof(DT) + 2·N·sizeof(int)`` (CG.hpp:555-558), kept
+    for parity; an operator's own bytes are its ``memory_footprint()``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (2 * nnz + 4 * n) * itemsize + 2 * n * index_bytes

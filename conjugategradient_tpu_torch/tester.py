@@ -11,8 +11,11 @@
 
 Usage: ``python -m conjugategradient_tpu_torch.tester <file.mtx | stencil:N> [options]``
 (or ``cgtorch-tester``).  ``--device cuda`` (the default) needs a GPU and
-exits non-zero without one.  Flags of the JAX harness that this package has
-not ported yet exit with code 2 and "not yet ported".
+exits non-zero without one.  ``--method gmres --restart``, ``--precond
+blockjacobi|chebyshev`` (``--block-size``, ``--cheb-degree``),
+``--progress N``, ``--estimate-steps`` and ``--verbose`` behave as in the
+JAX harness.  Flags of the JAX harness that this package has not ported
+yet exit with code 2 and "not yet ported".
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import numpy as np
 
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
-_PRECONDS = ("none", "jacobi", "amg")
-_METHODS = ("standard", "minres", "bicgstab")
+_PRECONDS = ("none", "jacobi", "blockjacobi", "chebyshev", "amg")
+_METHODS = ("standard", "minres", "bicgstab", "gmres")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,8 +59,14 @@ def _parser() -> argparse.ArgumentParser:
                          "iterations (0: never)")
     ap.add_argument("--dtype", default="float64", help="float32 or float64")
     ap.add_argument("--precond", default="none",
-                    help="none, jacobi, or amg (the geometric multigrid "
-                         "V-cycle; stencil: inputs only)")
+                    help="none, jacobi, blockjacobi (--block-size), chebyshev "
+                         "(--cheb-degree; interval from a Lanczos estimate), "
+                         "or amg (the geometric multigrid V-cycle; stencil: "
+                         "inputs only)")
+    ap.add_argument("--block-size", type=int, default=8, dest="block_size",
+                    help="diagonal-block size (with --precond blockjacobi)")
+    ap.add_argument("--cheb-degree", type=int, default=8,
+                    help="Chebyshev polynomial degree (with --precond chebyshev)")
     ap.add_argument("--smoother", choices=("jacobi", "chebyshev"), default="jacobi",
                     help="multigrid smoother (with --precond amg): nu "
                          "damped-Jacobi sweeps or the degree-nu Chebyshev "
@@ -69,7 +78,12 @@ def _parser() -> argparse.ArgumentParser:
                          "layouts run fused CUDA kernels on a GPU); bicgstab "
                          "= van der Vorst BiCGStab for NONSYMMETRIC systems "
                          "(general .mtx inputs; 2 SpMVs/iteration; takes "
-                         "--precond; the portable loop)")
+                         "--precond; the portable loop); gmres = restarted "
+                         "GMRES(m) for NONSYMMETRIC systems (--restart sets m; "
+                         "right --precond)")
+    ap.add_argument("--restart", type=int, default=30,
+                    help="GMRES restart length m (with --method gmres): the "
+                         "(m+1, n) Krylov basis held on the device")
     ap.add_argument("--shift", type=float, default=0.0,
                     help="solve (A - shift*I) x = b (with --method minres: "
                          "the Paige-Saunders spectral shift)")
@@ -81,6 +95,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="also print the residual-norm history as JSON")
     ap.add_argument("--summary", action="store_true",
                     help="also print {iterations, converged, final_rnorm}")
+    ap.add_argument("--progress", type=int, default=0, metavar="N",
+                    help="log k and ||r_k|| every N iterations (the reference's "
+                         "progress trace, CG.hpp:428-434), driving the solve in "
+                         "run_cg chunks: one host read per chunk")
+    ap.add_argument("--estimate-steps", action="store_true", dest="estimate_steps",
+                    help="print the predicted CG iteration count before solving "
+                         "(Lanczos condition-number bound, CG.hpp:235)")
+    ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
@@ -124,9 +146,13 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, cg_solve,
-                   jacobi_preconditioner, load_matrix, minres_solve, multigrid_preconditioner)
-    from .utils import Timer
+    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, cg_init, cg_solve,
+                   expected_step_count, gmres_solve, jacobi_preconditioner, load_matrix,
+                   minres_solve, multigrid_preconditioner)
+    from .ops.spmv import full_precision_matmul
+    from .solver import (block_jacobi_preconditioner, chebyshev_preconditioner,
+                         estimate_spectral_bounds, run_cg)
+    from .utils import Timer, get_logger, set_verbosity
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -137,14 +163,8 @@ def main(argv=None) -> int:
     if args.recompute < 0:
         print("error: --recompute must be >= 0", file=sys.stderr)
         return 2
-    if args.shift and args.method != "minres":
-        print("error: --shift drives --method minres (the Paige-Saunders "
-              "shifted solve)", file=sys.stderr)
-        return 2
-    if args.recompute > 0 and args.method != "standard":
-        print("error: --recompute drives the standard or pipelined "
-              "single-RHS loop", file=sys.stderr)
-        return 2
+    set_verbosity("verbose" if args.verbose else "info")
+    log = get_logger()
     perm = None
     if args.mtx.startswith("stencil:"):
         dims = _stencil_dims(args)
@@ -167,34 +187,96 @@ def main(argv=None) -> int:
             print(f"error: cannot parse {args.mtx}: {e}", file=sys.stderr)
             return 2
     n, nnz = A.shape[0], A.nnz
+    if args.verbose:
+        log.debug("loaded %s: n=%d nnz=%d layout=%s reorder=%s",
+                  args.mtx, n, nnz, type(A).__name__, args.reorder)
 
     b = torch.arange(1, n + 1, dtype=dtype, device=device)
     if perm is not None:
         b = b[torch.from_numpy(perm).to(device)]
     if args.precond == "jacobi":
         M = jacobi_preconditioner(A)
+    elif args.precond == "blockjacobi":
+        M = block_jacobi_preconditioner(A, block_size=args.block_size)
+    elif args.precond == "chebyshev":
+        try:
+            lmin, lmax = estimate_spectral_bounds(A)
+            if args.verbose:
+                log.debug("chebyshev interval [%g, %g]", lmin, lmax)
+            M = chebyshev_preconditioner(A, lmin, lmax, degree=args.cheb_degree)
+        except ValueError as e:
+            print(f"error: chebyshev setup failed: {e}", file=sys.stderr)
+            return 2
     elif args.precond == "amg":
         M = multigrid_preconditioner(A, smoother=args.smoother)
     else:
         M = None
 
+    if args.estimate_steps:
+        bnorm = float(torch.linalg.vector_norm(b))
+        eps = min(max(args.tol / max(bnorm, 1e-300), 1e-16), 0.5)
+        try:
+            k_est = expected_step_count(A, eps)
+            print(f"expected_steps {k_est} (eps={eps:.3g})")
+        except ValueError as e:
+            print(f"expected_steps unavailable: {e}", file=sys.stderr)
+
+    if args.progress > 0 and args.method != "standard":
+        print("error: --progress drives the standard single-RHS loop "
+              "(no --nrhs/--method pipelined)", file=sys.stderr)
+        return 2
+    if args.shift and args.method != "minres":
+        print("error: --shift drives --method minres (the Paige-Saunders "
+              "shifted solve)", file=sys.stderr)
+        return 2
+    if args.recompute > 0 and (args.method != "standard" or args.progress > 0):
+        print("error: --recompute drives the standard or pipelined "
+              "single-RHS loop", file=sys.stderr)
+        return 2
+
+    cap = args.maxiter if args.maxiter is not None else n + 1
+    progress_quiet = [True]  # the warm-up solve logs nothing
+
+    def progress_solve():
+        # run_cg chunks of --progress steps: one host read per chunk (the
+        # reference's progress trace on the checkpointable carry)
+        full_precision_matmul()
+        state = cg_init(A, b, M=M, maxiter=cap)
+        while True:
+            state = run_cg(A, state, args.tol, steps=args.progress, M=M)
+            k = int(state.k)
+            if not progress_quiet[0]:
+                log.info("iter %d  ||r|| = %.6e", k, float(torch.sqrt(state.rnorm_sq)))
+            if bool(state.done) or k >= cap:
+                break
+        return state.x, CGInfo(iterations=state.k,
+                               converged=state.done & ~torch.isnan(state.rnorm_sq),
+                               rho=state.rho, rnorm_sq=state.rnorm_sq,
+                               rho_history=state.hist)
+
     def solve():
-        if args.method in ("minres", "bicgstab"):
+        if args.method in ("minres", "bicgstab", "gmres"):
             if args.method == "minres":
                 x, ninfo = minres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
                                         shift=args.shift)
+            elif args.method == "gmres":
+                x, ninfo = gmres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
+                                       restart=args.restart)
             else:
                 x, ninfo = bicgstab_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M)
             # the printing below reads a CGInfo, whose history holds squared
-            # norms; MINRES and BiCGStab carry norms
+            # norms; MINRES, BiCGStab and GMRES carry norms
             sq = ninfo.rnorm * ninfo.rnorm
             return x, CGInfo(iterations=ninfo.iterations, converged=ninfo.converged,
                              rho=sq, rnorm_sq=sq,
                              rho_history=ninfo.rnorm_history * ninfo.rnorm_history)
+        if args.progress > 0:
+            return progress_solve()
         return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
                         recompute_r_every=args.recompute)
 
     solve()  # warm-up: kernel build and first-launch costs stay untimed
+    progress_quiet[0] = False
     t = Timer(device).start_measure()
     x, info = solve()
     t.stop_measure()

@@ -3,6 +3,7 @@ the reference protocol's one-line output, the JSON extras, and the exits
 for what is not ported yet.  Runs on the CPU (``--device cpu``)."""
 
 import json
+import logging
 import pathlib
 
 import numpy as np
@@ -256,7 +257,9 @@ def test_minres_shift_history_is_norms_and_rel_error_uses_the_shifted_operator(c
     pytest.param(["--method", "bicgstab", "--shift", "0.5"], "--shift drives --method minres",
                  id="--method bicgstab"),
     (["--method", "bicgstab", "--recompute", "8"], "--recompute drives the standard"),
-    (["--method", "gmres"], "not yet ported"),
+    # GMRES is ported: this case now holds the shift refusal on it
+    pytest.param(["--method", "gmres", "--shift", "0.5"], "--shift drives --method minres",
+                 id="--method gmres"),
     (["--method", "sstep"], "not yet ported"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
 def test_method_refusals_exit_2(capsys, args, msg):
@@ -325,3 +328,130 @@ def test_bicgstab_history_holds_norms(capsys):
     np.testing.assert_allclose(norms[0], np.linalg.norm(b), rtol=1e-12)
     assert norms[-1] <= 1e-6 < norms[0]
     np.testing.assert_allclose(summ["final_rnorm"][0], norms[-1], rtol=1e-9)
+
+
+# --method gmres, --precond blockjacobi|chebyshev, --progress, --estimate-steps
+# and --verbose: each against the root tester on the same file
+def _both(capsys, args):
+    import tester as jtester
+
+    jrc = jtester.main(args)
+    jout = capsys.readouterr()
+    trc = tester.main([*args, "--device", "cpu"])
+    tout = capsys.readouterr()
+    return (jrc, jout.out.strip().splitlines(), jout.err), (trc, tout.out.strip().splitlines(),
+                                                            tout.err)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--restart", "20"], ["--restart", "5", "--precond", "jacobi"],
+    ["--precond", "blockjacobi", "--block-size", "4"],
+    ["--layout", "dia", "--dtype", "float32", "--tol", "1"],
+    ["--layout", "bell", "--dtype", "float32", "--tol", "1", "--restart", "40"],
+], ids=lambda a: " ".join(a))
+def test_gmres_matches_the_jax_tester(capsys, extra):
+    """--method gmres on the general convdiff_34.mtx: equal iterations in
+    float64, a few steps apart at most in float32 (to 4.4e-5 ||b||: 1e-3
+    is below the float32 floor, where neither package converges)."""
+    args = [CONVDIFF, "--method", "gmres", "--tol", "1e-4", "--summary", *extra]
+    (jrc, jlines, _), (trc, tlines, _) = _both(capsys, args)
+    assert jrc == trc == 0
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    js, ts = json.loads(jlines[1]), json.loads(tlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    trel = float(tlines[0].split()[3])
+    if "float32" in extra:
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 4 and 0 <= trel < 1e-8
+    else:
+        assert ts["iterations"] == js["iterations"]
+        np.testing.assert_allclose(ts["final_rnorm"], js["final_rnorm"], rtol=1e-6)
+        assert trel < 1e-12
+
+
+@pytest.mark.parametrize("extra", [
+    ["--precond", "blockjacobi"], ["--precond", "blockjacobi", "--block-size", "20"],
+    ["--precond", "blockjacobi", "--block-size", "3", "--layout", "dia"],
+    ["--precond", "blockjacobi", "--layout", "sell"],
+    ["--precond", "chebyshev"], ["--precond", "chebyshev", "--cheb-degree", "4"],
+    ["--precond", "blockjacobi", "--dtype", "float32", "--layout", "dia", "--tol", "1e-3"],
+    ["--precond", "chebyshev", "--dtype", "float32", "--tol", "1e-3"],
+], ids=lambda a: " ".join(a))
+def test_new_preconditioners_match_the_jax_tester(capsys, extra):
+    args = [MTX, "--tol", "1e-6", "--summary", *extra]
+    (jrc, jlines, _), (trc, tlines, _) = _both(capsys, args)
+    assert jrc == trc == 0
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    js, ts = json.loads(jlines[1]), json.loads(tlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    if "float32" in extra:
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 2
+        assert float(tlines[0].split()[3]) < 1e-8
+    else:
+        assert ts["iterations"] == js["iterations"]
+        assert float(tlines[0].split()[3]) < 1e-16
+
+
+def _log_lines(caplog, needle):
+    lines = [r.getMessage() for r in caplog.records if needle in r.getMessage()]
+    caplog.clear()
+    return lines
+
+
+def test_progress_logs_the_same_trace(capsys, caplog):
+    """--progress 25: one 'iter k ||r||' line per chunk (the warm-up solve
+    logs nothing), the root tester's k and ||r|| to 1e-6."""
+    import tester as jtester
+
+    args = [MTX, "--tol", "1e-8", "--progress", "25", "--summary"]
+    caplog.set_level(logging.INFO, logger="conjugategradient_tpu")
+    assert jtester.main(args) == 0
+    jlines, jtrace = capsys.readouterr().out.strip().splitlines(), _log_lines(caplog, "iter ")
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlines, ttrace = capsys.readouterr().out.strip().splitlines(), _log_lines(caplog, "iter ")
+    assert len(ttrace) == len(jtrace) >= 2
+    parse = lambda lines: np.array([[float(w) for w in ln.split()[1::3]] for ln in lines])  # noqa
+    tk, jk = parse(ttrace), parse(jtrace)  # (k, ||r||) per line
+    assert np.array_equal(tk[:, 0], jk[:, 0])
+    np.testing.assert_allclose(tk[:, 1], jk[:, 1], rtol=1e-6)  # the last is at the f64 floor
+    k = json.loads(tlines[1])["iterations"][0]
+    assert k == json.loads(jlines[1])["iterations"][0]
+    assert ttrace[-1].startswith(f"iter {k} ") and all(t.startswith("iter ") for t in ttrace)
+
+
+@pytest.mark.parametrize("extra", [[], ["--precond", "jacobi"], ["--layout", "dia"]],
+                         ids=lambda a: " ".join(a) or "csr")
+def test_estimate_steps_prints_the_same_line(capsys, extra):
+    args = [MTX, "--tol", "1e-6", "--estimate-steps", *extra]
+    (jrc, jlines, _), (trc, tlines, _) = _both(capsys, args)
+    assert jrc == trc == 0
+    assert tlines[0] == jlines[0] and tlines[0].startswith("expected_steps ")
+    assert len(tlines) == len(jlines) == 2
+
+
+def test_verbose_logs_the_load_and_the_interval(capsys, caplog):
+    import tester as jtester
+
+    args = [MTX, "--tol", "1e-6", "--precond", "chebyshev", "--verbose"]
+    caplog.set_level(logging.DEBUG, logger="conjugategradient_tpu")
+    assert jtester.main(args) == 0
+    jlog = [r.getMessage() for r in caplog.records if r.levelno == logging.DEBUG]
+    caplog.clear()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlog = [r.getMessage() for r in caplog.records if r.levelno == logging.DEBUG]
+    capsys.readouterr()
+    assert tlog == jlog and len(tlog) == 2
+    assert tlog[0].startswith("loaded ") and tlog[1].startswith("chebyshev interval [")
+
+
+@pytest.mark.parametrize("args,msg", [
+    (["--progress", "10", "--method", "minres"], "--progress drives the standard single-RHS loop"),
+    (["--progress", "10", "--method", "gmres"], "--progress drives the standard single-RHS loop"),
+    (["--progress", "10", "--recompute", "8"], "--recompute drives the standard"),
+    (["--method", "gmres", "--recompute", "8"], "--recompute drives the standard"),
+    (["--precond", "chebyshev", "--cheb-degree", "1"], "chebyshev setup failed: degree must be"),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
+def test_new_flag_refusals_match_the_jax_tester(capsys, args, msg):
+    (jrc, jlines, jerr), (trc, tlines, terr) = _both(capsys, [MTX, *args])
+    assert jrc == trc == 2 and not tlines and not jlines
+    assert msg in terr and msg in jerr
+    assert terr.strip().splitlines()[-1] == jerr.strip().splitlines()[-1]
