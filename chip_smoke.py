@@ -197,9 +197,32 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    both storages, and in chunks of 64 on the portable DIA CG on
    poisson3d_48, each history hash equal to one uninterrupted solve's; the
    tester's ``--estimate-steps`` and ``--progress 64``.
+   Then the multi-RHS path, with its own reset and read (the ``*_multi``
+   SpMVs are plain torch, as in the JAX package; the path's kernels are
+   ``stencil7`` and ``dia_spmv_rows``): ``bell_spmv_multi`` on bench.py's
+   batched operator (n = 131,072, 128 x 128, float32) at R = 1, 8 and 32,
+   each column within 1e-5 of max|Y| of kernel 5 on that column, timed
+   beside R launches of kernel 5; ``sym_bell_spmv_multi`` on the n =
+   262,144 symmetric tiles the same way against kernel 5 on the full
+   tiles, two calls bit-identical; ``cg_solve_batched`` with 8 seeded
+   lanes in float64 on poisson3d_48 (bell), each lane's iterations equal
+   to its solo solve's and its history within 1e-10 relative, and in
+   float32 on the n = 262,144 symmetric tiles (ms a step, the busy share;
+   the trajectory against solo solves there and on the sharded path's cut
+   copy); the tester with ``--precond blockjacobi --nrhs 8`` on
+   poisson3d_48 as DIA (kernel 7 for each column's apply) and on
+   ``stencil:128 --nrhs 4`` (each lane the solo loop, kernel 11);
+   ``block_cg_solve`` on the float64 lanes against the lockstep's counts,
+   with its host reads a block iteration; ``minres_solve_batched`` (on the
+   symmetric peclet-0 grid), ``bicgstab_solve_batched`` and
+   ``gmres_solve_batched`` (restart 32) with 4 lanes on the 512 x 512
+   convection-diffusion grid as DIA, lane 0 against the solo solve, ms a
+   step; ``run_batched_cg`` in chunks of 64 through a checkpoint file,
+   its history hash equal to one uninterrupted batched solve's.
    The portable loops end at convergence: the steps launched are counted
    against the iterations for MG-PCG at 256^3, a portable DIA solve, a
-   portable BiCGStab solve and a portable sharded CG solve.
+   portable BiCGStab solve, a portable sharded CG solve and a lockstep
+   block-Jacobi PCG solve.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -4414,6 +4437,321 @@ def phase_gmres_path(dev, big, big_full, card):
           f"{len(trace)} progress lines, the last {trace[-1]!r}; {lines[1]}  [{card}]")
 
 
+# ---- the multi-RHS path ---------------------------------------------------
+
+MULTI_KERNELS = ("stencil7", "dia_spmv_rows")
+MULTI_N = 131_072  # bench.py:516-546's bench_batched operator (201 MB of tiles)
+MULTI_R = (1, 8, 32)
+MULTI_LANES = 8
+TOL_MULTI = 1e-5  # a multi-RHS column against the single-RHS kernel: of max|Y|
+MULTI_F64_TOL_REL = 1e-8  # float64 lockstep solves: 1e-8 ||b||, off the roundoff floor
+MULTI_HIST_RTOL = 1e-10  # float64 lanes against their solo solves, above 1e-14 rho_0
+MULTI_F32_STEPS = 64
+MULTI_TRAJ_STEPS = 25  # float32 lanes against their solo solves (TRAJ_RTOL)
+NONSYM_NX = 512  # bench.py:1113-1138's convection-diffusion grid, n = 262,144
+NONSYM_LANES = 4
+NONSYM_STEPS = 64
+NONSYM_TRAJ_STEPS = 10  # lane 0 against the solo solve: the first steps, 5e-3
+NONSYM_TRAJ_RTOL = 5e-3
+MULTI_STENCIL = "stencil:128"
+
+
+def multi_columns_ok(Y, single, X, label) -> float:
+    """Each column of a multi-RHS product against the single-RHS route on
+    that column, within TOL_MULTI of max|Y|; returns the largest error."""
+    scale = float(Y.abs().max())
+    err = 0.0
+    for j in range(X.shape[1]):
+        err = max(err, float((Y[:, j] - single(X[:, j].contiguous())).abs().max()))
+    check(err <= TOL_MULTI * scale, f"{label}: a column {err} from the single-RHS kernel "
+          f"(max|Y| {scale})")
+    return err
+
+
+def multi_tester(args):
+    """The port's tester in this process on --nrhs arguments; returns
+    (line fields, the per-lane JSON, the summary JSON)."""
+    from conjugategradient_tpu_torch import tester
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tester.main([*args, "--summary", "--device", str(DEVICE)])
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 3, f"tester {' '.join(args)}: rc {rc}, {lines}")
+    return lines[0].split(), json.loads(lines[1]), json.loads(lines[2])
+
+
+def lanes_hist_ok(h_lane, h_solo, k) -> bool:
+    """A float64 lane's history against its solo solve's: 1e-10 relative
+    above 1e-14 rho_0."""
+    hl = h_lane[: k + 1].double().cpu().numpy()
+    hs = h_solo[: k + 1].double().cpu().numpy()
+    keep = hs > 1e-14 * hs[0]
+    return bool(np.all(np.abs(hl - hs)[keep] <= MULTI_HIST_RTOL * hs[keep]))
+
+
+def count_host_reads(fn):
+    """Run ``fn`` with torch's sync debug mode on: the host reads it makes
+    (each a warning) and its result."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen), out
+
+
+def phase_multi_path(dev, big, big_full, card):
+    """bell_spmv_multi on bench.py's batched operator at R = 1, 8, 32 and
+    sym_bell_spmv_multi on the n = 262,144 symmetric tiles; the lockstep CG
+    (float64 poisson3d_48 against solo solves, float32 on the n = 262,144
+    tiles), block-Jacobi and stencil --nrhs through the tester, block CG,
+    the batched MINRES / BiCGStab / GMRES(32) on the 512 x 512 grid, and
+    run_batched_cg in chunks through a checkpoint file."""
+    import torch
+
+    from conjugategradient_tpu_torch import (BlockedEllMatrix, DIAMatrix, block_cg_solve,
+                                             cg_solve, cg_solve_batched, load_matrix)
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.ops.spmv import (bell_spmv, bell_spmv_multi,
+                                                      sym_bell_spmv_multi)
+    from conjugategradient_tpu_torch.problems import (block_tridiag_tiles,
+                                                      convection_diffusion_2d_coo)
+    from conjugategradient_tpu_torch.solver import (batched_cg_init, batched_state_result,
+                                                    bicgstab_solve, bicgstab_solve_batched,
+                                                    gmres_solve, gmres_solve_batched,
+                                                    load_state, minres_solve,
+                                                    minres_solve_batched, run_batched_cg,
+                                                    save_state)
+    from conjugategradient_tpu_torch.solver.precond import block_jacobi_preconditioner
+    from conjugategradient_tpu_torch.utils import Timer
+
+    gen = torch.Generator().manual_seed(15)
+
+    # (a) bell_spmv_multi on the bench's operator, R = 1, 8, 32, beside R
+    # launches of kernel 5; sym_bell_spmv_multi on the symmetric tiles
+    blocks, cols, nnz = block_tridiag_tiles(MULTI_N, 128, 128, seed=0)
+    op = BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(cols).to(dev),
+                          (MULTI_N, MULTI_N), nnz)
+    del blocks
+    Xall = torch.randn(MULTI_N, max(MULTI_R), generator=gen).to(dev)
+    k5_ms = library_ms(lambda: bell_spmv(op, Xall[:, 0].contiguous()))
+    per_rhs = {}
+    for R in MULTI_R:
+        X = Xall[:, :R].contiguous()
+        before = _common.LAUNCHES["bell_spmv"]
+        err = multi_columns_ok(bell_spmv_multi(op, X), lambda x: bell_spmv(op, x), X,
+                               f"bell_spmv_multi R={R}")
+        check(_common.LAUNCHES["bell_spmv"] - before == R, "bell_spmv: one launch a column")
+        ms = library_ms(lambda: bell_spmv_multi(op, X))
+        cols = [X[:, j].contiguous() for j in range(R)]
+        k5_r = library_ms(lambda: [bell_spmv(op, x) for x in cols])
+        per_rhs[R] = ms / R
+        print(f"  bell_spmv_multi n={MULTI_N} 128x128 R={R}: {ms:.5f} ms a call, "
+              f"{ms / R:.5f} ms per RHS (amortization {per_rhs[MULTI_R[0]] / (ms / R):.2f}x "
+              f"over R=1); {R} launches of kernel 5 {k5_r:.5f} ms (one {k5_ms:.5f}); "
+              f"columns within {err:.3e} of kernel 5  [{card}]")
+    del op, Xall
+    Xs = torch.randn(big.shape[0], MULTI_LANES, generator=gen).to(dev)
+    Ys = sym_bell_spmv_multi(big, Xs)
+    err = multi_columns_ok(Ys, lambda x: bell_spmv(big_full, x), Xs,
+                           "sym_bell_spmv_multi n=262144")
+    check(torch.equal(Ys, sym_bell_spmv_multi(big, Xs)), "sym_bell_spmv_multi: two calls differ")
+    ms = library_ms(lambda: sym_bell_spmv_multi(big, Xs))
+    print(f"  sym_bell_spmv_multi n={big.shape[0]} R={MULTI_LANES}: {ms:.5f} ms a call, two calls "
+          f"bit-identical, columns within {err:.3e} of kernel 5 on the full tiles  [{card}]")
+    del Xs, Ys
+
+    # (b) cg_solve_batched, R = 8: float64 poisson3d_48 (bell) against solo
+    # solves; float32 on the symmetric n = 262,144 tiles (trajectory, ms a
+    # step, busy share); block-Jacobi DIA and the stencil through the tester
+    path = MATRICES[0]
+    p64 = load_matrix(os.path.join(ROOT, path), layout="bell", dtype=np.float64, device=dev)
+    n3 = p64.shape[0]
+    # seeded independent lanes (rolled copies of one ramp are nearly
+    # dependent, which block CG's shared space cannot use), per-lane tol
+    B64 = torch.randn(MULTI_LANES, n3, generator=gen, dtype=torch.float64).to(dev)
+    tol64 = MULTI_F64_TOL_REL * torch.linalg.vector_norm(B64, dim=1)
+    cg_solve_batched(p64, B64, tol=tol64, maxiter=4)
+    t = Timer(dev).start_measure()
+    X64, i64 = cg_solve_batched(p64, B64, tol=tol64)
+    t.stop_measure()
+    lock_its = [int(v) for v in i64.iterations.cpu()]
+    for j in range(MULTI_LANES):
+        _, si = cg_solve(p64, B64[j].contiguous(), tol=float(tol64[j]), fused="never")
+        check(lock_its[j] == int(si.iterations) and bool(i64.converged[j]) and
+              lanes_hist_ok(i64.rho_history[j], si.rho_history, lock_its[j]),
+              f"lockstep f64 lane {j}: {lock_its[j]} its against solo {int(si.iterations)}")
+    lock_ms = t.get_duration() / max(lock_its)
+    print(f"  cg_solve_batched float64 {path} bell R={MULTI_LANES} (seeded lanes, each to "
+          f"1e-8 ||b_j||): "
+          f"iterations {lock_its}, each lane's equal to its solo solve and its history within "
+          f"{MULTI_HIST_RTOL} relative; {t.get_duration():.2f} ms, {lock_ms:.4f} ms a "
+          f"lockstep step  [{card}]")
+
+    # tol = -1 as on the main path: rho reaches exactly 0 on these tiles in
+    # the second step, where tol = 0 would end every lane; the rho == 0 guard
+    # keeps each of the MULTI_F32_STEPS steps a full pass
+    B32 = torch.randn(MULTI_LANES, big.shape[0], generator=gen).to(dev)
+    cg_solve_batched(big, B32, tol=-1.0, maxiter=4)
+    t = Timer(dev).start_measure()
+    _, i32 = cg_solve_batched(big, B32, tol=-1.0, maxiter=MULTI_F32_STEPS)
+    t.stop_measure()
+    check(int(i32.iterations.min()) == MULTI_F32_STEPS,
+          f"lockstep f32 n=262144: iterations {i32.iterations.tolist()}, "
+          f"expected {MULTI_F32_STEPS} in every lane")
+    step_ms = t.get_duration() / MULTI_F32_STEPS
+    used = 0
+    for j in range(MULTI_LANES):
+        _, si = cg_solve(big, B32[j].contiguous(), tol=-1.0, maxiter=MULTI_F32_STEPS,
+                         fused="never")
+        ok, u = trajectory_ok(i32.rho_history[j], si.rho_history, MULTI_F32_STEPS)
+        check(ok, f"lockstep f32 n=262144 lane {j}: history against the solo solve beyond "
+              f"rtol {TRAJ_RTOL}")
+        used += u
+    # the trajectory above holds only the entries before rho reaches 0; it
+    # is held over MULTI_TRAJ_STEPS on the sharded path's cut copy (full
+    # storage), which stays above the float32 floor
+    cut_full = cut_tridiag_ops(big_full.blocks.view(4, -1, 3, 128, 128),
+                               big_full.block_cols.view(4, -1, 3), big_full.nnz)[0]
+    _, ic = cg_solve_batched(cut_full, B32, tol=-1.0, maxiter=MULTI_TRAJ_STEPS)
+    used_cut = 0
+    for j in range(MULTI_LANES):
+        _, si = cg_solve(cut_full, B32[j].contiguous(), tol=-1.0, maxiter=MULTI_TRAJ_STEPS,
+                         fused="never")
+        ok, u = trajectory_ok(ic.rho_history[j], si.rho_history, MULTI_TRAJ_STEPS)
+        check(ok, f"lockstep f32 cut n=262144 lane {j}: history against the solo solve beyond "
+              f"rtol {TRAJ_RTOL}")
+        used_cut += u
+    del cut_full
+    run64 = lambda: cg_solve_batched(big, B32, tol=-1.0, maxiter=MULTI_F32_STEPS)  # noqa: E731
+    busy = device_ms(run64, reps=1)
+    busy_s = "not measured" if busy is None else \
+        f"{busy / MULTI_F32_STEPS:.4f} ms a step ({100 * busy / t.get_duration():.1f}%)"
+    print(f"  cg_solve_batched float32 n={big.shape[0]} symmetric R={MULTI_LANES}, "
+          f"{MULTI_F32_STEPS} steps in every lane: {step_ms:.4f} ms a lockstep step "
+          f"({step_ms / MULTI_LANES:.4f} per RHS), device busy {busy_s}; every lane within "
+          f"rtol {TRAJ_RTOL} of its solo solve on {used} entries before rho reaches 0, and on "
+          f"{used_cut} entries of {MULTI_TRAJ_STEPS} steps on the cut copy (full storage)  "
+          f"[{card}]")
+    del B32
+
+    tol3 = TOL_SOLVE_REL * bnorm(n3)
+    before = _common.LAUNCHES["dia_spmv_rows"]
+    fields, lanes, summ = multi_tester([os.path.join(ROOT, path), "--layout", "auto",
+                                        "--dtype", "float32", "--precond", "blockjacobi",
+                                        "--block-size", str(BJ_BLOCK), "--nrhs",
+                                        str(MULTI_LANES), "--tol", repr(tol3)])
+    launched = _common.LAUNCHES["dia_spmv_rows"] - before
+    check(lanes["converged"] == [True] * MULTI_LANES and float(fields[3]) < REL_ERROR_BOUND
+          and launched >= 2 * MULTI_LANES * max(lanes["iterations"]),
+          f"tester blockjacobi --nrhs: {lanes}, rel_error {fields[3]}, {launched} launches")
+    print(f"  tester {path} --layout auto --precond blockjacobi --block-size {BJ_BLOCK} --nrhs "
+          f"{MULTI_LANES}: {' '.join(fields)}; iterations {lanes['iterations']}, "
+          f"{lanes['per_rhs_ms']:.3f} ms per RHS ({launched} dia_spmv_rows launches over the "
+          f"warm-up and the timed solve)  [{card}]")
+
+    ns = int(MULTI_STENCIL.split(":")[1]) ** 3
+    tol_s = TOL_SOLVE_REL * bnorm(ns)
+    before = _common.LAUNCHES["stencil7"]
+    fields, lanes, summ = multi_tester([MULTI_STENCIL, "--dtype", "float32", "--nrhs", "4",
+                                        "--tol", repr(tol_s)])
+    launched = _common.LAUNCHES["stencil7"] - before
+    check(lanes["converged"] == [True] * 4 and launched >= 2 * sum(lanes["iterations"]),
+          f"tester {MULTI_STENCIL} --nrhs 4: {lanes}, {launched} stencil7 launches")
+    print(f"  tester {MULTI_STENCIL} --nrhs 4 float32 (each lane the solo portable loop): "
+          f"{' '.join(fields)}; iterations {lanes['iterations']}, {lanes['per_rhs_ms']:.2f} ms "
+          f"per RHS ({launched} stencil7 launches)  [{card}]")
+
+    # (c) block CG, R = 8, on the float64 poisson3d_48 lanes of (b)
+    block_cg_solve(p64, B64, tol=tol64, maxiter=2)
+    t = Timer(dev).start_measure()
+    reads, (Xb, ib) = count_host_reads(lambda: block_cg_solve(p64, B64, tol=tol64))
+    t.stop_measure()
+    block_its = [int(v) for v in ib.iterations.cpu()]
+    kb = max(block_its)
+    check(bool(ib.converged.all()) and all(a < b for a, b in zip(block_its, lock_its)),
+          f"block CG: iterations {block_its} against the lockstep's {lock_its}")
+    print(f"  block_cg_solve float64 {path} R={MULTI_LANES}: iterations {block_its} (lockstep "
+          f"{lock_its}); {t.get_duration():.2f} ms, {t.get_duration() / kb:.4f} ms a block "
+          f"iteration; {reads} host reads, {reads / kb:.2f} a block iteration  [{card}]")
+    del p64, B64, X64, Xb
+
+    # (d) batched MINRES (the symmetric peclet-0 grid), BiCGStab and
+    # GMRES(32) (bench.py's peclet-10 convection-diffusion), R = 4 on
+    # 512 x 512 DIA: lane 0 against the solo solve, ms a step
+    def grid_dia(peclet):
+        rows, cols, vals, shape = convection_diffusion_2d_coo(NONSYM_NX, peclet=peclet)
+        order = np.lexsort((cols, rows))
+        r, c, v = rows[order], cols[order], vals[order].astype(np.float32)
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=shape[0]))])
+        return DIAMatrix.from_csr_host(v, c, indptr, shape, device=dev)
+
+    Bn = torch.randn(NONSYM_LANES, NONSYM_NX ** 2, generator=gen).to(dev)
+    for label, a, batched, solo, kw in (
+        ("minres_solve_batched (peclet 0)", grid_dia(0.0), minres_solve_batched, minres_solve,
+         {}),
+        ("bicgstab_solve_batched", grid_dia(10.0), bicgstab_solve_batched, bicgstab_solve, {}),
+        ("gmres_solve_batched(32)", grid_dia(10.0), gmres_solve_batched, gmres_solve,
+         {"restart": 32}),
+    ):
+        batched(a, Bn, tol=0.0, maxiter=4, **kw)
+        t = Timer(dev).start_measure()
+        Xn, inf = batched(a, Bn, tol=0.0, maxiter=NONSYM_STEPS, **kw)
+        t.stop_measure()
+        _, si = solo(a, Bn[0].contiguous(), tol=0.0, maxiter=NONSYM_STEPS, **kw)
+        h_l = inf.rnorm_history[0, : NONSYM_TRAJ_STEPS + 1].double().cpu().numpy()
+        h_s = si.rnorm_history[: NONSYM_TRAJ_STEPS + 1].double().cpu().numpy()
+        check(int(inf.iterations[0]) == int(si.iterations)
+              and np.allclose(h_l, h_s, rtol=NONSYM_TRAJ_RTOL, atol=0),
+              f"{label}: iterations {inf.iterations.tolist()} (solo {int(si.iterations)}), "
+              f"lane 0 {h_l} against {h_s}")
+        print(f"  {label} {NONSYM_NX}x{NONSYM_NX} DIA R={NONSYM_LANES}, iterations "
+              f"{inf.iterations.tolist()}: {t.get_duration() / int(inf.iterations.max()):.4f} "
+              f"ms a step; lane 0 within "
+              f"{NONSYM_TRAJ_RTOL} of the solo solve over {NONSYM_TRAJ_STEPS} steps  [{card}]")
+        del Xn
+    del Bn
+
+    # (e) run_batched_cg in chunks of 64 through a checkpoint file: the bits
+    # of one uninterrupted batched solve (poisson3d_48 as --layout auto
+    # loads it: DIA), and the lockstep loop's steps after the last lane
+    p3dia = load_matrix(os.path.join(ROOT, path), layout="auto", dtype=np.float32, device=dev)
+    bp = torch.arange(1, n3 + 1, dtype=torch.float32, device=dev)
+    Bp = torch.stack([torch.roll(bp, j) for j in range(MULTI_LANES)])
+    _, whole = cg_solve_batched(p3dia, Bp, tol=tol3)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_batched.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    state = batched_cg_init(p3dia, Bp)
+    chunks = 0
+    while bool(state.live.any()):
+        state = run_batched_cg(p3dia, state, tol3, steps=64)
+        save_state(ckpt, state)
+        state = load_state(ckpt, device=dev)
+        chunks += 1
+    os.remove(ckpt)
+    _, chunked = batched_state_result(state)
+    h_whole, h_chunks = digest(whole.rho_history), digest(chunked.rho_history)
+    check(h_whole == h_chunks and torch.equal(whole.iterations, chunked.iterations),
+          f"run_batched_cg chunks: {h_chunks} against one solve's {h_whole}")
+    M = block_jacobi_preconditioner(p3dia, block_size=BJ_BLOCK)
+    before = _common.LAUNCHES["dia_spmv_rows"]
+    _, ib = cg_solve_batched(p3dia, Bp, tol=tol3, M=M)
+    torch.cuda.synchronize()
+    steps = (_common.LAUNCHES["dia_spmv_rows"] - before) // MULTI_LANES - 1
+    print(f"  run_batched_cg {path} DIA R={MULTI_LANES}: {chunks} chunks of 64 through a "
+          f"checkpoint file, rho_history sha256 {h_chunks} (one solve: {h_whole})  [{card}]")
+    check_stops_at_done(f"lockstep block-Jacobi PCG {path} DIA R={MULTI_LANES}", steps,
+                        int(ib.iterations.max()))
+
+
 UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
 
 
@@ -4849,6 +5187,7 @@ def main() -> int:
         ("sharded", SHARDED_KERNELS, lambda: phase_sharded_path(dev, big_full, shard_ops, card)),
         ("GMRES / preconditioners / API", GMRES_KERNELS,
          lambda: phase_gmres_path(dev, big, big_full, card)),
+        ("multi-RHS", MULTI_KERNELS, lambda: phase_multi_path(dev, big, big_full, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

@@ -21,7 +21,12 @@ preconditioners are Jacobi, block-Jacobi (a DIA product, the DIA kernel on
 the card, for blocks up to 16), Chebyshev (its interval from the device
 Lanczos of ``lanczos_eigs``) and the stencil's multigrid; ``CG`` is the
 reference's object API, and ``solver.save_state`` / ``load_state`` /
-``run_cg`` checkpoint a solve.  CSR, SELL and the rest of the portable
+``run_cg`` checkpoint a solve.  Many right-hand sides with one operator:
+``cg_solve_batched`` (lockstep CG; ``solver.batched_cg_init`` /
+``run_batched_cg`` checkpoint it), ``block_cg_solve`` (one shared
+block-Krylov space) and ``minres_solve_batched``,
+``bicgstab_solve_batched``, ``gmres_solve_batched``, on the layouts'
+multi-RHS SpMVs (``ops.*_spmv_multi``, plain torch).  CSR, SELL and the rest of the portable
 loops run in plain torch.  Entry
 points put operators on the card (``"cuda"``) unless the caller passes
 ``device="cpu"``.  Imports torch, never jax.
@@ -38,9 +43,12 @@ from .solver import (
     MinresInfo,
     accuracy,
     bicgstab_solve,
+    bicgstab_solve_batched,
+    block_cg_solve,
     block_jacobi_preconditioner,
     cg_init,
     cg_solve,
+    cg_solve_batched,
     cg_step,
     condition_estimate,
     expected_step_count,
@@ -52,10 +60,12 @@ from .solver import (
     fused_minres_supported,
     fused_stencil_cg_solve,
     gmres_solve,
+    gmres_solve_batched,
     jacobi_preconditioner,
     lanczos_eigs,
     memory_footprint,
     minres_solve,
+    minres_solve_batched,
     multigrid_preconditioner,
 )
 from .types import (
@@ -96,9 +106,12 @@ __all__ = [
     "__version__",
     "as_linear_operator",
     "bicgstab_solve",
+    "bicgstab_solve_batched",
+    "block_cg_solve",
     "block_jacobi_preconditioner",
     "cg_init",
     "cg_solve",
+    "cg_solve_batched",
     "cg_step",
     "condition_estimate",
     "expected_step_count",
@@ -110,11 +123,13 @@ __all__ = [
     "fused_minres_supported",
     "fused_stencil_cg_solve",
     "gmres_solve",
+    "gmres_solve_batched",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_matrix",
     "memory_footprint",
     "minres_solve",
+    "minres_solve_batched",
     "multigrid_preconditioner",
     "read_mtx_csr",
     "write_mtx",

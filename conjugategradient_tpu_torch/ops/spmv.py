@@ -13,7 +13,9 @@ plain forms are deterministic on CUDA: no ``index_add_`` (which lands
 through atomics there) — the CSR rows reduce with ``torch.segment_reduce``
 (one thread per segment walks its values in order), the symmetric mirror
 lands through a fixed-order gather of the transposed tile index, and SELL
-reduces fixed (nb, k) slabs.
+reduces fixed (nb, k) slabs.  The multi-RHS forms (``*_spmv_multi``, X
+of shape (n, R)) are plain torch on every device, as the JAX package's
+are XLA on every backend.
 """
 
 from __future__ import annotations
@@ -180,21 +182,32 @@ def sym_bell_apply(diag, off, off_cols, mirror_src, x2d):
     return qd + qu + qt
 
 
+def _pad_rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """x (n,) or (n, R) with ``lo`` zero rows before and ``hi`` after."""
+    return torch.nn.functional.pad(x, (0, 0) * (x.ndim - 1) + (lo, hi))
+
+
+def _rows(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A diagonal (n,) shaped to scale each row of x, (n,) or (n, R)."""
+    return v if x.ndim == 1 else v[:, None]
+
+
 def dia_apply(diags: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
     """y (n,) = Σ_d diags[d] ⊙ x[i + offsets[d]] — the plain DIA product
     (the JAX package's XLA path): one zero-padded copy of x, then one
     multiply and one add per diagonal, in offset order, each rounded to the
     common dtype of ``diags`` and ``x``.  Columns outside [0, ncols) read
-    the padding's zeros."""
+    the padding's zeros.  An (ncols, R) block x gives (n, R), each column
+    with the same operations as a vector."""
     n = diags.shape[1]
     ncols = x.shape[0]
     lpad = max(0, -min(offsets)) if offsets else 0
     rpad = max(0, max(offsets) + n - ncols) if offsets else 0
-    xp = torch.nn.functional.pad(x, (lpad, rpad)) if (lpad or rpad) else x
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    xp = _pad_rows(x, lpad, rpad) if (lpad or rpad) else x
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     for d, off in enumerate(offsets):
         lo = off + lpad
-        y = y + diags[d] * xp[lo: lo + n]
+        y = y + _rows(diags[d], x) * xp[lo: lo + n]
     return y
 
 
@@ -226,17 +239,17 @@ def sym_dia_apply(diags: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor
     JAX package's XLA path): for each stored offset k in order, the forward
     term d_k[i]·x[i+k] (zero past the end), then for k > 0 the mirror
     d_k[i−k]·x[i−k] (zero for i < k), each product and sum rounded to the
-    common dtype."""
+    common dtype.  An (n, R) block x gives (n, R), column by column."""
     n = diags.shape[1]
     w = max(offsets) if offsets else 0
-    xp = torch.nn.functional.pad(x, (0, w)) if w else x
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    xp = _pad_rows(x, 0, w) if w else x
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     for d, off in enumerate(offsets):
-        dv = diags[d]
+        dv = _rows(diags[d], x)
         y = y + dv * xp[off: off + n]
         if off > 0:
             m = max(n - off, 0)
-            y = y + torch.nn.functional.pad(dv[:m] * x[:m], (n - m, 0))
+            y = y + _pad_rows(dv[:m] * x[:m], n - m, 0)
     return y
 
 
@@ -284,3 +297,84 @@ def sell_spmv(a, x: torch.Tensor) -> torch.Tensor:
     y_sorted = sell_bucket_reduce(prods, a.bucket_meta)
     y_off = y_sorted[:n] if a.pos_identity else y_sorted.index_select(0, a.pos)
     return (a.diag.to(acc) * xa[:n] + y_off).to(out_dtype)
+
+
+# ---- multi-RHS forms: Y[:, j] = A @ X[:, j] for X (n, R) ------------------
+# Plain torch, as the JAX package computes them (XLA, no Pallas kernel):
+# the operator's stream is read once for all R columns.  Each column sees
+# the operations of the single-RHS plain form, the tile products batched
+# over the R columns.
+
+
+def bell_spmv_multi(a, X: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS full blocked-ELL SpMV: X (n, R) padded to the operator's
+    padded width, one (bm, bn) × (bn, R) product per tile, summed over a
+    block-row's slots."""
+    full_precision_matmul()
+    n, _ = a.shape
+    _, mp = a.padded_shape
+    R = X.shape[1]
+    Xp = X if mp == X.shape[0] else _pad_rows(X, 0, mp - X.shape[0])
+    out_dtype = torch.promote_types(a.dtype, X.dtype)
+    acc = _acc(out_dtype)
+    x3d = Xp.reshape(mp // a.bn, a.bn, R).to(acc)
+    gathered = x3d[a.block_cols.long()]  # (nrb, kmax, bn, R)
+    Y = torch.einsum("rkmn,rknB->rkmB", a.blocks.to(acc), gathered).sum(dim=1)
+    return Y.reshape(-1, R)[:n].to(out_dtype)
+
+
+def sym_bell_spmv_multi(a, X: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS symmetric blocked-ELL SpMV: each stored upper tile read
+    once and applied as B and Bᵀ to all R columns.  The mirror products
+    land through ``a.mirror_src``, the fixed-order gather of
+    :func:`sym_bell_apply` widened to R columns (the JAX package scatters
+    them; a scatter on the card adds in a run-dependent order), so two
+    calls give the same bits."""
+    full_precision_matmul()
+    n, _ = a.shape
+    _, mp = a.padded_shape
+    R = X.shape[1]
+    Xp = X if mp == X.shape[0] else _pad_rows(X, 0, mp - X.shape[0])
+    out_dtype = torch.promote_types(a.dtype, X.dtype)
+    acc = _acc(out_dtype)
+    bn = a.bn
+    x3d = Xp.reshape(mp // bn, bn, R).to(acc)
+    off = a.off_blocks.to(acc)
+    qd = torch.einsum("rmn,rnB->rmB", a.diag_blocks.to(acc), x3d)
+    qu = torch.einsum("rkmn,rknB->rkmB", off, x3d[a.off_cols.long()]).sum(dim=1)
+    v = torch.einsum("rkmn,rmB->rknB", off, x3d).reshape(-1, bn, R)
+    v = torch.cat([v, v.new_zeros(1, bn, R)])
+    src = a.mirror_src.long()
+    src = torch.where(src < 0, v.shape[0] - 1, src)
+    qt = v[src].sum(dim=1)  # (nrb, bn, R)
+    return (qd + qu + qt).reshape(-1, R)[:n].to(out_dtype)
+
+
+def sell_spmv_multi(a, X: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS SELL SpMV: the flat gather fetches R contiguous values
+    per stored column, then the per-bucket sums, the order restore and the
+    diagonal stream of :func:`sell_spmv`."""
+    n = a.shape[0]
+    out_dtype = torch.promote_types(a.dtype, X.dtype)
+    acc = _acc(out_dtype)
+    Xa = X.to(acc)
+    prods = a.vals_flat.to(acc)[:, None] * Xa.index_select(0, a.cols_flat)  # (slots, R)
+    y_sorted = sell_bucket_reduce(prods, a.bucket_meta)
+    Y_off = y_sorted[:n] if a.pos_identity else y_sorted.index_select(0, a.pos)
+    return (a.diag.to(acc)[:, None] * Xa[:n] + Y_off).to(out_dtype)
+
+
+def dia_spmv_multi(a, X: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS DIA SpMV: each diagonal multiplies a shifted (n, R)
+    window of the zero-padded X, in offset order (:func:`dia_apply`)."""
+    out_dtype = torch.promote_types(a.dtype, X.dtype)
+    acc = _acc(out_dtype)
+    return dia_apply(a.diags.to(acc), a.offsets, X.to(acc)).to(out_dtype)
+
+
+def sym_dia_spmv_multi(a, X: torch.Tensor) -> torch.Tensor:
+    """Multi-RHS symmetric DIA SpMV: each stored diagonal read once and
+    applied both ways to all R columns (:func:`sym_dia_apply`)."""
+    out_dtype = torch.promote_types(a.dtype, X.dtype)
+    acc = _acc(out_dtype)
+    return sym_dia_apply(a.diags.to(acc), a.offsets, X.to(acc)).to(out_dtype)

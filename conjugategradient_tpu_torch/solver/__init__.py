@@ -1,4 +1,8 @@
+from .batched import (BatchedCGState, batched_cg_init, batched_state_result, cg_solve_batched,
+                      run_batched_cg)
+from .batched_nonsym import bicgstab_solve_batched, gmres_solve_batched, minres_solve_batched
 from .bicgstab import BicgstabInfo, bicgstab_solve
+from .blockcg import BlockCGState, block_cg_solve
 from .cg import (CGInfo, CGState, accuracy, cg_init, cg_solve, cg_step, expected_step_count,
                  memory_footprint)
 from .checkpoint import load_state, run_cg, save_state
@@ -26,7 +30,9 @@ from .precond import (
 )
 
 __all__ = [
+    "BatchedCGState",
     "BicgstabInfo",
+    "BlockCGState",
     "CGInfo",
     "CGState",
     "EigsResult",
@@ -34,10 +40,15 @@ __all__ = [
     "GmresInfo",
     "MinresInfo",
     "accuracy",
+    "batched_cg_init",
+    "batched_state_result",
     "bicgstab_solve",
+    "bicgstab_solve_batched",
+    "block_cg_solve",
     "block_jacobi_preconditioner",
     "cg_init",
     "cg_solve",
+    "cg_solve_batched",
     "cg_step",
     "chebyshev_preconditioner",
     "condition_estimate",
@@ -55,13 +66,16 @@ __all__ = [
     "fused_stencil_supported",
     "fused_supported",
     "gmres_solve",
+    "gmres_solve_batched",
     "identity_preconditioner",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_state",
     "memory_footprint",
     "minres_solve",
+    "minres_solve_batched",
     "multigrid_preconditioner",
+    "run_batched_cg",
     "run_cg",
     "save_state",
 ]

@@ -10,9 +10,12 @@
 
 A carry is written as ``.npz`` with the JAX package's field names and its
 ``__kind__``, so a file written by either package loads in the other:
-``k, done, x, r, p, rho, rnorm_sq, hist`` for ``CGState`` and
+``k, done, x, r, p, rho, rnorm_sq, hist`` for ``CGState``,
 ``k, done, x, r, p, beta, rho, hist`` for ``FusedCGState`` (vectors as
-(rows, bn) float32 blocks, β and ρ = ‖r‖² as (1, 1)).  The port's
+(rows, bn) float32 blocks, β and ρ = ‖r‖² as (1, 1)) and
+``k, done, X, r, p, rho, rnorm, hist`` for the lockstep multi-RHS
+``BatchedCGState`` (vectors (N, R), per-lane scalars (R,), the history
+(maxiter+1, R); driven by ``solver.batched.run_batched_cg``).  The port's
 ``FusedCGState`` keeps k, done, β, ρ and the history in its ``FusedWork``;
 :func:`load_state` builds one (``convert.fused_state_from_arrays``).
 ``run_cg`` drives the same step as the whole solve through
@@ -29,6 +32,7 @@ import torch
 
 from ..ops.cuda.fused_cg import S_TOL
 from ..types.base import DEFAULT_DEVICE
+from .batched import BatchedCGState
 from .cg import CGState, cg_step
 from .fused import FusedCGState, fused_cg_step
 from .restart import run_chunked
@@ -36,18 +40,18 @@ from .restart import run_chunked
 _FIELDS = {
     "CGState": ("k", "done", "x", "r", "p", "rho", "rnorm_sq", "hist"),
     "FusedCGState": ("k", "done", "x", "r", "p", "beta", "rho", "hist"),
+    "BatchedCGState": ("k", "done", "X", "r", "p", "rho", "rnorm", "hist"),
 }
 #: carries of the JAX package that the port does not have yet, and the
 #: ROADMAP.md item that ports them
 _UNPORTED = {
-    "BatchedCGState": "ROADMAP.md section 1, item 4",
     "ShardedCGState": "ROADMAP.md section 1, item 12",
 }
 
 
 def save_state(path, state) -> None:
-    """Write a solver carry (``CGState`` or unpreconditioned
-    ``FusedCGState``) to ``.npz``."""
+    """Write a solver carry (``CGState``, unpreconditioned ``FusedCGState``
+    or ``BatchedCGState``) to ``.npz``."""
     kind = type(state).__name__
     if kind not in _FIELDS:
         raise TypeError(f"not a checkpointable solver state: {kind}")
@@ -77,6 +81,9 @@ def load_state(path, *, device=DEFAULT_DEVICE):
         return fused_state_from_arrays(f["x"], f["r"], f["p"], f["beta"], f["rho"],
                                        int(f["k"]), bool(f["done"]), f["hist"], device=device)
     t = {name: torch.from_numpy(v).to(torch.device(device)) for name, v in f.items()}
+    if kind == "BatchedCGState":
+        return BatchedCGState(**{**t, "k": t["k"].to(torch.int32),
+                                 "done": t["done"].to(torch.bool)})
     return CGState(k=t["k"].to(torch.int32), done=t["done"].to(torch.bool), x=t["x"], r=t["r"],
                    p=t["p"], rho=t["rho"], rnorm_sq=t["rnorm_sq"], hist=t["hist"])
 

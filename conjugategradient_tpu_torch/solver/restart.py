@@ -81,10 +81,15 @@ class _DonePoll:
 def run_chunked(step: Callable[[], Any], live: Callable[[], torch.Tensor],
                 maxiter: int, every: int = 0,
                 replace: Optional[Callable[[], Any]] = None,
-                done: Optional[Callable[[], torch.Tensor]] = None) -> None:
+                done: Optional[Callable[[], torch.Tensor]] = None,
+                start: int = 0) -> None:
     """Drive ``step`` until ``live()`` turns false, reading it on the host
     once per ``CHECK_EVERY`` steps and never launching more than
-    ``maxiter`` steps in all.
+    ``maxiter - start`` steps in all.
+
+    ``start``: the iteration count the state already has (a resumed
+    chunk); the step count, the restart boundaries and the host checks
+    run on from it.
 
     With ``every > 0``, ``replace`` runs after each launched multiple of
     ``every``.  While the solve is live the step count on the device equals
@@ -103,8 +108,8 @@ def run_chunked(step: Callable[[], Any], live: Callable[[], torch.Tensor],
     if every < 0:
         raise ValueError(f"recompute_r_every must be >= 0, got {every}")
     poll = _DonePoll(done) if done is not None else None
-    launched = 0
-    next_check = CHECK_EVERY
+    launched = start
+    next_check = start + CHECK_EVERY
     while launched < maxiter:
         stop = min(next_check, maxiter)
         if every:

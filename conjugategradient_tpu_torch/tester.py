@@ -11,11 +11,16 @@
 
 Usage: ``python -m conjugategradient_tpu_torch.tester <file.mtx | stencil:N> [options]``
 (or ``cgtorch-tester``).  ``--device cuda`` (the default) needs a GPU and
-exits non-zero without one.  ``--method gmres --restart``, ``--precond
-blockjacobi|chebyshev`` (``--block-size``, ``--cheb-degree``),
-``--progress N``, ``--estimate-steps`` and ``--verbose`` behave as in the
-JAX harness.  Flags of the JAX harness that this package has not ported
-yet exit with code 2 and "not yet ported".
+exits non-zero without one.  ``--method minres|bicgstab|gmres|block``
+(``--shift``, ``--restart``), ``--nrhs R`` (lane j solves roll(b, j): the
+lockstep multi-RHS loops, block CG with ``--method block``; the line
+reports lane 0 and the wall for all lanes, then a per-lane JSON line),
+``--precond jacobi|blockjacobi|chebyshev|amg`` (``--block-size``,
+``--cheb-degree``, ``--smoother``), ``--layout``, ``--reorder``,
+``--recompute N``, ``--progress N``, ``--estimate-steps``, ``--history``,
+``--summary`` and ``--verbose`` behave as in the JAX harness.  Flags of the
+JAX harness that this package has not ported yet exit with code 2 and
+"not yet ported".
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
 _PRECONDS = ("none", "jacobi", "blockjacobi", "chebyshev", "amg")
-_METHODS = ("standard", "minres", "bicgstab", "gmres")
+_METHODS = ("standard", "block", "minres", "bicgstab", "gmres")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -80,7 +85,9 @@ def _parser() -> argparse.ArgumentParser:
                          "(general .mtx inputs; 2 SpMVs/iteration; takes "
                          "--precond; the portable loop); gmres = restarted "
                          "GMRES(m) for NONSYMMETRIC systems (--restart sets m; "
-                         "right --precond)")
+                         "right --precond); block = block CG (with --nrhs R: one "
+                         "shared Krylov space, fewer iterations per lane than "
+                         "the lockstep loop)")
     ap.add_argument("--restart", type=int, default=30,
                     help="GMRES restart length m (with --method gmres): the "
                          "(m+1, n) Krylov basis held on the device")
@@ -91,6 +98,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="blocked-ELL row tile (also read by --layout auto)")
     ap.add_argument("--bn", type=int, default=128,
                     help="blocked-ELL col tile (also read by --layout auto)")
+    ap.add_argument("--nrhs", type=int, default=1,
+                    help="solve this many right-hand sides at once (lane j "
+                         "gets roll(b, j)) via the lockstep multi-RHS loop; "
+                         "the 4-column line reports lane 0 and the wall for "
+                         "all lanes, plus a per-lane JSON line")
     ap.add_argument("--history", action="store_true",
                     help="also print the residual-norm history as JSON")
     ap.add_argument("--summary", action="store_true",
@@ -146,9 +158,10 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, cg_init, cg_solve,
-                   expected_step_count, gmres_solve, jacobi_preconditioner, load_matrix,
-                   minres_solve, multigrid_preconditioner)
+    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, bicgstab_solve_batched,
+                   block_cg_solve, cg_init, cg_solve, cg_solve_batched, expected_step_count,
+                   gmres_solve, gmres_solve_batched, jacobi_preconditioner, load_matrix,
+                   minres_solve, minres_solve_batched, multigrid_preconditioner)
     from .ops.spmv import full_precision_matmul
     from .solver import (block_jacobi_preconditioner, chebyshev_preconditioner,
                          estimate_spectral_bounds, run_cg)
@@ -221,7 +234,7 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"expected_steps unavailable: {e}", file=sys.stderr)
 
-    if args.progress > 0 and args.method != "standard":
+    if args.progress > 0 and (args.nrhs > 1 or args.method != "standard"):
         print("error: --progress drives the standard single-RHS loop "
               "(no --nrhs/--method pipelined)", file=sys.stderr)
         return 2
@@ -229,7 +242,8 @@ def main(argv=None) -> int:
         print("error: --shift drives --method minres (the Paige-Saunders "
               "shifted solve)", file=sys.stderr)
         return 2
-    if args.recompute > 0 and (args.method != "standard" or args.progress > 0):
+    if args.recompute > 0 and (args.method != "standard" or args.nrhs > 1
+                               or args.progress > 0):
         print("error: --recompute drives the standard or pipelined "
               "single-RHS loop", file=sys.stderr)
         return 2
@@ -254,16 +268,24 @@ def main(argv=None) -> int:
                                rho=state.rho, rnorm_sq=state.rnorm_sq,
                                rho_history=state.hist)
 
+    # lane j solves against roll(b, j): the same norm on every lane (one
+    # shared absolute tol stays fair), R distinct systems; --method block
+    # builds its block the same way, so the two methods' counts compare
+    B = (torch.stack([torch.roll(b, j) for j in range(args.nrhs)])
+         if args.nrhs > 1 or args.method == "block" else None)
+    solvers = {"minres": (minres_solve, minres_solve_batched,
+                          {"shift": args.shift} if args.shift else {}),
+               "gmres": (gmres_solve, gmres_solve_batched, {"restart": args.restart}),
+               "bicgstab": (bicgstab_solve, bicgstab_solve_batched, {})}
+
     def solve():
-        if args.method in ("minres", "bicgstab", "gmres"):
-            if args.method == "minres":
-                x, ninfo = minres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
-                                        shift=args.shift)
-            elif args.method == "gmres":
-                x, ninfo = gmres_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
-                                       restart=args.restart)
+        if args.method in solvers:
+            solo, batched, extra = solvers[args.method]
+            if args.nrhs > 1:
+                X, ninfo = batched(A, B, tol=args.tol, maxiter=args.maxiter, M=M, **extra)
+                x = X[0]
             else:
-                x, ninfo = bicgstab_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M)
+                x, ninfo = solo(A, b, tol=args.tol, maxiter=args.maxiter, M=M, **extra)
             # the printing below reads a CGInfo, whose history holds squared
             # norms; MINRES, BiCGStab and GMRES carry norms
             sq = ninfo.rnorm * ninfo.rnorm
@@ -272,6 +294,12 @@ def main(argv=None) -> int:
                              rho_history=ninfo.rnorm_history * ninfo.rnorm_history)
         if args.progress > 0:
             return progress_solve()
+        if args.method == "block":
+            X, info = block_cg_solve(A, B, tol=args.tol, maxiter=args.maxiter, M=M)
+            return X[0], info
+        if args.nrhs > 1:
+            X, info = cg_solve_batched(A, B, tol=args.tol, maxiter=args.maxiter, M=M)
+            return X[0], info
         return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
                         recompute_r_every=args.recompute)
 
@@ -282,7 +310,9 @@ def main(argv=None) -> int:
     t.stop_measure()
 
     # with --reorder the solve runs in RCM ordering; the printed metrics are
-    # permutation-invariant, so x is not mapped back
+    # permutation-invariant, so x is not mapped back.  With --nrhs the line
+    # reports lane 0 (whose right-hand side is the reference's b) and the
+    # wall covers all lanes; the JSON line below carries each lane
     if args.shift:
         # the shifted solve's operator is A − σI: rel_error must use it
         res = b - (A.matvec(x) - args.shift * x)
@@ -290,16 +320,27 @@ def main(argv=None) -> int:
     else:
         rel_err = float(accuracy(A, b, x))
     print(f"{n} {nnz} {t.get_duration()} {rel_err}")
-    hist_all = info.rho_history.double().cpu().numpy()
-    k = int(info.iterations)
-    conv = bool(info.converged)
-    if args.summary:
+    iters = info.iterations.cpu().numpy().reshape(-1)
+    convs = info.converged.cpu().numpy().reshape(-1)
+    if args.nrhs > 1:
         print(json.dumps({
-            "iterations": [k],
-            "converged": [conv],
-            "final_rnorm": [float(np.sqrt(abs(float(info.rnorm_sq))))],
+            "nrhs": args.nrhs,
+            "iterations": [int(v) for v in iters],
+            "converged": [bool(v) for v in convs],
+            "per_rhs_ms": t.get_duration() / args.nrhs,
+        }))
+    if args.summary:
+        rns = np.sqrt(np.abs(info.rnorm_sq.double().cpu().numpy().reshape(-1)))
+        print(json.dumps({
+            "iterations": [int(v) for v in iters],
+            "converged": [bool(v) for v in convs],
+            "final_rnorm": [float(v) for v in rns],
         }))
     if args.history:
+        # with --nrhs or --method block (histories (R, maxiter+1)): lane 0
+        hist_all = info.rho_history.double().cpu().numpy()
+        hist_all = hist_all[0] if hist_all.ndim == 2 else hist_all
+        k, conv = int(iters[0]), bool(convs[0])
         hist = np.sqrt(hist_all[: k + 1])
         print(json.dumps({
             "iterations": k,

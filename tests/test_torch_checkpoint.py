@@ -134,8 +134,8 @@ def test_fused_files_cross_both_ways(bell_pair, tmp_path):
         _bits(getattr(back, name), getattr(ts, name))
 
 
-@pytest.mark.parametrize("kind,item", [("BatchedCGState", "item 4"),
-                                       ("ShardedCGState", "item 12")])
+# BatchedCGState is ported (its files load: the tests below)
+@pytest.mark.parametrize("kind,item", [("ShardedCGState", "item 12")])
 def test_unported_carries_name_the_roadmap(tmp_path, kind, item):
     np.savez(tmp_path / "u.npz", __kind__=np.asarray(kind), k=np.int32(0))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, {item}"):
@@ -163,3 +163,79 @@ def test_refusals(system, bell_pair, tmp_path):
     np.savez(tmp_path / "old.npz", **{k: getattr(s, k).numpy() for k in
                                       ("k", "done", "x", "r", "p", "rho", "rnorm_sq", "hist")})
     assert type(load_state(tmp_path / "old.npz", device=CPU)).__name__ == "CGState"
+
+
+# the lockstep multi-RHS carry (solver/batched.py)
+@pytest.fixture(scope="module")
+def dia_pair():
+    from conjugategradient_tpu.types import DIAMatrix as JDIA
+    from conjugategradient_tpu_torch import DIAMatrix
+
+    rows, cols, vals, shape = poisson2d_coo(12)
+    return (DIAMatrix.from_csr(CSRMatrix.from_coo(rows, cols, vals, shape, device=CPU)),
+            JDIA.from_csr(JCSR.from_coo(rows, cols, vals, shape)), shape[0])
+
+
+def _rhs_block(n, R=3, seed=3):
+    return np.random.default_rng(seed).standard_normal((R, n))
+
+
+@pytest.mark.parametrize("every", [0, 5])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_chunked_run_batched_cg_is_one_solve(dia_pair, tmp_path, chunk, every):
+    """run_batched_cg in chunks, through a file between each, gives the bits
+    of cg_solve_batched (the restart boundaries run on from the carry's
+    count, so a chunk may stop inside a restart period)."""
+    from conjugategradient_tpu_torch.solver import (BatchedCGState, batched_cg_init,
+                                                    batched_state_result, cg_solve_batched,
+                                                    run_batched_cg)
+
+    A, _, n = dia_pair
+    B = torch.from_numpy(_rhs_block(n))
+    tols = torch.tensor([1e-9, 1e-6, 1e-10], dtype=torch.float64)
+    X_ref, info = cg_solve_batched(A, B, tol=tols, recompute_r_every=every)
+    state = batched_cg_init(A, B, maxiter=n + 1)
+    while bool(((~state.done) & (state.k < n + 1)).any()):
+        k0 = int(state.k.max())
+        state = run_batched_cg(A, state, tols, steps=chunk, B=B, recompute_r_every=every)
+        assert int(state.k.max()) <= k0 + chunk
+        save_state(tmp_path / "b.npz", state)
+        state = load_state(tmp_path / "b.npz", device=CPU)
+        assert isinstance(state, BatchedCGState)
+    X, binfo = batched_state_result(state)
+    _bits(X, X_ref)
+    for name in ("iterations", "converged", "rho", "rnorm_sq", "rho_history"):
+        _bits(getattr(binfo, name), getattr(info, name))
+
+
+def test_batched_files_cross_both_ways(dia_pair, tmp_path):
+    """A JAX BatchedCGState file resumed by the port, and the port's
+    resumed by the JAX package, reach the uninterrupted solve's iterations
+    with the history to 1e-12 of ‖r₀‖² (sums in another order)."""
+    from conjugategradient_tpu.solver import batched as jb
+    from conjugategradient_tpu_torch.solver import batched_cg_init, run_batched_cg
+
+    A, jA, n = dia_pair
+    B = _rhs_block(n)
+    jfull = jb.run_batched_cg(jA, jb.batched_cg_init(jA, jnp.asarray(B), maxiter=n + 1), 1e-9)
+    jhalf = jb.run_batched_cg(jA, jb.batched_cg_init(jA, jnp.asarray(B), maxiter=n + 1), 1e-9,
+                              steps=15)
+    jck.save_state(tmp_path / "j.npz", jhalf)
+    loaded = load_state(tmp_path / "j.npz", device=CPU)
+    for name in ("k", "done", "X", "r", "p", "rho", "rnorm", "hist"):
+        _bits(getattr(loaded, name), getattr(jhalf, name))
+    resumed = run_batched_cg(A, loaded, 1e-9)
+    hj = np.asarray(jfull.hist)
+    _bits(resumed.k, jfull.k)
+    np.testing.assert_allclose(resumed.hist.numpy(), hj, rtol=0, atol=1e-12 * hj[0].max())
+
+    half = run_batched_cg(A, batched_cg_init(A, torch.from_numpy(B), maxiter=n + 1), 1e-9,
+                          steps=15)
+    save_state(tmp_path / "t.npz", half)
+    back = jck.load_state(tmp_path / "t.npz")
+    assert type(back).__name__ == "BatchedCGState" and int(np.max(back.k)) == 15
+    for name in ("k", "done", "X", "r", "p", "rho", "rnorm", "hist"):
+        _bits(getattr(back, name), getattr(half, name))
+    jres = jb.run_batched_cg(jA, back, 1e-9)
+    _bits(jres.k, jfull.k)
+    np.testing.assert_allclose(np.asarray(jres.hist), hj, rtol=0, atol=1e-12 * hj[0].max())

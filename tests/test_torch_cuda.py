@@ -1559,3 +1559,119 @@ def test_block_jacobi_apply_launches_kernel_7(dev, block_size):
     yc = Mc(r)
     np.testing.assert_allclose(y.cpu().numpy(), yc.numpy(), rtol=0,
                                atol=1e-6 * float(yc.abs().max()))
+
+
+# ---- multi-RHS: the plain *_spmv_multi forms and the lockstep loops -------
+
+def _poisson_csr(nx, dev, dtype=np.float32):
+    from conjugategradient_tpu_torch import CSRMatrix
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(nx)
+    order = np.lexsort((cols, rows))
+    r, c, v = rows[order], cols[order], vals[order].astype(dtype)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=shape[0]))])
+    return CSRMatrix.from_arrays(v, c, indptr, shape, device=dev)
+
+
+MULTI_FORMS = ("bell-dense", "bell-packed", "symbell", "dia", "symdia", "sell")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", MULTI_FORMS)
+def test_multi_forms_match_the_single_rhs_kernels(dev, form):
+    """Each column of a multi-RHS SpMV (plain torch on the card) against the
+    single-RHS route on that column: kernel 5 (dense tiles or packed), 7 or
+    10, and for SELL its plain form; to 1e-5 of max|Y| (f32 sums in another
+    order)."""
+    from conjugategradient_tpu_torch import DIAMatrix, SellMatrix, SymDIAMatrix
+    from conjugategradient_tpu_torch.ops import spmv
+
+    csr = _poisson_csr(45, dev)
+    if form == "bell-dense":
+        blocks, cols, nnz = block_tridiag_tiles(128 * 24, 128, 128, seed=1)
+        a = BlockedEllMatrix(torch.from_numpy(blocks).to(dev), torch.from_numpy(cols).to(dev),
+                             (128 * 24, 128 * 24), nnz)
+        multi, single, kernel = spmv.bell_spmv_multi, spmv.bell_spmv, "bell_spmv"
+    elif form == "bell-packed":
+        a = BlockedEllMatrix.from_csr(csr, bm=128, bn=128)
+        multi, single, kernel = spmv.bell_spmv_multi, spmv.bell_spmv, "bell_spmv_packed"
+    elif form == "symbell":
+        a = SymBellMatrix.from_csr(csr, bm=32, bn=32)
+        full = BlockedEllMatrix.from_csr(csr, bm=32, bn=32)
+        multi, kernel = spmv.sym_bell_spmv_multi, "bell_spmv_packed"
+        single = lambda _, x: spmv.bell_spmv(full, x)  # noqa: E731
+    elif form == "dia":
+        a = DIAMatrix.from_csr(csr)
+        multi, single, kernel = spmv.dia_spmv_multi, spmv.dia_spmv, "dia_spmv_rows"
+    elif form == "symdia":
+        a = SymDIAMatrix.from_csr(csr)
+        multi, single, kernel = spmv.sym_dia_spmv_multi, spmv.sym_dia_spmv, "sym_dia_spmv"
+    else:
+        a = SellMatrix.from_csr(csr)
+        multi, single, kernel = spmv.sell_spmv_multi, spmv.sell_spmv, None
+    n = a.shape[0]
+    X = torch.randn(n, 8, generator=torch.Generator().manual_seed(3)).to(dev)
+    before = dict(fc.LAUNCHES)
+    Y = multi(a, X)
+    assert fc.LAUNCHES == before  # the multi forms launch no kernel
+    for j in range(8):
+        y = single(a, X[:, j].contiguous())
+        _close(Y[:, j], y)
+    if kernel is not None:
+        assert fc.LAUNCHES[kernel] == before[kernel] + 8
+
+
+@pytest.mark.cuda
+def test_sym_bell_multi_repeats_bit_identical(dev):
+    """The mirror lands through the fixed-order gather, not a scatter with
+    atomics: two calls on the card give the same bits."""
+    from conjugategradient_tpu_torch.ops.spmv import sym_bell_spmv_multi
+
+    blocks, cols, nnz = block_tridiag_tiles(128 * 40, 128, 128, seed=2)
+    a = SymBellMatrix._pack_np(blocks, cols.astype(np.int64), (5120, 5120), (5120, 5120), nnz,
+                               check=False, device=dev)
+    X = torch.randn(5120, 16, generator=torch.Generator().manual_seed(4)).to(dev)
+    assert torch.equal(sym_bell_spmv_multi(a, X), sym_bell_spmv_multi(a, X))
+
+
+@pytest.mark.cuda
+def test_lockstep_loop_stops_within_lookahead(dev):
+    """The lockstep loop on the card: block-Jacobi (b = 8) applied column by
+    column launches kernel 7 R times a step, and at most LOOKAHEAD - 1
+    steps follow the one that ends the last lane."""
+    from conjugategradient_tpu_torch import DIAMatrix, cg_solve_batched
+    from conjugategradient_tpu_torch.solver.precond import block_jacobi_preconditioner
+    from conjugategradient_tpu_torch.solver.restart import LOOKAHEAD
+
+    csr = _poisson_csr(60, dev)
+    a = DIAMatrix.from_csr(csr)
+    M = block_jacobi_preconditioner(csr, block_size=8)
+    n, R = a.shape[0], 4
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    B = torch.stack([torch.roll(b, j) for j in range(R)])
+    tol = 1e-5 * float(torch.linalg.norm(b))
+    before = fc.LAUNCHES["dia_spmv_rows"]
+    X, info = cg_solve_batched(a, B, tol=tol, M=M)
+    torch.cuda.synchronize()
+    steps = (fc.LAUNCHES["dia_spmv_rows"] - before) // R - 1  # one apply at init
+    k = int(info.iterations.max())
+    assert bool(info.converged.all())
+    assert 0 <= steps - k <= LOOKAHEAD - 1, (steps, k)
+
+
+@pytest.mark.cuda
+def test_nrhs_on_a_stencil_launches_stencil7(dev, capsys):
+    """--nrhs on a stencil: input runs each lane's solo portable loop, whose
+    matvec is kernel 11."""
+    from conjugategradient_tpu_torch import tester
+
+    before = fc.LAUNCHES["stencil7"]
+    assert tester.main(["stencil:24", "--nrhs", "3", "--dtype", "float32", "--tol", "1e-2",
+                        "--summary", "--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    import json
+
+    lanes = json.loads(lines[1])
+    assert lanes["nrhs"] == 3 and lanes["converged"] == [True] * 3
+    assert fc.LAUNCHES["stencil7"] - before >= 2 * sum(lanes["iterations"])
