@@ -219,6 +219,26 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    convection-diffusion grid as DIA, lane 0 against the solo solve, ms a
    step; ``run_batched_cg`` in chunks of 64 through a checkpoint file,
    its history hash equal to one uninterrupted batched solve's.
+   Then the pipelined / s-step path, with its own reset and read (its
+   kernels: ``bell_spmv``, ``dia_spmv_rows``, ``sym_dia_spmv``,
+   ``stencil7``): ``cg_solve(fused="never")``, ``pipelined_cg_solve`` and
+   ``sstep_cg_solve`` at s = 2 and 4, 256 float32 steps each at tol = -1
+   on the n = 262,144 full-storage tiles (kernel 5; on the cut copy if the
+   pipelined loop stops early there), each required to make every step:
+   ms/it, effective GB/s, the busy share, launches a step and host reads a
+   step or block; float64 poisson3d_48 on CSR and DIA (pipelined, Jacobi
+   GV, s = 2 and 4), each with the CPU's iteration count and its history
+   within 1e-10 above a floor, s = 1 with plain CG's count; the tester's
+   ``--method pipelined|sstep`` on poisson3d_48 (DIA, symmetric DIA) and
+   ``stencil:64`` (plain and with multigrid).  Then the SA-AMG / FSAI path
+   (kernel ``dia_spmv_rows``): bench.py's amg lane, poisson2d(512) as
+   float32 CSR, b = arange(1, n + 1) / n, tol = 1e-6 ||b||: plain CG,
+   Jacobi PCG, SA-AMG PCG with each smoother, FSAI PCG at power 1 and 2
+   (host setup, levels and their layouts, iterations, the true residual,
+   time to tolerance as the median of 3, the apply's ms and launches, the
+   busy share), the AMG and FSAI(1) solves again in float64 to the
+   tolerance on the true residual; and GMRES(32) with SA-AMG on DIA levels
+   against CSR levels on that system and on convdiff_34.mtx.
    The portable loops end at convergence: the steps launched are counted
    against the iterations for MG-PCG at 256^3, a portable DIA solve, a
    portable BiCGStab solve, a portable sharded CG solve and a lockstep
@@ -4752,6 +4772,364 @@ def phase_multi_path(dev, big, big_full, card):
                         int(ib.iterations.max()))
 
 
+CA_KERNELS = ("bell_spmv", "dia_spmv_rows", "sym_dia_spmv", "stencil7")
+CA_STEPS = 256  # at tol = -1 on the n = 262,144 full-storage tiles
+CA_S = (2, 4)  # s-step block sizes timed there
+CA_F64_TOL_REL = 1e-8  # float64 poisson3d_48 solves to 1e-8 ||b||
+# card against the CPU's float64 history: (floor, rtol), the largest
+# relative difference on the entries above floor * rho_0.  The GV
+# recurrences and the s = 4 monomial basis amplify the two devices'
+# last-bit differences: GV's grow as the residual falls (4.4e-11 / 1.8e-10
+# above 1e-8 rho_0 on CSR / DIA, 5.7e-9 above 1e-12), so it is held above
+# 1e-6; s = 4, whose basis conditions like kappa^4 (~7e11 on poisson3d_48),
+# to 1e-9 (1.17-1.19e-10 measured).  tests/test_torch_pipelined.py and
+# test_torch_sstep.py find the same against the JAX package.
+CA_CHECK = {"cg": (1e-16, 1e-10), "gv": (1e-6, 1e-10), "sstep2": (1e-16, 1e-10),
+            "sstep4": (1e-12, 1e-9)}
+CA_STENCIL = "stencil:64"
+CA_TESTER_MAXITER = 5000
+AMG_NX = 512  # bench.py:787-860's amg lane: poisson2d_coo(512) assembled as float32 CSR
+AMG_TOL_REL = 1e-6
+AMG_PLAIN_MAXITER = 6000
+AMG_REPS = 3  # time to tolerance: the median of 3 solves
+AMG_APPLY_REPS = 20
+AMG_KERNELS = ("dia_spmv_rows",)
+AMG_F64_SLACK = 3  # float64 AMG / FSAI PCG iterations against the float32 solve's
+AMG_F32_TRUE_BOUND = 0.1  # a float32 true relative residual: a solution, not the tol
+GUARD_RESTART = 32
+GUARD_CYCLES = 4  # GMRES+AMG: maxiter = 4 cycles of 32
+# GMRES+AMG tolerances (of ||b||): float32 GMRES reaches only its true
+# residual's floor, near 1e-3 on poisson2d(512) and 4e-6 on convdiff_34
+GUARD_TOL_REL = {"poisson2d(512)": 1e-3, "problems/convdiff_34.mtx": 1e-5}
+GUARD_ITER_SLACK = 2  # GMRES+AMG iterations, DIA levels against CSR levels (float32)
+GUARD_TRUE_RATIO = 2.0  # and their true residuals, each within 2x of the other
+
+
+def ca_history_diff(h_card, h_cpu, k):
+    """A float64 card history against the CPU's: {floor: the largest
+    relative difference on the entries above floor * rho_0}, or None where
+    the NaN entries (s-step's between blocks) differ."""
+    hc = h_card[: k + 1].double().cpu().numpy()
+    hh = h_cpu[: k + 1].double().cpu().numpy()
+    if not np.array_equal(np.isnan(hc), np.isnan(hh)):
+        return None
+    out = {}
+    for floor in (1e-16, 1e-12, 1e-8, 1e-6):
+        keep = ~np.isnan(hh) & (hh > floor * hh[0])
+        out[floor] = float(np.max(np.abs(hc - hh)[keep] / hh[keep]))
+    return out
+
+
+def phase_ca_path(dev, big, big_full, card):
+    """Pipelined and s-step CG: 256 float32 steps on the n = 262,144
+    full-storage tiles (kernel 5) beside the portable cg_solve, ms/it,
+    effective GB/s, busy share, launches a step and host reads; float64
+    poisson3d_48 on CSR and DIA (and Jacobi GV) against the CPU's solve;
+    s = 1 against plain CG; the tester's --method pipelined|sstep on
+    kernels 7, 10 and 11."""
+    import torch
+
+    from conjugategradient_tpu_torch import cg_solve, jacobi_preconditioner, load_matrix
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import pipelined_cg_solve, sstep_cg_solve
+    from conjugategradient_tpu_torch.utils import Timer
+
+    n = N_BIG
+    gen = torch.Generator().manual_seed(16)
+    solvers = [("cg_solve(fused='never')", lambda a, b, **kw: cg_solve(a, b, fused="never", **kw)),
+               ("pipelined_cg_solve", pipelined_cg_solve)]
+    solvers += [(f"sstep_cg_solve s={s}",
+                 (lambda s: lambda a, b, **kw: sstep_cg_solve(a, b, s=s, **kw))(s)) for s in CA_S]
+
+    # (a) 256 steps at tol = -1 on the full-storage tiles; these tiles can
+    # take the residual to exactly 0 (PR 15's lockstep finding), where the
+    # pipelined alpha may be 0/0: then every loop is timed on the cut copy
+    # (condition <= 91, seeded normal b), which stays off the floor
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    op, label = big_full, "n=262144 full storage (402.7 MB)"
+    pipelined_cg_solve(op, b, tol=-1.0, maxiter=4)
+    _, probe = pipelined_cg_solve(op, b, tol=-1.0, maxiter=CA_STEPS)
+    if int(probe.iterations) < CA_STEPS:
+        print(f"  pipelined_cg_solve on the full tiles stopped at {int(probe.iterations)} of "
+              f"{CA_STEPS} steps (alpha 0/0 once the residual underflows): timing on the cut "
+              f"copy")
+        op = cut_tridiag_ops(big_full.blocks.view(4, -1, 3, 128, 128),
+                             big_full.block_cols.view(4, -1, 3), big_full.nnz)[0]
+        b = torch.randn(n, generator=gen).to(dev)
+        label = "n=262144 cut copy, full storage (402.7 MB)"
+    eff = big_full.tile_bytes() + 10 * n * 4
+    rows = {}
+    for name, solve in solvers:
+        solve(op, b, tol=-1.0, maxiter=8)
+        before = dict(_common.LAUNCHES)
+        t = Timer(dev).start_measure()
+        reads, (_, info) = count_host_reads(lambda: solve(op, b, tol=-1.0, maxiter=CA_STEPS))
+        t.stop_measure()
+        its = int(info.iterations)
+        check(its == CA_STEPS, f"{name} {label}: {its} of {CA_STEPS} steps")
+        launched = {k: _common.LAUNCHES[k] - before[k] for k in before
+                    if _common.LAUNCHES[k] != before[k]}
+        ms_it = t.get_duration() / CA_STEPS
+        busy = device_ms(lambda: solve(op, b, tol=-1.0, maxiter=CA_STEPS), reps=1)
+        busy_s = "not measured" if busy is None else \
+            f"{busy / CA_STEPS:.4f} ms a step ({100 * busy / t.get_duration():.1f}%)"
+        per = {k: v / CA_STEPS for k, v in launched.items()}
+        unit = "block" if name.startswith("sstep") else "step"
+        s = int(name.split("=")[1]) if unit == "block" else 1
+        rows[name] = (ms_it, busy)
+        print(f"  {name} {label} float32, {CA_STEPS} steps at tol = -1: {ms_it:.4f} ms/it, "
+              f"effective {eff / ms_it / 1e6:.1f} GB/s on {eff / 1e6:.1f} MB/it; device busy "
+              f"{busy_s}; launches a step {per}; {reads} host reads, "
+              f"{reads * s / CA_STEPS:.3f} a {unit}  [{card}]")
+    check(all(np.isfinite(v[0]) for v in rows.values()), "CA timing: a time is not finite")
+    del op
+
+    # (b) float64 poisson3d_48 on CSR and DIA: the card against the CPU's
+    # solve of the same inputs (iterations equal, histories within 1e-10)
+    path = MATRICES[0]
+    cases = []
+    for layout in ("csr", "dia"):
+        a_card = load_matrix(os.path.join(ROOT, path), layout=layout, dtype=np.float64,
+                             device=dev)
+        a_cpu = load_matrix(os.path.join(ROOT, path), layout=layout, dtype=np.float64,
+                            device="cpu")
+        cases.append((layout, a_card, a_cpu))
+    n3 = cases[0][1].shape[0]
+    b_cpu = torch.arange(1, n3 + 1, dtype=torch.float64)
+    b_card = b_cpu.to(dev)
+    tol = CA_F64_TOL_REL * bnorm(n3)
+    failed = []
+    for layout, a_card, a_cpu in cases:
+        runs = [("pipelined", "cg", lambda a, bb, M: pipelined_cg_solve(a, bb, tol=tol), None),
+                ("sstep s=2", "sstep2", lambda a, bb, M: sstep_cg_solve(a, bb, s=2, tol=tol),
+                 None),
+                ("sstep s=4", "sstep4", lambda a, bb, M: sstep_cg_solve(a, bb, s=4, tol=tol),
+                 None),
+                ("pipelined Jacobi GV", "gv",
+                 lambda a, bb, M: pipelined_cg_solve(a, bb, tol=tol, M=M), True)]
+        for what, floor, run, with_m in runs:
+            Mc = jacobi_preconditioner(a_card) if with_m else None
+            Mh = jacobi_preconditioner(a_cpu) if with_m else None
+            xc, ic = run(a_card, b_card, Mc)
+            xh, ih = run(a_cpu, b_cpu, Mh)
+            k = int(ih.iterations)
+            diff = ca_history_diff(ic.rho_history, ih.rho_history, k)
+            fl, rtol = CA_CHECK[floor]
+            ok = (int(ic.iterations) == k and bool(ic.converged) and bool(ih.converged)
+                  and diff is not None and diff[fl] <= rtol)
+            diff_s = "NaN slots differ" if diff is None else " / ".join(
+                f"{v:.2e}" for v in diff.values())
+            print(f"  {what} float64 {path} {layout} to {CA_F64_TOL_REL} ||b||: card "
+                  f"{int(ic.iterations)} its, CPU {k}; largest relative history difference "
+                  f"above 1e-16 / 1e-12 / 1e-8 / 1e-6 rho_0: {diff_s} (held to {rtol:g} above "
+                  f"{fl:g}){'' if ok else ': FAILED'}  [{card}]")
+            if not ok:
+                failed.append(f"{what} {layout}")
+        _, i1 = sstep_cg_solve(a_card, b_card, s=1, tol=tol)
+        _, ic = cg_solve(a_card, b_card, tol=tol)
+        check(int(i1.iterations) == int(ic.iterations),
+              f"sstep s=1 {layout}: {int(i1.iterations)} its against cg_solve's "
+              f"{int(ic.iterations)}")
+        print(f"  sstep_cg_solve s=1 float64 {path} {layout}: {int(i1.iterations)} its, plain "
+              f"CG's count  [{card}]")
+    check(not failed, f"float64 card solves against the CPU's: {failed}")
+    del cases
+
+    # (c) the tester: --method pipelined|sstep on float32 DIA (kernel 7),
+    # symmetric DIA (kernel 10) and the stencil (kernel 11).  The float32
+    # GV recurrences stall above this tolerance without residual
+    # replacement (solver/pipelined.py), so the preconditioned runs take
+    # --recompute, as the JAX tester's help says they should
+    tol3 = TOL_SOLVE_REL * bnorm(n3)
+    cap = ("--maxiter", str(CA_TESTER_MAXITER))
+    for src, layout, precond, extra in (
+            (path, "auto", "none", ("--method", "pipelined")),
+            (path, "auto", "jacobi", ("--method", "pipelined", "--recompute", "50")),
+            (path, "auto", "none", ("--method", "sstep", "--sstep-s", "4")),
+            (path, "symdia", "none", ("--method", "sstep", "--sstep-s", "2")),
+            (CA_STENCIL, "csr", "none", ("--method", "pipelined")),
+            (CA_STENCIL, "csr", "amg", ("--method", "pipelined", "--recompute", "5"))):
+        extra = extra + cap
+        nn = int(src.split(":")[1]) ** 3 if src.startswith("stencil:") else n3
+        tt = tol3 if nn == n3 else TOL_SOLVE_REL * bnorm(nn)
+        dim, nnz, ms, rel, summ, _ = run_tester(src, layout, precond, tt, extra=extra)
+        it = summ["iterations"][0]
+        what = f"tester {src} --layout {layout} --precond {precond} {' '.join(extra)}"
+        check(summ["converged"][0] and math.isfinite(rel) and rel < REL_ERROR_BOUND,
+              f"{what}: {summ}, rel_error {rel}")
+        print(f"  {what} float32: dim {dim} nnz {nnz} {ms:.3f} ms, {it} its "
+              f"({ms / max(it, 1):.4f} ms/it), rel_error {rel:.3e}  [{card}]")
+
+
+def amg_case(dev):
+    """bench.py's amg lane: poisson2d_coo(512) assembled as float32 CSR on
+    the card, b = arange(1, n + 1) / n, and its host float64 copy."""
+    import scipy.sparse as sp
+    import torch
+
+    from conjugategradient_tpu_torch import CSRMatrix
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(AMG_NX)
+    A = CSRMatrix.from_coo(rows, cols, vals, shape, dtype=np.float32, device=dev)
+    host = sp.csr_matrix((np.asarray(vals, np.float64), (rows, cols)), shape=shape)
+    n = shape[0]
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    return A, host, b
+
+
+def true_rel(host, b, x) -> float:
+    bh = b.double().cpu().numpy()
+    return float(np.linalg.norm(bh - host @ x.double().cpu().numpy()) / np.linalg.norm(bh))
+
+
+def phase_amg_path(dev, card):
+    """bench.py's amg lane at its published size: plain CG, Jacobi PCG,
+    SA-AMG PCG (Jacobi and Chebyshev smoothers) and FSAI PCG (power 1 and
+    2), host setup, levels and layouts, iterations, the true residual, time
+    to tolerance, the V-cycle's ms, launches and busy share; then the
+    GMRES guard: GMRES(32) with SA-AMG on DIA levels against CSR levels."""
+    import torch
+
+    from conjugategradient_tpu_torch import (cg_solve, fsai_preconditioner, gmres_solve,
+                                             jacobi_preconditioner, load_matrix,
+                                             smoothed_aggregation_preconditioner)
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import amg
+
+    A, host, b = amg_case(dev)
+    n = A.shape[0]
+    tol = AMG_TOL_REL * float(torch.linalg.vector_norm(b.double()))
+    print(f"  poisson2d({AMG_NX}) float32 CSR: n={n} nnz={A.nnz}, tol {AMG_TOL_REL} ||b|| "
+          f"= {tol:.4e}")
+
+    layouts = []
+
+    def layouts_of():
+        """Each level's layout by the rule the apply used, from the
+        hierarchy rebuilt on the host once (it is deterministic)."""
+        if not layouts:
+            mats, _ = amg._build_hierarchy(amg._to_scipy_csr(A), theta=0.08,
+                                           smooth_prolongator=True, coarse_size=400,
+                                           max_levels=20)
+            layouts.extend([amg._level_layout(m["A"]) for m in mats] + ["dense"])
+        return layouts
+
+    def timed(M, maxiter=None):
+        cg_solve(A, b, tol=tol, M=M, maxiter=maxiter)
+        ts = []
+        for _ in range(AMG_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = cg_solve(A, b, tol=tol, M=M, maxiter=maxiter)
+            float(info.rnorm_sq)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ts.sort()
+        busy = device_ms(lambda: cg_solve(A, b, tol=tol, M=M, maxiter=maxiter), reps=1,
+                         tries=2)
+        return x, info, ts[len(ts) // 2], busy
+
+    def apply_stats(M):
+        r = b.clone()
+        M(r)
+        before = dict(_common.LAUNCHES)
+        M(r)
+        torch.cuda.synchronize()
+        per = {k: _common.LAUNCHES[k] - before[k] for k in before
+               if _common.LAUNCHES[k] != before[k]}
+        return cuda_ms(lambda: M(r), reps=AMG_APPLY_REPS), per, kernel_profile(lambda: M(r))
+
+    results = {}
+    for name, build, maxiter in (
+            ("plain CG", lambda: None, AMG_PLAIN_MAXITER),
+            ("Jacobi PCG", lambda: jacobi_preconditioner(A), AMG_PLAIN_MAXITER),
+            ("SA-AMG PCG, Jacobi smoother", lambda: smoothed_aggregation_preconditioner(A),
+             None),
+            ("SA-AMG PCG, Chebyshev smoother",
+             lambda: smoothed_aggregation_preconditioner(A, smoother="chebyshev"), None),
+            ("FSAI(1) PCG", lambda: fsai_preconditioner(A, power=1), AMG_PLAIN_MAXITER),
+            ("FSAI(2) PCG", lambda: fsai_preconditioner(A, power=2), AMG_PLAIN_MAXITER)):
+        t0 = time.perf_counter()
+        M = build()
+        setup_s = time.perf_counter() - t0
+        x, info, ms, busy = timed(M, maxiter)
+        its = int(info.iterations)
+        rel = true_rel(host, b, x)
+        # float32 reaches the tolerance on its recurrence residual; the true
+        # one sits at float32's floor, so the float64 solves below hold it
+        check(bool(info.converged) and math.isfinite(rel) and rel < AMG_F32_TRUE_BOUND,
+              f"{name}: converged {bool(info.converged)} in {its}, true residual {rel:.3e}")
+        busy_s = "not measured" if busy is None else f"{100 * busy / ms:.1f}%"
+        extra = ""
+        if M is not None and name.startswith(("SA", "FSAI")):
+            ams, per, prof = apply_stats(M)
+            dev_s = "not measured" if prof is None else f"{prof[0]:.4f} ms device"
+            if name.startswith("SA"):
+                extra = (f"; levels {list(M.level_sizes)} "
+                         f"(layouts {layouts_of()}), operator complexity "
+                         f"{M.operator_complexity:.3f}")
+            else:
+                extra = f"; G {type(M.G).__name__} ({M.nnz} nonzeros), Gt {type(M.Gt).__name__}"
+            extra += f"; apply {ams:.4f} ms ({dev_s}), launches an apply {per}"
+        results[name] = (its, ms)
+        print(f"  {name}: setup {setup_s:.3f} s, {its} its, converged {bool(info.converged)}, "
+              f"true relative residual {rel:.3e}, time to tolerance {ms:.2f} ms (median of "
+              f"{AMG_REPS}), {ms / max(its, 1):.4f} ms/it, device busy {busy_s}{extra}  [{card}]")
+    # the same solves in float64 on the card (no kernel: float64 DIA runs
+    # the plain product), to the tolerance on the true residual too
+    A64 = A.astype(torch.float64)
+    b64 = b.double()
+    for name, build in (("SA-AMG PCG, Jacobi smoother",
+                         lambda: smoothed_aggregation_preconditioner(A64)),
+                        ("FSAI(1) PCG", lambda: fsai_preconditioner(A64, power=1))):
+        x, info = cg_solve(A64, b64, tol=tol, M=build())
+        its, rel = int(info.iterations), true_rel(host, b64, x)
+        check(bool(info.converged) and rel < 10 * AMG_TOL_REL
+              and abs(its - results[name][0]) <= AMG_F64_SLACK,
+              f"{name} float64: converged {bool(info.converged)} in {its} (float32 "
+              f"{results[name][0]}), true residual {rel:.3e}")
+        print(f"  {name} float64: {its} its (float32 {results[name][0]}), true relative "
+              f"residual {rel:.3e}  [{card}]")
+    del A64, b64
+    plain_ms = results["plain CG"][1]
+    for name in results:
+        if name != "plain CG":
+            its, ms = results[name]
+            print(f"  {name}: {results['plain CG'][0] / max(its, 1):.1f}x fewer iterations and "
+                  f"{plain_ms / ms:.2f}x less time than plain CG  [{card}]")
+
+    # the GMRES guard: SA-AMG inside GMRES(32) on DIA levels (the default)
+    # against CSR levels, on this system and on convdiff_34.mtx; a fault
+    # fails the phase
+    cd = load_matrix(os.path.join(ROOT, CONVDIFF), layout="csr", dtype=np.float32, device=dev)
+    cd_host = amg._to_scipy_csr(cd)
+    bc = torch.arange(1, cd.shape[0] + 1, dtype=torch.float32, device=dev)
+    for label, a, a_host, rhs in (("poisson2d(512)", A, host, b),
+                                  (CONVDIFF, cd, cd_host, bc)):
+        gtol = GUARD_TOL_REL[label] * float(torch.linalg.vector_norm(rhs.double()))
+        got = {}
+        for layout in ("auto", "csr"):
+            before = dict(_common.LAUNCHES)
+            M = smoothed_aggregation_preconditioner(a, level_layout=layout)
+            x, info = gmres_solve(a, rhs, tol=gtol, restart=GUARD_RESTART, M=M,
+                                  maxiter=GUARD_CYCLES * GUARD_RESTART)
+            torch.cuda.synchronize()
+            rel = true_rel(a_host, rhs, x)
+            dia = sum(_common.LAUNCHES[k] - before[k] for k in ("dia_spmv", "dia_spmv_rows"))
+            got[layout] = (bool(info.converged), int(info.iterations), rel)
+            check(math.isfinite(rel) and (layout == "csr" or dia > 0),
+                  f"GMRES+AMG {label} {layout} levels: {got[layout]}, {dia} DIA launches")
+            print(f"  gmres_solve(restart={GUARD_RESTART}, maxiter "
+                  f"{GUARD_CYCLES * GUARD_RESTART}, M=SA-AMG level_layout={layout!r}) {label} "
+                  f"float32 to {GUARD_TOL_REL[label]} ||b||: converged {bool(info.converged)}, "
+                  f"{int(info.iterations)} its, true relative residual {rel:.3e}, {dia} DIA "
+                  f"kernel launches  [{card}]")
+        (ca, ka, ra), (cc, kc, rc) = got["auto"], got["csr"]
+        check(ca == cc and abs(ka - kc) <= GUARD_ITER_SLACK
+              and max(ra, rc) <= GUARD_TRUE_RATIO * min(ra, rc),
+              f"GMRES+AMG {label}: DIA levels {got['auto']} against CSR levels {got['csr']}")
+
+
 UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
 
 
@@ -5188,6 +5566,8 @@ def main() -> int:
         ("GMRES / preconditioners / API", GMRES_KERNELS,
          lambda: phase_gmres_path(dev, big, big_full, card)),
         ("multi-RHS", MULTI_KERNELS, lambda: phase_multi_path(dev, big, big_full, card)),
+        ("pipelined / s-step", CA_KERNELS, lambda: phase_ca_path(dev, big, big_full, card)),
+        ("SA-AMG / FSAI", AMG_KERNELS, lambda: phase_amg_path(dev, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

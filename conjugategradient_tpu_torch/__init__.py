@@ -19,7 +19,12 @@ GMRES(m) (``gmres_solve``, right-preconditioned, FGMRES with
 ``flexible=True``) is a portable loop on every layout.  The
 preconditioners are Jacobi, block-Jacobi (a DIA product, the DIA kernel on
 the card, for blocks up to 16), Chebyshev (its interval from the device
-Lanczos of ``lanczos_eigs``) and the stencil's multigrid; ``CG`` is the
+Lanczos of ``lanczos_eigs``), the stencil's multigrid, and for assembled
+matrices smoothed-aggregation AMG (``smoothed_aggregation_preconditioner``,
+``rigid_body_modes``) and FSAI (``fsai_preconditioner``), their setup on
+the host and their applies on the layouts' SpMVs.  ``sstep_cg_solve`` and
+``solver.pipelined_cg_solve`` are CG with one reduction per s steps or one
+pass of dots per step; ``CG`` is the
 reference's object API, and ``solver.save_state`` / ``load_state`` /
 ``run_cg`` checkpoint a solve.  Many right-hand sides with one operator:
 ``cg_solve_batched`` (lockstep CG; ``solver.batched_cg_init`` /
@@ -52,6 +57,7 @@ from .solver import (
     cg_step,
     condition_estimate,
     expected_step_count,
+    fsai_preconditioner,
     fused_bell_cg_solve,
     fused_bell_pcg_solve,
     fused_bicgstab_solve,
@@ -67,6 +73,9 @@ from .solver import (
     minres_solve,
     minres_solve_batched,
     multigrid_preconditioner,
+    rigid_body_modes,
+    smoothed_aggregation_preconditioner,
+    sstep_cg_solve,
 )
 from .types import (
     BlockedEllMatrix,
@@ -115,6 +124,7 @@ __all__ = [
     "cg_step",
     "condition_estimate",
     "expected_step_count",
+    "fsai_preconditioner",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
     "fused_bicgstab_solve",
@@ -132,5 +142,8 @@ __all__ = [
     "minres_solve_batched",
     "multigrid_preconditioner",
     "read_mtx_csr",
+    "rigid_body_modes",
+    "smoothed_aggregation_preconditioner",
+    "sstep_cg_solve",
     "write_mtx",
 ]

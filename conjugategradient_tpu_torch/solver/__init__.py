@@ -1,3 +1,4 @@
+from .amg import rigid_body_modes, smoothed_aggregation_preconditioner
 from .batched import (BatchedCGState, batched_cg_init, batched_state_result, cg_solve_batched,
                       run_batched_cg)
 from .batched_nonsym import bicgstab_solve_batched, gmres_solve_batched, minres_solve_batched
@@ -7,6 +8,7 @@ from .cg import (CGInfo, CGState, accuracy, cg_init, cg_solve, cg_step, expected
                  memory_footprint)
 from .checkpoint import load_state, run_cg, save_state
 from .eigs import EigsResult, condition_estimate, lanczos_eigs
+from .fsai import fsai_preconditioner
 from .fused import (
     FusedCGState,
     fused_bell_cg_solve,
@@ -21,6 +23,7 @@ from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
 from .gmres import GmresInfo, gmres_solve
 from .minres import MinresInfo, minres_solve
 from .multigrid import multigrid_preconditioner
+from .pipelined import pipelined_cg_solve
 from .precond import (
     block_jacobi_preconditioner,
     chebyshev_preconditioner,
@@ -28,6 +31,7 @@ from .precond import (
     identity_preconditioner,
     jacobi_preconditioner,
 )
+from .sstep import make_sstep_loop, sstep_cg_solve
 
 __all__ = [
     "BatchedCGState",
@@ -54,6 +58,7 @@ __all__ = [
     "condition_estimate",
     "estimate_spectral_bounds",
     "expected_step_count",
+    "fsai_preconditioner",
     "fused_bell_cg_solve",
     "fused_bell_pcg_solve",
     "fused_bicgstab_solve",
@@ -75,7 +80,11 @@ __all__ = [
     "minres_solve",
     "minres_solve_batched",
     "multigrid_preconditioner",
+    "pipelined_cg_solve",
+    "rigid_body_modes",
     "run_batched_cg",
     "run_cg",
     "save_state",
+    "smoothed_aggregation_preconditioner",
+    "sstep_cg_solve",
 ]

@@ -48,6 +48,11 @@ class CGInfo:
     rnorm_sq: torch.Tensor  # final ‖r‖²
     rho_history: torch.Tensor  # (maxiter+1,) ‖r_k‖², NaN past the end
 
+    @property
+    def residual_norms(self) -> torch.Tensor:
+        """‖r_k‖ per iteration: the square root of ``rho_history``."""
+        return torch.sqrt(self.rho_history)
+
 
 @dataclasses.dataclass(frozen=True)
 class CGState:
@@ -96,12 +101,16 @@ def cg_step(
     state: CGState,
     tol: torch.Tensor,
     M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    dot_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = dot,
 ) -> CGState:
     """One CG iteration; a no-op once ``done`` is set or k reaches maxiter
-    (the device-resident loop runs a few masked steps past the end)."""
+    (the device-resident loop runs a few masked steps past the end).
+
+    ``dot_fn`` computes the step's three dots (pᵀAp, ‖r‖², rᵀz), so a
+    caller can put in a dot of its own, such as one that sums over shards."""
     live = state.live
     q = A.matvec(state.p)
-    pap = dot(state.p, q)
+    pap = dot_fn(state.p, q)
     exact = state.rho == 0
     alpha = torch.where(exact, 0, state.rho / torch.where(exact, 1, pap))
     x = torch.where(live, (state.x + alpha * state.p).to(state.x.dtype), state.x)
@@ -109,8 +118,8 @@ def cg_step(
     # termination tests the PRE-update residual (CG.hpp:401-402)
     done = torch.isnan(state.rnorm_sq) | (torch.sqrt(state.rnorm_sq) <= tol)
     z = r if M is None else M(r)
-    rnorm_next = dot(r, r)
-    rho_next = rnorm_next if M is None else dot(r, z)
+    rnorm_next = dot_fn(r, r)
+    rho_next = rnorm_next if M is None else dot_fn(r, z)
     beta = torch.where(exact, 0, rho_next / torch.where(exact, 1, state.rho))
     p = torch.where(live, (z + beta * state.p).to(state.p.dtype), state.p)
     k = state.k + live.to(torch.int32)

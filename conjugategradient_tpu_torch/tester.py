@@ -11,12 +11,15 @@
 
 Usage: ``python -m conjugategradient_tpu_torch.tester <file.mtx | stencil:N> [options]``
 (or ``cgtorch-tester``).  ``--device cuda`` (the default) needs a GPU and
-exits non-zero without one.  ``--method minres|bicgstab|gmres|block``
-(``--shift``, ``--restart``), ``--nrhs R`` (lane j solves roll(b, j): the
+exits non-zero without one.  ``--method
+pipelined|sstep|minres|bicgstab|gmres|block`` (``--sstep-s``, ``--shift``,
+``--restart``), ``--nrhs R`` (lane j solves roll(b, j): the
 lockstep multi-RHS loops, block CG with ``--method block``; the line
 reports lane 0 and the wall for all lanes, then a per-lane JSON line),
-``--precond jacobi|blockjacobi|chebyshev|amg`` (``--block-size``,
-``--cheb-degree``, ``--smoother``), ``--layout``, ``--reorder``,
+``--precond jacobi|blockjacobi|chebyshev|amg|fsai`` (``--block-size``,
+``--cheb-degree``, ``--smoother``, ``--fsai-power``; amg is
+smoothed-aggregation AMG on a ``--layout csr`` matrix and the geometric
+V-cycle on a stencil), ``--layout``, ``--reorder``,
 ``--recompute N``, ``--progress N``, ``--estimate-steps``, ``--history``,
 ``--summary`` and ``--verbose`` behave as in the JAX harness.  Flags of the
 JAX harness that this package has not ported yet exit with code 2 and
@@ -33,8 +36,8 @@ import numpy as np
 
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 _DTYPES = ("float32", "float64")
-_PRECONDS = ("none", "jacobi", "blockjacobi", "chebyshev", "amg")
-_METHODS = ("standard", "block", "minres", "bicgstab", "gmres")
+_PRECONDS = ("none", "jacobi", "blockjacobi", "chebyshev", "amg", "fsai")
+_METHODS = ("standard", "pipelined", "sstep", "block", "minres", "bicgstab", "gmres")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -61,23 +64,33 @@ def _parser() -> argparse.ArgumentParser:
                          "the printed metrics are permutation-invariant)")
     ap.add_argument("--recompute", type=int, default=0, metavar="N",
                     help="residual-replacement full restart every N "
-                         "iterations (0: never)")
+                         "iterations (0: never; standard and pipelined "
+                         "methods, the pipelined recurrences drift faster)")
     ap.add_argument("--dtype", default="float64", help="float32 or float64")
     ap.add_argument("--precond", default="none",
                     help="none, jacobi, blockjacobi (--block-size), chebyshev "
                          "(--cheb-degree; interval from a Lanczos estimate), "
-                         "or amg (the geometric multigrid V-cycle; stencil: "
-                         "inputs only)")
+                         "amg (smoothed-aggregation AMG on --layout csr "
+                         "inputs, the geometric V-cycle on stencil: inputs), "
+                         "or fsai (factorized sparse approximate inverse: "
+                         "apply = two SpMVs; --layout csr inputs)")
     ap.add_argument("--block-size", type=int, default=8, dest="block_size",
                     help="diagonal-block size (with --precond blockjacobi)")
     ap.add_argument("--cheb-degree", type=int, default=8,
                     help="Chebyshev polynomial degree (with --precond chebyshev)")
+    ap.add_argument("--fsai-power", type=int, default=1, dest="fsai_power",
+                    help="FSAI pattern power: G's sparsity = "
+                         "tril(pattern(|A|^power)) (with --precond fsai)")
     ap.add_argument("--smoother", choices=("jacobi", "chebyshev"), default="jacobi",
                     help="multigrid smoother (with --precond amg): nu "
                          "damped-Jacobi sweeps or the degree-nu Chebyshev "
                          "semi-iteration")
     ap.add_argument("--method", default="standard",
-                    help="standard = CG; minres = Paige-Saunders MINRES for "
+                    help="standard = CG; pipelined = single-synchronization "
+                         "CG (one pass of dots per iteration; Chronopoulos-Gear, "
+                         "or Ghysels-Vanroose with --precond); sstep = s-step CG "
+                         "(one Gram reduction per --sstep-s iterations; "
+                         "unpreconditioned); minres = Paige-Saunders MINRES for "
                          "symmetric INDEFINITE systems (monotone residual "
                          "norms; takes an SPD --precond; float32 blocked "
                          "layouts run fused CUDA kernels on a GPU); bicgstab "
@@ -91,6 +104,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--restart", type=int, default=30,
                     help="GMRES restart length m (with --method gmres): the "
                          "(m+1, n) Krylov basis held on the device")
+    ap.add_argument("--sstep-s", type=int, default=4, dest="sstep_s",
+                    help="s-step block size (with --method sstep; the "
+                         "monomial basis conditions like kappa(A)^s: 2..4 is "
+                         "the usable range)")
     ap.add_argument("--shift", type=float, default=0.0,
                     help="solve (A - shift*I) x = b (with --method minres: "
                          "the Paige-Saunders spectral shift)")
@@ -158,13 +175,16 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import (CGInfo, StencilOperator, accuracy, bicgstab_solve, bicgstab_solve_batched,
-                   block_cg_solve, cg_init, cg_solve, cg_solve_batched, expected_step_count,
+    from . import (CGInfo, CSRMatrix, StencilOperator, accuracy, bicgstab_solve,
+                   bicgstab_solve_batched, block_cg_solve, cg_init, cg_solve, cg_solve_batched,
+                   expected_step_count,
                    gmres_solve, gmres_solve_batched, jacobi_preconditioner, load_matrix,
-                   minres_solve, minres_solve_batched, multigrid_preconditioner)
+                   minres_solve, minres_solve_batched, multigrid_preconditioner,
+                   smoothed_aggregation_preconditioner, sstep_cg_solve)
     from .ops.spmv import full_precision_matmul
     from .solver import (block_jacobi_preconditioner, chebyshev_preconditioner,
-                         estimate_spectral_bounds, run_cg)
+                         estimate_spectral_bounds, fsai_preconditioner, pipelined_cg_solve,
+                         run_cg)
     from .utils import Timer, get_logger, set_verbosity
 
     device = torch.device(args.device)
@@ -185,8 +205,6 @@ def main(argv=None) -> int:
             return 2
         A = StencilOperator.poisson(dims, dtype=dtype, device=device)
     else:
-        if args.precond == "amg":
-            return _not_ported("--precond amg on a matrix file (smoothed-aggregation AMG)")
         try:
             A = load_matrix(args.mtx, layout=args.layout, dtype=np.dtype(args.dtype),
                             bm=args.bm, bn=args.bn, reorder=args.reorder,
@@ -220,8 +238,21 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"error: chebyshev setup failed: {e}", file=sys.stderr)
             return 2
+    elif args.precond == "fsai":
+        if not isinstance(A, CSRMatrix):
+            print("error: --precond fsai needs --layout csr (the FSAI setup "
+                  "mines A's CSR pattern)", file=sys.stderr)
+            return 2
+        M = fsai_preconditioner(A, power=args.fsai_power)
     elif args.precond == "amg":
-        M = multigrid_preconditioner(A, smoother=args.smoother)
+        if isinstance(A, StencilOperator):
+            M = multigrid_preconditioner(A, smoother=args.smoother)
+        elif isinstance(A, CSRMatrix):
+            M = smoothed_aggregation_preconditioner(A, smoother=args.smoother)
+        else:
+            print("error: --precond amg needs --layout csr (the AMG setup "
+                  "reads the CSR graph) or a stencil: input", file=sys.stderr)
+            return 2
     else:
         M = None
 
@@ -242,11 +273,19 @@ def main(argv=None) -> int:
         print("error: --shift drives --method minres (the Paige-Saunders "
               "shifted solve)", file=sys.stderr)
         return 2
-    if args.recompute > 0 and (args.method != "standard" or args.nrhs > 1
-                               or args.progress > 0):
+    if args.recompute > 0 and (args.method not in ("standard", "pipelined")
+                               or args.nrhs > 1 or args.progress > 0):
         print("error: --recompute drives the standard or pipelined "
               "single-RHS loop", file=sys.stderr)
         return 2
+    if args.method in ("pipelined", "sstep"):
+        if M is not None and args.method == "sstep":
+            print("error: --method sstep is unpreconditioned", file=sys.stderr)
+            return 2
+        if args.nrhs > 1:
+            print("error: --nrhs > 1 uses the lockstep loop, not --method "
+                  f"{args.method}", file=sys.stderr)
+            return 2
 
     cap = args.maxiter if args.maxiter is not None else n + 1
     progress_quiet = [True]  # the warm-up solve logs nothing
@@ -292,6 +331,11 @@ def main(argv=None) -> int:
             return x, CGInfo(iterations=ninfo.iterations, converged=ninfo.converged,
                              rho=sq, rnorm_sq=sq,
                              rho_history=ninfo.rnorm_history * ninfo.rnorm_history)
+        if args.method == "sstep":
+            return sstep_cg_solve(A, b, s=args.sstep_s, tol=args.tol, maxiter=args.maxiter)
+        if args.method == "pipelined":
+            return pipelined_cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
+                                      recompute_r_every=args.recompute)
         if args.progress > 0:
             return progress_solve()
         if args.method == "block":

@@ -1675,3 +1675,177 @@ def test_nrhs_on_a_stencil_launches_stencil7(dev, capsys):
     lanes = json.loads(lines[1])
     assert lanes["nrhs"] == 3 and lanes["converged"] == [True] * 3
     assert fc.LAUNCHES["stencil7"] - before >= 2 * sum(lanes["iterations"])
+
+
+def _host_reads(fn):
+    """fn() under torch's sync debug mode: (host reads it made, result)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen), out
+
+
+def _ca_operator(layout, dev):
+    """poisson2d(40) as float32 DIA, dense-route blocked-ELL (32 x 32
+    tiles of the 2-D Poisson band are dense enough) or packed blocked-ELL,
+    with the kernel its SpMV launches."""
+    from conjugategradient_tpu_torch import BlockedEllMatrix, DIAMatrix
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+
+    csr = _poisson_csr(40, dev)
+    if layout == "dia":
+        return DIAMatrix.from_csr(csr), "dia_spmv_rows"
+    a = BlockedEllMatrix.from_csr(csr, bm=128, bn=128)
+    return a, ("bell_spmv_packed" if bell_packed_route(a) else "bell_spmv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dia", "bell"])
+@pytest.mark.parametrize("method", ["pipelined", "pipelined-jacobi", "sstep2", "sstep4"])
+def test_ca_loops_launch_their_spmv_kernel(dev, layout, method):
+    """Pipelined (with and without Jacobi) and s-step CG on float32 DIA and
+    blocked-ELL launch kernel 7 or kernel 5 once per iteration (plus the
+    initial residual and s-step's final one), run no plain version on the
+    card, and follow the CPU's float32 trajectory over the first steps."""
+    from conjugategradient_tpu_torch import jacobi_preconditioner
+    from conjugategradient_tpu_torch.solver import pipelined_cg_solve, sstep_cg_solve
+
+    a, kernel = _ca_operator(layout, dev)
+    n = a.shape[0]
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+
+    def solve(op, bb, maxiter, tol=0.0):
+        if method.startswith("sstep"):
+            return sstep_cg_solve(op, bb, s=int(method[-1]), tol=tol, maxiter=maxiter)
+        M = jacobi_preconditioner(op) if method.endswith("jacobi") else None
+        return pipelined_cg_solve(op, bb, tol=tol, maxiter=maxiter, M=M)
+
+    fc.reset_counts()
+    _, info = solve(a, b, 24)
+    torch.cuda.synchronize()
+    assert int(info.iterations) == 24
+    # r0, plus w0 = A u0 under GV, plus one a step (A r; GV's A m; s a
+    # block of s steps): the cap launches no step past it
+    assert fc.LAUNCHES[kernel] == 24 + (2 if method.endswith("jacobi") else 1)
+    assert not any(fc.PLAIN_ON_CUDA.values()), dict(fc.PLAIN_ON_CUDA)
+    a_cpu = a.to("cpu")
+    _, ic = solve(a_cpu, b.cpu(), 24)
+    hk, hc = info.rho_history.double().cpu(), ic.rho_history.double()
+    keep = ~torch.isnan(hc) & (hc > 1e-8 * hc[0])
+    torch.testing.assert_close(hk[keep], hc[keep], rtol=5e-2, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+@pytest.mark.parametrize("smooth", [True, False], ids=["smoothed", "unsmoothed"])
+def test_amg_apply_launches_kernel_7_and_repeats_bit_identical(dev, smoother, smooth):
+    """An SA-AMG apply on a float32 CSR system: its DIA levels launch
+    kernel 7, no plain version runs on the card, the restriction's sorted
+    segment sums keep two applies bit-identical, and the apply matches the
+    CPU's to float32 rounding."""
+    from conjugategradient_tpu_torch.solver import smoothed_aggregation_preconditioner
+
+    csr = _poisson_csr(64, dev)
+    M = smoothed_aggregation_preconditioner(csr, smoother=smoother, smooth_prolongator=smooth)
+    assert M.n_levels >= 2
+    r = torch.randn(csr.shape[0], generator=torch.Generator().manual_seed(3)).to(dev)
+    fc.reset_counts()
+    z1 = M(r)
+    z2 = M(r)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["dia_spmv_rows"] + fc.LAUNCHES["dia_spmv"] > 0
+    assert not any(fc.PLAIN_ON_CUDA.values()), dict(fc.PLAIN_ON_CUDA)
+    assert torch.equal(z1, z2)
+    Mc = smoothed_aggregation_preconditioner(_poisson_csr(64, "cpu"), smoother=smoother,
+                                             smooth_prolongator=smooth)
+    _close(z1.cpu(), Mc(r.cpu()), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["auto", "bell"])
+@pytest.mark.parametrize("power", [1, 2])
+def test_fsai_apply_launches_its_kernel(dev, layout, power):
+    """An FSAI apply: two SpMVs, each a kernel launch in the factors'
+    layout (DIA: kernel 7; blocked-ELL: kernel 5), no plain version."""
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+    from conjugategradient_tpu_torch.solver import fsai_preconditioner
+
+    csr = _poisson_csr(48, dev)
+    M = fsai_preconditioner(csr, power=power, layout=layout)
+    if layout == "auto":
+        kernel = "dia_spmv_rows"
+    else:
+        kernel = "bell_spmv_packed" if bell_packed_route(M.G) else "bell_spmv"
+    r = torch.randn(csr.shape[0], generator=torch.Generator().manual_seed(5)).to(dev)
+    fc.reset_counts()
+    z = M(r)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES[kernel] == 2
+    assert not any(fc.PLAIN_ON_CUDA.values()), dict(fc.PLAIN_ON_CUDA)
+    zh = torch.from_numpy(M.G_host.T @ (M.G_host @ r.double().cpu().numpy()))
+    _close(z.double().cpu(), zh, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ca_host_reads(dev):
+    """Host reads on the card: the pipelined loop reads only its done flag,
+    once per CHECK_EVERY steps; s-step reads twice a block (the two eigh
+    result checks) and its flag once per CHECK_EVERY blocks."""
+    from conjugategradient_tpu_torch.solver import pipelined_cg_solve, sstep_cg_solve
+    from conjugategradient_tpu_torch.solver.restart import CHECK_EVERY
+
+    a, _ = _ca_operator("dia", dev)
+    n = a.shape[0]
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    pipelined_cg_solve(a, b, tol=-1.0, maxiter=8)
+    steps = 128
+    reads, (_, info) = _host_reads(lambda: pipelined_cg_solve(a, b, tol=-1.0, maxiter=steps))
+    assert int(info.iterations) == steps
+    assert reads <= steps // CHECK_EVERY + 2, reads
+    s = 4
+    sstep_cg_solve(a, b, s=s, tol=-1.0, maxiter=8)
+    reads, (_, info) = _host_reads(lambda: sstep_cg_solve(a, b, s=s, tol=-1.0, maxiter=steps))
+    blocks = steps // s
+    assert int(info.iterations) == steps
+    assert 2 * blocks <= reads <= 2 * blocks + blocks // CHECK_EVERY + 2, reads
+
+
+@pytest.mark.cuda
+def test_tester_runs_the_new_flags_on_the_card(dev, capsys):
+    """--method pipelined|sstep and --precond amg|fsai through the tester
+    on the card, each converged with the reference line's rel_error."""
+    import json
+
+    from conjugategradient_tpu_torch import tester
+
+    mtx = str(pathlib.Path(__file__).resolve().parents[1] / "problems" / "poisson2d_34.mtx")
+    for extra in (["--method", "pipelined"], ["--method", "sstep", "--sstep-s", "2"],
+                  ["--precond", "amg"], ["--precond", "fsai", "--fsai-power", "2"],
+                  ["--precond", "amg", "--method", "gmres"]):
+        assert tester.main([mtx, "--tol", "1e-6", "--summary", "--device", "cuda",
+                            *extra]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert json.loads(lines[1])["converged"] == [True], extra
+        assert float(lines[0].split()[3]) < 1e-16, extra
+
+
+@pytest.mark.cuda
+def test_sstep_nan_exit_on_the_card(dev):
+    """A NaN in b: the first block's Gram is NaN; its block solves give NaN
+    (not an eigh error) and the loop exits unconverged after one block, as
+    on the CPU."""
+    from conjugategradient_tpu_torch.solver import sstep_cg_solve
+
+    a, _ = _ca_operator("dia", dev)
+    b = torch.ones(a.shape[0], device=dev)
+    b[7] = float("nan")
+    _, info = sstep_cg_solve(a, b, s=2, tol=1e-3)
+    assert int(info.iterations) == 2 and not bool(info.converged)
+    assert bool(torch.isnan(info.rnorm_sq))

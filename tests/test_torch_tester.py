@@ -54,14 +54,17 @@ def test_default_csr_f64_matches_reference_protocol(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--method", "pipelined"],
-    # --nrhs is ported: this case now holds an unported method beside it
-    ["--nrhs", "4", "--method", "sstep"],
+    # --method pipelined|sstep and --precond amg|fsai on a matrix file are
+    # ported: their cases moved to the JAX refusals that now apply
+    # (test_method_refusals_exit_2, test_nrhs_refusals_match_the_jax_tester)
+    # and to runs against the JAX tester (test_ca_and_assembled_preconds_...)
+    ["--deflate", "2"],
+    ["--eigs-method", "lobpcg"],
     ["--refine", "bfloat16"],
     ["--eigs", "2"],
     ["--layout", "stencil"],
     ["--dtype", "bfloat16"],
-    ["--precond", "amg"],
+    ["--refine", "float32"],
 ], ids=lambda a: " ".join(a))
 def test_unported_flags_exit_2(capsys, args):
     rc, lines, err = _run(capsys, "--device", "cpu", *args)
@@ -261,7 +264,13 @@ def test_minres_shift_history_is_norms_and_rel_error_uses_the_shifted_operator(c
     # GMRES is ported: this case now holds the shift refusal on it
     pytest.param(["--method", "gmres", "--shift", "0.5"], "--shift drives --method minres",
                  id="--method gmres"),
-    (["--method", "sstep"], "not yet ported"),
+    # s-step is ported: this case now holds its refusal of a preconditioner
+    pytest.param(["--method", "sstep", "--precond", "jacobi"],
+                 "--method sstep is unpreconditioned", id="--method sstep"),
+    (["--method", "sstep", "--recompute", "8"], "--recompute drives the standard"),
+    (["--method", "sstep", "--precond", "amg"], "--method sstep is unpreconditioned"),
+    (["--precond", "fsai", "--layout", "dia"], "--precond fsai needs --layout csr"),
+    (["--precond", "amg", "--layout", "bell"], "--precond amg needs --layout csr"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
 def test_method_refusals_exit_2(capsys, args, msg):
     rc, lines, err = _run(capsys, "--device", "cpu", *args)
@@ -559,6 +568,13 @@ def test_nrhs_on_the_stencil(capsys):
     (["--method", "block", "--progress", "10"], "--progress drives the standard single-RHS loop"),
     (["--method", "block", "--shift", "0.5"], "--shift drives --method minres"),
     (["--nrhs", "4", "--shift", "0.5"], "--shift drives --method minres"),
+    # pipelined and s-step are ported: the JAX refusal of --nrhs applies
+    (["--nrhs", "4", "--method", "pipelined"], "--nrhs > 1 uses the lockstep loop"),
+    (["--nrhs", "4", "--method", "sstep"], "--nrhs > 1 uses the lockstep loop"),
+    (["--method", "sstep", "--precond", "jacobi"], "--method sstep is unpreconditioned"),
+    (["--method", "sstep", "--recompute", "8"], "--recompute drives the standard"),
+    (["--precond", "fsai", "--layout", "bell"], "--precond fsai needs --layout csr"),
+    (["--precond", "amg", "--layout", "sell"], "--precond amg needs --layout csr"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
 def test_nrhs_refusals_match_the_jax_tester(capsys, args, msg):
     (jrc, jlines, jerr), (trc, tlines, terr) = _both(capsys, [MTX, *args])
@@ -568,7 +584,6 @@ def test_nrhs_refusals_match_the_jax_tester(capsys, args, msg):
 
 
 @pytest.mark.parametrize("args,jax_msg", [
-    (["--nrhs", "4", "--method", "pipelined"], "--nrhs > 1 uses the lockstep loop"),
     (["--nrhs", "4", "--eigs", "2"], "--eigs is an eigensolver lane"),
     (["--nrhs", "4", "--deflate", "2"], "--deflate drives the standard single-RHS loop"),
     (["--nrhs", "4", "--refine", "float32"], "--refine drives the single-RHS standard loop"),
@@ -580,3 +595,60 @@ def test_nrhs_with_unported_flags_exit_2(capsys, args, jax_msg):
     (jrc, _, jerr), (trc, tlines, terr) = _both(capsys, [MTX, *args])
     assert jrc == trc == 2 and not tlines
     assert jax_msg in jerr and "not yet ported" in terr
+
+
+# --method pipelined|sstep and --precond amg|fsai on a matrix file, against
+# the root tester's line: float64 iteration counts equal, the final norm to
+# 1e-10 of ||b||; s-step at s = 4 runs at 1e-4 (4e-9 of ||b||), where its
+# monomial basis stays off the float64 roundoff floor (nearer it the two
+# packages' counts part: 124 against 136 at 1e-8); float32 counts within 4
+@pytest.mark.parametrize("extra", [
+    ["--method", "pipelined", "--tol", "1e-8"],
+    ["--method", "pipelined", "--precond", "jacobi", "--tol", "1e-8"],
+    ["--method", "pipelined", "--precond", "amg", "--tol", "1e-8"],
+    ["--method", "pipelined", "--recompute", "25", "--tol", "1e-8"],
+    ["--method", "pipelined", "--precond", "jacobi", "--tol", "1e-3", "--dtype", "float32",
+     "--recompute", "50"],
+    ["--method", "pipelined", "--layout", "dia", "--dtype", "float32", "--tol", "1e-3"],
+    ["--method", "sstep", "--tol", "1e-4"],
+    ["--method", "sstep", "--sstep-s", "2", "--tol", "1e-8"],
+    # float32 s-step at 4e-6 of ||b||: at 1e-3 (4e-8, the float32 floor) the
+    # two packages' counts part by 12
+    ["--method", "sstep", "--sstep-s", "2", "--layout", "bell", "--dtype", "float32",
+     "--tol", "1e-1"],
+    ["--precond", "amg", "--tol", "1e-8"],
+    ["--precond", "amg", "--smoother", "chebyshev", "--tol", "1e-8"],
+    ["--precond", "amg", "--method", "gmres", "--tol", "1e-8"],
+    ["--precond", "amg", "--method", "bicgstab", "--tol", "1e-8"],
+    ["--precond", "amg", "--dtype", "float32", "--tol", "1e-3"],
+    ["--precond", "fsai", "--tol", "1e-8"],
+    ["--precond", "fsai", "--fsai-power", "2", "--tol", "1e-8"],
+    ["--precond", "fsai", "--method", "minres", "--tol", "1e-8"],
+    ["--precond", "fsai", "--dtype", "float32", "--tol", "1e-3"],
+], ids=lambda a: " ".join(a))
+def test_ca_and_assembled_preconds_match_the_jax_tester(capsys, extra):
+    (jrc, jlines, _), (trc, tlines, terr) = _both(capsys, [MTX, "--summary", *extra])
+    assert jrc == trc == 0, terr
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    js, ts = json.loads(jlines[1]), json.loads(tlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    trel = float(tlines[0].split()[3])
+    if "float32" in extra:
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 4
+        assert 0 <= trel < 1e-8
+    else:
+        assert ts["iterations"] == js["iterations"]
+        bnorm = np.linalg.norm(np.arange(1, 1157, dtype=float))
+        np.testing.assert_allclose(ts["final_rnorm"], js["final_rnorm"], rtol=0,
+                                   atol=1e-10 * bnorm)
+        assert 0 <= trel < 1e-20
+
+
+def test_gmres_with_amg_prints_no_tpu_warning(capsys):
+    """The JAX tester forces CSR-layout AMG levels under --method gmres and
+    warns about a TPU worker fault; the port keeps the default level layout
+    (DIA levels where a level qualifies) and prints no such warning."""
+    rc = tester.main([MTX, "--precond", "amg", "--method", "gmres", "--tol", "1e-6",
+                      "--device", "cpu"])
+    out = capsys.readouterr()
+    assert rc == 0 and "TPU" not in out.err and "warning" not in out.err
