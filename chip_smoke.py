@@ -5130,6 +5130,359 @@ def phase_amg_path(dev, card):
               f"GMRES+AMG {label}: DIA levels {got['auto']} against CSR levels {got['csr']}")
 
 
+DEFLATION_KERNELS = ("dia_spmv_rows", "bell_spmv_packed")
+EIGS_K = 8  # bench.py:1286-1363's eigs lane: LOBPCG k = 8, Jacobi, n = 262,144 symmetric tiles
+EIGS_ITERS = (48, 96)  # its two-point protocol: fixed-count runs at tol = 0, tol_absolute
+EIGS_REPS = 3
+EIGS_TOL_REL = 1e-5  # its time-to-tolerance run, cap 200
+EIGS_TOL_MAXITER = 200
+EIGS_LANCZOS_ITERS = 120  # the float64 Lanczos pass that lambda_min is held against
+EIGS_F32_RQ = 1e-5  # float32 Rayleigh-Ritz rounding, of theta_max, in that comparison
+DEFL_K = 8
+DEFL_HARVEST_M = 200
+# of ||b||: the amg lane's 1e-6, and 1e-4, where the float32 deflated solves
+# also reach the tolerance (at 1e-6 they may stop at the divergence guard,
+# as the JAX package's do: poisson2d(128) and (256) on the CPU)
+DEFL_TOLS = (1e-6, 1e-4)
+DEFL_REPS = {1e-6: 3, 1e-4: 1}  # time to stop: the median of 3 solves at the lane's tolerance
+DEFL_F64_TOL_REL = 1e-8
+DEFL_ITER_SLACK = 1  # float64 deflated CG, card against the CPU's plain versions
+LOBPCG_ITER_SLACK = 3  # float64 LOBPCG there (tests/test_torch_lobpcg.py's slack)
+LOBPCG_F64_TOL = 3e-3  # of theta_max: all 4 pairs converge (55 its on the CPU)
+LOBPCG_F64_MAXITER = 150
+SCIPY_FILE = "problems/poisson2d_110.mtx"
+SCIPY_RTOL = 1e-8
+SCIPY_GMRES_RESTART = 50  # both gmres calls (scipy's default of 20 takes ~4x the cycles)
+SCIPY_TRUE_FACTOR = 2.0  # each solve's true relative residual: at most 2 rtol
+SCIPY_EIG_RTOL = 1e-8  # eigsh against scipy's shift-invert eigsh
+SCIPY_EYE_N = 100  # eigsh(identity, k=3): a triple eigenvalue
+
+
+def eigs_lane(dev, big, card) -> None:
+    """bench.py's eigs lane on the n = 262,144 symmetric tiles: LOBPCG k = 8
+    with Jacobi, ms an iteration from the two-point difference of fixed-count
+    runs (CUDA events, the median of 3), device ms and busy share
+    (torch.profiler), host reads an iteration; the run to 1e-5 (cap 200):
+    iterations, seconds, max residual, lambda_min, held against a float64
+    Lanczos pass of the same operator on the card."""
+    import torch
+
+    from conjugategradient_tpu_torch import jacobi_preconditioner, lanczos_eigs, lobpcg_eigs
+
+    M = jacobi_preconditioner(big)
+
+    def run(maxiter, tol, absolute):
+        return lobpcg_eigs(big, k=EIGS_K, M=M, which="smallest", tol=tol, maxiter=maxiter,
+                           tol_absolute=absolute)
+
+    def timed(maxiter, tol, absolute=False):
+        res = run(maxiter, tol, absolute)
+        ts = []
+        for _ in range(EIGS_REPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            res = run(maxiter, tol, absolute)
+            e1.record()
+            e1.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        ts.sort()
+        return res, ts[len(ts) // 2]
+
+    lo, hi = EIGS_ITERS
+    r_lo, t_lo = timed(lo, 0.0, True)
+    r_hi, t_hi = timed(hi, 0.0, True)
+    check(r_lo.iters == lo and r_hi.iters == hi,
+          f"eigs lane: fixed-count runs made {r_lo.iters} / {r_hi.iters} iterations")
+    per_it = (t_hi - t_lo) / (hi - lo)
+    d_lo = device_ms(lambda: run(lo, 0.0, True), reps=1)
+    d_hi = device_ms(lambda: run(hi, 0.0, True), reps=1)
+    dev_it = None if d_lo is None or d_hi is None else (d_hi - d_lo) / (hi - lo)
+    prof = kernel_profile(lambda: run(8, 0.0, True), top=5)
+    reads_lo, _ = count_host_reads(lambda: run(lo, 0.0, True))
+    reads_hi, _ = count_host_reads(lambda: run(hi, 0.0, True))
+    busy_s = ("not measured" if dev_it is None else
+              f"{dev_it:.4f} ms device an iteration ({100 * dev_it / per_it:.1f}% busy)")
+    print(f"  eigs lane: lobpcg_eigs(k={EIGS_K}, M=Jacobi) n={N_BIG} symmetric 128 x 128 float32, "
+          f"{lo} / {hi} iterations at tol = 0: {t_lo:.2f} / {t_hi:.2f} ms (median of "
+          f"{EIGS_REPS}), {per_it:.4f} ms an iteration (two-point), {busy_s}, "
+          f"{(reads_hi - reads_lo) / (hi - lo):.3f} host reads an iteration ({reads_lo} / "
+          f"{reads_hi} a call), fixed cost {t_hi - per_it * hi:.2f} ms a call  [{card}]")
+    if prof is not None:
+        print(f"  eigs lane, 8 iterations under torch.profiler: {prof[0]:.3f} ms device, "
+              f"{prof[1]} kernels; the top five by device time "
+              f"{[(k[:60], round(ms, 4), c) for k, ms, c in prof[2]]}  [{card}]")
+    res, t_tol = timed(EIGS_TOL_MAXITER, EIGS_TOL_REL)
+    vals, resid = np.asarray(res.values, np.float64), np.asarray(res.residuals, np.float64)
+    check(np.all(np.isfinite(vals)) and np.all(np.diff(vals) >= 0),
+          f"eigs lane: values {vals}")
+    theta = float(np.abs(vals).max())
+    big64 = big.astype(torch.float64)
+    ref = lanczos_eigs(big64, k=1, which="smallest", iters=EIGS_LANCZOS_ITERS)
+    del big64
+    lam, lam64 = float(vals[0]), float(ref.values[0])
+    # each Ritz value lies within its residual norm of an eigenvalue; the
+    # float32 Rayleigh-Ritz adds its rounding
+    bound = float(resid[0]) + float(ref.residuals[0]) + EIGS_F32_RQ * theta
+    print(f"  eigs lane to {EIGS_TOL_REL} (relative, cap {EIGS_TOL_MAXITER}): {res.iters} "
+          f"iterations, {t_tol / 1e3:.4f} s (median of {EIGS_REPS}), converged "
+          f"{int(np.sum(res.converged))}/{EIGS_K}, max residual {resid.max():.4e}, lambda_min "
+          f"{lam:.8f} against the float64 Lanczos's {lam64:.8f} ({EIGS_LANCZOS_ITERS} steps, "
+          f"residual bound {float(ref.residuals[0]):.2e}): difference {abs(lam - lam64):.3e}, "
+          f"held to {bound:.3e}  [{card}]")
+    check(abs(lam - lam64) <= bound,
+          f"eigs lane: lambda_min {lam} against float64 Lanczos {lam64}, bound {bound:.3e}")
+
+
+def deflation_at_scale(dev, card) -> None:
+    """poisson2d(512) as float32 DIA (5 diagonals: kernel 7 by value), b =
+    arange(1, n+1)/n: plain CG against deflated CG with k = 8 bases from
+    LOBPCG with SA-AMG (built on the CSR copy), Lanczos at its default
+    length and the harvest of a 200-step CG pass (the first solve
+    warm-started from its x), at 1e-6 and 1e-4 of ||b||: setup seconds,
+    basis_quality, iterations, ms to the stop (the median of 3 at 1e-6, one
+    solve at 1e-4) and a step,
+    the true relative residual, the divergence guard and kernel 7's
+    launches."""
+    import torch
+
+    from conjugategradient_tpu_torch import (DIAMatrix, cg_solve, deflated_cg_solve,
+                                             harvest_deflation_basis, make_deflation_basis,
+                                             smoothed_aggregation_preconditioner)
+    from conjugategradient_tpu_torch.ops.cuda import _common
+    from conjugategradient_tpu_torch.solver import basis_quality
+
+    A, host, b = amg_case(dev)
+    dia = DIAMatrix.from_csr(A)
+    check(dia.ndiag == 5, f"poisson2d({AMG_NX}) as DIA: {dia.ndiag} diagonals")
+    n = A.shape[0]
+    bn2 = float(torch.linalg.vector_norm(b.double()))
+    print(f"  poisson2d({AMG_NX}) float32 DIA: n={n}, {dia.ndiag} diagonals, k={DEFL_K}")
+
+    def timed(solve, reps):
+        """(x, info, the median ms of ``reps`` solves, kernel-7 launches a
+        solve); every solve here launches nothing to build."""
+        ts = []
+        before = _common.LAUNCHES["dia_spmv_rows"]
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = solve()
+            float(info.rnorm_sq)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ts.sort()
+        return x, info, ts[len(ts) // 2], (_common.LAUNCHES["dia_spmv_rows"] - before) // reps
+
+    bases = {}
+    t0 = time.perf_counter()
+    M = smoothed_aggregation_preconditioner(A)
+    t_amg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bases["LOBPCG + SA-AMG"] = (make_deflation_basis(dia, k=DEFL_K, method="lobpcg", M=M), None,
+                                time.perf_counter() - t0, f" (+ {t_amg:.3f} s AMG setup)")
+    t0 = time.perf_counter()
+    bases["Lanczos, default length"] = (make_deflation_basis(dia, k=DEFL_K), None,
+                                        time.perf_counter() - t0, "")
+    t0 = time.perf_counter()
+    basis, x_m = harvest_deflation_basis(dia, b, k=DEFL_K, m=DEFL_HARVEST_M, return_x=True)
+    bases[f"harvest m={DEFL_HARVEST_M}"] = (basis, x_m, time.perf_counter() - t0,
+                                            " (the first solve warm-started from its x)")
+    qual = {name: float(basis_quality(dia, v[0]).max()) for name, v in bases.items()}
+    for name, (_, _, setup, note) in bases.items():
+        print(f"  basis {name}: setup {setup:.3f} s{note}, basis_quality max {qual[name]:.4g}  "
+              f"[{card}]")
+    for tol_rel in DEFL_TOLS:
+        tol = tol_rel * bn2
+        rows = [("plain CG", lambda: cg_solve(dia, b, tol=tol, maxiter=AMG_PLAIN_MAXITER))]
+        for name, (basis, x0, _, _) in bases.items():
+            rows.append((name, (lambda basis, x0: lambda: deflated_cg_solve(
+                dia, b, basis, x0=x0, tol=tol, maxiter=AMG_PLAIN_MAXITER))(basis, x0)))
+        plain = None
+        reps = DEFL_REPS[tol_rel]
+        for name, solve in rows:
+            x, info, ms, k7 = timed(solve, reps)
+            its = int(info.iterations)
+            rel = true_rel(host, b, x)
+            conv = bool(info.converged)
+            guard = (not conv) and math.isfinite(float(info.rnorm_sq)) and its < AMG_PLAIN_MAXITER
+            check(math.isfinite(rel) and rel < AMG_F32_TRUE_BOUND and (conv or guard),
+                  f"{name} at {tol_rel} ||b||: converged {conv} in {its}, guard {guard}, "
+                  f"true residual {rel:.3e}")
+            plain = plain or (its, ms)
+            print(f"  {name} to {tol_rel} ||b||: {its} its ({its / plain[0]:.2f}x plain CG's), "
+                  f"converged {conv}, divergence guard {guard}, true relative residual {rel:.3e}, "
+                  f"time to stop {ms:.2f} ms (median of {reps}, {ms / plain[1]:.2f}x plain "
+                  f"CG's), {ms / max(its, 1):.4f} ms/it, {k7} kernel-7 launches  [{card}]")
+
+
+def deflation_parity(dev, card) -> None:
+    """float64 poisson3d_48 on CSR and DIA: deflated CG with one host basis
+    (8 Lanczos vectors of the CPU copy) and LOBPCG k = 4 on the card against
+    the same calls on CPU tensors (the plain versions) in this run."""
+    import torch
+
+    from conjugategradient_tpu_torch import (deflated_cg_solve, load_matrix, lobpcg_eigs,
+                                             make_deflation_basis)
+    from conjugategradient_tpu_torch.solver import deflation_basis_from_vectors
+
+    path = MATRICES[0]
+    failed = []
+    for layout in ("csr", "dia"):
+        a_card = load_matrix(os.path.join(ROOT, path), layout=layout, dtype=np.float64,
+                             device=dev)
+        a_cpu = load_matrix(os.path.join(ROOT, path), layout=layout, dtype=np.float64,
+                            device="cpu")
+        n3 = a_cpu.shape[0]
+        b_cpu = torch.arange(1, n3 + 1, dtype=torch.float64)
+        tol = DEFL_F64_TOL_REL * bnorm(n3)
+        W = make_deflation_basis(a_cpu, k=DEFL_K, lanczos_iters=40).W
+        _, ic = deflated_cg_solve(a_card, b_cpu.to(dev),
+                                  deflation_basis_from_vectors(a_card, W.to(dev)), tol=tol)
+        _, ih = deflated_cg_solve(a_cpu, b_cpu, deflation_basis_from_vectors(a_cpu, W), tol=tol)
+        k = int(ih.iterations)
+        diff = ca_history_diff(ic.rho_history, ih.rho_history, max(k, int(ic.iterations)))
+        ok = (abs(int(ic.iterations) - k) <= DEFL_ITER_SLACK and bool(ic.converged)
+              and bool(ih.converged) and diff is not None and diff[1e-8] <= 1e-10)
+        diff_s = "NaN slots differ" if diff is None else f"{diff[1e-8]:.2e}"
+        print(f"  deflated_cg_solve float64 {path} {layout} (k={DEFL_K}, Lanczos basis) to "
+              f"{DEFL_F64_TOL_REL} ||b||: card {int(ic.iterations)} its, CPU {k}; largest "
+              f"relative history difference above 1e-8 rho_0 {diff_s}"
+              f"{'' if ok else ': FAILED'}  [{card}]")
+        if not ok:
+            failed.append(f"deflated {layout}")
+        rc = lobpcg_eigs(a_card, k=4, tol=LOBPCG_F64_TOL, maxiter=LOBPCG_F64_MAXITER,
+                         return_history=True)
+        rh = lobpcg_eigs(a_cpu, k=4, tol=LOBPCG_F64_TOL, maxiter=LOBPCG_F64_MAXITER,
+                         return_history=True)
+        m = min(len(rc[1]), len(rh[1]))
+        lam_diff = float(np.max(np.abs(rc[1][:m] - rh[1][:m])) / np.abs(rh[1]).max())
+        ok = (abs(rc[0].iters - rh[0].iters) <= LOBPCG_ITER_SLACK
+              and np.allclose(rc[0].values, rh[0].values, rtol=1e-10, atol=0)
+              and lam_diff <= 1e-10)
+        print(f"  lobpcg_eigs(k=4) float64 {path} {layout} to {LOBPCG_F64_TOL}: card "
+              f"{rc[0].iters} its, CPU {rh[0].iters}, values {rc[0].values}, largest eigenvalue "
+              f"history difference {lam_diff:.2e} of the largest value{'' if ok else ': FAILED'}"
+              f"  [{card}]")
+        if not ok:
+            failed.append(f"lobpcg {layout}")
+    check(not failed, f"float64 card solves against the CPU's: {failed}")
+
+
+def deflation_tester(dev, card) -> None:
+    """The tester: --deflate 8 --tol 1e-8 on poisson2d_34 (float64 CSR; dim
+    1156, rel_error < 1e-10, as tests/test_deflated.py holds the JAX
+    tester), --deflate 8 on poisson3d_48 float32 blocked-ELL (packed kernel
+    5), and --eigs 4 with Jacobi and --history, and with --eigs-method
+    lanczos, on poisson3d_48 float32 blocked-ELL."""
+    from conjugategradient_tpu_torch import tester
+
+    def run(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tester.main([*args, "--device", str(DEVICE)])
+        lines = buf.getvalue().strip().splitlines()
+        check(rc == 0, f"tester {' '.join(args)}: rc {rc}")
+        return lines
+
+    lines = run([os.path.join(ROOT, "problems/poisson2d_34.mtx"), "--deflate", "8", "--tol",
+                 "1e-8", "--summary"])
+    dim, nnz, ms, rel = lines[0].split()
+    summ = json.loads(lines[1])
+    check(dim == "1156" and float(rel) < 1e-10 and summ["converged"] == [True],
+          f"tester --deflate 8 poisson2d_34: {lines}")
+    print(f"  tester problems/poisson2d_34.mtx --deflate 8 --tol 1e-8 float64: dim {dim} nnz {nnz} "
+          f"{float(ms):.3f} ms, {summ['iterations'][0]} its, rel_error {float(rel):.3e}  [{card}]")
+    p3d = os.path.join(ROOT, MATRICES[0])
+    tol = TOL_SOLVE_REL * bnorm(110_592)
+    lines = run([p3d, "--deflate", "8", "--layout", "bell", "--dtype", "float32", "--tol",
+                 repr(tol), "--summary"])
+    dim, nnz, ms, rel = lines[0].split()
+    summ = json.loads(lines[1])
+    check(math.isfinite(float(rel)) and float(rel) < REL_ERROR_BOUND,
+          f"tester --deflate 8 poisson3d_48 bell: {lines}")
+    print(f"  tester {MATRICES[0]} --deflate 8 --layout bell float32 --tol 1e-5 ||b||: dim {dim} "
+          f"{float(ms):.3f} ms, {summ['iterations'][0]} its, converged {summ['converged'][0]}, "
+          f"rel_error {float(rel):.3e}  [{card}]")
+    lam_min = 6.0 * (1.0 - math.cos(math.pi / 49.0))  # 7-point Poisson, h = 1/49
+    for extra in (["--precond", "jacobi", "--history"], ["--eigs-method", "lanczos"]):
+        lines = run([p3d, "--eigs", "4", "--layout", "bell", "--dtype", "float32", *extra])
+        dim, nnz, ms, rel = lines[0].split()
+        rec = json.loads(lines[1])
+        vals = rec["eigenvalues"]
+        check(len(lines) == (3 if "--history" in extra else 2) and len(vals) == 4
+              and all(math.isfinite(v) and v > 0 for v in vals) and vals == sorted(vals),
+              f"tester --eigs 4 {' '.join(extra)}: {lines[:2]}")
+        if "--history" in extra:
+            hist = json.loads(lines[2])
+            check(len(hist["eigenvalue_history"]) == rec["iterations"] + 1,
+                  f"tester --eigs --history: {len(hist['eigenvalue_history'])} rows")
+        print(f"  tester {MATRICES[0]} --eigs 4 --layout bell float32 {' '.join(extra)}: "
+              f"{float(ms):.3f} ms, {rec['iterations']} iterations, eigenvalues "
+              f"{[round(v, 6) for v in vals]} (lambda_min of the 7-point Poisson {lam_min:.6f}), "
+              f"max relative residual {float(rel):.3e}, converged {rec['converged']}  [{card}]")
+
+
+def scipy_drop_in(dev, card) -> None:
+    """scipy_compat on poisson2d_110 as a scipy matrix, held against
+    scipy.sparse.linalg on the host: cg, minres, bicgstab and gmres (info
+    codes, ||b - Ax|| / ||b||), lobpcg (k = 4: each value within its
+    residual of scipy's shift-invert eigsh) and eigsh(k = 4, which="SM");
+    eigsh on the identity (a triple eigenvalue, k = 3)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from conjugategradient_tpu_torch import read_mtx_csr, scipy_compat
+
+    data, indices, indptr, shape = read_mtx_csr(os.path.join(ROOT, SCIPY_FILE))
+    A = sp.csr_matrix((data, indices, indptr), shape=shape)
+    n = A.shape[0]
+    b = np.arange(1, n + 1, dtype=np.float64) / n
+    for name in ("cg", "minres", "bicgstab", "gmres"):
+        kw = {"restart": SCIPY_GMRES_RESTART} if name == "gmres" else {}
+        t0 = time.perf_counter()
+        x, info = getattr(scipy_compat, name)(A, b, rtol=SCIPY_RTOL, device=dev, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        xs, infos = getattr(spla, name)(A, b, rtol=SCIPY_RTOL, **kw)
+        rel = float(np.linalg.norm(b - A @ x.cpu().numpy()) / np.linalg.norm(b))
+        rels = float(np.linalg.norm(b - A @ xs) / np.linalg.norm(b))
+        check(info == infos == 0 and rel <= SCIPY_TRUE_FACTOR * SCIPY_RTOL and x.is_cuda,
+              f"scipy_compat.{name}: info {info} (scipy {infos}), true residual {rel:.3e}")
+        print(f"  scipy_compat.{name} {SCIPY_FILE} rtol {SCIPY_RTOL}: info {info} (scipy {infos}), "
+              f"||b - Ax||/||b|| {rel:.3e} (scipy {rels:.3e}), {ms:.1f} ms  [{card}]")
+    ref = np.sort(spla.eigsh(A, k=4, sigma=0, which="LM")[0])
+    X = np.random.default_rng(0).standard_normal((n, 4))
+    t0 = time.perf_counter()
+    w, v = scipy_compat.lobpcg(A, X, largest=False, tol=1e-6, maxiter=300, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    r = np.linalg.norm(A @ v - v * w, axis=0) / np.linalg.norm(v, axis=0)
+    check(np.all(np.abs(w - ref) <= r + 1e-12),
+          f"scipy_compat.lobpcg: {w} against {ref}, residuals {r}")
+    print(f"  scipy_compat.lobpcg {SCIPY_FILE} k=4: {w} against scipy's shift-invert eigsh {ref}, "
+          f"residuals {r}, {ms:.1f} ms  [{card}]")
+    t0 = time.perf_counter()
+    w = scipy_compat.eigsh(A, k=4, which="SM", return_eigenvectors=False, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.max(np.abs(w - ref) / ref))
+    check(err <= SCIPY_EIG_RTOL, f"scipy_compat.eigsh SM: {w} against {ref}")
+    print(f"  scipy_compat.eigsh {SCIPY_FILE} k=4 which=SM: {w}, relative difference {err:.2e} "
+          f"from scipy's shift-invert eigsh, {ms:.1f} ms  [{card}]")
+    w, v = scipy_compat.eigsh(sp.identity(SCIPY_EYE_N, format="csr"), k=3, device=dev)
+    check(np.allclose(w, 1.0, rtol=1e-12, atol=0) and np.allclose(v.T @ v, np.eye(3), atol=1e-8),
+          f"scipy_compat.eigsh identity: {w}")
+    print(f"  scipy_compat.eigsh identity({SCIPY_EYE_N}) k=3: {w}, orthonormal vectors  [{card}]")
+
+
+def phase_deflation_path(dev, big, card):
+    """Deflated CG, LOBPCG and the scipy drop-in: the eigs lane, deflation at
+    scale, float64 parity with the CPU, the tester's --deflate and --eigs,
+    and scipy_compat on scipy matrices."""
+    eigs_lane(dev, big, card)
+    deflation_at_scale(dev, card)
+    deflation_parity(dev, card)
+    deflation_tester(dev, card)
+    scipy_drop_in(dev, card)
+
+
 UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
 
 
@@ -5568,6 +5921,8 @@ def main() -> int:
         ("multi-RHS", MULTI_KERNELS, lambda: phase_multi_path(dev, big, big_full, card)),
         ("pipelined / s-step", CA_KERNELS, lambda: phase_ca_path(dev, big, big_full, card)),
         ("SA-AMG / FSAI", AMG_KERNELS, lambda: phase_amg_path(dev, card)),
+        ("deflation / LOBPCG / scipy", DEFLATION_KERNELS,
+         lambda: phase_deflation_path(dev, big, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

@@ -31,8 +31,12 @@ reference's object API, and ``solver.save_state`` / ``load_state`` /
 ``run_batched_cg`` checkpoint it), ``block_cg_solve`` (one shared
 block-Krylov space) and ``minres_solve_batched``,
 ``bicgstab_solve_batched``, ``gmres_solve_batched``, on the layouts'
-multi-RHS SpMVs (``ops.*_spmv_multi``, plain torch).  CSR, SELL and the rest of the portable
-loops run in plain torch.  Entry
+multi-RHS SpMVs (``ops.*_spmv_multi``, plain torch).  Eigenpairs and
+deflation: ``lobpcg_eigs`` (preconditioned block eigensolver, a B pencil
+too), ``deflated_cg_solve`` with a ``DeflationBasis`` from
+``make_deflation_basis`` or ``harvest_deflation_basis``; the
+``scipy_compat`` module speaks ``scipy.sparse.linalg``'s signatures.  CSR,
+SELL and the rest of the portable loops run in plain torch.  Entry
 points put operators on the card (``"cuda"``) unless the caller passes
 ``device="cpu"``.  Imports torch, never jax.
 """
@@ -43,6 +47,7 @@ from .solver import (
     BicgstabInfo,
     CGInfo,
     CGState,
+    DeflationBasis,
     EigsResult,
     GmresInfo,
     MinresInfo,
@@ -56,6 +61,7 @@ from .solver import (
     cg_solve_batched,
     cg_step,
     condition_estimate,
+    deflated_cg_solve,
     expected_step_count,
     fsai_preconditioner,
     fused_bell_cg_solve,
@@ -67,8 +73,11 @@ from .solver import (
     fused_stencil_cg_solve,
     gmres_solve,
     gmres_solve_batched,
+    harvest_deflation_basis,
     jacobi_preconditioner,
     lanczos_eigs,
+    lobpcg_eigs,
+    make_deflation_basis,
     memory_footprint,
     minres_solve,
     minres_solve_batched,
@@ -101,6 +110,7 @@ __all__ = [
     "CGState",
     "CSRMatrix",
     "DIAMatrix",
+    "DeflationBasis",
     "DenseOperator",
     "EigsResult",
     "GmresInfo",
@@ -123,6 +133,7 @@ __all__ = [
     "cg_solve_batched",
     "cg_step",
     "condition_estimate",
+    "deflated_cg_solve",
     "expected_step_count",
     "fsai_preconditioner",
     "fused_bell_cg_solve",
@@ -134,9 +145,12 @@ __all__ = [
     "fused_stencil_cg_solve",
     "gmres_solve",
     "gmres_solve_batched",
+    "harvest_deflation_basis",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_matrix",
+    "lobpcg_eigs",
+    "make_deflation_basis",
     "memory_footprint",
     "minres_solve",
     "minres_solve_batched",

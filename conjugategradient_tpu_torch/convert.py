@@ -15,6 +15,7 @@ import torch
 from .ops.cuda import fused_bicgstab as fb
 from .ops.cuda import fused_minres as fm
 from .ops.cuda.fused_cg import S_BETA, S_RHO, S_RNORM, FusedWork
+from .solver.deflated import DeflationBasis
 from .solver.fused import FusedCGState
 from .solver.fused_bicgstab import FusedBicgstabState
 from .solver.fused_minres import FusedMinresState
@@ -101,6 +102,13 @@ def stencil_from_arrays(center, off, grid_shape, device=DEFAULT_DEVICE) -> Stenc
     center = np.asarray(center)
     dtype = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}[center.dtype]
     return StencilOperator(float(center), float(np.asarray(off)), tuple(grid_shape), dtype, device)
+
+
+def deflation_basis_from_arrays(W, AW, E_chol, device=DEFAULT_DEVICE) -> DeflationBasis:
+    """A ``DeflationBasis`` from the JAX one's ``W``, ``AW`` and ``E_chol``
+    (their dtype is the basis's), so that both packages deflate with the
+    same basis."""
+    return DeflationBasis(W=_t(W, device), AW=_t(AW, device), E_chol=_t(E_chol, device))
 
 
 def fused_state_from_arrays(x, r, p, beta, rho, k: int, done: bool, hist,

@@ -7,6 +7,8 @@ from .blockcg import BlockCGState, block_cg_solve
 from .cg import (CGInfo, CGState, accuracy, cg_init, cg_solve, cg_step, expected_step_count,
                  memory_footprint)
 from .checkpoint import load_state, run_cg, save_state
+from .deflated import (DeflationBasis, basis_quality, deflated_cg_solve,
+                       deflation_basis_from_vectors, harvest_deflation_basis, make_deflation_basis)
 from .eigs import EigsResult, condition_estimate, lanczos_eigs
 from .fsai import fsai_preconditioner
 from .fused import (
@@ -21,6 +23,7 @@ from .fused_bicgstab import fused_bicgstab_solve, fused_bicgstab_supported
 from .fused_minres import fused_minres_solve, fused_minres_supported
 from .fused_stencil import fused_stencil_cg_solve, fused_stencil_supported
 from .gmres import GmresInfo, gmres_solve
+from .lobpcg import lobpcg_eigs
 from .minres import MinresInfo, minres_solve
 from .multigrid import multigrid_preconditioner
 from .pipelined import pipelined_cg_solve
@@ -39,12 +42,14 @@ __all__ = [
     "BlockCGState",
     "CGInfo",
     "CGState",
+    "DeflationBasis",
     "EigsResult",
     "FusedCGState",
     "GmresInfo",
     "MinresInfo",
     "accuracy",
     "batched_cg_init",
+    "basis_quality",
     "batched_state_result",
     "bicgstab_solve",
     "bicgstab_solve_batched",
@@ -56,6 +61,8 @@ __all__ = [
     "cg_step",
     "chebyshev_preconditioner",
     "condition_estimate",
+    "deflated_cg_solve",
+    "deflation_basis_from_vectors",
     "estimate_spectral_bounds",
     "expected_step_count",
     "fsai_preconditioner",
@@ -72,10 +79,13 @@ __all__ = [
     "fused_supported",
     "gmres_solve",
     "gmres_solve_batched",
+    "harvest_deflation_basis",
     "identity_preconditioner",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_state",
+    "lobpcg_eigs",
+    "make_deflation_basis",
     "memory_footprint",
     "minres_solve",
     "minres_solve_batched",

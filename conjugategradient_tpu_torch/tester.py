@@ -21,7 +21,12 @@ reports lane 0 and the wall for all lanes, then a per-lane JSON line),
 smoothed-aggregation AMG on a ``--layout csr`` matrix and the geometric
 V-cycle on a stencil), ``--layout``, ``--reorder``,
 ``--recompute N``, ``--progress N``, ``--estimate-steps``, ``--history``,
-``--summary`` and ``--verbose`` behave as in the JAX harness.  Flags of the
+``--summary`` and ``--verbose`` behave as in the JAX harness.  ``--deflate K``
+(``--deflate-m M``) harvests a deflation basis from a plain-CG pass outside
+the timed region, then times the deflated solve; ``--eigs K``
+(``--eigs-method lobpcg|lanczos``, ``--eigs-which``, ``--eigs-iters``,
+``--eigs-tol``) computes K extreme eigenpairs instead of solving and prints
+``dim NNZ time_ms max_rel_residual`` and a JSON line.  Flags of the
 JAX harness that this package has not ported yet exit with code 2 and
 "not yet ported".
 """
@@ -115,6 +120,37 @@ def _parser() -> argparse.ArgumentParser:
                     help="blocked-ELL row tile (also read by --layout auto)")
     ap.add_argument("--bn", type=int, default=128,
                     help="blocked-ELL col tile (also read by --layout auto)")
+    ap.add_argument("--deflate", type=int, default=0, metavar="K",
+                    help="deflate the K lowest Ritz modes: harvests the basis "
+                         "from a plain-CG pass on this system "
+                         "(solver/deflated.py, the recycling workflow) outside "
+                         "the timed region, then times the deflated solve")
+    ap.add_argument("--deflate-m", type=int, default=None, dest="deflate_m", metavar="M",
+                    help="harvest-pass length (default max(4K, 2K+20)); basis "
+                         "quality, and the deflation payoff, improves with M "
+                         "(basis_quality diagnostics under --verbose)")
+    ap.add_argument("--eigs", type=int, default=0, metavar="K",
+                    help="eigensolver mode: instead of solving Ax=b, compute the "
+                         "K extreme eigenpairs of the loaded operator and print "
+                         "the 4-column line as 'dim NNZ time_ms "
+                         "max_rel_residual' plus one JSON line with the "
+                         "eigenvalues (lobpcg takes --precond as the "
+                         "eigensolver preconditioner)")
+    ap.add_argument("--eigs-method", choices=("lobpcg", "lanczos"), default="lobpcg",
+                    dest="eigs_method",
+                    help="lobpcg = preconditioned block iteration (pairs with "
+                         "--precond); lanczos = one unpreconditioned Krylov pass "
+                         "(--eigs-iters SpMVs)")
+    ap.add_argument("--eigs-which", choices=("smallest", "largest"), default="smallest",
+                    dest="eigs_which", help="which end of the spectrum to converge")
+    ap.add_argument("--eigs-iters", type=int, default=None, dest="eigs_iters",
+                    help="iteration budget: LOBPCG maxiter (default 100) or "
+                         "Lanczos Krylov dimension (default max(2K, K+10))")
+    ap.add_argument("--eigs-tol", type=float, default=None, dest="eigs_tol",
+                    help="relative residual tolerance for the eigensolver "
+                         "(||A x - lambda x|| <= tol*|lambda|; default: the "
+                         "solver's own).  --tol is the linear-solve tolerance "
+                         "and does not apply here")
     ap.add_argument("--nrhs", type=int, default=1,
                     help="solve this many right-hand sides at once (lane j "
                          "gets roll(b, j)) via the lockstep multi-RHS loop; "
@@ -162,6 +198,66 @@ def _stencil_dims(args):
     return dims
 
 
+def _eigs_lane(args, A, M, n, nnz, device) -> int:
+    """``--eigs K``: K extreme eigenpairs of the loaded operator, timed
+    after one untimed warm-up run; the JAX tester's refusals and lines."""
+    from . import lanczos_eigs, lobpcg_eigs
+    from .utils import Timer
+
+    if (args.method != "standard" or args.nrhs > 1 or args.deflate > 0
+            or args.progress > 0 or args.recompute > 0):
+        print("error: --eigs is an eigensolver lane (no --method/--nrhs/"
+              "--deflate/--refine/--progress/--recompute)", file=sys.stderr)
+        return 2
+    if args.eigs_method == "lanczos":
+        if M is not None:
+            print("error: --eigs-method lanczos is unpreconditioned "
+                  "(drop --precond or use --eigs-method lobpcg)", file=sys.stderr)
+            return 2
+        if args.history:
+            print("error: --history needs --eigs-method lobpcg (the "
+                  "Lanczos pass is one dispatch, no per-iteration "
+                  "trace)", file=sys.stderr)
+            return 2
+
+        def run_eigs():
+            kw = {} if args.eigs_tol is None else {"rtol": args.eigs_tol}
+            return lanczos_eigs(A, k=args.eigs, which=args.eigs_which,
+                                iters=args.eigs_iters, **kw), None
+    else:
+        def run_eigs():
+            kw = {} if args.eigs_tol is None else {"tol": args.eigs_tol}
+            out = lobpcg_eigs(A, k=args.eigs, M=M, which=args.eigs_which,
+                              maxiter=100 if args.eigs_iters is None else args.eigs_iters,
+                              return_history=args.history, **kw)
+            return (out[0], out[1:]) if args.history else (out, None)
+
+    run_eigs()  # warm-up: kernel build and first-launch costs stay untimed
+    t = Timer(device).start_measure()
+    res, hists = run_eigs()
+    t.stop_measure()
+    vals = np.asarray(res.values, dtype=np.float64)
+    resid = np.asarray(res.residuals, dtype=np.float64)
+    scale = max(float(np.abs(vals).max()), 1e-300)
+    print(f"{n} {nnz} {t.get_duration()} {float(resid.max()) / scale}")
+    print(json.dumps({
+        "eigenvalues": [float(v) for v in vals],
+        "residuals": [float(v) for v in resid],
+        "converged": [bool(v) for v in np.asarray(res.converged)],
+        "iterations": int(res.iters),
+        "which": args.eigs_which,
+        "method": args.eigs_method,
+    }))
+    if hists is not None:
+        lam_h, rn_h = hists
+        upto = int(res.iters) + 1
+        print(json.dumps({
+            "eigenvalue_history": np.asarray(lam_h, np.float64)[:upto].tolist(),
+            "residual_history": np.asarray(rn_h, np.float64)[:upto].tolist(),
+        }))
+    return 0
+
+
 def main(argv=None) -> int:
     args, unknown = _parser().parse_known_args(argv)
     if unknown:
@@ -177,12 +273,13 @@ def main(argv=None) -> int:
 
     from . import (CGInfo, CSRMatrix, StencilOperator, accuracy, bicgstab_solve,
                    bicgstab_solve_batched, block_cg_solve, cg_init, cg_solve, cg_solve_batched,
-                   expected_step_count,
-                   gmres_solve, gmres_solve_batched, jacobi_preconditioner, load_matrix,
+                   deflated_cg_solve, expected_step_count,
+                   gmres_solve, gmres_solve_batched, harvest_deflation_basis,
+                   jacobi_preconditioner, load_matrix,
                    minres_solve, minres_solve_batched, multigrid_preconditioner,
                    smoothed_aggregation_preconditioner, sstep_cg_solve)
     from .ops.spmv import full_precision_matmul
-    from .solver import (block_jacobi_preconditioner, chebyshev_preconditioner,
+    from .solver import (basis_quality, block_jacobi_preconditioner, chebyshev_preconditioner,
                          estimate_spectral_bounds, fsai_preconditioner, pipelined_cg_solve,
                          run_cg)
     from .utils import Timer, get_logger, set_verbosity
@@ -265,6 +362,9 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"expected_steps unavailable: {e}", file=sys.stderr)
 
+    if args.eigs > 0:
+        return _eigs_lane(args, A, M, n, nnz, device)
+
     if args.progress > 0 and (args.nrhs > 1 or args.method != "standard"):
         print("error: --progress drives the standard single-RHS loop "
               "(no --nrhs/--method pipelined)", file=sys.stderr)
@@ -274,9 +374,13 @@ def main(argv=None) -> int:
               "shifted solve)", file=sys.stderr)
         return 2
     if args.recompute > 0 and (args.method not in ("standard", "pipelined")
-                               or args.nrhs > 1 or args.progress > 0):
+                               or args.nrhs > 1 or args.deflate > 0 or args.progress > 0):
         print("error: --recompute drives the standard or pipelined "
               "single-RHS loop", file=sys.stderr)
+        return 2
+    if args.deflate > 0 and (args.method != "standard" or args.nrhs > 1 or args.progress > 0):
+        print("error: --deflate drives the standard single-RHS loop "
+              "(no --method/--nrhs/--refine/--progress)", file=sys.stderr)
         return 2
     if args.method in ("pipelined", "sstep"):
         if M is not None and args.method == "sstep":
@@ -286,6 +390,16 @@ def main(argv=None) -> int:
             print("error: --nrhs > 1 uses the lockstep loop, not --method "
                   f"{args.method}", file=sys.stderr)
             return 2
+
+    basis = None
+    if args.deflate > 0:
+        # the basis is set-up, harvested from a plain-CG pass on this system
+        # outside the timed region: the recycling workflow, where a prior
+        # solve has already paid for it
+        basis = harvest_deflation_basis(A, b, k=args.deflate, m=args.deflate_m)
+        if args.verbose:
+            q = basis_quality(A, basis).double().cpu().numpy()
+            log.debug("deflation basis k=%d max Ritz residual %.3g", basis.k, float(q.max()))
 
     cap = args.maxiter if args.maxiter is not None else n + 1
     progress_quiet = [True]  # the warm-up solve logs nothing
@@ -344,6 +458,8 @@ def main(argv=None) -> int:
         if args.nrhs > 1:
             X, info = cg_solve_batched(A, B, tol=args.tol, maxiter=args.maxiter, M=M)
             return X[0], info
+        if basis is not None:
+            return deflated_cg_solve(A, b, basis, tol=args.tol, maxiter=args.maxiter, M=M)
         return cg_solve(A, b, tol=args.tol, maxiter=args.maxiter, M=M,
                         recompute_r_every=args.recompute)
 

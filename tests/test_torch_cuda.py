@@ -1849,3 +1849,162 @@ def test_sstep_nan_exit_on_the_card(dev):
     _, info = sstep_cg_solve(a, b, s=2, tol=1e-3)
     assert int(info.iterations) == 2 and not bool(info.converged)
     assert bool(torch.isnan(info.rnorm_sq))
+
+
+# ---- deflated CG, LOBPCG and the scipy drop-in -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dia", "bell"])
+def test_deflated_cg_launches_its_spmv_kernel(dev, layout):
+    """The harvest and the deflated solve on float32 DIA and blocked-ELL
+    launch kernel 7 or 5 once a step (and per basis column), run no plain
+    version on the card, and take the CPU's float32 count within 2; the
+    true residual sits at float32's floor there (4e-5 of ||b|| measured,
+    above the 1e-5 tolerance on the recurrence), within 2x of the CPU's."""
+    from conjugategradient_tpu_torch import deflated_cg_solve, harvest_deflation_basis
+    from conjugategradient_tpu_torch.solver import basis_quality
+
+    a, kernel = _ca_operator(layout, dev)
+    a_cpu, _ = _ca_operator(layout, "cpu")
+    n = a.shape[0]
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    tol = 1e-5 * float(torch.linalg.vector_norm(b))
+    fc.reset_counts()
+    basis, x_m = harvest_deflation_basis(a, b, k=8, m=60, return_x=True)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES[kernel] == 60 + 8  # the m steps and AW
+    x, info = deflated_cg_solve(a, b, basis, x0=x_m, tol=tol)
+    its = int(info.iterations)
+    assert bool(info.converged)
+    assert fc.LAUNCHES[kernel] >= 60 + 8 + its
+    assert not any(fc.PLAIN_ON_CUDA.values()), dict(fc.PLAIN_ON_CUDA)
+    q = basis_quality(a, basis)
+    bc = b.cpu()
+    bh, xh = harvest_deflation_basis(a_cpu, bc, k=8, m=60, return_x=True)
+    xc, ih = deflated_cg_solve(a_cpu, bc, bh, x0=xh, tol=tol)
+    assert abs(its - int(ih.iterations)) <= 2
+    _close(q.double().cpu(), basis_quality(a_cpu, bh).double(), rtol=1e-2)
+    a64 = a_cpu.astype(torch.float64)
+
+    def true_rel(xx):
+        r = bc.double() - a64.matvec(xx.double().cpu())
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(bc.double()))
+
+    assert true_rel(x) < 1e-3 and true_rel(x) <= 2 * true_rel(xc)
+
+
+@pytest.mark.cuda
+def test_deflated_cg_float64_on_the_card_matches_cpu(dev):
+    """float64 CSR (no kernel): the card's deflated solve takes the CPU's
+    count, its history within 1e-10 above 1e-8 rho_0."""
+    from conjugategradient_tpu_torch import deflated_cg_solve
+    from conjugategradient_tpu_torch.solver import deflation_basis_from_vectors
+
+    a = _poisson_csr(24, dev, np.float64)
+    a_cpu = _poisson_csr(24, "cpu", np.float64)
+    _, V = np.linalg.eigh(a_cpu.to_dense().numpy())
+    W = torch.from_numpy(V[:, :8])
+    b = torch.arange(1, a.shape[0] + 1, dtype=torch.float64)
+    basis = deflation_basis_from_vectors(a, W.to(dev))
+    _, ic = deflated_cg_solve(a, b.to(dev), basis, tol=1e-10)
+    _, ih = deflated_cg_solve(a_cpu, b, deflation_basis_from_vectors(a_cpu, W), tol=1e-10)
+    k = int(ih.iterations)
+    assert int(ic.iterations) == k and bool(ic.converged)
+    hc, hh = ic.rho_history[: k + 1].cpu().numpy(), ih.rho_history[: k + 1].numpy()
+    keep = hh > 1e-8 * hh[0]
+    np.testing.assert_allclose(hc[keep], hh[keep], rtol=1e-10)
+
+
+@pytest.mark.cuda
+def test_lobpcg_on_the_card_matches_cpu(dev):
+    """float64 poisson2d(20) CSR and float32 DIA with Jacobi: the card's
+    pairs are the CPU's (1e-10 / 1e-4), the counts within 3; the DIA block
+    matvec is the plain dia_spmv_multi, the Jacobi apply elementwise."""
+    from conjugategradient_tpu_torch import DIAMatrix, jacobi_preconditioner, lobpcg_eigs
+
+    a, a_cpu = _poisson_csr(20, dev, np.float64), _poisson_csr(20, "cpu", np.float64)
+    rc = lobpcg_eigs(a, k=4, tol=1e-8, maxiter=400)
+    rh = lobpcg_eigs(a_cpu, k=4, tol=1e-8, maxiter=400)
+    assert rc.vectors.device.type == dev.type and np.all(rc.converged)
+    assert abs(rc.iters - rh.iters) <= 3
+    np.testing.assert_allclose(rc.values, rh.values, rtol=1e-10)
+    d = DIAMatrix.from_csr(_poisson_csr(20, dev))
+    d_cpu = DIAMatrix.from_csr(_poisson_csr(20, "cpu"))
+    rc = lobpcg_eigs(d, k=4, M=jacobi_preconditioner(d), tol=1e-4, maxiter=200)
+    rh = lobpcg_eigs(d_cpu, k=4, M=jacobi_preconditioner(d_cpu), tol=1e-4, maxiter=200)
+    np.testing.assert_allclose(rc.values, rh.values, rtol=1e-4)
+    assert abs(rc.iters - rh.iters) <= 3
+
+
+@pytest.mark.cuda
+def test_nan_paths_raise_nothing_on_the_card(dev):
+    """eigh and the Cholesky factorization raise on a NaN matrix on the
+    card; the port hands them none: LOBPCG with a NaN in X0 or in B runs to
+    its cap with NaN pairs, an A-degenerate basis gives a NaN E_chol and the
+    deflated solve its NaN exit, as on the CPU and in the JAX package."""
+    from conjugategradient_tpu_torch import deflated_cg_solve, lobpcg_eigs
+    from conjugategradient_tpu_torch.solver import deflation_basis_from_vectors
+
+    a = _poisson_csr(12, dev, np.float64)
+    n = a.shape[0]
+    X0 = torch.randn(n, 3, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    X0[5, 1] = float("nan")
+    res = lobpcg_eigs(a, k=3, X0=X0.to(dev), tol=1e-6, maxiter=5)
+    assert res.iters == 5 and np.isnan(res.values).all() and not res.converged.any()
+    B = torch.eye(n, dtype=torch.float64, device=dev)
+    B[3, 3] = float("nan")
+    res = lobpcg_eigs(a, k=3, B=B, tol=1e-6, maxiter=4)
+    assert res.iters == 4 and np.isnan(res.values).all()
+    # a zero column: E = WᵀAW has an exact zero pivot on every device (a
+    # repeated column leaves one of rounding size, which cuSOLVER accepts)
+    _, V = np.linalg.eigh(a.to_dense().cpu().numpy())
+    W = torch.from_numpy(np.concatenate([V[:, :3], np.zeros((n, 1))], axis=1)).to(dev)
+    basis = deflation_basis_from_vectors(a, W)
+    assert bool(torch.isnan(basis.E_chol).any())
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    x, info = deflated_cg_solve(a, b, basis, tol=1e-8)
+    assert int(info.iterations) == 1 and not bool(info.converged)
+    assert bool(torch.isnan(x).all())
+
+
+@pytest.mark.cuda
+def test_tester_eigs_and_deflate_on_the_card(dev, capsys):
+    import json
+
+    from conjugategradient_tpu_torch import tester
+
+    mtx = str(pathlib.Path(__file__).resolve().parents[1] / "problems" / "poisson2d_34.mtx")
+    assert tester.main([mtx, "--deflate", "8", "--tol", "1e-8", "--summary",
+                        "--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split()[0] == "1156" and float(lines[0].split()[3]) < 1e-10
+    assert json.loads(lines[1])["converged"] == [True]
+    for extra in (["--precond", "jacobi", "--history"], ["--eigs-method", "lanczos"]):
+        assert tester.main([mtx, "--eigs", "4", "--layout", "bell", "--dtype", "float32",
+                            "--device", "cuda", *extra]) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        rec = json.loads(lines[1])
+        assert len(rec["eigenvalues"]) == 4 and np.all(np.isfinite(rec["eigenvalues"]))
+
+
+@pytest.mark.cuda
+def test_scipy_compat_on_the_card(dev):
+    """scipy matrices go to the card; a numpy-backed LinearOperator is
+    refused there with TypeError."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from conjugategradient_tpu_torch import scipy_compat
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(12)
+    A = sp.csr_matrix((vals, (rows, cols)), shape=shape)
+    b = np.arange(1, shape[0] + 1, dtype=np.float64)
+    x, info = scipy_compat.cg(A, b, rtol=1e-10, device=dev)
+    assert info == 0 and x.is_cuda
+    assert np.linalg.norm(b - A @ x.cpu().numpy()) <= 1.1e-10 * np.linalg.norm(b)
+    lo = spla.LinearOperator(A.shape, matvec=lambda v: A @ np.asarray(v))
+    with pytest.raises(TypeError, match="numpy-backed"):
+        scipy_compat.cg(lo, b, device=dev)
+    w = scipy_compat.eigsh(A, k=4, which="SM", return_eigenvectors=False, device=dev)
+    np.testing.assert_allclose(w, np.sort(spla.eigsh(A, k=4, which="SM")[0]), rtol=1e-8)

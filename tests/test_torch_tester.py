@@ -54,14 +54,13 @@ def test_default_csr_f64_matches_reference_protocol(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    # --method pipelined|sstep and --precond amg|fsai on a matrix file are
-    # ported: their cases moved to the JAX refusals that now apply
-    # (test_method_refusals_exit_2, test_nrhs_refusals_match_the_jax_tester)
-    # and to runs against the JAX tester (test_ca_and_assembled_preconds_...)
-    ["--deflate", "2"],
-    ["--eigs-method", "lobpcg"],
+    # --method pipelined|sstep, --precond amg|fsai on a matrix file, --deflate
+    # and --eigs* are ported: their cases moved to the JAX refusals that now
+    # apply (test_method_refusals_exit_2, test_nrhs_refusals_match_the_jax_tester,
+    # test_eigs_and_deflate_refusals_match_the_jax_tester) and to runs against
+    # the JAX tester (test_ca_and_assembled_preconds_...,
+    # test_eigs_and_deflate_match_the_jax_tester)
     ["--refine", "bfloat16"],
-    ["--eigs", "2"],
     ["--layout", "stencil"],
     ["--dtype", "bfloat16"],
     ["--refine", "float32"],
@@ -575,6 +574,9 @@ def test_nrhs_on_the_stencil(capsys):
     (["--method", "sstep", "--recompute", "8"], "--recompute drives the standard"),
     (["--precond", "fsai", "--layout", "bell"], "--precond fsai needs --layout csr"),
     (["--precond", "amg", "--layout", "sell"], "--precond amg needs --layout csr"),
+    # --eigs and --deflate are ported: the JAX refusals of --nrhs apply
+    (["--nrhs", "4", "--eigs", "2"], "--eigs is an eigensolver lane"),
+    (["--nrhs", "4", "--deflate", "2"], "--deflate drives the standard single-RHS loop"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
 def test_nrhs_refusals_match_the_jax_tester(capsys, args, msg):
     (jrc, jlines, jerr), (trc, tlines, terr) = _both(capsys, [MTX, *args])
@@ -584,8 +586,6 @@ def test_nrhs_refusals_match_the_jax_tester(capsys, args, msg):
 
 
 @pytest.mark.parametrize("args,jax_msg", [
-    (["--nrhs", "4", "--eigs", "2"], "--eigs is an eigensolver lane"),
-    (["--nrhs", "4", "--deflate", "2"], "--deflate drives the standard single-RHS loop"),
     (["--nrhs", "4", "--refine", "float32"], "--refine drives the single-RHS standard loop"),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
 def test_nrhs_with_unported_flags_exit_2(capsys, args, jax_msg):
@@ -652,3 +652,129 @@ def test_gmres_with_amg_prints_no_tpu_warning(capsys):
                       "--device", "cpu"])
     out = capsys.readouterr()
     assert rc == 0 and "TPU" not in out.err and "warning" not in out.err
+
+
+# --eigs and --deflate (queue 1 item 8), against the root tester
+@pytest.mark.parametrize("args,msg", [
+    (["--eigs", "2", "--nrhs", "2"], "--eigs is an eigensolver lane"),
+    (["--eigs", "2", "--eigs-method", "lanczos", "--precond", "jacobi"],
+     "--eigs-method lanczos is unpreconditioned"),
+    (["--eigs", "2", "--eigs-method", "lanczos", "--history"],
+     "--history needs --eigs-method lobpcg"),
+    (["--eigs", "2", "--method", "minres"], "--eigs is an eigensolver lane"),
+    (["--eigs", "2", "--recompute", "8"], "--eigs is an eigensolver lane"),
+    (["--deflate", "2", "--nrhs", "2"], "--deflate drives the standard single-RHS loop"),
+    (["--deflate", "2", "--method", "sstep"], "--deflate drives the standard single-RHS loop"),
+    (["--deflate", "2", "--progress", "10"], "--deflate drives the standard single-RHS loop"),
+    (["--deflate", "2", "--recompute", "8"], "--recompute drives the standard"),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
+def test_eigs_and_deflate_refusals_match_the_jax_tester(capsys, args, msg):
+    (jrc, jlines, jerr), (trc, tlines, terr) = _both(capsys, [MTX, *args])
+    assert jrc == trc == 2 and not tlines and not jlines
+    assert msg in terr and msg in jerr
+    assert terr.strip().splitlines()[-1] == jerr.strip().splitlines()[-1]
+
+
+# float64 eigenvalues to 1e-10 relative (the same solve on the same inputs),
+# float32 to 1e-4 (unconverged runs to the cap: 1.6e-5 measured); the
+# residual-based fields of float32 runs are not pinned (their residuals sit
+# at the float32 floor, where the sum order moves them)
+EIGS_CASES = [
+    ["--eigs", "4", "--precond", "jacobi", "--eigs-iters", "80", "--dtype", "float32"],
+    ["--eigs", "3", "--eigs-method", "lanczos", "--eigs-which", "largest", "--eigs-iters", "60",
+     "--dtype", "float32"],
+    ["--eigs", "2", "--dtype", "float32", "--eigs-iters", "15", "--history"],
+    ["--eigs", "3", "--eigs-iters", "40", "--eigs-tol", "1e-3", "--history"],
+    ["--eigs", "3", "--eigs-method", "lanczos", "--eigs-iters", "80", "--eigs-tol", "1e-4"],
+    ["--eigs", "2", "--eigs-which", "largest", "--layout", "dia", "--precond", "blockjacobi"],
+]
+
+
+@pytest.mark.parametrize("extra", EIGS_CASES, ids=lambda a: " ".join(a))
+def test_eigs_lines_match_the_jax_tester(capsys, extra):
+    (jrc, jlines, _), (trc, tlines, terr) = _both(capsys, [MTX, *extra])
+    assert jrc == trc == 0, terr
+    assert len(tlines) == len(jlines) == (3 if "--history" in extra else 2)
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    tj, jj = json.loads(tlines[1]), json.loads(jlines[1])
+    assert set(tj) == set(jj) == {"eigenvalues", "residuals", "converged", "iterations",
+                                  "which", "method"}
+    assert (tj["which"], tj["method"], tj["iterations"]) == (jj["which"], jj["method"],
+                                                             jj["iterations"])
+    f32 = "float32" in extra
+    np.testing.assert_allclose(tj["eigenvalues"], jj["eigenvalues"], rtol=1e-4 if f32 else 1e-10)
+    lam = tj["eigenvalues"]
+    assert lam == sorted(lam, reverse="largest" in extra)
+    if not f32:
+        assert tj["converged"] == jj["converged"]
+        np.testing.assert_allclose(tj["residuals"], jj["residuals"], rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(float(tlines[0].split()[3]), float(jlines[0].split()[3]),
+                                   rtol=1e-6)
+    if "--history" in extra:
+        th, jh = json.loads(tlines[2]), json.loads(jlines[2])
+        assert (len(th["eigenvalue_history"]) == tj["iterations"] + 1
+                == len(jh["eigenvalue_history"]))
+        np.testing.assert_allclose(th["eigenvalue_history"], jh["eigenvalue_history"],
+                                   rtol=1e-4 if f32 else 1e-10)
+        assert np.array(th["residual_history"]).shape == np.array(jh["residual_history"]).shape
+
+
+def test_eigs_lobpcg_lane_finds_the_poisson_minimum(capsys):
+    """tests/test_lobpcg.py's lane: Jacobi LOBPCG's smallest eigenvalue is
+    2-D Poisson's 4(1 - cos(pi/35)) to 1e-3."""
+    rc, lines, _ = _run(capsys, "--eigs", "4", "--dtype", "float32", "--precond", "jacobi",
+                        "--eigs-iters", "80", "--device", "cpu")
+    rec = json.loads(lines[-1])
+    assert rc == 0 and rec["method"] == "lobpcg" and rec["which"] == "smallest"
+    np.testing.assert_allclose(rec["eigenvalues"][0], 4.0 * (1.0 - np.cos(np.pi / 35.0)),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--deflate", "8", "--tol", "1e-8"],
+    ["--deflate", "4", "--deflate-m", "40", "--precond", "jacobi", "--tol", "1e-8", "--history"],
+    ["--deflate", "6", "--layout", "dia", "--tol", "1e-8"],
+    # float32 at 4.4e-6 of ||b||: at 1e-3 (4.4e-8, below the float32 floor)
+    # both packages stop at the divergence guard, unconverged
+    ["--deflate", "8", "--layout", "bell", "--bm", "8", "--dtype", "float32", "--tol", "1e-1"],
+], ids=lambda a: " ".join(a))
+def test_deflate_lines_match_the_jax_tester(capsys, extra):
+    """--deflate: the harvest outside the timed region, then the deflated
+    solve; float64 counts equal and rel_error < 1e-10 (tests/test_deflated.py's
+    bound for the JAX tester), float32 counts within 4."""
+    args = [MTX, "--summary", *extra]
+    (jrc, jlines, _), (trc, tlines, terr) = _both(capsys, args)
+    assert jrc == trc == 0, terr
+    assert tlines[0].split()[:2] == jlines[0].split()[:2] == ["1156", "5644"]
+    ts, js = json.loads(tlines[1]), json.loads(jlines[1])
+    assert ts["converged"] == js["converged"] == [True]
+    trel = float(tlines[0].split()[3])
+    assert 0 <= trel < 1e-10
+    if "float32" in extra:
+        assert abs(ts["iterations"][0] - js["iterations"][0]) <= 4
+    else:
+        assert ts["iterations"] == js["iterations"]
+        bnorm = np.linalg.norm(np.arange(1, 1157, dtype=float))
+        np.testing.assert_allclose(ts["final_rnorm"], js["final_rnorm"], rtol=0,
+                                   atol=1e-10 * bnorm)
+    if "--history" in extra:
+        th, jh = json.loads(tlines[2]), json.loads(jlines[2])
+        assert th["iterations"] == jh["iterations"] and th["converged"] is True
+        np.testing.assert_allclose(th["residual_norms"], jh["residual_norms"], rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_deflate_verbose_logs_the_basis_quality(capsys, caplog):
+    import tester as jtester
+
+    args = [MTX, "--deflate", "8", "--tol", "1e-6", "--verbose"]
+    caplog.set_level(logging.DEBUG, logger="conjugategradient_tpu")
+    assert jtester.main(args) == 0
+    jlog = [r.getMessage() for r in caplog.records if "deflation basis" in r.getMessage()]
+    caplog.clear()
+    assert tester.main([*args, "--device", "cpu"]) == 0
+    tlog = [r.getMessage() for r in caplog.records if "deflation basis" in r.getMessage()]
+    capsys.readouterr()
+    assert len(tlog) == len(jlog) == 1
+    assert tlog[0].startswith("deflation basis k=8 max Ritz residual ")
+    np.testing.assert_allclose(float(tlog[0].split()[-1]), float(jlog[0].split()[-1]), rtol=1e-2)
