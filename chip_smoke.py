@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the twenty-six kernels against its plain-torch version on the
+2. Hold each of the thirty-four kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -243,6 +243,20 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    against the iterations for MG-PCG at 256^3, a portable DIA solve, a
    portable BiCGStab solve, a portable sharded CG solve and a lockstep
    block-Jacobi PCG solve.
+   The bfloat16 forms of kernels 1, 4, 5 and 7 (bf16 tiles or diagonals,
+   float32 vectors; counted as ``<name>_bf16``) are checked in phase 2 at
+   their float32 forms' shapes, each bit-equal to the float32 launch on the
+   widened operands and to its plain version (q and y of the dense forms
+   within TOL_Q), and timed beside the plain version and the bytes bound.
+   The refine / bf16 path runs bench.py's cg-bf16 lane (fused CG on the
+   n = 262,144 tiles in bf16, both storages, beside float32: ms/it and
+   effective GB/s on the 413.1 MB/it convention, history hashes), the
+   refined solve of that system against fused float32 CG to 1e-6 ||b||,
+   refined solves on poisson3d_48 (``--layout auto``: DIA; 128 x 128
+   blocked-ELL: the packed bf16 forms) and elasticity3d_16 (DIA, 99
+   diagonals) held to the JAX package's counts (``JAX_REFINE_COUNTS``),
+   the portable CG and MINRES loops on the bf16 tiles, and the tester's
+   ``--refine bfloat16`` (auto, bell, symbell) and ``--dtype bfloat16``.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -267,7 +281,8 @@ step, on the tie inputs, and not live) and of kernel 7's y on
 poisson3d_48 and symdia-big; their device times (kernels 2, 3 and 16 at
 n, with and without the scalar step, 256^3, n / 4 and n / 8; kernel 20 at
 n; kernel 7 on both operators, cuSPARSE beside it), and the elementwise
-floor.
+floor; on a tree that has them, the cg-bf16 lane's ms/it and history hash
+(full storage) and the refined solve of its system (history and x).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -361,6 +376,13 @@ REPLACES = {
     "sym_fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
     "sym_dia_spmv_tiled": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
 }
+# the bfloat16-tile forms of kernels 1, 4, 5 and 7 (float32 vectors): the
+# same sources and the same TPU kernels, which take bf16 tiles too
+for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_spmv",
+              "dia_spmv_rows", "bell_spmv_packed", "fused_dir_spmv_dot_packed",
+              "sym_fused_dir_spmv_dot_packed"):
+    SOURCES[f"{_name}_bf16"] = SOURCES[_name]
+    REPLACES[f"{_name}_bf16"] = REPLACES[_name]
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
                    "fused_dir_spmv_dot_packed", "sym_fused_dir_spmv_dot_packed")
@@ -5761,6 +5783,356 @@ def print_time_row(name, t, card) -> None:
           f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
 
 
+# ---- bfloat16 tiles: the bf16 forms of kernels 1, 4, 5 and 7 ----------------
+
+BF16_KERNELS = ("sym_fused_dir_spmv_dot_bf16", "fused_dir_spmv_dot_bf16", "bell_spmv_bf16",
+                "dia_spmv_bf16", "dia_spmv_rows_bf16", "bell_spmv_packed_bf16",
+                "fused_dir_spmv_dot_packed_bf16", "sym_fused_dir_spmv_dot_packed_bf16")
+REFINE_KERNELS = BF16_KERNELS
+REFINE_TOL_REL = 1e-6  # the cg-bf16 system's refined solve: tol = 1e-6 ||b||
+REFINE_FILE_TOL_REL = 1e-4  # poisson3d_48 and elasticity3d_16: tol = 1e-4 ||b||, b = 1..n
+# the JAX package's refined_cg_solve on the CPU at those tolerances (float32
+# high, bfloat16 low), recorded once: (refinements, inner iterations,
+# converged); the card's run is held to the same converged, refinements
+# within 1 and inner iterations within 10% (tests/test_torch_refine.py's
+# bounds).  elasticity3d_16's values are not exact in bf16 and
+# eps_bf16 * kappa > 1 there: both packages stop on the contraction guard.
+JAX_REFINE_COUNTS = {
+    ("poisson3d_48", "auto"): (2, 121, True),
+    ("poisson3d_48", "bell"): (2, 121, True),
+    ("elasticity3d_16", "dia"): (1, 62, False),
+}
+REFINE_ITER_REL = 0.1
+
+
+def bf16_check(name, label, launch, widened, plain, exact) -> float:
+    """One bf16 form on one shape: ``launch()`` counts one launch of
+    ``name``; every output is bit-equal to ``widened()`` (the float32 form
+    on the widened operands); against ``plain()``: p_new bit for bit, y / q
+    bit for bit where ``exact`` (the packed and DIA forms) else within TOL_Q
+    of their largest entry, pap within TOL_DOT.  Returns the largest
+    difference from the plain version."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    before = fc.LAUNCHES[name]
+    k = launch()
+    check(fc.LAUNCHES[name] == before + 1, f"{name} {label}: {fc.LAUNCHES[name] - before} launches")
+    w, p = widened(), plain()
+    torch.cuda.synchronize()
+    k, w, p = ((t,) if isinstance(t, torch.Tensor) else tuple(t) for t in (k, w, p))
+    check(all(torch.equal(a, b) for a, b in zip(k, w)),
+          f"{name} {label}: not bit-equal to the float32 launch on the widened operands")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(k, p)):
+        e, m = rel_max_err(a, b)
+        err = max(err, e)
+        if len(k) == 3 and i == 2:
+            check(e <= TOL_DOT * abs(float(b)), f"{name} {label}: pap {float(a)} vs {float(b)}")
+        elif exact or (len(k) == 3 and i == 0):
+            check(torch.equal(a, b), f"{name} {label}: output {i} not bit-equal to the plain version")
+        else:
+            check(e <= TOL_Q * m, f"{name} {label}: output {i} err {e} vs max {m}")
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    print(f"  {name} {label:<34} = float32 launch on widened operands (bits); vs plain "
+          f"|d|={err:.3g}{' (bit-equal)' if same else ''}")
+    return err
+
+
+def phase_bf16_kernels(dev, big, big_full, ops, dia_ops, errs, times):
+    """The bf16 forms of kernels 1, 4, 5 and 7 at the shapes of their float32
+    forms (the n = 262,144 block-tridiagonal tiles in both storages,
+    poisson3d_48's sparse tiles through the packed view, symdia-big's 41
+    diagonals and poisson3d_48's 7), each held to the float32 launch on the
+    widened operands (bit for bit) and to its plain version, and timed
+    beside the plain version and its bytes bound; no one PyTorch call takes
+    a bf16 operator with float32 x to float32 y (library_ms null)."""
+    import torch
+
+    from conjugategradient_tpu_torch.convert import dia_from_arrays
+    from conjugategradient_tpu_torch.ops.cuda import bell_spmv as kb
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.types.bell import PackedBell
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(18)
+    errs.update(dict.fromkeys(BF16_KERNELS, 0.0))
+    full, sym = big_full.astype(bf16), big.astype(bf16)
+    p3d_full, p3d = ops["p3d_full"].astype(bf16), ops["p3d"].astype(bf16)
+    wide_full, wide_diag, wide_off = full.blocks.float(), sym.diag_blocks.float(), sym.off_blocks.float()
+    nrb, v = N_BIG // 128, N_BIG * 4
+
+    def vec(rows, cols=128):
+        return torch.as_tensor(rng.standard_normal((rows, cols)), dtype=f32, device=dev)
+
+    def widen(pk):
+        return PackedBell(pk.vals.float(), pk.cols, pk.row_len, pk.chunk_off, pk.nnz, pk.ncols,
+                          pk.symmetric)
+
+    def keep(name, e):
+        errs[name] = max(errs[name], e)
+
+    r, pold, d = vec(nrb), vec(nrb), vec(nrb).abs() + 0.5
+    beta = torch.tensor([[0.37]], dtype=f32, device=dev)
+    for dd in (None, d):
+        tag = "+d" if dd is not None else ""
+        keep("fused_dir_spmv_dot_bf16", bf16_check(
+            "fused_dir_spmv_dot_bf16", f"tridiag n=262144 full{tag}",
+            lambda: fc.fused_dir_spmv_dot(full.blocks, full.block_cols, r, pold, beta, dd),
+            lambda: fc.fused_dir_spmv_dot(wide_full, full.block_cols, r, pold, beta, dd),
+            lambda: fc._full_dir_plain(full.blocks, full.block_cols, r, pold, beta, dd, None,
+                                       None), exact=False))
+        for mirror in ("banded", "scatter"):
+            keep("sym_fused_dir_spmv_dot_bf16", bf16_check(
+                "sym_fused_dir_spmv_dot_bf16", f"tridiag n=262144 {mirror}{tag}",
+                lambda: fc.sym_fused_dir_spmv_dot(sym.diag_blocks, sym.off_blocks, sym.off_cols,
+                                                  r, pold, beta, dd, mirror=mirror,
+                                                  mirror_src=sym.mirror_src),
+                lambda: fc.sym_fused_dir_spmv_dot(wide_diag, wide_off, sym.off_cols, r, pold,
+                                                  beta, dd, mirror=mirror,
+                                                  mirror_src=sym.mirror_src),
+                lambda: fc._sym_dir_plain(sym.diag_blocks, sym.off_blocks, sym.off_cols, r,
+                                          pold, beta, dd, sym.mirror_src, None, None),
+                exact=False))
+    rp = vec(p3d.nrb)
+    keep("sym_fused_dir_spmv_dot_bf16", bf16_check(
+        "sym_fused_dir_spmv_dot_bf16", "poisson3d_48 general",
+        lambda: fc.sym_fused_dir_spmv_dot(p3d.diag_blocks, p3d.off_blocks, p3d.off_cols, rp, rp,
+                                          beta, mirror="scatter", mirror_src=p3d.mirror_src),
+        lambda: fc.sym_fused_dir_spmv_dot(p3d.diag_blocks.float(), p3d.off_blocks.float(),
+                                          p3d.off_cols, rp, rp, beta, mirror="scatter",
+                                          mirror_src=p3d.mirror_src),
+        lambda: fc._sym_dir_plain(p3d.diag_blocks, p3d.off_blocks, p3d.off_cols, rp, rp, beta,
+                                  None, p3d.mirror_src, None, None), exact=False))
+    x2d = vec(nrb)
+    keep("bell_spmv_bf16", bf16_check(
+        "bell_spmv_bf16", "tridiag n=262144 128x128",
+        lambda: kb.bell_spmv_tiles(full.blocks, full.block_cols, x2d),
+        lambda: kb.bell_spmv_tiles(wide_full, full.block_cols, x2d),
+        lambda: kb._bell_plain(full.blocks, full.block_cols, x2d), exact=False))
+    pk_full, pk_sym = p3d_full.packed(), p3d.packed()
+    check(pk_full.vals.dtype == bf16 and pk_sym.vals.dtype == bf16,
+          "poisson3d_48 bf16: the packed views are not bf16")
+    xp = torch.as_tensor(rng.standard_normal(pk_full.ncols), dtype=f32, device=dev)
+    for label, pk in (("poisson3d_48 full", pk_full), ("poisson3d_48 sym view", pk_sym)):
+        keep("bell_spmv_packed_bf16", bf16_check(
+            "bell_spmv_packed_bf16", label, lambda: kb.bell_spmv_packed(pk, xp),
+            lambda: kb.bell_spmv_packed(widen(pk), xp), lambda: kb.packed_apply(pk, xp),
+            exact=True))
+    r3, p3, d3 = vec(p3d.nrb), vec(p3d.nrb), vec(p3d.nrb).abs() + 0.5
+    for beta_v in (0.0, 0.37):
+        b3 = torch.tensor([[beta_v]], dtype=f32, device=dev)
+        for dd in (None, d3):
+            tag = f"{'+d' if dd is not None else ''} beta={beta_v}"
+            for name, pk in (("fused_dir_spmv_dot_packed_bf16", pk_full),
+                             ("sym_fused_dir_spmv_dot_packed_bf16", pk_sym)):
+                keep(name, bf16_check(
+                    name, f"poisson3d_48{tag}",
+                    lambda: fc.fused_dir_spmv_dot_packed(pk, r3, p3, b3, dd),
+                    lambda: fc.fused_dir_spmv_dot_packed(widen(pk), r3, p3, b3, dd),
+                    lambda: fc._packed_dir_plain(pk, r3, p3, b3, dd, None, None),
+                    exact=True))
+    dia_big, dia_p3d = dia_ops["big"].astype(bf16), dia_ops["p3d"].astype(bf16)
+    rect = rng.standard_normal((4, 1001)).astype(np.float32)
+    ragged = dia_from_arrays(rect, (-7, 0, 5, 299), (1001, 1300), rect.size,
+                             device=dev).astype(bf16)
+    xd = {}
+    for label, a in (("symdia-big n=2097152", dia_big), ("poisson3d_48", dia_p3d),
+                     ("ragged rect 1001x1300", ragged)):
+        x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=f32, device=dev)
+        xd[label] = x
+        name = f"{kd.dia_route(a.offsets)}_bf16"
+        keep(name, bf16_check(
+            name, label, lambda: kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x),
+            lambda: kd.dia_spmv_diags(a.diags.float(), a.offsets, a.offsets_dev, x),
+            lambda: kd._dia_plain(a.diags, a.offsets, x), exact=True))
+
+    # timing at the table's shapes; the fused kernels get their scratch and
+    # outputs made once, as inside a solve
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    out = (torch.empty_like(r), torch.empty_like(r))
+    out3 = (torch.empty_like(r3), torch.empty_like(r3))
+    vb3 = p3d.nrb * 128 * 4
+    stored = int(torch.count_nonzero(p3d.diag_blocks)) + int(torch.count_nonzero(p3d.off_blocks))
+    rows = {
+        "fused_dir_spmv_dot_bf16": (
+            lambda: fc.fused_dir_spmv_dot(full.blocks, full.block_cols, r, pold, beta, out=out,
+                                          work=work),
+            lambda: fc._full_dir_plain(full.blocks, full.block_cols, r, pold, beta, None, None,
+                                       None),
+            bound(nbytes(full.blocks, full.block_cols) + 4 * v,
+                  2 * full.blocks.numel() + 4 * N_BIG)),
+        "sym_fused_dir_spmv_dot_bf16": (
+            lambda: fc.sym_fused_dir_spmv_dot(sym.diag_blocks, sym.off_blocks, sym.off_cols, r,
+                                              pold, beta, mirror="banded",
+                                              mirror_src=sym.mirror_src, out=out, work=work),
+            lambda: fc._sym_dir_plain(sym.diag_blocks, sym.off_blocks, sym.off_cols, r, pold,
+                                      beta, None, sym.mirror_src, None, None),
+            bound(nbytes(sym.diag_blocks, sym.off_blocks, sym.off_cols) + 4 * v,
+                  2 * sym.diag_blocks.numel() + 4 * sym.off_blocks.numel() + 4 * N_BIG)),
+        "bell_spmv_bf16": (
+            lambda: kb.bell_spmv_tiles(full.blocks, full.block_cols, x2d),
+            lambda: kb._bell_plain(full.blocks, full.block_cols, x2d),
+            bound(nbytes(full.blocks, full.block_cols) + 2 * v, 2 * full.blocks.numel())),
+        "bell_spmv_packed_bf16": (
+            lambda: kb.bell_spmv_packed(pk_full, xp), lambda: kb.packed_apply(pk_full, xp),
+            bound(6 * pk_full.nnz + 4 * (pk_full.ncols + p3d_full.n), 2 * pk_full.nnz)),
+        "fused_dir_spmv_dot_packed_bf16": (
+            lambda: fc.fused_dir_spmv_dot_packed(pk_full, r3, p3, beta, out=out3, work=work),
+            lambda: fc._packed_dir_plain(pk_full, r3, p3, beta, None, None, None),
+            bound(6 * pk_full.nnz + 4 * vb3, 2 * pk_full.nnz + 4 * p3d_full.n)),
+        "sym_fused_dir_spmv_dot_packed_bf16": (
+            lambda: fc.fused_dir_spmv_dot_packed(pk_sym, r3, p3, beta, out=out3, work=work),
+            lambda: fc._packed_dir_plain(pk_sym, r3, p3, beta, None, None, None),
+            bound(6 * stored + 4 * vb3, 2 * pk_sym.nnz + 4 * p3d.n)),
+    }
+    for label, a in (("symdia-big n=2097152", dia_big), ("poisson3d_48", dia_p3d)):
+        x = xd[label]
+        rows[f"{kd.dia_route(a.offsets)}_bf16"] = (
+            lambda a=a, x=x: kd.dia_spmv_diags(a.diags, a.offsets, a.offsets_dev, x),
+            lambda a=a, x=x: kd._dia_plain(a.diags, a.offsets, x), dia_bounds(a, None)[0])
+    for name, (kern, plain, bnd) in rows.items():
+        times[name] = time_pair(kern, plain)
+        times[name].update(bnd, library_ms=None)
+    # the float32 forms' times on the same shapes, for the ratio
+    print(f"  bf16 forms against their float32 forms on the same shapes (ms, device): "
+          + ", ".join(f"{name} {times[name]['ms']:.5f} / {times[name[:-5]]['ms']:.5f}"
+                      for name in BF16_KERNELS if name[:-5] in times))
+    torch.cuda.synchronize()
+
+
+def true_rel64(a64, b, x) -> float:
+    """||b - A x|| / ||b|| in float64 (``a64`` the float64 operator on the
+    card)."""
+    r = b.double() - a64.matvec(x.double())
+    return float(r.norm() / b.double().norm())
+
+
+def phase_refine_path(dev, big, big_full, card):
+    """The refine / bf16 path: bench.py's cg-bf16 lane (fused CG on the
+    n = 262,144 block-tridiagonal tiles in bf16, float32 vectors, 256 steps
+    at tol = -1, best of 3, beside the float32 run, in both storages); the
+    refined solve of the same system (float32 high, bf16 low) against fused
+    float32 CG to the same tolerance; refined solves on poisson3d_48 as
+    --layout auto loads it (DIA, kernel 7 by value) and as 128 x 128
+    blocked-ELL (the packed bf16 forms) and on elasticity3d_16 as DIA
+    (kernel 7 past 32 diagonals) against the JAX package's counts; the
+    portable CG and MINRES loops on the bf16 tiles (kernel 5's dense bf16
+    form); the tester's --refine bfloat16 and --dtype bfloat16."""
+    import torch
+
+    from conjugategradient_tpu_torch import (cg_solve, fused_bell_cg_solve, load_matrix,
+                                             minres_solve, refined_cg_solve)
+    from conjugategradient_tpu_torch.utils import Timer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = N_BIG
+    b = torch.arange(1, n + 1, dtype=f32, device=dev)
+    eff = big_full.tile_bytes() + 10 * n * 4  # the float32 full layout's 413.1 MB/it
+
+    def best(solve, a, rhs, steps=256):
+        solve(a, rhs, tol=-1.0, maxiter=32)
+        ms = float("inf")
+        for _ in range(3):
+            t = Timer(dev).start_measure()
+            _, info = solve(a, rhs, tol=-1.0, maxiter=steps)
+            t.stop_measure()
+            ms = min(ms, t.get_duration() / int(info.iterations))
+        return ms, info
+
+    for storage, hi in (("full", big_full), ("symmetric", big)):
+        lo = hi.astype(bf16)
+        got = {}
+        for label, a in (("float32", hi), ("bf16", lo)):
+            ms, info = best(fused_bell_cg_solve, a, b)
+            check(int(info.iterations) == 256 and bool(torch.isfinite(info.rho_history[:257]).all()),
+                  f"cg-bf16 {storage} {label}: {int(info.iterations)} steps or a non-finite history")
+            got[label] = ms
+            print(f"  cg-bf16 lane, {storage} storage, {label} tiles ({a.tile_bytes() / 1e6:.1f} MB): "
+                  f"{ms:.5f} ms/it, {eff / ms / 1e6:.1f} GB/s effective on 413.1 MB/it, "
+                  f"rho_history sha256 {digest(info.rho_history)}  [{card}]")
+        print(f"  cg-bf16 {storage}: bf16 / float32 time per step {got['bf16'] / got['float32']:.3f}")
+
+    # the refined solve of the same system against fused float32 CG
+    bm_ = b / n
+    tol = REFINE_TOL_REL * float(bm_.double().norm())
+    a64 = big_full.astype(torch.float64)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, x, info
+
+    ms_r, x_r, rinfo = timed(lambda: refined_cg_solve(big_full, bm_, tol=tol))
+    ms_c, x_c, cinfo = timed(lambda: cg_solve(big_full, bm_, tol=tol))
+    rel_r, rel_c = true_rel64(a64, bm_, x_r), true_rel64(a64, bm_, x_c)
+    del a64
+    check(rinfo.converged and rel_r <= 1.05 * REFINE_TOL_REL,
+          f"refine on the cg-bf16 system: converged {rinfo.converged}, true rel {rel_r}")
+    print(f"  refine cg-bf16 system (float32 high, bf16 low, tol 1e-6 ||b||): "
+          f"{rinfo.refinements} refinements, {rinfo.inner_iterations} inner iterations, true "
+          f"rel residual {rel_r:.3e}, {ms_r:.3f} ms to tolerance; fused float32 CG "
+          f"{int(cinfo.iterations)} its, true rel {rel_c:.3e}, {ms_c:.3f} ms  [{card}]")
+
+    # refined solves on the files, against the JAX package's counts
+    for name, layout, kw in (("poisson3d_48", "auto", {}),
+                             ("poisson3d_48", "bell", {"bm": 128, "bn": 128}),
+                             ("elasticity3d_16", "dia", {})):
+        path = os.path.join(ROOT, f"problems/{name}.mtx")
+        a = load_matrix(path, layout=layout, dtype=np.float32, device=dev, **kw)
+        a64 = load_matrix(path, layout="csr", dtype=np.float64, device=dev)
+        bf = torch.arange(1, a.shape[0] + 1, dtype=f32, device=dev)
+        tol_f = REFINE_FILE_TOL_REL * bnorm(a.shape[0])
+        ms, x, info = timed(lambda: refined_cg_solve(a, bf, tol=tol_f))
+        jr, ji, jc = JAX_REFINE_COUNTS[(name, layout)]
+        rel = true_rel64(a64, bf, x)
+        print(f"  refine {name} --layout {layout} ({type(a).__name__}, tol 1e-4 ||b||): "
+              f"{info.refinements} refinements, {info.inner_iterations} inner iterations, "
+              f"converged {info.converged}, true rel residual {rel:.3e}, {ms:.3f} ms; the JAX "
+              f"package on the CPU: {jr}, {ji}, converged {jc}  [{card}]")
+        check(info.converged == jc and abs(info.refinements - jr) <= 1
+              and abs(info.inner_iterations - ji) <= REFINE_ITER_REL * ji,
+              f"refine {name} {layout}: ({info.refinements}, {info.inner_iterations}, "
+              f"{info.converged}) against the JAX package's ({jr}, {ji}, {jc})")
+        check(not jc or rel <= 1.05 * REFINE_FILE_TOL_REL, f"refine {name} {layout}: true rel {rel}")
+
+    # the portable loops on bf16 tiles: kernel 5's dense bf16 form under CG
+    # (fused="never") and MINRES (its fused kernels have no bf16 form yet)
+    lo = big_full.astype(bf16)
+    _, cinfo = cg_solve(lo, b, fused="never", tol=-1.0, maxiter=32)
+    _, minfo = minres_solve(lo, bm_, tol=0.0, maxiter=32)
+    check(int(cinfo.iterations) == 32 and math.isfinite(float(cinfo.rnorm_sq))
+          and math.isfinite(float(minfo.rnorm)),
+          "portable CG / MINRES on bf16 tiles: not 32 finite steps")
+    print(f"  portable CG (32 steps) and MINRES (rnorm {float(minfo.rnorm):.3e} after "
+          f"{int(minfo.iterations)}) on the n=262144 bf16 tiles")
+
+    # the tester: --refine bfloat16 (auto: DIA; bell and symbell: the packed
+    # fused bf16 forms) and --dtype bfloat16 (the portable loop on bf16
+    # vectors: kernel 7 and the packed kernel 5 in their bf16 forms)
+    tol_t = REFINE_FILE_TOL_REL * bnorm(110592)
+    for layout in ("auto", "bell", "symbell"):
+        dim, nnz, ms, rel, summ, _ = run_tester(MATRICES[0], layout, "none", tol_t,
+                                                extra=("--refine", "bfloat16"))
+        check(summ["converged"] == [True] and rel < REL_ERROR_BOUND,
+              f"tester --refine bfloat16 {layout}: {summ} rel_error {rel}")
+        print(f"  tester {MATRICES[0]} --layout {layout} --dtype float32 --refine bfloat16: "
+              f"{dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {summ['iterations'][0]} inner "
+              f"iterations  [{card}]")
+    for layout in ("auto", "bell"):
+        dim, nnz, ms, rel, summ, _ = run_tester(MATRICES[0], layout, "none", 1e-2 * bnorm(110592),
+                                                dtype="bfloat16")
+        check(math.isfinite(rel), f"tester --dtype bfloat16 {layout}: rel_error {rel}")
+        print(f"  tester {MATRICES[0]} --layout {layout} --dtype bfloat16 (tol 1e-2 ||b||): "
+              f"{dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {summ['iterations'][0]} its, "
+              f"converged {summ['converged'][0]}  [{card}]")
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused loops alone (``--fused-cg-only``), for comparing two trees
     on one card (this file run beside another tree's package gives that
@@ -5784,6 +6156,7 @@ def fused_cg_only(dev, card) -> None:
                                              fused_bell_cg_solve, fused_bell_pcg_solve,
                                              fused_bicgstab_solve, fused_minres_solve,
                                              fused_stencil_cg_solve, load_matrix)
+    import conjugategradient_tpu_torch as cgt
     from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
 
@@ -5812,6 +6185,17 @@ def fused_cg_only(dev, card) -> None:
     ms, _, info = timed(fused_bell_pcg_solve, big, b, 1.0 / big.diagonal())
     print(f"  fused Jacobi PCG n=262144 symmetric: {ms:.5f} ms/it (best of 3 runs of 256 "
           f"steps), rho_history sha256 {digest(info.rho_history)}  [{card}]")
+    # the cg-bf16 lane (full storage, bf16 tiles) and the refined solve of
+    # its system: trees that have them print these two lines more
+    if "refined_cg_solve" in dir(cgt):
+        ms, _, info = timed(fused_bell_cg_solve, big_full.astype(torch.bfloat16), b)
+        print(f"  fused CG n=262144 full bf16 (cg-bf16): {ms:.5f} ms/it (best of 3 runs of 256 "
+              f"steps), rho_history sha256 {digest(info.rho_history)}  [{card}]")
+        br = b / N_BIG
+        x, rinfo = cgt.refined_cg_solve(big_full, br, tol=REFINE_TOL_REL * float(br.double().norm()))
+        print(f"  refine n=262144 full (float32 high, bf16 low): {rinfo.refinements} refinements, "
+              f"{rinfo.inner_iterations} inner iterations, rnorm_history and x sha256 "
+              f"{digest(torch.tensor(rinfo.rnorm_history, dtype=torch.float64), x)}  [{card}]")
     bm = b / N_BIG  # bench.py's minres protocol
     for label, a in (("n=262144 symmetric", big), ("n=262144 full", big_full)):
         ms, x, info = timed(fused_minres_solve, a, bm, steps=MINRES_STEPS)
@@ -5901,6 +6285,7 @@ def main() -> int:
     phase_minres_kernels(dev, big, big_full, ops, errs, times, extra)
     bic_ops = phase_bicgstab_kernels(dev, errs, times, extra)
     shard_ops = phase_sharded_kernels(dev, errs, times, extra)
+    phase_bf16_kernels(dev, big, big_full, ops, dia_ops, errs, times)
     for name, t in list(times.items()) + list(extra.items()):
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
@@ -5923,6 +6308,7 @@ def main() -> int:
         ("SA-AMG / FSAI", AMG_KERNELS, lambda: phase_amg_path(dev, card)),
         ("deflation / LOBPCG / scipy", DEFLATION_KERNELS,
          lambda: phase_deflation_path(dev, big, card)),
+        ("refine / bf16", REFINE_KERNELS, lambda: phase_refine_path(dev, big, big_full, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

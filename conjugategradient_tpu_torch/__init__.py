@@ -51,6 +51,7 @@ from .solver import (
     EigsResult,
     GmresInfo,
     MinresInfo,
+    RefineInfo,
     accuracy,
     bicgstab_solve,
     bicgstab_solve_batched,
@@ -82,6 +83,7 @@ from .solver import (
     minres_solve,
     minres_solve_batched,
     multigrid_preconditioner,
+    refined_cg_solve,
     rigid_body_modes,
     smoothed_aggregation_preconditioner,
     sstep_cg_solve,
@@ -117,6 +119,7 @@ __all__ = [
     "LinearOperator",
     "MatrixFreeOperator",
     "MinresInfo",
+    "RefineInfo",
     "SellMatrix",
     "StencilOperator",
     "SymBellMatrix",
@@ -155,6 +158,7 @@ __all__ = [
     "minres_solve",
     "minres_solve_batched",
     "multigrid_preconditioner",
+    "refined_cg_solve",
     "read_mtx_csr",
     "rigid_body_modes",
     "smoothed_aggregation_preconditioner",

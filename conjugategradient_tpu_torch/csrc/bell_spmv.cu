@@ -38,6 +38,17 @@
 // and rounding, so the two agree bit for bit; entries past a row's length
 // are never read, so 0 * Inf never enters a row that has no such nonzero.
 // It takes any bm and bn.
+//
+// Both kernels also take bfloat16 tiles (the TPU kernel's other operand
+// form, ell_spmv.py:69-75, with float32 x and float32 y): the tile or value
+// type is a template parameter, each element is widened to float32 as it is
+// loaded (exact), and every FMA and sum is the float32 kernel's, in its
+// order, so a bf16 launch gives the bits of the float32 launch on
+// tiles.float().  The bound halves with the tile bytes (201.3 MB at
+// n = 262,144; 6 bytes a nonzero in the packed view).  The bf16 forms are
+// their own entry points (cg_bell_spmv_bf16, cg_bell_spmv_packed_bf16),
+// counted apart.  Wider loads (bf16 pairs) would change the order of the
+// sums and are later work.
 
 #include <stdint.h>
 
@@ -46,9 +57,9 @@
 
 namespace {
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-bell_spmv_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+bell_spmv_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                  const float* __restrict__ x, float* __restrict__ y,
                  int64_t rows, int bm, int kmax) {
   constexpr int NJ = BN / 32;
@@ -59,31 +70,46 @@ bell_spmv_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
   const int m = (int)(gr - row * bm);
   const int* rc = cols + row * kmax;
   const int64_t tile = (int64_t)bm * BN;
-  const float* t = blocks + row * kmax * tile + (int64_t)m * BN + lane;
+  const E* t = blocks + row * kmax * tile + (int64_t)m * BN + lane;
   float acc = 0.f;
 #pragma unroll 4
   for (int k = 0; k < kmax; ++k) {
     const float* xc = x + (int64_t)__ldg(rc + k) * BN + lane;
-    const float* tk = t + k * tile;
+    const E* tk = t + k * tile;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc = fmaf(__ldcs(tk + 32 * j), __ldg(xc + 32 * j), acc);
+    for (int j = 0; j < NJ; ++j) acc = fmaf(ld_stream(tk + 32 * j), __ldg(xc + 32 * j), acc);
   }
   acc = warp_sum(acc);
   if (lane == 0) y[gr] = acc;
 }
 
-template <int BN>
-cudaError_t launch_bell_spmv(const float* blocks, const int* cols, const float* x,
+template <int BN, class E>
+cudaError_t launch_bell_spmv(const E* blocks, const int* cols, const float* x,
                              float* y, int64_t rows, int bm, int kmax,
                              cudaStream_t s) {
   const int64_t grid = (rows + kWarps - 1) / kWarps;
-  bell_spmv_kernel<BN><<<(unsigned)grid, kThreads, 0, s>>>(blocks, cols, x, y,
-                                                           rows, bm, kmax);
+  bell_spmv_kernel<BN, E><<<(unsigned)grid, kThreads, 0, s>>>(blocks, cols, x, y,
+                                                              rows, bm, kmax);
   return cudaGetLastError();
 }
 
+template <class E>
+int bell_spmv(const E* blocks, const int* cols, const float* x, float* y, int64_t rows,
+              int bm, int kmax, int bn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return cudaSuccess;
+  switch (bn) {
+    case 32: return launch_bell_spmv<32>(blocks, cols, x, y, rows, bm, kmax, s);
+    case 64: return launch_bell_spmv<64>(blocks, cols, x, y, rows, bm, kmax, s);
+    case 128: return launch_bell_spmv<128>(blocks, cols, x, y, rows, bm, kmax, s);
+    case 256: return launch_bell_spmv<256>(blocks, cols, x, y, rows, bm, kmax, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-bell_spmv_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+bell_spmv_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
                         const int* __restrict__ row_len,
                         const long long* __restrict__ chunk_off,
                         const float* __restrict__ x, float* __restrict__ y,
@@ -91,6 +117,17 @@ bell_spmv_packed_kernel(const float* __restrict__ vals, const int* __restrict__ 
   const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= rows) return;
   y[r] = packed_row(vals, cols, row_len, chunk_off, r, [&](int c) { return __ldg(x + c); });
+}
+
+template <class E>
+int bell_spmv_packed(const E* vals, const int* cols, const int* row_len,
+                     const long long* chunk_off, const float* x, float* y, int64_t rows,
+                     void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bell_spmv_packed_kernel<E><<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, x, y, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -101,25 +138,26 @@ extern "C" {
 int cg_bell_spmv_packed(const float* vals, const int* cols, const int* row_len,
                         const long long* chunk_off, const float* x, float* y,
                         int64_t rows, void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  const int64_t grid = (rows + kThreads - 1) / kThreads;
-  bell_spmv_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, row_len, chunk_off, x, y, rows);
-  return cudaGetLastError();
+  return bell_spmv_packed(vals, cols, row_len, chunk_off, x, y, rows, stream);
+}
+
+// The same from bfloat16 values.
+int cg_bell_spmv_packed_bf16(const __nv_bfloat16* vals, const int* cols, const int* row_len,
+                             const long long* chunk_off, const float* x, float* y,
+                             int64_t rows, void* stream) {
+  return bell_spmv_packed(vals, cols, row_len, chunk_off, x, y, rows, stream);
 }
 
 // y = A x on blocked-ELL tiles; rows = nrb * bm.  Returns a cudaError_t.
 int cg_bell_spmv(const float* blocks, const int* cols, const float* x, float* y,
                  int64_t rows, int bm, int kmax, int bn, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0) return cudaSuccess;
-  switch (bn) {
-    case 32: return launch_bell_spmv<32>(blocks, cols, x, y, rows, bm, kmax, s);
-    case 64: return launch_bell_spmv<64>(blocks, cols, x, y, rows, bm, kmax, s);
-    case 128: return launch_bell_spmv<128>(blocks, cols, x, y, rows, bm, kmax, s);
-    case 256: return launch_bell_spmv<256>(blocks, cols, x, y, rows, bm, kmax, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return bell_spmv(blocks, cols, x, y, rows, bm, kmax, bn, stream);
+}
+
+// The same on bfloat16 tiles.
+int cg_bell_spmv_bf16(const __nv_bfloat16* blocks, const int* cols, const float* x, float* y,
+                      int64_t rows, int bm, int kmax, int bn, void* stream) {
+  return bell_spmv(blocks, cols, x, y, rows, bm, kmax, bn, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Device helpers shared by the kernel sources of this directory.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -145,6 +146,21 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// An operator element (tile or diagonal entry) as float32: a float32 one as
+// it is, a bfloat16 one widened, which is exact (its bits shifted up 16), so
+// a kernel launched on bf16 operands gives the bits of its float32 launch on
+// the widened operands.  ld_stream reads through the streaming path
+// (__ldcs: the operator is read once and must not evict the vectors from
+// L2), ld_ro through the read-only path (__ldg).
+__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldcs(p));
+}
+__device__ __forceinline__ float ld_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_ro(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
 
 // The 7-point stencil kernels' CTA: a (kStencilTY, kStencilTZ) tile of
 // one (y, z) plane, one warp per y row, marching along x.

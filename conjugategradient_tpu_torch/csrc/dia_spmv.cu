@@ -95,6 +95,18 @@
 // the tile's 64 planes and a grid of at least one CTA per SM; sym_dia_spmv
 // takes the rest (small operators, where one pass from L2 is quicker, and
 // halos beyond shared memory).
+//
+// dia_spmv and dia_spmv_rows also take bfloat16 diagonals (the TPU kernels'
+// other operand form, dia_spmv.py:61-67,107-124, float32 x, float32 y: the
+// promoted dtype): the diagonal type is a template parameter, each value is
+// widened to float32 as it is loaded (exact), and every product and sum is
+// the float32 kernel's in its order, so a bf16 launch gives the bits of the
+// float32 launch on diags.float().  dia_spmv_rows reads a thread's four
+// rows of a diagonal as one 8-byte load where n % 4 == 0 and the diagonals
+// are 8-byte aligned.  The diagonal stream, and with it the bound, halves
+// (41 x 2,097,152 x 2 B + x and y on symdia-big: 0.0564 ms).  Their entry
+// points are cg_dia_spmv_bf16 and cg_dia_spmv_rows_bf16, counted apart.  The
+// symmetric kernels keep float32 diagonals only (ROADMAP.md queue 2).
 
 #include <stdint.h>
 
@@ -104,8 +116,9 @@
 
 namespace {
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const float* __restrict__ diags, const int* __restrict__ offs,
+dia_spmv_kernel(const E* __restrict__ diags, const int* __restrict__ offs,
                 const float* __restrict__ x, float* __restrict__ y, int64_t n,
                 int64_t ncols, int ndiag) {
   extern __shared__ int s_off[];
@@ -118,7 +131,7 @@ dia_spmv_kernel(const float* __restrict__ diags, const int* __restrict__ offs,
   for (int d = 0; d < ndiag; ++d) {
     const int64_t c = i + s_off[d];
     const float xv = (c >= 0 && c < ncols) ? __ldg(x + c) : 0.f;
-    acc = __fadd_rn(acc, __fmul_rn(__ldcs(diags + (int64_t)d * n + i), xv));
+    acc = __fadd_rn(acc, __fmul_rn(ld_stream(diags + (int64_t)d * n + i), xv));
   }
   y[i] = acc;
 }
@@ -138,17 +151,28 @@ struct DiaOffsets {
   int off[NMAX];
 };
 
-// Rows i0 .. i0 + 3 of one diagonal (i0 < n): one streaming float4 where
-// n % 4 == 0 and the diagonals are 16-byte aligned (VEC), else four loads,
+// Rows i0 .. i0 + 3 of one diagonal (i0 < n), as float32: one streaming
+// load of the four where n % 4 == 0 and the diagonals are aligned to it
+// (VEC: a float4, or four bf16 in 8 bytes, each widened), else four loads,
 // 0 past n (those rows are not stored).
-template <bool VEC>
-__device__ __forceinline__ float4 diag_rows(const float* __restrict__ dg, int64_t i0, int64_t n) {
-  if (VEC) return __ldcs(reinterpret_cast<const float4*>(dg + i0));
+__device__ __forceinline__ float4 diag_vec(const float* dg) {
+  return __ldcs(reinterpret_cast<const float4*>(dg));
+}
+__device__ __forceinline__ float4 diag_vec(const __nv_bfloat16* dg) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(dg));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <bool VEC, class E>
+__device__ __forceinline__ float4 diag_rows(const E* __restrict__ dg, int64_t i0, int64_t n) {
+  if (VEC) return diag_vec(dg + i0);
   float4 v;
-  v.x = __ldcs(dg + i0);
-  v.y = i0 + 1 < n ? __ldcs(dg + i0 + 1) : 0.f;
-  v.z = i0 + 2 < n ? __ldcs(dg + i0 + 2) : 0.f;
-  v.w = i0 + 3 < n ? __ldcs(dg + i0 + 3) : 0.f;
+  v.x = ld_stream(dg + i0);
+  v.y = i0 + 1 < n ? ld_stream(dg + i0 + 1) : 0.f;
+  v.z = i0 + 2 < n ? ld_stream(dg + i0 + 2) : 0.f;
+  v.w = i0 + 3 < n ? ld_stream(dg + i0 + 3) : 0.f;
   return v;
 }
 
@@ -172,9 +196,9 @@ __device__ __forceinline__ float term(float acc, float d, float xv) {
   return __fadd_rn(acc, __fmul_rn(d, xv));
 }
 
-template <bool VEC, int NMAX>
+template <bool VEC, int NMAX, class E>
 __global__ void __launch_bounds__(kDiaThreads)
-dia_rows_kernel(const float* __restrict__ diags, const DiaOffsets<NMAX> offs,
+dia_rows_kernel(const E* __restrict__ diags, const DiaOffsets<NMAX> offs,
                 const float* __restrict__ x, float* __restrict__ y, int64_t n, int64_t ncols,
                 int ndiag, bool xvec) {
   constexpr int C = NMAX < kDiaChunk ? NMAX : kDiaChunk;
@@ -214,24 +238,46 @@ dia_rows_kernel(const float* __restrict__ diags, const DiaOffsets<NMAX> offs,
   }
 }
 
-template <int NMAX>
-cudaError_t launch_dia_rows(const float* diags, const int* offs_host, const float* x, float* y,
+template <int NMAX, class E>
+cudaError_t launch_dia_rows(const E* diags, const int* offs_host, const float* x, float* y,
                             int64_t n, int64_t ncols, int ndiag, cudaStream_t s) {
   DiaOffsets<NMAX> o{};
   for (int d = 0; d < ndiag; ++d) o.off[d] = offs_host[d];
-  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(diags) % 16) == 0 &&
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(diags) % (4 * sizeof(E))) == 0 &&
                    (reinterpret_cast<uintptr_t>(y) % 16) == 0;
   const bool xvec = (reinterpret_cast<uintptr_t>(x) % 16) == 0;
   const int64_t threads = (n + kDiaRows - 1) / kDiaRows;
   const unsigned grid = (unsigned)((threads + kDiaThreads - 1) / kDiaThreads);
   if (vec) {
-    dia_rows_kernel<true, NMAX><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols, ndiag,
-                                                             xvec);
+    dia_rows_kernel<true, NMAX, E><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols,
+                                                                ndiag, xvec);
   } else {
-    dia_rows_kernel<false, NMAX><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols, ndiag,
-                                                              xvec);
+    dia_rows_kernel<false, NMAX, E><<<grid, kDiaThreads, 0, s>>>(diags, o, x, y, n, ncols,
+                                                                 ndiag, xvec);
   }
   return cudaGetLastError();
+}
+
+template <class E>
+int dia_spmv(const E* diags, const int* offs, const float* x, float* y, int64_t n,
+             int64_t ncols, int ndiag, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return cudaSuccess;
+  const int64_t grid = (n + kThreads - 1) / kThreads;
+  dia_spmv_kernel<E><<<(unsigned)grid, kThreads, ndiag * sizeof(int), s>>>(
+      diags, offs, x, y, n, ncols, ndiag);
+  return cudaGetLastError();
+}
+
+template <class E>
+int dia_spmv_rows(const E* diags, const int* offs_host, const float* x, float* y, int64_t n,
+                  int64_t ncols, int ndiag, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return cudaSuccess;
+  if (ndiag < 0 || ndiag > kDiaMaxOffs) return cudaErrorInvalidValue;
+  if (ndiag <= 8) return launch_dia_rows<8>(diags, offs_host, x, y, n, ncols, ndiag, s);
+  if (ndiag <= 16) return launch_dia_rows<16>(diags, offs_host, x, y, n, ncols, ndiag, s);
+  return launch_dia_rows<32>(diags, offs_host, x, y, n, ncols, ndiag, s);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -362,12 +408,13 @@ extern "C" {
 // y = DIA x.  offs: ndiag int32 offsets on the device.  Returns a cudaError_t.
 int cg_dia_spmv(const float* diags, const int* offs, const float* x, float* y,
                 int64_t n, int64_t ncols, int ndiag, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  const int64_t grid = (n + kThreads - 1) / kThreads;
-  dia_spmv_kernel<<<(unsigned)grid, kThreads, ndiag * sizeof(int), s>>>(
-      diags, offs, x, y, n, ncols, ndiag);
-  return cudaGetLastError();
+  return dia_spmv(diags, offs, x, y, n, ncols, ndiag, stream);
+}
+
+// The same on bfloat16 diagonals.
+int cg_dia_spmv_bf16(const __nv_bfloat16* diags, const int* offs, const float* x, float* y,
+                     int64_t n, int64_t ncols, int ndiag, void* stream) {
+  return dia_spmv(diags, offs, x, y, n, ncols, ndiag, stream);
 }
 
 // y = DIA x by dia_rows_kernel.  offs_host: ndiag int32 offsets in host
@@ -375,12 +422,13 @@ int cg_dia_spmv(const float* diags, const int* offs, const float* x, float* y,
 // kernel is compiled for 8, 16 and 32 of them.  Returns a cudaError_t.
 int cg_dia_spmv_rows(const float* diags, const int* offs_host, const float* x, float* y,
                      int64_t n, int64_t ncols, int ndiag, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  if (ndiag < 0 || ndiag > kDiaMaxOffs) return cudaErrorInvalidValue;
-  if (ndiag <= 8) return launch_dia_rows<8>(diags, offs_host, x, y, n, ncols, ndiag, s);
-  if (ndiag <= 16) return launch_dia_rows<16>(diags, offs_host, x, y, n, ncols, ndiag, s);
-  return launch_dia_rows<32>(diags, offs_host, x, y, n, ncols, ndiag, s);
+  return dia_spmv_rows(diags, offs_host, x, y, n, ncols, ndiag, stream);
+}
+
+// The same on bfloat16 diagonals.
+int cg_dia_spmv_rows_bf16(const __nv_bfloat16* diags, const int* offs_host, const float* x,
+                          float* y, int64_t n, int64_t ncols, int ndiag, void* stream) {
+  return dia_spmv_rows(diags, offs_host, x, y, n, ncols, ndiag, stream);
 }
 
 // y = SymDIA x over the stored offsets >= 0.  Returns a cudaError_t.

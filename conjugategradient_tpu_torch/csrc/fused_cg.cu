@@ -54,6 +54,17 @@
 // L2.  Tiles are read with streaming loads (__ldcs) so they do not evict the
 // vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  Speed work (TMA rings,
 // more rows in flight, CUDA graphs for the launch sequence) is later work.
+//
+// bfloat16 tiles (the TPU kernels' other operand form, fused_cg.py:34,98,
+// 258-310: bf16 tiles, float32 vectors): K1 on full storage (dense and
+// packed) and on symmetric storage (banded and general landings) take the
+// tile type as a template parameter.  Each tile element is widened to
+// float32 as it is loaded (exact) and every FMA and sum is the float32
+// kernel's, in its order, so a bf16 launch gives the bits of the float32
+// launch on tiles.float().  The tile stream, and the bound, halve (201.3 MB
+// a call at n = 262,144 full, 134.2 MB symmetric; 6 bytes a nonzero packed).
+// K2 reads vectors only and needs no other form.  The bf16 forms have their
+// own entry points (cg_*_bf16) and launch counters.
 
 #include <math.h>
 #include <stdint.h>
@@ -91,9 +102,9 @@ __device__ void dir_row(float* xs, int row, const float* r, const float* pold,
 // block-rows, rows in order, the mirror carried in shared memory; each tile
 // is read once with streaming loads and used for both B p[c] and B^T p[row].
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-sym_dir_banded_kernel(const float* __restrict__ diag, const float* __restrict__ off,
+sym_dir_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
                       const int* __restrict__ off_cols, const float* r,
                       const float* pold, const float* d, const float* beta_p,
                       float* pnew, float* q, float* pap_out, float* partials,
@@ -166,9 +177,9 @@ sym_dir_banded_kernel(const float* __restrict__ diag, const float* __restrict__ 
 // padding tiles are zero and point at column block 0, so they cannot be told
 // from real tiles without reading them (the TPU kernel reads them too).
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-full_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+full_dir_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                 const float* r, const float* pold, const float* d,
                 const float* beta_p, float* pnew, float* q, float* pap_out,
                 float* partials, unsigned* counter, float* scal, const int* ctl,
@@ -228,8 +239,9 @@ full_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
 // q matches it bit for bit; pap goes through per-CTA partials that the last
 // CTA sums in index order (no float atomics).
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-full_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+full_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
                        const int* __restrict__ row_len,
                        const long long* __restrict__ chunk_off,
                        const float* __restrict__ r, const float* __restrict__ pold,
@@ -327,9 +339,9 @@ spmv_dot_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
 // skipped unread.  Design: one CTA per block-row; the forward products
 // accumulate in shared memory, each slot's mirror product goes to tparts.
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-sym_dir_products_kernel(const float* __restrict__ diag, const float* __restrict__ off,
+sym_dir_products_kernel(const E* __restrict__ diag, const E* __restrict__ off,
                         const int* __restrict__ off_cols, const float* r,
                         const float* pold, const float* d, const float* beta_p,
                         float* pnew, float* q, float* tparts, const int* ctl,
@@ -548,27 +560,27 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
   }
 }
 
-template <int BN>
-cudaError_t launch_banded(const float* diag, const float* off, const int* off_cols,
+template <int BN, class E>
+cudaError_t launch_banded(const E* diag, const E* off, const int* off_cols,
                           const float* r, const float* pold, const float* d,
                           const float* beta, float* pnew, float* q, float* pap,
                           float* partials, unsigned* counter, float* scal,
                           const int* ctl, int nrb, int R, cudaStream_t s) {
   const int grid = (nrb + R - 1) / R;
-  sym_dir_banded_kernel<BN><<<grid, kThreads, 0, s>>>(
+  sym_dir_banded_kernel<BN, E><<<grid, kThreads, 0, s>>>(
       diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter,
       scal, ctl, nrb, R);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_general(const float* diag, const float* off, const int* off_cols,
+template <int BN, class E>
+cudaError_t launch_general(const E* diag, const E* off, const int* off_cols,
                            const int* mirror_src, const float* r, const float* pold,
                            const float* d, const float* beta, float* pnew, float* q,
                            float* pap, float* tparts, float* partials,
                            unsigned* counter, float* scal, const int* ctl, int nrb,
                            int ku, int kin, int R, cudaStream_t s) {
-  sym_dir_products_kernel<BN><<<nrb, kThreads, 0, s>>>(
+  sym_dir_products_kernel<BN, E><<<nrb, kThreads, 0, s>>>(
       diag, off, off_cols, r, pold, d, beta, pnew, q, tparts, ctl, nrb, ku);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -578,14 +590,14 @@ cudaError_t launch_general(const float* diag, const float* off, const int* off_c
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_full(const float* blocks, const int* cols, const float* r,
+template <int BN, class E>
+cudaError_t launch_full(const E* blocks, const int* cols, const float* r,
                         const float* pold, const float* d, const float* beta,
                         float* pnew, float* q, float* pap, float* partials,
                         unsigned* counter, float* scal, const int* ctl, int nrb,
                         int kmax, int R, cudaStream_t s) {
   const int grid = (nrb + R - 1) / R;
-  full_dir_kernel<BN><<<grid, kThreads, 0, s>>>(
+  full_dir_kernel<BN, E><<<grid, kThreads, 0, s>>>(
       blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal,
       ctl, nrb, kmax, R);
   return cudaGetLastError();
@@ -600,6 +612,66 @@ cudaError_t launch_spmv_dot(const float* blocks, const int* cols, const float* x
   spmv_dot_kernel<BN><<<grid, kThreads, 0, s>>>(blocks, cols, x, row0, q, pap,
                                                 partials, counter, ctl, nrb, kmax, R);
   return cudaGetLastError();
+}
+
+template <class E>
+int full_dir_packed(const E* vals, const int* cols, const int* row_len,
+                    const long long* chunk_off, const float* r, const float* pold,
+                    const float* d, const float* beta, float* pnew, float* q, float* pap,
+                    float* partials, unsigned* counter, float* scal, const int* ctl,
+                    int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  full_dir_packed_kernel<E><<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, r, pold, d, beta, pnew, q, pap, partials,
+      counter, scal, ctl, rows);
+  return cudaGetLastError();
+}
+
+template <class E>
+int full_dir(const E* blocks, const int* cols, const float* r, const float* pold,
+             const float* d, const float* beta, float* pnew, float* q, float* pap,
+             float* partials, unsigned* counter, float* scal, const int* ctl, int nrb,
+             int kmax, int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_full<32>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 64: return launch_full<64>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 128: return launch_full<128>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    case 256: return launch_full<256>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class E>
+int sym_dir_banded(const E* diag, const E* off, const int* off_cols, const float* r,
+                   const float* pold, const float* d, const float* beta, float* pnew,
+                   float* q, float* pap, float* partials, unsigned* counter, float* scal,
+                   const int* ctl, int nrb, int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_banded<32>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
+    case 64: return launch_banded<64>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
+    case 128: return launch_banded<128>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
+    case 256: return launch_banded<256>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class E>
+int sym_dir_general(const E* diag, const E* off, const int* off_cols, const int* mirror_src,
+                    const float* r, const float* pold, const float* d, const float* beta,
+                    float* pnew, float* q, float* pap, float* tparts, float* partials,
+                    unsigned* counter, float* scal, const int* ctl, int nrb, int ku, int kin,
+                    int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_general<32>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
+    case 64: return launch_general<64>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
+    case 128: return launch_general<128>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
+    case 256: return launch_general<256>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -629,12 +701,18 @@ int cg_full_dir_packed(const float* vals, const int* cols, const int* row_len,
                        const float* d, const float* beta, float* pnew, float* q,
                        float* pap, float* partials, unsigned* counter, float* scal,
                        const int* ctl, int64_t rows, void* stream) {
-  if (rows <= 0) return cudaErrorInvalidValue;
-  const int64_t grid = (rows + kThreads - 1) / kThreads;
-  full_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, row_len, chunk_off, r, pold, d, beta, pnew, q, pap, partials,
-      counter, scal, ctl, rows);
-  return cudaGetLastError();
+  return full_dir_packed(vals, cols, row_len, chunk_off, r, pold, d, beta, pnew, q, pap,
+                         partials, counter, scal, ctl, rows, stream);
+}
+
+// The same from bfloat16 values.
+int cg_full_dir_packed_bf16(const __nv_bfloat16* vals, const int* cols, const int* row_len,
+                            const long long* chunk_off, const float* r, const float* pold,
+                            const float* d, const float* beta, float* pnew, float* q,
+                            float* pap, float* partials, unsigned* counter, float* scal,
+                            const int* ctl, int64_t rows, void* stream) {
+  return full_dir_packed(vals, cols, row_len, chunk_off, r, pold, d, beta, pnew, q, pap,
+                         partials, counter, scal, ctl, rows, stream);
 }
 
 // K1 on full blocked-ELL storage.  Returns a cudaError_t.
@@ -643,14 +721,18 @@ int cg_full_dir(const float* blocks, const int* cols, const float* r,
                 float* pnew, float* q, float* pap, float* partials,
                 unsigned* counter, float* scal, const int* ctl, int nrb,
                 int kmax, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 32: return launch_full<32>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
-    case 64: return launch_full<64>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
-    case 128: return launch_full<128>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
-    case 256: return launch_full<256>(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, kmax, R, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return full_dir(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal,
+                  ctl, nrb, kmax, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int cg_full_dir_bf16(const __nv_bfloat16* blocks, const int* cols, const float* r,
+                     const float* pold, const float* d, const float* beta,
+                     float* pnew, float* q, float* pap, float* partials,
+                     unsigned* counter, float* scal, const int* ctl, int nrb,
+                     int kmax, int bn, int R, void* stream) {
+  return full_dir(blocks, cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal,
+                  ctl, nrb, kmax, bn, R, stream);
 }
 
 // K1 with the banded landing.  Returns a cudaError_t.
@@ -659,14 +741,18 @@ int cg_sym_dir_banded(const float* diag, const float* off, const int* off_cols,
                       const float* beta, float* pnew, float* q, float* pap,
                       float* partials, unsigned* counter, float* scal,
                       const int* ctl, int nrb, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 32: return launch_banded<32>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
-    case 64: return launch_banded<64>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
-    case 128: return launch_banded<128>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
-    case 256: return launch_banded<256>(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter, scal, ctl, nrb, R, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return sym_dir_banded(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials,
+                        counter, scal, ctl, nrb, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int cg_sym_dir_banded_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* off,
+                           const int* off_cols, const float* r, const float* pold,
+                           const float* d, const float* beta, float* pnew, float* q,
+                           float* pap, float* partials, unsigned* counter, float* scal,
+                           const int* ctl, int nrb, int bn, int R, void* stream) {
+  return sym_dir_banded(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials,
+                        counter, scal, ctl, nrb, bn, R, stream);
 }
 
 // K1 with the general (scatter/split) landing: stage A then stage B.
@@ -676,14 +762,20 @@ int cg_sym_dir_general(const float* diag, const float* off, const int* off_cols,
                        float* pap, float* tparts, float* partials,
                        unsigned* counter, float* scal, const int* ctl, int nrb,
                        int ku, int kin, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 32: return launch_general<32>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
-    case 64: return launch_general<64>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
-    case 128: return launch_general<128>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
-    case 256: return launch_general<256>(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap, tparts, partials, counter, scal, ctl, nrb, ku, kin, R, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return sym_dir_general(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap,
+                         tparts, partials, counter, scal, ctl, nrb, ku, kin, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int cg_sym_dir_general_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* off,
+                            const int* off_cols, const int* mirror_src, const float* r,
+                            const float* pold, const float* d, const float* beta,
+                            float* pnew, float* q, float* pap, float* tparts,
+                            float* partials, unsigned* counter, float* scal,
+                            const int* ctl, int nrb, int ku, int kin, int bn, int R,
+                            void* stream) {
+  return sym_dir_general(diag, off, off_cols, mirror_src, r, pold, d, beta, pnew, q, pap,
+                         tparts, partials, counter, scal, ctl, nrb, ku, kin, bn, R, stream);
 }
 
 // K2 (d == NULL: plain CG; else Jacobi PCG; scal == NULL: partials only).

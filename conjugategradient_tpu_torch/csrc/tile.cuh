@@ -1,7 +1,10 @@
 // Tile products shared by the fused blocked-ELL kernels (fused_cg.cu,
 // fused_minres.cu, fused_bicgstab.cu): one (BN, BN) tile applied forward,
 // mirrored, or both; and one row of the packed view of sparse tiles
-// (bell_spmv.cu, fused_cg.cu, fused_bicgstab.cu).
+// (bell_spmv.cu, fused_cg.cu, fused_bicgstab.cu).  Both take float32 or
+// bfloat16 tile values E, each widened to float32 as it is loaded
+// (common.cuh ld_stream / ld_ro); every product and sum is float32 in the
+// same order for either E.
 #pragma once
 
 #include <stdint.h>
@@ -15,8 +18,8 @@ namespace {
 // (written by lane 0 of the owning warp only, so tiles of one row chain
 // without a barrier).  MIR: tacc[j] += sum_m T[m, l + 32 j] xr[m] over this
 // warp's rows; the caller reduces tacc across warps.
-template <int BN, bool FWD, bool MIR>
-__device__ __forceinline__ void tile_apply(const float* T, const float* xc,
+template <int BN, bool FWD, bool MIR, class E = float>
+__device__ __forceinline__ void tile_apply(const E* T, const float* xc,
                                            const float* xr, float* qacc,
                                            float (&tacc)[BN / 32]) {
   constexpr int NJ = BN / 32;
@@ -30,7 +33,7 @@ __device__ __forceinline__ void tile_apply(const float* T, const float* xc,
   for (int m = w; m < BN; m += kWarps) {
     float v[NJ];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) v[j] = __ldcs(T + (int64_t)m * BN + lane + 32 * j);
+    for (int j = 0; j < NJ; ++j) v[j] = ld_stream(T + (int64_t)m * BN + lane + 32 * j);
     if (FWD) {
       float f = 0.f;
 #pragma unroll
@@ -67,15 +70,15 @@ __device__ __forceinline__ void mirror_reduce(const float (&tacc)[BN / 32],
 // and per sum (ops/cuda/bell_spmv.packed_apply's), four nonzeros' loads in
 // flight.  Lane i % 32 of a warp takes row i, so a warp's loads of one k
 // are one coalesced run.
-template <class Gather>
-__device__ __forceinline__ float packed_row(const float* __restrict__ vals,
+template <class E, class Gather>
+__device__ __forceinline__ float packed_row(const E* __restrict__ vals,
                                             const int* __restrict__ cols,
                                             const int* __restrict__ row_len,
                                             const long long* __restrict__ chunk_off,
                                             int64_t i, Gather gather) {
   const int len = __ldg(row_len + i);
   const int64_t base = __ldg(chunk_off + (i >> 5)) + (i & 31);
-  const float* v = vals + base;
+  const E* v = vals + base;
   const int* c = cols + base;
   float acc = 0.f;
   int k = 0;
@@ -84,7 +87,7 @@ __device__ __forceinline__ float packed_row(const float* __restrict__ vals,
     int cc[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      vv[u] = __ldg(v + 32 * (k + u));
+      vv[u] = ld_ro(v + 32 * (k + u));
       cc[u] = __ldg(c + 32 * (k + u));
     }
 #pragma unroll
@@ -92,7 +95,7 @@ __device__ __forceinline__ float packed_row(const float* __restrict__ vals,
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc = add_rn(acc, mul_rn(vv[u], yy[u]));
   }
-  for (; k < len; ++k) acc = add_rn(acc, mul_rn(__ldg(v + 32 * k), gather(__ldg(c + 32 * k))));
+  for (; k < len; ++k) acc = add_rn(acc, mul_rn(ld_ro(v + 32 * k), gather(__ldg(c + 32 * k))));
   return acc;
 }
 

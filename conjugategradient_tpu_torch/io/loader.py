@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..reorder import (
     count_diagonals,
@@ -35,7 +36,7 @@ from ..types import (
     SymBellMatrix,
     SymDIAMatrix,
 )
-from ..types.base import DEFAULT_DEVICE, as_numpy_dtype
+from ..types.base import DEFAULT_DEVICE, as_numpy_dtype, is_bfloat16
 
 LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
 
@@ -102,6 +103,11 @@ def load_matrix(path, layout: str = "auto", dtype=np.float32, bm: int = 8,
     degree sort on top, so the packed ``pos`` is the identity) and returns
     ``(operator, perm)`` with ``perm[new] = old``: solve ``A' y = b[perm]``
     and map back with ``reorder.unpermute_vector``.
+
+    ``dtype``: float32, float64 or bfloat16 (numpy, torch or a name).  A
+    bfloat16 operator is built in float32 and cast (``astype``), so its
+    values are the file's float64 rounded to float32 and then to bfloat16,
+    bit for bit the JAX loader's.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r} (want one of {', '.join(LAYOUTS)})")
@@ -134,4 +140,6 @@ def load_matrix(path, layout: str = "auto", dtype=np.float32, bm: int = 8,
         # symmetric repack on the host, then one copy of the half-band
         full = DIAMatrix.from_csr_host(vals, indices, indptr, shape, device="cpu")
         op = SymDIAMatrix.from_dia(full, check=True).to(device)
+    if is_bfloat16(dtype):
+        op = op.astype(torch.bfloat16)
     return (op, perm) if reorder else op

@@ -68,6 +68,10 @@ SIGNATURES = {
     "bicgstab_s_packed": [_P] * 21 + [_I64, _P],
     "bicgstab_update": [_P] * 15 + [_I, _I64, _I, _P],
 }
+# the bfloat16-tile forms take the arguments of their float32 entry points
+SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
+    "cg_sym_dir_banded", "cg_sym_dir_general", "cg_full_dir", "cg_full_dir_packed",
+    "cg_bell_spmv", "cg_bell_spmv_packed", "cg_dia_spmv", "cg_dia_spmv_rows")})
 
 
 def _sources():

@@ -45,11 +45,32 @@ LAUNCHES = {
     "bicgstab_s_spmv_dot_packed": 0,
     "minres_dir_spmv_dot_packed": 0,
     "sym_minres_dir_spmv_dot_packed": 0,
+    # the bfloat16-tile forms of kernels 1, 4, 5 and 7 (float32 vectors)
+    "sym_fused_dir_spmv_dot_bf16": 0,
+    "fused_dir_spmv_dot_bf16": 0,
+    "bell_spmv_bf16": 0,
+    "dia_spmv_bf16": 0,
+    "dia_spmv_rows_bf16": 0,
+    "bell_spmv_packed_bf16": 0,
+    "fused_dir_spmv_dot_packed_bf16": 0,
+    "sym_fused_dir_spmv_dot_packed_bf16": 0,
     # not a kernel: builds of BlockedEllMatrix.packed() and
     # SymBellMatrix.packed() (torch ops, once per operator)
     "bell_pack": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
+
+
+#: operator element types of the kernels with a bfloat16 form (kernels 1,
+#: 4, 5 and 7; float32 vectors)
+OPERATOR_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def form(name: str, dtype: torch.dtype) -> str:
+    """The launch counter of kernel ``name`` on operator values of
+    ``dtype``: ``name`` for float32, ``name + "_bf16"`` for bfloat16 (its C
+    entry point is the float32 one's with ``_bf16`` at the end too)."""
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 def reset_counts() -> None:

@@ -9,6 +9,12 @@ reads only their nonzeros, from the operator's packed view
 tensors it is given lie on the CPU and launches its kernel when they lie on
 a CUDA device; anything else raises (``_common``).  ``ops/spmv.bell_spmv``
 is the operator-level entry point that pads x and picks the route.
+
+Tiles (and packed values) are float32 or bfloat16, x float32, y float32:
+the TPU kernel's two operand forms.  A bfloat16 operator launches the
+kernel's bf16 form, counted as ``<name>_bf16`` (``_common.form``), which
+widens each value to float32 as it loads it and so gives the bits of the
+float32 launch on the widened operator; the plain versions widen first.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ from ..spmv import bell_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    OPERATOR_DTYPES,
     PLAIN_ON_CUDA,
     check_cuda_operands,
+    form,
     on_cuda,
     ptr,
     raise_on_error,
@@ -35,15 +43,14 @@ def bell_spmv_tiles(blocks: torch.Tensor, block_cols: torch.Tensor,
                     x2d: torch.Tensor) -> torch.Tensor:
     """y (nrb·bm,) float32 = blocked-ELL(blocks, block_cols) @ x2d.
 
-    ``blocks`` (nrb, kmax, bm, bn) float32 (bf16 on the CPU only),
-    ``block_cols`` (nrb, kmax) int32, ``x2d`` the padded operand as
-    (ncb, bn) float32.
+    ``blocks`` (nrb, kmax, bm, bn) float32 or bfloat16, ``block_cols``
+    (nrb, kmax) int32, ``x2d`` the padded operand as (ncb, bn) float32.
     """
     if blocks.dim() != 4:
         raise ValueError(f"{_NAME}: blocks must be (nrb, kmax, bm, bn), got "
                          f"{tuple(blocks.shape)}")
     nrb, kmax, bm, bn = blocks.shape
-    if blocks.dtype not in (torch.float32, torch.bfloat16):
+    if blocks.dtype not in OPERATOR_DTYPES:
         raise TypeError(f"{_NAME}: tiles must be float32 or bfloat16, got "
                         f"{blocks.dtype}; use the einsum path for other dtypes")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
@@ -53,9 +60,6 @@ def bell_spmv_tiles(blocks: torch.Tensor, block_cols: torch.Tensor,
                          f"{tuple(x2d.shape)} {x2d.dtype}")
     if not on_cuda(_NAME, blocks, block_cols, x2d):
         return _bell_plain(blocks, block_cols, x2d)
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{_NAME}: the CUDA kernel takes float32 tiles, got "
-                        f"{blocks.dtype} (bf16 tiles are not ported yet)")
     if bn not in CUDA_BN:
         raise ValueError(f"{_NAME}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
     return _bell_cuda(blocks, block_cols, x2d)
@@ -63,7 +67,7 @@ def bell_spmv_tiles(blocks: torch.Tensor, block_cols: torch.Tensor,
 
 def _bell_plain(blocks, block_cols, x2d):
     if x2d.is_cuda:
-        PLAIN_ON_CUDA[_NAME] += 1
+        PLAIN_ON_CUDA[form(_NAME, blocks.dtype)] += 1
     return bell_apply(blocks.to(torch.float32), block_cols, x2d).reshape(-1)
 
 
@@ -73,11 +77,12 @@ def _bell_cuda(blocks, block_cols, x2d):
     nrb, kmax, bm, bn = blocks.shape
     y = x2d.new_empty(nrb * bm)
     check_cuda_operands(_NAME, (blocks, block_cols, x2d))
-    err = load_library().cg_bell_spmv(
+    name = form(_NAME, blocks.dtype)
+    err = getattr(load_library(), f"cg_{name}")(
         ptr(blocks), ptr(block_cols), ptr(x2d), ptr(y), nrb * bm, bm, kmax, bn,
         stream(x2d.device))
-    LAUNCHES[_NAME] += 1
-    raise_on_error(_NAME, err)
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
     return y
 
 
@@ -86,9 +91,9 @@ _PNAME = "bell_spmv_packed"
 
 def bell_spmv_packed(pk, x: torch.Tensor) -> torch.Tensor:
     """y (pk.rows,) float32 = the packed view ``pk`` (``types/bell.PackedBell``,
-    float32 values) @ ``x``, the operand padded to ``pk.ncols`` float32
-    entries.  Any tile shape."""
-    check_packed(_PNAME, pk)
+    float32 or bfloat16 values) @ ``x``, the operand padded to ``pk.ncols``
+    float32 entries.  Any tile shape."""
+    check_packed(_PNAME, pk, OPERATOR_DTYPES)
     if x.shape != (pk.ncols,) or x.dtype != torch.float32:
         raise ValueError(f"{_PNAME}: x must be ({pk.ncols},) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -97,13 +102,16 @@ def bell_spmv_packed(pk, x: torch.Tensor) -> torch.Tensor:
     return _packed_cuda(pk, x)
 
 
-def check_packed(name: str, pk) -> None:
-    """A packed view the kernels take: float32 values, int32 columns and
-    row lengths, int64 chunk offsets, one chunk per 32 rows."""
-    if pk.vals.dtype != torch.float32 or pk.cols.dtype != torch.int32 or (
+def check_packed(name: str, pk, dtypes=(torch.float32,)) -> None:
+    """A packed view the kernels take: values of one of ``dtypes`` (the
+    kernels with a bfloat16 form pass ``OPERATOR_DTYPES``; the packed
+    MINRES and BiCGStab kernels have none yet, ROADMAP.md queue 2), int32
+    columns and row lengths, int64 chunk offsets, one chunk per 32 rows."""
+    if pk.vals.dtype not in dtypes or pk.cols.dtype != torch.int32 or (
             pk.vals.shape != pk.cols.shape):
-        raise TypeError(f"{name}: the packed view must hold float32 values and int32 "
-                        f"columns of one length, got {pk.vals.dtype} / {pk.cols.dtype}")
+        raise TypeError(f"{name}: the packed view must hold {' or '.join(map(str, dtypes))} "
+                        f"values and int32 columns of one length, got {pk.vals.dtype} / "
+                        f"{pk.cols.dtype}")
     if pk.row_len.dtype != torch.int32 or pk.chunk_off.dtype != torch.int64 or (
             pk.chunk_off.numel() != -(-pk.rows // PACK_CHUNK) + 1):
         raise ValueError(f"{name}: row_len must be int32 and chunk_off int64 with one "
@@ -128,17 +136,19 @@ def packed_apply(pk, x: torch.Tensor) -> torch.Tensor:
     """The plain packed product: y[r] = Σ_k vals[e]·x[cols[e]] over
     e = chunk_off[r // 32] + 32 k + r % 32, k < row_len[r], in k order,
     each product and each sum rounded once — the kernel's order and
-    rounding, so the two give the same bits."""
+    rounding, so the two give the same bits.  bfloat16 values are widened
+    to float32 first."""
     if x.is_cuda:
-        PLAIN_ON_CUDA[_PNAME] += 1
+        PLAIN_ON_CUDA[form(_PNAME, pk.vals.dtype)] += 1
     rows = pk.rows
+    vals = pk.vals.to(torch.float32)
     r = torch.arange(rows, device=x.device)
     base = pk.chunk_off[r // PACK_CHUNK] + r % PACK_CHUNK
     y = x.new_zeros(rows)
     for k in range(int(pk.row_len.max()) if rows else 0):
         live = pk.row_len > k
         e = torch.where(live, base + PACK_CHUNK * k, 0)
-        y = torch.where(live, y + pk.vals[e] * x[pk.cols[e].long()], y)
+        y = torch.where(live, y + vals[e] * x[pk.cols[e].long()], y)
     return y
 
 
@@ -153,9 +163,10 @@ def _packed_cuda(pk, x):
 
     y = x.new_empty(pk.rows)
     check_cuda_operands(_PNAME, (pk.vals, pk.cols, pk.row_len, pk.chunk_off, x))
-    err = load_library().cg_bell_spmv_packed(
+    name = form(_PNAME, pk.vals.dtype)
+    err = getattr(load_library(), f"cg_{name}")(
         ptr(pk.vals), ptr(pk.cols), ptr(pk.row_len), ptr(pk.chunk_off), ptr(x), ptr(y),
         pk.rows, stream(x.device))
-    LAUNCHES[_PNAME] += 1
-    raise_on_error(_PNAME, err)
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
     return y

@@ -29,6 +29,12 @@ in flight before the first product.  ``dia_spmv``, one thread a row with
 the offsets staged in shared memory, takes the operators :func:`dia_route`
 gives it: more than 32 diagonals, where its 4x more warps hide latency
 better.
+
+The general kernels take float32 or bfloat16 diagonals (x and y float32):
+a bfloat16 operator launches the route's bf16 form, counted as
+``<route>_bf16`` (``_common.form``), bit-equal to the float32 launch on the
+widened diagonals.  The symmetric kernels take float32 diagonals only; on a
+CUDA device a bfloat16 symmetric operator raises (ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ import torch
 from ..spmv import dia_apply, sym_dia_apply
 from ._common import (
     LAUNCHES,
+    OPERATOR_DTYPES,
     PLAIN_ON_CUDA,
     check_cuda_operands,
+    form,
     on_cuda,
     ptr,
     raise_on_error,
@@ -141,11 +149,12 @@ def host_offsets(offsets: tuple):
     return (ctypes.c_int32 * len(offsets))(*offsets)
 
 
-def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS):
+def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS,
+           cuda_dtypes=OPERATOR_DTYPES):
     if diags.dim() != 2:
         raise ValueError(f"{name}: diags must be (ndiag, n), got {tuple(diags.shape)}")
     ndiag = diags.shape[0]
-    if diags.dtype not in (torch.float32, torch.bfloat16):
+    if diags.dtype not in OPERATOR_DTYPES:
         raise TypeError(f"{name}: diagonals must be float32 or bfloat16, got "
                         f"{diags.dtype}; use the plain path for other dtypes")
     if len(offsets) != ndiag:
@@ -158,9 +167,10 @@ def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS
                          f"got {tuple(x.shape)} {x.dtype}")
     if not on_cuda(name, diags, offsets_dev, x):
         return False
-    if diags.dtype != torch.float32:
+    if diags.dtype not in cuda_dtypes:
         raise TypeError(f"{name}: the CUDA kernel takes float32 diagonals, got "
-                        f"{diags.dtype} (bf16 diagonals are not ported yet)")
+                        f"{diags.dtype} (bf16 diagonals are not ported yet: ROADMAP.md "
+                        f"queue 2)")
     if max_diags is not None and ndiag > max_diags:
         raise ValueError(f"{name}: the CUDA kernel takes at most {max_diags} "
                          f"diagonals, got {ndiag}")
@@ -172,10 +182,10 @@ def dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
     """y (n,) float32 = Σ_d diags[d] ⊙ x[i + offsets[d]].
 
-    ``diags`` (ndiag, n) float32 (bf16 on the CPU only), ``offsets`` the
-    tuple of ints and ``offsets_dev`` the same as an int32 tensor beside
-    ``diags``; ``x`` float32 of any length ncols (rectangular operators).
-    On a CUDA device the kernel :func:`dia_route` names runs.
+    ``diags`` (ndiag, n) float32 or bfloat16, ``offsets`` the tuple of
+    ints and ``offsets_dev`` the same as an int32 tensor beside ``diags``;
+    ``x`` float32 of any length ncols (rectangular operators).  On a CUDA
+    device the kernel :func:`dia_route` names runs, in the diagonals' form.
     """
     if not _check("dia_spmv", diags, offsets, offsets_dev, x, None):
         return _dia_plain(diags, offsets, x)
@@ -186,30 +196,31 @@ def dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
 def dia_cuda(diags, offsets: tuple, offsets_dev, x, route: str):
     """Launch one of the two general kernels on checked CUDA operands:
     ``dia_spmv_rows`` (the offsets from the host tuple) or ``dia_spmv``
-    (from ``offsets_dev``)."""
+    (from ``offsets_dev``), in the form of the diagonals' dtype."""
     from ._build import load_library
 
     ndiag, n = diags.shape
     y = x.new_empty(n)
-    lib = load_library()
+    name = form(route, diags.dtype)
+    fn = getattr(load_library(), f"cg_{name}")
     if route == "dia_spmv_rows":
         if ndiag > MAX_PARAM_DIAGS:
             raise ValueError(f"{route}: at most {MAX_PARAM_DIAGS} offsets, got {ndiag}")
-        err = lib.cg_dia_spmv_rows(ptr(diags), host_offsets(offsets), ptr(x), ptr(y), n,
-                                   x.shape[0], ndiag, stream(x.device))
+        err = fn(ptr(diags), host_offsets(offsets), ptr(x), ptr(y), n, x.shape[0], ndiag,
+                 stream(x.device))
     elif route == "dia_spmv":
-        err = lib.cg_dia_spmv(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, x.shape[0],
-                              ndiag, stream(x.device))
+        err = fn(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, x.shape[0], ndiag,
+                 stream(x.device))
     else:
         raise ValueError(f"dia_spmv: no kernel {route!r}")
-    LAUNCHES[route] += 1
-    raise_on_error(route, err)
+    LAUNCHES[name] += 1
+    raise_on_error(name, err)
     return y
 
 
 def _dia_plain(diags, offsets, x):
     if x.is_cuda:
-        PLAIN_ON_CUDA["dia_spmv"] += 1
+        PLAIN_ON_CUDA[form("dia_spmv", diags.dtype)] += 1
     return dia_apply(diags.to(torch.float32), offsets, x)
 
 
@@ -228,7 +239,8 @@ def sym_dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
     if tiling is not None and not tiling.pays(n):
         tiling = None
     if not _check(name, diags, offsets, offsets_dev, x, n,
-                  max_diags=None if tiling is not None else MAX_CUDA_DIAGS):
+                  max_diags=None if tiling is not None else MAX_CUDA_DIAGS,
+                  cuda_dtypes=(torch.float32,)):
         return _sym_dia_plain(diags, offsets, x)
     return sym_dia_cuda(diags, offsets_dev, x, tiling)
 

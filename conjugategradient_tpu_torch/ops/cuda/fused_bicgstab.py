@@ -219,7 +219,7 @@ def _check_tiles(name, blocks, block_cols):
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
     if blocks.dtype != torch.float32:
         raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet)")
+                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     return nrb, kmax, bn

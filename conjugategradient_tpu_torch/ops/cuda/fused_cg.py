@@ -19,6 +19,13 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
   the row-sharded loop, x the all-gathered operand (replaces
   ``bell_spmv_dot``, fused_cg.py:467).
 
+Tiles (and packed values) of kernels 1 and 4 are float32 or bfloat16,
+vectors float32 (the TPU kernels' two operand forms): a bfloat16 operator
+launches the kernel's bf16 form, counted as ``<name>_bf16``
+(``_common.form``), bit-equal to the float32 launch on the widened tiles;
+the plain versions widen first.  Kernel 6 takes float32 tiles only; on a
+CUDA device bfloat16 ones raise (ROADMAP.md queue 2).
+
 Dispatch: a wrapper runs its plain version when the tensors it is given lie
 on the CPU, and launches its CUDA kernel when they lie on a CUDA device;
 anything else raises.  There is no fallback from a CUDA tensor to the plain
@@ -54,9 +61,11 @@ from .bell_spmv import check_packed, packed_product
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    OPERATOR_DTYPES,
     UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
+    form,
     on_cuda,
     ptr,
     raise_on_error,
@@ -144,8 +153,10 @@ def sym_fused_dir_spmv_dot(
 ):
     """(p_new, q, pap) on symmetric blocked-ELL storage.
 
-    ``r2d``/``pold2d``/``inv_diag2d``: vectors as (nrb, bn) f32; ``beta``:
-    one-element f32 tensor.  Returns p_new (nrb, bn), q (nrb, bm), pap (1, 1).
+    ``diag_blocks`` (nrb, bn, bn) and ``off_blocks`` (nrb, ku, bn, bn):
+    float32, or bfloat16 both.  ``r2d``/``pold2d``/``inv_diag2d``: vectors
+    as (nrb, bn) f32; ``beta``: one-element f32 tensor.  Returns p_new
+    (nrb, bn), q (nrb, bm), pap (1, 1).
 
     ``mirror`` keeps the TPU kernel's argument and validation.  On the GPU
     ``"scatter"`` and ``"split"`` are ONE landing (per-slot mirror products
@@ -169,10 +180,9 @@ def sym_fused_dir_spmv_dot(
     ku = off_blocks.shape[1]
     if mirror == "banded" and ku != 1:
         raise ValueError("mirror='banded' requires ku == 1 storage")
-    for t in (diag_blocks, off_blocks):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: tiles must be float32, got {t.dtype} "
-                            "(bf16 tiles are not ported yet)")
+    if diag_blocks.dtype not in OPERATOR_DTYPES or off_blocks.dtype != diag_blocks.dtype:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, both of one dtype, "
+                        f"got {diag_blocks.dtype} / {off_blocks.dtype}")
     if tuple(off_cols.shape) != (nrb, ku) or off_cols.dtype != torch.int32:
         raise ValueError(f"{name}: off_cols must be ({nrb}, {ku}) int32")
     for v in (r2d, pold2d, inv_diag2d):
@@ -200,9 +210,10 @@ def sym_fused_dir_spmv_dot(
 
 def _sym_dir_plain(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
                    mirror_src, out, work):
+    f32 = torch.float32
     return _dir_plain(
-        "sym_fused_dir_spmv_dot",
-        lambda p: sym_bell_apply(diag, off, off_cols, mirror_src, p),
+        form("sym_fused_dir_spmv_dot", diag.dtype),
+        lambda p: sym_bell_apply(diag.to(f32), off.to(f32), off_cols, mirror_src, p),
         r2d, pold2d, beta, inv_diag2d, out, work)
 
 
@@ -230,7 +241,7 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
                   mirror_src, out, work, *, mirror, row_group):
     from ._build import load_library
 
-    name = "sym_fused_dir_spmv_dot"
+    name = form("sym_fused_dir_spmv_dot", diag.dtype)
     nrb, bm, bn = diag.shape
     ku = off.shape[1]
     dev = r2d.device
@@ -248,7 +259,7 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
     common = (ptr(r2d), ptr(pold2d), ptr(inv_diag2d), ptr(beta),
               ptr(p_new), ptr(q), ptr(pap))
     if mirror == "banded":
-        err = lib.cg_sym_dir_banded(
+        err = getattr(lib, form("cg_sym_dir_banded", diag.dtype))(
             ptr(diag), ptr(off), ptr(off_cols), *common,
             ptr(work.partials), ptr(work.counter), ptr(work.scal),
             ptr(work.ctl), nrb, bn, row_group, stream(dev))
@@ -256,7 +267,7 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
         if work.tparts is None or work.tparts.numel() < nrb * ku * bn:
             work.tparts = torch.empty(nrb * ku * bn, device=dev)
         kin = mirror_src.shape[1]
-        err = lib.cg_sym_dir_general(
+        err = getattr(lib, form("cg_sym_dir_general", diag.dtype))(
             ptr(diag), ptr(off), ptr(off_cols), ptr(mirror_src), *common,
             ptr(work.tparts), ptr(work.partials), ptr(work.counter),
             ptr(work.scal), ptr(work.ctl), nrb, ku, kin, bn, row_group,
@@ -282,8 +293,8 @@ def fused_dir_spmv_dot(
 ):
     """(p_new, q, pap) on full blocked-ELL storage: the same contract as
     :func:`sym_fused_dir_spmv_dot`, with the operator as ``blocks``
-    (nrb, kmax, bn, bn) float32 and ``block_cols`` (nrb, kmax) int32
-    (padding slots: zero tiles at column block 0).
+    (nrb, kmax, bn, bn) float32 or bfloat16 and ``block_cols`` (nrb, kmax)
+    int32 (padding slots: zero tiles at column block 0).
 
     ``r2d``/``pold2d``/``inv_diag2d``: vectors as (nrb, bn) float32 (a
     square padded system); ``beta``: one float32.  Returns p_new (nrb, bn),
@@ -298,9 +309,8 @@ def fused_dir_spmv_dot(
     nrb, kmax, bm, bn = blocks.shape
     if bm != bn:
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet)")
+    if blocks.dtype not in OPERATOR_DTYPES:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, got {blocks.dtype}")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     for v in (r2d, pold2d, inv_diag2d):
@@ -341,8 +351,8 @@ def _sm_count(index: int) -> int:
 
 
 def _full_dir_plain(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out, work):
-    return _dir_plain("fused_dir_spmv_dot",
-                      lambda p: bell_apply(blocks, block_cols, p),
+    return _dir_plain(form("fused_dir_spmv_dot", blocks.dtype),
+                      lambda p: bell_apply(blocks.to(torch.float32), block_cols, p),
                       r2d, pold2d, beta, inv_diag2d, out, work)
 
 
@@ -350,7 +360,7 @@ def _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out,
                    work, row_group):
     from ._build import load_library
 
-    name = "fused_dir_spmv_dot"
+    name = form("fused_dir_spmv_dot", blocks.dtype)
     nrb, kmax, bm, bn = blocks.shape
     dev = r2d.device
     if work is None:
@@ -363,7 +373,7 @@ def _full_dir_cuda(blocks, block_cols, r2d, pold2d, beta, inv_diag2d, out,
     grid = -(-nrb // row_group)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)
-    err = load_library().cg_full_dir(
+    err = getattr(load_library(), form("cg_full_dir", blocks.dtype))(
         ptr(blocks), ptr(block_cols), ptr(r2d), ptr(pold2d), ptr(inv_diag2d),
         ptr(beta), ptr(p_new), ptr(q), ptr(pap), ptr(work.partials),
         ptr(work.counter), ptr(work.scal), ptr(work.ctl), nrb, kmax, bn,
@@ -384,16 +394,17 @@ def fused_dir_spmv_dot_packed(
     work: Optional[FusedWork] = None,
 ):
     """(p_new, q, pap) on a blocked-ELL operator read as its packed
-    nonzeros ``pk`` (float32): the contract of :func:`fused_dir_spmv_dot`
+    nonzeros ``pk`` (float32 or bfloat16 values): the contract of :func:`fused_dir_spmv_dot`
     for a square padded system of ``pk.rows`` rows, vectors as (nrb, bn)
     float32 with nrb·bn = ``pk.rows``.  Any tile width.  ``pk`` is full
     storage's view (``BlockedEllMatrix.packed()``: kernel 4's function) or
     symmetric storage's view of D + U + Uᵀ (``SymBellMatrix.packed()``,
     ``pk.symmetric``: kernel 1's function, counted as
-    ``sym_fused_dir_spmv_dot_packed``).  p_new must not alias p_old: other
+    ``sym_fused_dir_spmv_dot_packed``; with bfloat16 values ``_bf16`` at the
+    end of either name).  p_new must not alias p_old: other
     rows gather p_new[c] recomputed from r and p_old while it is written."""
     name = _packed_name(pk)
-    check_packed(name, pk)
+    check_packed(name, pk, OPERATOR_DTYPES)
     if pk.ncols != pk.rows:
         raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
                          f"{pk.ncols} columns")
@@ -415,7 +426,8 @@ def fused_dir_spmv_dot_packed(
 
 
 def _packed_name(pk) -> str:
-    return "sym_fused_dir_spmv_dot_packed" if pk.symmetric else "fused_dir_spmv_dot_packed"
+    return form("sym_fused_dir_spmv_dot_packed" if pk.symmetric
+                else "fused_dir_spmv_dot_packed", pk.vals.dtype)
 
 
 def _packed_dir_plain(pk, r2d, pold2d, beta, inv_diag2d, out, work):
@@ -437,7 +449,7 @@ def _packed_dir_cuda(pk, r2d, pold2d, beta, inv_diag2d, out, work):
     grid = -(-pk.rows // _THREADS)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)
-    err = load_library().cg_full_dir_packed(
+    err = getattr(load_library(), form("cg_full_dir_packed", pk.vals.dtype))(
         ptr(pk.vals), ptr(pk.cols), ptr(pk.row_len), ptr(pk.chunk_off), ptr(r2d),
         ptr(pold2d), ptr(inv_diag2d), ptr(beta), ptr(p_new), ptr(q), ptr(pap),
         ptr(work.partials), ptr(work.counter), ptr(work.scal), ptr(work.ctl), pk.rows,
@@ -480,7 +492,7 @@ def bell_spmv_dot(
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
     if blocks.dtype != torch.float32:
         raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet)")
+                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     if x2d.dim() != 2 or x2d.shape[1] != bn or x2d.dtype != torch.float32:

@@ -281,7 +281,7 @@ def minres_dir_spmv_dot(
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
     if blocks.dtype != torch.float32:
         raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet)")
+                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
@@ -351,7 +351,7 @@ def sym_minres_dir_spmv_dot(
     for t in (diag_blocks, off_blocks):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: tiles must be float32, got {t.dtype} "
-                            "(bf16 tiles are not ported yet)")
+                            "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
     if tuple(off_cols.shape) != (nrb, ku) or off_cols.dtype != torch.int32:
         raise ValueError(f"{name}: off_cols must be ({nrb}, {ku}) int32")
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
@@ -520,7 +520,7 @@ def minres_shard_spmv_dot(
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
     if blocks.dtype != torch.float32:
         raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet)")
+                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     if vfull2d.dim() != 2 or vfull2d.shape[1] != bn or vfull2d.dtype != torch.float32:

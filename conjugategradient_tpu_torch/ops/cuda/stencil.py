@@ -48,7 +48,8 @@ def stencil7(u: torch.Tensor, center: float, off: float) -> torch.Tensor:
     if not on_cuda(_NAME, u):
         return _stencil7_plain(u, center, off)
     if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{_NAME}: the CUDA kernel takes float32 or float64, got {u.dtype}")
+        raise TypeError(f"{_NAME}: the CUDA kernel takes float32 or float64, got {u.dtype} "
+                        "(a bf16 stencil is not ported yet: ROADMAP.md queue 2)")
     check_cuda_operands(_NAME, (u,))
     from ._build import load_library
 

@@ -51,8 +51,12 @@ def csr_spmv(a, x: torch.Tensor) -> torch.Tensor:
 
 
 def dense_spmv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """a @ x in the common dtype of a and x, accumulated in at least
+    float32 (the JAX package's ``preferred_element_type``)."""
     full_precision_matmul()
-    return torch.mv(a, x)
+    out_dtype = torch.promote_types(a.dtype, x.dtype)
+    acc = _acc(out_dtype)
+    return torch.mv(a.to(acc), x.to(acc)).to(out_dtype)
 
 
 KERNEL_CHOICES = ("auto", "never", "always")
@@ -60,11 +64,13 @@ KERNEL_CHOICES = ("auto", "never", "always")
 
 def _kernel_route(use_kernel: str, x: torch.Tensor, out_dtype) -> bool:
     """The dispatch rule of the kernel-backed SpMVs (``use_kernel="auto"``):
-    a CUDA device and a float32 result take the hand-written kernel
-    (bf16 operators too, which the wrappers refuse on CUDA); a float64
-    operator or vector, and CPU tensors, the plain form.  ``"never"`` and
-    ``"always"`` force one route (on CPU tensors a kernel's wrapper runs its
-    plain version)."""
+    a CUDA device and a float32 or bfloat16 result take the hand-written
+    kernel (a bfloat16 operator its bf16 form, on float32 x; a bf16 result
+    is the float32 one rounded); a float64 operator or vector, and CPU
+    tensors, the plain form.  Symmetric DIA has no bf16 kernel yet, so there
+    a bfloat16 operator on a CUDA device raises (ROADMAP.md queue 2).
+    ``"never"`` and ``"always"`` force one route (on CPU tensors a kernel's
+    wrapper runs its plain version)."""
     if use_kernel not in KERNEL_CHOICES:
         raise ValueError(f"use_kernel must be one of {KERNEL_CHOICES}, got {use_kernel!r}")
     return use_kernel == "always" or (
@@ -84,9 +90,11 @@ def bell_apply(blocks, block_cols, x2d):
 
 def bell_packed_route(a) -> bool:
     """Whether products with a blocked-ELL operator read its packed
-    nonzeros (``a.packed()``) instead of the tile stream: float32 tiles
-    whose view, 8 bytes a nonzero and 4 a row, takes at most half of
-    ``tile_bytes()``, or whose width bn the dense kernels do not take.
+    nonzeros (``a.packed()``) instead of the tile stream: float32 or
+    bfloat16 tiles whose view, a value and a 4-byte column a nonzero (8
+    bytes, 6 in bf16) and 4 bytes a row, takes at most half of
+    ``tile_bytes()`` (tiles of the same dtype), or whose width bn the dense
+    kernels do not take.
     ``a.nnz`` (the whole operator's, also for symmetric storage, whose
     view holds D + U + Uᵀ) and the shapes decide, so choosing reads no
     tiles; the rule is the same on every device, so the CPU runs the
@@ -95,21 +103,22 @@ def bell_packed_route(a) -> bool:
     :func:`sym_bell_spmv`) and by every fused step that takes them (CG and
     MINRES in either storage, BiCGStab in full storage); symmetric
     storage's ``tile_bytes()`` counts its diagonal and upper tiles."""
-    if a.dtype != torch.float32:
+    if a.dtype not in (torch.float32, torch.bfloat16):
         return False
-    return a.bn not in CUDA_BN or 2 * (8 * a.nnz + 4 * a.nrb * a.bm) <= a.tile_bytes()
+    value = 4 if a.dtype == torch.float32 else 2
+    return a.bn not in CUDA_BN or 2 * ((value + 4) * a.nnz + 4 * a.nrb * a.bm) <= a.tile_bytes()
 
 
 def bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     """Full blocked-ELL SpMV (``BlockedEllMatrix.matvec``): x padded to the
     operator's padded width, y cut to its ``n`` rows.
 
-    A float32 result on an operator that :func:`bell_packed_route` sends to
-    the packed view takes the packed kernel (its plain version on CPU
-    tensors) unless ``use_kernel="never"``.  Otherwise ``use_kernel``
-    follows the JAX package's dispatch (:func:`_kernel_route`: float32 on a
-    CUDA device takes the dense-tile kernel, float64 and CPU tensors the
-    plain einsum).  The JAX package's TPU gates (x fits VMEM ≤ 8 MB,
+    A float32 or bfloat16 result on an operator that
+    :func:`bell_packed_route` sends to the packed view takes the packed
+    kernel (its plain version on CPU tensors) unless ``use_kernel="never"``.
+    Otherwise ``use_kernel`` follows the JAX package's dispatch
+    (:func:`_kernel_route`: float32 or bfloat16 on a CUDA device takes the
+    dense-tile kernel, float64 and CPU tensors the plain einsum).  The JAX package's TPU gates (x fits VMEM ≤ 8 MB,
     ``kmax <= 64``, ``bm % 8``/``bn % 128``) are dropped: the CUDA kernels
     read x from L2/HBM, loop over the slots at run time, and the dense one
     takes any ``bm`` with ``bn`` in ``CUDA_BN``.
@@ -120,10 +129,10 @@ def bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     x2d = xp.reshape(mp // a.bn, a.bn)
     out_dtype = torch.promote_types(a.dtype, x.dtype)
     kernel = _kernel_route(use_kernel, x, out_dtype)
-    if use_kernel != "never" and out_dtype == torch.float32 and bell_packed_route(a):
+    if use_kernel != "never" and _acc(out_dtype) == torch.float32 and bell_packed_route(a):
         from .cuda.bell_spmv import bell_spmv_packed
 
-        return bell_spmv_packed(a.packed(), xp.to(torch.float32))[:n]
+        return bell_spmv_packed(a.packed(), xp.to(torch.float32))[:n].to(out_dtype)
     if kernel:
         from .cuda.bell_spmv import bell_spmv_tiles
 
@@ -138,9 +147,9 @@ def sym_bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     """Symmetric blocked-ELL SpMV (``SymBellMatrix.matvec``): each stored
     upper tile applied twice, ``q[r] += B @ x[c]`` and ``q[c] += Bᵀ @ x[r]``.
 
-    A float32 result on an operator that :func:`bell_packed_route` sends to
-    the packed view (the whole operator D + U + Uᵀ, ``a.packed()``) takes
-    packed kernel 5 (its plain version on CPU tensors) unless
+    A float32 or bfloat16 result on an operator that
+    :func:`bell_packed_route` sends to the packed view (the whole operator
+    D + U + Uᵀ, ``a.packed()``) takes packed kernel 5 (its plain version on CPU tensors) unless
     ``use_kernel="never"``.  Otherwise the plain torch form, which is how
     the JAX package computes it (with XLA, no Pallas kernel): the mirror
     products land in their block-row through ``a.mirror_src``
@@ -153,10 +162,10 @@ def sym_bell_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     _, mp = a.padded_shape
     xp = x if mp == x.shape[0] else torch.nn.functional.pad(x, (0, mp - x.shape[0]))
     out_dtype = torch.promote_types(a.dtype, x.dtype)
-    if use_kernel != "never" and out_dtype == torch.float32 and bell_packed_route(a):
+    if use_kernel != "never" and _acc(out_dtype) == torch.float32 and bell_packed_route(a):
         from .cuda.bell_spmv import bell_spmv_packed
 
-        return bell_spmv_packed(a.packed(), xp.to(torch.float32))[:n]
+        return bell_spmv_packed(a.packed(), xp.to(torch.float32))[:n].to(out_dtype)
     acc = _acc(out_dtype)
     y = sym_bell_apply(
         a.diag_blocks.to(acc), a.off_blocks.to(acc), a.off_cols, a.mirror_src,
@@ -214,9 +223,9 @@ def dia_apply(diags: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
 def dia_spmv(a, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tensor:
     """DIA SpMV (``DIAMatrix.matvec``): y[i] = Σ_d diags[d, i]·x[i + off_d].
 
-    ``use_kernel`` as in :func:`bell_spmv`: float32 operators on a CUDA
-    device take the hand-written kernel at any offsets, float64 and CPU
-    tensors the plain form.  The JAX package's TPU gate (the Pallas kernel
+    ``use_kernel`` as in :func:`bell_spmv`: float32 and bfloat16 operators
+    on a CUDA device take the hand-written kernel at any offsets, float64
+    and CPU tensors the plain form.  The JAX package's TPU gate (the Pallas kernel
     only for max|offset| >= 1024) is dropped: it rests on XLA:TPU keeping
     loop-invariant diagonals in VMEM across a jitted solve
     (``conjugategradient_tpu/ops/spmv.py:288-295``), while the plain torch

@@ -27,6 +27,7 @@ from .lobpcg import lobpcg_eigs
 from .minres import MinresInfo, minres_solve
 from .multigrid import multigrid_preconditioner
 from .pipelined import pipelined_cg_solve
+from .refine import RefineInfo, refined_cg_solve
 from .precond import (
     block_jacobi_preconditioner,
     chebyshev_preconditioner,
@@ -47,6 +48,7 @@ __all__ = [
     "FusedCGState",
     "GmresInfo",
     "MinresInfo",
+    "RefineInfo",
     "accuracy",
     "batched_cg_init",
     "basis_quality",
@@ -91,6 +93,7 @@ __all__ = [
     "minres_solve_batched",
     "multigrid_preconditioner",
     "pipelined_cg_solve",
+    "refined_cg_solve",
     "rigid_body_modes",
     "run_batched_cg",
     "run_cg",

@@ -186,8 +186,9 @@ def cg_solve(
     callable with ``n=`` (the system's dimension), as ``as_linear_operator``
     takes them.
 
-    ``fused="auto"`` sends a float32 blocked-ELL solve whose tensors lie on
-    a CUDA device to the two-kernel fused iteration (solver/fused.py),
+    ``fused="auto"`` sends a blocked-ELL solve with float32 vectors (float32
+    or bfloat16 tiles) whose tensors lie on a CUDA device to the two-kernel
+    fused iteration (solver/fused.py),
     including Jacobi PCG when ``M`` comes from
     :func:`~.precond.jacobi_preconditioner`, and an unpreconditioned float32
     :class:`StencilOperator` solve on a CUDA device to the fused stencil
@@ -220,7 +221,7 @@ def cg_solve(
                                           recompute_r_every=every)
     if fused == "always":
         raise ValueError(
-            "fused='always' needs either a float32 BlockedEllMatrix or "
+            "fused='always' needs either a float32 or bfloat16 BlockedEllMatrix or "
             "SymBellMatrix on a CUDA device with square tiles of width "
             "32/64/128/256 and a square padded shape, float32 vectors, and no "
             "preconditioner or a jacobi_preconditioner; or a float32 "

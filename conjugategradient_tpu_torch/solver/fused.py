@@ -100,7 +100,10 @@ class FusedCGState:
 def fused_supported(a: Any, dtype=None) -> bool:
     """Whether the fused path can run this operator: blocked-ELL in full or
     symmetric storage, square tiles of a width the kernels take, a square
-    padded system, float32 tiles and vectors, tensors on a CUDA device.
+    padded system, float32 or bfloat16 tiles with float32 vectors (``dtype``
+    None or float32, as the JAX gate reads it), tensors on a CUDA device.
+    A bfloat16 operator runs the bf16 forms of kernels 1 and 4; kernel 2
+    reads vectors only.
 
     The TPU gates on Mosaic block shapes, VMEM residency and ``ku <= 64``
     are dropped: the CUDA kernels mask ragged strips themselves, stream the
@@ -114,7 +117,7 @@ def fused_supported(a: Any, dtype=None) -> bool:
         a.bm == a.bn
         and a.bn in CUDA_BN
         and np_ == mp
-        and a.dtype == torch.float32
+        and a.dtype in (torch.float32, torch.bfloat16)
         and (dtype is None or dtype == torch.float32)
         and a.device.type == "cuda"
     )

@@ -122,11 +122,14 @@ class FusedBicgstabState:
 def fused_bicgstab_supported(a: Any, dtype=None) -> bool:
     """Whether the fused BiCGStab path can run this operator: the fused CG
     gate (:func:`~.fused.fused_supported`: square tiles of a width the
-    kernels take, a square padded system, float32, tensors on a CUDA
-    device) on FULL blocked-ELL storage.  The JAX package's bound on the
-    vectors' VMEM residency is dropped: the CUDA kernels stream the vectors
-    from L2/HBM."""
-    return isinstance(a, BlockedEllMatrix) and fused_supported(a, dtype=dtype)
+    kernels take, a square padded system, tensors on a CUDA device) on FULL
+    blocked-ELL storage with float32 tiles only: kernels 18 and 19 have no
+    bfloat16 form yet (ROADMAP.md queue 2), so BiCGStab on bf16 tiles runs
+    the portable loop, whose SpMV is kernel 5's bf16 form.  The JAX
+    package's bound on the vectors' VMEM residency is dropped: the CUDA
+    kernels stream the vectors from L2/HBM."""
+    return (isinstance(a, BlockedEllMatrix) and a.dtype == torch.float32
+            and fused_supported(a, dtype=dtype))
 
 
 def fused_bicgstab_init(

@@ -109,10 +109,12 @@ def fused_minres_supported(a: Any, dtype=None) -> bool:
     """Whether the fused MINRES path can run this operator: the fused CG
     gate (:func:`~.fused.fused_supported`: blocked-ELL in full or symmetric
     storage, square tiles of a width the kernels take, a square padded
-    system, float32, tensors on a CUDA device).  The JAX package's extra
-    bound on the vectors' VMEM residency is dropped: the CUDA kernels
-    stream the vectors from L2/HBM."""
-    return fused_supported(a, dtype=dtype)
+    system, tensors on a CUDA device) with float32 tiles only: kernels 14,
+    15 and 17 have no bfloat16 form yet (ROADMAP.md queue 2), so MINRES on
+    bf16 tiles runs the portable loop, whose SpMV is kernel 5's bf16 form.
+    The JAX package's extra bound on the vectors' VMEM residency is
+    dropped: the CUDA kernels stream the vectors from L2/HBM."""
+    return getattr(a, "dtype", None) == torch.float32 and fused_supported(a, dtype=dtype)
 
 
 def fused_minres_init(

@@ -26,9 +26,14 @@ V-cycle on a stencil), ``--layout``, ``--reorder``,
 the timed region, then times the deflated solve; ``--eigs K``
 (``--eigs-method lobpcg|lanczos``, ``--eigs-which``, ``--eigs-iters``,
 ``--eigs-tol``) computes K extreme eigenpairs instead of solving and prints
-``dim NNZ time_ms max_rel_residual`` and a JSON line.  Flags of the
+``dim NNZ time_ms max_rel_residual`` and a JSON line.  ``--refine
+bfloat16|float32`` solves with mixed-precision iterative refinement (inner
+CG on a copy of the operator stored in that dtype, true residuals in
+``--dtype``), and ``--dtype bfloat16`` solves in bfloat16.  Flags of the
 JAX harness that this package has not ported yet exit with code 2 and
-"not yet ported".
+"not yet ported", as do the bfloat16 runs that would reach a kernel whose
+bf16 form is not ported yet on ``--device cuda`` (a SymDIA operator, or a
+stencil with bfloat16 vectors; ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import sys
 import numpy as np
 
 _LAYOUTS = ("auto", "csr", "sell", "bell", "symbell", "dia", "symdia")
-_DTYPES = ("float32", "float64")
+_DTYPES = ("float32", "float64", "bfloat16")
 _PRECONDS = ("none", "jacobi", "blockjacobi", "chebyshev", "amg", "fsai")
 _METHODS = ("standard", "pipelined", "sstep", "block", "minres", "bicgstab", "gmres")
 
@@ -71,7 +76,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="residual-replacement full restart every N "
                          "iterations (0: never; standard and pipelined "
                          "methods, the pipelined recurrences drift faster)")
-    ap.add_argument("--dtype", default="float64", help="float32 or float64")
+    ap.add_argument("--dtype", default="float64",
+                    help="float32, float64 (the reference's double) or bfloat16")
     ap.add_argument("--precond", default="none",
                     help="none, jacobi, blockjacobi (--block-size), chebyshev "
                          "(--cheb-degree; interval from a Lanczos estimate), "
@@ -116,6 +122,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--shift", type=float, default=0.0,
                     help="solve (A - shift*I) x = b (with --method minres: "
                          "the Paige-Saunders spectral shift)")
+    ap.add_argument("--refine", choices=("off", "bfloat16", "float32"), default="off",
+                    help="mixed-precision iterative refinement: store a "
+                         "low-precision copy of the operator for the inner "
+                         "CG solves and correct with --dtype true residuals "
+                         "(Carson-Higham CG-IR; single-RHS standard method)")
     ap.add_argument("--bm", type=int, default=128,
                     help="blocked-ELL row tile (also read by --layout auto)")
     ap.add_argument("--bn", type=int, default=128,
@@ -178,6 +189,25 @@ def _not_ported(what: str) -> int:
     return 2
 
 
+def _bf16_unported(args, A, device):
+    """What a bfloat16 run (``--dtype bfloat16``, or ``--refine bfloat16``
+    whose inner operator is a bf16 copy) would reach on a CUDA device that
+    has no bf16 kernel yet, or None: the symmetric DIA product (kernel 10)
+    and the stencil apply on bfloat16 vectors.  A bf16 stencil applied to
+    the refinement's float32 vectors runs the float32 kernel."""
+    from .types import StencilOperator, SymDIAMatrix
+
+    if device.type != "cuda":
+        return None
+    if isinstance(A, SymDIAMatrix) and "bfloat16" in (args.dtype, args.refine):
+        return ("--layout symdia in bfloat16 on --device cuda (the bf16 form of kernel "
+                "10, ROADMAP.md queue 2)")
+    if isinstance(A, StencilOperator) and args.dtype == "bfloat16":
+        return ("a stencil: input in bfloat16 on --device cuda (the bf16 form of "
+                "stencil7, ROADMAP.md queue 2)")
+    return None
+
+
 def _stencil_dims(args):
     """The grid of a ``stencil:<nx>[x<ny>x<nz>]`` input, or None after
     printing why it is refused (the JAX tester's parsing and messages)."""
@@ -205,7 +235,7 @@ def _eigs_lane(args, A, M, n, nnz, device) -> int:
     from .utils import Timer
 
     if (args.method != "standard" or args.nrhs > 1 or args.deflate > 0
-            or args.progress > 0 or args.recompute > 0):
+            or args.refine != "off" or args.progress > 0 or args.recompute > 0):
         print("error: --eigs is an eigensolver lane (no --method/--nrhs/"
               "--deflate/--refine/--progress/--recompute)", file=sys.stderr)
         return 2
@@ -277,7 +307,7 @@ def main(argv=None) -> int:
                    gmres_solve, gmres_solve_batched, harvest_deflation_basis,
                    jacobi_preconditioner, load_matrix,
                    minres_solve, minres_solve_batched, multigrid_preconditioner,
-                   smoothed_aggregation_preconditioner, sstep_cg_solve)
+                   refined_cg_solve, smoothed_aggregation_preconditioner, sstep_cg_solve)
     from .ops.spmv import full_precision_matmul
     from .solver import (basis_quality, block_jacobi_preconditioner, chebyshev_preconditioner,
                          estimate_spectral_bounds, fsai_preconditioner, pipelined_cg_solve,
@@ -303,7 +333,7 @@ def main(argv=None) -> int:
         A = StencilOperator.poisson(dims, dtype=dtype, device=device)
     else:
         try:
-            A = load_matrix(args.mtx, layout=args.layout, dtype=np.dtype(args.dtype),
+            A = load_matrix(args.mtx, layout=args.layout, dtype=dtype,
                             bm=args.bm, bn=args.bn, reorder=args.reorder,
                             device=device)
             if args.reorder:
@@ -319,7 +349,9 @@ def main(argv=None) -> int:
         log.debug("loaded %s: n=%d nnz=%d layout=%s reorder=%s",
                   args.mtx, n, nnz, type(A).__name__, args.reorder)
 
-    b = torch.arange(1, n + 1, dtype=dtype, device=device)
+    # i + 1 rounded once to the solve dtype (bfloat16 from float64, as
+    # jnp.arange rounds it; exact in float32 and float64)
+    b = torch.arange(1, n + 1, dtype=torch.float64, device=device).to(dtype)
     if perm is not None:
         b = b[torch.from_numpy(perm).to(device)]
     if args.precond == "jacobi":
@@ -374,11 +406,17 @@ def main(argv=None) -> int:
               "shifted solve)", file=sys.stderr)
         return 2
     if args.recompute > 0 and (args.method not in ("standard", "pipelined")
-                               or args.nrhs > 1 or args.deflate > 0 or args.progress > 0):
+                               or args.nrhs > 1 or args.refine != "off" or args.deflate > 0
+                               or args.progress > 0):
         print("error: --recompute drives the standard or pipelined "
               "single-RHS loop", file=sys.stderr)
         return 2
-    if args.deflate > 0 and (args.method != "standard" or args.nrhs > 1 or args.progress > 0):
+    if args.refine != "off" and (args.method != "standard" or args.progress > 0):
+        print("error: --refine drives the standard loop (no --method/"
+              "--progress)", file=sys.stderr)
+        return 2
+    if args.deflate > 0 and (args.method != "standard" or args.nrhs > 1
+                             or args.refine != "off" or args.progress > 0):
         print("error: --deflate drives the standard single-RHS loop "
               "(no --method/--nrhs/--refine/--progress)", file=sys.stderr)
         return 2
@@ -390,6 +428,19 @@ def main(argv=None) -> int:
             print("error: --nrhs > 1 uses the lockstep loop, not --method "
                   f"{args.method}", file=sys.stderr)
             return 2
+    if args.refine != "off":
+        if args.nrhs > 1:
+            print("error: --refine drives the single-RHS standard loop "
+                  "(no --nrhs)", file=sys.stderr)
+            return 2
+        low = getattr(torch, args.refine)
+        if torch.empty((), dtype=low).element_size() >= torch.empty((), dtype=dtype).element_size():
+            print(f"error: --refine {args.refine} is not below --dtype "
+                  f"{args.dtype}; pick a lower storage dtype", file=sys.stderr)
+            return 2
+    unported = _bf16_unported(args, A, device)
+    if unported is not None:
+        return _not_ported(unported)
 
     basis = None
     if args.deflate > 0:
@@ -431,6 +482,19 @@ def main(argv=None) -> int:
                "gmres": (gmres_solve, gmres_solve_batched, {"restart": args.restart}),
                "bicgstab": (bicgstab_solve, bicgstab_solve_batched, {})}
 
+    def refine_solve():
+        x, rinfo = refined_cg_solve(A, b, tol=args.tol, low_dtype=getattr(torch, args.refine),
+                                    inner_maxiter=args.maxiter, M=M)
+        # the CGInfo the printing reads: iterations = the inner work, the
+        # history = the outer true-residual trace (the JAX tester's adaptation)
+        rn = torch.tensor(rinfo.rnorm_sq, dtype=torch.float64)
+        if args.verbose:
+            log.debug("refinements=%d inner_iterations=%d",
+                      rinfo.refinements, rinfo.inner_iterations)
+        return x, CGInfo(iterations=torch.tensor(rinfo.inner_iterations, dtype=torch.int32),
+                         converged=torch.tensor(rinfo.converged), rho=rn, rnorm_sq=rn,
+                         rho_history=torch.tensor(rinfo.rnorm_history, dtype=torch.float64))
+
     def solve():
         if args.method in solvers:
             solo, batched, extra = solvers[args.method]
@@ -455,6 +519,8 @@ def main(argv=None) -> int:
         if args.method == "block":
             X, info = block_cg_solve(A, B, tol=args.tol, maxiter=args.maxiter, M=M)
             return X[0], info
+        if args.refine != "off":
+            return refine_solve()
         if args.nrhs > 1:
             X, info = cg_solve_batched(A, B, tol=args.tol, maxiter=args.maxiter, M=M)
             return X[0], info
@@ -499,6 +565,16 @@ def main(argv=None) -> int:
     if args.history:
         # with --nrhs or --method block (histories (R, maxiter+1)): lane 0
         hist_all = info.rho_history.double().cpu().numpy()
+        if args.refine != "off":
+            # the inner work beside the OUTER true-residual trace (one entry
+            # a refinement): labelled for what it is, as the JAX tester does
+            print(json.dumps({
+                "inner_iterations": int(iters[0]),
+                "converged": bool(convs[0]),
+                "outer_residual_norms": [float(v) for v in
+                                         np.sqrt(hist_all[np.isfinite(hist_all)])],
+            }))
+            return 0
         hist_all = hist_all[0] if hist_all.ndim == 2 else hist_all
         k, conv = int(iters[0]), bool(convs[0])
         hist = np.sqrt(hist_all[: k + 1])

@@ -24,12 +24,32 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def is_bfloat16(dtype) -> bool:
+    """Whether ``dtype`` (torch dtype, dtype name or numpy dtype) is
+    bfloat16, which numpy has no type of its own for."""
+    return dtype == torch.bfloat16 or str(dtype) in ("bfloat16", "torch.bfloat16")
+
+
 def as_numpy_dtype(dtype) -> np.dtype:
-    """torch dtype, dtype name or numpy dtype -> numpy dtype."""
+    """torch dtype, dtype name or numpy dtype -> the numpy dtype that host
+    arrays of values of that dtype are built in.  bfloat16 has no numpy
+    type: its values are built as float32 (float64 input rounded once to
+    float32, then once more to bfloat16 when the tensor is cast, which is
+    how ``ml_dtypes`` and ``jnp.asarray`` round float64 to bfloat16 for the
+    JAX package), and the caller casts the tensors (:func:`is_bfloat16`)."""
+    if is_bfloat16(dtype):
+        return np.dtype(np.float32)
     if isinstance(dtype, torch.dtype):
         return {torch.float32: np.dtype(np.float32),
                 torch.float64: np.dtype(np.float64)}[dtype]
     return np.dtype(dtype)
+
+
+def cast_values(op, dtype):
+    """``op`` with its values cast to bfloat16 where ``dtype`` says so: the
+    last step of a constructor that built them as float32
+    (:func:`as_numpy_dtype`); any other ``dtype`` leaves ``op`` as it is."""
+    return op.astype(torch.bfloat16) if dtype is not None and is_bfloat16(dtype) else op
 
 
 class LinearOperator:

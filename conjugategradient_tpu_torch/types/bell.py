@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .base import DEFAULT_DEVICE, LinearOperator, _cdiv, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, _cdiv, as_numpy_dtype, cast_values
 from .csr import CSRMatrix
 
 
@@ -255,10 +255,10 @@ class BlockedEllMatrix(LinearOperator):
             data, indices, indptr, shape, bm=bm, bn=bn, dtype=dtype
         )
         dev = torch.device(device)
-        return BlockedEllMatrix(
+        return cast_values(BlockedEllMatrix(
             torch.from_numpy(blocks).to(dev), torch.from_numpy(block_cols).to(dev),
             (shape[0], shape[1]), nnz,
-        )
+        ), dtype)
 
     @staticmethod
     def from_csr(csr: CSRMatrix, bm: int = 128, bn: int = 128) -> "BlockedEllMatrix":
@@ -415,10 +415,10 @@ class SymBellMatrix(LinearOperator):
         )
         nrb = blocks.shape[0]
         padded = (nrb * bn, _cdiv(shape[1], bn) * bn)
-        return SymBellMatrix._pack_np(
+        return cast_values(SymBellMatrix._pack_np(
             blocks, block_cols.astype(np.int64), padded, shape, nnz, check,
             device=device,
-        )
+        ), dtype)
 
     @staticmethod
     def from_bell(bell: BlockedEllMatrix, check: bool = True) -> "SymBellMatrix":

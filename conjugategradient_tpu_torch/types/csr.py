@@ -10,7 +10,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from .base import DEFAULT_DEVICE, LinearOperator, _is_scipy_sparse, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, _is_scipy_sparse, as_numpy_dtype, cast_values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +55,11 @@ class CSRMatrix(LinearOperator):
         row_ids = np.repeat(np.arange(n, dtype=np.int32), lengths)
         # copies: numpy views of another framework's buffers are read-only
         dev = torch.device(device)
-        return CSRMatrix(
+        return cast_values(CSRMatrix(
             *(torch.from_numpy(np.array(a, copy=True)).to(dev)
               for a in (data, indices, indptr, row_ids)),
             tuple(shape),
-        )
+        ), dtype)
 
     @staticmethod
     def from_coo(

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype, cast_values
 from .csr import CSRMatrix
 
 
@@ -76,12 +76,12 @@ class DIAMatrix(LinearOperator):
         slot = np.searchsorted(uniq, offs)
         diags = np.zeros((len(uniq), n), dtype=data.dtype)
         np.add.at(diags, (slot, row_ids), data)
-        return DIAMatrix(
+        return cast_values(DIAMatrix(
             torch.from_numpy(diags).to(torch.device(device)),
             tuple(int(o) for o in uniq),
             (n, ncols),
             int(len(data)),
-        )
+        ), dtype)
 
     @staticmethod
     def from_csr(csr: CSRMatrix, max_diags: Optional[int] = None) -> "DIAMatrix":

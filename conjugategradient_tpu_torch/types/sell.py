@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype
+from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype, cast_values
 from .csr import CSRMatrix
 
 
@@ -147,7 +147,7 @@ class SellMatrix(LinearOperator):
             data, indices, indptr, shape, 1
         )
         dev = torch.device(device)
-        return SellMatrix(
+        return cast_values(SellMatrix(
             *(torch.from_numpy(a[0]).to(dev) for a in (diag, pos, cols_flat, vals_flat)),
             meta,
             tuple(shape),
@@ -155,7 +155,7 @@ class SellMatrix(LinearOperator):
             pos_identity=bool(
                 np.array_equal(pos[0], np.arange(shape[0], dtype=pos.dtype))
             ),
-        )
+        ), dtype)
 
     @staticmethod
     def from_csr(csr: CSRMatrix) -> "SellMatrix":

@@ -15,7 +15,10 @@ from .base import DEFAULT_DEVICE, LinearOperator, as_numpy_dtype
 
 
 def round_to(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype`` and returned as a host float."""
+    """``value`` rounded to ``dtype`` and returned as a host float
+    (bfloat16 through float32, as ``jnp.asarray`` rounds it)."""
+    if dtype == torch.bfloat16:
+        return float(torch.tensor(np.float32(value)).to(dtype))
     return float(as_numpy_dtype(dtype).type(value))
 
 
@@ -28,7 +31,10 @@ class StencilOperator(LinearOperator):
 
     ``center`` and ``off`` are host floats rounded to ``dtype``, the values
     of the JAX operator's 0-d arrays; kernels take them by value, so a
-    matvec reads nothing back from the device.  The operator holds no
+    matvec reads nothing back from the device.  A bfloat16 operator applied
+    to float32 vectors runs the float32 kernel on its rounded values; on
+    bfloat16 vectors it runs on the CPU only (the kernel has no bf16 form
+    yet, ROADMAP.md queue 2).  The operator holds no
     tensor: ``device`` says where its vectors live.
     """
 
@@ -39,8 +45,9 @@ class StencilOperator(LinearOperator):
     device: torch.device = torch.device(DEFAULT_DEVICE)
 
     def __post_init__(self):
-        if self.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"StencilOperator dtype must be float32 or float64, got {self.dtype}")
+        if self.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+            raise TypeError("StencilOperator dtype must be float32 or float64 (or "
+                            f"bfloat16), got {self.dtype}")
         shape = tuple(int(n) for n in self.grid_shape)
         if len(shape) != 3 or min(shape) < 1:
             raise ValueError(f"grid_shape must be 3 axes >= 1, got {self.grid_shape}")

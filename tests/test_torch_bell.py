@@ -396,3 +396,57 @@ def test_permute_vector_roundtrip():
     back = treorder.unpermute_vector(pv, perm)
     assert torch.equal(back, v)
     assert np.array_equal(back.numpy(), jreorder.unpermute_vector(pv.numpy(), perm))
+
+
+# ---- kernel 5's bfloat16 form (tiles in bf16, x and y float32) --------------
+
+@pytest.mark.parametrize("nrb,bm,bn,ncols", SPMV_CASES)
+def test_bell_spmv_bf16_tiles_match_jax(nrb, bm, bn, ncols):
+    """The plain versions of kernel 5's bf16 forms (tiles, and the packed
+    view of 6 bytes a nonzero: values widened to float32 first) against
+    the Pallas kernel in interpret mode on the same bf16 tiles and float32
+    x, to the float32 cases' tolerance; astype(bfloat16) gives the JAX
+    tiles' bits; the operator's matvec takes the route's bf16 form."""
+    rng = np.random.default_rng(nrb * 1000 + bm + bn + 1)
+    A = _random_block(rng, nrb, bm, bn, 3, ncols=ncols, spd=False)
+    jb32 = _jax_bell(A, bm, bn)
+    jb = jb32.astype(jnp.bfloat16)
+    tb = _port(jb32).astype(torch.bfloat16)
+    assert tb.blocks.dtype == torch.bfloat16
+    assert np.array_equal(tb.blocks.float().numpy(), np.asarray(jb.blocks.astype(jnp.float32)))
+    m = A.shape[1]
+    xp = np.zeros(tb.padded_shape[1], np.float32)
+    xp[:m] = rng.standard_normal(m).astype(np.float32)
+    x2d = xp.reshape(-1, bn)
+    want = np.asarray(jell.bell_spmv_pallas(jb.blocks, jb.block_cols, jnp.asarray(x2d),
+                                            interpret=True))
+    assert want.dtype == np.float32
+    before = dict(tfc.LAUNCHES)
+    got_k = tk5.bell_spmv_tiles(tb.blocks, tb.block_cols, torch.from_numpy(x2d))
+    got_p = tk5.packed_apply(tb.packed(), torch.from_numpy(xp))
+    got = tb.matvec(torch.from_numpy(xp[:m]))
+    # CPU tensors: the plain versions ran (bell_pack counts the view's build)
+    assert {k: v for k, v in tfc.LAUNCHES.items() if k != "bell_pack"} == {
+        k: v for k, v in before.items() if k != "bell_pack"}
+    assert got_k.dtype == got_p.dtype == got.dtype == torch.float32
+    scale = np.abs(want).max()
+    for a, b in ((got_k.numpy(), want), (got_p.numpy(), want), (got.numpy(), want[:A.shape[0]])):
+        np.testing.assert_allclose(a, b, rtol=0, atol=RTOL * scale)
+
+
+def test_bf16_packed_route_counts_six_bytes_a_nonzero():
+    """bell_packed_route takes bf16 tiles, their view at 6 bytes a nonzero
+    against the bf16 tile bytes; float32 decisions stay as they were."""
+    data, indices, indptr, shape = tloader.read_csr_host(ROOT / "problems" / "poisson2d_34.mtx")
+    a = BlockedEllMatrix.from_csr_host(data.astype(np.float32), indices, indptr, shape,
+                                       bm=128, bn=128, device="cpu")
+    lo = a.astype(torch.bfloat16)
+    assert tspmv.bell_packed_route(a) and tspmv.bell_packed_route(lo)
+    assert lo.tile_bytes() * 2 == a.tile_bytes()
+    assert lo.packed().vals.dtype == torch.bfloat16
+    # dense tiles: the view would cost more than half the tile bytes
+    dense = BlockedEllMatrix(torch.ones(2, 1, 32, 32), torch.zeros(2, 1, dtype=torch.int32),
+                             (64, 32), 2 * 32 * 32)
+    assert not tspmv.bell_packed_route(dense)
+    assert not tspmv.bell_packed_route(dense.astype(torch.bfloat16))
+    assert not tspmv.bell_packed_route(dense.astype(torch.float64))

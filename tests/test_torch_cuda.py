@@ -77,8 +77,16 @@ def test_bell_spmv_kernel_matches_plain(dev, bm, bn, ncols):
     yp = kb._bell_plain(a.blocks, a.block_cols, x2d)
     torch.cuda.synchronize()
     _close(yk, yp)
-    with pytest.raises(TypeError, match="not ported"):
-        kb.bell_spmv_tiles(a.blocks.bfloat16(), a.block_cols, x2d)
+    # bfloat16 tiles: the bf16 form, bit-equal to the float32 launch on the
+    # widened tiles and within RTOL of its plain version
+    lo = a.blocks.bfloat16()
+    before = fc.LAUNCHES["bell_spmv_bf16"]
+    yb = kb.bell_spmv_tiles(lo, a.block_cols, x2d)
+    assert fc.LAUNCHES["bell_spmv_bf16"] == before + 1
+    yw = kb.bell_spmv_tiles(lo.float(), a.block_cols, x2d)
+    torch.cuda.synchronize()
+    assert torch.equal(yb, yw)
+    _close(yb, kb._bell_plain(lo, a.block_cols, x2d))
 
 
 @pytest.mark.cuda
@@ -188,8 +196,20 @@ def test_dia_kernels_bit_equal_to_plain(dev):
         if min(offsets) >= 0 and ncols == d.shape[1]:
             ys = kd.sym_dia_spmv_diags(d, offsets, od, x)
             assert torch.equal(ys, kd._sym_dia_plain(d, offsets, x)), label
+        # bfloat16 diagonals: the route's bf16 form, bit-equal to the float32
+        # launch on the widened diagonals and to the plain version
+        lo = d.bfloat16()
+        before = fc.LAUNCHES[f"{route}_bf16"]
+        yb = kd.dia_spmv_diags(lo, offsets, od, x)
+        assert fc.LAUNCHES[f"{route}_bf16"] == before + 1, label
+        torch.cuda.synchronize()
+        assert torch.equal(yb, kd.dia_spmv_diags(lo.float(), offsets, od, x)), label
+        assert torch.equal(yb, kd._dia_plain(lo, offsets, x)), label
+    # the symmetric kernels have no bf16 form yet
+    sd = torch.randn(2, 64, device=dev).bfloat16()
     with pytest.raises(TypeError, match="not ported"):
-        kd.dia_spmv_diags(d.bfloat16(), offsets, od, x)
+        kd.sym_dia_spmv_diags(sd, (0, 1), torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                              torch.randn(64, device=dev))
 
 
 @pytest.mark.cuda
@@ -2008,3 +2028,188 @@ def test_scipy_compat_on_the_card(dev):
         scipy_compat.cg(lo, b, device=dev)
     w = scipy_compat.eigsh(A, k=4, which="SM", return_eigenvectors=False, device=dev)
     np.testing.assert_allclose(w, np.sort(spla.eigsh(A, k=4, which="SM")[0]), rtol=1e-8)
+
+
+# ---- the bfloat16-tile forms of kernels 1, 4, 5 and 7 ----------------------
+
+def _sym_case(dev, storage):
+    rng = np.random.default_rng(3)
+    bn, nrb = 32, 13
+    if storage == "sym-banded":
+        n = nrb * bn
+        blocks, bcols, nnz = block_tridiag_tiles(n, bn, bn, seed=2)
+        return SymBellMatrix._pack_np(blocks, bcols.astype(np.int64), (n, n), (n, n), nnz,
+                                      check=False, device=dev)
+    return SymBellMatrix.from_bell(BlockedEllMatrix.from_csr_host(
+        *_block_csr(rng, nrb, bn, bn, 3), bm=bn, bn=bn, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["full", "sym-banded", "sym-general"])
+def test_bf16_dir_kernels_bit_equal_to_widened(dev, storage):
+    """Kernels 4 and 1 on bfloat16 tiles, ± Jacobi d, β = 0 and β ≠ 0: every
+    output bit-equal to the float32 launch on the widened tiles (the bf16
+    form widens each element as it loads it and sums in the float32
+    order); p_new bit-equal to the plain version, q within RTOL, pap within
+    RTOL; counted under the ``_bf16`` names."""
+    if storage == "full":
+        rng = np.random.default_rng(5)
+        a = BlockedEllMatrix.from_csr_host(*_block_csr(rng, 13, 32, 32, 3), bm=32, bn=32,
+                                           device=dev).astype(torch.bfloat16)
+        name = "fused_dir_spmv_dot_bf16"
+        nrb, bn = a.nrb, a.bn
+
+        def launch(lo, *args):
+            t = a.blocks if lo else a.blocks.float()
+            return fc.fused_dir_spmv_dot(t, a.block_cols, *args, row_group=3)
+
+        def plain(*args):
+            return fc._full_dir_plain(a.blocks, a.block_cols, *args, None, None)
+    else:
+        a = _sym_case(dev, storage).astype(torch.bfloat16)
+        mirror = "banded" if storage == "sym-banded" else "scatter"
+        name = "sym_fused_dir_spmv_dot_bf16"
+        nrb, bn = a.nrb, a.bn
+
+        def launch(lo, *args):
+            dg, off = (a.diag_blocks, a.off_blocks) if lo else (a.diag_blocks.float(),
+                                                                a.off_blocks.float())
+            return fc.sym_fused_dir_spmv_dot(dg, off, a.off_cols, *args, mirror=mirror,
+                                             row_group=4, mirror_src=a.mirror_src)
+
+        def plain(*args):
+            return fc._sym_dir_plain(a.diag_blocks, a.off_blocks, a.off_cols, *args,
+                                     a.mirror_src, None, None)
+    r, p = torch.randn(nrb, bn, device=dev), torch.randn(nrb, bn, device=dev)
+    d = torch.rand(nrb, bn, device=dev) + 0.5
+    for beta_v in (0.0, 0.37):
+        beta = torch.full((1, 1), beta_v, device=dev)
+        for dd in (None, d):
+            before = fc.LAUNCHES[name]
+            k = launch(True, r, p, beta, dd)
+            assert fc.LAUNCHES[name] == before + 1
+            w = launch(False, r, p, beta, dd)
+            pl = plain(r, p, beta, dd)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(k, w))
+            assert torch.equal(k[0], pl[0])
+            _close(k[1], pl[1])
+            np.testing.assert_allclose(float(k[2]), float(pl[2]), rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["full", "sym"])
+@pytest.mark.parametrize("bn", [8, 32, 128])
+def test_bf16_packed_kernels_bit_equal(dev, bn, storage):
+    """The packed kernels 5 and 4 on a bfloat16 view (6 bytes a nonzero):
+    y, p_new and q bit-equal to the float32 launch on the widened values
+    and to the plain versions, pap within RTOL; the route takes the packed
+    view for bf16 tiles too; counted under the ``_bf16`` names."""
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+    from conjugategradient_tpu_torch.types.bell import PackedBell
+
+    rng = np.random.default_rng(bn + 1)
+    nrb = 5 if bn == 128 else 13
+    n = nrb * bn - 3
+    a = BlockedEllMatrix.from_csr_host(*_sparse_csr(rng, n, n, 3, spd=True), bm=bn, bn=bn,
+                                       device=dev)
+    if storage == "sym":
+        a = SymBellMatrix.from_bell(a)
+    lo = a.astype(torch.bfloat16)
+    assert bell_packed_route(lo)
+    pk = lo.packed()
+    assert pk.vals.dtype == torch.bfloat16
+    wide = PackedBell(pk.vals.float(), pk.cols, pk.row_len, pk.chunk_off, pk.nnz, pk.ncols,
+                      pk.symmetric)
+    x = torch.randn(pk.ncols, device=dev)
+    before = fc.LAUNCHES["bell_spmv_packed_bf16"]
+    y = kb.bell_spmv_packed(pk, x)
+    assert fc.LAUNCHES["bell_spmv_packed_bf16"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(y, kb.bell_spmv_packed(wide, x))
+    assert torch.equal(y, kb.packed_apply(pk, x))
+    name = ("sym_fused_dir_spmv_dot_packed_bf16" if storage == "sym"
+            else "fused_dir_spmv_dot_packed_bf16")
+    r, p = torch.randn(nrb, bn, device=dev), torch.randn(nrb, bn, device=dev)
+    d = torch.rand(nrb, bn, device=dev) + 0.5
+    for beta_v in (0.0, 0.37):
+        beta = torch.full((1, 1), beta_v, device=dev)
+        for dd in (None, d):
+            before = fc.LAUNCHES[name]
+            k = fc.fused_dir_spmv_dot_packed(pk, r, p, beta, dd)
+            assert fc.LAUNCHES[name] == before + 1
+            w = fc.fused_dir_spmv_dot_packed(wide, r, p, beta, dd)
+            pl = fc._packed_dir_plain(pk, r, p, beta, dd, None, None)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(k, w))
+            assert torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1])
+            np.testing.assert_allclose(float(k[2]), float(pl[2]), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_bf16_solves_take_the_bf16_kernels(dev):
+    """cg_solve on bfloat16 blocked-ELL tiles with float32 vectors runs the
+    fused bf16 kernels (dense tiles: kernels 4 and 1; the packed view on
+    sparse tiles), refined_cg_solve reaches a float32 tolerance with them,
+    MINRES and BiCGStab on bf16 tiles run their portable loops on kernel
+    5's bf16 forms, and no plain version runs on CUDA tensors."""
+    from conjugategradient_tpu_torch import (bicgstab_solve, cg_solve, minres_solve,
+                                             refined_cg_solve)
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+    from conjugategradient_tpu_torch.types import CSRMatrix
+
+    n = 64 * 128
+    blocks, bcols, nnz = block_tridiag_tiles(n, 128, 128, seed=0)
+    full = BlockedEllMatrix(torch.from_numpy(blocks).to(dev),
+                            torch.from_numpy(bcols).to(dev), (n, n), nnz)
+    sym = SymBellMatrix.from_bell(full)
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    rows, cols, vals, shape = poisson2d_coo(64)
+    csr = CSRMatrix.from_coo(rows, cols, vals, shape, dtype=np.float32, device="cpu")
+    sparse = BlockedEllMatrix.from_csr_host(csr.data.numpy(), csr.indices.numpy(),
+                                            csr.indptr.numpy(), shape, bm=128, bn=128,
+                                            device=dev)
+    bs = torch.arange(1, shape[0] + 1, dtype=torch.float32, device=dev)
+    for a, rhs, kernel in ((full, b, "fused_dir_spmv_dot_bf16"),
+                           (sym, b, "sym_fused_dir_spmv_dot_bf16"),
+                           (sparse, bs, "fused_dir_spmv_dot_packed_bf16")):
+        fc.reset_counts()
+        tol = 1e-4 * float(rhs.norm())  # above float32's floor on poisson2d(64)
+        x, info = refined_cg_solve(a, rhs, tol=tol)
+        assert info.converged and info.refinements >= 1
+        assert fc.LAUNCHES[kernel] >= info.inner_iterations
+        assert float((rhs.double() - a.matvec(x).double()).norm()) <= 1.05 * tol
+        _, cinfo = cg_solve(a.astype(torch.bfloat16), rhs, maxiter=8, tol=-1.0)
+        assert int(cinfo.iterations) == 8
+        assert not any(fc.PLAIN_ON_CUDA.values()), fc.PLAIN_ON_CUDA
+    fc.reset_counts()
+    lo = full.astype(torch.bfloat16)
+    _, minfo = minres_solve(lo, b, maxiter=8, tol=0.0)
+    _, binfo = bicgstab_solve(lo, b, maxiter=8, tol=0.0)
+    assert fc.LAUNCHES["bell_spmv_bf16"] > 0 and fc.LAUNCHES["minres_dir_spmv_dot"] == 0
+    assert fc.LAUNCHES["bicgstab_dir_spmv_dot"] == 0
+    assert np.isfinite(float(minfo.rnorm)) and np.isfinite(float(binfo.rnorm))
+    assert not any(fc.PLAIN_ON_CUDA.values()), fc.PLAIN_ON_CUDA
+
+
+@pytest.mark.cuda
+def test_tester_refine_and_bf16_on_the_card(dev, capsys):
+    """The tester's --refine and --dtype bfloat16 on the card, and its exit
+    2 where a bf16 product has no kernel yet (SymDIA, kernel 10)."""
+    import json
+
+    from conjugategradient_tpu_torch import tester
+
+    mtx = str(pathlib.Path(__file__).resolve().parents[1] / "problems" / "poisson2d_34.mtx")
+    for extra in (["--dtype", "float32", "--refine", "bfloat16", "--tol", "1"],
+                  ["--dtype", "float64", "--refine", "float32", "--tol", "1e-8"],
+                  ["--dtype", "bfloat16", "--tol", "1"]):
+        for layout in ("csr", "bell", "dia"):
+            assert tester.main([mtx, "--layout", layout, "--summary", "--device", "cuda",
+                                *extra]) == 0
+            lines = capsys.readouterr().out.strip().splitlines()
+            assert lines[0].split()[:2] == ["1156", "5644"]
+            assert json.loads(lines[1])["converged"] == [True], (layout, extra)
+    assert tester.main([mtx, "--layout", "symdia", "--dtype", "bfloat16", "--device",
+                        "cuda"]) == 2
+    assert "not yet ported" in capsys.readouterr().err

@@ -471,3 +471,30 @@ def test_dia_route_on_the_cpu_runs_the_plain_version(ndiag, n, ncols, xshift):
     assert _common.LAUNCHES == launches and _common.PLAIN_ON_CUDA == plain
     assert "dia_spmv_rows" in _common.LAUNCHES
     assert torch.equal(y, tspmv.dia_apply(d, offsets, x))
+
+
+# ---- kernel 7's bfloat16 form (diagonals in bf16, x and y float32) ----------
+
+@pytest.mark.parametrize("label,csr", OPERATORS, ids=[o[0] for o in OPERATORS])
+def test_dia_spmv_bf16_diagonals_match_jax_kernel(label, csr):
+    """The plain version of kernel 7's bf16 form (diagonals widened to
+    float32 first) against the Pallas kernel in interpret mode on the same
+    bf16 diagonals and float32 x, to the float32 cases' tolerance; the
+    result is float32, the promoted dtype; astype(bfloat16) gives the JAX
+    diagonals' bits and shares the offsets."""
+    rng = np.random.default_rng(len(label) + 1)
+    jd = JDIA.from_csr_host(*csr).astype(jnp.bfloat16)
+    td32 = DIAMatrix.from_csr_host(*csr, device="cpu")
+    td = td32.astype(torch.bfloat16)
+    assert td.offsets_dev is td32.offsets_dev and td.offsets == jd.offsets
+    assert np.array_equal(td.diags.float().numpy(), np.asarray(jd.diags.astype(jnp.float32)))
+    x = rng.standard_normal(td.shape[1]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    y = tk.dia_spmv_diags(td.diags, td.offsets, td.offsets_dev, xt)
+    assert y.dtype == torch.float32
+    assert torch.equal(td.matvec(xt), y)
+    assert torch.equal(tk.dia_spmv_diags(td.diags.float(), td.offsets, td.offsets_dev, xt), y)
+    want = jk.dia_spmv_pallas(jd.diags, jd.offsets, jnp.asarray(x), interpret=True,
+                              block_len=128)
+    assert want.dtype == jnp.float32
+    _dense_closeness(y.numpy(), np.asarray(want))

@@ -34,6 +34,7 @@ from conjugategradient_tpu_torch.ops.cuda import fused_cg as tfc
 from conjugategradient_tpu_torch.ops.cuda.bell_spmv import packed_apply
 from conjugategradient_tpu_torch.problems import poisson2d_coo, reference_rhs
 from conjugategradient_tpu_torch.solver import fused as tfused
+from conjugategradient_tpu_torch.types import BlockedEllMatrix as TBell
 
 RTOL = 1e-5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -247,12 +248,49 @@ class TestWrapperContract:
         return tsym, v, torch.zeros(1, 1)
 
     def test_rejects_non_f32_tiles(self, operators):
+        """float64 tiles (and tiles of two dtypes) are refused; bfloat16 ones
+        are the kernels' other form (test_accepts_bf16_tiles)."""
         tsym, v, beta = self._args(operators)
-        for dt in (torch.bfloat16, torch.float64):
-            with pytest.raises(TypeError, match="float32"):
-                tfc.sym_fused_dir_spmv_dot(tsym.diag_blocks.to(dt), tsym.off_blocks.to(dt),
-                                           tsym.off_cols, v, v, beta,
-                                           mirror_src=tsym.mirror_src)
+        with pytest.raises(TypeError, match="float32"):
+            tfc.sym_fused_dir_spmv_dot(tsym.diag_blocks.double(), tsym.off_blocks.double(),
+                                       tsym.off_cols, v, v, beta, mirror_src=tsym.mirror_src)
+        with pytest.raises(TypeError, match="float32"):
+            tfc.sym_fused_dir_spmv_dot(tsym.diag_blocks.bfloat16(), tsym.off_blocks,
+                                       tsym.off_cols, v, v, beta, mirror_src=tsym.mirror_src)
+        with pytest.raises(TypeError, match="float32"):
+            tfc.fused_dir_spmv_dot(torch.zeros(tsym.nrb, 1, tsym.bn, tsym.bn,
+                                               dtype=torch.float64),
+                                   torch.zeros(tsym.nrb, 1, dtype=torch.int32), v, v, beta)
+
+    @pytest.mark.parametrize("storage", ["sym", "full"])
+    def test_accepts_bf16_tiles(self, operators, storage):
+        """bfloat16 tiles with float32 vectors: the plain version on CPU
+        tensors widens the tiles, so it returns exactly what the float32
+        tiles' bf16-rounded copy gives, counted under the ``_bf16`` name."""
+        A, _, tsym = operators["general"]
+        rows, cols = np.nonzero(A)
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=A.shape[0]))])
+        tfull = TBell.from_csr_host(A[rows, cols], cols, indptr, A.shape, bm=8, bn=8,
+                                    device="cpu")
+        rng = np.random.default_rng(7)
+        r = torch.from_numpy(rng.standard_normal((tsym.nrb, tsym.bn)).astype(np.float32))
+        p = torch.from_numpy(rng.standard_normal((tsym.nrb, tsym.bn)).astype(np.float32))
+        beta = torch.full((1, 1), 0.37)
+        if storage == "sym":
+            lo = tsym.astype(torch.bfloat16)
+            got = tfc.sym_fused_dir_spmv_dot(lo.diag_blocks, lo.off_blocks, lo.off_cols, r, p,
+                                             beta, mirror_src=lo.mirror_src)
+            want = tfc.sym_fused_dir_spmv_dot(lo.diag_blocks.float(), lo.off_blocks.float(),
+                                              lo.off_cols, r, p, beta,
+                                              mirror_src=lo.mirror_src)
+            name = "sym_fused_dir_spmv_dot_bf16"
+        else:
+            lo = tfull.astype(torch.bfloat16)
+            got = tfc.fused_dir_spmv_dot(lo.blocks, lo.block_cols, r, p, beta)
+            want = tfc.fused_dir_spmv_dot(lo.blocks.float(), lo.block_cols, r, p, beta)
+            name = "fused_dir_spmv_dot_bf16"
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert got[1].dtype == torch.float32 and name in tfc.LAUNCHES
 
     def test_mirror_validation(self, operators):
         tsym, v, beta = self._args(operators)
@@ -510,3 +548,67 @@ def test_sym_bell_spmv_packed_route_matches_jax(packed_ops, op):
     _assert_close_q(y64.numpy(), want)
     with pytest.raises(ValueError, match="use_kernel"):
         tspmv.sym_bell_spmv(tsym, torch.from_numpy(x), use_kernel="sometimes")
+
+
+# ---- kernels 1 and 4 on bfloat16 tiles (float32 vectors) --------------------
+
+@pytest.mark.parametrize("with_d", [False, True], ids=["cg", "jacobi"])
+@pytest.mark.parametrize("op,mirror", CASES)
+def test_sym_dir_spmv_dot_bf16_tiles_match_jax(operators, op, mirror, with_d):
+    """The plain version of kernel 1's bf16 form (tiles widened to float32
+    first) against the Pallas kernel in interpret mode on the same bf16
+    tiles and float32 vectors, to the float32 cases' tolerances."""
+    A, jsym, tsym = operators[op]
+    rng = np.random.default_rng(12)
+    n = A.shape[0]
+    r = rng.standard_normal(n).astype(np.float32).reshape(-1, 8)
+    p = rng.standard_normal(n).astype(np.float32).reshape(-1, 8)
+    d = (1.0 / np.diag(A)).astype(np.float32).reshape(-1, 8) if with_d else None
+    beta = np.full((1, 1), 0.37, np.float32)
+    jd, jo = jsym.diag_blocks.astype(jnp.bfloat16), jsym.off_blocks.astype(jnp.bfloat16)
+    jp, jq, jpap = jfc.sym_fused_dir_spmv_dot(
+        jd, jo, jsym.off_cols, jnp.asarray(r), jnp.asarray(p), jnp.asarray(beta),
+        inv_diag2d=None if d is None else jnp.asarray(d), interpret=True, mirror=mirror)
+    lo = tsym.astype(torch.bfloat16)
+    assert np.array_equal(lo.off_blocks.float().numpy(), np.asarray(jo.astype(jnp.float32)))
+    before = dict(tfc.LAUNCHES)
+    tp, tq, tpap = tfc.sym_fused_dir_spmv_dot(
+        lo.diag_blocks, lo.off_blocks, lo.off_cols, torch.from_numpy(r), torch.from_numpy(p),
+        torch.from_numpy(beta), None if d is None else torch.from_numpy(d),
+        mirror=mirror, mirror_src=lo.mirror_src)
+    assert tfc.LAUNCHES == before  # CPU tensors: the plain version ran
+    assert tq.dtype == torch.float32
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=RTOL)
+    _assert_close_q(tq.numpy(), jq)
+    np.testing.assert_allclose(float(tpap), float(jpap[0, 0]), rtol=RTOL)
+
+
+@pytest.mark.parametrize("with_d", [False, True], ids=["cg", "jacobi"])
+@pytest.mark.parametrize("op", ["tridiag", "general"])
+def test_full_dir_spmv_dot_bf16_tiles_match_jax(operators, op, with_d):
+    """The plain versions of kernel 4's bf16 forms (the tiles, and the
+    packed view) against the Pallas kernel in interpret mode on the same
+    bf16 tiles and float32 vectors, to the float32 cases' tolerances."""
+    A = operators[op][0]
+    rng = np.random.default_rng(13)
+    n = A.shape[0]
+    rows, cols = np.nonzero(A)
+    jb = BlockedEllMatrix.from_csr(CSRMatrix.from_coo(rows, cols, A[rows, cols], (n, n),
+                                                      dtype=A.dtype), bm=8, bn=8)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    lo = TBell.from_csr_host(A[rows, cols], cols, indptr, A.shape, bm=8, bn=8,
+                             device="cpu").astype(torch.bfloat16)
+    r = rng.standard_normal(n).astype(np.float32).reshape(-1, 8)
+    p = rng.standard_normal(n).astype(np.float32).reshape(-1, 8)
+    d = (1.0 / np.diag(A)).astype(np.float32).reshape(-1, 8) if with_d else None
+    beta = np.full((1, 1), 0.37, np.float32)
+    jp, jq, jpap = jfc.fused_dir_spmv_dot(
+        jb.blocks.astype(jnp.bfloat16), jb.block_cols, jnp.asarray(r), jnp.asarray(p),
+        jnp.asarray(beta), inv_diag2d=None if d is None else jnp.asarray(d), interpret=True)
+    args = (torch.from_numpy(r), torch.from_numpy(p), torch.from_numpy(beta),
+            None if d is None else torch.from_numpy(d))
+    for tp, tq, tpap in (tfc.fused_dir_spmv_dot(lo.blocks, lo.block_cols, *args),
+                         tfc.fused_dir_spmv_dot_packed(lo.packed(), *args)):
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=RTOL)
+        _assert_close_q(tq.numpy(), jq)
+        np.testing.assert_allclose(float(tpap), float(jpap[0, 0]), rtol=RTOL)
