@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the thirty-four kernels against its plain-torch version on the
+2. Hold each of the forty-one kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -243,11 +243,13 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    against the iterations for MG-PCG at 256^3, a portable DIA solve, a
    portable BiCGStab solve, a portable sharded CG solve and a lockstep
    block-Jacobi PCG solve.
-   The bfloat16 forms of kernels 1, 4, 5 and 7 (bf16 tiles or diagonals,
-   float32 vectors; counted as ``<name>_bf16``) are checked in phase 2 at
-   their float32 forms' shapes, each bit-equal to the float32 launch on the
-   widened operands and to its plain version (q and y of the dense forms
-   within TOL_Q), and timed beside the plain version and the bytes bound.
+   The bfloat16 forms of kernels 1, 4, 5, 7, 10, 14, 15 and 17 (bf16 tiles
+   or diagonals, float32 vectors; counted as ``<name>_bf16``) are checked
+   in phase 2 at their float32 forms' shapes, each bit-equal to the float32
+   launch on the widened operands and held to its plain version as the
+   float32 form is (q and y of the dense forms and the MINRES dots within
+   TOL_Q / TOL_DOT), and timed beside the plain version and the bytes
+   bound.
    The refine / bf16 path runs bench.py's cg-bf16 lane (fused CG on the
    n = 262,144 tiles in bf16, both storages, beside float32: ms/it and
    effective GB/s on the 413.1 MB/it convention, history hashes), the
@@ -256,7 +258,16 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    blocked-ELL: the packed bf16 forms) and elasticity3d_16 (DIA, 99
    diagonals) held to the JAX package's counts (``JAX_REFINE_COUNTS``),
    the portable CG and MINRES loops on the bf16 tiles, and the tester's
-   ``--refine bfloat16`` (auto, bell, symbell) and ``--dtype bfloat16``.
+   ``--refine bfloat16`` (auto, bell, symbell) and ``--dtype bfloat16``;
+   then the portable CG on symdia-big's bf16 SymDIA operator (the tiled
+   kernel 10's bf16 form) beside float32, the tester's ``--layout symdia``
+   in bf16 and with ``--refine bfloat16`` on poisson3d_48 (one thread a
+   row) held to the JAX tester's counts, ``--method minres --dtype
+   bfloat16`` on poisson2d_34, the fused MINRES lane in bf16 (n = 262,144,
+   both storages, 256 steps) beside float32, ``minres_solve`` on
+   poisson3d_48's bf16 tiles in both storages (the packed route) and with a
+   NaN tile value (the sticky NaN flag), and the sharded MINRES on bf16
+   shards at P = 4 against the single card's bf16 fused MINRES.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -282,7 +293,9 @@ poisson3d_48 and symdia-big; their device times (kernels 2, 3 and 16 at
 n, with and without the scalar step, 256^3, n / 4 and n / 8; kernel 20 at
 n; kernel 7 on both operators, cuSPARSE beside it), and the elementwise
 floor; on a tree that has them, the cg-bf16 lane's ms/it and history hash
-(full storage) and the refined solve of its system (history and x).
+(full storage) and the refined solve of its system (history and x), and
+the fused MINRES at n = 262,144 on bf16 tiles in both storages (ms/it,
+history and x).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -376,11 +389,14 @@ REPLACES = {
     "sym_fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
     "sym_dia_spmv_tiled": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
 }
-# the bfloat16-tile forms of kernels 1, 4, 5 and 7 (float32 vectors): the
-# same sources and the same TPU kernels, which take bf16 tiles too
+# the bfloat16-tile forms of kernels 1, 4, 5, 7, 10, 14, 15 and 17 (float32
+# vectors): the same sources and the same TPU kernels, which take bf16
+# tiles too
 for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_spmv",
               "dia_spmv_rows", "bell_spmv_packed", "fused_dir_spmv_dot_packed",
-              "sym_fused_dir_spmv_dot_packed"):
+              "sym_fused_dir_spmv_dot_packed", "sym_dia_spmv", "sym_dia_spmv_tiled",
+              "minres_dir_spmv_dot", "minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot",
+              "sym_minres_dir_spmv_dot_packed", "minres_shard_spmv_dot"):
     SOURCES[f"{_name}_bf16"] = SOURCES[_name]
     REPLACES[f"{_name}_bf16"] = REPLACES[_name]
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
@@ -1588,10 +1604,13 @@ def minres_dir_pair(a, mirror, row_group=None, packed=False):
     kernel 14 on full storage, kernel 15 (with ``mirror``) on symmetric;
     ``packed``: the packed kernel on ``a.packed()`` (either storage)."""
     from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.cuda._common import form
     from conjugategradient_tpu_torch.ops.cuda.bell_spmv import packed_product
     from conjugategradient_tpu_torch.ops.spmv import bell_apply, sym_bell_apply
     from conjugategradient_tpu_torch.types import BlockedEllMatrix
 
+    # a bf16 operator: its kernels' bf16 forms, the plain versions on the
+    # widened tiles (.float() of float32 tiles is the tiles themselves)
     if packed:
         pk = a.packed()
         name = "sym_minres_dir_spmv_dot_packed" if pk.symmetric else "minres_dir_spmv_dot_packed"
@@ -1601,14 +1620,15 @@ def minres_dir_pair(a, mirror, row_group=None, packed=False):
         name = "minres_dir_spmv_dot"
         kern = lambda vecs, su, d, **kw: fm.minres_dir_spmv_dot(
             a.blocks, a.block_cols, *vecs, su, d, row_group=row_group, **kw)
-        apply = lambda v: bell_apply(a.blocks, a.block_cols, v)
+        apply = lambda v: bell_apply(a.blocks.float(), a.block_cols, v)
     else:
         name = "sym_minres_dir_spmv_dot"
         kern = lambda vecs, su, d, **kw: fm.sym_minres_dir_spmv_dot(
             a.diag_blocks, a.off_blocks, a.off_cols, *vecs, su, d, mirror=mirror,
             mirror_src=a.mirror_src, row_group=row_group or 8, **kw)
-        apply = lambda v: sym_bell_apply(a.diag_blocks, a.off_blocks, a.off_cols,
-                                         a.mirror_src, v)
+        apply = lambda v: sym_bell_apply(a.diag_blocks.float(), a.off_blocks.float(),
+                                         a.off_cols, a.mirror_src, v)
+    name = form(name, a.dtype)
     plain = lambda vecs, su, d: fm._dir_plain(name, apply, vecs, su, d, None, None)
     return name, kern, plain
 
@@ -3790,9 +3810,11 @@ def check_k17(blocks, cols, full, off, rng, errs, label, shift=0.07, first=False
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.cuda._common import form
 
     nrb, bn = blocks.shape[0], blocks.shape[3]
     dev = blocks.device
+    name = form("minres_shard_spmv_dot", blocks.dtype)
 
     def vec(shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
@@ -3829,7 +3851,7 @@ def check_k17(blocks, cols, full, off, rng, errs, label, shift=0.07, first=False
     check(e_vq <= TOL_DOT * abs(float(p[3])), f"K17 {label}: vq {float(k[3])} vs {float(p[3])}")
     check(e_vr1 <= TOL_DOT * float(vwin.norm() * vecs[0].norm()),
           f"K17 {label}: vr1 {float(k[4])} vs {float(p[4])}")
-    errs["minres_shard_spmv_dot"] = max(errs["minres_shard_spmv_dot"], e_q, e_vq, e_vr1)
+    errs[name] = max(errs[name], e_q, e_vq, e_vr1)
     print(f"  K17 {label:<39} w, x' bit-equal (also in place); |dq|={e_q:.3g} "
           f"(max|q| {m_q:.4g}) |dvq|={e_vq:.3g} |dvr1|={e_vr1:.3g}; repeat ok")
     return vecs, su
@@ -5783,11 +5805,27 @@ def print_time_row(name, t, card) -> None:
           f"device / {t['plain_event_ms']:.5f} per call{more} (ms)  [{card}]")
 
 
-# ---- bfloat16 tiles: the bf16 forms of kernels 1, 4, 5 and 7 ----------------
+# ---- bfloat16 tiles: the bf16 forms of kernels 1, 4, 5, 7, 10, 14, 15, 17 ---
 
 BF16_KERNELS = ("sym_fused_dir_spmv_dot_bf16", "fused_dir_spmv_dot_bf16", "bell_spmv_bf16",
                 "dia_spmv_bf16", "dia_spmv_rows_bf16", "bell_spmv_packed_bf16",
-                "fused_dir_spmv_dot_packed_bf16", "sym_fused_dir_spmv_dot_packed_bf16")
+                "fused_dir_spmv_dot_packed_bf16", "sym_fused_dir_spmv_dot_packed_bf16",
+                "sym_dia_spmv_bf16", "sym_dia_spmv_tiled_bf16", "minres_dir_spmv_dot_bf16",
+                "minres_dir_spmv_dot_packed_bf16", "sym_minres_dir_spmv_dot_bf16",
+                "sym_minres_dir_spmv_dot_packed_bf16", "minres_shard_spmv_dot_bf16")
+# the float32 form's time on the shape a bf16 form is timed on, where that
+# is not the float32 form's own row: kernel 10 one thread a row on
+# poisson3d_48 (its route there)
+BF16_F32_ROW = {"sym_dia_spmv_bf16": "sym_dia_spmv poisson3d_48"}
+# the tester's bf16 SymDIA runs on poisson3d_48 (the one-thread-a-row
+# kernel 10), and the JAX tester's on the CPU, recorded once: (inner)
+# iterations, converged; the card's run is held to the same converged and
+# iterations within 10% (bf16 vector arithmetic rounds at other places in
+# XLA: tests/test_torch_bf16_kernels.py allows 15% on poisson2d_34)
+JAX_SYMDIA_BF16_COUNTS = {"refine": (121, True), "bfloat16": (76, True)}
+BF16_MINRES_STEPS = 256  # the fused bf16 MINRES lane: steps at tol = -1, beside float32
+BF16_SYMDIA_STEPS = 64  # portable CG on symdia-big's bf16 operator, beside float32
+BF16_SHARDS = 4
 REFINE_KERNELS = BF16_KERNELS
 REFINE_TOL_REL = 1e-6  # the cg-bf16 system's refined solve: tol = 1e-6 ||b||
 REFINE_FILE_TOL_REL = 1e-4  # poisson3d_48 and elasticity3d_16: tol = 1e-4 ||b||, b = 1..n
@@ -5996,10 +6034,196 @@ def phase_bf16_kernels(dev, big, big_full, ops, dia_ops, errs, times):
     for name, (kern, plain, bnd) in rows.items():
         times[name] = time_pair(kern, plain)
         times[name].update(bnd, library_ms=None)
-    # the float32 forms' times on the same shapes, for the ratio
-    print(f"  bf16 forms against their float32 forms on the same shapes (ms, device): "
-          + ", ".join(f"{name} {times[name]['ms']:.5f} / {times[name[:-5]]['ms']:.5f}"
-                      for name in BF16_KERNELS if name[:-5] in times))
+    torch.cuda.synchronize()
+
+
+def check_minres_bf16(lo, rng, mirror, with_d, shift, errs, label, first=False,
+                      packed=False):
+    """Kernel 14 or 15 (or their packed form) on the bf16 operator ``lo``:
+    held to its plain version as the float32 form is (check_minres_dir),
+    and every output bit-equal to the float32 launch on the widened tiles.
+    Returns the operands."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    vecs, su, d = check_minres_dir(lo, rng, mirror, with_d, shift, errs, label, first=first,
+                                   packed=packed)
+    name, kern, _ = minres_dir_pair(lo, mirror, packed=packed)
+    _, kern32, _ = minres_dir_pair(lo.astype(torch.float32), mirror, packed=packed)
+    before = fc.LAUNCHES[name]
+    k = kern(vecs, su, d)
+    check(fc.LAUNCHES[name] == before + 1, f"{name} {label}: not one launch of its bf16 form")
+    w = kern32(vecs, su, d)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k, w)),
+          f"{name} {label}: not bit-equal to the float32 launch on the widened tiles")
+    print(f"  {name} {label:<34} = float32 launch on widened tiles (bits)")
+    return vecs, su, d
+
+
+def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, errs, times,
+                                  extra):
+    """The bf16 forms of kernels 10, 14, 15 and 17 at the shapes of their
+    float32 forms: kernel 10 on symdia-big's 21 stored diagonals (the tiled
+    kernel), poisson3d_48's 4 (one thread a row) and a ragged n = 1001,
+    both kernels on each; kernels 14 and 15 on the n = 262,144
+    block-tridiagonal tiles (dense; banded and general landings), with and
+    without d, shifted, a first step, and their packed form on
+    poisson3d_48's views in both storages; kernel 17 on the n = 262,144
+    operator split in 4 and 8.  Each held to the float32 launch on the
+    widened operands (bit for bit) and to its plain version, and timed
+    beside the plain version and its bytes bound (library_ms null: no one
+    PyTorch call takes a bf16 operator with float32 vectors); then every
+    bf16 form's time beside its float32 form's on the same shape."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(19)
+
+    def vec(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
+
+    # kernel 10: both kernels on each shape, and the routed call
+    _, ragged = sym_dia_pair(1001, (0, 3, 300), rng, dev, scale=0.3)
+    sym_x = {}
+    for label, s in (("symdia-big n=2097152", dia_ops["big_sym"]),
+                     ("poisson3d_48", dia_ops["p3d_sym"]), ("ragged n=1001 0,3,300", ragged)):
+        lo = s.astype(bf16)
+        x = vec(lo.n)
+        sym_x[label] = (lo, x)
+        tiling = kd.sym_dia_tiling(lo.offsets, lo.n)
+        check(tiling == kd.sym_dia_tiling(s.offsets, s.n), f"{label}: bf16 tiling differs")
+        for name, t in (("sym_dia_spmv_tiled_bf16", tiling), ("sym_dia_spmv_bf16", None)):
+            errs[name] = max(errs[name], bf16_check(
+                name, label, lambda: kd.sym_dia_cuda(lo.diags, lo.offsets_dev, x, t),
+                lambda: kd.sym_dia_cuda(lo.diags.float(), lo.offsets_dev, x, t),
+                lambda: kd._sym_dia_plain(lo.diags, lo.offsets, x), exact=True))
+        route = "sym_dia_spmv_tiled_bf16" if tiling.pays(lo.n) else "sym_dia_spmv_bf16"
+        before = fc.LAUNCHES[route]
+        y = kd.sym_dia_spmv_diags(lo.diags, lo.offsets, lo.offsets_dev, x)
+        torch.cuda.synchronize()
+        check(fc.LAUNCHES[route] == before + 1
+              and torch.equal(y, kd._sym_dia_plain(lo.diags, lo.offsets, x)),
+              f"{label}: the routed bf16 call did not take {route} or differs")
+        print(f"  sym_dia_spmv_diags {label} bf16: the route takes {route}, as float32's")
+
+    # kernels 14 and 15, dense tiles, then the packed form
+    full, sym = big_full.astype(bf16), big.astype(bf16)
+    p3f, p3d = ops["p3d_full"].astype(bf16), ops["p3d"].astype(bf16)
+    args = {}
+    for with_d in (False, True):
+        tag = f"{'+d' if with_d else ''} shift=0.07"
+        args["full", with_d] = check_minres_bf16(full, rng, None, with_d, 0.07, errs,
+                                                 f"tridiag n=262144 full{tag}")
+        args["sym", with_d] = check_minres_bf16(sym, rng, "banded", with_d, 0.07, errs,
+                                                f"tridiag n=262144 banded{tag}")
+        check_minres_bf16(sym, rng, "scatter", with_d, 0.07, errs,
+                          f"tridiag n=262144 general{tag}")
+    check_minres_bf16(full, rng, None, True, 0.07, errs, "tridiag n=262144 full first step",
+                      first=True)
+    check_minres_bf16(sym, rng, "banded", True, 0.0, errs, "tridiag n=262144 banded first step",
+                      first=True)
+    for a, label in ((p3f, "poisson3d_48 full"), (p3d, "poisson3d_48 sym")):
+        for with_d in (False, True):
+            args[label, with_d] = check_minres_bf16(
+                a, rng, None, with_d, 0.07, errs, f"{label}{'+d' if with_d else ''} shift=0.07",
+                packed=True)
+        check_minres_bf16(a, rng, None, True, 0.0, errs, f"{label}+d first step", first=True,
+                          packed=True)
+
+    # kernel 17 on bf16 shards, P = 4 and 8
+    blocks4, cols4 = shard_ops
+    lo4 = blocks4.to(bf16)
+    lo8, cols8 = lo4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
+    full_v = vec((N_BIG // 128, 128))
+    shard_args = None
+    for n_shards, bl, cl in ((4, lo4, cols4), (8, lo8, cols8)):
+        m = N_BIG // n_shards
+        for s_ in (0, n_shards - 1):
+            label = f"tridiag n=262144 P={n_shards} shard {s_} bf16"
+            vecs, su = check_k17(bl[s_], cl[s_], full_v, s_ * m, rng, errs, label)
+            if n_shards == 4 and s_ == 0:
+                shard_args = (vecs, su)
+            before = fc.LAUNCHES["minres_shard_spmv_dot_bf16"]
+            k = fm.minres_shard_spmv_dot(bl[s_], cl[s_], full_v, *vecs, su, s_ * m)
+            w = fm.minres_shard_spmv_dot(bl[s_].float(), cl[s_], full_v, *vecs, su, s_ * m)
+            torch.cuda.synchronize()
+            check(fc.LAUNCHES["minres_shard_spmv_dot_bf16"] == before + 1
+                  and all(torch.equal(a, b) for a, b in zip(k, w)),
+                  f"K17 {label}: not one bf16 launch bit-equal to the float32 launch on the "
+                  "widened tiles")
+            print(f"  K17 {label:<39} = float32 launch on widened tiles (bits)")
+
+    # timing at the table's shapes, launched as the solver and the loop
+    # launch them: in place, on a work that never finishes
+    for label, name in (("symdia-big n=2097152", "sym_dia_spmv_tiled_bf16"),
+                        ("poisson3d_48", "sym_dia_spmv_bf16")):
+        lo, x = sym_x[label]
+        t = kd.sym_dia_tiling(lo.offsets, lo.n) if name.endswith("tiled_bf16") else None
+        times[name] = time_pair(lambda: kd.sym_dia_cuda(lo.diags, lo.offsets_dev, x, t),
+                                lambda: kd._sym_dia_plain(lo.diags, lo.offsets, x))
+        times[name].update(bound(nbytes(lo.diags, lo.offsets_dev) + 2 * lo.n * 4,
+                                 2 * (2 * lo.ndiag - 1) * lo.n), library_ms=None)
+    work = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    work.start(torch.tensor(2.3, device=dev))
+    stored = int(torch.count_nonzero(p3d.diag_blocks)) + int(torch.count_nonzero(p3d.off_blocks))
+    for name, a, mirror, key, packed in (
+        ("minres_dir_spmv_dot_bf16", full, None, ("full", False), False),
+        ("sym_minres_dir_spmv_dot_bf16", sym, "banded", ("sym", False), False),
+        ("minres_dir_spmv_dot_packed_bf16", p3f, None, ("poisson3d_48 full", False), True),
+        ("sym_minres_dir_spmv_dot_packed_bf16", p3d, None, ("poisson3d_48 sym", False), True),
+    ):
+        _, kern, plain = minres_dir_pair(a, mirror, packed=packed)
+        vecs, su, _ = args[key]
+        vecs = [t.clone() for t in vecs]
+        out = (vecs[2], torch.empty_like(vecs[0]), vecs[4], vecs[5])
+        su0 = su.clone()
+        su0[0, fm.SU_PHI] = 0.0  # x stays put over the timed launches
+        t = time_pair(lambda: kern(vecs, su0, None, out=out, work=work),
+                      lambda: plain(vecs, su0, None))
+        vb = 10 * a.nrb * a.bn * 4  # r2 r1 v_prev w-1 w-2 x in; v q w x' out
+        if packed:
+            nnz = stored if a.packed().symmetric else a.packed().nnz
+            t.update(bound(6 * nnz + vb, 2 * a.packed().nnz + 14 * a.nrb * a.bn),
+                     library_ms=None)
+        else:
+            tiles = nbytes(a.blocks, a.block_cols) if mirror is None else \
+                nbytes(a.diag_blocks, a.off_blocks, a.off_cols)
+            flops = 2 * a.blocks.numel() if mirror is None else \
+                2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
+            t.update(bound(tiles + vb, flops + 14 * a.nrb * a.bn), library_ms=None)
+        times[name] = t
+    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork.start(torch.tensor(2.3, device=dev))
+    for n_shards, bl, cl, table, key in ((4, lo4, cols4, times, "minres_shard_spmv_dot_bf16"),
+                                         (8, lo8, cols8, extra, "K17 bf16 tridiag P=8")):
+        m = N_BIG // n_shards
+        b0, c0 = bl[0], cl[0]
+        vecs = [vec((m // 128, 128)) for _ in range(5)]
+        su = shard_args[1].clone()
+        su[0, fm.SU_PHI] = 0.0
+        dots = torch.empty(2, device=dev)
+        out = (torch.empty_like(vecs[0]), vecs[3], vecs[4], dots)
+        t = time_pair(lambda: fm.minres_shard_spmv_dot(b0, c0, full_v, *vecs, su, 0, out=out,
+                                                       work=mwork),
+                      lambda: fm._shard_plain(b0, c0, full_v, tuple(vecs), su, 0, None, None))
+        t.update(bound(nbytes(b0, c0, full_v, su) + 8 * m * 4, 2 * b0.numel() + 12 * m),
+                 library_ms=None)
+        table[key] = t
+    # every bf16 form beside its float32 form on the same shape
+    ratio = []
+    for name in BF16_KERNELS:
+        ref = BF16_F32_ROW.get(name, name[:-5])
+        t32 = times.get(ref, extra.get(ref))
+        if name in times and t32 is not None:
+            ratio.append(f"{name} {times[name]['ms']:.5f} / {t32['ms']:.5f}")
+    print("  bf16 forms against their float32 forms on the same shapes (ms, device): "
+          + ", ".join(ratio))
     torch.cuda.synchronize()
 
 
@@ -6010,7 +6234,7 @@ def true_rel64(a64, b, x) -> float:
     return float(r.norm() / b.double().norm())
 
 
-def phase_refine_path(dev, big, big_full, card):
+def phase_refine_path(dev, big, big_full, dia_ops, shard_ops, card):
     """The refine / bf16 path: bench.py's cg-bf16 lane (fused CG on the
     n = 262,144 block-tridiagonal tiles in bf16, float32 vectors, 256 steps
     at tol = -1, best of 3, beside the float32 run, in both storages); the
@@ -6019,8 +6243,9 @@ def phase_refine_path(dev, big, big_full, card):
     --layout auto loads it (DIA, kernel 7 by value) and as 128 x 128
     blocked-ELL (the packed bf16 forms) and on elasticity3d_16 as DIA
     (kernel 7 past 32 diagonals) against the JAX package's counts; the
-    portable CG and MINRES loops on the bf16 tiles (kernel 5's dense bf16
-    form); the tester's --refine bfloat16 and --dtype bfloat16."""
+    portable CG loop on the bf16 tiles (kernel 5's dense bf16 form); the
+    tester's --refine bfloat16 and --dtype bfloat16; then the bf16 forms of
+    kernels 10, 14, 15 and 17 on their paths (bf16_minres_dia_path)."""
     import torch
 
     from conjugategradient_tpu_torch import (cg_solve, fused_bell_cg_solve, load_matrix,
@@ -6102,10 +6327,10 @@ def phase_refine_path(dev, big, big_full, card):
         check(not jc or rel <= 1.05 * REFINE_FILE_TOL_REL, f"refine {name} {layout}: true rel {rel}")
 
     # the portable loops on bf16 tiles: kernel 5's dense bf16 form under CG
-    # (fused="never") and MINRES (its fused kernels have no bf16 form yet)
+    # (fused="never") and MINRES (fused="never")
     lo = big_full.astype(bf16)
     _, cinfo = cg_solve(lo, b, fused="never", tol=-1.0, maxiter=32)
-    _, minfo = minres_solve(lo, bm_, tol=0.0, maxiter=32)
+    _, minfo = minres_solve(lo, bm_, tol=0.0, maxiter=32, fused="never")
     check(int(cinfo.iterations) == 32 and math.isfinite(float(cinfo.rnorm_sq))
           and math.isfinite(float(minfo.rnorm)),
           "portable CG / MINRES on bf16 tiles: not 32 finite steps")
@@ -6131,6 +6356,164 @@ def phase_refine_path(dev, big, big_full, card):
         print(f"  tester {MATRICES[0]} --layout {layout} --dtype bfloat16 (tol 1e-2 ||b||): "
               f"{dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {summ['iterations'][0]} its, "
               f"converged {summ['converged'][0]}  [{card}]")
+    bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card)
+
+
+def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
+    """The paths that reach the bf16 forms of kernels 10, 14, 15 and 17:
+    the portable CG on symdia-big's bf16 operator (the tiled kernel 10), 64
+    steps at tol = -1 beside float32; the tester's --layout symdia in bf16
+    and with --refine bfloat16 on poisson3d_48 (one thread a row) against
+    the JAX tester's counts, and --method minres --dtype bfloat16 on
+    poisson2d_34 (the portable loop on bf16 vectors, as in the JAX
+    package); the fused MINRES lane in bf16, 256 steps at tol = -1 in both
+    storages beside float32 (kernels 14 and 15, dense, with 16); minres_solve
+    on poisson3d_48's bf16 tiles in both storages (the packed route), and
+    its sticky NaN flag on a NaN tile value; the sharded MINRES on bf16
+    shards at P = 4 (kernel 17) against the single card's bf16 fused MINRES
+    on the same operator."""
+    import dataclasses
+
+    import torch
+
+    from conjugategradient_tpu_torch import cg_solve, fused_minres_solve, minres_solve
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
+    from conjugategradient_tpu_torch.utils import Timer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def per_step(solve, a, rhs, steps, **kw):
+        """ms per step of the best of 3 solves of ``steps`` steps at tol =
+        -1 after a warm-up; the last solve's info."""
+        solve(a, rhs, tol=-1.0, maxiter=8, **kw)
+        ms = float("inf")
+        for _ in range(3):
+            t = Timer(dev).start_measure()
+            _, info = solve(a, rhs, tol=-1.0, maxiter=steps, **kw)
+            t.stop_measure()
+            ms = min(ms, t.get_duration() / int(info.iterations))
+        return ms, info
+
+    # (a) the portable CG on symdia-big in bf16 (tiled kernel 10) and float32
+    sb = dia_ops["big_sym"]
+    bs = torch.arange(1, sb.n + 1, dtype=f32, device=dev) / sb.n
+    got = {}
+    for label, a in (("float32", sb), ("bf16", sb.astype(bf16))):
+        before = fc.LAUNCHES["sym_dia_spmv_tiled_bf16"]
+        ms, info = per_step(cg_solve, a, bs, BF16_SYMDIA_STEPS)
+        check(int(info.iterations) == BF16_SYMDIA_STEPS
+              and bool(torch.isfinite(info.rho_history[:BF16_SYMDIA_STEPS + 1]).all()),
+              f"symdia-big CG {label}: {int(info.iterations)} steps or a non-finite history")
+        check(label == "float32" or fc.LAUNCHES["sym_dia_spmv_tiled_bf16"] - before
+              >= 3 * BF16_SYMDIA_STEPS, f"symdia-big CG bf16: the tiled bf16 kernel 10 did not run")
+        got[label] = ms
+        print(f"  portable CG symdia-big (SymDIA, {label} diagonals, {a.diags.numel() * a.diags.element_size() / 1e6:.1f} MB): "
+              f"{ms:.5f} ms/it over {BF16_SYMDIA_STEPS} steps, rho_history sha256 "
+              f"{digest(info.rho_history)}  [{card}]")
+    print(f"  symdia-big CG: bf16 / float32 time per step {got['bf16'] / got['float32']:.3f}")
+
+    # (b) the tester on poisson3d_48 as SymDIA in bf16 (one thread a row)
+    for key, tol, dtype, extra_args in (
+            ("refine", REFINE_FILE_TOL_REL * bnorm(110592), "float32", ("--refine", "bfloat16")),
+            ("bfloat16", 1e-2 * bnorm(110592), "bfloat16", ())):
+        before = fc.LAUNCHES["sym_dia_spmv_bf16"]
+        dim, nnz, ms, rel, summ, _ = run_tester(MATRICES[0], "symdia", "none", tol,
+                                                dtype=dtype, extra=extra_args)
+        ji, jc = JAX_SYMDIA_BF16_COUNTS[key]
+        its = summ["iterations"][0]
+        check(fc.LAUNCHES["sym_dia_spmv_bf16"] > before,
+              f"tester symdia {key}: kernel 10's bf16 form did not run")
+        check(summ["converged"] == [jc] and abs(its - ji) <= REFINE_ITER_REL * ji
+              and rel < (REL_ERROR_BOUND if key == "refine" else 5e-3),
+              f"tester symdia {key}: {its} its converged {summ['converged']} rel_error {rel}, "
+              f"the JAX tester {ji} its converged {jc}")
+        print(f"  tester {MATRICES[0]} --layout symdia --dtype {dtype} {' '.join(extra_args)}: "
+              f"{dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {its} its (the JAX tester on the "
+              f"CPU: {ji}, converged {jc})  [{card}]")
+    dim, nnz, ms, rel, summ, _ = run_tester("problems/poisson2d_34.mtx", "bell", "none", 1.0,
+                                            dtype="bfloat16", extra=("--method", "minres"))
+    its = summ["iterations"][0]
+    check(summ["converged"] == [True] and abs(its - 90) <= 0.15 * 90 and rel < 1e-2,
+          f"tester --method minres --dtype bfloat16: {its} its rel_error {rel}")
+    print(f"  tester problems/poisson2d_34.mtx --layout bell --method minres --dtype bfloat16 "
+          f"(tol 1): {dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {its} its (the JAX tester on "
+          f"the CPU: 90 its, rel_error 5.9e-3)  [{card}]")
+
+    # (c) the fused bf16 MINRES lane: kernels 14 and 15 (dense tiles) with 16
+    bm = torch.arange(1, N_BIG + 1, dtype=f32, device=dev) / N_BIG
+    for storage, hi in (("full", big_full), ("symmetric", big)):
+        got = {}
+        for label, a in (("float32", hi), ("bf16", hi.astype(bf16))):
+            ms, info = per_step(fused_minres_solve, a, bm, BF16_MINRES_STEPS)
+            check(int(info.iterations) == BF16_MINRES_STEPS
+                  and bool(torch.isfinite(info.rnorm_history[:BF16_MINRES_STEPS + 1]).all()),
+                  f"fused MINRES {storage} {label}: {int(info.iterations)} steps or a non-finite "
+                  "history")
+            got[label] = ms
+            eff = a.tile_bytes() + 14 * N_BIG * 4
+            print(f"  fused MINRES n=262144 {storage}, {label} tiles "
+                  f"({a.tile_bytes() / 1e6:.1f} MB): {ms:.5f} ms/it, {eff / ms / 1e6:.1f} GB/s "
+                  f"on tiles + 14 vectors, rnorm_history sha256 {digest(info.rnorm_history)}  "
+                  f"[{card}]")
+        print(f"  fused MINRES {storage}: bf16 / float32 time per step "
+              f"{got['bf16'] / got['float32']:.3f}")
+
+    # (d) minres_solve on poisson3d_48's bf16 tiles: the packed route
+    p3f = load_bell(MATRICES[0], dev)
+    p3d = load_symbell(MATRICES[0], dev)
+    bp = torch.arange(1, p3d.n + 1, dtype=f32, device=dev) / p3d.n
+    for label, a, name in (("full", p3f, "minres_dir_spmv_dot_packed_bf16"),
+                           ("symmetric", p3d, "sym_minres_dir_spmv_dot_packed_bf16")):
+        lo = a.astype(bf16)
+        before = {k: fc.LAUNCHES[k] for k in (name, "minres_update_dot", "bell_spmv_bf16")}
+        x, info = minres_solve(lo, bp, tol=1e-4 * float(bp.norm()))
+        _, i32 = minres_solve(a, bp, tol=1e-4 * float(bp.norm()))
+        k = int(info.iterations)
+        check(bool(info.converged) and fc.LAUNCHES[name] - before[name] >= k
+              and fc.LAUNCHES["minres_update_dot"] - before["minres_update_dot"] >= k
+              and fc.LAUNCHES["bell_spmv_bf16"] == before["bell_spmv_bf16"]
+              and abs(k - int(i32.iterations)) <= ITER_SLACK,
+              f"minres_solve poisson3d_48 {label} bf16: {k} its (float32 {int(i32.iterations)}),"
+              f" launches {fc.LAUNCHES[name] - before[name]}")
+        print(f"  minres_solve poisson3d_48 {label} bf16 tiles (packed route): {k} its "
+              f"(float32 tiles {int(i32.iterations)}), converged, rnorm_true "
+              f"{float(info.rnorm_true):.3e}; {name} launched every step  [{card}]")
+    lo = p3f.astype(bf16)
+    bad = lo.blocks.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    _, ninfo = minres_solve(dataclasses.replace(lo, blocks=bad), bp, tol=0.0, maxiter=8)
+    check(not bool(ninfo.converged) and math.isnan(float(ninfo.rnorm))
+          and int(ninfo.iterations) <= 1,
+          f"fused bf16 MINRES with a NaN tile value: converged {bool(ninfo.converged)}, rnorm "
+          f"{float(ninfo.rnorm)}, {int(ninfo.iterations)} its")
+    print(f"  fused bf16 MINRES, a NaN tile value: stops after {int(ninfo.iterations)} step, "
+          "not converged, rnorm NaN (the sticky NaN flag)")
+
+    # (e) sharded MINRES on bf16 shards, P = 4 (kernel 17), against the single
+    # card's bf16 fused MINRES on the cut operator (cut_tridiag_ops)
+    blocks4, cols4 = shard_ops
+    cut_full, cut_ops, _ = cut_tridiag_ops(blocks4, cols4, big_full.nnz)
+    rhs = torch.as_tensor(np.random.default_rng(9).standard_normal(N_BIG), dtype=f32, device=dev)
+    lo_blocks = cut_ops[BF16_SHARDS][0].to(bf16)
+    before = fc.LAUNCHES["minres_shard_spmv_dot_bf16"]
+    t = Timer(dev).start_measure()
+    x, info = sharded_cg_solve(lo_blocks, cut_ops[BF16_SHARDS][1], rhs,
+                               mesh=make_row_mesh(BF16_SHARDS, dev), tol=-1.0, maxiter=64,
+                               method="minres")
+    t.stop_measure()
+    _, one = fused_minres_solve(cut_full.astype(bf16), rhs, tol=-1.0, maxiter=64)
+    h = info.rho_history[:26].double().sqrt().cpu().numpy()
+    h1 = one.rnorm_history[:26].double().cpu().numpy()
+    keep = h1 > 1e-5 * h1[0]
+    check(int(info.iterations) == 64
+          and fc.LAUNCHES["minres_shard_spmv_dot_bf16"] - before >= 64 * BF16_SHARDS
+          and np.allclose(h[keep], h1[keep], rtol=MINRES_TRAJ_RTOL, atol=0),
+          f"sharded bf16 MINRES P={BF16_SHARDS}: {int(info.iterations)} its, phibar {h[:6]} vs "
+          f"the single card's {h1[:6]}")
+    print(f"  sharded MINRES bf16 shards P={BF16_SHARDS}: 64 its, {t.get_duration() / 64:.5f} "
+          f"ms/it, phibar to {MINRES_TRAJ_RTOL} of the single card's bf16 fused MINRES over "
+          f"{int(keep.sum())} steps above its floor  [{card}]")
 
 
 def fused_cg_only(dev, card) -> None:
@@ -6157,6 +6540,7 @@ def fused_cg_only(dev, card) -> None:
                                              fused_bicgstab_solve, fused_minres_solve,
                                              fused_stencil_cg_solve, load_matrix)
     import conjugategradient_tpu_torch as cgt
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
 
@@ -6201,6 +6585,14 @@ def fused_cg_only(dev, card) -> None:
         ms, x, info = timed(fused_minres_solve, a, bm, steps=MINRES_STEPS)
         print(f"  fused MINRES {label}: {int(info.iterations)} its, {ms:.5f} ms/it, "
               f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
+    # the same on bf16 tiles (kernels 14 and 15's bf16 forms): trees that
+    # have them print these two lines more
+    if "minres_dir_spmv_dot_bf16" in fc.LAUNCHES:
+        for label, a in (("n=262144 symmetric bf16", big), ("n=262144 full bf16", big_full)):
+            ms, x, info = timed(fused_minres_solve, a.astype(torch.bfloat16), bm,
+                                steps=MINRES_STEPS)
+            print(f"  fused MINRES {label}: {int(info.iterations)} its, {ms:.5f} ms/it, "
+                  f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
     p3d = load_symbell(MATRICES[0], dev)
     bp = torch.arange(1, p3d.n + 1, dtype=torch.float32, device=dev)
     for label, solve, args in (("CG", fused_bell_cg_solve, (p3d, bp)),
@@ -6286,6 +6678,8 @@ def main() -> int:
     bic_ops = phase_bicgstab_kernels(dev, errs, times, extra)
     shard_ops = phase_sharded_kernels(dev, errs, times, extra)
     phase_bf16_kernels(dev, big, big_full, ops, dia_ops, errs, times)
+    phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, errs, times,
+                                  extra)
     for name, t in list(times.items()) + list(extra.items()):
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
@@ -6308,7 +6702,8 @@ def main() -> int:
         ("SA-AMG / FSAI", AMG_KERNELS, lambda: phase_amg_path(dev, card)),
         ("deflation / LOBPCG / scipy", DEFLATION_KERNELS,
          lambda: phase_deflation_path(dev, big, card)),
-        ("refine / bf16", REFINE_KERNELS, lambda: phase_refine_path(dev, big, big_full, card)),
+        ("refine / bf16", REFINE_KERNELS,
+         lambda: phase_refine_path(dev, big, big_full, dia_ops, shard_ops, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

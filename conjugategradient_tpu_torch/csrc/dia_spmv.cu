@@ -105,10 +105,28 @@
 // rows of a diagonal as one 8-byte load where n % 4 == 0 and the diagonals
 // are 8-byte aligned.  The diagonal stream, and with it the bound, halves
 // (41 x 2,097,152 x 2 B + x and y on symdia-big: 0.0564 ms).  Their entry
-// points are cg_dia_spmv_bf16 and cg_dia_spmv_rows_bf16, counted apart.  The
-// symmetric kernels keep float32 diagonals only (ROADMAP.md queue 2).
+// points are cg_dia_spmv_bf16 and cg_dia_spmv_rows_bf16, counted apart.
+//
+// sym_dia_spmv and sym_dia_spmv_tiled take bfloat16 diagonals the same way
+// (sym_dia_spmv_pallas_blocked's bf16 form, dia_spmv.py:283,286): the
+// one-thread-a-row kernel widens each value as it loads it; the tiled one
+// stages a diagonal's bf16 values by cp.async, 16 bytes (8 values) a copy,
+// into bf16 diagonal buffers (half the float32 ones) and widens each value
+// as it reads it from shared memory, where n % 8 == 0 and the diagonals
+// are 16-byte aligned (symdia-big); elsewhere it widens while it stages,
+// by plain loads and shared stores into the float32 buffers (cp.async
+// copies bytes and cannot widen; a first build that did this on every
+// shape ran symdia-big at 0.2115 ms against the float32 kernel's 0.0748 on
+// an H100: the loads no longer overlapped the sums).  Its route
+// (ops/cuda/dia_spmv.sym_dia_tiling), tile and every sum are the float32
+// kernel's, so a bf16 launch gives the bits of the float32 launch on
+// diags.float().  The diagonal stream halves (21 x 2,097,152 x 2 B + x and
+// y on symdia-big: 0.0313 ms).  Entry points cg_sym_dia_spmv_bf16 and
+// cg_sym_dia_spmv_tiled_bf16.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cuda_pipeline.h>
 
@@ -280,8 +298,9 @@ int dia_spmv_rows(const E* diags, const int* offs_host, const float* x, float* y
   return launch_dia_rows<32>(diags, offs_host, x, y, n, ncols, ndiag, s);
 }
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-sym_dia_spmv_kernel(const float* __restrict__ diags, const int* __restrict__ offs,
+sym_dia_spmv_kernel(const E* __restrict__ diags, const int* __restrict__ offs,
                     const float* __restrict__ x, float* __restrict__ y, int64_t n,
                     int ndiag) {
   extern __shared__ int s_off[];
@@ -293,12 +312,12 @@ sym_dia_spmv_kernel(const float* __restrict__ diags, const int* __restrict__ off
 #pragma unroll 2
   for (int d = 0; d < ndiag; ++d) {
     const int64_t k = s_off[d];
-    const float* dk = diags + (int64_t)d * n;
+    const E* dk = diags + (int64_t)d * n;
     const float xv = (i + k < n) ? __ldg(x + i + k) : 0.f;
-    acc = __fadd_rn(acc, __fmul_rn(__ldg(dk + i), xv));
+    acc = __fadd_rn(acc, __fmul_rn(ld_ro(dk + i), xv));
     if (k > 0) {
       // the mirror: row i - k's stored value, applied to x[i - k]
-      const float t = (i >= k) ? __fmul_rn(__ldg(dk + i - k), __ldg(x + i - k)) : 0.f;
+      const float t = (i >= k) ? __fmul_rn(ld_ro(dk + i - k), __ldg(x + i - k)) : 0.f;
       acc = __fadd_rn(acc, t);
     }
   }
@@ -342,8 +361,60 @@ __device__ __forceinline__ void stage_planes(float* dst, const float* __restrict
   }
 }
 
+// The same planes of a bfloat16 diagonal, each value widened to float32 as
+// it is loaded (exact) and stored to shared memory by the thread: cp.async
+// copies bytes and cannot widen.  A thread's kStageBatch loads are issued
+// before its first store, so they are in flight together.  Entry q * 32 +
+// c is the one stage_chunks fills.
+constexpr int kStageBatch = 8;
+
+__device__ __forceinline__ void stage_planes(float* dst, const __nv_bfloat16* __restrict__ src,
+                                             int q0, int q1, int64_t plane0, int64_t g,
+                                             int64_t c0, int64_t n, bool) {
+  const int total = (q1 - q0) * kTileCols;
+  float* out = dst + q0 * kTileCols;
+  for (int f0 = threadIdx.x; f0 < total; f0 += kStageBatch * blockDim.x) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int f = f0 + u * blockDim.x;
+      const int64_t row = (plane0 + q0 + f / kTileCols) * g + c0 + f % kTileCols;
+      v[u] = (f < total && row >= 0 && row < n) ? ld_stream(src + row) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int f = f0 + u * blockDim.x;
+      if (f < total) out[f] = v[u];
+    }
+  }
+}
+
+// The same planes of a bfloat16 diagonal into a bfloat16 buffer, by
+// cp.async of 16 bytes (8 values) each: n % 8 == 0 and the diagonals are
+// 16-byte aligned, so a chunk's rows are all in [0, n) or none is.
+__device__ __forceinline__ void stage_planes(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* __restrict__ src, int q0,
+                                             int q1, int64_t plane0, int64_t g, int64_t c0,
+                                             int64_t n, bool) {
+  constexpr int W = 8, per = kTileCols / W;
+  const int total = (q1 - q0) * per;
+  for (int f = threadIdx.x; f < total; f += blockDim.x) {
+    const int q = q0 + f / per, c = (f % per) * W;
+    const int64_t row = (plane0 + q) * g + c0 + c;
+    const bool in = row >= 0 && row < n;
+    __pipeline_memcpy_async(dst + q * kTileCols + c, src + (in ? row : 0), 16, in ? 0 : 16);
+  }
+}
+
+// A staged diagonal value as float32 (a bf16 one widened: exact).
+__device__ __forceinline__ float staged(const float* p) { return *p; }
+__device__ __forceinline__ float staged(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// E: the diagonals' type; S: the diagonal buffers' (float, or bf16 staged
+// as it is stored)
+template <class E, class S>
 __global__ void __launch_bounds__(kTileCols * kTileWarps)
-sym_dia_tiled_kernel(const float* __restrict__ diags, const int* __restrict__ offs,
+sym_dia_tiled_kernel(const E* __restrict__ diags, const int* __restrict__ offs,
                      const float* __restrict__ x, float* __restrict__ y, int64_t n,
                      int ndiag, int64_t g, int hq, bool vec) {
   constexpr int C = kTileCols, M = kTilePlanes;
@@ -351,7 +422,8 @@ sym_dia_tiled_kernel(const float* __restrict__ diags, const int* __restrict__ of
   const int t = threadIdx.x % C, w = threadIdx.x / C;
   float* xs = sm;  // planes [-hq, M + hq)
   // two diagonal buffers of planes [-hq, M), filled and summed in turn
-  auto dbuf = [&](int d) { return sm + (M + 2 * hq) * C + (d & 1) * (M + hq) * C; };
+  S* const dbase = reinterpret_cast<S*>(sm + (M + 2 * hq) * C);
+  auto dbuf = [&](int d) { return dbase + (d & 1) * (M + hq) * C; };
   const int64_t ctiles = g / C;
   const int64_t c0 = (blockIdx.x % ctiles) * C;
   const int64_t col = c0 + t;
@@ -376,7 +448,7 @@ sym_dia_tiled_kernel(const float* __restrict__ diags, const int* __restrict__ of
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncthreads();
-    const float* ds = dbuf(d);
+    const S* ds = dbuf(d);
     const int64_t k = offs[d];
     const bool far = k >= n;  // d * 0 forward, + 0 mirror, on every row
     const int sig = shift(k);
@@ -385,10 +457,11 @@ sym_dia_tiled_kernel(const float* __restrict__ diags, const int* __restrict__ of
       const int p = w * kTileRows + s;
       const int u = (hq + p) * C + t;
       const float xv = far ? 0.f : xs[u + sig];
-      acc[s] = __fadd_rn(acc[s], __fmul_rn(ds[u], xv));
+      acc[s] = __fadd_rn(acc[s], __fmul_rn(staged(ds + u), xv));
       if (k > 0) {
         const int64_t row = (P0 + p) * g + col;
-        const float tm = (!far && row >= k) ? __fmul_rn(ds[u - sig], xs[u - sig]) : 0.f;
+        const float tm =
+            (!far && row >= k) ? __fmul_rn(staged(ds + u - sig), xs[u - sig]) : 0.f;
         acc[s] = __fadd_rn(acc[s], tm);
       }
     }
@@ -398,6 +471,59 @@ sym_dia_tiled_kernel(const float* __restrict__ diags, const int* __restrict__ of
   for (int s = 0; s < kTileRows; ++s) {
     const int64_t row = (P0 + w * kTileRows + s) * g + col;
     if (row < n) y[row] = acc[s];
+  }
+}
+
+template <class E>
+int sym_dia_spmv(const E* diags, const int* offs, const float* x, float* y, int64_t n,
+                 int ndiag, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return cudaSuccess;
+  const int64_t grid = (n + kThreads - 1) / kThreads;
+  sym_dia_spmv_kernel<E><<<(unsigned)grid, kThreads, ndiag * sizeof(int), s>>>(
+      diags, offs, x, y, n, ndiag);
+  return cudaGetLastError();
+}
+
+// The tiled kernel with diagonal buffers of S: x over the tile and both
+// halos; two diagonal buffers over the tile and the halo before it.  x (and
+// a float32 diagonal) is copied 16 bytes at a time where ``vec``.
+template <class E, class S>
+cudaError_t launch_tiled(const E* diags, const int* offs, const float* x, float* y, int64_t n,
+                         int ndiag, int64_t pitch, int hq, bool vec, cudaStream_t s) {
+  static bool attr_set = false;  // above 48 KB of shared memory needs the opt-in, once
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sym_dia_tiled_kernel<E, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int64_t planes = (n + pitch - 1) / pitch;
+  const int64_t grid = (pitch / kTileCols) * ((planes + kTilePlanes - 1) / kTilePlanes);
+  const size_t smem = (size_t)(kTilePlanes + 2 * hq) * kTileCols * sizeof(float) +
+                      (size_t)2 * (kTilePlanes + hq) * kTileCols * sizeof(S);
+  sym_dia_tiled_kernel<E, S><<<(unsigned)grid, kTileCols * kTileWarps, smem, s>>>(
+      diags, offs, x, y, n, ndiag, pitch, hq, vec);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
+
+template <class E>
+int sym_dia_spmv_tiled(const E* diags, const int* offs, const float* x, float* y, int64_t n,
+                       int ndiag, int64_t pitch, int hq, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return cudaSuccess;
+  if (pitch <= 0 || pitch % kTileCols || hq < 0) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<E, float>::value) {
+    const bool vec = n % 4 == 0 && aligned16(diags) && aligned16(x);
+    return launch_tiled<float, float>(diags, offs, x, y, n, ndiag, pitch, hq, vec, s);
+  } else {
+    const bool vec = n % 4 == 0 && aligned16(x);
+    if (n % 8 == 0 && aligned16(diags)) {
+      return launch_tiled<E, E>(diags, offs, x, y, n, ndiag, pitch, hq, vec, s);
+    }
+    return launch_tiled<E, float>(diags, offs, x, y, n, ndiag, pitch, hq, vec, s);
   }
 }
 
@@ -434,12 +560,13 @@ int cg_dia_spmv_rows_bf16(const __nv_bfloat16* diags, const int* offs_host, cons
 // y = SymDIA x over the stored offsets >= 0.  Returns a cudaError_t.
 int cg_sym_dia_spmv(const float* diags, const int* offs, const float* x, float* y,
                     int64_t n, int ndiag, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  const int64_t grid = (n + kThreads - 1) / kThreads;
-  sym_dia_spmv_kernel<<<(unsigned)grid, kThreads, ndiag * sizeof(int), s>>>(
-      diags, offs, x, y, n, ndiag);
-  return cudaGetLastError();
+  return sym_dia_spmv(diags, offs, x, y, n, ndiag, stream);
+}
+
+// The same on bfloat16 diagonals.
+int cg_sym_dia_spmv_bf16(const __nv_bfloat16* diags, const int* offs, const float* x, float* y,
+                         int64_t n, int ndiag, void* stream) {
+  return sym_dia_spmv(diags, offs, x, y, n, ndiag, stream);
 }
 
 // y = SymDIA x over the stored offsets >= 0 by the tiled kernel: pitch g (a
@@ -447,26 +574,14 @@ int cg_sym_dia_spmv(const float* diags, const int* offs, const float* x, float* 
 // them.  Returns a cudaError_t.
 int cg_sym_dia_spmv_tiled(const float* diags, const int* offs, const float* x, float* y,
                           int64_t n, int ndiag, int64_t pitch, int hq, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  if (pitch <= 0 || pitch % kTileCols || hq < 0) return cudaErrorInvalidValue;
-  static bool attr_set = false;  // above 48 KB of shared memory needs the opt-in, once
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sym_dia_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(diags) % 16) == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) % 16) == 0;
-  const int64_t planes = (n + pitch - 1) / pitch;
-  const int64_t grid = (pitch / kTileCols) * ((planes + kTilePlanes - 1) / kTilePlanes);
-  // x over the tile and both halos; two diagonal buffers over the tile and
-  // the halo before it
-  const size_t smem = (size_t)(3 * kTilePlanes + 4 * hq) * kTileCols * sizeof(float);
-  sym_dia_tiled_kernel<<<(unsigned)grid, kTileCols * kTileWarps, smem, s>>>(
-      diags, offs, x, y, n, ndiag, pitch, hq, vec);
-  return cudaGetLastError();
+  return sym_dia_spmv_tiled(diags, offs, x, y, n, ndiag, pitch, hq, stream);
+}
+
+// The same on bfloat16 diagonals.
+int cg_sym_dia_spmv_tiled_bf16(const __nv_bfloat16* diags, const int* offs, const float* x,
+                               float* y, int64_t n, int ndiag, int64_t pitch, int hq,
+                               void* stream) {
+  return sym_dia_spmv_tiled(diags, offs, x, y, n, ndiag, pitch, hq, stream);
 }
 
 }  // extern "C"

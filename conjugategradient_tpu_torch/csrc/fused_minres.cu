@@ -50,6 +50,19 @@
 // (ops/spmv.bell_packed_route), K1 has a packed form on either storage
 // (minres_dir_packed_kernel below) that reads the operator's nonzeros
 // instead, with the same outputs and tail.
+//
+// bfloat16 tiles (the TPU kernels' other operand form, fused_minres.py:92,
+// 245,249,269,272,505: bf16 tiles, float32 vectors): every kernel that reads
+// the operator (K1 on full storage, dense and packed; on symmetric storage,
+// banded and general landings; the row-sharded K1) takes the tile type as a
+// template parameter.  Each element is widened to float32 as it is loaded
+// (exact) and every product and sum is the float32 kernel's, in its order,
+// so a bf16 launch gives the bits of the float32 launch on tiles.float().
+// The tile stream, and the bound, halve (201.3 MB a call at n = 262,144
+// full, 134.2 MB symmetric; 6 bytes a nonzero packed).  K2 and the general
+// landing's second launch read vectors only and need no other form.  The
+// bf16 forms have their own entry points (minres_*_bf16) and launch
+// counters.
 
 #include <math.h>
 #include <stdint.h>
@@ -165,9 +178,9 @@ __device__ __forceinline__ void store_q(int row, int t, float qv, const float* x
 // strip of R block-rows, as fused_cg.cu's full_dir_kernel; every slot is
 // read (padding tiles are zero and point at column block 0).
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-minres_full_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+minres_full_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                    DirArgs a, int nrb, int kmax, int R) {
   if (a.ctl[C_LIVE] == 0) return;
   __shared__ float xr[BN], xc[BN], qacc[BN];
@@ -205,9 +218,9 @@ minres_full_kernel(const float* __restrict__ blocks, const int* __restrict__ col
 // Design: fused_cg.cu's sym_dir_banded_kernel with the MINRES operand and
 // row epilogue: a row's q is final at its store, carry included.
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-minres_banded_kernel(const float* __restrict__ diag, const float* __restrict__ off,
+minres_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
                      const int* __restrict__ off_cols, DirArgs a, int nrb, int R) {
   if (a.ctl[C_LIVE] == 0) return;
   __shared__ float xr[BN], xc[BN], qacc[BN], carry[BN];
@@ -263,9 +276,9 @@ minres_banded_kernel(const float* __restrict__ diag, const float* __restrict__ o
 // slots skipped unread.  Design: fused_cg.cu's sym_dir_products_kernel; q
 // leaves this stage unshifted and without its incoming mirrors.
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-minres_products_kernel(const float* __restrict__ diag, const float* __restrict__ off,
+minres_products_kernel(const E* __restrict__ diag, const E* __restrict__ off,
                        const int* __restrict__ off_cols, DirArgs a, float* tparts,
                        int nrb, int ku) {
   if (a.ctl[C_LIVE] == 0) return;
@@ -355,8 +368,9 @@ minres_land_kernel(const float* tparts, const int* __restrict__ mirror_src, DirA
 // order and the dense kernels' tail (reduce_dir, finish_dir).  Padding rows
 // (no entries, r2 = 0, d = 1) give v = q = 0.
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-minres_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+minres_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
                          const int* __restrict__ row_len,
                          const long long* __restrict__ chunk_off, DirArgs a, int64_t rows) {
   if (a.ctl[C_LIVE] == 0) return;
@@ -408,9 +422,9 @@ struct ShardArgs {
   const int* ctl;
 };
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-minres_shard_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+minres_shard_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                     ShardArgs a, int64_t row0, int nrb, int kmax, int R) {
   if (a.ctl && a.ctl[C_LIVE] == 0) return;
   __shared__ float qacc[BN];
@@ -606,28 +620,28 @@ minres_update_kernel(const float* c1_p, const float* ia_p, const float* q,
   }
 }
 
-template <int BN>
-cudaError_t launch_full(const float* blocks, const int* cols, const DirArgs& a, int nrb,
-                        int kmax, int R, cudaStream_t s) {
-  minres_full_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb,
-                                                                kmax, R);
+template <int BN, class E>
+cudaError_t launch_full(const E* blocks, const int* cols, const DirArgs& a, int nrb, int kmax,
+                        int R, cudaStream_t s) {
+  minres_full_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb,
+                                                                   kmax, R);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_banded(const float* diag, const float* off, const int* off_cols,
-                          const DirArgs& a, int nrb, int R, cudaStream_t s) {
-  minres_banded_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(diag, off, off_cols, a,
-                                                                  nrb, R);
+template <int BN, class E>
+cudaError_t launch_banded(const E* diag, const E* off, const int* off_cols, const DirArgs& a,
+                          int nrb, int R, cudaStream_t s) {
+  minres_banded_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(diag, off, off_cols, a,
+                                                                     nrb, R);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_general(const float* diag, const float* off, const int* off_cols,
+template <int BN, class E>
+cudaError_t launch_general(const E* diag, const E* off, const int* off_cols,
                            const int* mirror_src, const DirArgs& a, float* tparts,
                            int nrb, int ku, int kin, int R, cudaStream_t s) {
-  minres_products_kernel<BN><<<nrb, kThreads, 0, s>>>(diag, off, off_cols, a, tparts,
-                                                      nrb, ku);
+  minres_products_kernel<BN, E><<<nrb, kThreads, 0, s>>>(diag, off, off_cols, a, tparts,
+                                                         nrb, ku);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   minres_land_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(tparts, mirror_src, a,
@@ -635,12 +649,71 @@ cudaError_t launch_general(const float* diag, const float* off, const int* off_c
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_shard(const float* blocks, const int* cols, const ShardArgs& a,
+template <int BN, class E>
+cudaError_t launch_shard(const E* blocks, const int* cols, const ShardArgs& a,
                          int64_t row0, int nrb, int kmax, int R, cudaStream_t s) {
-  minres_shard_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, row0,
-                                                                 nrb, kmax, R);
+  minres_shard_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, row0,
+                                                                    nrb, kmax, R);
   return cudaGetLastError();
+}
+
+#define BN_SWITCH(call)                \
+  switch (bn) {                        \
+    case 32: return call(32);          \
+    case 64: return call(64);          \
+    case 128: return call(128);        \
+    case 256: return call(256);        \
+    default: return cudaErrorInvalidValue; \
+  }
+
+// The entry points' bodies, one per operator form; E is float or
+// __nv_bfloat16.
+template <class E>
+int full_dir(const E* blocks, const int* cols, const DirArgs& a, int nrb, int kmax, int bn,
+             int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(B) launch_full<B>(blocks, cols, a, nrb, kmax, R, s)
+  BN_SWITCH(CALL)
+#undef CALL
+}
+
+template <class E>
+int sym_dir_banded(const E* diag, const E* off, const int* off_cols, const DirArgs& a, int nrb,
+                   int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(B) launch_banded<B>(diag, off, off_cols, a, nrb, R, s)
+  BN_SWITCH(CALL)
+#undef CALL
+}
+
+template <class E>
+int sym_dir_general(const E* diag, const E* off, const int* off_cols, const int* mirror_src,
+                    const DirArgs& a, float* tparts, int nrb, int ku, int kin, int bn, int R,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(B) launch_general<B>(diag, off, off_cols, mirror_src, a, tparts, nrb, ku, kin, R, s)
+  BN_SWITCH(CALL)
+#undef CALL
+}
+
+template <class E>
+int dir_packed(const E* vals, const int* cols, const int* row_len, const long long* chunk_off,
+               const DirArgs& a, int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  minres_dir_packed_kernel<E><<<(unsigned)grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(vals, cols, row_len,
+                                                                     chunk_off, a, rows);
+  return cudaGetLastError();
+}
+
+template <class E>
+int shard_dir(const E* blocks, const int* cols, const ShardArgs& a, int64_t row0, int nrb,
+              int kmax, int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CALL(B) launch_shard<B>(blocks, cols, a, row0, nrb, kmax, R, s)
+  BN_SWITCH(CALL)
+#undef CALL
 }
 
 }  // namespace
@@ -654,74 +727,83 @@ cudaError_t launch_shard(const float* blocks, const int* cols, const ShardArgs& 
       float *partials, unsigned *counter, float *scal, const int *ctl
 #define DIR_ARGS \
   DirArgs { r2, r1, vprev, wm1, wm2, x, d, su, v, q, w, xo, vq, vr1, partials, counter, scal, ctl }
-
-#define BN_SWITCH(call)                \
-  switch (bn) {                        \
-    case 32: return call(32);          \
-    case 64: return call(64);          \
-    case 128: return call(128);        \
-    case 256: return call(256);        \
-    default: return cudaErrorInvalidValue; \
-  }
+// the row-sharded K1's vectors, scratch and control, in ShardArgs order
+#define SHARD_PARAMS                                                                 \
+  const float *vfull, const float *r1, const float *vprev, const float *wm1,        \
+      const float *wm2, const float *x, const float *su, float *q, float *w,        \
+      float *xo, float *dots, float *partials, unsigned *counter, const int *ctl
+#define SHARD_ARGS \
+  ShardArgs { vfull, r1, vprev, wm1, wm2, x, su, q, w, xo, dots, partials, counter, ctl }
 
 extern "C" {
 
 // K1 on full blocked-ELL storage.  Returns a cudaError_t.
 int minres_full_dir(const float* blocks, const int* cols, DIR_PARAMS, int nrb, int kmax,
                     int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DirArgs a = DIR_ARGS;
-#define CALL(B) launch_full<B>(blocks, cols, a, nrb, kmax, R, s)
-  BN_SWITCH(CALL)
-#undef CALL
+  return full_dir(blocks, cols, DIR_ARGS, nrb, kmax, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int minres_full_dir_bf16(const __nv_bfloat16* blocks, const int* cols, DIR_PARAMS, int nrb,
+                         int kmax, int bn, int R, void* stream) {
+  return full_dir(blocks, cols, DIR_ARGS, nrb, kmax, bn, R, stream);
 }
 
 // K1 on symmetric storage with the banded landing.
 int minres_sym_dir_banded(const float* diag, const float* off, const int* off_cols,
                           DIR_PARAMS, int nrb, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DirArgs a = DIR_ARGS;
-#define CALL(B) launch_banded<B>(diag, off, off_cols, a, nrb, R, s)
-  BN_SWITCH(CALL)
-#undef CALL
+  return sym_dir_banded(diag, off, off_cols, DIR_ARGS, nrb, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int minres_sym_dir_banded_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* off,
+                               const int* off_cols, DIR_PARAMS, int nrb, int bn, int R,
+                               void* stream) {
+  return sym_dir_banded(diag, off, off_cols, DIR_ARGS, nrb, bn, R, stream);
 }
 
 // K1 on symmetric storage with the general landing: stage A then stage B.
 int minres_sym_dir_general(const float* diag, const float* off, const int* off_cols,
                            const int* mirror_src, DIR_PARAMS, float* tparts, int nrb,
                            int ku, int kin, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DirArgs a = DIR_ARGS;
-#define CALL(B) launch_general<B>(diag, off, off_cols, mirror_src, a, tparts, nrb, ku, kin, R, s)
-  BN_SWITCH(CALL)
-#undef CALL
+  return sym_dir_general(diag, off, off_cols, mirror_src, DIR_ARGS, tparts, nrb, ku, kin, bn,
+                         R, stream);
+}
+
+// The same on bfloat16 tiles.
+int minres_sym_dir_general_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* off,
+                                const int* off_cols, const int* mirror_src, DIR_PARAMS,
+                                float* tparts, int nrb, int ku, int kin, int bn, int R,
+                                void* stream) {
+  return sym_dir_general(diag, off, off_cols, mirror_src, DIR_ARGS, tparts, nrb, ku, kin, bn,
+                         R, stream);
 }
 
 // K1 on the packed nonzeros of either storage; rows = nrb * bn.  Returns a
 // cudaError_t.
 int minres_dir_packed(const float* vals, const int* cols, const int* row_len,
                       const long long* chunk_off, DIR_PARAMS, int64_t rows, void* stream) {
-  if (rows <= 0) return cudaErrorInvalidValue;
-  const DirArgs a = DIR_ARGS;
-  const int64_t grid = (rows + kThreads - 1) / kThreads;
-  minres_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, row_len, chunk_off, a, rows);
-  return cudaGetLastError();
+  return dir_packed(vals, cols, row_len, chunk_off, DIR_ARGS, rows, stream);
+}
+
+// The same from bfloat16 values.
+int minres_dir_packed_bf16(const __nv_bfloat16* vals, const int* cols, const int* row_len,
+                           const long long* chunk_off, DIR_PARAMS, int64_t rows,
+                           void* stream) {
+  return dir_packed(vals, cols, row_len, chunk_off, DIR_ARGS, rows, stream);
 }
 
 // K1 of the row-sharded loop (row0 = row_offset / bn).  Returns a
 // cudaError_t.
-int minres_shard_dir(const float* blocks, const int* cols, const float* vfull,
-                     const float* r1, const float* vprev, const float* wm1,
-                     const float* wm2, const float* x, const float* su, float* q,
-                     float* w, float* xo, float* dots, float* partials,
-                     unsigned* counter, const int* ctl, int64_t row0, int nrb,
-                     int kmax, int bn, int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ShardArgs a{vfull, r1, vprev, wm1, wm2, x, su, q, w, xo, dots, partials, counter, ctl};
-#define CALL(B) launch_shard<B>(blocks, cols, a, row0, nrb, kmax, R, s)
-  BN_SWITCH(CALL)
-#undef CALL
+int minres_shard_dir(const float* blocks, const int* cols, SHARD_PARAMS, int64_t row0,
+                     int nrb, int kmax, int bn, int R, void* stream) {
+  return shard_dir(blocks, cols, SHARD_ARGS, row0, nrb, kmax, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int minres_shard_dir_bf16(const __nv_bfloat16* blocks, const int* cols, SHARD_PARAMS,
+                          int64_t row0, int nrb, int kmax, int bn, int R, void* stream) {
+  return shard_dir(blocks, cols, SHARD_ARGS, row0, nrb, kmax, bn, R, stream);
 }
 
 // K2 (d == NULL: no preconditioner; scal == NULL: partials only).  n % 4

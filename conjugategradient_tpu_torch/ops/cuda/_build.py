@@ -71,7 +71,9 @@ SIGNATURES = {
 # the bfloat16-tile forms take the arguments of their float32 entry points
 SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
     "cg_sym_dir_banded", "cg_sym_dir_general", "cg_full_dir", "cg_full_dir_packed",
-    "cg_bell_spmv", "cg_bell_spmv_packed", "cg_dia_spmv", "cg_dia_spmv_rows")})
+    "cg_bell_spmv", "cg_bell_spmv_packed", "cg_dia_spmv", "cg_dia_spmv_rows",
+    "cg_sym_dia_spmv", "cg_sym_dia_spmv_tiled", "minres_full_dir", "minres_sym_dir_banded",
+    "minres_sym_dir_general", "minres_dir_packed", "minres_shard_dir")})
 
 
 def _sources():

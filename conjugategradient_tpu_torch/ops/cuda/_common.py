@@ -54,6 +54,14 @@ LAUNCHES = {
     "bell_spmv_packed_bf16": 0,
     "fused_dir_spmv_dot_packed_bf16": 0,
     "sym_fused_dir_spmv_dot_packed_bf16": 0,
+    # the bfloat16-tile forms of kernels 10, 14, 15 and 17 (float32 vectors)
+    "sym_dia_spmv_bf16": 0,
+    "sym_dia_spmv_tiled_bf16": 0,
+    "minres_dir_spmv_dot_bf16": 0,
+    "minres_dir_spmv_dot_packed_bf16": 0,
+    "sym_minres_dir_spmv_dot_bf16": 0,
+    "sym_minres_dir_spmv_dot_packed_bf16": 0,
+    "minres_shard_spmv_dot_bf16": 0,
     # not a kernel: builds of BlockedEllMatrix.packed() and
     # SymBellMatrix.packed() (torch ops, once per operator)
     "bell_pack": 0,
@@ -62,7 +70,7 @@ PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 
 
 #: operator element types of the kernels with a bfloat16 form (kernels 1,
-#: 4, 5 and 7; float32 vectors)
+#: 4, 5, 7, 10, 14, 15 and 17; float32 vectors)
 OPERATOR_DTYPES = (torch.float32, torch.bfloat16)
 
 

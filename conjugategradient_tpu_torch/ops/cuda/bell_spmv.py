@@ -104,9 +104,10 @@ def bell_spmv_packed(pk, x: torch.Tensor) -> torch.Tensor:
 
 def check_packed(name: str, pk, dtypes=(torch.float32,)) -> None:
     """A packed view the kernels take: values of one of ``dtypes`` (the
-    kernels with a bfloat16 form pass ``OPERATOR_DTYPES``; the packed
-    MINRES and BiCGStab kernels have none yet, ROADMAP.md queue 2), int32
-    columns and row lengths, int64 chunk offsets, one chunk per 32 rows."""
+    kernels with a bfloat16 form, packed kernels 1, 4, 5, 14 and 15, pass
+    ``OPERATOR_DTYPES``; the packed BiCGStab kernels have none yet,
+    ROADMAP.md queue 2), int32 columns and row lengths, int64 chunk
+    offsets, one chunk per 32 rows."""
     if pk.vals.dtype not in dtypes or pk.cols.dtype != torch.int32 or (
             pk.vals.shape != pk.cols.shape):
         raise TypeError(f"{name}: the packed view must hold {' or '.join(map(str, dtypes))} "
@@ -118,11 +119,12 @@ def check_packed(name: str, pk, dtypes=(torch.float32,)) -> None:
                          f"entry per {PACK_CHUNK} rows and one more")
 
 
-def check_packed_vectors(name: str, pk, r2d: torch.Tensor):
-    """The packed fused kernels' operator and the shape of their vectors:
-    a square padded system of ``pk.rows`` rows, vectors (nrb, bn) with
-    nrb·bn = ``pk.rows``.  Returns that shape."""
-    check_packed(name, pk)
+def check_packed_vectors(name: str, pk, r2d: torch.Tensor, dtypes=(torch.float32,)):
+    """The packed fused kernels' operator (values of one of ``dtypes``, as
+    :func:`check_packed`) and the shape of their vectors: a square padded
+    system of ``pk.rows`` rows, vectors (nrb, bn) with nrb·bn = ``pk.rows``.
+    Returns that shape."""
+    check_packed(name, pk, dtypes)
     if pk.ncols != pk.rows:
         raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
                          f"{pk.ncols} columns")

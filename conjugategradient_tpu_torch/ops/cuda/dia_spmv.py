@@ -30,11 +30,11 @@ the offsets staged in shared memory, takes the operators :func:`dia_route`
 gives it: more than 32 diagonals, where its 4x more warps hide latency
 better.
 
-The general kernels take float32 or bfloat16 diagonals (x and y float32):
-a bfloat16 operator launches the route's bf16 form, counted as
+All four kernels take float32 or bfloat16 diagonals (x and y float32): a
+bfloat16 operator launches the route's bf16 form, counted as
 ``<route>_bf16`` (``_common.form``), bit-equal to the float32 launch on the
-widened diagonals.  The symmetric kernels take float32 diagonals only; on a
-CUDA device a bfloat16 symmetric operator raises (ROADMAP.md queue 2).
+widened diagonals.  The route is chosen from the offsets and n alone, so a
+bfloat16 operator takes the kernel a float32 one of its shape takes.
 """
 
 from __future__ import annotations
@@ -149,8 +149,7 @@ def host_offsets(offsets: tuple):
     return (ctypes.c_int32 * len(offsets))(*offsets)
 
 
-def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS,
-           cuda_dtypes=OPERATOR_DTYPES):
+def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS):
     if diags.dim() != 2:
         raise ValueError(f"{name}: diags must be (ndiag, n), got {tuple(diags.shape)}")
     ndiag = diags.shape[0]
@@ -167,10 +166,6 @@ def _check(name, diags, offsets, offsets_dev, x, ncols, max_diags=MAX_CUDA_DIAGS
                          f"got {tuple(x.shape)} {x.dtype}")
     if not on_cuda(name, diags, offsets_dev, x):
         return False
-    if diags.dtype not in cuda_dtypes:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 diagonals, got "
-                        f"{diags.dtype} (bf16 diagonals are not ported yet: ROADMAP.md "
-                        f"queue 2)")
     if max_diags is not None and ndiag > max_diags:
         raise ValueError(f"{name}: the CUDA kernel takes at most {max_diags} "
                          f"diagonals, got {ndiag}")
@@ -227,10 +222,11 @@ def _dia_plain(diags, offsets, x):
 def sym_dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """y (n,) float32 = symmetric-DIA(diags, offsets ≥ 0) @ x; arguments as
-    in :func:`dia_spmv_diags`, x of n entries.  On a CUDA device the tiled
-    kernel runs where :func:`sym_dia_tiling` finds a geometry that
-    :meth:`SymDiaTiling.pays`, else ``sym_dia_spmv`` (at most
-    ``MAX_CUDA_DIAGS`` diagonals)."""
+    in :func:`dia_spmv_diags` (float32 or bfloat16 diagonals), x of n
+    entries.  On a CUDA device the tiled kernel runs where
+    :func:`sym_dia_tiling` finds a geometry that :meth:`SymDiaTiling.pays`,
+    else ``sym_dia_spmv`` (at most ``MAX_CUDA_DIAGS`` diagonals), in the
+    diagonals' form."""
     name = "sym_dia_spmv"
     if any(o < 0 for o in offsets):
         raise ValueError(f"{name}: symmetric storage holds offsets >= 0, got {offsets}")
@@ -239,28 +235,26 @@ def sym_dia_spmv_diags(diags: torch.Tensor, offsets, offsets_dev: torch.Tensor,
     if tiling is not None and not tiling.pays(n):
         tiling = None
     if not _check(name, diags, offsets, offsets_dev, x, n,
-                  max_diags=None if tiling is not None else MAX_CUDA_DIAGS,
-                  cuda_dtypes=(torch.float32,)):
+                  max_diags=None if tiling is not None else MAX_CUDA_DIAGS):
         return _sym_dia_plain(diags, offsets, x)
     return sym_dia_cuda(diags, offsets_dev, x, tiling)
 
 
 def sym_dia_cuda(diags, offsets_dev, x, tiling: Optional[SymDiaTiling]):
     """Launch one of the two symmetric kernels on checked CUDA operands:
-    the tiled kernel with ``tiling``, or ``sym_dia_spmv`` for None."""
+    the tiled kernel with ``tiling``, or ``sym_dia_spmv`` for None, in the
+    form of the diagonals' dtype."""
     from ._build import load_library
 
     ndiag, n = diags.shape
     y = x.new_empty(n)
-    lib = load_library()
+    name = form("sym_dia_spmv" if tiling is None else "sym_dia_spmv_tiled", diags.dtype)
+    fn = getattr(load_library(), f"cg_{name}")
     if tiling is None:
-        name = "sym_dia_spmv"
-        err = lib.cg_sym_dia_spmv(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, ndiag,
-                                  stream(x.device))
+        err = fn(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, ndiag, stream(x.device))
     else:
-        name = "sym_dia_spmv_tiled"
-        err = lib.cg_sym_dia_spmv_tiled(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, ndiag,
-                                        tiling.pitch, tiling.halo, stream(x.device))
+        err = fn(ptr(diags), ptr(offsets_dev), ptr(x), ptr(y), n, ndiag, tiling.pitch,
+                 tiling.halo, stream(x.device))
     LAUNCHES[name] += 1
     raise_on_error(name, err)
     return y
@@ -268,5 +262,5 @@ def sym_dia_cuda(diags, offsets_dev, x, tiling: Optional[SymDiaTiling]):
 
 def _sym_dia_plain(diags, offsets, x):
     if x.is_cuda:
-        PLAIN_ON_CUDA["sym_dia_spmv"] += 1
+        PLAIN_ON_CUDA[form("sym_dia_spmv", diags.dtype)] += 1
     return sym_dia_apply(diags.to(torch.float32), offsets, x)

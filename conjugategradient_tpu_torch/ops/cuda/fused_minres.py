@@ -30,6 +30,12 @@ Dispatch is that of ``ops/cuda/fused_cg.py``: the plain version for CPU
 tensors, the CUDA kernel for CUDA tensors, no fallback between them;
 ``LAUNCHES`` and ``PLAIN_ON_CUDA`` (``_common``) count per wrapper.
 
+Tiles (and packed values) of kernels 14, 15 and 17 are float32 or
+bfloat16, vectors float32 (the TPU kernels' two operand forms): a bfloat16
+operator launches the kernel's bf16 form, counted as ``<name>_bf16``
+(``_common.form``), bit-equal to the float32 launch on the widened tiles;
+the plain versions widen first.  Kernel 16 reads vectors only.
+
 Inside a solve the wrappers take a :class:`MinresWork`: the device scalars
 of the recurrence, the control words, the history and scratch.  The
 kernels' final reductions then do the solver's scalar steps on the device
@@ -60,9 +66,11 @@ from ..spmv import bell_apply, sym_bell_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    OPERATOR_DTYPES,
     UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
+    form,
     on_cuda,
     ptr,
     raise_on_error,
@@ -260,9 +268,10 @@ def minres_dir_spmv_dot(
 ):
     """Kernel 1 of the fused MINRES iteration on full blocked-ELL storage.
 
-    ``blocks`` (nrb, kmax, bn, bn) float32, ``block_cols`` (nrb, kmax)
-    int32; the six vectors and ``inv_diag2d`` (nrb, bn) float32 (a square
-    padded system); ``su`` (1, 8) float32, the ``SU_*`` slots.  Returns
+    ``blocks`` (nrb, kmax, bn, bn) float32 or bfloat16, ``block_cols``
+    (nrb, kmax) int32; the six vectors and ``inv_diag2d`` (nrb, bn) float32
+    (a square padded system); ``su`` (1, 8) float32, the ``SU_*`` slots.
+    Returns
     ``(v, q, w_new, x_new, vq, vr1)``: four (nrb, bn) vectors and two
     (1, 1) dots; v·q uses the shifted q.
 
@@ -279,9 +288,9 @@ def minres_dir_spmv_dot(
     nrb, kmax, bm, bn = blocks.shape
     if bm != bn:
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
+    if blocks.dtype not in OPERATOR_DTYPES:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, got {blocks.dtype}")
+    name = form(name, blocks.dtype)
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
@@ -289,7 +298,7 @@ def minres_dir_spmv_dot(
     if row_group is not None and row_group < 1:
         raise ValueError(f"{name}: row_group must be >= 1")
     if not on_cuda(name, blocks, block_cols, *vecs, su, inv_diag2d, *_extra(out, work)):
-        return _dir_plain(name, lambda v: bell_apply(blocks, block_cols, v),
+        return _dir_plain(name, lambda v: bell_apply(blocks.to(torch.float32), block_cols, v),
                           vecs, su, inv_diag2d, out, work)
     if bn not in CUDA_BN:
         raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
@@ -297,8 +306,9 @@ def minres_dir_spmv_dot(
         row_group = auto_row_group(nrb, r2_2d.device)
 
     def launch(lib, common, w):
-        return lib.minres_full_dir(ptr(blocks), ptr(block_cols), *common,
-                                   nrb, kmax, bn, row_group, stream(r2_2d.device))
+        return getattr(lib, form("minres_full_dir", blocks.dtype))(
+            ptr(blocks), ptr(block_cols), *common, nrb, kmax, bn, row_group,
+            stream(r2_2d.device))
 
     return _dir_cuda(name, (blocks, block_cols), vecs, su, inv_diag2d, out, work,
                      -(-nrb // row_group), launch)
@@ -325,8 +335,8 @@ def sym_minres_dir_spmv_dot(
 ):
     """Kernel 1 on symmetric blocked-ELL storage: the contract of
     :func:`minres_dir_spmv_dot` with the operator as ``diag_blocks``
-    (nrb, bn, bn), ``off_blocks`` (nrb, ku, bn, bn) and ``off_cols``
-    (nrb, ku) int32.
+    (nrb, bn, bn), ``off_blocks`` (nrb, ku, bn, bn) (float32, or bfloat16
+    both) and ``off_cols`` (nrb, ku) int32.
 
     ``mirror``: ``"scatter"`` lands each slot's Bᵀ product in its block-row
     in the fixed order of ``mirror_src`` (``SymBellMatrix.mirror_src``), in
@@ -348,10 +358,10 @@ def sym_minres_dir_spmv_dot(
     ku = off_blocks.shape[1]
     if mirror == "banded" and ku != 1:
         raise ValueError("mirror='banded' requires ku == 1 storage")
-    for t in (diag_blocks, off_blocks):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: tiles must be float32, got {t.dtype} "
-                            "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
+    if diag_blocks.dtype not in OPERATOR_DTYPES or off_blocks.dtype != diag_blocks.dtype:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, both of one dtype, "
+                        f"got {diag_blocks.dtype} / {off_blocks.dtype}")
+    name = form(name, diag_blocks.dtype)
     if tuple(off_cols.shape) != (nrb, ku) or off_cols.dtype != torch.int32:
         raise ValueError(f"{name}: off_cols must be ({nrb}, {ku}) int32")
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
@@ -363,8 +373,10 @@ def sym_minres_dir_spmv_dot(
         raise ValueError(f"{name}: mirror_src must be ({nrb}, kin) int32")
     if not on_cuda(name, diag_blocks, off_blocks, off_cols, mirror_src, *vecs, su,
                    inv_diag2d, *_extra(out, work)):
+        f32 = torch.float32
         return _dir_plain(
-            name, lambda v: sym_bell_apply(diag_blocks, off_blocks, off_cols, mirror_src, v),
+            name, lambda v: sym_bell_apply(diag_blocks.to(f32), off_blocks.to(f32), off_cols,
+                                           mirror_src, v),
             vecs, su, inv_diag2d, out, work)
     if bn not in CUDA_BN:
         raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
@@ -372,12 +384,12 @@ def sym_minres_dir_spmv_dot(
 
     def launch(lib, common, w):
         if mirror == "banded":
-            return lib.minres_sym_dir_banded(
+            return getattr(lib, form("minres_sym_dir_banded", diag_blocks.dtype))(
                 ptr(diag_blocks), ptr(off_blocks), ptr(off_cols), *common,
                 nrb, bn, row_group, stream(dev))
         if w.tparts is None or w.tparts.numel() < nrb * ku * bn:
             w.tparts = torch.empty(nrb * ku * bn, device=dev)
-        return lib.minres_sym_dir_general(
+        return getattr(lib, form("minres_sym_dir_general", diag_blocks.dtype))(
             ptr(diag_blocks), ptr(off_blocks), ptr(off_cols), ptr(mirror_src), *common,
             ptr(w.tparts), nrb, ku, mirror_src.shape[1], bn, row_group, stream(dev))
 
@@ -400,14 +412,16 @@ def minres_dir_spmv_dot_packed(
     work: Optional[MinresWork] = None,
 ):
     """Kernel 1 on the packed nonzeros ``pk`` (``types/bell.PackedBell``,
-    float32) of either storage: the contract of :func:`minres_dir_spmv_dot`
-    (the same returns and aliasing rules) for a square padded system of
-    ``pk.rows`` rows, vectors (nrb, bn) float32 with nrb·bn = ``pk.rows``.
-    Any tile width.  Launches are counted as ``sym_minres_dir_spmv_dot_packed``
-    when ``pk.symmetric`` (kernel 15's function), else as
-    ``minres_dir_spmv_dot_packed`` (kernel 14's)."""
-    name = "sym_minres_dir_spmv_dot_packed" if pk.symmetric else "minres_dir_spmv_dot_packed"
-    nrb, bn = check_packed_vectors(name, pk, r2_2d)
+    float32 or bfloat16 values) of either storage: the contract of
+    :func:`minres_dir_spmv_dot` (the same returns and aliasing rules) for a
+    square padded system of ``pk.rows`` rows, vectors (nrb, bn) float32
+    with nrb·bn = ``pk.rows``.  Any tile width.  Launches are counted as
+    ``sym_minres_dir_spmv_dot_packed`` when ``pk.symmetric`` (kernel 15's
+    function), else as ``minres_dir_spmv_dot_packed`` (kernel 14's); with
+    bfloat16 values ``_bf16`` at the end of either name."""
+    name = form("sym_minres_dir_spmv_dot_packed" if pk.symmetric
+                else "minres_dir_spmv_dot_packed", pk.vals.dtype)
+    nrb, bn = check_packed_vectors(name, pk, r2_2d, OPERATOR_DTYPES)
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
     _check_dir_operands(name, nrb, bn, vecs, su, inv_diag2d, out)
     view = (pk.vals, pk.cols, pk.row_len, pk.chunk_off)
@@ -415,8 +429,8 @@ def minres_dir_spmv_dot_packed(
         return _dir_plain(name, packed_product(pk), vecs, su, inv_diag2d, out, work)
 
     def launch(lib, common, w):
-        return lib.minres_dir_packed(*(ptr(t) for t in view), *common, pk.rows,
-                                     stream(r2_2d.device))
+        return getattr(lib, form("minres_dir_packed", pk.vals.dtype))(
+            *(ptr(t) for t in view), *common, pk.rows, stream(r2_2d.device))
 
     return _dir_cuda(name, view, vecs, su, inv_diag2d, out, work, -(-pk.rows // _THREADS),
                      launch)
@@ -493,8 +507,8 @@ def minres_shard_spmv_dot(
     """One shard's kernel 1 of the row-sharded MINRES loop:
     ``(q, w_new, x_new, vq, vr1)``.
 
-    ``blocks`` (nrb, kmax, bn, bn) float32 and ``block_cols`` (nrb, kmax)
-    int32 GLOBAL column blocks; ``vfull2d`` the all-gathered, normalised
+    ``blocks`` (nrb, kmax, bn, bn) float32 or bfloat16 and ``block_cols``
+    (nrb, kmax) int32 GLOBAL column blocks; ``vfull2d`` the all-gathered, normalised
     Lanczos vector (ncb, bn); ``r1_2d``, ``vprev2d``, ``wm1_2d``,
     ``wm2_2d``, ``x2d`` this shard's (nrb, bn) float32 slices; ``su``
     (1, 8) float32, the ``SU_*`` slots (``SU_INV_BETA`` unused: v is
@@ -518,9 +532,8 @@ def minres_shard_spmv_dot(
     nrb, kmax, bm, bn = blocks.shape
     if bm != bn:
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
+    if blocks.dtype not in OPERATOR_DTYPES:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, got {blocks.dtype}")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     if vfull2d.dim() != 2 or vfull2d.shape[1] != bn or vfull2d.dtype != torch.float32:
@@ -575,7 +588,7 @@ def _check_shard_out(name, nrb, bn, vfull2d, vecs, out):
 
 
 def _shard_plain(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work):
-    name = "minres_shard_spmv_dot"
+    name = form("minres_shard_spmv_dot", blocks.dtype)
     r1, vprev, wm1, wm2, x = vecs
     if r1.is_cuda:
         PLAIN_ON_CUDA[name] += 1
@@ -590,7 +603,7 @@ def _shard_plain(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work):
         x_new = x + s[SU_PHI] * w_new
         r0 = row_offset // bn
         vwin = vfull2d[r0:r0 + nrb]
-        q = bell_apply(blocks, block_cols, vfull2d) - s[SU_SHIFT] * vwin
+        q = bell_apply(blocks.to(torch.float32), block_cols, vfull2d) - s[SU_SHIFT] * vwin
         dots.copy_(torch.stack([torch.sum(vwin * q), torch.sum(vwin * r1)]).reshape(dots.shape))
         q_o.copy_(q)
         w_o.copy_(w_new)
@@ -602,7 +615,7 @@ def _shard_plain(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work):
 def _shard_cuda(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work, row_group):
     from ._build import load_library
 
-    name = "minres_shard_spmv_dot"
+    name = form("minres_shard_spmv_dot", blocks.dtype)
     nrb, kmax, _, bn = blocks.shape
     r1 = vecs[0]
     dev = r1.device
@@ -615,7 +628,7 @@ def _shard_cuda(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work, ro
     grid = -(-nrb // row_group)
     if work.partials.numel() < 2 * grid:
         work.partials = torch.empty(2 * grid, device=dev)
-    err = load_library().minres_shard_dir(
+    err = getattr(load_library(), form("minres_shard_dir", blocks.dtype))(
         ptr(blocks), ptr(block_cols), ptr(vfull2d), *(ptr(v) for v in vecs), ptr(su),
         *(ptr(o) for o in out), ptr(work.partials), ptr(work.counter), ptr(work.ctl),
         row_offset // bn, nrb, kmax, bn, row_group, stream(dev))

@@ -67,8 +67,7 @@ def _kernel_route(use_kernel: str, x: torch.Tensor, out_dtype) -> bool:
     a CUDA device and a float32 or bfloat16 result take the hand-written
     kernel (a bfloat16 operator its bf16 form, on float32 x; a bf16 result
     is the float32 one rounded); a float64 operator or vector, and CPU
-    tensors, the plain form.  Symmetric DIA has no bf16 kernel yet, so there
-    a bfloat16 operator on a CUDA device raises (ROADMAP.md queue 2).
+    tensors, the plain form.
     ``"never"`` and ``"always"`` force one route (on CPU tensors a kernel's
     wrapper runs its plain version)."""
     if use_kernel not in KERNEL_CHOICES:

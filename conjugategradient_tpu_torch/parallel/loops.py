@@ -381,10 +381,11 @@ def _sharded_fused_cg(group, blocks: Vecs, cols: Vecs, b: Vecs, x0: Vecs,
 def _sharded_fused_minres(group, blocks: Vecs, cols: Vecs, b: Vecs, x0: Vecs,
                           tol: float, maxiter: int, bn: int,
                           inv_diag: Optional[Vecs] = None):
-    """Per-shard MINRES on the fused kernels, float32: each shard's pending
-    w/x update, SpMV on the gathered v and the v·q, v·r1 partials as one
-    kernel (``minres_shard_spmv_dot``), the Lanczos projections and the β²
-    partial as another (``minres_update_dot`` in partials-only mode).  One
+    """Per-shard MINRES on the fused kernels, float32 vectors on float32 or
+    bfloat16 tiles: each shard's pending w/x update, SpMV on the gathered v
+    and the v·q, v·r1 partials as one kernel (``minres_shard_spmv_dot``),
+    the Lanczos projections and the β² partial as another
+    (``minres_update_dot`` in partials-only mode).  One
     gather and two psum rounds per iteration (the stacked (v·q, v·r1) and
     β²).  Same semantics as :func:`_sharded_minres`.
 
@@ -501,9 +502,11 @@ def _settle(st: _FusedMinresBuffers, work: fm.MinresWork) -> None:
 
 def _fused_shards_supported(blocks: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether ``use_fused="auto"`` takes the fused loops: the JAX gate
-    (square tiles, bn and the rows per shard multiples of 128, float32,
-    kmax <= 64) with the operator on a CUDA device in place of its TPU-only
-    terms (the VMEM byte cap on the gathered operand, a TPU backend)."""
+    (square tiles, bn and the rows per shard multiples of 128, float32 b,
+    kmax <= 64; the tiles' dtype is not tested, so bf16 shards take the
+    fused MINRES loop on kernel 17's bf16 form) with the operator on a CUDA
+    device in place of its TPU-only terms (the VMEM byte cap on the
+    gathered operand, a TPU backend)."""
     n_shards, _, kmax, bm, bn = blocks.shape
     m = b.shape[0] // n_shards
     return (bm == bn and bn % 128 == 0 and m % 128 == 0

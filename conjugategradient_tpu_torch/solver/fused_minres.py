@@ -19,7 +19,8 @@ reads the done flag only every ``CHECK_EVERY`` steps (solver/restart.py).
 
 The vectors are updated in place: v over v_prev, x over x, w_new over
 w₋₂'s buffer and r2' over r1's, after which the two w buffers and the two
-r buffers trade names.  Float32 only, like the fused CG path.
+r buffers trade names.  Float32 vectors on float32 or bfloat16 tiles, like
+the fused CG path: a bfloat16 operator runs the bf16 forms of kernel 1.
 """
 
 from __future__ import annotations
@@ -109,12 +110,13 @@ def fused_minres_supported(a: Any, dtype=None) -> bool:
     """Whether the fused MINRES path can run this operator: the fused CG
     gate (:func:`~.fused.fused_supported`: blocked-ELL in full or symmetric
     storage, square tiles of a width the kernels take, a square padded
-    system, tensors on a CUDA device) with float32 tiles only: kernels 14,
-    15 and 17 have no bfloat16 form yet (ROADMAP.md queue 2), so MINRES on
-    bf16 tiles runs the portable loop, whose SpMV is kernel 5's bf16 form.
-    The JAX package's extra bound on the vectors' VMEM residency is
-    dropped: the CUDA kernels stream the vectors from L2/HBM."""
-    return getattr(a, "dtype", None) == torch.float32 and fused_supported(a, dtype=dtype)
+    system, float32 or bfloat16 tiles with float32 vectors, tensors on a
+    CUDA device), as the JAX gate is.  A bfloat16 operator runs the bf16
+    forms of kernels 14 and 15 (dense or packed, by
+    ``ops/spmv.bell_packed_route``); kernel 16 reads vectors only.  The JAX
+    package's extra bound on the vectors' VMEM residency is dropped: the
+    CUDA kernels stream the vectors from L2/HBM."""
+    return fused_supported(a, dtype=dtype)
 
 
 def fused_minres_init(

@@ -113,14 +113,19 @@ def minres_step(op: LinearOperator, s: MinresState, tol: torch.Tensor,
     division by it never reaches the state)."""
     live = s.live
     dt = s.y.dtype
+    # a vector meets a scalar of the recurrence in the scalars' dtype sdt,
+    # rounded once to the vectors' dtype after, as JAX promotes a bf16
+    # array against a float32 one (torch would round the 0-d scalar to
+    # bf16 first); for float32 and float64 vectors .to(sdt) is a no-op
+    sdt = s.phibar.dtype
     # Lanczos step: v_{k+1} from (r1, r2, y)
-    v = (s.y / s.beta).to(dt)
+    v = (s.y.to(sdt) / s.beta).to(dt)
     y = (op.matvec(v) - shift * v).to(dt)
     noprev = s.oldb == 0  # the first step has no v_{k-1} term
     c1 = torch.where(noprev, 0, s.beta / torch.where(noprev, 1, s.oldb))
-    y = y - (c1 * s.r1).to(dt)
+    y = y - (c1 * s.r1.to(sdt)).to(dt)
     alfa = dot(v, y)
-    y = (y - (alfa / s.beta) * s.r2).to(dt)
+    y = (y.to(sdt) - (alfa / s.beta) * s.r2.to(sdt)).to(dt)
     r2 = y
     y_next = r2 if M is None else M(r2).to(dt)
     beta = torch.sqrt(dot(r2, y_next))  # NaN iff M is not SPD
@@ -138,8 +143,8 @@ def minres_step(op: LinearOperator, s: MinresState, tol: torch.Tensor,
     phibar = sn * s.phibar
 
     # solution update
-    w = ((v - s.epsln * s.w2 - delta * s.w) / gamma).to(s.w.dtype)
-    x = (s.x + phi * w).to(s.x.dtype)
+    w = ((v.to(sdt) - s.epsln * s.w2.to(sdt) - delta * s.w.to(sdt)) / gamma).to(s.w.dtype)
+    x = (s.x.to(sdt) + phi * w.to(sdt)).to(s.x.dtype)
 
     is_nan = torch.isnan(phibar) | torch.isnan(beta)
     done = is_nan | (phibar <= tol) | (beta == 0)
@@ -182,10 +187,11 @@ def minres_solve(
     ``converged=False``.  ``n``: the dimension, for a callable ``A``.
 
     ``fused="auto"`` sends a float32 solve on a blocked-ELL operator (full
-    or symmetric storage) whose tensors lie on a CUDA device, with no
-    preconditioner or a :func:`~.precond.jacobi_preconditioner`, to the
-    two-kernel fused iteration (solver/fused_minres.py); everything else,
-    and all float64, runs the portable loop here.  ``"never"`` forces the
+    or symmetric storage, float32 or bfloat16 tiles) whose tensors lie on a
+    CUDA device, with no preconditioner or a
+    :func:`~.precond.jacobi_preconditioner`, to the two-kernel fused
+    iteration (solver/fused_minres.py); everything else, and all float64,
+    runs the portable loop here.  ``"never"`` forces the
     portable loop; ``"always"`` raises where the fused path cannot run.
     """
     if fused not in FUSED_CHOICES:
@@ -203,7 +209,7 @@ def minres_solve(
                                       shift=shift, inv_diag=inv_diag)
         if fused == "always":
             raise ValueError(
-                "fused='always' needs a float32 BlockedEllMatrix or "
+                "fused='always' needs a float32 or bfloat16 BlockedEllMatrix or "
                 "SymBellMatrix on a CUDA device with square tiles of width "
                 "32/64/128/256 and a square padded shape, float32 vectors, and "
                 "no preconditioner or a jacobi_preconditioner")

@@ -32,8 +32,8 @@ CG on a copy of the operator stored in that dtype, true residuals in
 ``--dtype``), and ``--dtype bfloat16`` solves in bfloat16.  Flags of the
 JAX harness that this package has not ported yet exit with code 2 and
 "not yet ported", as do the bfloat16 runs that would reach a kernel whose
-bf16 form is not ported yet on ``--device cuda`` (a SymDIA operator, or a
-stencil with bfloat16 vectors; ROADMAP.md queue 2).
+bf16 form is not ported yet on ``--device cuda`` (a stencil with bfloat16
+vectors; ROADMAP.md queue 2).
 """
 
 from __future__ import annotations
@@ -192,16 +192,13 @@ def _not_ported(what: str) -> int:
 def _bf16_unported(args, A, device):
     """What a bfloat16 run (``--dtype bfloat16``, or ``--refine bfloat16``
     whose inner operator is a bf16 copy) would reach on a CUDA device that
-    has no bf16 kernel yet, or None: the symmetric DIA product (kernel 10)
-    and the stencil apply on bfloat16 vectors.  A bf16 stencil applied to
-    the refinement's float32 vectors runs the float32 kernel."""
-    from .types import StencilOperator, SymDIAMatrix
+    has no bf16 kernel yet, or None: the stencil apply on bfloat16 vectors.
+    A bf16 stencil applied to the refinement's float32 vectors runs the
+    float32 kernel; every stored layout has its bf16 kernels."""
+    from .types import StencilOperator
 
     if device.type != "cuda":
         return None
-    if isinstance(A, SymDIAMatrix) and "bfloat16" in (args.dtype, args.refine):
-        return ("--layout symdia in bfloat16 on --device cuda (the bf16 form of kernel "
-                "10, ROADMAP.md queue 2)")
     if isinstance(A, StencilOperator) and args.dtype == "bfloat16":
         return ("a stencil: input in bfloat16 on --device cuda (the bf16 form of "
                 "stencil7, ROADMAP.md queue 2)")

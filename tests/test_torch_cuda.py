@@ -205,11 +205,19 @@ def test_dia_kernels_bit_equal_to_plain(dev):
         torch.cuda.synchronize()
         assert torch.equal(yb, kd.dia_spmv_diags(lo.float(), offsets, od, x)), label
         assert torch.equal(yb, kd._dia_plain(lo, offsets, x)), label
-    # the symmetric kernels have no bf16 form yet
-    sd = torch.randn(2, 64, device=dev).bfloat16()
-    with pytest.raises(TypeError, match="not ported"):
-        kd.sym_dia_spmv_diags(sd, (0, 1), torch.tensor([0, 1], dtype=torch.int32, device=dev),
-                              torch.randn(64, device=dev))
+        if min(offsets) >= 0 and ncols == d.shape[1]:
+            # kernel 10's bf16 form, on the route a float32 operator of
+            # this shape takes
+            n = d.shape[1]
+            tiling = kd.sym_dia_tiling(tuple(offsets), n)
+            sroute = ("sym_dia_spmv_tiled" if tiling is not None and tiling.pays(n)
+                      else "sym_dia_spmv")
+            before = fc.LAUNCHES[f"{sroute}_bf16"]
+            ysb = kd.sym_dia_spmv_diags(lo, offsets, od, x)
+            assert fc.LAUNCHES[f"{sroute}_bf16"] == before + 1, label
+            torch.cuda.synchronize()
+            assert torch.equal(ysb, kd.sym_dia_spmv_diags(lo.float(), offsets, od, x)), label
+            assert torch.equal(ysb, kd._sym_dia_plain(lo, offsets, x)), label
 
 
 @pytest.mark.cuda
@@ -416,8 +424,18 @@ def test_minres_full_dir_kernel_matches_plain(dev, bn, row_group, with_d):
         assert all(torch.equal(x, y) for x, y in zip(k, k2))
         if first:
             assert torch.equal(k[3], vecs[5]) and not k[2].any()  # x kept, w = 0
-    with pytest.raises(TypeError, match="not ported"):
-        fm.minres_dir_spmv_dot(a.blocks.bfloat16(), a.block_cols, *vecs, su, d)
+    # bf16 tiles: kernel 14's bf16 form, bit-equal to the float32 launch on
+    # the widened tiles, and to the plain version where that one is
+    lo = a.blocks.bfloat16()
+    before = fc.LAUNCHES["minres_dir_spmv_dot_bf16"]
+    kb16 = fm.minres_dir_spmv_dot(lo, a.block_cols, *vecs, su, d, row_group=row_group)
+    assert fc.LAUNCHES["minres_dir_spmv_dot_bf16"] == before + 1
+    k32 = fm.minres_dir_spmv_dot(lo.float(), a.block_cols, *vecs, su, d, row_group=row_group)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(kb16, k32))
+    _check_minres_dir(kb16, fm._dir_plain(
+        "minres_dir_spmv_dot_bf16", lambda v: bell_apply(lo.float(), a.block_cols, v), vecs,
+        su, d, None, None))
     with pytest.raises(ValueError, match="alias"):
         fm.minres_dir_spmv_dot(a.blocks, a.block_cols, *vecs, su, d,
                                out=(vecs[0], *(torch.empty_like(vecs[0]) for _ in range(3))))
@@ -460,6 +478,66 @@ def test_minres_sym_dir_kernel_matches_plain_in_place(dev, mirror, with_d):
     assert fc.LAUNCHES["sym_minres_dir_spmv_dot"] == before + 1
     _check_minres_dir(k, pl)
     assert torch.equal(r2, vecs[0]) and torch.equal(r1, vecs[1]) and torch.equal(wm1, vecs[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("mirror", ["scatter", "banded"])
+def test_minres_sym_dir_bf16_kernel_bit_equal(dev, mirror, with_d):
+    """Kernel 15's bf16 form in both landings: bit-equal to the float32
+    launch on the widened tiles, held to the plain version, and the packed
+    form on ``SymBellMatrix.packed()`` of the bf16 tiles bit-equal to its
+    plain version in v, q, w and x'; a NaN in the tiles reaches the dots."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.spmv import sym_bell_apply
+
+    rng = np.random.default_rng(3)
+    bn, nrb = 32, 13
+    if mirror == "banded":
+        n = nrb * bn
+        blocks, bcols, nnz = block_tridiag_tiles(n, bn, bn, seed=4)
+        a = SymBellMatrix._pack_np(blocks, bcols.astype(np.int64), (n, n), (n, n), nnz,
+                                   check=False, device=dev)
+    else:
+        a = SymBellMatrix.from_bell(BlockedEllMatrix.from_csr_host(
+            *_block_csr(rng, nrb, bn, bn, 3), bm=bn, bn=bn, device=dev))
+    lo = a.astype(torch.bfloat16)
+    hi = lo.astype(torch.float32)
+    vecs, su, d = _minres_operands(a, dev, 6, with_d)
+
+    def launch(op):
+        return fm.sym_minres_dir_spmv_dot(op.diag_blocks, op.off_blocks, op.off_cols, *vecs,
+                                          su, d, mirror=mirror, row_group=4,
+                                          mirror_src=op.mirror_src)
+
+    before = fc.LAUNCHES["sym_minres_dir_spmv_dot_bf16"]
+    kb16 = launch(lo)
+    assert fc.LAUNCHES["sym_minres_dir_spmv_dot_bf16"] == before + 1
+    k32 = launch(hi)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(kb16, k32))
+    _check_minres_dir(kb16, fm._dir_plain(
+        "sym_minres_dir_spmv_dot_bf16",
+        lambda v: sym_bell_apply(hi.diag_blocks, hi.off_blocks, hi.off_cols, hi.mirror_src, v),
+        vecs, su, d, None, None))
+    pk = lo.packed()
+    before = fc.LAUNCHES["sym_minres_dir_spmv_dot_packed_bf16"]
+    kp = fm.minres_dir_spmv_dot_packed(pk, *vecs, su, d)
+    assert fc.LAUNCHES["sym_minres_dir_spmv_dot_packed_bf16"] == before + 1
+    pp = fm._dir_plain("sym_minres_dir_spmv_dot_packed_bf16", kb.packed_product(pk), vecs,
+                       su, d, None, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(kp[:4], pp[:4]))
+    for i in (4, 5):
+        np.testing.assert_allclose(float(kp[i]), float(pp[i]), rtol=RTOL,
+                                   atol=RTOL * float(pp[1].abs().max()))
+    # a NaN tile value, widened, reaches q and both dots
+    bad = lo.diag_blocks.clone()
+    bad[0, 0, 0] = float("nan")
+    kn = fm.sym_minres_dir_spmv_dot(bad, lo.off_blocks, lo.off_cols, *vecs, su, d,
+                                    mirror=mirror, row_group=4, mirror_src=lo.mirror_src)
+    torch.cuda.synchronize()
+    assert torch.isnan(kn[1][0, 0]) and torch.isnan(kn[4]).all()
 
 
 @pytest.mark.cuda
@@ -935,6 +1013,18 @@ def test_minres_shard_kernel_matches_plain(dev, bn, case):
         with pytest.raises(ValueError, match=f"{what} must not alias"):
             fm.minres_shard_spmv_dot(blocks, cols, full, r1, vprev, wm1, w_in, x_in, su, off,
                                      out=bad)
+    # bf16 tiles: kernel 17's bf16 form, bit-equal to the float32 launch on
+    # the widened tiles, and w, x' to the plain version
+    lo = blocks.bfloat16()
+    before = fc.LAUNCHES["minres_shard_spmv_dot_bf16"]
+    kb16 = fm.minres_shard_spmv_dot(lo, *args[1:])
+    assert fc.LAUNCHES["minres_shard_spmv_dot_bf16"] == before + 1
+    k32 = fm.minres_shard_spmv_dot(lo.float(), *args[1:])
+    pb = fm._shard_plain(lo, cols, full, (r1, vprev, wm1, wm2, x), su, off, None, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kb16, k32))
+    assert torch.equal(kb16[1], pb[1]) and torch.equal(kb16[2], pb[2])
+    _close(kb16[0], pb[0])
 
 
 @pytest.mark.cuda
@@ -2151,8 +2241,10 @@ def test_bf16_solves_take_the_bf16_kernels(dev):
     """cg_solve on bfloat16 blocked-ELL tiles with float32 vectors runs the
     fused bf16 kernels (dense tiles: kernels 4 and 1; the packed view on
     sparse tiles), refined_cg_solve reaches a float32 tolerance with them,
-    MINRES and BiCGStab on bf16 tiles run their portable loops on kernel
-    5's bf16 forms, and no plain version runs on CUDA tensors."""
+    MINRES on bf16 tiles runs the fused bf16 kernels 14 / 15 (packed on
+    sparse tiles) with kernel 16, its sticky NaN flag set by a NaN tile
+    value, BiCGStab on bf16 tiles runs its portable loop on kernel 5's bf16
+    forms, and no plain version runs on CUDA tensors."""
     from conjugategradient_tpu_torch import (bicgstab_solve, cg_solve, minres_solve,
                                              refined_cg_solve)
     from conjugategradient_tpu_torch.problems import poisson2d_coo
@@ -2182,20 +2274,38 @@ def test_bf16_solves_take_the_bf16_kernels(dev):
         _, cinfo = cg_solve(a.astype(torch.bfloat16), rhs, maxiter=8, tol=-1.0)
         assert int(cinfo.iterations) == 8
         assert not any(fc.PLAIN_ON_CUDA.values()), fc.PLAIN_ON_CUDA
-    fc.reset_counts()
     lo = full.astype(torch.bfloat16)
-    _, minfo = minres_solve(lo, b, maxiter=8, tol=0.0)
+    # the one bell_spmv_bf16 of a full-storage MINRES solve is its true
+    # residual after the loop (as the JAX solve computes it); symmetric
+    # storage's is the plain form, the packed route's the packed kernel
+    for a, rhs, kernel, spmv in ((lo, b, "minres_dir_spmv_dot_bf16", 1),
+                                 (sym.astype(torch.bfloat16), b, "sym_minres_dir_spmv_dot_bf16", 0),
+                                 (sparse.astype(torch.bfloat16), bs,
+                                  "minres_dir_spmv_dot_packed_bf16", 0)):
+        fc.reset_counts()
+        _, minfo = minres_solve(a, rhs, maxiter=8, tol=0.0)
+        assert int(minfo.iterations) == 8 and np.isfinite(float(minfo.rnorm))
+        assert fc.LAUNCHES[kernel] >= 8 and fc.LAUNCHES["minres_update_dot"] >= 8
+        assert fc.LAUNCHES["bell_spmv_bf16"] == spmv
+        assert not any(fc.PLAIN_ON_CUDA.values()), fc.PLAIN_ON_CUDA
+    bad = lo.blocks.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    _, ninfo = minres_solve(BlockedEllMatrix(bad, lo.block_cols, lo.shape, lo.nnz), b,
+                            maxiter=8, tol=0.0)
+    assert not bool(ninfo.converged) and math.isnan(float(ninfo.rnorm))
+    assert int(ninfo.iterations) == 1
+    fc.reset_counts()
     _, binfo = bicgstab_solve(lo, b, maxiter=8, tol=0.0)
-    assert fc.LAUNCHES["bell_spmv_bf16"] > 0 and fc.LAUNCHES["minres_dir_spmv_dot"] == 0
-    assert fc.LAUNCHES["bicgstab_dir_spmv_dot"] == 0
-    assert np.isfinite(float(minfo.rnorm)) and np.isfinite(float(binfo.rnorm))
+    assert fc.LAUNCHES["bell_spmv_bf16"] > 0 and fc.LAUNCHES["bicgstab_dir_spmv_dot"] == 0
+    assert np.isfinite(float(binfo.rnorm))
     assert not any(fc.PLAIN_ON_CUDA.values()), fc.PLAIN_ON_CUDA
 
 
 @pytest.mark.cuda
 def test_tester_refine_and_bf16_on_the_card(dev, capsys):
-    """The tester's --refine and --dtype bfloat16 on the card, and its exit
-    2 where a bf16 product has no kernel yet (SymDIA, kernel 10)."""
+    """The tester's --refine and --dtype bfloat16 on the card, SymDIA
+    included (kernel 10's bf16 forms), and its exit 2 where a bf16 product
+    has no kernel yet (the stencil on bf16 vectors)."""
     import json
 
     from conjugategradient_tpu_torch import tester
@@ -2204,12 +2314,11 @@ def test_tester_refine_and_bf16_on_the_card(dev, capsys):
     for extra in (["--dtype", "float32", "--refine", "bfloat16", "--tol", "1"],
                   ["--dtype", "float64", "--refine", "float32", "--tol", "1e-8"],
                   ["--dtype", "bfloat16", "--tol", "1"]):
-        for layout in ("csr", "bell", "dia"):
+        for layout in ("csr", "bell", "dia", "symdia"):
             assert tester.main([mtx, "--layout", layout, "--summary", "--device", "cuda",
                                 *extra]) == 0
             lines = capsys.readouterr().out.strip().splitlines()
             assert lines[0].split()[:2] == ["1156", "5644"]
             assert json.loads(lines[1])["converged"] == [True], (layout, extra)
-    assert tester.main([mtx, "--layout", "symdia", "--dtype", "bfloat16", "--device",
-                        "cuda"]) == 2
+    assert tester.main(["stencil:16", "--dtype", "bfloat16", "--device", "cuda"]) == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -842,9 +842,10 @@ def test_refine_refusals_match_the_jax_tester(capsys, args, msg):
 
 
 def test_bf16_symdia_and_stencil_run_on_the_cpu(capsys):
-    """The bf16 products that have no kernel yet (SymDIA, the stencil) run
-    their plain versions on the CPU, as the JAX tester runs them: the same
-    dim and nnz, converged, rel_error under 5e-3."""
+    """The bf16 SymDIA and stencil products run their plain versions on the
+    CPU, as the JAX tester runs them: the same dim and nnz, converged,
+    rel_error under 5e-3 (on the card SymDIA runs kernel 10's bf16 forms;
+    the stencil on bf16 vectors has no kernel yet)."""
     for args in ([MTX, "--layout", "symdia", "--dtype", "bfloat16", "--tol", "1"],
                  ["stencil:8", "--dtype", "bfloat16", "--tol", "1"],
                  ["stencil:8", "--dtype", "float32", "--refine", "bfloat16", "--tol", "1e-1"]):
@@ -857,10 +858,11 @@ def test_bf16_symdia_and_stencil_run_on_the_cpu(capsys):
 
 def test_bf16_unported_kernels_exit_2_on_cuda():
     """Where a bf16 run would reach a kernel whose bf16 form is not ported
-    (SymDIA's kernel 10; the stencil on bf16 vectors), the tester's check
-    names the ROADMAP item for --device cuda (main then exits 2 with "not
-    yet ported"; tests/test_torch_cuda.py runs that on the card) and lets
-    the CPU and the ported products through."""
+    (the stencil on bf16 vectors), the tester's check names the ROADMAP
+    item for --device cuda (main then exits 2 with "not yet ported";
+    tests/test_torch_cuda.py runs that on the card) and lets the CPU and
+    the ported products through: SymDIA in bf16 (kernel 10's bf16 forms)
+    runs on the card."""
     from conjugategradient_tpu_torch import StencilOperator, load_matrix
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -873,10 +875,11 @@ def test_bf16_unported_kernels_exit_2_on_cuda():
         return tester._bf16_unported(args, A, device)
 
     for argv, A in ((["--dtype", "bfloat16"], symdia),
-                    (["--dtype", "float32", "--refine", "bfloat16"], symdia),
-                    (["--dtype", "bfloat16"], st)):
+                    (["--dtype", "float32", "--refine", "bfloat16"], symdia)):
+        assert check(argv, A, cuda) is None and check(argv, A, cpu) is None
+    for argv, A in ((["--dtype", "bfloat16"], st),):
         msg = check(argv, A, cuda)
-        assert msg is not None and "ROADMAP.md queue 2" in msg
+        assert msg is not None and "ROADMAP.md queue 2" in msg and "stencil" in msg
         assert check(argv, A, cpu) is None
     for argv, A in ((["--dtype", "bfloat16"], dia),
                     (["--dtype", "float32", "--refine", "bfloat16"], st),
