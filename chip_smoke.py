@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the forty-one kernels against its plain-torch version on the
+2. Hold each of the forty-seven kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -249,7 +249,17 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    launch on the widened operands and held to its plain version as the
    float32 form is (q and y of the dense forms and the MINRES dots within
    TOL_Q / TOL_DOT), and timed beside the plain version and the bytes
-   bound.
+   bound.  So are the bf16 forms of kernels 18 and 19 (dense on the
+   bicgstab-bell operator and at a ragged nrb = 13, bn = 32; packed on
+   convdiff-512's bf16 view and on convdiff-37 at bn = 32; with and
+   without the Jacobi d, on a first step and a later one, with a NaN alpha
+   and omega) and of kernel 6 (the n = 262,144 operator's bf16 shards at
+   P = 4 and 8); kernel 11's bf16 form (every op rounded to bf16, as
+   torch's ops on a bf16 volume) at 256^3 and on the ragged volumes, bit-
+   equal to its plain version with coefficients exact in bf16 and not, and
+   to the float32 launch on the widened volume where no op rounds
+   (integer-valued input), with its distance from that launch on random
+   input in bf16 ulps, the NaN reach, and cuDNN's bf16 conv3d beside it.
    The refine / bf16 path runs bench.py's cg-bf16 lane (fused CG on the
    n = 262,144 tiles in bf16, both storages, beside float32: ms/it and
    effective GB/s on the 413.1 MB/it convention, history hashes), the
@@ -268,6 +278,20 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    poisson3d_48's bf16 tiles in both storages (the packed route) and with a
    NaN tile value (the sticky NaN flag), and the sharded MINRES on bf16
    shards at P = 4 against the single card's bf16 fused MINRES.
+   Then the bf16 BiCGStab / sharded / stencil path, with its own reset and
+   read: ``bicgstab_solve(fused="always")`` on the bicgstab-bell operator's
+   bf16 tiles beside float32 (to 1e-5 ||b||, and at tol = -1, where the
+   recurrence reaches 0 and the solve ends at its breakdown exit after a
+   few steps, float32 alike), and on convdiff-512's bf16 tiles for 256
+   live steps on each route (the packed one, its own, and the dense one,
+   forced) beside float32, ms/it best of 3; a NaN tile value in either
+   (the sticky breakdown flag after one step); ``sharded_cg_solve``
+   (``method="standard"``, plain and Jacobi) on the cut operator's bf16
+   shards at P = 4 against the single card's bf16 fused CG / PCG
+   (``trajectory_ok``), 64 steps on the n = 262,144 bf16 shards beside
+   float32, and a NaN tile value; the tester on ``stencil:256 --dtype
+   bfloat16`` and ``stencil:64 --dtype bfloat16 --method minres`` (the
+   portable loops on bf16 vectors, kernel 11's bf16 form) beside float32.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -295,7 +319,9 @@ n; kernel 7 on both operators, cuSPARSE beside it), and the elementwise
 floor; on a tree that has them, the cg-bf16 lane's ms/it and history hash
 (full storage) and the refined solve of its system (history and x), and
 the fused MINRES at n = 262,144 on bf16 tiles in both storages (ms/it,
-history and x).
+history and x), and the fused BiCGStab on the bicgstab-bell operator's
+bf16 tiles (history and x) and the sharded fused CG at P = 4 on bf16
+shards (ms/it, history and x).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -389,14 +415,16 @@ REPLACES = {
     "sym_fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
     "sym_dia_spmv_tiled": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
 }
-# the bfloat16-tile forms of kernels 1, 4, 5, 7, 10, 14, 15 and 17 (float32
-# vectors): the same sources and the same TPU kernels, which take bf16
-# tiles too
+# the bfloat16-tile forms of kernels 1, 4, 5, 6, 7, 10, 14, 15, 17, 18 and 19
+# (float32 vectors) and the bf16-volume form of kernel 11: the same sources
+# and the same TPU kernels, which take bf16 operands too
 for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_spmv",
               "dia_spmv_rows", "bell_spmv_packed", "fused_dir_spmv_dot_packed",
               "sym_fused_dir_spmv_dot_packed", "sym_dia_spmv", "sym_dia_spmv_tiled",
               "minres_dir_spmv_dot", "minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot",
-              "sym_minres_dir_spmv_dot_packed", "minres_shard_spmv_dot"):
+              "sym_minres_dir_spmv_dot_packed", "minres_shard_spmv_dot",
+              "bicgstab_dir_spmv_dot", "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot",
+              "bicgstab_s_spmv_dot_packed", "bell_spmv_dot", "stencil7"):
     SOURCES[f"{_name}_bf16"] = SOURCES[_name]
     REPLACES[f"{_name}_bf16"] = REPLACES[_name]
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
@@ -770,7 +798,7 @@ def padded_inv_diag(a, rows):
     """1 / diag(A) padded with 1 to ``rows`` entries."""
     import torch
 
-    d = (1.0 / a.diagonal()).reshape(-1)
+    d = (1.0 / a.diagonal().float()).reshape(-1)
     return torch.nn.functional.pad(d, (0, rows - d.numel()), value=1.0)
 
 
@@ -1997,6 +2025,7 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.ops.cuda._common import form
 
     dev, nrb, bn = a.device, a.nrb, a.bn
     k18, p18, k19, p19 = bicg_forms(a, packed, row_group)
@@ -2070,6 +2099,7 @@ def check_bicg_tiles(a, rng, with_d, beta_v, omega_v, alpha_v, errs, label, row_
               f"K20 {label}: a clamped omega changed x_h or s")
     for name, e in ((f"bicgstab_dir_spmv_dot{suffix}", max(e_v, e_rv)),
                     (f"bicgstab_s_spmv_dot{suffix}", max(e_t, e_d))):
+        name = form(name, a.dtype)
         errs[name] = max(errs[name], e)
     bits = "p', p^, v', s, s^, x_h, t" if packed else "p', p^, s, s^, x_h"
     print(f"  {tag} {label:<38} {bits} bit-equal; |dv'|={e_v:.3g} (max {m_v:.4g}) "
@@ -2147,7 +2177,8 @@ def time_bicg_tiles(a, args, work, packed=False, with_d=False) -> tuple:
     their plain versions on the operands ``check_bicg_tiles`` returned,
     launched as the solver launches them (outputs made once, ``work``
     live), each with its bound: each input read once, each output written
-    once (the dense forms' tiles; the packed forms' 8 bytes a nonzero)."""
+    once (the dense forms' tiles; the packed forms' value, 4 or 2 bytes, and
+    4-byte column a nonzero)."""
     import torch
 
     r, p, v, rhat, x, k1, beta, omega, alpha, d = args
@@ -2163,8 +2194,9 @@ def time_bicg_tiles(a, args, work, packed=False, with_d=False) -> tuple:
     nd = int(d is not None)
     if packed:
         nnz = a.packed().nnz
-        t1.update(bound(8 * nnz + (7 + nd) * vb, 2 * nnz + 6 * n))
-        t2.update(bound(8 * nnz + (8 + nd) * vb, 2 * nnz + 10 * n))
+        per_nz = a.packed().vals.element_size() + 4
+        t1.update(bound(per_nz * nnz + (7 + nd) * vb, 2 * nnz + 6 * n))
+        t2.update(bound(per_nz * nnz + (8 + nd) * vb, 2 * nnz + 10 * n))
     else:
         tiles = nbytes(a.blocks, a.block_cols)
         t1.update(bound(tiles + (7 + nd) * vb, 2 * a.blocks.numel() + 6 * n))
@@ -2307,7 +2339,7 @@ def trajectory_ok(h_fused, h_plain, k, floor_rel=1e-10):
 
 @contextlib.contextmanager
 def forced_route(packed: bool):
-    """Send every float32 blocked-ELL operator, full or symmetric, down one
+    """Send every float32 or bf16 blocked-ELL operator, full or symmetric, down one
     route, the packed nonzeros or the dense tiles, in its SpMV and fused
     steps, to compare the two on one operator (the port itself picks by
     tile fill and has no switch for it)."""
@@ -2319,7 +2351,7 @@ def forced_route(packed: bool):
     users = (spmv, fused, fused_bicgstab, fused_minres)
     saved = spmv.bell_packed_route
     for mod in users:
-        mod.bell_packed_route = lambda a: packed and a.dtype == torch.float32
+        mod.bell_packed_route = lambda a: packed and a.dtype in (torch.float32, torch.bfloat16)
     try:
         yield
     finally:
@@ -3786,6 +3818,7 @@ def check_k6(blocks, cols, full, off, errs, label):
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda._common import form
 
     qk, pk = fc.bell_spmv_dot(blocks, cols, full, off)
     qk2, pk2 = fc.bell_spmv_dot(blocks, cols, full, off)
@@ -3796,7 +3829,8 @@ def check_k6(blocks, cols, full, off, errs, label):
     check(e_q <= TOL_Q * m_q, f"K6 {label}: q err {e_q} vs max|q| {m_q}")
     check(e_pap <= TOL_DOT * abs(float(pp)), f"K6 {label}: pap {float(pk)} vs {float(pp)}")
     check(torch.equal(qk, qk2) and torch.equal(pk, pk2), f"K6 {label}: two launches differ")
-    errs["bell_spmv_dot"] = max(errs["bell_spmv_dot"], e_q, e_pap)
+    name = form("bell_spmv_dot", blocks.dtype)
+    errs[name] = max(errs[name], e_q, e_pap)
     print(f"  K6 {label:<40} |dq|={e_q:.3g} (max|q| {m_q:.4g}) |dpap|={e_pap:.3g} "
           f"(pap {float(pp):.6g}); repeat ok")
 
@@ -6516,6 +6550,393 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
           f"{int(keep.sum())} steps above its floor  [{card}]")
 
 
+# ---- bfloat16 operands: the bf16 forms of kernels 18, 19, 6 and 11 ----------
+
+BF16_BICG_KERNELS = ("bicgstab_dir_spmv_dot_bf16", "bicgstab_s_spmv_dot_bf16",
+                     "bicgstab_dir_spmv_dot_packed_bf16", "bicgstab_s_spmv_dot_packed_bf16",
+                     "bell_spmv_dot_bf16", "stencil7_bf16")
+# the float32 form of each bf16 form timed on the same shape in phase 2
+BF16_BICG_F32_ROW = {"bicgstab_dir_spmv_dot_bf16": "bicgstab_dir_spmv_dot",
+                     "bicgstab_s_spmv_dot_bf16": "bicgstab_s_spmv_dot",
+                     "bicgstab_dir_spmv_dot_packed_bf16": "bicgstab_dir_spmv_dot_packed",
+                     "bicgstab_s_spmv_dot_packed_bf16": "bicgstab_s_spmv_dot_packed",
+                     "bell_spmv_dot_bf16": "bell_spmv_dot", "K6 bf16 tridiag P=8": "K6 tridiag P=8",
+                     "stencil7_bf16": "stencil7"}
+BF16_BICG_STEPS = 256  # convdiff-512's fused BiCGStab in bf16: live steps at tol = 0
+BF16_SHARD_STEPS = 64  # the sharded fused CG on bf16 shards, P = 4, beside float32
+BF16_STENCIL_MAXITER = 4000  # the tester's bf16 stencil runs: a cap far above their counts
+BF16_ULP = 2.0 ** -7  # bf16's spacing relative to a power of two (8 bits of mantissa)
+
+
+def check_bicg_bf16(lo, wide, rng, with_d, beta_v, omega_v, alpha_v, errs, label,
+                    packed=False, row_group=None, nan=False):
+    """Kernels 18 and 19's bf16 forms on the bf16 operator ``lo``: held to
+    their plain versions as the float32 forms are (check_bicg_tiles), then
+    one launch of each bf16 form on those operands, every output bit-equal
+    to the float32 launch on the widened operator ``wide``.  Returns
+    check_bicg_tiles's operands."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    args = check_bicg_tiles(lo, rng, with_d, beta_v, omega_v, alpha_v, errs, label,
+                            row_group=row_group, nan=nan, packed=packed)
+    r, p, v, rhat, x, k1, beta, omega, alpha, d = args
+    k18, _, k19, _ = bicg_forms(lo, packed, row_group)
+    w18, _, w19, _ = bicg_forms(wide, packed, row_group)
+    suffix = "_packed" if packed else ""
+    names = (f"bicgstab_dir_spmv_dot{suffix}_bf16", f"bicgstab_s_spmv_dot{suffix}_bf16")
+    before = [fc.LAUNCHES[nm] for nm in names]
+    a1, b1 = k18(r, p, v, rhat, beta, omega, d), w18(r, p, v, rhat, beta, omega, d)
+    a2, b2 = k19(r, a1[2], x, a1[1], alpha, d), w19(r, a1[2], x, a1[1], alpha, d)
+    torch.cuda.synchronize()
+    check([fc.LAUNCHES[nm] - b for nm, b in zip(names, before)] == [1, 1],
+          f"K18/K19 bf16 {label}: not one launch of each bf16 form")
+    check(all(same_bits(s_, t_) for s_, t_ in zip((*a1, *a2), (*b1, *b2))),
+          f"K18/K19 bf16 {label}: not bit-equal to the float32 launch on the widened operator")
+    print(f"  {names[0]}, {names[1]} {label}: = float32 launch on the widened operator (bits)")
+    return args
+
+
+def check_k6_bf16(lo, cols, full, off, errs, label):
+    """Kernel 6's bf16 form: held to its plain version as the float32 form is
+    (check_k6: q within TOL_Q, pap within TOL_DOT, repeats bit-identical),
+    and bit-equal to the float32 launch on the widened shard."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    check_k6(lo, cols, full, off, errs, label)
+    before = fc.LAUNCHES["bell_spmv_dot_bf16"]
+    qb, pb = fc.bell_spmv_dot(lo, cols, full, off)
+    q32, p32 = fc.bell_spmv_dot(lo.float(), cols, full, off)
+    torch.cuda.synchronize()
+    check(fc.LAUNCHES["bell_spmv_dot_bf16"] == before + 1 and torch.equal(qb, q32)
+          and torch.equal(pb, p32),
+          f"K6 bf16 {label}: not one bf16 launch bit-equal to the float32 launch on the widened "
+          "tiles")
+    print(f"  K6 bf16 {label:<36} = float32 launch on the widened tiles (bits)")
+
+
+def check_stencil7_bf16(shape, dev, errs, rng):
+    """Kernel 11's bf16 form on a bf16 volume: bit-equal to its plain version
+    (each product and sum rounded to bf16 in both) with coefficients exact
+    in bf16 and with the bf16-rounded 0.1 and -1/3; on integer-valued input,
+    where no op rounds, bit-equal to the float32 launch on the widened
+    volume; on random input its distance from that launch, in bf16 ulps of
+    max|y|; a NaN reaching only its point and its six neighbours."""
+    import torch
+
+    from conjugategradient_tpu_torch import StencilOperator
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    bf16 = torch.bfloat16
+    u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(bf16)
+    inexact = StencilOperator(0.1, -1 / 3, shape, bf16, dev)
+    before = fc.LAUNCHES["stencil7_bf16"]
+    for c, w in ((6.0, -1.0), (inexact.center, inexact.off)):
+        yk, yp = ks.stencil7(u, c, w), ks._stencil7_plain(u, c, w)
+        torch.cuda.synchronize()
+        check(yk.dtype == bf16 and torch.equal(yk, yp),
+              f"stencil7 bf16 {shape} c={c} w={w}: not bit-equal to the plain version")
+    check(fc.LAUNCHES["stencil7_bf16"] == before + 2, f"stencil7 bf16 {shape}: launches")
+    ui = torch.as_tensor(rng.integers(-16, 17, shape), dtype=bf16, device=dev)
+    check(torch.equal(ks.stencil7(ui, 6.0, -1.0), ks.stencil7(ui.float(), 6.0, -1.0).to(bf16)),
+          f"stencil7 bf16 {shape}: integer input differs from the float32 launch")
+    y32 = ks.stencil7(u.float(), 6.0, -1.0)
+    yk = ks.stencil7(u, 6.0, -1.0)
+    ulps = float((yk.float() - y32).abs().max()) / (BF16_ULP * float(y32.abs().max()))
+    at = tuple(n // 2 for n in shape)
+    un = u.clone()
+    un[at] = float("nan")
+    yk, yp = ks.stencil7(un, 6.0, -1.0), ks._stencil7_plain(un, 6.0, -1.0)
+    want = nan_mask(shape, at, dev)
+    check(torch.equal(torch.isnan(yk), want) and torch.equal(torch.isnan(yp), want)
+          and torch.equal(yk.nan_to_num(), yp.nan_to_num()),
+          f"stencil7 bf16 {shape}: a NaN reached other points than its neighbours")
+    print(f"  stencil7_bf16 {str(shape):<16} bit-equal to the plain version (c, w exact and "
+          f"rounded); integer input = float32 launch (bits); random input {ulps:.3g} bf16 ulps "
+          f"of max|y| from the float32 launch; NaN reaches {int(want.sum())} points in both")
+    return u
+
+
+def phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, extra):
+    """The bf16 forms of kernels 18 and 19 (dense on the bicgstab-bell
+    operator and at a ragged nrb = 13 with bn = 32; packed on convdiff-512's
+    bf16 view and on convdiff-37 at bn = 32), with and without the Jacobi d,
+    on a first step (beta = omega = alpha = 0) and a later one, and with a
+    NaN alpha and omega; kernel 6's on the n = 262,144 operator's bf16
+    shards at P = 4 and 8; kernel 11's at 256^3 and on ragged volumes.
+    Each held to its plain version and to the float32 launch on the widened
+    operands, then timed beside its plain version and its bytes bound
+    (library_ms null for kernels 18, 19 and 6: no one PyTorch call takes a
+    bf16 operator with float32 vectors; cuDNN conv3d in bf16 for kernel 11),
+    and beside its float32 form's time on the same shape."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(20)
+    bell = bic_ops["bench_bell"]
+    lo_bell, lo_cd = bell.astype(bf16), bic_ops["convdiff"].astype(bf16)
+    wide_bell, wide_cd = lo_bell.astype(torch.float32), lo_cd.astype(torch.float32)
+    print(f"  bf16 bicgstab-bell tiles {lo_bell.tile_bytes() / 1e6:.1f} MB; bf16 convdiff-512 "
+          f"view {lo_cd.packed().vals.numel() * 6 / 1e6:.2f} MB of values and columns")
+    args = {}
+    for with_d in (False, True):
+        tag = "+d" if with_d else ""
+        args["dense", with_d] = check_bicg_bf16(lo_bell, wide_bell, rng, with_d, 0.4, 0.25, 0.6,
+                                                errs, f"n=262144 bf16{tag}")
+        check_bicg_bf16(lo_bell, wide_bell, rng, with_d, 0.0, 0.0, 0.0, errs,
+                        f"n=262144 bf16{tag} first step (beta=omega=alpha=0)")
+        args["packed", with_d] = check_bicg_bf16(lo_cd, wide_cd, rng, with_d, 0.4, 0.25, 0.6,
+                                                 errs, f"convdiff-512 bf16{tag}", packed=True)
+        check_bicg_bf16(lo_cd, wide_cd, rng, with_d, 0.0, 0.0, 0.0, errs,
+                        f"convdiff-512 bf16{tag} first step", packed=True)
+    check_bicg_bf16(lo_bell, wide_bell, rng, False, 0.4, 0.25, 0.6, errs,
+                    "n=262144 bf16 NaN alpha, omega", nan=True)
+    check_bicg_bf16(lo_cd, wide_cd, rng, True, 0.4, 0.25, 0.6, errs,
+                    "convdiff-512 bf16 NaN alpha, omega", packed=True, nan=True)
+    small = nonsym_tridiag(13 * 32, 32, dev, seed=32).astype(bf16)
+    ragged = convdiff_bell(37, dev, bn=32).astype(bf16)
+    for with_d in (False, True):
+        tag = "+d" if with_d else ""
+        check_bicg_bf16(small, small.astype(torch.float32), rng, with_d, 0.4, 0.25, 0.6, errs,
+                        f"ragged nrb=13 bn=32 bf16{tag}", row_group=3)
+        check_bicg_bf16(ragged, ragged.astype(torch.float32), rng, with_d, 0.4, 0.25, 0.6, errs,
+                        f"ragged convdiff-37 bn=32 bf16{tag}", packed=True)
+
+    # kernel 6 on bf16 shards, P = 4 and 8
+    blocks4, cols4 = shard_ops
+    lo4 = blocks4.to(bf16)
+    lo8, cols8 = lo4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
+    full = torch.as_tensor(rng.standard_normal((N_BIG // 128, 128)), dtype=torch.float32,
+                           device=dev)
+    for n_shards, bl, cl in ((4, lo4, cols4), (8, lo8, cols8)):
+        m = N_BIG // n_shards
+        for s_ in (0, n_shards - 1):
+            check_k6_bf16(bl[s_], cl[s_], full, s_ * m, errs,
+                          f"tridiag n=262144 P={n_shards} shard {s_} bf16")
+
+    # kernel 11 on bf16 volumes
+    big_u = None
+    for shape in (STENCIL_GRID,) + STENCIL_SMALL:
+        u = check_stencil7_bf16(shape, dev, errs, rng)
+        if shape == STENCIL_GRID:
+            big_u = u
+
+    # timing at the table's shapes, launched as the solver and the loops
+    # launch them (in place, on works that never finish)
+    work = fb.BicgstabWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    work.start(torch.tensor(2.3, device=dev))
+    times["bicgstab_dir_spmv_dot_bf16"], times["bicgstab_s_spmv_dot_bf16"] = time_bicg_tiles(
+        lo_bell, args["dense", False], work)
+    times["bicgstab_dir_spmv_dot_packed_bf16"], times["bicgstab_s_spmv_dot_packed_bf16"] = \
+        time_bicg_tiles(lo_cd, args["packed", False], work, packed=True)
+    torch.cuda.synchronize()
+    check(int(work.ctl[fb.C_LIVE]) == 1, "bf16 BiCGStab timing: the timing work stopped being live")
+    fwork = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    for n_shards, bl, cl, table, key in ((4, lo4, cols4, times, "bell_spmv_dot_bf16"),
+                                         (8, lo8, cols8, extra, "K6 bf16 tridiag P=8")):
+        m = N_BIG // n_shards
+        q, pap = torch.empty(m // 128, 128, device=dev), torch.empty(1, 1, device=dev)
+        b0, c0 = bl[0], cl[0]
+        t = time_pair(lambda: fc.bell_spmv_dot(b0, c0, full, 0, out=(q, pap), work=fwork),
+                      lambda: fc._spmv_dot_plain(b0, c0, full, 0, None, None))
+        t.update(bound(nbytes(b0, c0, full) + m * 4, 2 * b0.numel() + 2 * m), library_ms=None)
+        table[key] = t
+    n = int(np.prod(STENCIL_GRID))
+    t = time_pair(lambda: ks.stencil7(big_u, 6.0, -1.0),
+                  lambda: ks._stencil7_plain(big_u, 6.0, -1.0))
+    t.update(bound(2 * nbytes(big_u), 8 * n))  # bf16 in and out; the ops in float32
+    conv = conv3d_stencil(big_u, 6.0, -1.0)
+    e, m = rel_max_err(conv().float(), ks.stencil7(big_u, 6.0, -1.0).float())
+    check(e <= 4 * BF16_ULP * m, f"conv3d bf16 yardstick: differs from stencil7_bf16 by {e} "
+          f"(max {m})")
+    t["library_ms"] = library_ms(conv)
+    times["stencil7_bf16"] = t
+    torch.cuda.synchronize()
+    print(f"  conv3d in bf16 (the yardstick) within {e / (BF16_ULP * m):.3g} bf16 ulps of max|y| "
+          "of stencil7_bf16")
+    ratio = []
+    for name, ref in BF16_BICG_F32_ROW.items():
+        tb, t32 = times.get(name, extra.get(name)), times.get(ref, extra.get(ref))
+        ratio.append(f"{name} {tb['ms']:.5f} / {t32['ms']:.5f} ({tb['ms'] / t32['ms']:.3f})")
+    print("  bf16 forms of kernels 18, 19, 6, 11 against their float32 forms on the same shapes "
+          "(ms, device): " + ", ".join(ratio))
+
+
+def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
+    """The paths that reach the bf16 forms of kernels 18, 19, 6 and 11:
+    ``bicgstab_solve(fused="always")`` on the bicgstab-bell operator's bf16
+    tiles (the dense forms; at tol = -1 it ends at its breakdown exit after
+    a few steps, as in float32, so its steps are timed on convdiff-512) and
+    on convdiff-512's bf16 tiles (the packed forms: 256 live steps at tol =
+    0, and forced onto the dense forms), each beside float32, and a NaN
+    tile value (the sticky breakdown flag after one step);
+    ``sharded_cg_solve(method="standard")`` on bf16 shards at P = 4, plain
+    and Jacobi, against the single card's bf16 fused CG / PCG on the cut
+    operator (``trajectory_ok``), timed beside float32, and a NaN tile
+    value; the tester's ``stencil:256 --dtype bfloat16`` and ``stencil:64
+    --dtype bfloat16 --method minres`` (the portable loops on bf16 vectors:
+    kernel 11's bf16 form) beside their float32 runs."""
+    import dataclasses
+
+    import torch
+
+    from conjugategradient_tpu_torch import (bicgstab_solve, fused_bell_cg_solve,
+                                             fused_bell_pcg_solve, fused_bicgstab_solve)
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
+    from conjugategradient_tpu_torch.utils import Timer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def timed(fn):
+        """(ms, result) of one call after a warm-up one."""
+        fn()
+        t = Timer(dev).start_measure()
+        out = fn()
+        t.stop_measure()
+        return t.get_duration(), out
+
+    # (a) bicgstab-bell: the dense bf16 forms of kernels 18 and 19 with 20
+    bell = bic_ops["bench_bell"]
+    b = torch.arange(1, bell.n + 1, dtype=f32, device=dev) / bell.n
+    tol = TOL_SOLVE_REL * float(b.double().norm())
+    for label, a in (("float32", bell), ("bf16", bell.astype(bf16))):
+        before = {k: fc.LAUNCHES[k] for k in ("bicgstab_dir_spmv_dot_bf16",
+                                              "bicgstab_s_spmv_dot_bf16")}
+        ms, (x, info) = timed(lambda: bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always"))
+        k = int(info.iterations)
+        check(bool(info.converged) and k <= BICG_BENCH_MAX_K,
+              f"fused BiCGStab bicgstab-bell {label}: {k} its, converged {bool(info.converged)}")
+        check(label == "float32" or all(fc.LAUNCHES[n_] - before[n_] >= 2 * k for n_ in before),
+              f"fused BiCGStab bicgstab-bell bf16: the dense bf16 kernels 18 / 19 did not run")
+        _, (x0, i0) = timed(lambda: bicgstab_solve(a, b, tol=-1.0, maxiter=BF16_BICG_STEPS,
+                                                   fused="always"))
+        print(f"  fused BiCGStab bicgstab-bell {label} tiles ({a.tile_bytes() / 1e6:.1f} MB), "
+              f"tol 1e-5 ||b||: {k} its, {ms:.3f} ms to tolerance, rnorm_history and x sha256 "
+              f"{digest(info.rnorm_history, x)}; tol = -1, maxiter {BF16_BICG_STEPS}: ends after "
+              f"{int(i0.iterations)} its (breakdown {bool(i0.breakdown)}: the recurrence reaches "
+              f"0)  [{card}]")
+    # (b) convdiff-512: the packed bf16 forms (its route) and the dense ones
+    # (forced), BF16_BICG_STEPS live steps at tol = 0, best of 3, beside float32
+    cd = bic_ops["convdiff"]
+    bc = torch.as_tensor(np.random.default_rng(0).standard_normal(cd.n), dtype=f32, device=dev)
+    for route in ("packed", "dense"):
+        got = {}
+        name = "bicgstab_dir_spmv_dot" + ("_packed_bf16" if route == "packed" else "_bf16")
+        for label, a in (("float32", cd), ("bf16", cd.astype(bf16))):
+            before = fc.LAUNCHES[name]
+            with forced_route(route == "packed"):
+                fused_bicgstab_solve(a, bc, tol=0.0, maxiter=16)
+                best = float("inf")
+                for _ in range(3):
+                    t = Timer(dev).start_measure()
+                    x, info = fused_bicgstab_solve(a, bc, tol=0.0, maxiter=BF16_BICG_STEPS)
+                    t.stop_measure()
+                    best = min(best, t.get_duration() / int(info.iterations))
+            check(int(info.iterations) == BF16_BICG_STEPS and math.isfinite(float(info.rnorm)),
+                  f"fused BiCGStab convdiff-512 {route} {label}: {int(info.iterations)} steps")
+            check(label == "float32" or fc.LAUNCHES[name] - before >= 3 * BF16_BICG_STEPS,
+                  f"fused BiCGStab convdiff-512 {route} bf16: {name} did not run every step")
+            got[label] = best
+            print(f"  fused BiCGStab convdiff-512 {route} route, {label} tiles: {best:.5f} ms/it "
+                  f"over {BF16_BICG_STEPS} steps (best of 3), rnorm_history sha256 "
+                  f"{digest(info.rnorm_history)}  [{card}]")
+        print(f"  fused BiCGStab convdiff-512 {route} route: bf16 / float32 time per step "
+              f"{got['bf16'] / got['float32']:.3f}")
+    for label, a in (("bicgstab-bell", bell.astype(bf16)), ("convdiff-512", cd.astype(bf16))):
+        bad = a.blocks.clone()
+        bad[0, 0, 0, 0] = float("nan")
+        rhs = b if label == "bicgstab-bell" else bc
+        _, ninfo = bicgstab_solve(dataclasses.replace(a, blocks=bad), rhs, tol=0.0, maxiter=8,
+                                  fused="always")
+        check(bool(ninfo.breakdown) and not bool(ninfo.converged) and int(ninfo.iterations) == 1,
+              f"fused bf16 BiCGStab {label}, a NaN tile value: breakdown {bool(ninfo.breakdown)}, "
+              f"{int(ninfo.iterations)} its")
+        print(f"  fused bf16 BiCGStab {label}, a NaN tile value: stops after 1 step, breakdown "
+              "(the sticky flag), not converged")
+
+    # (c) sharded fused CG and Jacobi PCG on bf16 shards, P = 4 (kernel 6)
+    blocks4, cols4 = shard_ops
+    cut_full, cut_ops, cut_inv = cut_tridiag_ops(blocks4, cols4, big_full.nnz)
+    rhs = torch.as_tensor(np.random.default_rng(9).standard_normal(N_BIG), dtype=f32, device=dev)
+    lo_cut = cut_ops[4][0].to(bf16)
+    mesh = make_row_mesh(4, dev)
+    for jac in (None, cut_inv):
+        what = f"sharded fused {'Jacobi PCG' if jac is not None else 'CG'} bf16 shards P=4"
+        before = fc.LAUNCHES["bell_spmv_dot_bf16"]
+        _, i25 = sharded_cg_solve(lo_cut, cut_ops[4][1], rhs, mesh=mesh, tol=-1.0, maxiter=25,
+                                  inv_diag=jac)
+        one = cut_full.astype(bf16)
+        if jac is None:
+            _, o25 = fused_bell_cg_solve(one, rhs, tol=-1.0, maxiter=25)
+        else:
+            _, o25 = fused_bell_pcg_solve(one, rhs, jac, tol=-1.0, maxiter=25)
+        ok, used = trajectory_ok(i25.rho_history, o25.rho_history, 25)
+        check(ok and used >= PARITY_MIN_USED
+              and fc.LAUNCHES["bell_spmv_dot_bf16"] - before >= 4 * 25,
+              f"{what} vs the single card's bf16 solve: rho_history beyond rtol {TRAJ_RTOL} or "
+              f"only {used} entries above the float32 floor, or kernel 6's bf16 form did not run")
+        print(f"  {what}: 25-step rho_history within {TRAJ_RTOL} of the single card's bf16 fused "
+              f"solve on {used} entries above the float32 floor  [{card}]")
+    got = {}
+    b_ = torch.arange(1, N_BIG + 1, dtype=f32, device=dev)
+    for label, bl in (("float32", blocks4), ("bf16", blocks4.to(bf16))):
+        sharded_cg_solve(bl, cols4, b_, mesh=mesh, tol=-1.0, maxiter=8)
+        best = float("inf")
+        for _ in range(3):  # host-bound: the best of 3
+            t = Timer(dev).start_measure()
+            x, info = sharded_cg_solve(bl, cols4, b_, mesh=mesh, tol=-1.0,
+                                       maxiter=BF16_SHARD_STEPS)
+            t.stop_measure()
+            best = min(best, t.get_duration() / BF16_SHARD_STEPS)
+        check(int(info.iterations) == BF16_SHARD_STEPS,
+              f"sharded fused CG {label} P=4: {int(info.iterations)} steps")
+        got[label] = best
+        print(f"  sharded fused CG n=262144 P=4, {label} shards: {best:.5f} ms/it over "
+              f"{BF16_SHARD_STEPS} steps (best of 3), rho_history sha256 "
+              f"{digest(info.rho_history)}  [{card}]")
+    print(f"  sharded fused CG P=4: bf16 / float32 time per step {got['bf16'] / got['float32']:.3f}")
+    bad = lo_cut.clone()
+    bad[0, 0, 0, 0, 0] = float("nan")
+    _, ninfo = sharded_cg_solve(bad, cut_ops[4][1], rhs, mesh=mesh, tol=-1.0, maxiter=8)
+    check(not bool(ninfo.converged) and int(ninfo.iterations) <= 1
+          and math.isnan(float(ninfo.rho_history[int(ninfo.iterations)])),
+          f"sharded bf16 CG, a NaN tile value: {int(ninfo.iterations)} its")
+    print(f"  sharded fused CG on bf16 shards, a NaN tile value: stops after "
+          f"{int(ninfo.iterations)} step, NaN residual, not converged")
+
+    # (d) the tester on bf16 stencils: the portable loops on bf16 vectors
+    for grid, extra_args in ((256, ()), (64, ("--method", "minres"))):
+        n_ = grid ** 3
+        tol_t = TOL_SOLVE_REL * bnorm(n_)
+        row = {}
+        for dtype in ("float32", "bfloat16"):
+            before = fc.LAUNCHES["stencil7_bf16"]
+            dim, nnz, ms, rel, summ, _ = run_tester(
+                f"stencil:{grid}", "csr", "none", tol_t, dtype=dtype,
+                extra=(*extra_args, "--maxiter", str(BF16_STENCIL_MAXITER)))
+            its = summ["iterations"][0]
+            check(summ["converged"] == [True] and math.isfinite(rel),
+                  f"tester stencil:{grid} {dtype} {' '.join(extra_args)}: {its} its, converged "
+                  f"{summ['converged']}, rel_error {rel}")
+            check(dtype == "float32" or fc.LAUNCHES["stencil7_bf16"] - before >= its,
+                  f"tester stencil:{grid} bf16: kernel 11's bf16 form did not run")
+            row[dtype] = ms / max(its, 1)
+            print(f"  tester stencil:{grid} --dtype {dtype} {' '.join(extra_args)} (tol 1e-5 "
+                  f"||b||): {dim} {nnz} {ms:.3f} ms, {its} its, {row[dtype]:.5f} ms/it, "
+                  f"rel_error {rel:.3e}  [{card}]")
+        print(f"  tester stencil:{grid} {' '.join(extra_args)}: bf16 / float32 time per "
+              f"iteration {row['bfloat16'] / row['float32']:.3f}")
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused loops alone (``--fused-cg-only``), for comparing two trees
     on one card (this file run beside another tree's package gives that
@@ -6612,11 +7033,24 @@ def fused_cg_only(dev, card) -> None:
                             **kw)
         print(f"  sharded fused {label} n=262144 P=4: {int(info.iterations)} its, {ms:.5f} ms/it, "
               f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
+    # the same CG on bf16 shards (kernel 6's bf16 form): trees that have it
+    # print this line more
+    if "bell_spmv_dot_bf16" in fc.LAUNCHES:
+        ms, x, info = timed(sharded_cg_solve, blocks4.to(torch.bfloat16), cols4, b, mesh=mesh,
+                            use_fused="always")
+        print(f"  sharded fused CG n=262144 P=4 bf16: {int(info.iterations)} its, {ms:.5f} ms/it, "
+              f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
     a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
     b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
     for tol in (TOL_SOLVE_REL * float(b.double().norm()), 0.0):
         x, info = bicgstab_solve(a, b, tol=tol, maxiter=64, fused="always")
         print(f"  fused BiCGStab bicgstab-bell tol {tol:.3g}: {int(info.iterations)} its, "
+              f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
+    # the same on bf16 tiles (kernels 18 and 19's dense bf16 forms): trees
+    # that have them print this line more
+    if "bicgstab_dir_spmv_dot_bf16" in fc.LAUNCHES:
+        x, info = bicgstab_solve(a.astype(torch.bfloat16), b, tol=0.0, maxiter=64, fused="always")
+        print(f"  fused BiCGStab bicgstab-bell bf16 tol 0: {int(info.iterations)} its, "
               f"rnorm_history and x sha256 {digest(info.rnorm_history, x)}  [{card}]")
     # phase 3's convdiff-512 solve on each route (its sparse tiles take the
     # packed kernels 18 and 19 unless forced), then kernel 20; every step live
@@ -6680,6 +7114,7 @@ def main() -> int:
     phase_bf16_kernels(dev, big, big_full, ops, dia_ops, errs, times)
     phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, errs, times,
                                   extra)
+    phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, extra)
     for name, t in list(times.items()) + list(extra.items()):
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
@@ -6704,6 +7139,8 @@ def main() -> int:
          lambda: phase_deflation_path(dev, big, card)),
         ("refine / bf16", REFINE_KERNELS,
          lambda: phase_refine_path(dev, big, big_full, dia_ops, shard_ops, card)),
+        ("bf16 BiCGStab / sharded / stencil", BF16_BICG_KERNELS,
+         lambda: phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card)),
     ):
         print(f"phase 3: main path, {label}")
         fc.reset_counts()

@@ -146,6 +146,15 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+// bfloat16 (the stencil on bf16 volumes): the op in float32, its result
+// rounded to bf16 once, as torch computes a bf16 elementwise op (a float32
+// scalar times a bf16 value: torch keeps the scalar in float32)
+__device__ __forceinline__ __nv_bfloat16 mul_rn(float a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__fmul_rn(a, __bfloat162float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
 
 // An operator element (tile or diagonal entry) as float32: a float32 one as
 // it is, a bfloat16 one widened, which is exact (its bits shifted up 16), so

@@ -48,6 +48,17 @@
 // are sparse (ops/spmv.bell_packed_route), K1 and K2 have packed forms that
 // read the operator's nonzeros instead (bicg_dir_packed_kernel,
 // bicg_s_packed_kernel below), with the same outputs and tails.
+//
+// bfloat16 tiles (the TPU kernels' other operand form, fused_bicgstab.py:71,
+// 185: bf16 tiles widened as loaded, float32 vectors): K1 and K2, dense and
+// packed, take the operator's element type E as a template parameter.  Each
+// tile or packed value is widened to float32 as it is loaded (tile.cuh,
+// exact) and every product and sum is the float32 kernel's, in its order, so
+// a bf16 launch gives the bits of the float32 launch on the widened operator
+// and the float32 instantiations are the old code.  The tile stream and the
+// bound halve (201.3 MB a call on the bicgstab-bell operator; 6 bytes a
+// nonzero packed).  K3 reads vectors only and needs no other form.  The bf16
+// forms have their own entry points (bicgstab_*_bf16) and launch counters.
 
 #include <math.h>
 #include <stdint.h>
@@ -119,9 +130,9 @@ __device__ void finish_dir(float rv_acc, const DirArgs& a, float* red) {
   }
 }
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-bicg_dir_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, DirArgs a,
+bicg_dir_kernel(const E* __restrict__ blocks, const int* __restrict__ cols, DirArgs a,
                 int nrb, int kmax, int R) {
   if (a.ctl[C_LIVE] == 0) return;
   __shared__ float xc[BN], qacc[BN];
@@ -221,9 +232,9 @@ __device__ void finish_s(float ss_acc, float ts_acc, float tt_acc, const SArgs& 
   }
 }
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-bicg_s_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, SArgs a,
+bicg_s_kernel(const E* __restrict__ blocks, const int* __restrict__ cols, SArgs a,
               int nrb, int kmax, int R) {
   if (a.ctl[C_LIVE] == 0) return;
   __shared__ float xr[BN], xc[BN], qacc[BN];
@@ -280,8 +291,9 @@ bicg_s_kernel(const float* __restrict__ blocks, const int* __restrict__ cols, SA
 // bit; the dots go through per-CTA partials that the last CTA sums in
 // index order (finish_dir, finish_s: the dense kernels' own tails).
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-bicg_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+bicg_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
                        const int* __restrict__ row_len,
                        const long long* __restrict__ chunk_off, DirArgs a, int64_t rows) {
   if (a.ctl[C_LIVE] == 0) return;
@@ -299,8 +311,9 @@ bicg_dir_packed_kernel(const float* __restrict__ vals, const int* __restrict__ c
   finish_dir(rv_acc, a, red);
 }
 
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-bicg_s_packed_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+bicg_s_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
                      const int* __restrict__ row_len,
                      const long long* __restrict__ chunk_off, SArgs a, int64_t rows) {
   if (a.ctl[C_LIVE] == 0) return;
@@ -470,21 +483,19 @@ bicg_update_kernel(const float* omega_p, const float* xh, const float* shat, con
   }
 }
 
-template <int BN>
-cudaError_t launch_dir(const float* blocks, const int* cols, const DirArgs& a, int nrb,
-                       int kmax, int R, cudaStream_t s) {
-  bicg_dir_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb, kmax, R);
+template <int BN, class E>
+cudaError_t launch_dir(const E* blocks, const int* cols, const DirArgs& a, int nrb, int kmax,
+                       int R, cudaStream_t s) {
+  bicg_dir_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb, kmax, R);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_s(const float* blocks, const int* cols, const SArgs& a, int nrb, int kmax,
+template <int BN, class E>
+cudaError_t launch_s(const E* blocks, const int* cols, const SArgs& a, int nrb, int kmax,
                      int R, cudaStream_t s) {
-  bicg_s_kernel<BN><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb, kmax, R);
+  bicg_s_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, nrb, kmax, R);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 #define BN_SWITCH(call)                    \
   switch (bn) {                            \
@@ -495,68 +506,114 @@ cudaError_t launch_s(const float* blocks, const int* cols, const SArgs& a, int n
     default: return cudaErrorInvalidValue; \
   }
 
-extern "C" {
-
-// K1 (d == NULL: no preconditioner).  Returns a cudaError_t.
-int bicgstab_dir(const float* blocks, const int* cols, const float* r, const float* p,
-                 const float* v, const float* rhat, const float* d, const float* beta,
-                 const float* omega, float* pnew, float* phat, float* vout, float* rv,
-                 float* partials, unsigned* counter, float* scal, const int* ctl, int nrb,
-                 int kmax, int bn, int R, void* stream) {
+// The entry points' bodies, one per operator form; E is float or
+// __nv_bfloat16.
+template <class E>
+int dir_tiles(const E* blocks, const int* cols, const DirArgs& a, int nrb, int kmax, int bn,
+              int R, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DirArgs a{r, p, v, rhat, d, beta, omega, pnew, phat, vout, rv, partials, counter,
-                  scal, ctl};
 #define CALL(B) launch_dir<B>(blocks, cols, a, nrb, kmax, R, s)
   BN_SWITCH(CALL)
 #undef CALL
 }
 
-// K2 (d == NULL: no preconditioner).  Returns a cudaError_t.
-int bicgstab_s(const float* blocks, const int* cols, const float* r, const float* vnew,
-               const float* x, const float* phat, const float* d, const float* alpha,
-               float* sv, float* shat, float* xh, float* t, float* ss, float* ts, float* tt,
-               float* partials, unsigned* counter, float* scal, int* ctl, int nrb, int kmax,
-               int bn, int R, void* stream) {
+template <class E>
+int s_tiles(const E* blocks, const int* cols, const SArgs& a, int nrb, int kmax, int bn, int R,
+            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SArgs a{r, vnew, x, phat, d, alpha, sv, shat, xh, t, ss, ts, tt, partials, counter,
-                scal, ctl};
 #define CALL(B) launch_s<B>(blocks, cols, a, nrb, kmax, R, s)
   BN_SWITCH(CALL)
 #undef CALL
 }
 
+template <class E>
+int dir_packed(const E* vals, const int* cols, const int* row_len, const long long* chunk_off,
+               const DirArgs& a, int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bicg_dir_packed_kernel<E><<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, a, rows);
+  return cudaGetLastError();
+}
+
+template <class E>
+int s_packed(const E* vals, const int* cols, const int* row_len, const long long* chunk_off,
+             const SArgs& a, int64_t rows, void* stream) {
+  if (rows <= 0) return cudaErrorInvalidValue;
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
+  bicg_s_packed_kernel<E><<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, cols, row_len, chunk_off, a, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// the vector, scalar and scratch pointers of K1's entry points, in DirArgs
+// order, and K2's in SArgs order
+#define DIR_PARAMS                                                                    \
+  const float *r, const float *p, const float *v, const float *rhat, const float *d, \
+      const float *beta, const float *omega, float *pnew, float *phat, float *vout,  \
+      float *rv, float *partials, unsigned *counter, float *scal, const int *ctl
+#define DIR_ARGS \
+  DirArgs { r, p, v, rhat, d, beta, omega, pnew, phat, vout, rv, partials, counter, scal, ctl }
+#define S_PARAMS                                                                        \
+  const float *r, const float *vnew, const float *x, const float *phat, const float *d, \
+      const float *alpha, float *sv, float *shat, float *xh, float *t, float *ss,       \
+      float *ts, float *tt, float *partials, unsigned *counter, float *scal, int *ctl
+#define S_ARGS \
+  SArgs { r, vnew, x, phat, d, alpha, sv, shat, xh, t, ss, ts, tt, partials, counter, scal, ctl }
+
+extern "C" {
+
+// K1 (d == NULL: no preconditioner).  Returns a cudaError_t.
+int bicgstab_dir(const float* blocks, const int* cols, DIR_PARAMS, int nrb, int kmax, int bn,
+                 int R, void* stream) {
+  return dir_tiles(blocks, cols, DIR_ARGS, nrb, kmax, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int bicgstab_dir_bf16(const __nv_bfloat16* blocks, const int* cols, DIR_PARAMS, int nrb,
+                      int kmax, int bn, int R, void* stream) {
+  return dir_tiles(blocks, cols, DIR_ARGS, nrb, kmax, bn, R, stream);
+}
+
+// K2 (d == NULL: no preconditioner).  Returns a cudaError_t.
+int bicgstab_s(const float* blocks, const int* cols, S_PARAMS, int nrb, int kmax, int bn, int R,
+               void* stream) {
+  return s_tiles(blocks, cols, S_ARGS, nrb, kmax, bn, R, stream);
+}
+
+// The same on bfloat16 tiles.
+int bicgstab_s_bf16(const __nv_bfloat16* blocks, const int* cols, S_PARAMS, int nrb, int kmax,
+                    int bn, int R, void* stream) {
+  return s_tiles(blocks, cols, S_ARGS, nrb, kmax, bn, R, stream);
+}
+
 // K1 on the packed nonzeros (d == NULL: no preconditioner); rows = nrb * bn.
 // Returns a cudaError_t.
 int bicgstab_dir_packed(const float* vals, const int* cols, const int* row_len,
-                        const long long* chunk_off, const float* r, const float* p,
-                        const float* v, const float* rhat, const float* d, const float* beta,
-                        const float* omega, float* pnew, float* phat, float* vout, float* rv,
-                        float* partials, unsigned* counter, float* scal, const int* ctl,
-                        int64_t rows, void* stream) {
-  if (rows <= 0) return cudaErrorInvalidValue;
-  const DirArgs a{r, p, v, rhat, d, beta, omega, pnew, phat, vout, rv, partials, counter,
-                  scal, ctl};
-  const int64_t grid = (rows + kThreads - 1) / kThreads;
-  bicg_dir_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, row_len, chunk_off, a, rows);
-  return cudaGetLastError();
+                        const long long* chunk_off, DIR_PARAMS, int64_t rows, void* stream) {
+  return dir_packed(vals, cols, row_len, chunk_off, DIR_ARGS, rows, stream);
+}
+
+// The same from bfloat16 values.
+int bicgstab_dir_packed_bf16(const __nv_bfloat16* vals, const int* cols, const int* row_len,
+                             const long long* chunk_off, DIR_PARAMS, int64_t rows,
+                             void* stream) {
+  return dir_packed(vals, cols, row_len, chunk_off, DIR_ARGS, rows, stream);
 }
 
 // K2 on the packed nonzeros (d == NULL: no preconditioner); rows = nrb * bn.
 // Returns a cudaError_t.
 int bicgstab_s_packed(const float* vals, const int* cols, const int* row_len,
-                      const long long* chunk_off, const float* r, const float* vnew,
-                      const float* x, const float* phat, const float* d, const float* alpha,
-                      float* sv, float* shat, float* xh, float* t, float* ss, float* ts,
-                      float* tt, float* partials, unsigned* counter, float* scal, int* ctl,
-                      int64_t rows, void* stream) {
-  if (rows <= 0) return cudaErrorInvalidValue;
-  const SArgs a{r, vnew, x, phat, d, alpha, sv, shat, xh, t, ss, ts, tt, partials, counter,
-                scal, ctl};
-  const int64_t grid = (rows + kThreads - 1) / kThreads;
-  bicg_s_packed_kernel<<<(unsigned)grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, row_len, chunk_off, a, rows);
-  return cudaGetLastError();
+                      const long long* chunk_off, S_PARAMS, int64_t rows, void* stream) {
+  return s_packed(vals, cols, row_len, chunk_off, S_ARGS, rows, stream);
+}
+
+// The same from bfloat16 values.
+int bicgstab_s_packed_bf16(const __nv_bfloat16* vals, const int* cols, const int* row_len,
+                           const long long* chunk_off, S_PARAMS, int64_t rows, void* stream) {
+  return s_packed(vals, cols, row_len, chunk_off, S_ARGS, rows, stream);
 }
 
 // K3.  n is any length; every vector is 16-byte aligned (checked by the

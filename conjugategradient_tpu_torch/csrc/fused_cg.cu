@@ -63,8 +63,10 @@
 // kernel's, in its order, so a bf16 launch gives the bits of the float32
 // launch on tiles.float().  The tile stream, and the bound, halve (201.3 MB
 // a call at n = 262,144 full, 134.2 MB symmetric; 6 bytes a nonzero packed).
-// K2 reads vectors only and needs no other form.  The bf16 forms have their
-// own entry points (cg_*_bf16) and launch counters.
+// The row-sharded SpMV + dot (spmv_dot_kernel) takes bf16 shards the same
+// way (fused_cg.py:453-454; 51 MB a shard of the n = 262,144 operator split
+// in 4).  K2 reads vectors only and needs no other form.  The bf16 forms
+// have their own entry points (cg_*_bf16) and launch counters.
 
 #include <math.h>
 #include <stdint.h>
@@ -289,9 +291,9 @@ full_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
 // is read from x as the TPU kernel reads it.  ctl (may be NULL) makes a
 // step after the end a no-op, as in every kernel of a solve.
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(kThreads)
-spmv_dot_kernel(const float* __restrict__ blocks, const int* __restrict__ cols,
+spmv_dot_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                 const float* x, int64_t row0, float* q, float* pap_out,
                 float* partials, unsigned* counter, const int* ctl, int nrb,
                 int kmax, int R) {
@@ -603,15 +605,29 @@ cudaError_t launch_full(const E* blocks, const int* cols, const float* r,
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_spmv_dot(const float* blocks, const int* cols, const float* x,
+template <int BN, class E>
+cudaError_t launch_spmv_dot(const E* blocks, const int* cols, const float* x,
                             int64_t row0, float* q, float* pap, float* partials,
                             unsigned* counter, const int* ctl, int nrb, int kmax,
                             int R, cudaStream_t s) {
   const int grid = (nrb + R - 1) / R;
-  spmv_dot_kernel<BN><<<grid, kThreads, 0, s>>>(blocks, cols, x, row0, q, pap,
-                                                partials, counter, ctl, nrb, kmax, R);
+  spmv_dot_kernel<BN, E><<<grid, kThreads, 0, s>>>(blocks, cols, x, row0, q, pap,
+                                                   partials, counter, ctl, nrb, kmax, R);
   return cudaGetLastError();
+}
+
+template <class E>
+int spmv_dot(const E* blocks, const int* cols, const float* x, int64_t row0, float* q,
+             float* pap, float* partials, unsigned* counter, const int* ctl, int nrb, int kmax,
+             int bn, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_spmv_dot<32>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 64: return launch_spmv_dot<64>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 128: return launch_spmv_dot<128>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    case 256: return launch_spmv_dot<256>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <class E>
@@ -684,14 +700,17 @@ int cg_bell_spmv_dot(const float* blocks, const int* cols, const float* x,
                      int64_t row0, float* q, float* pap, float* partials,
                      unsigned* counter, const int* ctl, int nrb, int kmax, int bn,
                      int R, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 32: return launch_spmv_dot<32>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
-    case 64: return launch_spmv_dot<64>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
-    case 128: return launch_spmv_dot<128>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
-    case 256: return launch_spmv_dot<256>(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, R, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return spmv_dot(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, bn, R,
+                  stream);
+}
+
+// The same on bfloat16 tiles.
+int cg_bell_spmv_dot_bf16(const __nv_bfloat16* blocks, const int* cols, const float* x,
+                          int64_t row0, float* q, float* pap, float* partials,
+                          unsigned* counter, const int* ctl, int nrb, int kmax, int bn,
+                          int R, void* stream) {
+  return spmv_dot(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, bn, R,
+                  stream);
 }
 
 // K1 on the packed nonzeros of full blocked-ELL storage; rows = nrb * bn.

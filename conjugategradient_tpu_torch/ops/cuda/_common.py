@@ -62,6 +62,14 @@ LAUNCHES = {
     "sym_minres_dir_spmv_dot_bf16": 0,
     "sym_minres_dir_spmv_dot_packed_bf16": 0,
     "minres_shard_spmv_dot_bf16": 0,
+    # the bfloat16 forms of kernels 18, 19 and 6 (bf16 tiles or packed
+    # values, float32 vectors) and of kernel 11 (bf16 volumes)
+    "bicgstab_dir_spmv_dot_bf16": 0,
+    "bicgstab_dir_spmv_dot_packed_bf16": 0,
+    "bicgstab_s_spmv_dot_bf16": 0,
+    "bicgstab_s_spmv_dot_packed_bf16": 0,
+    "bell_spmv_dot_bf16": 0,
+    "stencil7_bf16": 0,
     # not a kernel: builds of BlockedEllMatrix.packed() and
     # SymBellMatrix.packed() (torch ops, once per operator)
     "bell_pack": 0,
@@ -70,7 +78,7 @@ PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 
 
 #: operator element types of the kernels with a bfloat16 form (kernels 1,
-#: 4, 5, 7, 10, 14, 15 and 17; float32 vectors)
+#: 4, 5, 6, 7, 10, 14, 15, 17, 18 and 19; float32 vectors)
 OPERATOR_DTYPES = (torch.float32, torch.bfloat16)
 
 

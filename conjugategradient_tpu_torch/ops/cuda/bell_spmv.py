@@ -93,7 +93,7 @@ def bell_spmv_packed(pk, x: torch.Tensor) -> torch.Tensor:
     """y (pk.rows,) float32 = the packed view ``pk`` (``types/bell.PackedBell``,
     float32 or bfloat16 values) @ ``x``, the operand padded to ``pk.ncols``
     float32 entries.  Any tile shape."""
-    check_packed(_PNAME, pk, OPERATOR_DTYPES)
+    check_packed(_PNAME, pk)
     if x.shape != (pk.ncols,) or x.dtype != torch.float32:
         raise ValueError(f"{_PNAME}: x must be ({pk.ncols},) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -102,29 +102,25 @@ def bell_spmv_packed(pk, x: torch.Tensor) -> torch.Tensor:
     return _packed_cuda(pk, x)
 
 
-def check_packed(name: str, pk, dtypes=(torch.float32,)) -> None:
-    """A packed view the kernels take: values of one of ``dtypes`` (the
-    kernels with a bfloat16 form, packed kernels 1, 4, 5, 14 and 15, pass
-    ``OPERATOR_DTYPES``; the packed BiCGStab kernels have none yet,
-    ROADMAP.md queue 2), int32 columns and row lengths, int64 chunk
-    offsets, one chunk per 32 rows."""
-    if pk.vals.dtype not in dtypes or pk.cols.dtype != torch.int32 or (
+def check_packed(name: str, pk) -> None:
+    """A packed view the kernels take: float32 or bfloat16 values (every
+    packed kernel has a bf16 form), int32 columns and row lengths, int64
+    chunk offsets, one chunk per 32 rows."""
+    if pk.vals.dtype not in OPERATOR_DTYPES or pk.cols.dtype != torch.int32 or (
             pk.vals.shape != pk.cols.shape):
-        raise TypeError(f"{name}: the packed view must hold {' or '.join(map(str, dtypes))} "
-                        f"values and int32 columns of one length, got {pk.vals.dtype} / "
-                        f"{pk.cols.dtype}")
+        raise TypeError(f"{name}: the packed view must hold float32 or bfloat16 values and "
+                        f"int32 columns of one length, got {pk.vals.dtype} / {pk.cols.dtype}")
     if pk.row_len.dtype != torch.int32 or pk.chunk_off.dtype != torch.int64 or (
             pk.chunk_off.numel() != -(-pk.rows // PACK_CHUNK) + 1):
         raise ValueError(f"{name}: row_len must be int32 and chunk_off int64 with one "
                          f"entry per {PACK_CHUNK} rows and one more")
 
 
-def check_packed_vectors(name: str, pk, r2d: torch.Tensor, dtypes=(torch.float32,)):
-    """The packed fused kernels' operator (values of one of ``dtypes``, as
-    :func:`check_packed`) and the shape of their vectors: a square padded
-    system of ``pk.rows`` rows, vectors (nrb, bn) with nrb·bn = ``pk.rows``.
-    Returns that shape."""
-    check_packed(name, pk, dtypes)
+def check_packed_vectors(name: str, pk, r2d: torch.Tensor):
+    """The packed fused kernels' operator (as :func:`check_packed`) and the
+    shape of their vectors: a square padded system of ``pk.rows`` rows,
+    vectors (nrb, bn) with nrb·bn = ``pk.rows``.  Returns that shape."""
+    check_packed(name, pk)
     if pk.ncols != pk.rows:
         raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
                          f"{pk.ncols} columns")

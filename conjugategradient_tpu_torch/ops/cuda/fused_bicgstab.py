@@ -21,6 +21,12 @@ takes the product as a callable: the tiles' ``bell_apply`` or the view's
 ``packed_apply``, whose order and rounding the packed kernels copy, so they
 match their plain versions bit for bit in every vector.
 
+Tiles (and packed values) of the first two are float32 or bfloat16,
+vectors float32 (the TPU kernels' two operand forms): a bfloat16 operator
+launches the kernel's bf16 form, counted as ``<name>_bf16``
+(``_common.form``), bit-equal to the float32 launch on the widened
+operator; the plain versions widen first.
+
 Dispatch is that of ``ops/cuda/fused_cg.py``: the plain version for CPU
 tensors, the CUDA kernel for CUDA tensors, no fallback between them;
 ``LAUNCHES`` and ``PLAIN_ON_CUDA`` (``_common``) count per wrapper.
@@ -53,9 +59,11 @@ from ..spmv import bell_apply
 from ._common import (
     CUDA_BN,
     LAUNCHES,
+    OPERATOR_DTYPES,
     UPDATE_MAX_GRID,
     PLAIN_ON_CUDA,
     check_cuda_operands,
+    form,
     on_cuda,
     ptr,
     raise_on_error,
@@ -217,9 +225,8 @@ def _check_tiles(name, blocks, block_cols):
     nrb, kmax, bm, bn = blocks.shape
     if bm != bn:
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
+    if blocks.dtype not in OPERATOR_DTYPES:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, got {blocks.dtype}")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     return nrb, kmax, bn
@@ -285,18 +292,23 @@ def _launch_cuda(name, entry, operator, vecs, scalars, outs, dots, work, grid, s
 
 def _tile_launch_cuda(name, entry, blocks, block_cols, vecs, scalars, outs, dots, work,
                       row_group):
+    """A tile kernel's launch; ``name`` and ``entry`` are the float32 form's,
+    a bfloat16 operator takes the bf16 form's."""
     nrb, kmax, _, bn = blocks.shape
     if bn not in CUDA_BN:
         raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
     if row_group is None:
         row_group = auto_row_group(nrb, blocks.device)
-    _launch_cuda(name, entry, (blocks, block_cols), vecs, scalars, outs, dots, work,
-                 -(-nrb // row_group), (nrb, kmax, bn, row_group))
+    _launch_cuda(form(name, blocks.dtype), form(entry, blocks.dtype), (blocks, block_cols),
+                 vecs, scalars, outs, dots, work, -(-nrb // row_group),
+                 (nrb, kmax, bn, row_group))
 
 
 def _packed_launch_cuda(name, entry, pk, vecs, scalars, outs, dots, work):
-    _launch_cuda(name, entry, (pk.vals, pk.cols, pk.row_len, pk.chunk_off), vecs, scalars,
-                 outs, dots, work, -(-pk.rows // _THREADS), (pk.rows,))
+    """A packed kernel's launch, named as :func:`_tile_launch_cuda`."""
+    _launch_cuda(form(name, pk.vals.dtype), form(entry, pk.vals.dtype),
+                 (pk.vals, pk.cols, pk.row_len, pk.chunk_off), vecs, scalars, outs, dots, work,
+                 -(-pk.rows // _THREADS), (pk.rows,))
 
 
 # ---- kernel 18 -----------------------------------------------------------------
@@ -318,10 +330,10 @@ def bicgstab_dir_spmv_dot(
 ):
     """Kernel 1 of the fused BiCGStab iteration: ``(p', p̂, v', rv)``.
 
-    ``blocks`` (nrb, kmax, bn, bn) float32 and ``block_cols`` (nrb, kmax)
-    int32 (a square padded system); the vectors and ``inv_diag2d`` (nrb,
-    bn) float32; ``beta`` and ``omega`` one float32 each (β arrives
-    clamped).  Returns three (nrb, bn) vectors and rv (1, 1).
+    ``blocks`` (nrb, kmax, bn, bn) float32 or bfloat16 and ``block_cols``
+    (nrb, kmax) int32 (a square padded system); the vectors and
+    ``inv_diag2d`` (nrb, bn) float32; ``beta`` and ``omega`` one float32
+    each (β arrives clamped).  Returns three (nrb, bn) vectors and rv (1, 1).
 
     ``out``: (p', p̂, v') buffers to fill.  Every CTA gathers rows of r, p,
     v and d, so no output may lie on them: the solver double-buffers p and
@@ -356,10 +368,10 @@ def bicgstab_dir_spmv_dot_packed(
     work: Optional[BicgstabWork] = None,
 ):
     """Kernel 1 on full blocked-ELL storage read as its packed nonzeros
-    ``pk`` (``BlockedEllMatrix.packed()``, float32): the contract of
-    :func:`bicgstab_dir_spmv_dot` for a square padded system of ``pk.rows``
-    rows, vectors (nrb, bn) float32 with nrb·bn = ``pk.rows``.  Any tile
-    width."""
+    ``pk`` (``BlockedEllMatrix.packed()``, float32 or bfloat16 values):
+    the contract of :func:`bicgstab_dir_spmv_dot` for a square padded system
+    of ``pk.rows`` rows, vectors (nrb, bn) float32 with nrb·bn =
+    ``pk.rows``.  Any tile width."""
     name = "bicgstab_dir_spmv_dot_packed"
     shape = check_packed_vectors(name, pk, r2d)
     vecs = _check_dir(name, shape, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out)
@@ -381,13 +393,21 @@ def _check_dir(name, shape, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out)
 
 def _tile_dir_plain(blocks, block_cols, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out,
                     work):
-    return _dir_plain("bicgstab_dir_spmv_dot", lambda y: bell_apply(blocks, block_cols, y),
-                      r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work)
+    return _dir_plain(form("bicgstab_dir_spmv_dot", blocks.dtype),
+                      _tile_product(blocks, block_cols), r2d, p2d, v2d, rhat2d, beta, omega,
+                      inv_diag2d, out, work)
 
 
 def _packed_dir_plain(pk, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work):
-    return _dir_plain("bicgstab_dir_spmv_dot_packed", packed_product(pk),
+    return _dir_plain(form("bicgstab_dir_spmv_dot_packed", pk.vals.dtype), packed_product(pk),
                       r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work)
+
+
+def _tile_product(blocks, block_cols):
+    """The tiles' plain product on (nrb, bn) float32 vectors, bfloat16
+    tiles widened first (exact), as the kernels widen each as they load it."""
+    wide = blocks.to(torch.float32)
+    return lambda y: bell_apply(wide, block_cols, y)
 
 
 def _dir_plain(name, apply, r2d, p2d, v2d, rhat2d, beta, omega, inv_diag2d, out, work):
@@ -485,12 +505,13 @@ def _check_s(name, shape, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out):
 
 
 def _tile_s_plain(blocks, block_cols, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
-    return _s_plain("bicgstab_s_spmv_dot", lambda y: bell_apply(blocks, block_cols, y),
-                    r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work)
+    return _s_plain(form("bicgstab_s_spmv_dot", blocks.dtype),
+                    _tile_product(blocks, block_cols), r2d, vnew2d, x2d, phat2d, alpha,
+                    inv_diag2d, out, work)
 
 
 def _packed_s_plain(pk, r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work):
-    return _s_plain("bicgstab_s_spmv_dot_packed", packed_product(pk),
+    return _s_plain(form("bicgstab_s_spmv_dot_packed", pk.vals.dtype), packed_product(pk),
                     r2d, vnew2d, x2d, phat2d, alpha, inv_diag2d, out, work)
 
 

@@ -19,12 +19,11 @@ Counterpart of ``conjugategradient_tpu/ops/pallas/fused_cg.py``:
   the row-sharded loop, x the all-gathered operand (replaces
   ``bell_spmv_dot``, fused_cg.py:467).
 
-Tiles (and packed values) of kernels 1 and 4 are float32 or bfloat16,
+Tiles (and packed values) of kernels 1, 4 and 6 are float32 or bfloat16,
 vectors float32 (the TPU kernels' two operand forms): a bfloat16 operator
 launches the kernel's bf16 form, counted as ``<name>_bf16``
 (``_common.form``), bit-equal to the float32 launch on the widened tiles;
-the plain versions widen first.  Kernel 6 takes float32 tiles only; on a
-CUDA device bfloat16 ones raise (ROADMAP.md queue 2).
+the plain versions widen first.
 
 Dispatch: a wrapper runs its plain version when the tensors it is given lie
 on the CPU, and launches its CUDA kernel when they lie on a CUDA device;
@@ -404,7 +403,7 @@ def fused_dir_spmv_dot_packed(
     end of either name).  p_new must not alias p_old: other
     rows gather p_new[c] recomputed from r and p_old while it is written."""
     name = _packed_name(pk)
-    check_packed(name, pk, OPERATOR_DTYPES)
+    check_packed(name, pk)
     if pk.ncols != pk.rows:
         raise ValueError(f"{name}: needs a square padded system, got {pk.rows} rows and "
                          f"{pk.ncols} columns")
@@ -474,11 +473,11 @@ def bell_spmv_dot(
     """(q, pap) = (A_loc·x, x[row_offset : row_offset + nrb·bm]·q): one
     shard's SpMV on the all-gathered operand and its dot partial.
 
-    ``blocks`` (nrb, kmax, bn, bn) float32, ``block_cols`` (nrb, kmax) int32
-    GLOBAL column blocks; ``x2d`` the gathered operand as (ncb, bn) float32;
-    ``row_offset`` this shard's first global row, a multiple of bn (a host
-    int: it is fixed when the operator is partitioned).  Returns q (nrb, bn)
-    and pap (1, 1).  ``out``: (q, pap) buffers to fill; q must not lie on
+    ``blocks`` (nrb, kmax, bn, bn) float32 or bfloat16, ``block_cols``
+    (nrb, kmax) int32 GLOBAL column blocks; ``x2d`` the gathered operand
+    as (ncb, bn) float32; ``row_offset`` this shard's first global row, a
+    multiple of bn (a host int: it is fixed when the operator is
+    partitioned).  Returns q (nrb, bn) and pap (1, 1).  ``out``: (q, pap) buffers to fill; q must not lie on
     ``x2d``.  ``work``: scratch, and the solve's ``ctl`` (a step after the
     end is a no-op); the kernel does no scalar step.  ``row_group``:
     block-rows per CTA (None: :func:`auto_row_group`).
@@ -490,9 +489,8 @@ def bell_spmv_dot(
     nrb, kmax, bm, bn = blocks.shape
     if bm != bn:
         raise ValueError(f"fused kernel needs square tiles, got {bm}x{bn}")
-    if blocks.dtype != torch.float32:
-        raise TypeError(f"{name}: tiles must be float32, got {blocks.dtype} "
-                        "(bf16 tiles are not ported yet: ROADMAP.md queue 2)")
+    if blocks.dtype not in OPERATOR_DTYPES:
+        raise TypeError(f"{name}: tiles must be float32 or bfloat16, got {blocks.dtype}")
     if tuple(block_cols.shape) != (nrb, kmax) or block_cols.dtype != torch.int32:
         raise ValueError(f"{name}: block_cols must be ({nrb}, {kmax}) int32")
     if x2d.dim() != 2 or x2d.shape[1] != bn or x2d.dtype != torch.float32:
@@ -521,13 +519,13 @@ def bell_spmv_dot(
 
 
 def _spmv_dot_plain(blocks, block_cols, x2d, row_offset, out, work):
-    name = "bell_spmv_dot"
+    name = form("bell_spmv_dot", blocks.dtype)
     if x2d.is_cuda:
         PLAIN_ON_CUDA[name] += 1
     nrb, bn = blocks.shape[0], blocks.shape[3]
     if work is not None and not _live(work):
         return out if out is not None else (x2d.new_zeros(nrb, bn), x2d.new_zeros(1, 1))
-    q = bell_apply(blocks, block_cols, x2d)
+    q = bell_apply(blocks.to(torch.float32), block_cols, x2d)
     r0 = row_offset // bn
     pap = torch.sum(x2d[r0:r0 + nrb] * q).reshape(1, 1)
     if out is None:
@@ -540,7 +538,7 @@ def _spmv_dot_plain(blocks, block_cols, x2d, row_offset, out, work):
 def _spmv_dot_cuda(blocks, block_cols, x2d, row_offset, out, work, row_group):
     from ._build import load_library
 
-    name = "bell_spmv_dot"
+    name = form("bell_spmv_dot", blocks.dtype)
     nrb, kmax, _, bn = blocks.shape
     dev = x2d.device
     if work is None:
@@ -550,7 +548,7 @@ def _spmv_dot_cuda(blocks, block_cols, x2d, row_offset, out, work, row_group):
     grid = -(-nrb // row_group)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)
-    err = load_library().cg_bell_spmv_dot(
+    err = getattr(load_library(), form("cg_bell_spmv_dot", blocks.dtype))(
         ptr(blocks), ptr(block_cols), ptr(x2d), row_offset // bn, ptr(q), ptr(pap),
         ptr(work.partials), ptr(work.counter), ptr(work.ctl), nrb, kmax, bn,
         row_group, stream(dev))

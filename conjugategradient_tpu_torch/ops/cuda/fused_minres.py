@@ -421,7 +421,7 @@ def minres_dir_spmv_dot_packed(
     bfloat16 values ``_bf16`` at the end of either name."""
     name = form("sym_minres_dir_spmv_dot_packed" if pk.symmetric
                 else "minres_dir_spmv_dot_packed", pk.vals.dtype)
-    nrb, bn = check_packed_vectors(name, pk, r2_2d, OPERATOR_DTYPES)
+    nrb, bn = check_packed_vectors(name, pk, r2_2d)
     vecs = (r2_2d, r1_2d, vprev2d, wm1_2d, wm2_2d, x2d)
     _check_dir_operands(name, nrb, bn, vecs, su, inv_diag2d, out)
     view = (pk.vals, pk.cols, pk.row_len, pk.chunk_off)

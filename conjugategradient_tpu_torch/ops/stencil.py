@@ -41,8 +41,8 @@ def stencil7_matvec(op, x: torch.Tensor, use_kernel: str = "auto") -> torch.Tens
     """Apply the operator to a flat vector: reshape to the grid, apply,
     flatten.  The result has the common dtype of the operator and x.
     ``use_kernel``: ``"auto"`` and ``"always"`` go through the kernel's
-    wrapper (the kernel on a CUDA tensor, float32 and float64 alike),
-    ``"never"`` through the plain version."""
+    wrapper (the kernel on a CUDA tensor, float32, float64 and bfloat16
+    alike), ``"never"`` through the plain version."""
     from .cuda.stencil import stencil7
 
     if use_kernel not in KERNEL_CHOICES:

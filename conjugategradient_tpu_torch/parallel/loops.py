@@ -310,7 +310,8 @@ def _joined_f32(vs: Vecs, bn: int) -> Vecs:
 def _sharded_fused_cg(group, blocks: Vecs, cols: Vecs, b: Vecs, x0: Vecs,
                       tol: float, maxiter: int, bn: int,
                       inv_diag: Optional[Vecs] = None):
-    """Per-shard (P)CG on the fused kernels, float32: each shard's SpMV and
+    """Per-shard (P)CG on the fused kernels, float32 vectors on float32 or
+    bfloat16 tiles (kernel 6's bf16 form): each shard's SpMV and
     p·q partial as one kernel on the gathered operand (``bell_spmv_dot``),
     its x/r update and ‖r‖² (+ ρ = r·d⊙r) partials as another
     (``fused_update_dot(_pcg)`` in partials-only mode), the partials summed
@@ -504,7 +505,7 @@ def _fused_shards_supported(blocks: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether ``use_fused="auto"`` takes the fused loops: the JAX gate
     (square tiles, bn and the rows per shard multiples of 128, float32 b,
     kmax <= 64; the tiles' dtype is not tested, so bf16 shards take the
-    fused MINRES loop on kernel 17's bf16 form) with the operator on a CUDA
+    fused loops on the bf16 forms of kernels 6 and 17) with the operator on a CUDA
     device in place of its TPU-only terms (the VMEM byte cap on the
     gathered operand, a TPU backend)."""
     n_shards, _, kmax, bm, bn = blocks.shape

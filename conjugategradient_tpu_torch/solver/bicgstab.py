@@ -186,8 +186,8 @@ def bicgstab_solve(
 
     ``fused``: ``"auto"`` and ``"never"`` run the portable loop here, as in
     the JAX package; ``"always"`` runs the three-kernel fused iteration
-    (solver/fused_bicgstab.py: a float32 full blocked-ELL operator on a
-    CUDA device, no preconditioner or a
+    (solver/fused_bicgstab.py: a float32 or bfloat16 full blocked-ELL
+    operator on a CUDA device, float32 vectors, no preconditioner or a
     :func:`~.precond.jacobi_preconditioner`) and raises where it cannot.
     """
     if fused not in FUSED_CHOICES:
@@ -206,7 +206,7 @@ def bicgstab_solve(
 
         if not fused_bicgstab_supported(op, dtype=b.dtype):
             raise ValueError(
-                "fused='always' needs a float32 full blocked-ELL operator "
+                "fused='always' needs a float32 or bfloat16 full blocked-ELL operator "
                 "(BlockedEllMatrix) on a CUDA device with square tiles of width "
                 "32/64/128/256 and a square padded shape, and float32 vectors "
                 "(solver/fused_bicgstab.py)")

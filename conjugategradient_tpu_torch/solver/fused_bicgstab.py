@@ -24,8 +24,9 @@ scalar leaves the device, every kernel is a no-op once the solve is done,
 and the host reads ``live`` only every ``CHECK_EVERY`` steps
 (solver/restart.py).  p and v are double-buffered (K1 gathers them while
 it writes the new ones), and so is x: K2 writes x_h into the other buffer,
-which keeps the previous x for the select.  Float32 only and full storage
-only, like the JAX path: the domain is nonsymmetric.
+which keeps the previous x for the select.  Float32 vectors on float32 or
+bfloat16 tiles (the kernels' bf16 forms), and full storage only, like the
+JAX path: the domain is nonsymmetric.
 """
 
 from __future__ import annotations
@@ -120,16 +121,13 @@ class FusedBicgstabState:
 
 
 def fused_bicgstab_supported(a: Any, dtype=None) -> bool:
-    """Whether the fused BiCGStab path can run this operator: the fused CG
-    gate (:func:`~.fused.fused_supported`: square tiles of a width the
-    kernels take, a square padded system, tensors on a CUDA device) on FULL
-    blocked-ELL storage with float32 tiles only: kernels 18 and 19 have no
-    bfloat16 form yet (ROADMAP.md queue 2), so BiCGStab on bf16 tiles runs
-    the portable loop, whose SpMV is kernel 5's bf16 form.  The JAX
+    """Whether the fused BiCGStab path can run this operator: the JAX gate,
+    the fused CG gate (:func:`~.fused.fused_supported`: square tiles of a
+    width the kernels take, float32 or bfloat16, a square padded system,
+    tensors on a CUDA device) on FULL blocked-ELL storage.  The JAX
     package's bound on the vectors' VMEM residency is dropped: the CUDA
     kernels stream the vectors from L2/HBM."""
-    return (isinstance(a, BlockedEllMatrix) and a.dtype == torch.float32
-            and fused_supported(a, dtype=dtype))
+    return isinstance(a, BlockedEllMatrix) and fused_supported(a, dtype=dtype)
 
 
 def fused_bicgstab_init(

@@ -29,11 +29,11 @@ the timed region, then times the deflated solve; ``--eigs K``
 ``dim NNZ time_ms max_rel_residual`` and a JSON line.  ``--refine
 bfloat16|float32`` solves with mixed-precision iterative refinement (inner
 CG on a copy of the operator stored in that dtype, true residuals in
-``--dtype``), and ``--dtype bfloat16`` solves in bfloat16.  Flags of the
-JAX harness that this package has not ported yet exit with code 2 and
-"not yet ported", as do the bfloat16 runs that would reach a kernel whose
-bf16 form is not ported yet on ``--device cuda`` (a stencil with bfloat16
-vectors; ROADMAP.md queue 2).
+``--dtype``), and ``--dtype bfloat16`` solves in bfloat16 (on ``--device
+cuda`` each bf16 product that has a kernel runs its bf16 form, the
+stencil's included).
+Flags of the JAX harness that this package has not ported yet exit with
+code 2 and "not yet ported".
 """
 
 from __future__ import annotations
@@ -187,22 +187,6 @@ def _not_ported(what: str) -> int:
     print(f"error: {what} is not yet ported to conjugategradient_tpu_torch",
           file=sys.stderr)
     return 2
-
-
-def _bf16_unported(args, A, device):
-    """What a bfloat16 run (``--dtype bfloat16``, or ``--refine bfloat16``
-    whose inner operator is a bf16 copy) would reach on a CUDA device that
-    has no bf16 kernel yet, or None: the stencil apply on bfloat16 vectors.
-    A bf16 stencil applied to the refinement's float32 vectors runs the
-    float32 kernel; every stored layout has its bf16 kernels."""
-    from .types import StencilOperator
-
-    if device.type != "cuda":
-        return None
-    if isinstance(A, StencilOperator) and args.dtype == "bfloat16":
-        return ("a stencil: input in bfloat16 on --device cuda (the bf16 form of "
-                "stencil7, ROADMAP.md queue 2)")
-    return None
 
 
 def _stencil_dims(args):
@@ -435,10 +419,6 @@ def main(argv=None) -> int:
             print(f"error: --refine {args.refine} is not below --dtype "
                   f"{args.dtype}; pick a lower storage dtype", file=sys.stderr)
             return 2
-    unported = _bf16_unported(args, A, device)
-    if unported is not None:
-        return _not_ported(unported)
-
     basis = None
     if args.deflate > 0:
         # the basis is set-up, harvested from a plain-CG pass on this system

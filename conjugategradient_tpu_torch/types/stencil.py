@@ -33,9 +33,9 @@ class StencilOperator(LinearOperator):
     of the JAX operator's 0-d arrays; kernels take them by value, so a
     matvec reads nothing back from the device.  A bfloat16 operator applied
     to float32 vectors runs the float32 kernel on its rounded values; on
-    bfloat16 vectors it runs on the CPU only (the kernel has no bf16 form
-    yet, ROADMAP.md queue 2).  The operator holds no
-    tensor: ``device`` says where its vectors live.
+    bfloat16 vectors, the kernel's bf16 form, which rounds every product and
+    sum to bf16 as the JAX kernel does.  The operator holds no tensor:
+    ``device`` says where its vectors live.
     """
 
     center: float

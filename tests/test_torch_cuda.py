@@ -930,6 +930,140 @@ def test_fused_bicgstab_solve_takes_the_packed_kernels(dev):
         np.testing.assert_allclose(ik.rnorm_history[:11].double().cpu().numpy(),
                                    ip.rnorm_history[:11].double().cpu().numpy(), rtol=5e-3)
 
+# ---- the bf16 forms of kernels 18 and 19 ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["first", "later"])
+@pytest.mark.parametrize("form", ["dense", "packed"])
+def test_bicgstab_bf16_kernels_bit_equal(dev, form, step):
+    """Kernels 18 and 19 on bf16 tiles (dense: the bicgstab-bell operator
+    at nrb = 13, bn = 128; packed: convection-diffusion nx = 64's bf16
+    view), ± Jacobi d, on a first step (beta 0, omega 1) and a later one:
+    one launch of the ``_bf16`` form each, every output bit-equal to the
+    float32 launch on the widened operator, and held to the plain version
+    as the float32 forms are (p', p̂, s, ŝ, x_h bit for bit; v' and t bit
+    for bit packed, to RTOL dense; the dots to RTOL)."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
+
+    a = (_nonsym_tridiag(13 * 128, 128, dev) if form == "dense"
+         else _convdiff(64, 128, dev)).astype(torch.bfloat16)
+    wide = a.astype(torch.float32)
+    bn = a.bn
+    g = torch.Generator().manual_seed(18)
+    r, p, v, rhat, x = (torch.randn(a.nrb, bn, generator=g).to(dev) for _ in range(5))
+    d = (torch.rand(a.nrb, bn, generator=g) + 0.5).to(dev)
+    beta, omega = (torch.full((1, 1), s, device=dev)
+                   for s in ((0.0, 1.0) if step == "first" else (0.4, 0.25)))
+    alpha = torch.full((1, 1), 0.6, device=dev)
+    if form == "dense":
+        dir_k = lambda op, *args: fb.bicgstab_dir_spmv_dot(op.blocks, op.block_cols, *args)  # noqa: E731
+        s_k = lambda op, *args: fb.bicgstab_s_spmv_dot(op.blocks, op.block_cols, *args)  # noqa: E731
+        dir_p = lambda *args: fb._tile_dir_plain(a.blocks, a.block_cols, *args, None, None)  # noqa: E731
+        s_p = lambda *args: fb._tile_s_plain(a.blocks, a.block_cols, *args, None, None)  # noqa: E731
+        names = ("bicgstab_dir_spmv_dot_bf16", "bicgstab_s_spmv_dot_bf16")
+    else:
+        pk = a.packed()
+        assert pk.vals.dtype == torch.bfloat16
+        dir_k = lambda op, *args: fb.bicgstab_dir_spmv_dot_packed(op.packed(), *args)  # noqa: E731
+        s_k = lambda op, *args: fb.bicgstab_s_spmv_dot_packed(op.packed(), *args)  # noqa: E731
+        dir_p = lambda *args: fb._packed_dir_plain(pk, *args, None, None)  # noqa: E731
+        s_p = lambda *args: fb._packed_s_plain(pk, *args, None, None)  # noqa: E731
+        names = ("bicgstab_dir_spmv_dot_packed_bf16", "bicgstab_s_spmv_dot_packed_bf16")
+    for dd in (None, d):
+        before = [fc.LAUNCHES[n] for n in names]
+        k1 = dir_k(a, r, p, v, rhat, beta, omega, dd)
+        w1 = dir_k(wide, r, p, v, rhat, beta, omega, dd)
+        p1 = dir_p(r, p, v, rhat, beta, omega, dd)
+        k2 = s_k(a, r, k1[2], x, k1[1], alpha, dd)
+        w2 = s_k(wide, r, k1[2], x, k1[1], alpha, dd)
+        p2 = s_p(r, k1[2], x, k1[1], alpha, dd)
+        torch.cuda.synchronize()
+        assert [fc.LAUNCHES[n] for n in names] == [b + 1 for b in before]
+        assert all(torch.equal(s_, t) for s_, t in zip(k1, w1))
+        assert all(torch.equal(s_, t) for s_, t in zip(k2, w2))
+        assert torch.equal(k1[0], p1[0]) and torch.equal(k1[1], p1[1])
+        for i in range(3):
+            assert torch.equal(k2[i], p2[i]), ("s", "shat", "xh")[i]
+        if form == "packed":
+            assert torch.equal(k1[2], p1[2]) and torch.equal(k2[3], p2[3])
+        else:
+            _close(k1[2], p1[2])
+            _close(k2[3], p2[3])
+        np.testing.assert_allclose(float(k1[3]), float(p1[3]), rtol=RTOL,
+                                   atol=RTOL * float(rhat.norm() * p1[2].norm()))
+        for i in range(4, 7):
+            np.testing.assert_allclose(float(k2[i]), float(p2[i]), rtol=RTOL,
+                                       atol=RTOL * float(p2[3].norm() * p2[0].norm()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "packed"])
+def test_fused_bicgstab_bf16_solve_takes_the_bf16_kernels(dev, form):
+    """``bicgstab_solve(fused="always")`` on bf16 tiles (float32 b): the
+    bf16 forms of kernels 18 and 19 (dense or packed by the route) with
+    kernel 20 once a step each, no plain version on CUDA, bitwise
+    repeatable and bit-equal to the solve on the widened tiles; a NaN tile
+    value sets the sticky breakdown flag after one step."""
+    import dataclasses
+
+    from conjugategradient_tpu_torch import bicgstab_solve
+    from conjugategradient_tpu_torch.ops.spmv import bell_packed_route
+
+    a = (_nonsym_tridiag(64 * 128, 128, dev) if form == "dense"
+         else _convdiff(64, 128, dev)).astype(torch.bfloat16)
+    assert bell_packed_route(a) == (form == "packed")
+    suffix = "_packed_bf16" if form == "packed" else "_bf16"
+    b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
+    fc.reset_counts()
+    x, info = bicgstab_solve(a, b, tol=0.0, maxiter=8, fused="always")
+    k = int(info.iterations)
+    assert 1 <= k <= 8
+    assert fc.LAUNCHES["bicgstab_dir_spmv_dot" + suffix] >= k
+    assert fc.LAUNCHES["bicgstab_s_spmv_dot" + suffix] >= k
+    assert fc.LAUNCHES["bicgstab_update_dot"] >= k
+    assert fc.LAUNCHES["bicgstab_dir_spmv_dot"] == fc.LAUNCHES["bicgstab_s_spmv_dot"] == 0
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    x2, _ = bicgstab_solve(a, b, tol=0.0, maxiter=8, fused="always")
+    x3, _ = bicgstab_solve(a.astype(torch.float32), b, tol=0.0, maxiter=8, fused="always")
+    assert torch.equal(x, x2) and torch.equal(x, x3)
+    bad = a.blocks.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    _, ninfo = bicgstab_solve(dataclasses.replace(a, blocks=bad), b, tol=0.0, maxiter=8,
+                              fused="always")
+    assert bool(ninfo.breakdown) and not bool(ninfo.converged) and int(ninfo.iterations) == 1
+
+
+# ---- the bf16 form of kernel 11 -----------------------------------------------------
+
+@pytest.mark.cuda
+def test_stencil7_bf16_kernel_bit_equal_to_plain(dev):
+    """Kernel 11 on bf16 volumes: one launch of ``stencil7_bf16``, bit-equal
+    to the plain version (every product and sum rounded to bf16 on both
+    sides), with coefficients exact in bf16 and not; on integer-valued
+    input, where no op rounds, also to the float32 launch on the widened
+    volume; a NaN reaches only its point and its six neighbours."""
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    bf16 = torch.bfloat16
+    for shape in STENCIL_SHAPES:
+        u = torch.randn(shape, device=dev).to(bf16)
+        for c, w in ((6.0, -1.0), (4.25, -0.5), (0.1, -1 / 3)):
+            before = fc.LAUNCHES["stencil7_bf16"]
+            yk = ks.stencil7(u, c, w)
+            assert fc.LAUNCHES["stencil7_bf16"] == before + 1 and yk.dtype == bf16
+            yp = ks._stencil7_plain(u, c, w)
+            torch.cuda.synchronize()
+            assert torch.equal(yk, yp), (shape, c, w)
+        ui = torch.randint(-16, 17, shape, device=dev).to(bf16)
+        y32 = ks.stencil7(ui.float(), 6.0, -1.0)
+        assert torch.equal(ks.stencil7(ui, 6.0, -1.0), y32.to(bf16))
+    u = torch.ones(6, 7, 8, dtype=bf16, device=dev)
+    u[3, 0, 5] = float("nan")
+    yk, yp = ks.stencil7(u, 4.25, -0.5), ks._stencil7_plain(u, 4.25, -0.5)
+    assert torch.equal(torch.isnan(yk), torch.isnan(yp)) and int(torch.isnan(yk).sum()) == 6
+    assert torch.equal(yk.nan_to_num(), yp.nan_to_num())
+
+
 # ---- the row-sharded loop: kernels 6 and 17, partials-only modes ----------------
 
 def _shard_operands(dev, nrb, bn, n_shards, shard, seed):
@@ -949,7 +1083,7 @@ def _shard_operands(dev, nrb, bn, n_shards, shard, seed):
 def test_bell_spmv_dot_kernel_matches_plain(dev, bn, row_group):
     """Kernel 6: q to 1e-5 of max|q| and pap to 1e-5 relative of the plain
     version (f32 sums in another order), two launches bit-identical, a
-    ragged nrb = 13 at a shard offset that is not 0."""
+    ragged nrb = 13 at a shard offset that is not 0; its bf16 form too."""
     blocks, cols, full, off = _shard_operands(dev, 13, bn, 3, 1, bn)
     before = fc.LAUNCHES["bell_spmv_dot"]
     qk, pk = fc.bell_spmv_dot(blocks, cols, full, off, row_group=row_group)
@@ -960,8 +1094,18 @@ def test_bell_spmv_dot_kernel_matches_plain(dev, bn, row_group):
     _close(qk, qp)
     np.testing.assert_allclose(float(pk), float(pp), rtol=RTOL)
     assert torch.equal(qk, qk2) and torch.equal(pk, pk2)
-    with pytest.raises(TypeError, match="not ported"):
-        fc.bell_spmv_dot(blocks.bfloat16(), cols, full, off)
+    # bf16 tiles: kernel 6's bf16 form, bit-equal to the float32 launch on
+    # the widened tiles, and held to its plain version as the float32 form
+    lo = blocks.bfloat16()
+    before = fc.LAUNCHES["bell_spmv_dot_bf16"]
+    qb, pb = fc.bell_spmv_dot(lo, cols, full, off, row_group=row_group)
+    assert fc.LAUNCHES["bell_spmv_dot_bf16"] == before + 1
+    q32, p32 = fc.bell_spmv_dot(lo.float(), cols, full, off, row_group=row_group)
+    qpb, ppb = fc._spmv_dot_plain(lo, cols, full, off, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(qb, q32) and torch.equal(pb, p32)
+    _close(qb, qpb)
+    np.testing.assert_allclose(float(pb), float(ppb), rtol=RTOL)
     with pytest.raises(ValueError, match="alias"):
         fc.bell_spmv_dot(blocks, cols, full, off, out=(full[:13], pk))
 
@@ -1106,6 +1250,41 @@ def test_sharded_fused_solve_takes_the_kernels_bitwise(dev, method):
     keep = hc > 1e-10 * hc[0]
     assert keep.sum() >= 3
     np.testing.assert_allclose(hk[keep], hc[keep], rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["standard", "minres"])
+def test_sharded_fused_bf16_solve_takes_the_bf16_kernels(dev, method):
+    """The fused sharded loop on bf16 shards, four shards in one process:
+    P launches a step of the shard kernel's bf16 form (kernel 6 or 17, plus
+    one per shard for r0), no plain version, and the whole solve bit-equal
+    to the one on the widened shards; a NaN tile value stops it at once
+    with a NaN residual."""
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
+
+    n_shards, bn, nrb = 4, 128, 2
+    n = n_shards * nrb * bn
+    blocks, cols, _ = block_tridiag_tiles(n, bn, bn, seed=5)
+    rho_off = float(np.abs(np.linalg.eigvalsh(blocks[1, 1].astype(np.float64))).max())
+    blocks[:, 0] = np.eye(bn, dtype=np.float32) * np.float32(2.5 * rho_off)
+    lo = torch.from_numpy(blocks).reshape(n_shards, nrb, 3, bn, bn).to(dev).bfloat16()
+    cols = torch.from_numpy(cols).reshape(n_shards, nrb, 3).to(dev)
+    b = torch.arange(1, n + 1, dtype=torch.float32, device=dev) / n
+    kernel = ("bell_spmv_dot" if method == "standard" else "minres_shard_spmv_dot") + "_bf16"
+    mesh = make_row_mesh(n_shards, dev)
+    fc.reset_counts()
+    x1, i1 = sharded_cg_solve(lo, cols, b, mesh=mesh, tol=-1.0, maxiter=12, method=method)
+    assert int(i1.iterations) == 12
+    assert fc.LAUNCHES[kernel] == n_shards * 13
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    x2, i2 = sharded_cg_solve(lo.float(), cols, b, mesh=mesh, tol=-1.0, maxiter=12,
+                              method=method)
+    assert torch.equal(x1, x2)
+    assert torch.equal(i1.rho_history.view(torch.int32), i2.rho_history.view(torch.int32))
+    bad = lo.clone()
+    bad[0, 0, 0, 0, 0] = float("nan")
+    _, i3 = sharded_cg_solve(bad, cols, b, mesh=mesh, tol=-1.0, maxiter=12, method=method)
+    assert not bool(i3.converged) and int(i3.iterations) <= 1
 
 
 # ---- kernels 4 and 5 on the packed nonzeros of sparse tiles ---------------------
@@ -2304,8 +2483,8 @@ def test_bf16_solves_take_the_bf16_kernels(dev):
 @pytest.mark.cuda
 def test_tester_refine_and_bf16_on_the_card(dev, capsys):
     """The tester's --refine and --dtype bfloat16 on the card, SymDIA
-    included (kernel 10's bf16 forms), and its exit 2 where a bf16 product
-    has no kernel yet (the stencil on bf16 vectors)."""
+    included (kernel 10's bf16 forms), and the stencil on bf16 vectors
+    (kernel 11's bf16 form; rel_error under 5e-3, as on the CPU)."""
     import json
 
     from conjugategradient_tpu_torch import tester
@@ -2320,5 +2499,10 @@ def test_tester_refine_and_bf16_on_the_card(dev, capsys):
             lines = capsys.readouterr().out.strip().splitlines()
             assert lines[0].split()[:2] == ["1156", "5644"]
             assert json.loads(lines[1])["converged"] == [True], (layout, extra)
-    assert tester.main(["stencil:16", "--dtype", "bfloat16", "--device", "cuda"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    before = fc.LAUNCHES["stencil7_bf16"]
+    assert tester.main(["stencil:16", "--dtype", "bfloat16", "--tol", "1e-1", "--summary",
+                        "--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].split()[:2] == ["4096", "27136"]
+    assert json.loads(lines[1])["converged"] == [True] and float(lines[0].split()[3]) < 5e-3
+    assert fc.LAUNCHES["stencil7_bf16"] > before

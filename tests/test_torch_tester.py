@@ -856,32 +856,26 @@ def test_bf16_symdia_and_stencil_run_on_the_cpu(capsys):
         assert 0 <= float(tlines[0].split()[3]) < 5e-3
 
 
-def test_bf16_unported_kernels_exit_2_on_cuda():
-    """Where a bf16 run would reach a kernel whose bf16 form is not ported
-    (the stencil on bf16 vectors), the tester's check names the ROADMAP
-    item for --device cuda (main then exits 2 with "not yet ported";
-    tests/test_torch_cuda.py runs that on the card) and lets the CPU and
-    the ported products through: SymDIA in bf16 (kernel 10's bf16 forms)
-    runs on the card."""
-    from conjugategradient_tpu_torch import StencilOperator, load_matrix
+def test_bf16_unported_kernels_exit_2_on_cuda(capsys):
+    """No bf16 run exits 2 any more.  The tester used to refuse, on --device
+    cuda, the bf16 runs that reached a kernel with no bf16 form (the stencil
+    on bf16 vectors); every kernel the tester reaches now has one (the
+    stencil's ``stencil7_bf16``, with the C entry the library binds), so
+    the gate is gone and the runs it refused run: here on the CPU through
+    the same wrappers, in ``tests/test_torch_cuda.py`` on the card."""
+    from conjugategradient_tpu_torch.ops.cuda import _build, _common
 
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    symdia = load_matrix(MTX, layout="symdia", dtype=np.float32, device="cpu")
-    dia = load_matrix(MTX, layout="dia", dtype=np.float32, device="cpu")
-    st = StencilOperator.poisson((4, 4, 4), dtype=torch.float32, device="cpu")
-
-    def check(argv, A, device):
-        args, _ = tester._parser().parse_known_args([MTX, *argv])
-        return tester._bf16_unported(args, A, device)
-
-    for argv, A in ((["--dtype", "bfloat16"], symdia),
-                    (["--dtype", "float32", "--refine", "bfloat16"], symdia)):
-        assert check(argv, A, cuda) is None and check(argv, A, cpu) is None
-    for argv, A in ((["--dtype", "bfloat16"], st),):
-        msg = check(argv, A, cuda)
-        assert msg is not None and "ROADMAP.md queue 2" in msg and "stencil" in msg
-        assert check(argv, A, cpu) is None
-    for argv, A in ((["--dtype", "bfloat16"], dia),
-                    (["--dtype", "float32", "--refine", "bfloat16"], st),
-                    (["--dtype", "float64", "--refine", "float32"], symdia)):
-        assert check(argv, A, cuda) is None
+    assert not hasattr(tester, "_bf16_unported")
+    for name, entry in (("stencil7", "cg_stencil7"), ("bell_spmv_dot", "cg_bell_spmv_dot"),
+                        ("bicgstab_dir_spmv_dot", "bicgstab_dir"),
+                        ("bicgstab_s_spmv_dot", "bicgstab_s"),
+                        ("bicgstab_dir_spmv_dot_packed", "bicgstab_dir_packed"),
+                        ("bicgstab_s_spmv_dot_packed", "bicgstab_s_packed")):
+        assert f"{name}_bf16" in _common.LAUNCHES and f"{entry}_bf16" in _build.SIGNATURES
+    for args in (["stencil:8", "--dtype", "bfloat16", "--tol", "1"],
+                 [MTX, "--layout", "symdia", "--dtype", "bfloat16", "--tol", "1"],
+                 ["stencil:8", "--dtype", "float32", "--refine", "bfloat16", "--tol", "1e-1"]):
+        rc = tester.main([*args, "--device", "cpu"])
+        out = capsys.readouterr()
+        assert rc == 0 and "not yet ported" not in out.err, args
+        assert len(out.out.strip().splitlines()) == 1
