@@ -99,7 +99,13 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    and ``sym_dia_spmv``) bit-equal to the
    plain version on symdia-big, poisson3d_48, dense_256 and a ragged
    n = 1001 (offsets 0, 3, 300), the routed call too; both timed on
-   symdia-big and poisson3d_48.
+   symdia-big and poisson3d_48.  Then, before the timing rows, the
+   registers, static shared memory and spills that ``nvcc -Xptxas -v``
+   reports for each instantiation of kernels 1 and 15 on the banded
+   landing (``ptxas_report``), their tile ring's geometry at every tile
+   width and type, and their device time at n = 262,144 against the ring
+   depth S (3, 4, 6, 8, 12 stages and the default), every depth's outputs
+   held bit-equal to the default's (``banded_ring_report``).
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -321,7 +327,12 @@ floor; on a tree that has them, the cg-bf16 lane's ms/it and history hash
 the fused MINRES at n = 262,144 on bf16 tiles in both storages (ms/it,
 history and x), and the fused BiCGStab on the bicgstab-bell operator's
 bf16 tiles (history and x) and the sharded fused CG at P = 4 on bf16
-shards (ms/it, history and x).
+shards (ms/it, history and x); one hash a call of kernels 1 and 15 on
+the banded landing (outputs and the work's scalars) on seeded inputs, in
+float32 and bf16, at n = 262,144 and at a ragged nrb = 13, bn = 64
+(``banded_hashes``), and their device times at n = 262,144 beside their
+plain versions and bound (``banded_rows``); on a tree with the staged
+ring, the ring-depth sweep too.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -6937,6 +6948,224 @@ def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
               f"iteration {row['bfloat16'] / row['float32']:.3f}")
 
 
+# ---- kernels 1 and 15 on the banded landing: the staged tile ring ------------
+
+BANDED_STAGES = (3, 4, 6, 8, 12)  # the ring-depth sweep at n = 262,144, bn = 128
+
+
+def banded_ring(bn, dtype, stages=0) -> dict:
+    """The tile ring of kernels 1 and 15 on the banded landing, as
+    csrc/tile.cuh sizes it (TileChunk, ring_smem_bytes): chunks of whole
+    tile rows, 16 KB or the whole tile if smaller; ``stages`` (0: the
+    default, 96 KB of chunks); the dynamic shared memory of a CTA."""
+    import torch
+
+    row = bn * (2 if dtype == torch.bfloat16 else 4)
+    rows = min(bn, 16 * 1024 // row)
+    chunk = rows * row
+    s = max(3, stages) if stages > 0 else 96 * 1024 // chunk
+    return {"chunk_rows": rows, "chunk_bytes": chunk, "stages": s,
+            "smem_bytes": (2 * s * 8 + 127) // 128 * 128 + s * chunk}
+
+
+def banded_operators(dev, big) -> list:
+    """(label, symmetric banded operator): the n = 262,144 tiles and a
+    ragged nrb = 13, bn = 64 operator (13 rows in strips of 8), each in
+    float32 and in bf16."""
+    import torch
+
+    small = block_tridiag_ops(13 * 64, 64, dev)[1]
+    return [(f"{label} {tag}", a if dt == torch.float32 else a.astype(dt))
+            for label, a in (("n=262144", big), ("ragged nrb=13 bn=64", small))
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+
+
+def banded_launches(a, dev, seed=21):
+    """Kernels 1 and 15 on the banded landing of ``a`` on seeded inputs,
+    launched as the solvers launch them (kernel 1 with d and beta = 0.37;
+    kernel 15 in place, with d and the shift 0.07, after a pending
+    update), each on a fresh work: (name, launch() -> the outputs and the
+    work's scalars)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    rng = np.random.default_rng(seed)
+    nrb, bn = a.nrb, a.bn
+    r, pold = (torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32, device=dev)
+               for _ in range(2))
+    d = torch.as_tensor(0.5 + rng.random((nrb, bn)), dtype=torch.float32, device=dev)
+    beta = torch.full((1, 1), 0.37, device=dev)
+    vecs, su, dm = minres_operands(nrb, bn, rng, dev, True, 0.07)
+
+    def k1():
+        work = fc.FusedWork.new(dev, maxiter=9, tol=1e-3)
+        work.scal[fc.S_RHO] = 1.5
+        out = fc.sym_fused_dir_spmv_dot(a.diag_blocks, a.off_blocks, a.off_cols, r, pold, beta,
+                                        d, mirror="banded", mirror_src=a.mirror_src, work=work)
+        return (*out, work.scal)
+
+    def k15():
+        work = fm.MinresWork.new(dev, maxiter=9, tol=1e-3, shift=0.07)
+        work.start(torch.tensor(2.3, device=dev))
+        v = [t.clone() for t in vecs]
+        out = fm.sym_minres_dir_spmv_dot(a.diag_blocks, a.off_blocks, a.off_cols, *v, su, dm,
+                                         mirror="banded", mirror_src=a.mirror_src,
+                                         out=(v[2], torch.empty_like(v[0]), v[4], v[5]),
+                                         work=work)
+        return (*out, work.scal)
+
+    return (("K1", k1), ("K15", k15))
+
+
+def banded_hashes(dev, big, card) -> None:
+    """One hash a call of kernels 1 and 15 on the banded landing (outputs
+    and the work's scalars) on seeded inputs, float32 and bf16, at n =
+    262,144 and ragged nrb = 13, bn = 64; for comparing two trees on one
+    card."""
+    for label, a in banded_operators(dev, big):
+        for name, launch in banded_launches(a, dev):
+            print(f"  per-call hash {name} banded {label}: {digest(*launch())}  [{card}]")
+
+
+def banded_timers(a, dev) -> dict:
+    """Kernels 1 and 15 on the banded landing of ``a`` (n = 262,144), each
+    as a launch alone into buffers made once and on a solve's work that
+    never finishes (as the solvers launch them; kernel 15 in place, with
+    phi = 0 so x stays put), beside its plain version on the same inputs:
+    name -> (kernel launch, plain launch)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork.start(torch.tensor(2.3, device=dev))
+    rng = np.random.default_rng(3)
+    r, pold = (torch.as_tensor(rng.standard_normal((a.nrb, a.bn)), dtype=torch.float32,
+                               device=dev) for _ in range(2))
+    beta = torch.full((1, 1), 0.37, device=dev)
+    vecs, su, _ = minres_operands(a.nrb, a.bn, rng, dev, False, 0.07)
+    su[0, fm.SU_PHI] = 0.0
+    out = (torch.empty_like(r), torch.empty_like(r))
+    mout = (vecs[2], torch.empty_like(vecs[0]), vecs[4], vecs[5])
+    _, kern, plain = minres_dir_pair(a, "banded")
+    return {
+        "K1": (lambda: fc.sym_fused_dir_spmv_dot(a.diag_blocks, a.off_blocks, a.off_cols, r,
+                                                 pold, beta, mirror="banded",
+                                                 mirror_src=a.mirror_src, out=out, work=work),
+               lambda: fc._sym_dir_plain(a.diag_blocks, a.off_blocks, a.off_cols, r, pold,
+                                         beta, None, a.mirror_src, None, None)),
+        "K15": (lambda: kern(vecs, su, None, out=mout, work=mwork),
+                lambda: plain(vecs, su, None)),
+    }
+
+
+def banded_rows(dev, big) -> dict:
+    """Kernels 1 and 15 on the banded landing at n = 262,144, float32 and
+    bf16 tiles, timed against their plain versions (time_pair, launched as
+    banded_timers makes them), with the bound on their bytes: the tiles
+    read once, and the vectors (kernel 1: r, p_old in, p_new, q out;
+    kernel 15: six in, four out)."""
+    import torch
+
+    rows = {}
+    v = N_BIG * 4
+    for tag, a in (("", big), (" bf16", big.astype(torch.bfloat16))):
+        tiles = nbytes(a.diag_blocks, a.off_blocks, a.off_cols)
+        flops = 2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
+        for name, (kern, plain) in banded_timers(a, dev).items():
+            t = time_pair(kern, plain)
+            t.update(bound(tiles + (4 if name == "K1" else 10) * v,
+                           flops + (4 if name == "K1" else 14) * N_BIG), library_ms=None)
+            rows[f"{name} banded n=262144{tag}"] = t
+    torch.cuda.synchronize()
+    return rows
+
+
+def ptxas_report(card) -> None:
+    """``nvcc -Xptxas -v`` on the banded kernels' sources, as the build
+    compiles them: registers, static shared memory and spills of each
+    instantiation of kernels 1 and 15's banded landing."""
+    import re
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    tmp = os.path.join(ROOT, "build", "ptxas")
+    os.makedirs(tmp, exist_ok=True)
+    procs = [(src, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         os.path.join(tmp, src + ".o"), str(_build.SRC_DIR / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for src in ("fused_cg.cu", "fused_minres.cu")]
+    for src, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed: {err[-2000:]}")
+        entry = None
+        for line in (out + err).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                k = re.search(r"(sym_dir_banded_kernel|minres_banded_kernel)ILi(\d+)E(\w+?)E", name)
+                entry = None if k is None else (
+                    f"{k.group(1)}<{k.group(2)}, {'bf16' if 'bfloat16' in k.group(3) else 'f32'}>")
+                info = {}
+                continue
+            if entry is None:
+                continue
+            for key, pat in (("spill stores", r"(\d+) bytes spill stores"),
+                             ("spill loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    info[key] = int(m.group(1))
+            if "registers" in info:
+                print(f"  ptxas {entry}: {info['registers']} registers, {info.get('smem', 0)} B "
+                      f"static smem, {info.get('spill stores', 0)} B spill stores, "
+                      f"{info.get('spill loads', 0)} B spill loads  [{card}]")
+                entry = None
+
+
+def banded_ring_report(dev, big, card) -> None:
+    """The ring of kernels 1 and 15 on the banded landing: its geometry at
+    each tile width and type, then the device time at n = 262,144 against
+    the ring depth (CUDA-event ms a call, each depth's outputs hashed and
+    held equal to the default's: the depth changes no bit).  Trees without
+    the ring print nothing."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    if not hasattr(fc, "set_banded_ring_stages"):
+        return
+    for bn in (32, 64, 128, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            g = banded_ring(bn, dt)
+            print(f"  ring bn={bn} {str(dt)[6:]}: {g['chunk_rows']} tile rows a chunk "
+                  f"({g['chunk_bytes']} B), {g['stages']} stages, {g['smem_bytes']} B dynamic "
+                  f"smem a CTA")
+    for tag, a in (("f32", big), ("bf16", big.astype(torch.bfloat16))):
+        launches = dict(banded_launches(a, dev))
+        ref = {k: digest(*fn()) for k, fn in launches.items()}
+        timers = banded_timers(a, dev)
+        for name, fn in launches.items():
+            cells = []
+            for stages in (*BANDED_STAGES, 0):
+                fc.set_banded_ring_stages(stages)
+                check(digest(*fn()) == ref[name],
+                      f"{name} banded {tag}: {stages} ring stages changed the bits")
+                ms = device_ms(timers[name][0])
+                label = stages or f"default {banded_ring(128, a.dtype)['stages']}"
+                cells.append(f"S={label} " + (f"{ms:.5f}" if ms is not None else
+                                              f"{cuda_ms(timers[name][0]):.5f} (events)"))
+            print(f"  ring depth {name} banded n=262144 {tag} (device ms a call): "
+                  f"{'; '.join(cells)}  [{card}]")
+    fc.set_banded_ring_stages(0)
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused loops alone (``--fused-cg-only``), for comparing two trees
     on one card (this file run beside another tree's package gives that
@@ -6996,6 +7225,10 @@ def fused_cg_only(dev, card) -> None:
         ms, _, info = timed(fused_bell_cg_solve, big_full.astype(torch.bfloat16), b)
         print(f"  fused CG n=262144 full bf16 (cg-bf16): {ms:.5f} ms/it (best of 3 runs of 256 "
               f"steps), rho_history sha256 {digest(info.rho_history)}  [{card}]")
+        ms, _, info = timed(fused_bell_cg_solve, big.astype(torch.bfloat16), b)
+        print(f"  fused CG n=262144 symmetric bf16 (cg-bf16, banded kernel 1): {ms:.5f} ms/it "
+              f"(best of 3 runs of 256 steps), rho_history sha256 {digest(info.rho_history)}  "
+              f"[{card}]")
         br = b / N_BIG
         x, rinfo = cgt.refined_cg_solve(big_full, br, tol=REFINE_TOL_REL * float(br.double().norm()))
         print(f"  refine n=262144 full (float32 high, bf16 low): {rinfo.refinements} refinements, "
@@ -7075,8 +7308,12 @@ def fused_cg_only(dev, card) -> None:
           f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
     update_hashes(dev, card)
     bicg_dia_hashes(dev, card)
+    banded_hashes(dev, big, card)
     for name, t in update_rows(dev).items():
         print_time_row(name, t, card)
+    for name, t in banded_rows(dev, big).items():
+        print_time_row(name, t, card)
+    banded_ring_report(dev, big, card)
     for name, t in bicg_dia_rows(dev).items():
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
@@ -7115,6 +7352,8 @@ def main() -> int:
     phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, errs, times,
                                   extra)
     phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, extra)
+    ptxas_report(card)
+    banded_ring_report(dev, big, card)
     for name, t in list(times.items()) + list(extra.items()):
         print_time_row(name, t, card)
     elementwise_floor(dev, card)

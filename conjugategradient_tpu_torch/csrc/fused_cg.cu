@@ -51,9 +51,11 @@
 // What bounds it on the H100: K1 streams the stored tiles once (268 MB per
 // iteration at n = 262,144 block-tridiagonal, bn = 128), so it is a
 // memory-bandwidth kernel; the vectors (1 MB each there) stay in the 50 MB
-// L2.  Tiles are read with streaming loads (__ldcs) so they do not evict the
-// vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  Speed work (TMA rings,
-// more rows in flight, CUDA graphs for the launch sequence) is later work.
+// L2.  Tiles are read with streaming loads (__ldcs), or on the banded
+// landing by bulk copies with an evict-first hint, so they do not evict the
+// vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  The banded landing
+// stages its tiles through a ring in shared memory on persistent CTAs
+// (below); the other K1 forms load tiles straight into registers.
 //
 // bfloat16 tiles (the TPU kernels' other operand form, fused_cg.py:34,98,
 // 258-310: bf16 tiles, float32 vectors): K1 on full storage (dense and
@@ -76,13 +78,35 @@
 
 namespace {
 
-// p[i] = z[i] + beta * p_old[i], z = d * r (Jacobi) or r; no FMA contraction
+// p = z + beta * p_old, z = d * r (Jacobi) or r, on loaded values; no FMA
+// contraction
+__device__ __forceinline__ float dir_val(float rv, float pv, float dv, bool has_d,
+                                         float beta) {
+  const float z = has_d ? __fmul_rn(dv, rv) : rv;
+  return __fadd_rn(z, __fmul_rn(beta, pv));
+}
+
+// p[i] = dir_val of entry i
 __device__ __forceinline__ float dir_elem(const float* r, const float* pold,
                                           const float* d, float beta,
                                           int64_t i) {
-  const float z = d ? __fmul_rn(d[i], r[i]) : r[i];
-  return __fadd_rn(z, __fmul_rn(beta, pold[i]));
+  return dir_val(r[i], pold[i], d ? d[i] : 0.f, d != nullptr, beta);
 }
+
+// A row's operands of dir_elem, loaded ahead: thread t < BN holds entry t.
+struct DirLoad {
+  float r = 0.f, p = 0.f, d = 0.f;
+  template <int BN>
+  __device__ __forceinline__ void load(int row, const float* rv, const float* pv,
+                                       const float* dv) {
+    if (threadIdx.x < BN) {
+      const int64_t i = (int64_t)row * BN + threadIdx.x;
+      r = rv[i];
+      p = pv[i];
+      if (dv) d = dv[i];
+    }
+  }
+};
 
 template <int BN>
 __device__ void dir_row(float* xs, int row, const float* r, const float* pold,
@@ -95,54 +119,91 @@ __device__ void dir_row(float* xs, int row, const float* r, const float* pold,
   }
 }
 
-// ---- K1, banded landing ---------------------------------------------------
+// ---- K1, banded landing ----------------------------------------------------
 // Replaces conjugategradient_tpu/ops/pallas/fused_cg.py:sym_fused_dir_spmv_dot
-// with mirror="banded" (_sym_dir_spmv_kernel :269-297).  Bound: the tile
-// stream, 4 * bn^2 * (1 + 1 + 1/R) bytes per block-row (diag, upper tile,
-// and the halo re-read of the previous row's upper tile); at n = 262,144,
-// bn = 128, R = 8 that is 285 MB per call.  Design: one CTA per strip of R
-// block-rows, rows in order, the mirror carried in shared memory; each tile
-// is read once with streaming loads and used for both B p[c] and B^T p[row].
+// with mirror="banded" (_sym_dir_spmv_kernel :269-297).  Bound: the stored
+// tiles, 4 * bn^2 * 2 bytes per block-row in float32 (2 * bn^2 * 2 in
+// bf16), and r, p_old (d) read and p_new, q written once: at n = 262,144,
+// bn = 128, 268.4 MB of float32 tiles (134.2 MB bf16) and 4.2 MB of vectors.
+// Design (redesigned for the H100: the first port ran one CTA of 256
+// threads per strip of R block-rows with plain streaming loads, 4 tile rows
+// of loads in flight a warp, and both row barriers drained them, so it
+// reached 0.70 of the bound in float32 and 0.41 in bf16):
+// * Persistent strips.  At most as many CTAs as the card holds at once
+//   (two an SM), each walking a contiguous span of the R-row strips
+//   (span_of) row by row, the mirror of each row carried into the next in
+//   shared memory across strip boundaries too.  Only the span's first row
+//   reads the halo tile, the previous row's upper tile.
+// * The tile stream staged through shared memory (TileRing, tile.cuh): a
+//   ring of 16 KB chunks kept full by cp.async.bulk from one thread, four
+//   chunks (64 KB) in flight a CTA ahead of the one being read, across the
+//   row barriers.  Each tile is read once from device memory and used for
+//   both B p[c] and B^T p[row].  A warp sums the forward products of all
+//   its rows of a chunk at once (row_sums), and a row's vector operands
+//   are loaded during the previous row's tiles.
+// * Every bit of the first port: the same products (TileRing::apply_tile is
+//   tile_apply's arithmetic), the same per-thread pap sums, one partial per
+//   R-row strip at the strip's index, summed by the last CTA in index order.
+//   The carried mirror is the halo's recomputed one bit for bit: both sum
+//   the same tacc over the same rows in warp order.
 
 template <int BN, class E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 sym_dir_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
                       const int* __restrict__ off_cols, const float* r,
                       const float* pold, const float* d, const float* beta_p,
                       float* pnew, float* q, float* pap_out, float* partials,
                       unsigned* counter, float* scal, const int* ctl, int nrb,
-                      int R) {
+                      int R, int stages) {
   if (ctl[C_LIVE] == 0) return;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
   __shared__ float xr[BN], xc[BN], qacc[BN], carry[BN];
   __shared__ float red2[kWarps][BN];
   __shared__ float red[kWarps];
+  const int nstrips = (nrb + R - 1) / R;
+  int s0, s1;
+  span_of(nstrips, s0, s1);
+  const int row0 = s0 * R, row1 = min(s1 * R, nrb);
+  const bool halo = row0 > 0 && off_cols[row0 - 1] == row0;
+  TileRing<BN, E> ring(ring_smem, stages, diag, off, off_cols, row0, row1, halo);
   const float beta = *beta_p;
-  const int base = blockIdx.x * R;
-  const int end = min(base + R, nrb);
-  const int64_t TT = (int64_t)BN * BN;
 
   for (int t = threadIdx.x; t < BN; t += kThreads) carry[t] = 0.f;
-  if (base > 0 && off_cols[base - 1] == base) {
-    // halo: the mirror of row base-1 lands on row base
-    dir_row<BN>(xr, base - 1, r, pold, d, beta, nullptr);
+  __syncthreads();  // the ring's barriers are initialised
+  if (halo) {
+    // the mirror of row row0-1 lands on row row0
+    dir_row<BN>(xr, row0 - 1, r, pold, d, beta, nullptr);
     __syncthreads();
     float tacc[BN / 32] = {};
-    tile_apply<BN, false, true>(off + (int64_t)(base - 1) * TT, nullptr, xr,
-                                nullptr, tacc);
+    ring.template apply_tile<false, true>(nullptr, xr, nullptr, tacc);
     mirror_reduce<BN>(tacc, red2, carry);
   }
+  // a row's own operands and its gathered row's, loaded one row ahead so
+  // that their round trips overlap the previous row's tile stream
+  DirLoad own, gat;
+  int c = off_cols[row0];
+  own.load<BN>(row0, r, pold, d);
+  if (c != row0) gat.load<BN>(c, r, pold, d);
   float pap_acc = 0.f;
-  for (int row = base; row < end; ++row) {
+  for (int row = row0; row < row1; ++row) {
     __syncthreads();
-    dir_row<BN>(xr, row, r, pold, d, beta, pnew);
-    const int c = off_cols[row];
     const bool real = c != row;  // the last row's slot is inert padding
-    if (real) dir_row<BN>(xc, c, r, pold, d, beta, nullptr);
-    for (int t = threadIdx.x; t < BN; t += kThreads) qacc[t] = 0.f;
+    if (threadIdx.x < BN) {
+      const float v = dir_val(own.r, own.p, own.d, d != nullptr, beta);
+      xr[threadIdx.x] = v;
+      pnew[(int64_t)row * BN + threadIdx.x] = v;
+      if (real) xc[threadIdx.x] = dir_val(gat.r, gat.p, gat.d, d != nullptr, beta);
+      qacc[threadIdx.x] = 0.f;
+    }
+    const bool more = row + 1 < row1;
+    const int cn = more ? off_cols[row + 1] : 0;
+    if (more) own.load<BN>(row + 1, r, pold, d);
     __syncthreads();
     float tacc[BN / 32] = {};
-    tile_apply<BN, true, false>(diag + (int64_t)row * TT, xr, nullptr, qacc, tacc);
-    if (real) tile_apply<BN, true, true>(off + (int64_t)row * TT, xc, xr, qacc, tacc);
+    ring.template apply_tile<true, false>(xr, nullptr, qacc, tacc);
+    if (more && cn != row + 1) gat.load<BN>(cn, r, pold, d);
+    if (real) ring.template apply_tile<true, true>(xc, xr, qacc, tacc);
+    c = cn;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
     for (int j = 0; j < BN / 32; ++j) red2[w][lane + 32 * j] = tacc[j];
@@ -155,11 +216,14 @@ sym_dir_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
       for (int i = 0; i < kWarps; ++i) s += red2[i][t];
       carry[t] = s;  // this row's mirror, for row + 1
     }
+    if (row + 1 == row1 || (row + 1) % R == 0) {  // the strip's last row
+      const float s = block_sum(pap_acc, red);
+      if (threadIdx.x == 0) partials[row / R] = s;
+      pap_acc = 0.f;
+    }
   }
-  const float s = block_sum(pap_acc, red);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
   if (arrive_last(counter)) {
-    const float pap = sum_partials(partials, gridDim.x, red);
+    const float pap = sum_partials(partials, nstrips, red);
     if (threadIdx.x == 0) {
       finish_pap(pap, pap_out, scal);
       *counter = 0u;
@@ -562,16 +626,26 @@ update_kernel(const float* alpha_p, const float* x, const float* p,
   }
 }
 
+// ring stages of the banded K1 (0: ring_default_stages), set by
+// cg_sym_dir_banded_stages for the ring-depth sweep of chip_smoke.py
+int g_banded_stages = 0;
+
 template <int BN, class E>
 cudaError_t launch_banded(const E* diag, const E* off, const int* off_cols,
                           const float* r, const float* pold, const float* d,
                           const float* beta, float* pnew, float* q, float* pap,
                           float* partials, unsigned* counter, float* scal,
                           const int* ctl, int nrb, int R, cudaStream_t s) {
-  const int grid = (nrb + R - 1) / R;
-  sym_dir_banded_kernel<BN, E><<<grid, kThreads, 0, s>>>(
+  static int cache[3] = {0, 0, 0};
+  const int stages = g_banded_stages > 0 ? g_banded_stages : ring_default_stages<BN, E>();
+  const int smem = ring_smem_bytes<BN, E>(stages);
+  int grid = 0;
+  cudaError_t e = ring_grid(sym_dir_banded_kernel<BN, E>, smem, (nrb + R - 1) / R, cache,
+                            grid);
+  if (e != cudaSuccess) return e;
+  sym_dir_banded_kernel<BN, E><<<grid, kThreads, smem, s>>>(
       diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials, counter,
-      scal, ctl, nrb, R);
+      scal, ctl, nrb, R, stages);
   return cudaGetLastError();
 }
 
@@ -772,6 +846,14 @@ int cg_sym_dir_banded_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* off,
                            const int* ctl, int nrb, int bn, int R, void* stream) {
   return sym_dir_banded(diag, off, off_cols, r, pold, d, beta, pnew, q, pap, partials,
                         counter, scal, ctl, nrb, bn, R, stream);
+}
+
+// Ring stages of the banded K1 from the next launch on (3 at least; 0 or
+// less: the default, 96 KB of chunks).  Returns the previous setting.
+int cg_sym_dir_banded_stages(int stages) {
+  const int old = g_banded_stages;
+  g_banded_stages = stages > 0 ? (stages < 3 ? 3 : stages) : 0;
+  return old;
 }
 
 // K1 with the general (scatter/split) landing: stage A then stage B.

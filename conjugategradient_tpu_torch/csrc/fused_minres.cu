@@ -89,9 +89,14 @@ struct DirArgs {
   const int* ctl;
 };
 
+// v = (d * r2) * (1/beta), or r2 * (1/beta), on loaded values
+__device__ __forceinline__ float lanczos_val(float r2, float d, bool has_d, float inv_beta) {
+  return __fmul_rn(has_d ? __fmul_rn(d, r2) : r2, inv_beta);
+}
+
 __device__ __forceinline__ float lanczos_elem(const float* r2, const float* d,
                                               float inv_beta, int64_t i) {
-  return __fmul_rn(d ? __fmul_rn(d[i], r2[i]) : r2[i], inv_beta);
+  return lanczos_val(r2[i], d ? d[i] : 0.f, d != nullptr, inv_beta);
 }
 
 // xs[t] = v[row, t], recomputed from r2 and d
@@ -101,19 +106,38 @@ __device__ void lanczos_row(float* xs, int row, const DirArgs& a, float inv_beta
     xs[t] = lanczos_elem(a.r2, a.d, inv_beta, (int64_t)row * BN + t);
 }
 
+// An owned element's operands, loaded before any of its aliases is
+// written (v_prev, w-2 and x may be v, w and x'); the banded kernel loads
+// them one row ahead.
+struct OwnLoad {
+  float vprev = 0.f, wm2 = 0.f, wm1 = 0.f, x = 0.f, r2 = 0.f, d = 0.f;
+  __device__ __forceinline__ void load_at(int64_t i, const DirArgs& a) {
+    vprev = a.vprev[i];
+    wm2 = a.wm2[i];
+    wm1 = a.wm1[i];
+    x = a.x[i];
+    r2 = a.r2[i];
+    if (a.d) d = a.d[i];
+  }
+  // the pending w/x update of element i, then v[i] stored and returned
+  __device__ __forceinline__ float own(int64_t i, const DirArgs& a, const float* su) const {
+    const float w = __fmul_rn(
+        __fsub_rn(__fsub_rn(vprev, __fmul_rn(su[SU_OLDEPS], wm2)), __fmul_rn(su[SU_DELTA], wm1)),
+        su[SU_IGAMMA]);
+    a.w[i] = w;
+    a.xo[i] = __fadd_rn(x, __fmul_rn(su[SU_PHI], w));
+    const float v = lanczos_val(r2, d, a.d != nullptr, su[SU_INV_BETA]);
+    a.v[i] = v;
+    return v;
+  }
+};
+
 // The owner's element i: the pending w/x update, then v[i] stored and
-// returned.  v_prev[i], w-2[i] and x[i] are read before their aliases are
-// written.
+// returned.
 __device__ __forceinline__ float own_elem(int64_t i, const DirArgs& a, const float* su) {
-  const float w = __fmul_rn(
-      __fsub_rn(__fsub_rn(a.vprev[i], __fmul_rn(su[SU_OLDEPS], a.wm2[i])),
-                __fmul_rn(su[SU_DELTA], a.wm1[i])),
-      su[SU_IGAMMA]);
-  a.w[i] = w;
-  a.xo[i] = __fadd_rn(a.x[i], __fmul_rn(su[SU_PHI], w));
-  const float v = lanczos_elem(a.r2, a.d, su[SU_INV_BETA], i);
-  a.v[i] = v;
-  return v;
+  OwnLoad l;
+  l.load_at(i, a);
+  return l.own(i, a, su);
 }
 
 // The owner's row: own_elem over the row, v into xs.
@@ -136,22 +160,33 @@ __device__ void finish_dir(float vq, float vr1, const DirArgs& a) {
   scal[M_IA] = alfa / beta;
 }
 
-// Both dots of a K1 pass: per-CTA partials, summed by the last CTA.
-__device__ void reduce_dir(float vq_acc, float vr1_acc, const DirArgs& a, float* red) {
+// Both dots' partials of one of n strips (index i): vq at i, vr1 at n + i.
+__device__ void store_dir_partials(float vq_acc, float vr1_acc, const DirArgs& a, float* red,
+                                   int i, int n) {
   const float s1 = block_sum(vq_acc, red);
   const float s2 = block_sum(vr1_acc, red);
   if (threadIdx.x == 0) {
-    a.partials[blockIdx.x] = s1;
-    a.partials[gridDim.x + blockIdx.x] = s2;
+    a.partials[i] = s1;
+    a.partials[n + i] = s2;
   }
+}
+
+// The last CTA to arrive sums n strips' partials in index order.
+__device__ void finish_dir_partials(const DirArgs& a, float* red, int n) {
   if (arrive_last(a.counter)) {
-    const float vq = sum_partials(a.partials, gridDim.x, red);
-    const float vr1 = sum_partials(a.partials + gridDim.x, gridDim.x, red);
+    const float vq = sum_partials(a.partials, n, red);
+    const float vr1 = sum_partials(a.partials + n, n, red);
     if (threadIdx.x == 0) {
       finish_dir(vq, vr1, a);
       *a.counter = 0u;
     }
   }
+}
+
+// Both dots of a K1 pass: per-CTA partials, summed by the last CTA.
+__device__ void reduce_dir(float vq_acc, float vr1_acc, const DirArgs& a, float* red) {
+  store_dir_partials(vq_acc, vr1_acc, a, red, blockIdx.x, gridDim.x);
+  finish_dir_partials(a, red, gridDim.x);
 }
 
 // q = A v - sigma v from a row's product: two roundings
@@ -213,48 +248,79 @@ minres_full_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
 
 // ---- K1, symmetric storage, banded landing --------------------------------
 // Replaces sym_minres_dir_spmv_dot (:298) with mirror="banded"
-// (_sym_minres_spmv_kernel :260-282).  Bound: 4 * bn^2 * (1 + 1 + 1/R) bytes
-// per block-row (diag, upper tile, the halo re-read) and 10 (11) vectors.
-// Design: fused_cg.cu's sym_dir_banded_kernel with the MINRES operand and
-// row epilogue: a row's q is final at its store, carry included.
+// (_sym_minres_spmv_kernel :260-282).  Bound: the stored tiles (diag and
+// upper tile, 4 * bn^2 * 2 bytes per block-row in float32, half in bf16)
+// and 10 (11) vectors.  Design: fused_cg.cu's sym_dir_banded_kernel
+// (persistent CTAs over spans of R-row strips, the tile stream staged
+// through TileRing, a row's operands loaded during the previous row's
+// tiles, one partial of each dot per strip at the strip's index) with the
+// MINRES operand and row epilogue: a row's q is final at its store, carry
+// included.
 
 template <int BN, class E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 minres_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
-                     const int* __restrict__ off_cols, DirArgs a, int nrb, int R) {
+                     const int* __restrict__ off_cols, DirArgs a, int nrb, int R,
+                     int stages) {
   if (a.ctl[C_LIVE] == 0) return;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
   __shared__ float xr[BN], xc[BN], qacc[BN], carry[BN];
   __shared__ float red2[kWarps][BN];
   __shared__ float red[kWarps];
   __shared__ float su[8];
+  const int nstrips = (nrb + R - 1) / R;
+  int s0, s1;
+  span_of(nstrips, s0, s1);
+  const int row0 = s0 * R, row1 = min(s1 * R, nrb);
+  const bool halo = row0 > 0 && off_cols[row0 - 1] == row0;
+  TileRing<BN, E> ring(ring_smem, stages, diag, off, off_cols, row0, row1, halo);
   if (threadIdx.x < 8) su[threadIdx.x] = a.su[threadIdx.x];
-  const int base = blockIdx.x * R;
-  const int end = min(base + R, nrb);
-  const int64_t TT = (int64_t)BN * BN;
 
   for (int t = threadIdx.x; t < BN; t += kThreads) carry[t] = 0.f;
-  __syncthreads();
-  if (base > 0 && off_cols[base - 1] == base) {
-    // halo: the mirror of row base-1 lands on row base
-    lanczos_row<BN>(xr, base - 1, a, su[SU_INV_BETA]);
+  __syncthreads();  // su, carry and the ring's barriers
+  if (halo) {
+    // the mirror of row row0-1 lands on row row0
+    lanczos_row<BN>(xr, row0 - 1, a, su[SU_INV_BETA]);
     __syncthreads();
     float tacc[BN / 32] = {};
-    tile_apply<BN, false, true>(off + (int64_t)(base - 1) * TT, nullptr, xr,
-                                nullptr, tacc);
+    ring.template apply_tile<false, true>(nullptr, xr, nullptr, tacc);
     mirror_reduce<BN>(tacc, red2, carry);
   }
+  // a row's own operands and its gathered row's, loaded one row ahead so
+  // that their round trips overlap the previous row's tile stream (no
+  // other CTA writes this span's rows, and gathers read r2 and d only)
+  OwnLoad own, gat;
+  const auto load_own = [&](int row) {
+    if (threadIdx.x < BN) own.load_at((int64_t)row * BN + threadIdx.x, a);
+  };
+  const auto load_gathered = [&](int row) {  // r2 and d only
+    if (threadIdx.x < BN) {
+      const int64_t i = (int64_t)row * BN + threadIdx.x;
+      gat.r2 = a.r2[i];
+      if (a.d) gat.d = a.d[i];
+    }
+  };
+  int c = off_cols[row0];
+  load_own(row0);
+  if (c != row0) load_gathered(c);
   float vq_acc = 0.f, vr1_acc = 0.f;
-  for (int row = base; row < end; ++row) {
+  for (int row = row0; row < row1; ++row) {
     __syncthreads();
-    own_row<BN>(xr, row, a, su);
-    const int c = off_cols[row];
     const bool real = c != row;  // the last row's slot is inert padding
-    if (real) lanczos_row<BN>(xc, c, a, su[SU_INV_BETA]);
-    for (int t = threadIdx.x; t < BN; t += kThreads) qacc[t] = 0.f;
+    if (threadIdx.x < BN) {
+      xr[threadIdx.x] = own.own((int64_t)row * BN + threadIdx.x, a, su);
+      if (real) xc[threadIdx.x] = lanczos_val(gat.r2, gat.d, a.d != nullptr, su[SU_INV_BETA]);
+      qacc[threadIdx.x] = 0.f;
+    }
+    const bool more = row + 1 < row1;
+    const int cn = more ? off_cols[row + 1] : 0;
+    if (more) load_own(row + 1);
     __syncthreads();
     float tacc[BN / 32] = {};
-    tile_apply<BN, true, false>(diag + (int64_t)row * TT, xr, nullptr, qacc, tacc);
-    if (real) tile_apply<BN, true, true>(off + (int64_t)row * TT, xc, xr, qacc, tacc);
+    ring.template apply_tile<true, false>(xr, nullptr, qacc, tacc);
+    if (more && cn != row + 1) load_gathered(cn);
+    if (real) ring.template apply_tile<true, true>(xc, xr, qacc, tacc);
+    c = cn;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
     for (int j = 0; j < BN / 32; ++j) red2[w][lane + 32 * j] = tacc[j];
@@ -266,8 +332,12 @@ minres_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
       for (int i = 0; i < kWarps; ++i) s += red2[i][t];
       carry[t] = s;  // this row's mirror, for row + 1
     }
+    if (row + 1 == row1 || (row + 1) % R == 0) {  // the strip's last row
+      store_dir_partials(vq_acc, vr1_acc, a, red, row / R, nstrips);
+      vq_acc = vr1_acc = 0.f;
+    }
   }
-  reduce_dir(vq_acc, vr1_acc, a, red);
+  finish_dir_partials(a, red, nstrips);
 }
 
 // ---- K1, symmetric storage, general landing: stage A (tile products) -------
@@ -628,11 +698,22 @@ cudaError_t launch_full(const E* blocks, const int* cols, const DirArgs& a, int 
   return cudaGetLastError();
 }
 
+// ring stages of the banded K1 (0: ring_default_stages), set by
+// minres_sym_dir_banded_stages for the ring-depth sweep of chip_smoke.py
+int g_banded_stages = 0;
+
 template <int BN, class E>
 cudaError_t launch_banded(const E* diag, const E* off, const int* off_cols, const DirArgs& a,
                           int nrb, int R, cudaStream_t s) {
-  minres_banded_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(diag, off, off_cols, a,
-                                                                     nrb, R);
+  static int cache[3] = {0, 0, 0};
+  const int stages = g_banded_stages > 0 ? g_banded_stages : ring_default_stages<BN, E>();
+  const int smem = ring_smem_bytes<BN, E>(stages);
+  int grid = 0;
+  cudaError_t e = ring_grid(minres_banded_kernel<BN, E>, smem, (nrb + R - 1) / R, cache,
+                            grid);
+  if (e != cudaSuccess) return e;
+  minres_banded_kernel<BN, E><<<grid, kThreads, smem, s>>>(diag, off, off_cols, a, nrb, R,
+                                                           stages);
   return cudaGetLastError();
 }
 
@@ -760,6 +841,14 @@ int minres_sym_dir_banded_bf16(const __nv_bfloat16* diag, const __nv_bfloat16* o
                                const int* off_cols, DIR_PARAMS, int nrb, int bn, int R,
                                void* stream) {
   return sym_dir_banded(diag, off, off_cols, DIR_ARGS, nrb, bn, R, stream);
+}
+
+// Ring stages of the banded K1 from the next launch on (3 at least; 0 or
+// less: the default, 96 KB of chunks).  Returns the previous setting.
+int minres_sym_dir_banded_stages(int stages) {
+  const int old = g_banded_stages;
+  g_banded_stages = stages > 0 ? (stages < 3 ? 3 : stages) : 0;
+  return old;
 }
 
 // K1 on symmetric storage with the general landing: stage A then stage B.

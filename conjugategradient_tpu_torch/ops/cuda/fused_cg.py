@@ -258,6 +258,7 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
     common = (ptr(r2d), ptr(pold2d), ptr(inv_diag2d), ptr(beta),
               ptr(p_new), ptr(q), ptr(pap))
     if mirror == "banded":
+        check_banded_tiles(name, diag, off)
         err = getattr(lib, form("cg_sym_dir_banded", diag.dtype))(
             ptr(diag), ptr(off), ptr(off_cols), *common,
             ptr(work.partials), ptr(work.counter), ptr(work.scal),
@@ -274,6 +275,24 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
     LAUNCHES[name] += 1
     raise_on_error(name, err)
     return p_new, q, pap
+
+
+def set_banded_ring_stages(stages: int) -> int:
+    """Ring depth of the banded kernels 1 and 15 from their next launch on
+    (at least 3; 0: the default).  A measurement knob: every depth gives
+    the same bits.  Returns the previous setting."""
+    from ._build import load_library
+
+    lib = load_library()
+    lib.minres_sym_dir_banded_stages(int(stages))
+    return lib.cg_sym_dir_banded_stages(int(stages))
+
+
+def check_banded_tiles(name: str, diag: torch.Tensor, off: torch.Tensor) -> None:
+    """The banded kernels copy their tiles with cp.async.bulk, which needs
+    16-byte-aligned sources."""
+    if diag.data_ptr() % 16 or off.data_ptr() % 16:
+        raise ValueError(f"{name}: the banded landing needs 16-byte-aligned tiles")
 
 
 # ---- kernel 4 --------------------------------------------------------------

@@ -79,7 +79,7 @@ from ._common import (
 )
 from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import (C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live,  # noqa: F401
-                       auto_row_group, put_hist)
+                       auto_row_group, check_banded_tiles, put_hist)
 
 # slots of the (1, 8) scalar row kernel 1 reads (the JAX kernels' SU_* row)
 SU_INV_BETA = 0
@@ -381,6 +381,9 @@ def sym_minres_dir_spmv_dot(
     if bn not in CUDA_BN:
         raise ValueError(f"{name}: the CUDA kernel takes bn in {CUDA_BN}, got {bn}")
     dev = r2_2d.device
+
+    if mirror == "banded":
+        check_banded_tiles(name, diag_blocks, off_blocks)
 
     def launch(lib, common, w):
         if mirror == "banded":

@@ -466,8 +466,11 @@ class _BatchedGmres:
         eye = torch.eye(m, dtype=sdt, device=dev)[:, :, None]
         Rv = torch.where(valid[None, :, :], self.Rm[:m, :m, :], eye)
         gv = torch.where(valid, self.g[:m], torch.zeros((), dtype=sdt, device=dev))
-        y = torch.linalg.solve_triangular(Rv.permute(2, 0, 1), gv.T[:, :, None],
-                                          upper=True)[:, :, 0].T  # (m, R)
+        # torch has no bf16 triangular solve: a bf16 system is solved in
+        # float32 and y rounded back (a no-op for float32 and float64)
+        wdt = torch.promote_types(sdt, torch.float32)
+        y = torch.linalg.solve_triangular(Rv.permute(2, 0, 1).to(wdt), gv.T[:, :, None].to(wdt),
+                                          upper=True)[:, :, 0].T.to(sdt)  # (m, R)
         if self.flexible:
             dx = torch.einsum("jnr,jr->nr", self.Z.to(sdt), y).to(vdt)
         else:

@@ -109,24 +109,29 @@ def bicgstab_step(op: LinearOperator, s: BicgstabState, tol: torch.Tensor,
     never reach it)."""
     live = s.live
     apply_m = (lambda t: t) if M is None else M
-    dt = s.r.dtype
+    dt, xdt = s.r.dtype, s.x.dtype
+    # a vector meets a scalar of the recurrence in the scalars' dtype sdt,
+    # rounded once to the vectors' dtype after, as JAX promotes a bf16
+    # array against a float32 one (minres_step's rule); for float32 and
+    # float64 vectors .to(sdt) is a no-op
+    sdt = s.rnorm.dtype
 
     rho = dot(s.rhat, s.r)
     beta = (rho / s.rho) * (s.alpha / s.omega)
-    p = (s.r + beta * (s.p - s.omega * s.v)).to(dt)
+    p = (s.r.to(sdt) + beta * (s.p.to(sdt) - s.omega * s.v.to(sdt))).to(dt)
     phat = apply_m(p).to(dt)
     v = op.matvec(phat).to(dt)
     alpha = rho / dot(s.rhat, v)
-    sv = (s.r - alpha * v).to(dt)  # the half-step residual "s"
+    sv = (s.r.to(sdt) - alpha * v.to(sdt)).to(dt)  # the half-step residual "s"
     snorm = torch.sqrt(dot(sv, sv))
-    x_half = (s.x + alpha * phat).to(s.x.dtype)
+    x_half = (s.x.to(sdt) + alpha * phat.to(sdt)).to(xdt)
     half_done = snorm <= tol
 
     shat = apply_m(sv).to(dt)
     t = op.matvec(shat).to(dt)
     omega = dot(t, sv) / dot(t, t)
-    x_full = (x_half + omega * shat).to(s.x.dtype)
-    r_full = (sv - omega * t).to(dt)
+    x_full = (x_half.to(sdt) + omega * shat.to(sdt)).to(xdt)
+    r_full = (sv.to(sdt) - omega * t.to(sdt)).to(dt)
     rnorm_full = torch.sqrt(dot(r_full, r_full))
 
     # every division above is non-finite exactly when its textbook breakdown

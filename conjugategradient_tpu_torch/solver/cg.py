@@ -109,19 +109,25 @@ def cg_step(
     ``dot_fn`` computes the step's three dots (pᵀAp, ‖r‖², rᵀz), so a
     caller can put in a dot of its own, such as one that sums over shards."""
     live = state.live
+    # a vector meets α or β in the scalars' dtype sdt and is rounded once to
+    # its own dtype after, as JAX promotes a bf16 array against a float32
+    # one (minres_step's rule); for float32 and float64 vectors .to(sdt) is
+    # a no-op
+    sdt = state.rho.dtype
     q = A.matvec(state.p)
     pap = dot_fn(state.p, q)
     exact = state.rho == 0
     alpha = torch.where(exact, 0, state.rho / torch.where(exact, 1, pap))
-    x = torch.where(live, (state.x + alpha * state.p).to(state.x.dtype), state.x)
-    r = torch.where(live, (state.r - alpha * q).to(state.r.dtype), state.r)
+    p_s = state.p.to(sdt)
+    x = torch.where(live, (state.x.to(sdt) + alpha * p_s).to(state.x.dtype), state.x)
+    r = torch.where(live, (state.r.to(sdt) - alpha * q.to(sdt)).to(state.r.dtype), state.r)
     # termination tests the PRE-update residual (CG.hpp:401-402)
     done = torch.isnan(state.rnorm_sq) | (torch.sqrt(state.rnorm_sq) <= tol)
     z = r if M is None else M(r)
     rnorm_next = dot_fn(r, r)
     rho_next = rnorm_next if M is None else dot_fn(r, z)
     beta = torch.where(exact, 0, rho_next / torch.where(exact, 1, state.rho))
-    p = torch.where(live, (z + beta * state.p).to(state.p.dtype), state.p)
+    p = torch.where(live, (z.to(sdt) + beta * p_s).to(state.p.dtype), state.p)
     k = state.k + live.to(torch.int32)
     kk = k.long().reshape(1)  # tensor index: no host read
     hist = state.hist.index_put(

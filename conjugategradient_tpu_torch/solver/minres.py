@@ -123,9 +123,12 @@ def minres_step(op: LinearOperator, s: MinresState, tol: torch.Tensor,
     y = (op.matvec(v) - shift * v).to(dt)
     noprev = s.oldb == 0  # the first step has no v_{k-1} term
     c1 = torch.where(noprev, 0, s.beta / torch.where(noprev, 1, s.oldb))
-    y = y - (c1 * s.r1.to(sdt)).to(dt)
+    # y − (c1·r1 rounded to dt) stays in sdt, unrounded: XLA:CPU compiles
+    # the JAX step so (its default excess precision drops that bf16 round
+    # trip from the optimised HLO), and α and the next y read the sdt value
+    y = y.to(sdt) - (c1 * s.r1.to(sdt)).to(dt).to(sdt)
     alfa = dot(v, y)
-    y = (y.to(sdt) - (alfa / s.beta) * s.r2.to(sdt)).to(dt)
+    y = (y - (alfa / s.beta) * s.r2.to(sdt)).to(dt)
     r2 = y
     y_next = r2 if M is None else M(r2).to(dt)
     beta = torch.sqrt(dot(r2, y_next))  # NaN iff M is not SPD

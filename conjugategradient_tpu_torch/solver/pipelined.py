@@ -111,28 +111,35 @@ def _alpha_beta(gamma, delta, st: _State):
 def _step(A, st: _State, tol: torch.Tensor, M) -> _State:
     """One iteration, a no-op once ``done`` is set or k reaches the cap."""
     live = st.live
+    # each recurrence a + c·b in the scalars' dtype, rounded once to the
+    # vectors' (minres_step's rule; a no-op for float32 and float64)
+    sdt, vdt = st.rnorm_sq.dtype, st.r.dtype
+
+    def axpy(a, c, b):
+        return (a.to(sdt) + c * b.to(sdt)).to(vdt)
+
     if M is None:
         s = A.matvec(st.r)
         gamma, delta = _one_pass(((st.r, st.r), (st.r, s)))
         alpha, beta = _alpha_beta(gamma, delta, st)
-        p = st.r + beta * st.p
-        q = s + beta * st.q
-        x = st.x + alpha * p
-        r = st.r - alpha * q
+        p = axpy(st.r, beta, st.p)
+        q = axpy(s, beta, st.q)
+        x = axpy(st.x, alpha, p)
+        r = axpy(st.r, -alpha, q)
         u = w = z = sv = None
     else:
         gamma, delta = _one_pass(((st.r, st.u), (st.w, st.u)))
         m = M(st.w)
         nu = A.matvec(m)
         alpha, beta = _alpha_beta(gamma, delta, st)
-        z = nu + beta * st.z
-        q = m + beta * st.q
-        sv = st.w + beta * st.s
-        p = st.u + beta * st.p
-        x = st.x + alpha * p
-        r = st.r - alpha * sv
-        u = st.u - alpha * q
-        w = st.w - alpha * z
+        z = axpy(nu, beta, st.z)
+        q = axpy(m, beta, st.q)
+        sv = axpy(st.w, beta, st.s)
+        p = axpy(st.u, beta, st.p)
+        x = axpy(st.x, alpha, p)
+        r = axpy(st.r, -alpha, sv)
+        u = axpy(st.u, -alpha, q)
+        w = axpy(st.w, -alpha, z)
     # pre-update termination on the carried ‖r_k‖²
     done = torch.isnan(st.rnorm_sq) | (torch.sqrt(st.rnorm_sq) <= tol)
     rnorm_next = dot(r, r)

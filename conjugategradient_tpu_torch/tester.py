@@ -330,9 +330,10 @@ def main(argv=None) -> int:
         log.debug("loaded %s: n=%d nnz=%d layout=%s reorder=%s",
                   args.mtx, n, nnz, type(A).__name__, args.reorder)
 
-    # i + 1 rounded once to the solve dtype (bfloat16 from float64, as
-    # jnp.arange rounds it; exact in float32 and float64)
-    b = torch.arange(1, n + 1, dtype=torch.float64, device=device).to(dtype)
+    # b_i = i + 1 as jnp.arange(1, n + 1, dtype=dtype) forms it: i rounded
+    # to the solve dtype, then 1 added in it (in bfloat16 that rounds twice:
+    # 258 becomes 256; exact in float32 and float64 below 2**24)
+    b = torch.arange(n, dtype=torch.float64, device=device).to(dtype) + 1
     if perm is not None:
         b = b[torch.from_numpy(perm).to(device)]
     if args.precond == "jacobi":

@@ -15,6 +15,7 @@ entry and the dots to 1e-5 relative (f32 sums in another order).
 
 import math
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -2506,3 +2507,181 @@ def test_tester_refine_and_bf16_on_the_card(dev, capsys):
     assert lines[0].split()[:2] == ["4096", "27136"]
     assert json.loads(lines[1])["converged"] == [True] and float(lines[0].split()[3]) < 5e-3
     assert fc.LAUNCHES["stencil7_bf16"] > before
+
+
+# ---- kernels 1 and 15 on the banded landing: the staged tile ring ------------
+
+# (nrb, R): one block-row; ragged strips; fewer strips than SMs; more strips
+# than resident CTAs (326 strips of 4 rows on at most 2 x 132 CTAs), so the
+# persistent spans cross strip boundaries, unevenly
+BANDED_SHAPES = [(1, 8), (13, 4), (100, 1), (1301, 4)]
+
+
+def _banded_tiles(nrb, bn, dev, seed):
+    """Random block-tridiagonal symmetric storage on the card: diagonal
+    tiles, upper tiles at column block row + 1, and padding slots (a zero
+    tile at the row's own block) for the last row and, from nrb = 13, rows
+    3 and 7, so a strip's halo is skipped; the transposed index last."""
+    from conjugategradient_tpu_torch.types.bell import mirror_index
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    diag = torch.randn(nrb, bn, bn, device=dev, generator=g)
+    off = torch.randn(nrb, 1, bn, bn, device=dev, generator=g)
+    cols = np.arange(1, nrb + 1).reshape(nrb, 1)
+    for h in (nrb - 1, *((3, 7) if nrb >= 13 else ())):
+        cols[h] = h
+        off[h] = 0
+    return (diag, off, torch.from_numpy(cols.astype(np.int32)).to(dev),
+            torch.from_numpy(mirror_index(cols).astype(np.int32)).to(dev))
+
+
+def _dot_close(got, want, a, b):
+    """A dot against the plain one: float32 sums in another order, so to
+    RTOL of sum |a_i b_i| (the tiles are random, the dot may cancel)."""
+    atol = RTOL * float((a.double() * b.double()).abs().sum())
+    np.testing.assert_allclose(float(got), float(want), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrb,R", BANDED_SHAPES)
+@pytest.mark.parametrize("bn", [32, 64, 128, 256])
+def test_banded_sym_dir_kernel_staged(dev, bn, nrb, R):
+    """Kernel 1 on the banded landing, float32 and bf16 tiles, ± Jacobi d,
+    β = 0 and β ≠ 0: p_new bit-equal to the plain version, q within RTOL of
+    max|q|, pap within RTOL of sum |p q|; the bf16 launch bit-equal to the
+    float32 launch on the widened tiles; one launch counted; not live, it
+    writes nothing; a NaN tile value reaches pap."""
+    from conjugategradient_tpu_torch.ops.cuda._common import form
+
+    diag, off, cols, msrc = _banded_tiles(nrb, bn, dev, seed=bn + nrb)
+    lo = (diag.bfloat16(), off.bfloat16())
+    g = torch.Generator(device=dev).manual_seed(7)
+    r, p = (torch.randn(nrb, bn, device=dev, generator=g) for _ in range(2))
+    d = torch.rand(nrb, bn, device=dev, generator=g) + 0.5
+
+    def launch(tiles, beta, dd, **kw):
+        return fc.sym_fused_dir_spmv_dot(*tiles, cols, r, p, beta, dd, mirror="banded",
+                                         row_group=R, mirror_src=msrc, **kw)
+
+    for beta_v in (0.0, 0.37):
+        beta = torch.full((1, 1), beta_v, device=dev)
+        for dd in (None, d):
+            for tiles in ((diag, off), lo):
+                name = form("sym_fused_dir_spmv_dot", tiles[0].dtype)
+                before = fc.LAUNCHES[name]
+                k = launch(tiles, beta, dd)
+                assert fc.LAUNCHES[name] == before + 1
+                pl = fc._sym_dir_plain(*tiles, cols, r, p, beta, dd, msrc, None, None)
+                torch.cuda.synchronize()
+                assert torch.equal(k[0], pl[0])
+                _close(k[1], pl[1])
+                _dot_close(k[2], pl[2], pl[0], pl[1])
+            kb, kw = launch(lo, beta, dd), launch(tuple(t.float() for t in lo), beta, dd)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(kb, kw))
+    # not live: nothing written, not even alpha
+    work = fc.FusedWork.new(dev, maxiter=0)
+    scal = work.scal.clone()
+    out = (torch.full_like(r, 7.0), torch.full_like(r, 7.0))
+    launch(lo, beta, d, out=out, work=work)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 7).all() and (out[1] == 7).all())
+    assert torch.equal(work.scal, scal) and int(work.counter) == 0
+    # a NaN tile value, widened, reaches q and pap
+    bad = lo[0].clone()
+    bad[nrb // 2, 0, 0] = float("nan")
+    kn = launch((bad, lo[1]), beta, d)
+    torch.cuda.synchronize()
+    assert torch.isnan(kn[1][nrb // 2, 0]) and torch.isnan(kn[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrb,R", BANDED_SHAPES)
+@pytest.mark.parametrize("bn", [32, 64, 128, 256])
+def test_banded_minres_dir_kernel_staged(dev, bn, nrb, R):
+    """Kernel 15 on the banded landing, float32 and bf16 tiles, ± Jacobi d,
+    with and without the pending update, launched in place as the solver
+    launches it: v, w and x' bit-equal to the plain version, q within RTOL,
+    both dots within RTOL of their sum |a b|; the bf16 launch bit-equal to
+    the float32 launch on the widened tiles; not live, it writes nothing;
+    a NaN tile value reaches q and v.q."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.cuda._common import form
+    from conjugategradient_tpu_torch.ops.spmv import sym_bell_apply
+
+    diag, off, cols, msrc = _banded_tiles(nrb, bn, dev, seed=3 * bn + nrb)
+    lo = (diag.bfloat16(), off.bfloat16())
+
+    shape = types.SimpleNamespace(nrb=nrb, bn=bn)
+
+    def launch(tiles, vecs, su, dd, **kw):
+        return fm.sym_minres_dir_spmv_dot(*tiles, cols, *vecs, su, dd, mirror="banded",
+                                          row_group=R, mirror_src=msrc, **kw)
+
+    for with_d in (False, True):
+        for first in (False, True):
+            vecs, su, dd = _minres_operands(shape, dev, bn + nrb, with_d, first)
+            for tiles in ((diag, off), lo):
+                name = form("sym_minres_dir_spmv_dot", tiles[0].dtype)
+                wide = tuple(t.float() for t in tiles)
+                pl = fm._dir_plain(name, lambda v: sym_bell_apply(wide[0], wide[1], cols, msrc, v),
+                                   vecs, su, dd, None, None)
+                r2, r1, vprev, wm1, wm2, x = (v.clone() for v in vecs)
+                q = torch.empty_like(r2)
+                before = fc.LAUNCHES[name]
+                k = launch(tiles, (r2, r1, vprev, wm1, wm2, x), su, dd, out=(vprev, q, wm2, x))
+                assert fc.LAUNCHES[name] == before + 1
+                torch.cuda.synchronize()
+                for i in (0, 2, 3):
+                    assert torch.equal(k[i], pl[i]), ("v", "q", "w", "x")[i]
+                _close(k[1], pl[1])
+                _dot_close(k[4], pl[4], pl[0], pl[1])
+                _dot_close(k[5], pl[5], pl[0], vecs[1])
+            kb, kw = launch(lo, vecs, su, dd), launch(tuple(t.float() for t in lo), vecs, su, dd)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(kb, kw))
+    work = fm.MinresWork.new(dev, maxiter=0)
+    scal = work.scal.clone()
+    out = tuple(torch.full_like(vecs[0], 7.0) for _ in range(4))
+    launch(lo, vecs, su, dd, out=out, work=work)
+    torch.cuda.synchronize()
+    assert all(bool((o == 7).all()) for o in out)
+    assert torch.equal(work.scal, scal) and int(work.counter) == 0
+    bad = lo[0].clone()
+    bad[nrb // 2, 0, 0] = float("nan")
+    kn = launch((bad, lo[1]), vecs, su, dd)
+    torch.cuda.synchronize()
+    assert torch.isnan(kn[1][nrb // 2, 0]) and torch.isnan(kn[4]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_banded_kernels_same_bits_at_every_ring_depth(dev, dtype):
+    """The ring depth is a measurement knob: kernels 1 and 15 give the same
+    bits at 3, 4 and 7 stages as at the default."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    nrb, bn, R = 301, 128, 1
+    diag, off, cols, msrc = _banded_tiles(nrb, bn, dev, seed=11)
+    tiles = (diag.to(dtype), off.to(dtype))
+    g = torch.Generator(device=dev).manual_seed(5)
+    r, p = (torch.randn(nrb, bn, device=dev, generator=g) for _ in range(2))
+    beta = torch.full((1, 1), 0.37, device=dev)
+
+    vecs, su, dd = _minres_operands(types.SimpleNamespace(nrb=nrb, bn=bn), dev, 9, True)
+
+    def both():
+        k1 = fc.sym_fused_dir_spmv_dot(*tiles, cols, r, p, beta, mirror="banded",
+                                       row_group=R, mirror_src=msrc)
+        k15 = fm.sym_minres_dir_spmv_dot(*tiles, cols, *vecs, su, dd, mirror="banded",
+                                         row_group=R, mirror_src=msrc)
+        torch.cuda.synchronize()
+        return (*k1, *k15)
+
+    ref = both()
+    try:
+        for stages in (3, 4, 7):
+            fc.set_banded_ring_stages(stages)
+            assert all(torch.equal(u, v) for u, v in zip(both(), ref)), stages
+    finally:
+        fc.set_banded_ring_stages(0)
