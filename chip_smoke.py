@@ -102,10 +102,16 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    symdia-big and poisson3d_48.  Then, before the timing rows, the
    registers, static shared memory and spills that ``nvcc -Xptxas -v``
    reports for each instantiation of kernels 1 and 15 on the banded
-   landing (``ptxas_report``), their tile ring's geometry at every tile
-   width and type, and their device time at n = 262,144 against the ring
-   depth S (3, 4, 6, 8, 12 stages and the default), every depth's outputs
-   held bit-equal to the default's (``banded_ring_report``).
+   landing and of the row-sharded kernels 6 and 17 (``ptxas_report``),
+   the banded tile ring's geometry at every tile width and type, and
+   kernels 1 and 15's device time at n = 262,144 against the ring depth S
+   (3, 4, 6, 8, 12 stages and the default), every depth's outputs held
+   bit-equal to the default's (``banded_ring_report``); then kernels 6 and
+   17's ring on the sharded path's shards (strips, CTAs, chunks, stages,
+   shared memory) and a launch's device time at P = 8 (each launch on the
+   next shard, as in the loop), float32 and bf16, against the same depths,
+   the bits held alike (``sharded_ring_report``; ``--sharded-only`` sweeps
+   P = 4 too).
 3. Drive the blocked-ELL path through its entry points, with the launch
    counters reset just before and read just after: the tester on
    ``problems/poisson3d_48.mtx`` and ``problems/elasticity3d_16.mtx`` in
@@ -177,7 +183,9 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    in-process shard group): the fused CG for 256 steps at each P beside the
    single-card fused CG (ms/it, effective GB/s on the same 413.1 MB/it, the
    busy share over 64 steps and each kernel's device ms/it), the fused
-   Jacobi PCG and the fused MINRES at P = 4, the portable sharded CG at P = 4;
+   Jacobi PCG at P = 4, the fused MINRES at P = 4 and 8, the fused CG and
+   MINRES at P = 8 on bf16 shards (kernels 6 and 17's bf16 forms), the
+   portable sharded CG at P = 4;
    the fused sharded CG against the single-card one over 25 steps and twice
    against itself (bitwise); the float64 portable sharded CG on poisson3d_48
    (``partition_csr_rows``, P = 4) against ``cg_solve`` (equal iterations, x
@@ -332,7 +340,19 @@ the banded landing (outputs and the work's scalars) on seeded inputs, in
 float32 and bf16, at n = 262,144 and at a ragged nrb = 13, bn = 64
 (``banded_hashes``), and their device times at n = 262,144 beside their
 plain versions and bound (``banded_rows``); on a tree with the staged
-ring, the ring-depth sweep too.
+ring, the ring-depth sweep too; the sharded fused CG and MINRES at P = 8
+on float32 and on bf16 shards (history and x); one hash a call of kernels
+6 and 17 in float32 and bf16 on the n = 262,144 operator's P = 4 shards 0
+and 3 and P = 8 shard 0, and on ragged nrb = 13 shards at bn = 32 and 64
+with row_group None and 3 (``sharded_hashes``).
+
+``python3 chip_smoke.py --sharded-only [TREE]`` runs kernels 6 and 17
+alone: the ``-Xptxas -v`` report, their ring's geometry and depth sweep
+(on a tree that has it), and their device times at P = 4 and 8 in both
+forms beside their plain versions and bound; given the root of another
+checkout of this repository (TREE), that tree's kernels are built from its
+own sources, opened beside this tree's and timed in the same process on
+the same inputs, in turns (TREE's, this tree's, this tree's, TREE's).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
@@ -3953,9 +3973,6 @@ def phase_sharded_kernels(dev, errs, times, extra):
     Returns the split operator."""
     import torch
 
-    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
-    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
-
     rng = np.random.default_rng(17)
     blocks4, cols4 = sharded_ops(dev, 4)
     m4 = N_BIG // 4
@@ -3968,8 +3985,7 @@ def phase_sharded_kernels(dev, errs, times, extra):
         full13 = torch.as_tensor(rng.standard_normal((ncb, bn)), dtype=torch.float32, device=dev)
         check_k6(b13, c13, full13, off, errs, f"ragged nrb=13 bn={bn} offset {off}")
     for s in (0, 3):
-        args4 = check_k17(blocks4[s], cols4[s], full, s * m4, rng, errs,
-                          f"tridiag n=262144 P=4 shard {s}")
+        check_k17(blocks4[s], cols4[s], full, s * m4, rng, errs, f"tridiag n=262144 P=4 shard {s}")
     check_k17(blocks4[1], cols4[1], full, m4, rng, errs, "tridiag P=4 shard 1 first step",
               first=True)
     check_k17(blocks4[2], cols4[2], full, 2 * m4, rng, errs, "tridiag P=4 shard 2 jacobi v",
@@ -3997,38 +4013,8 @@ def phase_sharded_kernels(dev, errs, times, extra):
         check_update_not_live(n, dev, f"n={n}")
     extra.update(update_rows(dev, sharded_only=True))
 
-    # timing at the path's shapes, launched as the loop launches them: into
-    # its buffers, on a solve's work that never finishes
-    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
-    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
-    mwork.start(torch.tensor(2.3, device=dev))
-    blocks8, cols8 = blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
-    for n_shards, bl, cl, table, k6, k17 in (
-        (4, blocks4, cols4, times, "bell_spmv_dot", "minres_shard_spmv_dot"),
-        (8, blocks8, cols8, extra, "K6 tridiag P=8", "K17 tridiag P=8"),
-    ):
-        m = N_BIG // n_shards
-        q, pap = torch.empty(m // 128, 128, device=dev), torch.empty(1, 1, device=dev)
-        b0, c0 = bl[0], cl[0]
-        t = time_pair(lambda: fc.bell_spmv_dot(b0, c0, full, 0, out=(q, pap), work=work),
-                      lambda: fc._spmv_dot_plain(b0, c0, full, 0, None, None))
-        # tiles and columns of the shard, the gathered operand, q
-        t.update(bound(nbytes(b0, c0, full) + m * 4, 2 * b0.numel() + 2 * m),
-                 library_ms=None)  # an SpMV fused with a window dot: no one call
-        table[k6] = t
-        vecs = [torch.as_tensor(rng.standard_normal((m // 128, 128)), dtype=torch.float32,
-                                device=dev) for _ in range(5)]
-        su = args4[1].clone()
-        su[0, fm.SU_PHI] = 0.0  # x stays put over the timed launches
-        dots = torch.empty(2, device=dev)
-        out = (torch.empty_like(vecs[0]), vecs[3], vecs[4], dots)
-        t = time_pair(lambda: fm.minres_shard_spmv_dot(b0, c0, full, *vecs, su, 0, out=out,
-                                                       work=mwork),
-                      lambda: fm._shard_plain(b0, c0, full, tuple(vecs), su, 0, None, None))
-        # the shard's tiles, v, five local vectors in and three out
-        t.update(bound(nbytes(b0, c0, full, su) + 8 * m * 4, 2 * b0.numel() + 12 * m),
-                 library_ms=None)  # an SpMV fused with two axpys, a shift, two dots
-        table[k17] = t
+    # timing at the path's shapes, launched as the loop launches them
+    sharded_table_rows((blocks4, cols4), torch.float32, times, extra, ("K6", "K17"))
     torch.cuda.synchronize()
     print(f"  kernels 6 / 17 at P = 4: bound {times['bell_spmv_dot']['bound_ms']:.5f} / "
           f"{times['minres_shard_spmv_dot']['bound_ms']:.5f} ms per launch "
@@ -4075,10 +4061,12 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
     ops = {4: (blocks4, cols4), 8: (blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3))}
     inv_diag = 1.0 / big_full.diagonal()
 
-    def solve(n_shards, rhs, steps, **kw):
+    lo8 = ops[8][0].to(torch.bfloat16)  # the P = 8 shards in bf16
+
+    def solve(n_shards, rhs, steps, bf16=False, **kw):
         bl, cl = ops[n_shards]
-        return sharded_cg_solve(bl, cl, rhs, mesh=make_row_mesh(n_shards, dev), tol=-1.0,
-                                maxiter=steps, **kw)
+        return sharded_cg_solve(lo8 if bf16 else bl, cl, rhs, mesh=make_row_mesh(n_shards, dev),
+                                tol=-1.0, maxiter=steps, **kw)
 
     def timed(label, n_shards, rhs, steps, **kw):
         """ms per live step; every step must be live, except for MINRES,
@@ -4114,9 +4102,14 @@ def phase_sharded_path(dev, big_full, shard_ops, card):
           f"{eff / one_ms / 1e6:.1f} GB/s  [{card}]")
     for n_shards in (4, 8):
         timed("fused CG", n_shards, b, 256)
-    # (b) fused Jacobi PCG and fused MINRES at P = 4, the portable CG beside
+    # (b) fused Jacobi PCG at P = 4, fused MINRES at P = 4 and 8, the fused
+    # CG and MINRES at P = 8 on bf16 shards (kernels 6 and 17's bf16 forms),
+    # the portable CG beside
     timed("fused Jacobi PCG", 4, b, 256, inv_diag=inv_diag)
-    timed("fused MINRES", 4, bm, 256, method="minres")
+    for n_shards in (4, 8):
+        timed("fused MINRES", n_shards, bm, 256, method="minres")
+    timed("fused CG, bf16 shards,", 8, b, 256, bf16=True)
+    timed("fused MINRES, bf16 shards,", 8, bm, 256, bf16=True, method="minres")
     solve(4, b, 8, use_fused="never")
     t = Timer(dev).start_measure()
     _, ip = solve(4, b, 64, use_fused="never")
@@ -6186,14 +6179,11 @@ def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, e
     lo4 = blocks4.to(bf16)
     lo8, cols8 = lo4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
     full_v = vec((N_BIG // 128, 128))
-    shard_args = None
     for n_shards, bl, cl in ((4, lo4, cols4), (8, lo8, cols8)):
         m = N_BIG // n_shards
         for s_ in (0, n_shards - 1):
             label = f"tridiag n=262144 P={n_shards} shard {s_} bf16"
             vecs, su = check_k17(bl[s_], cl[s_], full_v, s_ * m, rng, errs, label)
-            if n_shards == 4 and s_ == 0:
-                shard_args = (vecs, su)
             before = fc.LAUNCHES["minres_shard_spmv_dot_bf16"]
             k = fm.minres_shard_spmv_dot(bl[s_], cl[s_], full_v, *vecs, su, s_ * m)
             w = fm.minres_shard_spmv_dot(bl[s_].float(), cl[s_], full_v, *vecs, su, s_ * m)
@@ -6243,23 +6233,7 @@ def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, e
                 2 * a.diag_blocks.numel() + 4 * a.off_blocks.numel()
             t.update(bound(tiles + vb, flops + 14 * a.nrb * a.bn), library_ms=None)
         times[name] = t
-    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
-    mwork.start(torch.tensor(2.3, device=dev))
-    for n_shards, bl, cl, table, key in ((4, lo4, cols4, times, "minres_shard_spmv_dot_bf16"),
-                                         (8, lo8, cols8, extra, "K17 bf16 tridiag P=8")):
-        m = N_BIG // n_shards
-        b0, c0 = bl[0], cl[0]
-        vecs = [vec((m // 128, 128)) for _ in range(5)]
-        su = shard_args[1].clone()
-        su[0, fm.SU_PHI] = 0.0
-        dots = torch.empty(2, device=dev)
-        out = (torch.empty_like(vecs[0]), vecs[3], vecs[4], dots)
-        t = time_pair(lambda: fm.minres_shard_spmv_dot(b0, c0, full_v, *vecs, su, 0, out=out,
-                                                       work=mwork),
-                      lambda: fm._shard_plain(b0, c0, full_v, tuple(vecs), su, 0, None, None))
-        t.update(bound(nbytes(b0, c0, full_v, su) + 8 * m * 4, 2 * b0.numel() + 12 * m),
-                 library_ms=None)
-        table[key] = t
+    sharded_table_rows(shard_ops, bf16, times, extra, ("K17",))
     # every bf16 form beside its float32 form on the same shape
     ratio = []
     for name in BF16_KERNELS:
@@ -6687,7 +6661,6 @@ def phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, ex
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import fused_bicgstab as fb
-    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.ops.cuda import stencil as ks
 
     bf16 = torch.bfloat16
@@ -6750,16 +6723,7 @@ def phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, ex
         time_bicg_tiles(lo_cd, args["packed", False], work, packed=True)
     torch.cuda.synchronize()
     check(int(work.ctl[fb.C_LIVE]) == 1, "bf16 BiCGStab timing: the timing work stopped being live")
-    fwork = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
-    for n_shards, bl, cl, table, key in ((4, lo4, cols4, times, "bell_spmv_dot_bf16"),
-                                         (8, lo8, cols8, extra, "K6 bf16 tridiag P=8")):
-        m = N_BIG // n_shards
-        q, pap = torch.empty(m // 128, 128, device=dev), torch.empty(1, 1, device=dev)
-        b0, c0 = bl[0], cl[0]
-        t = time_pair(lambda: fc.bell_spmv_dot(b0, c0, full, 0, out=(q, pap), work=fwork),
-                      lambda: fc._spmv_dot_plain(b0, c0, full, 0, None, None))
-        t.update(bound(nbytes(b0, c0, full) + m * 4, 2 * b0.numel() + 2 * m), library_ms=None)
-        table[key] = t
+    sharded_table_rows(shard_ops, bf16, times, extra, ("K6",))
     n = int(np.prod(STENCIL_GRID))
     t = time_pair(lambda: ks.stencil7(big_u, 6.0, -1.0),
                   lambda: ks._stencil7_plain(big_u, 6.0, -1.0))
@@ -7086,9 +7050,10 @@ def banded_rows(dev, big) -> dict:
 
 
 def ptxas_report(card) -> None:
-    """``nvcc -Xptxas -v`` on the banded kernels' sources, as the build
+    """``nvcc -Xptxas -v`` on the ring-staged kernels' sources, as the build
     compiles them: registers, static shared memory and spills of each
-    instantiation of kernels 1 and 15's banded landing."""
+    instantiation of kernels 1 and 15's banded landing and of the
+    row-sharded kernels 6 and 17."""
     import re
 
     from conjugategradient_tpu_torch.ops.cuda import _build
@@ -7108,7 +7073,8 @@ def ptxas_report(card) -> None:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 name = m.group(1)
-                k = re.search(r"(sym_dir_banded_kernel|minres_banded_kernel)ILi(\d+)E(\w+?)E", name)
+                k = re.search(r"(sym_dir_banded_kernel|minres_banded_kernel|spmv_dot_kernel|"
+                              r"minres_shard_kernel)ILi(\d+)E(\w+?)E", name)
                 entry = None if k is None else (
                     f"{k.group(1)}<{k.group(2)}, {'bf16' if 'bfloat16' in k.group(3) else 'f32'}>")
                 info = {}
@@ -7127,6 +7093,48 @@ def ptxas_report(card) -> None:
                       f"static smem, {info.get('spill stores', 0)} B spill stores, "
                       f"{info.get('spill loads', 0)} B spill loads  [{card}]")
                 entry = None
+    for src in ("fused_cg.cu", "fused_minres.cu"):
+        sass_loads(os.path.join(tmp, src + ".o"), card)
+
+
+def sass_loads(obj, card) -> None:
+    """The global loads of kernels 6 and 17 at bn = 128 in the compiled
+    object (``cuobjdump -sass``): how many LDG instructions each holds, and
+    the most a warp issues in a row before its next FFMA (how many tile
+    loads it keeps in flight where tiles are loaded into registers), and
+    the bulk copies (UBLKCP) where they are staged."""
+    import re
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {obj} failed: {out.stderr[-2000:]}")
+    entry, counts = None, {}
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(spmv_dot_kernel|minres_shard_kernel)ILi128E(\w+?)E", m.group(1))
+            entry = None if k is None else \
+                f"{k.group(1)}<128, {'bf16' if 'bfloat16' in k.group(2) else 'f32'}>"
+            if entry:
+                counts[entry] = {"LDG": 0, "run": 0, "most": 0, "UBLKCP": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if entry is None or m is None:
+            continue
+        op, c = m.group(1), counts[entry]
+        if op.startswith("LDG"):
+            c["LDG"] += 1
+            c["run"] += 1
+            c["most"] = max(c["most"], c["run"])
+        elif op.startswith("FFMA"):
+            c["run"] = 0
+        elif op.startswith("UBLKCP"):
+            c["UBLKCP"] += 1
+    for entry, c in counts.items():
+        print(f"  sass {entry}: {c['LDG']} LDG, at most {c['most']} in a row before an FFMA, "
+              f"{c['UBLKCP']} UBLKCP  [{card}]")
 
 
 def banded_ring_report(dev, big, card) -> None:
@@ -7148,22 +7156,300 @@ def banded_ring_report(dev, big, card) -> None:
                   f"({g['chunk_bytes']} B), {g['stages']} stages, {g['smem_bytes']} B dynamic "
                   f"smem a CTA")
     for tag, a in (("f32", big), ("bf16", big.astype(torch.bfloat16))):
-        launches = dict(banded_launches(a, dev))
-        ref = {k: digest(*fn()) for k, fn in launches.items()}
         timers = banded_timers(a, dev)
-        for name, fn in launches.items():
-            cells = []
-            for stages in (*BANDED_STAGES, 0):
-                fc.set_banded_ring_stages(stages)
-                check(digest(*fn()) == ref[name],
-                      f"{name} banded {tag}: {stages} ring stages changed the bits")
-                ms = device_ms(timers[name][0])
-                label = stages or f"default {banded_ring(128, a.dtype)['stages']}"
-                cells.append(f"S={label} " + (f"{ms:.5f}" if ms is not None else
-                                              f"{cuda_ms(timers[name][0]):.5f} (events)"))
-            print(f"  ring depth {name} banded n=262144 {tag} (device ms a call): "
-                  f"{'; '.join(cells)}  [{card}]")
-    fc.set_banded_ring_stages(0)
+        for name, fn in banded_launches(a, dev):
+            ring_depth_row(f"{name} banded n=262144 {tag}", "a call", fn, timers[name][0], 1,
+                           fc.set_banded_ring_stages, a.dtype, card)
+
+
+def ring_depth_row(what, unit, fn, timer, per, set_stages, dtype, card) -> None:
+    """One row of a ring-depth sweep: at each depth of BANDED_STAGES and at
+    the default (set by ``set_stages``), ``fn()``'s outputs hashed and held
+    equal to the default's (the depth changes no bit), and ``timer``'s
+    device ms over ``per`` launches (CUDA-event ms where the profiler sees
+    none)."""
+    ref = digest(*fn())
+    cells = []
+    try:
+        for stages in (*BANDED_STAGES, 0):
+            set_stages(stages)
+            check(digest(*fn()) == ref, f"{what}: {stages} ring stages changed the bits")
+            ms = device_ms(timer)
+            label = stages or f"default {banded_ring(128, dtype)['stages']}"
+            cells.append(f"S={label} " + (f"{ms / per:.5f}" if ms is not None else
+                                          f"{cuda_ms(timer) / per:.5f} (events)"))
+    finally:
+        set_stages(0)
+    print(f"  ring depth {what} (device ms {unit}): {'; '.join(cells)}  [{card}]")
+
+
+# ---- kernels 6 and 17: the row-sharded kernels on the staged tile ring ------
+
+SHARDED_SHAPES = (4, 8)  # the n = 262,144 operator's shard counts of the sharded path
+
+
+def sharded_operators(dev) -> list:
+    """(label, tiles, columns, gathered operand, row offset, row_group) of
+    kernels 6 and 17's per-call hashes: the n = 262,144 operator's P = 4
+    shards 0 and 3 and P = 8 shard 0 (row_group None), and ragged nrb = 13
+    shards at bn = 32 and 64 with row_group None and 3, each in float32
+    and in bf16; the gathered operands seeded."""
+    import torch
+
+    rng = np.random.default_rng(22)
+    blocks4, cols4 = sharded_ops(dev, 4)
+    blocks8, cols8 = blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
+    m4 = N_BIG // 4
+    full = torch.as_tensor(rng.standard_normal((N_BIG // 128, 128)), dtype=torch.float32,
+                           device=dev)
+    cases = [("n=262144 P=4 shard 0", blocks4[0], cols4[0], full, 0, None),
+             ("n=262144 P=4 shard 3", blocks4[3], cols4[3], full, 3 * m4, None),
+             ("n=262144 P=8 shard 0", blocks8[0], cols8[0], full, 0, None)]
+    for bn in (32, 64):
+        b13, c13, ncb, off = random_shard(rng, 13, bn, 3, 1, dev)
+        f13 = torch.as_tensor(rng.standard_normal((ncb, bn)), dtype=torch.float32, device=dev)
+        for rg in (None, 3):
+            cases.append((f"ragged nrb=13 bn={bn} row_group={rg}", b13, c13, f13, off, rg))
+    return [(f"{label} {tag}", bl if dt == torch.float32 else bl.to(dt), cl, f, off, rg)
+            for label, bl, cl, f, off, rg in cases
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+
+
+def sharded_launches(blocks, cols, full, off, row_group, seed=22):
+    """Kernels 6 and 17 on one shard, launched as the row-sharded loops
+    launch them: kernel 6 into buffers on a live solve's work; kernel 17 in
+    place (w over w-2, x' over x) after a pending update, with the shift
+    0.07, on a live work; each on seeded vectors: (name, launch() -> the
+    outputs)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    dev = blocks.device
+    rng = np.random.default_rng(seed)
+    nrb, bn = blocks.shape[0], blocks.shape[3]
+    vecs = [torch.as_tensor(rng.standard_normal((nrb, bn)), dtype=torch.float32, device=dev)
+            for _ in range(5)]
+    su = torch.zeros(1, 8, device=dev)
+    su[0, fm.SU_SHIFT] = 0.07
+    su[0, fm.SU_OLDEPS:fm.SU_PHI + 1] = torch.tensor([0.11, 0.23, 0.57, 0.83])
+
+    def k6():
+        out = (torch.empty(nrb, bn, device=dev), torch.empty(1, 1, device=dev))
+        return fc.bell_spmv_dot(blocks, cols, full, off, row_group=row_group, out=out,
+                                work=fc.FusedWork.new(dev, maxiter=9))
+
+    def k17():
+        v = [t.clone() for t in vecs]
+        out = (torch.empty_like(v[0]), v[3], v[4], torch.empty(2, device=dev))
+        return fm.minres_shard_spmv_dot(blocks, cols, full, *v, su, off, row_group=row_group,
+                                        out=out, work=fm.MinresWork.new(dev, maxiter=9))
+
+    return (("K6", k6), ("K17", k17))
+
+
+def sharded_hashes(dev, card) -> None:
+    """One hash a call of kernels 6 and 17 (their outputs) on each of
+    sharded_operators's shards; for comparing two trees on one card."""
+    for label, blocks, cols, full, off, rg in sharded_operators(dev):
+        for name, launch in sharded_launches(blocks, cols, full, off, rg):
+            print(f"  per-call hash {name} {label}: {digest(*launch())}  [{card}]")
+
+
+def sharded_timers(shard_ops, n_shards, dtype) -> dict:
+    """Kernels 6 and 17 on the n = 262,144 operator split in ``n_shards``
+    (``shard_ops``: sharded_ops's P = 4 split), tiles of ``dtype``, each as
+    the loops launch it (into buffers made once, on a solve's work that
+    never finishes; kernel 17 in place with phi = 0, so x stays put):
+    name -> (one launch on shard 0, its plain version, the bound on one
+    launch's bytes (phase_sharded_kernels's), one launch on each shard in
+    turn).  Repeated launches on one shard can find some of its tiles in
+    L2 (a P = 8 shard's are 51 MB in float32); the loop's launches, one a
+    shard, never do."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    rng = np.random.default_rng(17)
+    blocks4, cols4 = shard_ops
+    dev = blocks4.device
+    bls = blocks4.view(n_shards, -1, 3, 128, 128).to(dtype)
+    cls = cols4.view(n_shards, -1, 3)
+    bl, cl = bls[0], cls[0]
+    m = N_BIG // n_shards
+    full = torch.as_tensor(rng.standard_normal((N_BIG // 128, 128)), dtype=torch.float32,
+                           device=dev)
+    work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
+    mwork.start(torch.tensor(2.3, device=dev))
+    q, pap = torch.empty(m // 128, 128, device=dev), torch.empty(1, 1, device=dev)
+    vecs = [torch.as_tensor(rng.standard_normal((m // 128, 128)), dtype=torch.float32,
+                            device=dev) for _ in range(5)]
+    su = torch.zeros(1, 8, device=dev)
+    su[0, fm.SU_SHIFT] = 0.07
+    su[0, fm.SU_OLDEPS:fm.SU_PHI] = torch.tensor([0.11, 0.23, 0.57])
+    out = (torch.empty_like(vecs[0]), vecs[3], vecs[4], torch.empty(2, device=dev))
+
+    def k6(s_):
+        fc.bell_spmv_dot(bls[s_], cls[s_], full, s_ * m, out=(q, pap), work=work)
+
+    def k17(s_):
+        fm.minres_shard_spmv_dot(bls[s_], cls[s_], full, *vecs, su, s_ * m, out=out, work=mwork)
+
+    return {
+        "K6": (lambda: k6(0), lambda: fc._spmv_dot_plain(bl, cl, full, 0, None, None),
+               bound(nbytes(bl, cl, full) + m * 4, 2 * bl.numel() + 2 * m),
+               lambda: [k6(s_) for s_ in range(n_shards)]),
+        "K17": (lambda: k17(0),
+                lambda: fm._shard_plain(bl, cl, full, tuple(vecs), su, 0, None, None),
+                bound(nbytes(bl, cl, full, su) + 8 * m * 4, 2 * bl.numel() + 12 * m),
+                lambda: [k17(s_) for s_ in range(n_shards)]),
+    }
+
+
+def sharded_table_rows(shard_ops, dtype, times, extra, names) -> None:
+    """Phase 2's rows of kernels 6 and 17 (those in ``names``), tiles of
+    ``dtype``: time_pair of one launch on shard 0 against its plain version
+    (sharded_timers), with the bound on its bytes and no library time (an
+    SpMV fused with window dots, and for 17 with axpys and a shift: no one
+    call); P = 4 into ``times`` under the kernel's counter, P = 8 into
+    ``extra``."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda._common import form
+
+    counters = {"K6": "bell_spmv_dot", "K17": "minres_shard_spmv_dot"}
+    tag = " bf16" if dtype == torch.bfloat16 else ""
+    for n_shards in SHARDED_SHAPES:
+        for name, (kern, plain, bnd, _) in sharded_timers(shard_ops, n_shards, dtype).items():
+            if name in names:
+                t = time_pair(kern, plain)
+                t.update(bnd, library_ms=None)
+                if n_shards == 4:
+                    times[form(counters[name], dtype)] = t
+                else:
+                    extra[f"{name}{tag} tridiag P=8"] = t
+    torch.cuda.synchronize()
+
+
+def other_library(root):
+    """The kernel library of the tree at ``root`` (another checkout of this
+    repository), built there from its own sources and opened beside this
+    tree's: its own ``_build`` module, loaded under another name."""
+    import importlib.util
+
+    path = os.path.join(root, "conjugategradient_tpu_torch", "ops", "cuda", "_build.py")
+    spec = importlib.util.spec_from_file_location("other_tree_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod.load_library()
+
+
+@contextlib.contextmanager
+def kernels_of(lib):
+    """Launch this tree's wrappers on the kernels of ``lib`` (this tree's or
+    other_library's: the entry points of kernels 6 and 17 take the same
+    arguments in both)."""
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    saved = _build.load_library()
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
+
+
+def sharded_rows(dev, card, other=None) -> None:
+    """Kernels 6 and 17 at P = 4 and 8, float32 and bf16 tiles, timed
+    against their plain versions (time_pair on shard 0, launched as
+    sharded_timers makes them) with their bound, then a launch's device ms
+    where each launch takes the next shard, as the loop does; with
+    ``other`` (another tree's root), that tree's kernels timed the same two
+    ways in the same process on the same inputs, in turns (other, this,
+    this, other: profiler device ms a launch)."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    libs = {"this": _build.load_library()}
+    if other is not None:
+        libs["other"] = other_library(other)
+    shard_ops = sharded_ops(dev, 4)
+    for n_shards in SHARDED_SHAPES:
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for name, (kern, plain, bnd, cycle) in sharded_timers(shard_ops, n_shards,
+                                                                  dt).items():
+                t = time_pair(kern, plain)
+                t.update(bnd, library_ms=None)
+                print_time_row(f"{name} P={n_shards} {tag}", t, card)
+                for how, fn, per in (("one shard", kern, 1), ("shards in turn", cycle, n_shards)):
+                    got = []
+                    for who in (("other", "this", "this", "other") if other else ("this",)):
+                        with kernels_of(libs[who]):
+                            ms = device_ms(fn)
+                        got.append(float("nan") if ms is None else ms / per)
+                    c = min(got[1:3]) if other else got[0]
+                    line = (f"  {how} {name} P={n_shards} {tag}: this {c:.5f} ms a launch "
+                            f"({bnd['bound_ms'] / c:.3f} of the bound {bnd['bound_ms']:.5f})")
+                    if other:
+                        p_ = min(got[0], got[3])
+                        line += (f", other {p_:.5f} ({bnd['bound_ms'] / p_:.3f}), this / other "
+                                 f"{c / p_:.3f} (device ms, other, this, this, other: "
+                                 f"{'; '.join(f'{v:.5f}' for v in got)})")
+                    print(f"{line}  [{card}]")
+    torch.cuda.synchronize()
+
+
+def sharded_ring_report(dev, card, shapes=SHARDED_SHAPES) -> None:
+    """The ring of kernels 6 and 17: its geometry on the sharded path's
+    shards (chunks, stages and dynamic shared memory as banded_ring gives
+    them; strips, and the persistent grid of at most two CTAs an SM), then
+    a launch's device time, each launch on the next shard as in the loop,
+    against the ring depth at each P of ``shapes`` in both forms (each
+    depth's outputs on shard 0 hashed and held equal to the default's).
+    Trees without the ring print nothing."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    if not hasattr(fc, "set_sharded_ring_stages"):
+        return
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n_shards in SHARDED_SHAPES:
+        nrb = N_BIG // 128 // n_shards
+        strips = -(-nrb // fc.auto_row_group(nrb, dev))
+        grid = min(strips, 2 * sms)
+        for dt in (torch.float32, torch.bfloat16):
+            g = banded_ring(128, dt)
+            print(f"  ring K6/K17 P={n_shards} {str(dt)[6:]}: {nrb} block-rows of 3 slots, "
+                  f"{strips} strips on {grid} CTAs ({nrb // grid}-{-(-nrb // grid)} rows a "
+                  f"CTA), {g['chunk_rows']} tile rows a chunk ({g['chunk_bytes']} B), "
+                  f"{g['stages']} stages, {g['smem_bytes']} B dynamic smem a CTA")
+    blocks4, cols4 = sharded_ops(dev, 4)
+    full = torch.as_tensor(np.random.default_rng(23).standard_normal((N_BIG // 128, 128)),
+                           dtype=torch.float32, device=dev)
+    for n_shards in shapes:
+        bl = blocks4.view(n_shards, -1, 3, 128, 128)[0]
+        cl = cols4.view(n_shards, -1, 3)[0]
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            timers = sharded_timers((blocks4, cols4), n_shards, dt)
+            for name, fn in sharded_launches(bl.to(dt), cl, full, 0, None):
+                ring_depth_row(f"{name} P={n_shards} {tag}", "a launch, the shards in turn", fn,
+                               timers[name][3], n_shards, fc.set_sharded_ring_stages, dt, card)
+
+
+def sharded_only(dev, card, other=None) -> None:
+    """``--sharded-only [TREE]``: kernels 6 and 17 alone: the ptxas report,
+    their ring's geometry and depth sweep, and their rows at P = 4 and 8
+    in both forms, with another tree's kernels beside them in the same
+    process when its root is given (sharded_rows)."""
+    ptxas_report(card)
+    sharded_ring_report(dev, card)
+    sharded_rows(dev, card, other)
 
 
 def fused_cg_only(dev, card) -> None:
@@ -7273,6 +7559,20 @@ def fused_cg_only(dev, card) -> None:
                             use_fused="always")
         print(f"  sharded fused CG n=262144 P=4 bf16: {int(info.iterations)} its, {ms:.5f} ms/it, "
               f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
+    # the sharded fused CG and MINRES at P = 8 on float32 and on bf16 shards
+    # (kernels 6 and 17 in both forms), history and x
+    blocks8, cols8 = blocks4.view(8, -1, 3, 128, 128), cols4.view(8, -1, 3)
+    mesh8 = make_row_mesh(8, dev)
+    for tag, bl in (("", blocks8), (" bf16", blocks8.to(torch.bfloat16))):
+        for label, rhs, kw in (("CG", b, {}), ("MINRES", bm, {"method": "minres"})):
+            ms, x, info = timed(sharded_cg_solve, bl, cols8, rhs, mesh=mesh8, use_fused="always",
+                                **kw)
+            rows = kernel_rows(lambda: sharded_cg_solve(bl, cols8, rhs, mesh=mesh8, tol=-1.0,
+                                                        maxiter=64, use_fused="always", **kw), 64)
+            print(f"  sharded fused {label} n=262144 P=8{tag}: {int(info.iterations)} its, "
+                  f"{ms:.5f} ms/it, rho_history and x sha256 {digest(info.rho_history, x)}; 64 "
+                  f"steps: {rows}  [{card}]")
+    del blocks8, cols8, bl
     a = nonsym_tridiag(N_BIG, 128, dev, seed=0)
     b = torch.arange(1, a.n + 1, dtype=torch.float32, device=dev) / a.n
     for tol in (TOL_SOLVE_REL * float(b.double().norm()), 0.0):
@@ -7309,6 +7609,7 @@ def fused_cg_only(dev, card) -> None:
     update_hashes(dev, card)
     bicg_dia_hashes(dev, card)
     banded_hashes(dev, big, card)
+    sharded_hashes(dev, card)
     for name, t in update_rows(dev).items():
         print_time_row(name, t, card)
     for name, t in banded_rows(dev, big).items():
@@ -7339,8 +7640,12 @@ def main() -> int:
     if sys.argv[1:] == ["--fused-cg-only"]:
         fused_cg_only(dev, card)
         return 0
+    if sys.argv[1:2] == ["--sharded-only"] and len(sys.argv) <= 3:
+        sharded_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
+        return 0
 
-    print("phase 2: kernels vs plain versions")
+    print(f"phase 2: kernels vs plain versions ({time.perf_counter() - t0:.1f} s since the build "
+          "began)")
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
     errs, times, extra, ops = phase_kernels(dev, big, big_full)
     dia_ops = phase_dia_kernels(dev, errs, times, extra)
@@ -7354,6 +7659,7 @@ def main() -> int:
     phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, extra)
     ptxas_report(card)
     banded_ring_report(dev, big, card)
+    sharded_ring_report(dev, card, shapes=(8,))
     for name, t in list(times.items()) + list(extra.items()):
         print_time_row(name, t, card)
     elementwise_floor(dev, card)
@@ -7381,7 +7687,8 @@ def main() -> int:
         ("bf16 BiCGStab / sharded / stencil", BF16_BICG_KERNELS,
          lambda: phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card)),
     ):
-        print(f"phase 3: main path, {label}")
+        print(f"phase 3: main path, {label} ({time.perf_counter() - t0:.1f} s since the build "
+              "began)")
         fc.reset_counts()
         run()
         counts, plain_on_cuda = dict(fc.LAUNCHES), dict(fc.PLAIN_ON_CUDA)

@@ -53,9 +53,10 @@
 // memory-bandwidth kernel; the vectors (1 MB each there) stay in the 50 MB
 // L2.  Tiles are read with streaming loads (__ldcs), or on the banded
 // landing by bulk copies with an evict-first hint, so they do not evict the
-// vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  The banded landing
-// stages its tiles through a ring in shared memory on persistent CTAs
-// (below); the other K1 forms load tiles straight into registers.
+// vectors.  K2 streams 6 (CG) or 7 (PCG) vectors.  The banded landing and
+// the row-sharded SpMV + dot stage their tiles through a ring in shared
+// memory on persistent CTAs (below); the other K1 forms load tiles straight
+// into registers.
 //
 // bfloat16 tiles (the TPU kernels' other operand form, fused_cg.py:34,98,
 // 258-310: bf16 tiles, float32 vectors): K1 on full storage (dense and
@@ -165,7 +166,8 @@ sym_dir_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
   span_of(nstrips, s0, s1);
   const int row0 = s0 * R, row1 = min(s1 * R, nrb);
   const bool halo = row0 > 0 && off_cols[row0 - 1] == row0;
-  TileRing<BN, E> ring(ring_smem, stages, diag, off, off_cols, row0, row1, halo);
+  TileRing<BN, E> ring(ring_smem, stages,
+                       BandedStream<BN, E>(diag, off, off_cols, row0, row1, halo));
   const float beta = *beta_p;
 
   for (int t = threadIdx.x; t < BN; t += kThreads) carry[t] = 0.f;
@@ -349,48 +351,92 @@ full_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ cols,
 // this shard's partial, which the loop sums over the shards.
 // Bound: the shard's tile stream, 4 * bn^2 * kmax bytes per block-row, plus
 // x and q (101.97 MB per launch at n = 262,144 block-tridiagonal split in
-// 4, bn = 128).  Design: kernel 4's strip (one CTA per R block-rows, every
-// slot read with streaming loads, padding included) without the recompute:
-// the gathered rows are read straight from x, which sits in L2; the window
-// is read from x as the TPU kernel reads it.  ctl (may be NULL) makes a
-// step after the end a no-op, as in every kernel of a solve.
+// 4, bn = 128; 51.51 MB split in 8).
+// Design (redesigned for the H100 as the banded K1 was: the first port ran
+// kernel 4's strip, one CTA per R block-rows reading tiles with plain
+// streaming loads, 4 tile rows in flight a warp, so a CTA's few tiles cost
+// a dozen dependent DRAM round trips a warp and a launch cost about the
+// same whatever its bytes: 0.50 of the bound in float32, 0.27 in bf16 at
+// 8 shards):
+// * Persistent strips: at most as many CTAs as the card holds at once (two
+//   an SM), each walking a contiguous span of the R-row strips (span_of).
+// * The tile stream staged through shared memory (TileRing with the slot
+//   stream: a span's tiles are one contiguous run, every slot read, padding
+//   included, as the TPU kernel and the plain version read it), chunks kept
+//   in flight by cp.async.bulk across rows and strips.
+// * Each tile through TileRing::apply_tile<true, false>, tile_apply's
+//   mapping and sums; q accumulates the slots in k order; the forward
+//   operand is the gathered row x + cols[slot] bn, read from L2.  A row's
+//   window of x is loaded during the previous row's tiles, and q's row
+//   buffer alternates between two, so a row takes one barrier.
+// * Every bit of the first port: the same products and per-row sums, the
+//   same per-thread pap sums, one partial per R-row strip at the strip's
+//   index, summed by the last CTA in index order (thread 0 alone publishes
+//   a CTA's partials, publish_last, as the update kernels do).
+// ctl (may be NULL) makes a step after the end a no-op, as in every kernel
+// of a solve: nothing is written; its load is issued before the ring's
+// first copies, which a CTA that is not live waits for before it leaves.
 
 template <int BN, class E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 spmv_dot_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
                 const float* x, int64_t row0, float* q, float* pap_out,
                 float* partials, unsigned* counter, const int* ctl, int nrb,
-                int kmax, int R) {
-  if (ctl && ctl[C_LIVE] == 0) return;
-  __shared__ float qacc[BN];
+                int kmax, int R, int stages) {
+  // the live flag's round trip overlaps the ring's first copies; a CTA
+  // that is not live waits for those and leaves, having written nothing
+  const int live = ctl ? ld_now(ctl + C_LIVE) : 1;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ float qacc[2][BN];
   __shared__ float red[kWarps];
-  const int base = blockIdx.x * R;
-  const int end = min(base + R, nrb);
-  const int64_t TT = (int64_t)BN * BN;
+  const int nstrips = (nrb + R - 1) / R;
+  int s0, s1;
+  span_of(nstrips, s0, s1);
+  const int rowa = s0 * R, rowb = min(s1 * R, nrb);
+  TileRing<BN, E, SlotStream<BN, E>> ring(ring_smem, stages,
+                                         SlotStream<BN, E>(blocks, kmax, rowa, rowb));
+  if (live == 0) {
+    ring.drain();
+    return;
+  }
+  const int t = threadIdx.x;
+  float xw_next = 0.f;  // thread t < BN: the next row's window entry t
+  if (t < BN) {
+    qacc[0][t] = 0.f;
+    xw_next = x[(row0 + rowa) * BN + t];
+  }
+  __syncthreads();  // qacc[0] and the ring's barriers
   float unused[BN / 32];
   float pap_acc = 0.f;
-  for (int row = base; row < end; ++row) {
-    __syncthreads();  // the previous row's readers of qacc are done
-    for (int t = threadIdx.x; t < BN; t += kThreads) qacc[t] = 0.f;
-    __syncthreads();
+  for (int row = rowa; row < rowb; ++row) {
+    float* qa = qacc[(row - rowa) & 1];
+    const float xw = xw_next;
+    if (t < BN) {
+      // the other buffer, which this thread read last in the previous row,
+      // is the next row's; this row's barrier orders both
+      qacc[(row - rowa + 1) & 1][t] = 0.f;
+      if (row + 1 < rowb) xw_next = x[(row0 + row + 1) * BN + t];
+    }
     for (int k = 0; k < kmax; ++k) {
       const int64_t slot = (int64_t)row * kmax + k;
-      tile_apply<BN, true, false>(blocks + slot * TT, x + (int64_t)cols[slot] * BN,
-                                  nullptr, qacc, unused);
+      ring.template apply_tile<true, false>(x + (int64_t)cols[slot] * BN, nullptr, qa, unused);
     }
-    __syncthreads();
-    const float* xw = x + (row0 + row) * BN;
-    for (int t = threadIdx.x; t < BN; t += kThreads) {
-      const float qv = qacc[t];
+    __syncthreads();  // the row's q is complete
+    if (t < BN) {
+      const float qv = qa[t];
       q[(int64_t)row * BN + t] = qv;
-      pap_acc += xw[t] * qv;
+      pap_acc += xw * qv;
+    }
+    if (row + 1 == rowb || (row + 1) % R == 0) {  // the strip's last row
+      const float s = block_sum(pap_acc, red);
+      if (t == 0) partials[row / R] = s;
+      pap_acc = 0.f;
     }
   }
-  const float s = block_sum(pap_acc, red);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
-  if (arrive_last(counter)) {
-    const float pap = sum_partials(partials, gridDim.x, red);
-    if (threadIdx.x == 0) {
+  // thread 0 wrote every partial of this CTA: it alone publishes them
+  if (publish_last(counter)) {
+    const float pap = sum_partials(partials, nstrips, red);
+    if (t == 0) {
       pap_out[0] = pap;
       *counter = 0u;
     }
@@ -679,14 +725,23 @@ cudaError_t launch_full(const E* blocks, const int* cols, const float* r,
   return cudaGetLastError();
 }
 
+// ring stages of the row-sharded SpMV + dot (0: ring_default_stages), set
+// by cg_bell_spmv_dot_stages for the ring-depth sweep of chip_smoke.py
+int g_shard_stages = 0;
+
 template <int BN, class E>
 cudaError_t launch_spmv_dot(const E* blocks, const int* cols, const float* x,
                             int64_t row0, float* q, float* pap, float* partials,
                             unsigned* counter, const int* ctl, int nrb, int kmax,
                             int R, cudaStream_t s) {
-  const int grid = (nrb + R - 1) / R;
-  spmv_dot_kernel<BN, E><<<grid, kThreads, 0, s>>>(blocks, cols, x, row0, q, pap,
-                                                   partials, counter, ctl, nrb, kmax, R);
+  static int cache[3] = {0, 0, 0};
+  const int stages = g_shard_stages > 0 ? g_shard_stages : ring_default_stages<BN, E>();
+  const int smem = ring_smem_bytes<BN, E>(stages);
+  int grid = 0;
+  cudaError_t e = ring_grid(spmv_dot_kernel<BN, E>, smem, (nrb + R - 1) / R, cache, grid);
+  if (e != cudaSuccess) return e;
+  spmv_dot_kernel<BN, E><<<grid, kThreads, smem, s>>>(blocks, cols, x, row0, q, pap, partials,
+                                                      counter, ctl, nrb, kmax, R, stages);
   return cudaGetLastError();
 }
 
@@ -785,6 +840,15 @@ int cg_bell_spmv_dot_bf16(const __nv_bfloat16* blocks, const int* cols, const fl
                           int R, void* stream) {
   return spmv_dot(blocks, cols, x, row0, q, pap, partials, counter, ctl, nrb, kmax, bn, R,
                   stream);
+}
+
+// Ring stages of the row-sharded SpMV + dot from the next launch on (3 at
+// least; 0 or less: the default, 96 KB of chunks).  Returns the previous
+// setting.
+int cg_bell_spmv_dot_stages(int stages) {
+  const int old = g_shard_stages;
+  g_shard_stages = stages > 0 ? (stages < 3 ? 3 : stages) : 0;
+  return old;
 }
 
 // K1 on the packed nonzeros of full blocked-ELL storage; rows = nrb * bn.

@@ -273,7 +273,8 @@ minres_banded_kernel(const E* __restrict__ diag, const E* __restrict__ off,
   span_of(nstrips, s0, s1);
   const int row0 = s0 * R, row1 = min(s1 * R, nrb);
   const bool halo = row0 > 0 && off_cols[row0 - 1] == row0;
-  TileRing<BN, E> ring(ring_smem, stages, diag, off, off_cols, row0, row1, halo);
+  TileRing<BN, E> ring(ring_smem, stages,
+                       BandedStream<BN, E>(diag, off, off_cols, row0, row1, halo));
   if (threadIdx.x < 8) su[threadIdx.x] = a.su[threadIdx.x];
 
   for (int t = threadIdx.x; t < BN; t += kThreads) carry[t] = 0.f;
@@ -475,15 +476,23 @@ minres_dir_packed_kernel(const E* __restrict__ vals, const int* __restrict__ col
 // step: the loop sums the partials over the shards and steps after that.
 // Bound: the shard's tile stream and eight local vectors (r1, v_prev, w_1,
 // w_2, x in; q, w, x' out) and v (103.81 MB per launch at n = 262,144
-// block-tridiagonal split in 4, bn = 128).  Design: kernel 6's strip.  The
-// TPU kernel formed w and x' whole in a g == 0 prologue; a CUDA grid has
-// none, so each CTA updates the w and x' rows of its own strip (the local
-// vectors have q's rows: square tiles).  __fmul_rn / __fsub_rn / __fadd_rn
-// in the plain version's order make w, x' and the shift bit-equal to its
-// torch ops.  w may be written over w_2 and x' over x (each element is
-// read and written by one thread); nothing else may alias (the wrapper
-// checks): other CTAs read v, and a row's r1 is read after its w is
-// written.  ctl (may be NULL) makes a step after the end a no-op.
+// block-tridiagonal split in 4, bn = 128; 52.43 MB split in 8).  Design:
+// fused_cg.cu's spmv_dot_kernel (redesigned for the H100 with it: persistent
+// CTAs over spans of R-row strips, the span's tiles staged through TileRing's
+// slot stream, the products through apply_tile, q's row buffer alternating
+// between two) with the MINRES row work.  The TPU kernel formed w and x'
+// whole in a g == 0 prologue; a CUDA grid has none, so each CTA updates the
+// w and x' rows of its own span (the local vectors have q's rows: square
+// tiles), and a row's operands (v's window row, r1, v_prev, w_1, w_2, x)
+// are loaded during the previous row's tiles.  __fmul_rn / __fsub_rn /
+// __fadd_rn in the plain version's order make w, x' and the shift
+// bit-equal to its torch ops; both dots keep the first port's per-thread
+// sums and one partial of each per strip, at the strip's index, reduced
+// side by side (block_sum2, sum_partials2: each in block_sum's and
+// sum_partials's order) and published by thread 0 (publish_last).  w may be
+// written over w_2 and x' over x (each element is read and written by one
+// thread); nothing else may alias (the wrapper checks): other CTAs read v.
+// ctl (may be NULL) makes a step after the end a no-op: nothing is written.
 
 struct ShardArgs {
   const float *vfull, *r1, *vprev, *wm1, *wm2, *x, *su;
@@ -492,60 +501,96 @@ struct ShardArgs {
   const int* ctl;
 };
 
+// A row's entry t of everything kernel 17 reads beside the tiles, loaded
+// one row ahead.
+struct ShardLoad {
+  float vw = 0.f, r1 = 0.f, vprev = 0.f, wm1 = 0.f, wm2 = 0.f, x = 0.f;
+  __device__ __forceinline__ void load(const ShardArgs& a, int64_t row0, int row, int bn,
+                                       int t) {
+    const int64_t i = (int64_t)row * bn + t;
+    vw = a.vfull[(row0 + row) * bn + t];
+    r1 = a.r1[i];
+    vprev = a.vprev[i];
+    wm1 = a.wm1[i];
+    wm2 = a.wm2[i];
+    x = a.x[i];
+  }
+};
+
 template <int BN, class E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 minres_shard_kernel(const E* __restrict__ blocks, const int* __restrict__ cols,
-                    ShardArgs a, int64_t row0, int nrb, int kmax, int R) {
-  if (a.ctl && a.ctl[C_LIVE] == 0) return;
-  __shared__ float qacc[BN];
-  __shared__ float red[kWarps];
+                    ShardArgs a, int64_t row0, int nrb, int kmax, int R, int stages) {
+  // the live flag's round trip overlaps the ring's first copies (as in
+  // fused_cg.cu's spmv_dot_kernel)
+  const int live = a.ctl ? ld_now(a.ctl + C_LIVE) : 1;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ float qacc[2][BN];
+  __shared__ float red[2][kWarps];
   __shared__ float su[8];
-  if (threadIdx.x < 8) su[threadIdx.x] = a.su[threadIdx.x];
-  const int base = blockIdx.x * R;
-  const int end = min(base + R, nrb);
-  const int64_t TT = (int64_t)BN * BN;
+  const int nstrips = (nrb + R - 1) / R;
+  int s0, s1;
+  span_of(nstrips, s0, s1);
+  const int rowa = s0 * R, rowb = min(s1 * R, nrb);
+  TileRing<BN, E, SlotStream<BN, E>> ring(ring_smem, stages,
+                                         SlotStream<BN, E>(blocks, kmax, rowa, rowb));
+  if (live == 0) {
+    ring.drain();
+    return;
+  }
+  const int t = threadIdx.x;
+  if (t < 8) su[t] = a.su[t];
+  ShardLoad next;
+  if (t < BN) {
+    qacc[0][t] = 0.f;
+    next.load(a, row0, rowa, BN, t);
+  }
+  __syncthreads();  // su, qacc[0] and the ring's barriers
   float unused[BN / 32];
   float vq_acc = 0.f, vr1_acc = 0.f;
-  for (int row = base; row < end; ++row) {
-    __syncthreads();  // su is loaded; the previous row's readers of qacc are done
-    for (int t = threadIdx.x; t < BN; t += kThreads) {
+  for (int row = rowa; row < rowb; ++row) {
+    float* qa = qacc[(row - rowa) & 1];
+    const ShardLoad cur = next;
+    if (t < BN) {
       const int64_t i = (int64_t)row * BN + t;
       const float w = __fmul_rn(
-          __fsub_rn(__fsub_rn(a.vprev[i], __fmul_rn(su[SU_OLDEPS], a.wm2[i])),
-                    __fmul_rn(su[SU_DELTA], a.wm1[i])),
+          __fsub_rn(__fsub_rn(cur.vprev, __fmul_rn(su[SU_OLDEPS], cur.wm2)),
+                    __fmul_rn(su[SU_DELTA], cur.wm1)),
           su[SU_IGAMMA]);
       a.w[i] = w;
-      a.xo[i] = __fadd_rn(a.x[i], __fmul_rn(su[SU_PHI], w));
-      qacc[t] = 0.f;
+      a.xo[i] = __fadd_rn(cur.x, __fmul_rn(su[SU_PHI], w));
+      // the other buffer, which this thread read last in the previous row,
+      // is the next row's; this row's barrier orders both
+      qacc[(row - rowa + 1) & 1][t] = 0.f;
+      if (row + 1 < rowb) next.load(a, row0, row + 1, BN, t);
     }
-    __syncthreads();
     for (int k = 0; k < kmax; ++k) {
       const int64_t slot = (int64_t)row * kmax + k;
-      tile_apply<BN, true, false>(blocks + slot * TT, a.vfull + (int64_t)cols[slot] * BN,
-                                  nullptr, qacc, unused);
+      ring.template apply_tile<true, false>(a.vfull + (int64_t)cols[slot] * BN, nullptr, qa,
+                                            unused);
     }
-    __syncthreads();
-    const float* vw = a.vfull + (row0 + row) * BN;
-    for (int t = threadIdx.x; t < BN; t += kThreads) {
+    __syncthreads();  // the row's q is complete
+    if (t < BN) {
       const int64_t i = (int64_t)row * BN + t;
-      const float qv = __fsub_rn(qacc[t], __fmul_rn(su[SU_SHIFT], vw[t]));
+      const float qv = __fsub_rn(qa[t], __fmul_rn(su[SU_SHIFT], cur.vw));
       a.q[i] = qv;
-      vq_acc += vw[t] * qv;
-      vr1_acc += vw[t] * a.r1[i];
+      vq_acc += cur.vw * qv;
+      vr1_acc += cur.vw * cur.r1;
+    }
+    if (row + 1 == rowb || (row + 1) % R == 0) {  // the strip's last row
+      const float2 s = block_sum2(vq_acc, vr1_acc, red);
+      if (t == 0) {
+        a.partials[row / R] = s.x;
+        a.partials[nstrips + row / R] = s.y;
+      }
+      vq_acc = vr1_acc = 0.f;
     }
   }
-  const float s1 = block_sum(vq_acc, red);
-  const float s2 = block_sum(vr1_acc, red);
-  if (threadIdx.x == 0) {
-    a.partials[blockIdx.x] = s1;
-    a.partials[gridDim.x + blockIdx.x] = s2;
-  }
-  if (arrive_last(a.counter)) {
-    const float vq = sum_partials(a.partials, gridDim.x, red);
-    const float vr1 = sum_partials(a.partials + gridDim.x, gridDim.x, red);
-    if (threadIdx.x == 0) {
-      a.dots[0] = vq;
-      a.dots[1] = vr1;
+  if (publish_last(a.counter)) {
+    const float2 d = sum_partials2(a.partials, a.partials + nstrips, nstrips, red);
+    if (t == 0) {
+      a.dots[0] = d.x;
+      a.dots[1] = d.y;
       *a.counter = 0u;
     }
   }
@@ -730,11 +775,21 @@ cudaError_t launch_general(const E* diag, const E* off, const int* off_cols,
   return cudaGetLastError();
 }
 
+// ring stages of the row-sharded K1 (0: ring_default_stages), set by
+// minres_shard_dir_stages for the ring-depth sweep of chip_smoke.py
+int g_shard_stages = 0;
+
 template <int BN, class E>
 cudaError_t launch_shard(const E* blocks, const int* cols, const ShardArgs& a,
                          int64_t row0, int nrb, int kmax, int R, cudaStream_t s) {
-  minres_shard_kernel<BN, E><<<(nrb + R - 1) / R, kThreads, 0, s>>>(blocks, cols, a, row0,
-                                                                    nrb, kmax, R);
+  static int cache[3] = {0, 0, 0};
+  const int stages = g_shard_stages > 0 ? g_shard_stages : ring_default_stages<BN, E>();
+  const int smem = ring_smem_bytes<BN, E>(stages);
+  int grid = 0;
+  cudaError_t e = ring_grid(minres_shard_kernel<BN, E>, smem, (nrb + R - 1) / R, cache, grid);
+  if (e != cudaSuccess) return e;
+  minres_shard_kernel<BN, E><<<grid, kThreads, smem, s>>>(blocks, cols, a, row0, nrb, kmax, R,
+                                                          stages);
   return cudaGetLastError();
 }
 
@@ -893,6 +948,14 @@ int minres_shard_dir(const float* blocks, const int* cols, SHARD_PARAMS, int64_t
 int minres_shard_dir_bf16(const __nv_bfloat16* blocks, const int* cols, SHARD_PARAMS,
                           int64_t row0, int nrb, int kmax, int bn, int R, void* stream) {
   return shard_dir(blocks, cols, SHARD_ARGS, row0, nrb, kmax, bn, R, stream);
+}
+
+// Ring stages of the row-sharded K1 from the next launch on (3 at least;
+// 0 or less: the default, 96 KB of chunks).  Returns the previous setting.
+int minres_shard_dir_stages(int stages) {
+  const int old = g_shard_stages;
+  g_shard_stages = stages > 0 ? (stages < 3 ? 3 : stages) : 0;
+  return old;
 }
 
 // K2 (d == NULL: no preconditioner; scal == NULL: partials only).  n % 4

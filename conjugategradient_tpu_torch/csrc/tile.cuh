@@ -4,9 +4,11 @@
 // (bell_spmv.cu, fused_cg.cu, fused_bicgstab.cu).  Both take float32 or
 // bfloat16 tile values E, each widened to float32 as it is loaded
 // (common.cuh ld_stream / ld_ro); every product and sum is float32 in the
-// same order for either E.  Last, TileRing: the banded landings' tile
-// stream staged through shared memory by bulk asynchronous copies
-// (fused_cg.cu K1, fused_minres.cu K1), with the same products.
+// same order for either E.  Last, TileRing: a tile stream staged through
+// shared memory by bulk asynchronous copies, with the same products: the
+// banded landings' (fused_cg.cu K1, fused_minres.cu K1; BandedStream) and
+// the row-sharded kernels' slot stream (fused_cg.cu K6, fused_minres.cu
+// K17; SlotStream).
 #pragma once
 
 #include <stdint.h>
@@ -101,11 +103,13 @@ __device__ __forceinline__ float packed_row(const E* __restrict__ vals,
   return acc;
 }
 
-// ---- the staged tile stream of the banded landings -------------------------
+// ---- the staged tile streams ------------------------------------------------
 // A CTA of a banded kernel streams, in order, an optional halo tile (the
 // upper tile of the row before its span: mirror only), then for each row of
 // its span the diagonal tile (forward) and, unless the row's slot is
-// padding, its upper tile (forward and mirror).  TileRing cuts each tile
+// padding, its upper tile (forward and mirror) (BandedStream).  A CTA of a
+// row-sharded kernel streams each row's kmax tiles of full storage in slot
+// order, padding slots included (SlotStream).  TileRing cuts each tile
 // into chunks of kRows contiguous tile rows (16 KB, or the whole tile when
 // it is smaller: bn = 256 in float32 is 256 KB, above what a CTA may hold)
 // and keeps a ring of S chunk stages in dynamic shared memory full: thread
@@ -244,51 +248,26 @@ __device__ __forceinline__ int row_sums(float (&f)[RW]) {
   return row;
 }
 
+// The banded landings' stream (see above): the source of each chunk in
+// turn, or null at the span's end.
 template <int BN, class E>
-struct TileRing {
+struct BandedStream {
   using C = TileChunk<BN, E>;
-  static constexpr int NJ = BN / 32;
-  static constexpr int RW = C::kRows / kWarps;  // a warp's rows in a chunk
-  unsigned char* buf;
-  uint64_t *full, *empty;
-  int S;
-  int stage = 0;        // the next chunk to read: its stage and phase
-  unsigned phase = 0;
-  // thread 0: the producer's place in the span's tile stream
   const E *diag, *off;
   const int* off_cols;
   int prow, pend, part, pci;  // part: 0 halo, 1 diagonal, 2 upper
-  unsigned issued = 0, consumed = 0;
-  uint64_t policy = 0;
 
-  // Thread 0 initialises the barriers and issues the first S chunks; the
-  // caller's next __syncthreads publishes the barriers to the other threads.
-  __device__ TileRing(unsigned char* smem, int stages, const E* diag_, const E* off_,
-                      const int* off_cols_, int row0, int row1, bool halo)
-      : buf(smem + ring_bar_bytes(stages)),
-        full(reinterpret_cast<uint64_t*>(smem)),
-        empty(reinterpret_cast<uint64_t*>(smem) + stages),
-        S(stages),
-        diag(diag_),
+  __device__ BandedStream(const E* diag_, const E* off_, const int* off_cols_, int row0,
+                          int row1, bool halo)
+      : diag(diag_),
         off(off_),
         off_cols(off_cols_),
         prow(halo ? row0 - 1 : row0),
         pend(row1),
         part(halo ? 0 : 1),
-        pci(0) {
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < S; ++i) {
-        mbar_init(full + i, 1);
-        mbar_init(empty + i, kWarps);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
-      produce(S);
-    }
-  }
+        pci(0) {}
 
-  // The source of the producer's next chunk, or null at the span's end.
-  __device__ const E* next_chunk() {
+  __device__ const E* next() {
     constexpr int64_t TT = (int64_t)BN * BN;
     if (part == 1 && prow >= pend) return nullptr;
     const E* tile = part == 1 ? diag + prow * TT : off + prow * TT;
@@ -307,19 +286,84 @@ struct TileRing {
     }
     return src;
   }
+};
+
+// The row-sharded kernels' stream: full storage (nrb, kmax, BN, BN) keeps
+// the kmax tiles of a block-row, and the rows of a span, contiguous, so the
+// span [row0, row1) is one run of (row1 - row0) kmax tiles, cut in chunks.
+template <int BN, class E>
+struct SlotStream {
+  using C = TileChunk<BN, E>;
+  const E* src;
+  int64_t left;  // chunks still to issue
+
+  __device__ SlotStream(const E* blocks, int kmax, int row0, int row1)
+      : src(blocks + (int64_t)row0 * kmax * BN * BN),
+        left((int64_t)(row1 - row0) * kmax * C::kPerTile) {}
+
+  __device__ const E* next() {
+    if (left == 0) return nullptr;
+    --left;
+    const E* s = src;
+    src += C::kRows * BN;
+    return s;
+  }
+};
+
+template <int BN, class E, class Stream = BandedStream<BN, E>>
+struct TileRing {
+  using C = TileChunk<BN, E>;
+  static constexpr int NJ = BN / 32;
+  static constexpr int RW = C::kRows / kWarps;  // a warp's rows in a chunk
+  unsigned char* buf;
+  uint64_t *full, *empty;
+  int S;
+  int stage = 0;        // the next chunk to read: its stage and phase
+  unsigned phase = 0;
+  Stream src;           // thread 0: the producer's place in the span's stream
+  unsigned issued = 0, consumed = 0;
+  uint64_t policy = 0;
+
+  // Thread 0 initialises the barriers and issues the first S chunks; the
+  // caller's next __syncthreads publishes the barriers to the other threads.
+  __device__ TileRing(unsigned char* smem, int stages, const Stream& stream)
+      : buf(smem + ring_bar_bytes(stages)),
+        full(reinterpret_cast<uint64_t*>(smem)),
+        empty(reinterpret_cast<uint64_t*>(smem) + stages),
+        S(stages),
+        src(stream) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < S; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+      produce(S);
+    }
+  }
+
+  // Thread 0: wait for the chunks issued so far (before any is read), so
+  // that a CTA which leaves early (a step after the end) leaves no copy in
+  // flight into its shared memory.
+  __device__ void drain() {
+    if (threadIdx.x == 0) {
+      for (unsigned i = 0; i < issued; ++i) mbar_wait(full + i, 0);
+    }
+  }
 
   // Thread 0: issue chunks until `upto` have been issued or the span ends.
   __device__ void produce(unsigned upto) {
     while (issued < upto) {
-      const E* src = next_chunk();
-      if (src == nullptr) return;
+      const E* from = src.next();
+      if (from == nullptr) return;
       const unsigned s = issued % S;
       if (issued >= (unsigned)S) mbar_wait(empty + s, (issued / S - 1) & 1);
       mbar_expect_tx(full + s, C::kBytes);
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
           " [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(buf + (size_t)s * C::kBytes)),
-          "l"(src), "r"((unsigned)C::kBytes), "r"(smem_addr(full + s)), "l"(policy)
+          "l"(from), "r"((unsigned)C::kBytes), "r"(smem_addr(full + s)), "l"(policy)
           : "memory");
       ++issued;
     }

@@ -68,9 +68,12 @@ SIGNATURES = {
     "bicgstab_dir_packed": [_P] * 19 + [_I64, _P],
     "bicgstab_s_packed": [_P] * 21 + [_I64, _P],
     "bicgstab_update": [_P] * 15 + [_I, _I64, _I, _P],
-    # the banded landings' ring depth (a measurement knob)
+    # the ring depth of the banded landings and the row-sharded kernels (a
+    # measurement knob)
     "cg_sym_dir_banded_stages": [_I],
     "minres_sym_dir_banded_stages": [_I],
+    "cg_bell_spmv_dot_stages": [_I],
+    "minres_shard_dir_stages": [_I],
 }
 # the bfloat16-tile forms take the arguments of their float32 entry points
 SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (

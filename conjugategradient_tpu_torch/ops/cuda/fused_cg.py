@@ -258,7 +258,7 @@ def _sym_dir_cuda(diag, off, off_cols, r2d, pold2d, beta, inv_diag2d,
     common = (ptr(r2d), ptr(pold2d), ptr(inv_diag2d), ptr(beta),
               ptr(p_new), ptr(q), ptr(pap))
     if mirror == "banded":
-        check_banded_tiles(name, diag, off)
+        check_ring_tiles(name, diag, off)
         err = getattr(lib, form("cg_sym_dir_banded", diag.dtype))(
             ptr(diag), ptr(off), ptr(off_cols), *common,
             ptr(work.partials), ptr(work.counter), ptr(work.scal),
@@ -288,11 +288,22 @@ def set_banded_ring_stages(stages: int) -> int:
     return lib.cg_sym_dir_banded_stages(int(stages))
 
 
-def check_banded_tiles(name: str, diag: torch.Tensor, off: torch.Tensor) -> None:
-    """The banded kernels copy their tiles with cp.async.bulk, which needs
-    16-byte-aligned sources."""
-    if diag.data_ptr() % 16 or off.data_ptr() % 16:
-        raise ValueError(f"{name}: the banded landing needs 16-byte-aligned tiles")
+def set_sharded_ring_stages(stages: int) -> int:
+    """Ring depth of the row-sharded kernels 6 and 17 from their next launch
+    on (at least 3; 0: the default).  A measurement knob, as
+    :func:`set_banded_ring_stages`.  Returns the previous setting."""
+    from ._build import load_library
+
+    lib = load_library()
+    lib.minres_shard_dir_stages(int(stages))
+    return lib.cg_bell_spmv_dot_stages(int(stages))
+
+
+def check_ring_tiles(name: str, *tiles: torch.Tensor) -> None:
+    """The ring-staged kernels (1 and 15 banded, 6 and 17) copy their tiles
+    with cp.async.bulk, which needs 16-byte-aligned sources."""
+    if any(t.data_ptr() % 16 for t in tiles):
+        raise ValueError(f"{name}: the staged tile ring needs 16-byte-aligned tiles")
 
 
 # ---- kernel 4 --------------------------------------------------------------
@@ -499,7 +510,10 @@ def bell_spmv_dot(
     partitioned).  Returns q (nrb, bn) and pap (1, 1).  ``out``: (q, pap) buffers to fill; q must not lie on
     ``x2d``.  ``work``: scratch, and the solve's ``ctl`` (a step after the
     end is a no-op); the kernel does no scalar step.  ``row_group``:
-    block-rows per CTA (None: :func:`auto_row_group`).
+    block-rows per strip, one dot partial each, which fixes the sum's order
+    (None: :func:`auto_row_group`); persistent CTAs walk spans of strips and
+    stage the tiles through a ring in shared memory, so on the card the
+    tiles must be 16-byte aligned.
     """
     name = "bell_spmv_dot"
     if blocks.dim() != 4:
@@ -564,6 +578,7 @@ def _spmv_dot_cuda(blocks, block_cols, x2d, row_offset, out, work, row_group):
         work = FusedWork.new(dev)
     q, pap = out if out is not None else (x2d.new_empty(nrb, bn), x2d.new_empty(1, 1))
     check_cuda_operands(name, (blocks, block_cols, x2d, q, pap))
+    check_ring_tiles(name, blocks)
     grid = -(-nrb // row_group)
     if work.partials.numel() < grid:
         work.partials = torch.empty(grid, device=dev)

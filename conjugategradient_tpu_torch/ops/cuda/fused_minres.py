@@ -79,7 +79,7 @@ from ._common import (
 )
 from .bell_spmv import check_packed_vectors, packed_product
 from .fused_cg import (C_DONE, C_K, C_LIVE, C_MAXITER, _extra, _live,  # noqa: F401
-                       auto_row_group, check_banded_tiles, put_hist)
+                       auto_row_group, check_ring_tiles, put_hist)
 
 # slots of the (1, 8) scalar row kernel 1 reads (the JAX kernels' SU_* row)
 SU_INV_BETA = 0
@@ -383,7 +383,7 @@ def sym_minres_dir_spmv_dot(
     dev = r2_2d.device
 
     if mirror == "banded":
-        check_banded_tiles(name, diag_blocks, off_blocks)
+        check_ring_tiles(name, diag_blocks, off_blocks)
 
     def launch(lib, common, w):
         if mirror == "banded":
@@ -525,8 +525,9 @@ def minres_shard_spmv_dot(
     may be ``wm2_2d`` and x_new may be ``x2d`` (each element is read and
     written by one thread); no other aliasing is allowed.  ``work``:
     scratch, and the solve's ``ctl`` (a step after the end is a no-op); the
-    kernel does no scalar step.  ``row_group``: block-rows per CTA (None:
-    ``auto_row_group``).
+    kernel does no scalar step.  ``row_group``: block-rows per strip, one
+    partial of each dot (None: ``auto_row_group``); the tiles are staged as
+    kernel 6's (``fused_cg.bell_spmv_dot``), 16-byte aligned on the card.
     """
     name = "minres_shard_spmv_dot"
     if blocks.dim() != 4:
@@ -628,6 +629,7 @@ def _shard_cuda(blocks, block_cols, vfull2d, vecs, su, row_offset, out, work, ro
         out = (torch.empty_like(r1), torch.empty_like(r1), torch.empty_like(r1),
                r1.new_empty(2))
     check_cuda_operands(name, (blocks, block_cols, vfull2d, *vecs, su, *out))
+    check_ring_tiles(name, blocks)
     grid = -(-nrb // row_group)
     if work.partials.numel() < 2 * grid:
         work.partials = torch.empty(2 * grid, device=dev)

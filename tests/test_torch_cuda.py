@@ -2685,3 +2685,141 @@ def test_banded_kernels_same_bits_at_every_ring_depth(dev, dtype):
             assert all(torch.equal(u, v) for u, v in zip(both(), ref)), stages
     finally:
         fc.set_banded_ring_stages(0)
+
+
+# ---- kernels 6 and 17 on the staged tile ring ------------------------------------
+
+# (nrb, row_group): one row; strips of 3 and 8 with a ragged last strip; one
+# strip a CTA; more strips than the card holds CTAs at once, so a CTA walks
+# a span of several
+SHARD_SHAPES = [(1, 1), (13, 3), (13, 8), (256, 1), (256, 3), (1301, 1), (1301, 8)]
+
+
+def _ring_shard(nrb, bn, dev, seed):
+    """One shard of three on the card, made there: random (nrb, 3, bn, bn)
+    tiles with GLOBAL column blocks over 3 nrb block-rows, padding slots
+    (a zero tile at column block 0) in slot 2 of the last row and, from
+    nrb = 13, rows 3 and 7; the gathered operand and the shard's offset."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ncb = 3 * nrb
+    blocks = torch.randn(nrb, 3, bn, bn, device=dev, generator=g)
+    cols = torch.randint(0, ncb, (nrb, 3), device=dev, generator=g, dtype=torch.int32)
+    for h in (nrb - 1, *((3, 7) if nrb >= 13 else ())):
+        blocks[h, 2] = 0.0
+        cols[h, 2] = 0
+    full = torch.randn(ncb, bn, device=dev, generator=g)
+    return blocks, cols, full, nrb * bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrb,R", SHARD_SHAPES)
+@pytest.mark.parametrize("bn", [32, 64, 128, 256])
+def test_bell_spmv_dot_kernel_staged(dev, bn, nrb, R):
+    """Kernel 6 on the staged tile ring, float32 and bf16 tiles: q within
+    RTOL of max|q| and pap within RTOL of sum |x q| of the plain version;
+    one launch counted; two launches bit-identical; the bf16 launch
+    bit-equal to the float32 launch on the widened tiles; not live, it
+    writes nothing."""
+    from conjugategradient_tpu_torch.ops.cuda._common import form
+
+    blocks, cols, full, off = _ring_shard(nrb, bn, dev, seed=bn + nrb)
+    lo = blocks.bfloat16()
+    win = full[off // bn:off // bn + nrb]
+    for tiles in (blocks, lo):
+        name = form("bell_spmv_dot", tiles.dtype)
+        before = fc.LAUNCHES[name]
+        qk, pk = fc.bell_spmv_dot(tiles, cols, full, off, row_group=R)
+        assert fc.LAUNCHES[name] == before + 1
+        qk2, pk2 = fc.bell_spmv_dot(tiles, cols, full, off, row_group=R)
+        qp, pp = fc._spmv_dot_plain(tiles, cols, full, off, None, None)
+        torch.cuda.synchronize()
+        _close(qk, qp)
+        _dot_close(pk, pp, win, qp)
+        assert torch.equal(qk, qk2) and torch.equal(pk, pk2)
+    kb, kw = (fc.bell_spmv_dot(t, cols, full, off, row_group=R) for t in (lo, lo.float()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(kb, kw))
+    work = fc.FusedWork.new(dev, maxiter=0)
+    out = (torch.full((nrb, bn), 7.0, device=dev), torch.full((1, 1), 7.0, device=dev))
+    fc.bell_spmv_dot(lo, cols, full, off, row_group=R, out=out, work=work)
+    torch.cuda.synchronize()
+    assert all(bool((o == 7).all()) for o in out) and int(work.counter) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrb,R", SHARD_SHAPES)
+@pytest.mark.parametrize("bn", [32, 64, 128, 256])
+def test_minres_shard_kernel_staged(dev, bn, nrb, R):
+    """Kernel 17 on the staged tile ring, float32 and bf16 tiles, with and
+    without the pending update, launched in place as the loop launches it
+    (w over w-2, x' over x): w and x' bit-equal to the plain version, q
+    within RTOL of max|q|, both dots within RTOL of their sum |a b|; one
+    launch counted; the bf16 launch bit-equal to the float32 launch on the
+    widened tiles; not live, it writes nothing."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+    from conjugategradient_tpu_torch.ops.cuda._common import form
+
+    blocks, cols, full, off = _ring_shard(nrb, bn, dev, seed=3 * bn + nrb)
+    lo = blocks.bfloat16()
+    win = full[off // bn:off // bn + nrb]
+    g = torch.Generator(device=dev).manual_seed(nrb)
+    vecs = [torch.randn(nrb, bn, device=dev, generator=g) for _ in range(5)]
+    for first in (False, True):
+        su = torch.zeros(1, 8, device=dev)
+        su[0, fm.SU_SHIFT] = 0.07
+        if not first:
+            su[0, fm.SU_OLDEPS:fm.SU_PHI + 1] = torch.tensor([0.11, 0.23, 0.57, 0.83])
+        for tiles in (blocks, lo):
+            name = form("minres_shard_spmv_dot", tiles.dtype)
+            pl = fm._shard_plain(tiles, cols, full, tuple(vecs), su, off, None, None)
+            r1, vprev, wm1, wm2, x = (v.clone() for v in vecs)
+            out = (torch.empty_like(r1), wm2, x, torch.empty(2, device=dev))
+            before = fc.LAUNCHES[name]
+            k = fm.minres_shard_spmv_dot(tiles, cols, full, r1, vprev, wm1, wm2, x, su, off,
+                                         row_group=R, out=out)
+            assert fc.LAUNCHES[name] == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(k[1], pl[1]) and torch.equal(k[2], pl[2])
+            _close(k[0], pl[0])
+            _dot_close(k[3], pl[3], win, pl[0])
+            _dot_close(k[4], pl[4], win, vecs[0])
+        kb, kw = (fm.minres_shard_spmv_dot(t, cols, full, *vecs, su, off, row_group=R)
+                  for t in (lo, lo.float()))
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(kb, kw))
+    work = fm.MinresWork.new(dev, maxiter=0)
+    out = tuple(torch.full_like(vecs[0], 7.0) for _ in range(3)) + (
+        torch.full((2,), 7.0, device=dev),)
+    fm.minres_shard_spmv_dot(lo, cols, full, *vecs, su, off, row_group=R, out=out, work=work)
+    torch.cuda.synchronize()
+    assert all(bool((o == 7).all()) for o in out) and int(work.counter) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sharded_kernels_same_bits_at_every_ring_depth(dev, dtype):
+    """The ring depth is a measurement knob: kernels 6 and 17 give the same
+    bits at 3, 4 and 7 stages as at the default."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_minres as fm
+
+    nrb, bn, R = 301, 128, 1
+    blocks, cols, full, off = _ring_shard(nrb, bn, dev, seed=13)
+    tiles = blocks.to(dtype)
+    g = torch.Generator(device=dev).manual_seed(5)
+    vecs = [torch.randn(nrb, bn, device=dev, generator=g) for _ in range(5)]
+    su = torch.zeros(1, 8, device=dev)
+    su[0, fm.SU_SHIFT:fm.SU_PHI + 1] = torch.tensor([0.07, 0.11, 0.23, 0.57, 0.83])
+
+    def both():
+        k6 = fc.bell_spmv_dot(tiles, cols, full, off, row_group=R)
+        k17 = fm.minres_shard_spmv_dot(tiles, cols, full, *vecs, su, off, row_group=R)
+        torch.cuda.synchronize()
+        return (*k6, *k17)
+
+    ref = both()
+    try:
+        for stages in (3, 4, 7):
+            fc.set_sharded_ring_stages(stages)
+            assert all(torch.equal(u, v) for u, v in zip(both(), ref)), stages
+    finally:
+        fc.set_sharded_ring_stages(0)
