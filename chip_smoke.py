@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the forty-seven kernels against its plain-torch version on the
+2. Hold each of the forty-nine kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -16,11 +16,13 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    and float64) and at small ragged shapes, and time both, beside one
    library call (cuSPARSE ``torch.sparse_csr_tensor @ x`` for the SpMVs,
    cuDNN ``conv3d`` with TF32 off for the stencil) and the least time the
-   card could take for each kernel's bytes.  ``stencil7``,
-   ``fused_stencil_dir_dot`` (p_new, q) and ``fused_update_dot(_pcg)``
-   (x', r'; also at lengths 210, 4097 and 256^3) must be bit-equal to
-   their plain versions; a NaN put into the stencil's input reaches only its point and
-   its six neighbours.  The fused MINRES kernels (full storage, symmetric
+   card could take for each kernel's bytes.  Kernel 11 on each of its
+   kernels that can take the volume (``stencil7_staged``, the staged
+   kernel, forced where its rows and alignment allow, and ``stencil7``,
+   the register march, forced), ``fused_stencil_dir_dot`` (p_new, q) and
+   ``fused_update_dot(_pcg)`` (x', r'; also at lengths 210, 4097 and
+   256^3) must be bit-equal to their plain versions; a NaN put into the
+   stencil's input reaches only its point and its six neighbours.  The fused MINRES kernels (full storage, symmetric
    storage with the banded and the general landing, the update; with and
    without the Jacobi diagonal, shift 0 and not 0, a first step without a
    pending update) give v, w, x' and r2' bit-equal, q and the dots within
@@ -143,7 +145,9 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    steps (and its busy share over 64), the portable loop, and bench.py's
    mgpcg comparison (plain fused CG against MG-PCG with each smoother, to
    1e-5 ||b||); residual replacement against the CPU's plain versions on
-   64^3 and a ragged 33 x 35 x 37 grid; one x0 warm start.
+   64^3 and a ragged 33 x 35 x 37 grid; one x0 warm start; 32 steps of
+   the portable loop on the ragged grid (kernel 11's register march).
+   Every path prints kernel 11's launches on each route.
    Then the MINRES path, with its own reset and read: the tester with
    ``--method minres`` on poisson3d_48 (symbell and bell, float32, with and
    without Jacobi), once with ``--shift`` inside the spectrum, and on CSR
@@ -202,7 +206,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    128 x 128 blocked-ELL (packed kernel 5) for 128 steps against the same
    float32 solve on the CPU (``trajectory_ok``, the final true residual to
    1e-3); Chebyshev PCG (degree 8, ``estimate_spectral_bounds``) on the
-   256^3 stencil (``stencil7``) to 1e-5 ||b|| beside plain CG, in fewer
+   256^3 stencil (``stencil7_staged``) to 1e-5 ||b|| beside plain CG, in fewer
    iterations; block-Jacobi PCG (b = 8) through the tester on poisson3d_48
    ``--layout auto`` (DIA: kernel 7 for A and for the apply); the
    reference's object API (``CG.createCG(torch.float32)``) on poisson3d_48's
@@ -213,7 +217,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    tester's ``--estimate-steps`` and ``--progress 64``.
    Then the multi-RHS path, with its own reset and read (the ``*_multi``
    SpMVs are plain torch, as in the JAX package; the path's kernels are
-   ``stencil7`` and ``dia_spmv_rows``): ``bell_spmv_multi`` on bench.py's
+   ``stencil7_staged`` and ``dia_spmv_rows``): ``bell_spmv_multi`` on bench.py's
    batched operator (n = 131,072, 128 x 128, float32) at R = 1, 8 and 32,
    each column within 1e-5 of max|Y| of kernel 5 on that column, timed
    beside R launches of kernel 5; ``sym_bell_spmv_multi`` on the n =
@@ -235,7 +239,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    its history hash equal to one uninterrupted batched solve's.
    Then the pipelined / s-step path, with its own reset and read (its
    kernels: ``bell_spmv``, ``dia_spmv_rows``, ``sym_dia_spmv``,
-   ``stencil7``): ``cg_solve(fused="never")``, ``pipelined_cg_solve`` and
+   ``stencil7_staged``): ``cg_solve(fused="never")``, ``pipelined_cg_solve`` and
    ``sstep_cg_solve`` at s = 2 and 4, 256 float32 steps each at tol = -1
    on the n = 262,144 full-storage tiles (kernel 5; on the cut copy if the
    pipelined loop stops early there), each required to make every step:
@@ -305,7 +309,9 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    (``trajectory_ok``), 64 steps on the n = 262,144 bf16 shards beside
    float32, and a NaN tile value; the tester on ``stencil:256 --dtype
    bfloat16`` and ``stencil:64 --dtype bfloat16 --method minres`` (the
-   portable loops on bf16 vectors, kernel 11's bf16 form) beside float32.
+   portable loops on bf16 vectors, kernel 11's bf16 form) beside float32;
+   32 steps of the portable CG on a ragged 33 x 35 x 37 bf16 grid (kernel
+   11's bf16 register march).
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -345,6 +351,23 @@ on float32 and on bf16 shards (history and x); one hash a call of kernels
 6 and 17 in float32 and bf16 on the n = 262,144 operator's P = 4 shards 0
 and 3 and P = 8 shard 0, and on ragged nrb = 13 shards at bn = 32 and 64
 with row_group None and 3 (``sharded_hashes``).
+
+``python3 chip_smoke.py --stencil-only [TREE]`` runs kernel 11 alone: one
+hash a call in float32, float64 and bf16 at 256^3, on the small, ragged
+and offset (misaligned) volumes of ``stencil_hashes``, with (6, -1), the
+bf16-rounded (0.1, -1/3) and in bf16 the float32 (0.1, -1/3); the history
+and x of the portable bf16 CG on stencil:256 (the tester's), float32
+MG-PCG and Chebyshev PCG at 256^3; the ``-Xptxas -v`` report and the
+``cuobjdump -sass`` counts of conversion, bf16-pair, arithmetic, load and
+store instructions of each kernel-11 function; a launch's device time at
+256^3 (one volume, and four volumes taken in turn so that L2 cannot hold
+the input) and at each V-cycle level (128^3 .. 16^3) in the three types,
+staged and register march forced beside each other; one V-cycle apply's
+device time; the portable bf16 CG on stencil:256 (ms/it and device ms a
+step); the staged kernel's ring depth and x-chunk sweep.  Given the
+root of another checkout (TREE), its kernels run beside this tree's in
+the same process (TREE's, this tree's, this tree's, TREE's), and its
+``stencil.cu`` is compiled beside this one for the report and counts.
 
 ``python3 chip_smoke.py --sharded-only [TREE]`` runs kernels 6 and 17
 alone: the ``-Xptxas -v`` report, their ring's geometry and depth sweep
@@ -388,6 +411,7 @@ SOURCES = {
     "dia_spmv_rows": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "sym_dia_spmv": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
     "stencil7": "conjugategradient_tpu_torch/csrc/stencil.cu",
+    "stencil7_staged": "conjugategradient_tpu_torch/csrc/stencil.cu",
     "fused_stencil_dir_dot": "conjugategradient_tpu_torch/csrc/fused_stencil.cu",
     "minres_dir_spmv_dot": MINRES_SOURCE,
     "sym_minres_dir_spmv_dot": MINRES_SOURCE,
@@ -423,6 +447,9 @@ REPLACES = {
                      "dia_spmv.py:130 (dia_spmv_pallas_2d), "
                      "dia_spmv.py:398 (dia_spmv_pallas_blocked)",
     "stencil7": "conjugategradient_tpu/ops/pallas/stencil.py:136",
+    # kernel 11's staged kernel: the same function (its route by shape, dtype
+    # and alignment; ops/cuda/stencil.stencil_route)
+    "stencil7_staged": "conjugategradient_tpu/ops/pallas/stencil.py:136",
     "fused_stencil_dir_dot": "conjugategradient_tpu/ops/pallas/fused_stencil.py:69",
     "minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
     "sym_minres_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_minres.py:298",
@@ -455,14 +482,14 @@ for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_
               "minres_dir_spmv_dot", "minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot",
               "sym_minres_dir_spmv_dot_packed", "minres_shard_spmv_dot",
               "bicgstab_dir_spmv_dot", "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot",
-              "bicgstab_s_spmv_dot_packed", "bell_spmv_dot", "stencil7"):
+              "bicgstab_s_spmv_dot_packed", "bell_spmv_dot", "stencil7", "stencil7_staged"):
     SOURCES[f"{_name}_bf16"] = SOURCES[_name]
     REPLACES[f"{_name}_bf16"] = REPLACES[_name]
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
                    "fused_dir_spmv_dot_packed", "sym_fused_dir_spmv_dot_packed")
 DIA_KERNELS = ("dia_spmv", "dia_spmv_rows", "sym_dia_spmv", "sym_dia_spmv_tiled")
-STENCIL_KERNELS = ("stencil7", "fused_stencil_dir_dot", "fused_update_dot")
+STENCIL_KERNELS = ("stencil7", "stencil7_staged", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
                   "bell_spmv", "bell_spmv_packed", "minres_dir_spmv_dot_packed",
                   "sym_minres_dir_spmv_dot_packed")
@@ -2390,6 +2417,15 @@ def forced_route(packed: bool):
             mod.bell_packed_route = saved
 
 
+def k11_launches(bf16: bool = False) -> int:
+    """Launches of kernel 11 on either route (the staged kernel or the
+    register march), of its float32 / float64 forms or of its bf16 ones."""
+    from conjugategradient_tpu_torch.ops.cuda import _common
+
+    sfx = "_bf16" if bf16 else ""
+    return _common.LAUNCHES["stencil7" + sfx] + _common.LAUNCHES["stencil7_staged" + sfx]
+
+
 def kernel5_launches() -> int:
     """Launches of kernel 5 in either form (dense tiles or packed)."""
     from conjugategradient_tpu_torch.ops.cuda import _common
@@ -2831,28 +2867,43 @@ def nan_mask(shape, at, dev):
     return want
 
 
+def k11_routes(u):
+    """Kernel 11's kernels that can take ``u``, each forced: the staged
+    kernel where u's rows are 16-byte multiples on an aligned base (whatever
+    the size threshold), and the register march; (counter, context)."""
+    routes = [("stencil7", stencil_general_route)]
+    if (u.shape[2] * u.element_size()) % 16 == 0 and u.data_ptr() % 16 == 0:
+        routes.insert(0, ("stencil7_staged", stencil_staged_route))
+    return routes
+
+
 def check_stencil7(shape, dtype, dev, errs, rng):
-    """stencil7 bit for bit against its plain version, and a NaN at one
-    point reaching only that point and its six neighbours in both."""
+    """stencil7 on each of its routes (k11_routes) bit for bit against its
+    plain version, and a NaN at one point reaching only that point and its
+    six neighbours in both."""
     import torch
 
     from conjugategradient_tpu_torch.ops.cuda import stencil as ks
 
     u = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
-    yk, yp = ks.stencil7(u, 6.0, -1.0), ks._stencil7_plain(u, 6.0, -1.0)
-    torch.cuda.synchronize()
-    e, m = rel_max_err(yk, yp)
-    check(torch.equal(yk, yp), f"stencil7 {shape} {dtype}: not bit-equal to the plain version ({e})")
+    un = u.clone()
     at = tuple(n // 2 for n in shape)
-    u[at] = float("nan")
-    yk, yp = ks.stencil7(u, 6.0, -1.0), ks._stencil7_plain(u, 6.0, -1.0)
+    un[at] = float("nan")
     want = nan_mask(shape, at, dev)
-    check(torch.equal(torch.isnan(yk), want) and torch.equal(torch.isnan(yp), want)
-          and torch.equal(yk.nan_to_num(), yp.nan_to_num()),
-          f"stencil7 {shape} {dtype}: a NaN reached other points than its neighbours")
-    errs["stencil7"] = max(errs["stencil7"], e)
-    print(f"  stencil7 {str(shape):<16} {str(dtype):<14} bit-equal (max|y| {m:.4g}); "
-          f"NaN reaches {int(want.sum())} points in both")
+    yp, ypn = ks._stencil7_plain(u, 6.0, -1.0), ks._stencil7_plain(un, 6.0, -1.0)
+    for name, ctx in k11_routes(u):
+        with ctx():
+            yk, ykn = ks.stencil7(u, 6.0, -1.0), ks.stencil7(un, 6.0, -1.0)
+        torch.cuda.synchronize()
+        e, m = rel_max_err(yk, yp)
+        check(torch.equal(yk, yp),
+              f"{name} {shape} {dtype}: not bit-equal to the plain version ({e})")
+        check(torch.equal(torch.isnan(ykn), want) and torch.equal(torch.isnan(ypn), want)
+              and torch.equal(ykn.nan_to_num(), ypn.nan_to_num()),
+              f"{name} {shape} {dtype}: a NaN reached other points than its neighbours")
+        errs[name] = max(errs[name], e)
+        print(f"  {name:<15} {str(shape):<16} {str(dtype):<14} bit-equal (max|y| {m:.4g}); "
+              f"NaN reaches {int(want.sum())} points in both")
     return u
 
 
@@ -2920,19 +2971,24 @@ def phase_stencil_kernels(dev, errs, times, extra):
     x, p, rr, q, _, alpha = check_update((n,), rng, False, errs, "256^3", dev)
 
     torch.backends.cudnn.allow_tf32 = False  # the yardstick in full float32
-    for dtype, key in ((torch.float32, "stencil7"), (torch.float64, "stencil7 float64 256^3")):
+    for dtype in (torch.float32, torch.float64):
         u = big[dtype]
-        t = time_pair(lambda: ks.stencil7(u, 6.0, -1.0), lambda: ks._stencil7_plain(u, 6.0, -1.0))
-        t.update(bound(2 * nbytes(u), 8 * n,
-                       PEAK_F32_PER_S if dtype == torch.float32 else PEAK_F64_PER_S))
         conv = conv3d_stencil(u, 6.0, -1.0)
-        e, m = rel_max_err(conv(), ks.stencil7(u, 6.0, -1.0))
-        check(e <= TOL_Q * m, f"conv3d yardstick {dtype}: differs from stencil7 by {e} (max {m})")
-        t["library_ms"] = library_ms(conv)
-        if key == "stencil7":
-            times[key] = t
-        else:
-            extra[key] = t
+        lib_ms = library_ms(conv)
+        for name, ctx in k11_routes(u):
+            with ctx():
+                t = time_pair(lambda: ks.stencil7(u, 6.0, -1.0),
+                              lambda: ks._stencil7_plain(u, 6.0, -1.0))
+                e, m = rel_max_err(conv(), ks.stencil7(u, 6.0, -1.0))
+            t.update(bound(2 * nbytes(u), 8 * n,
+                           PEAK_F32_PER_S if dtype == torch.float32 else PEAK_F64_PER_S))
+            check(e <= TOL_Q * m, f"conv3d yardstick {dtype}: differs from {name} by {e} "
+                  f"(max {m})")
+            t["library_ms"] = lib_ms
+            if dtype == torch.float32:
+                times[name] = t
+            else:
+                extra[f"{name} float64 256^3"] = t
     work = fc.FusedWork.new(dev, maxiter=1 << 20, tol=-1.0)
     out = (torch.empty_like(r), torch.empty_like(r))
     t = time_pair(lambda: kfs.fused_stencil_dir_dot(r, pold, beta, 6.0, -1.0, out=out, work=work),
@@ -3098,16 +3154,27 @@ def phase_stencil_path(dev, card):
     bs = stencil_rhs(sop.shape[0], dev)
     x0 = torch.as_tensor(np.random.default_rng(6).standard_normal(sop.shape[0]),
                          dtype=torch.float32, device=dev)
-    before = _common.LAUNCHES["stencil7"]
+    before = k11_launches()
     x, info = fused_stencil_cg_solve(sop, bs, x0, tol=TOL_SOLVE_REL * bnorm(sop.shape[0]))
     r0 = (bs.cpu() - sop.to("cpu").matvec(x0.cpu())).double()
     e0 = abs(float(info.rho_history[0]) / float(r0 @ r0) - 1)
     rel = float(accuracy(sop, bs, x))
-    check(_common.LAUNCHES["stencil7"] > before, "x0 warm start did not launch stencil7")
+    check(k11_launches() > before, "x0 warm start did not launch kernel 11")
     check(bool(info.converged) and rel < REL_ERROR_BOUND and e0 <= TOL_DOT,
           f"stencil x0 warm start: converged {bool(info.converged)}, rel_error {rel}, r0 {e0}")
     print(f"  x0 warm start stencil 64^3: {int(info.iterations)} its, ||r0||^2 rel diff {e0:.3g}, "
           f"rel_error {rel:.3e}")
+    # (h) the portable loop on a ragged grid: rows of 37 float32 points are not
+    # 16-byte multiples, so kernel 11 takes its register march
+    rop = StencilOperator.poisson((33, 35, 37), device=dev)
+    before = _common.LAUNCHES["stencil7"]
+    _, ri = cg_solve(rop, stencil_rhs(rop.shape[0], dev), tol=-1.0, maxiter=32, fused="never")
+    check(int(ri.iterations) == 32 and _common.LAUNCHES["stencil7"] - before >= 32
+          and bool(torch.isfinite(ri.rho_history).all()),
+          f"portable CG (33, 35, 37): {int(ri.iterations)} its, "
+          f"{_common.LAUNCHES['stencil7'] - before} register-march launches")
+    print(f"  portable CG stencil (33, 35, 37) float32, 32 steps: "
+          f"{_common.LAUNCHES['stencil7'] - before} launches of kernel 11's register march")
     torch.cuda.synchronize()
 
 
@@ -4265,7 +4332,7 @@ F32_EPS = 2.0 ** -23
 CHEB_DEGREE = 8
 BJ_BLOCK = 8
 CKPT_CHUNKS = 4  # run_cg chunks of 64 steps, through a file between each
-GMRES_KERNELS = ("dia_spmv_rows", "bell_spmv_packed", "stencil7")
+GMRES_KERNELS = ("dia_spmv_rows", "bell_spmv_packed", "stencil7_staged")
 
 
 def gmres_bytes_per_step(dia, n: int, m: int) -> int:
@@ -4541,7 +4608,7 @@ def phase_gmres_path(dev, big, big_full, card):
 
 # ---- the multi-RHS path ---------------------------------------------------
 
-MULTI_KERNELS = ("stencil7", "dia_spmv_rows")
+MULTI_KERNELS = ("stencil7_staged", "dia_spmv_rows")
 MULTI_N = 131_072  # bench.py:516-546's bench_batched operator (201 MB of tiles)
 MULTI_R = (1, 8, 32)
 MULTI_LANES = 8
@@ -4762,10 +4829,10 @@ def phase_multi_path(dev, big, big_full, card):
 
     ns = int(MULTI_STENCIL.split(":")[1]) ** 3
     tol_s = TOL_SOLVE_REL * bnorm(ns)
-    before = _common.LAUNCHES["stencil7"]
+    before = k11_launches()
     fields, lanes, summ = multi_tester([MULTI_STENCIL, "--dtype", "float32", "--nrhs", "4",
                                         "--tol", repr(tol_s)])
-    launched = _common.LAUNCHES["stencil7"] - before
+    launched = k11_launches() - before
     check(lanes["converged"] == [True] * 4 and launched >= 2 * sum(lanes["iterations"]),
           f"tester {MULTI_STENCIL} --nrhs 4: {lanes}, {launched} stencil7 launches")
     print(f"  tester {MULTI_STENCIL} --nrhs 4 float32 (each lane the solo portable loop): "
@@ -4854,7 +4921,7 @@ def phase_multi_path(dev, big, big_full, card):
                         int(ib.iterations.max()))
 
 
-CA_KERNELS = ("bell_spmv", "dia_spmv_rows", "sym_dia_spmv", "stencil7")
+CA_KERNELS = ("bell_spmv", "dia_spmv_rows", "sym_dia_spmv", "stencil7_staged")
 CA_STEPS = 256  # at tol = -1 on the n = 262,144 full-storage tiles
 CA_S = (2, 4)  # s-step block sizes timed there
 CA_F64_TOL_REL = 1e-8  # float64 poisson3d_48 solves to 1e-8 ||b||
@@ -5569,10 +5636,16 @@ UPDATE_SHARDS = (4, 8)  # the sharded loop's P: kernels 2, 3 and 16 run at n / P
 
 
 def digest(*tensors) -> str:
-    """sha256 of the tensors' bytes, in order (16 hex digits)."""
+    """sha256 of the tensors' bytes, in order (16 hex digits); a bf16
+    tensor's bytes through an int16 view (numpy has no bf16)."""
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -6539,14 +6612,14 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
 
 BF16_BICG_KERNELS = ("bicgstab_dir_spmv_dot_bf16", "bicgstab_s_spmv_dot_bf16",
                      "bicgstab_dir_spmv_dot_packed_bf16", "bicgstab_s_spmv_dot_packed_bf16",
-                     "bell_spmv_dot_bf16", "stencil7_bf16")
+                     "bell_spmv_dot_bf16", "stencil7_bf16", "stencil7_staged_bf16")
 # the float32 form of each bf16 form timed on the same shape in phase 2
 BF16_BICG_F32_ROW = {"bicgstab_dir_spmv_dot_bf16": "bicgstab_dir_spmv_dot",
                      "bicgstab_s_spmv_dot_bf16": "bicgstab_s_spmv_dot",
                      "bicgstab_dir_spmv_dot_packed_bf16": "bicgstab_dir_spmv_dot_packed",
                      "bicgstab_s_spmv_dot_packed_bf16": "bicgstab_s_spmv_dot_packed",
                      "bell_spmv_dot_bf16": "bell_spmv_dot", "K6 bf16 tridiag P=8": "K6 tridiag P=8",
-                     "stencil7_bf16": "stencil7"}
+                     "stencil7_bf16": "stencil7", "stencil7_staged_bf16": "stencil7_staged"}
 BF16_BICG_STEPS = 256  # convdiff-512's fused BiCGStab in bf16: live steps at tol = 0
 BF16_SHARD_STEPS = 64  # the sharded fused CG on bf16 shards, P = 4, beside float32
 BF16_STENCIL_MAXITER = 4000  # the tester's bf16 stencil runs: a cap far above their counts
@@ -6619,30 +6692,35 @@ def check_stencil7_bf16(shape, dev, errs, rng):
     bf16 = torch.bfloat16
     u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(bf16)
     inexact = StencilOperator(0.1, -1 / 3, shape, bf16, dev)
-    before = fc.LAUNCHES["stencil7_bf16"]
-    for c, w in ((6.0, -1.0), (inexact.center, inexact.off)):
-        yk, yp = ks.stencil7(u, c, w), ks._stencil7_plain(u, c, w)
-        torch.cuda.synchronize()
-        check(yk.dtype == bf16 and torch.equal(yk, yp),
-              f"stencil7 bf16 {shape} c={c} w={w}: not bit-equal to the plain version")
-    check(fc.LAUNCHES["stencil7_bf16"] == before + 2, f"stencil7 bf16 {shape}: launches")
     ui = torch.as_tensor(rng.integers(-16, 17, shape), dtype=bf16, device=dev)
-    check(torch.equal(ks.stencil7(ui, 6.0, -1.0), ks.stencil7(ui.float(), 6.0, -1.0).to(bf16)),
-          f"stencil7 bf16 {shape}: integer input differs from the float32 launch")
-    y32 = ks.stencil7(u.float(), 6.0, -1.0)
-    yk = ks.stencil7(u, 6.0, -1.0)
-    ulps = float((yk.float() - y32).abs().max()) / (BF16_ULP * float(y32.abs().max()))
     at = tuple(n // 2 for n in shape)
     un = u.clone()
     un[at] = float("nan")
-    yk, yp = ks.stencil7(un, 6.0, -1.0), ks._stencil7_plain(un, 6.0, -1.0)
     want = nan_mask(shape, at, dev)
-    check(torch.equal(torch.isnan(yk), want) and torch.equal(torch.isnan(yp), want)
-          and torch.equal(yk.nan_to_num(), yp.nan_to_num()),
-          f"stencil7 bf16 {shape}: a NaN reached other points than its neighbours")
-    print(f"  stencil7_bf16 {str(shape):<16} bit-equal to the plain version (c, w exact and "
-          f"rounded); integer input = float32 launch (bits); random input {ulps:.3g} bf16 ulps "
-          f"of max|y| from the float32 launch; NaN reaches {int(want.sum())} points in both")
+    for route, ctx in k11_routes(u):
+        name = route + "_bf16"
+        with ctx():
+            before = fc.LAUNCHES[name]
+            for c, w in ((6.0, -1.0), (inexact.center, inexact.off), (0.1, -1 / 3)):
+                yk, yp = ks.stencil7(u, c, w), ks._stencil7_plain(u, c, w)
+                torch.cuda.synchronize()
+                check(yk.dtype == bf16 and torch.equal(yk.view(torch.int16), yp.view(torch.int16)),
+                      f"{name} {shape} c={c} w={w}: not bit-equal to the plain version")
+            check(fc.LAUNCHES[name] == before + 3, f"{name} {shape}: launches")
+            check(torch.equal(ks.stencil7(ui, 6.0, -1.0),
+                              ks.stencil7(ui.float(), 6.0, -1.0).to(bf16)),
+                  f"{name} {shape}: integer input differs from the float32 launch")
+            y32 = ks.stencil7(u.float(), 6.0, -1.0)
+            yk = ks.stencil7(u, 6.0, -1.0)
+            ulps = float((yk.float() - y32).abs().max()) / (BF16_ULP * float(y32.abs().max()))
+            yk, yp = ks.stencil7(un, 6.0, -1.0), ks._stencil7_plain(un, 6.0, -1.0)
+        check(torch.equal(torch.isnan(yk), want) and torch.equal(torch.isnan(yp), want)
+              and torch.equal(yk.nan_to_num(), yp.nan_to_num()),
+              f"{name} {shape}: a NaN reached other points than its neighbours")
+        print(f"  {name:<20} {str(shape):<16} bit-equal to the plain version (c, w exact, "
+              f"rounded to bf16 and float32 only); integer input = float32 launch (bits); random "
+              f"input {ulps:.3g} bf16 ulps of max|y| from the float32 launch; NaN reaches "
+              f"{int(want.sum())} points in both")
     return u
 
 
@@ -6725,18 +6803,21 @@ def phase_bf16_bicgstab_stencil_kernels(dev, bic_ops, shard_ops, errs, times, ex
     check(int(work.ctl[fb.C_LIVE]) == 1, "bf16 BiCGStab timing: the timing work stopped being live")
     sharded_table_rows(shard_ops, bf16, times, extra, ("K6",))
     n = int(np.prod(STENCIL_GRID))
-    t = time_pair(lambda: ks.stencil7(big_u, 6.0, -1.0),
-                  lambda: ks._stencil7_plain(big_u, 6.0, -1.0))
-    t.update(bound(2 * nbytes(big_u), 8 * n))  # bf16 in and out; the ops in float32
     conv = conv3d_stencil(big_u, 6.0, -1.0)
-    e, m = rel_max_err(conv().float(), ks.stencil7(big_u, 6.0, -1.0).float())
-    check(e <= 4 * BF16_ULP * m, f"conv3d bf16 yardstick: differs from stencil7_bf16 by {e} "
-          f"(max {m})")
-    t["library_ms"] = library_ms(conv)
-    times["stencil7_bf16"] = t
+    lib_ms = library_ms(conv)
+    for route, ctx in k11_routes(big_u):
+        with ctx():
+            t = time_pair(lambda: ks.stencil7(big_u, 6.0, -1.0),
+                          lambda: ks._stencil7_plain(big_u, 6.0, -1.0))
+            e, m = rel_max_err(conv().float(), ks.stencil7(big_u, 6.0, -1.0).float())
+        t.update(bound(2 * nbytes(big_u), 8 * n))  # bf16 in and out; the ops in float32
+        check(e <= 4 * BF16_ULP * m, f"conv3d bf16 yardstick: differs from {route}_bf16 by {e} "
+              f"(max {m})")
+        t["library_ms"] = lib_ms
+        times[f"{route}_bf16"] = t
+        print(f"  conv3d in bf16 (the yardstick) within {e / (BF16_ULP * m):.3g} bf16 ulps of "
+              f"max|y| of {route}_bf16")
     torch.cuda.synchronize()
-    print(f"  conv3d in bf16 (the yardstick) within {e / (BF16_ULP * m):.3g} bf16 ulps of max|y| "
-          "of stencil7_bf16")
     ratio = []
     for name, ref in BF16_BICG_F32_ROW.items():
         tb, t32 = times.get(name, extra.get(name)), times.get(ref, extra.get(ref))
@@ -6763,8 +6844,9 @@ def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
 
     import torch
 
-    from conjugategradient_tpu_torch import (bicgstab_solve, fused_bell_cg_solve,
-                                             fused_bell_pcg_solve, fused_bicgstab_solve)
+    from conjugategradient_tpu_torch import (StencilOperator, bicgstab_solve, cg_solve,
+                                             fused_bell_cg_solve, fused_bell_pcg_solve,
+                                             fused_bicgstab_solve)
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
@@ -6894,7 +6976,7 @@ def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
         tol_t = TOL_SOLVE_REL * bnorm(n_)
         row = {}
         for dtype in ("float32", "bfloat16"):
-            before = fc.LAUNCHES["stencil7_bf16"]
+            before = k11_launches(bf16=True)
             dim, nnz, ms, rel, summ, _ = run_tester(
                 f"stencil:{grid}", "csr", "none", tol_t, dtype=dtype,
                 extra=(*extra_args, "--maxiter", str(BF16_STENCIL_MAXITER)))
@@ -6902,7 +6984,7 @@ def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
             check(summ["converged"] == [True] and math.isfinite(rel),
                   f"tester stencil:{grid} {dtype} {' '.join(extra_args)}: {its} its, converged "
                   f"{summ['converged']}, rel_error {rel}")
-            check(dtype == "float32" or fc.LAUNCHES["stencil7_bf16"] - before >= its,
+            check(dtype == "float32" or k11_launches(bf16=True) - before >= its,
                   f"tester stencil:{grid} bf16: kernel 11's bf16 form did not run")
             row[dtype] = ms / max(its, 1)
             print(f"  tester stencil:{grid} --dtype {dtype} {' '.join(extra_args)} (tol 1e-5 "
@@ -6910,6 +6992,17 @@ def phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card):
                   f"rel_error {rel:.3e}  [{card}]")
         print(f"  tester stencil:{grid} {' '.join(extra_args)}: bf16 / float32 time per "
               f"iteration {row['bfloat16'] / row['float32']:.3f}")
+    # (e) the portable CG on a ragged bf16 grid: rows of 37 bf16 points are not
+    # 16-byte multiples, so kernel 11's bf16 form takes its register march
+    rop = StencilOperator.poisson((33, 35, 37), dtype=bf16, device=dev)
+    rb = torch.arange(rop.shape[0], dtype=torch.float64, device=dev).to(bf16) + 1
+    before = fc.LAUNCHES["stencil7_bf16"]
+    _, ri = cg_solve(rop, rb, tol=-1.0, maxiter=32)
+    check(int(ri.iterations) == 32 and fc.LAUNCHES["stencil7_bf16"] - before >= 32,
+          f"portable CG bf16 (33, 35, 37): {int(ri.iterations)} its, "
+          f"{fc.LAUNCHES['stencil7_bf16'] - before} register-march launches")
+    print(f"  portable CG stencil (33, 35, 37) bf16, 32 steps: "
+          f"{fc.LAUNCHES['stencil7_bf16'] - before} launches of kernel 11's bf16 register march")
 
 
 # ---- kernels 1 and 15 on the banded landing: the staged tile ring ------------
@@ -7452,6 +7545,387 @@ def sharded_only(dev, card, other=None) -> None:
     sharded_rows(dev, card, other)
 
 
+# ---- kernel 11: per-call and solve hashes, volumes in turn, SASS ------------
+
+# the per-call hashes of kernel 11 (stencil_hashes): 256^3, STENCIL_SMALL,
+# ragged volumes (nz of 1, 7, 8, 9, 130, 256; ny and nx of 1, 2, 9, 33) and
+# offset views whose base is not 16-byte aligned ((shape, offset in elements))
+STENCIL_RAGGED = ((33, 9, 1), (2, 2, 7), (1, 9, 8), (33, 1, 9), (2, 9, 130), (33, 2, 256))
+STENCIL_OFFSET = (((33, 9, 256), 1), ((33, 9, 256), 3), ((33, 9, 256), 7))
+STENCIL_VOLUMES = 4  # 256^3 volumes taken in turn: 4 x 33.5 MB in bf16, more than the L2 holds
+VCYCLE_SHAPES = tuple((s, s, s) for s in (256, 128, 64, 32, 16))  # MG-PCG's levels at 256^3
+
+
+def stencil_volume(shape, dtype, dev, seed, offset=0):
+    """A seeded standard-normal (nx, ny, nz) volume of ``dtype``, as a view
+    ``offset`` elements into a flat buffer (its base then 16-byte aligned
+    only where offset * itemsize is a multiple of 16)."""
+    import torch
+
+    n = math.prod(shape)
+    buf = torch.as_tensor(np.random.default_rng(seed).standard_normal(n + offset),
+                          dtype=torch.float64, device=dev).to(dtype)
+    return buf[offset:offset + n].view(shape)
+
+
+def stencil_coeffs(dtype):
+    """The (center, off) pairs of the per-call hashes: (6, -1); 0.1 and
+    -1/3 rounded to bf16; in bf16 also 0.1 and -1/3 rounded to float32
+    only, which bf16 cannot hold (the kernel takes float32 coefficients)."""
+    import torch
+
+    def r(v, dt):
+        return float(torch.tensor(v, dtype=torch.float64).to(dt))
+
+    pairs = [(6.0, -1.0), (r(0.1, torch.bfloat16), r(-1 / 3, torch.bfloat16))]
+    if dtype == torch.bfloat16:
+        pairs.append((r(0.1, torch.float32), r(-1 / 3, torch.float32)))
+    return pairs
+
+
+def stencil_hashes(dev, card) -> None:
+    """One hash a call of kernel 11 (``ops/cuda/stencil.stencil7``, each
+    tree's own route) in float32, float64 and bf16 on the shapes above with
+    each coefficient pair, then the history and x of three stencil solves:
+    the portable bf16 CG on stencil:256 as the tester runs it (b = 1..n
+    formed in bf16 as the tester forms it, tol 1e-5 ||b||), float32 MG-PCG
+    (Jacobi smoother) and Chebyshev PCG (degree CHEB_DEGREE, the Lanczos
+    interval) at 256^3 to 1e-5 ||b|| with b = arange / n."""
+    import torch
+
+    from conjugategradient_tpu_torch import StencilOperator, cg_solve, multigrid_preconditioner
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+    from conjugategradient_tpu_torch.solver import (chebyshev_preconditioner,
+                                                    estimate_spectral_bounds)
+
+    cases = [(s, 0) for s in (STENCIL_GRID,) + STENCIL_SMALL + STENCIL_RAGGED] + \
+        list(STENCIL_OFFSET)
+    count = 0
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64), ("bf16", torch.bfloat16)):
+        for i, (shape, off) in enumerate(cases):
+            u = stencil_volume(shape, dtype, dev, seed=40 + i, offset=off)
+            for c, w in stencil_coeffs(dtype):
+                y = ks.stencil7(u, c, w)
+                print(f"  stencil7 hash {tag} {shape} +{off} c={c!r} w={w!r}: sha256 "
+                      f"{digest(y)}  [{card}]")
+                count += 1
+    print(f"  stencil7 per-call hashes: {count}")
+    bf16 = torch.bfloat16
+    op = StencilOperator.poisson(STENCIL_GRID, dtype=bf16, device=dev)
+    n = op.shape[0]
+    b = torch.arange(n, dtype=torch.float64, device=dev).to(bf16) + 1
+    x, info = cg_solve(op, b, tol=TOL_SOLVE_REL * bnorm(n), maxiter=BF16_STENCIL_MAXITER)
+    print(f"  portable CG stencil:256 bf16 (the tester's b and tol): {int(info.iterations)} its, "
+          f"rho_history and x sha256 {digest(info.rho_history, x)}  [{card}]")
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    b = stencil_rhs(n, dev, scale=n)
+    tol = TOL_SOLVE_REL * float(b.double().norm())
+    x, info = cg_solve(op, b, tol=tol, M=multigrid_preconditioner(op))
+    print(f"  MG-PCG 256^3 float32 (Jacobi smoother): {int(info.iterations)} its, rho_history and "
+          f"x sha256 {digest(info.rho_history, x)}  [{card}]")
+    lo, hi = estimate_spectral_bounds(op)
+    x, info = cg_solve(op, b, tol=tol, M=chebyshev_preconditioner(op, lo, hi, degree=CHEB_DEGREE))
+    print(f"  Chebyshev PCG 256^3 float32 degree {CHEB_DEGREE} on [{lo!r}, {hi!r}]: "
+          f"{int(info.iterations)} its, rho_history and x sha256 {digest(info.rho_history, x)}  "
+          f"[{card}]")
+
+
+@contextlib.contextmanager
+def stencil_general_route():
+    """Send every kernel-11 call down the register march, whose C entry
+    points take the same arguments in every version of this repository:
+    to run another tree's kernels under this tree's wrapper (kernels_of),
+    or to time this tree's two kernels on one volume."""
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    saved = ks.stencil_route
+    ks.stencil_route = lambda u: "stencil7"
+    try:
+        yield
+    finally:
+        ks.stencil_route = saved
+
+
+@contextlib.contextmanager
+def stencil_staged_route():
+    """Take kernel 11's staged kernel wherever its row and alignment rule
+    holds, whatever the size threshold (ops/cuda/stencil.STAGED_MIN_POINTS)."""
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    saved = ks.STAGED_MIN_POINTS
+    ks.STAGED_MIN_POINTS = dict.fromkeys(saved, 0)
+    try:
+        yield
+    finally:
+        ks.STAGED_MIN_POINTS = saved
+
+
+@contextlib.contextmanager
+def stencil_other_tree(lib):
+    """Kernel 11 from ``lib`` (another tree's library, other_library) under
+    this tree's wrapper, on the register march: the one kernel-11 entry
+    point every tree has."""
+    with kernels_of(lib), stencil_general_route():
+        yield
+
+
+def stencil_turns(fns, vols) -> list:
+    """Device ms of one launch of each of ``fns`` (context managers paired
+    with a callable of a volume), each timed on the volumes taken in turn,
+    in the given order."""
+    got = []
+    for ctx, fn in fns:
+        with ctx():
+            ms = device_ms(lambda: [fn(v) for v in vols])
+        got.append(float("nan") if ms is None else ms / len(vols))
+    return got
+
+
+def stencil_rows(dev, card, other=None) -> None:
+    """Kernel 11 at 256^3 in bf16, float32 and float64: time_pair on one
+    volume (this tree's route and its plain version, repeated on that
+    volume) with its bound and conv3d; then at each level of MG-PCG's
+    V-cycle at 256^3 (256^3 .. 16^3) in the three types a launch's device
+    ms on STENCIL_VOLUMES volumes taken in turn, as a solve's loop meets
+    them: this tree's two kernels forced (general, staged, staged,
+    general), which sets the route's size threshold, and, with ``other``
+    (another tree's root), that tree's kernels under this tree's wrapper on
+    its general route beside this tree's own route in the same process
+    (other, this, this, other).  Then one V-cycle apply's device ms
+    (other, this, this, other)."""
+    import torch
+
+    from conjugategradient_tpu_torch import StencilOperator, multigrid_preconditioner
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    other_lib = other_library(other) if other is not None else None
+    here = contextlib.nullcontext
+    general, staged = stencil_general_route, stencil_staged_route
+    parent = lambda: stencil_other_tree(other_lib)
+
+    def cell(label, g):
+        return (f"{label}: " + "; ".join(f"{v:.5f}" for v in g))
+
+    torch.backends.cudnn.allow_tf32 = False
+    routes = getattr(ks, "stencil_route", None)
+    for shape in VCYCLE_SHAPES:
+        for tag, dtype, peak in (("bf16", torch.bfloat16, PEAK_F32_PER_S),
+                                 ("f32", torch.float32, PEAK_F32_PER_S),
+                                 ("f64", torch.float64, PEAK_F64_PER_S)):
+            vols = [stencil_volume(shape, dtype, dev, seed=60 + i) for i in range(STENCIL_VOLUMES)]
+            u, n = vols[0], math.prod(shape)
+            bnd = bound(2 * nbytes(u), 8 * n, peak)
+            route = routes(u) if routes is not None else "stencil7"
+            label = f"stencil7 {tag} {'x'.join(map(str, shape))}"
+            if shape == STENCIL_GRID:
+                t = time_pair(lambda: ks.stencil7(u, 6.0, -1.0),
+                              lambda: ks._stencil7_plain(u, 6.0, -1.0))
+                t.update(bnd)
+                t["library_ms"] = library_ms(conv3d_stencil(u, 6.0, -1.0))
+                print_time_row(f"{label} one volume ({route})", t, card)
+            k = lambda v: ks.stencil7(v, 6.0, -1.0)
+            cells = [f"bound {bnd['bound_ms']:.5f}", f"route {route}"]
+            if routes is not None:
+                g = stencil_turns(((general, k), (staged, k), (staged, k), (general, k)), vols)
+                s_, g_ = min(g[1:3]), min(g[0], g[3])
+                cells.append(f"staged {s_:.5f} ({bnd['bound_ms'] / s_:.3f} of the bound), "
+                             f"register march {g_:.5f} ({bnd['bound_ms'] / g_:.3f}), staged / "
+                             f"march {s_ / g_:.3f} ({cell('march, staged, staged, march', g)})")
+            if other_lib is not None:
+                g = stencil_turns(((parent, k), (here, k), (here, k), (parent, k)), vols)
+                c, p_ = min(g[1:3]), min(g[0], g[3])
+                cells.append(f"this {c:.5f} ({bnd['bound_ms'] / c:.3f}), other {p_:.5f} "
+                             f"({bnd['bound_ms'] / p_:.3f}), this / other {c / p_:.3f} "
+                             f"({cell('other, this, this, other', g)})")
+            elif routes is None:
+                g = stencil_turns(((here, k),), vols)
+                cells.append(f"this {g[0]:.5f} ({bnd['bound_ms'] / g[0]:.3f} of the bound)")
+            print(f"  volumes in turn {label}: device ms a launch; {'; '.join(cells)}  [{card}]")
+            del vols, u
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    r = stencil_rhs(op.shape[0], dev, scale=op.shape[0])
+    for smoother in ("jacobi", "chebyshev"):
+        M = multigrid_preconditioner(op, smoother=smoother)
+        order = ((parent, "other"), (here, "this"), (here, "this"), (parent, "other")) \
+            if other_lib is not None else ((here, "this"),)
+        cells = []
+        for ctx, who in order:
+            with ctx():
+                prof = kernel_profile(lambda: M(r))
+            cells.append(f"{who} " + ("not measured" if prof is None else
+                                      f"{prof[0]:.4f} ms device, {prof[1]} launches"))
+        print(f"  V-cycle apply 256^3 {smoother}: {'; '.join(cells)}  [{card}]")
+
+
+STENCIL_LOOP_STEPS = 64  # the portable bf16 CG on stencil:256: steps timed a run
+
+
+def stencil_loop_rows(dev, card, other=None) -> None:
+    """The portable CG on stencil:256 in bf16 (kernel 11's bf16 form once a
+    step, the tester's b): ms/it over STENCIL_LOOP_STEPS steps at tol = -1
+    (host clock, the best of 3) and the device ms a step (torch.profiler
+    over one run), this tree's kernels and, with ``other``, that tree's
+    beside them (other, this, this, other)."""
+    import torch
+
+    from conjugategradient_tpu_torch import StencilOperator, cg_solve
+    from conjugategradient_tpu_torch.utils import Timer
+
+    other_lib = other_library(other) if other is not None else None
+    parent = lambda: stencil_other_tree(other_lib)
+    bf16 = torch.bfloat16
+    op = StencilOperator.poisson(STENCIL_GRID, dtype=bf16, device=dev)
+    b = torch.arange(op.shape[0], dtype=torch.float64, device=dev).to(bf16) + 1
+    run = lambda: cg_solve(op, b, tol=-1.0, maxiter=STENCIL_LOOP_STEPS)
+    order = ((parent, "other"), (contextlib.nullcontext, "this"),
+             (contextlib.nullcontext, "this"), (parent, "other")) if other_lib is not None \
+        else ((contextlib.nullcontext, "this"),)
+    cells = []
+    for ctx, who in order:
+        with ctx():
+            run()
+            best = float("inf")
+            for _ in range(3):
+                t = Timer(dev).start_measure()
+                _, info = run()
+                t.stop_measure()
+                best = min(best, t.get_duration() / int(info.iterations))
+            prof = kernel_profile(run)
+        dev_ms = "not measured" if prof is None else f"{prof[0] / STENCIL_LOOP_STEPS:.5f}"
+        cells.append(f"{who} {best:.5f} ms/it, device {dev_ms} ms a step")
+    print(f"  portable CG stencil:256 bf16, {STENCIL_LOOP_STEPS} steps: {'; '.join(cells)}  "
+          f"[{card}]")
+
+
+SASS_OPS = ("F2F", "F2FP", "HADD2", "HFMA2", "FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA",
+            "PRMT", "SHFL", "LDG", "LDS", "STG", "UBLKCP", "SYNCS")
+
+
+def stencil_sass(card, other=None) -> None:
+    """Kernel 11's compiled code, this tree's and ``other``'s: the
+    registers, static shared memory and spills that ``nvcc -Xptxas -v``
+    reports for each instantiation in ``csrc/stencil.cu``, then each
+    function's count of the conversion (F2F, F2FP), bf16 pair (HADD2,
+    HFMA2), float and double arithmetic, shuffle, load, store and bulk-copy
+    instructions in ``cuobjdump -sass``."""
+    import re
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    tmp = os.path.join(ROOT, "build", "ptxas")
+    os.makedirs(tmp, exist_ok=True)
+    trees = [("this", ROOT)] + ([("other", other)] if other is not None else [])
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+
+    def label(name):
+        k = re.search(r"(stencil7\w*?_kernel)I(\w+?)E", name)
+        if k is None:
+            return None
+        ty = "bf16" if "bfloat16" in k.group(2) else ("f64" if k.group(2).startswith("d") else
+                                                      "f32")
+        return f"{k.group(1)}<{ty}>"
+
+    for who, root in trees:
+        src = os.path.join(root, "conjugategradient_tpu_torch", "csrc", "stencil.cu")
+        obj = os.path.join(tmp, f"stencil_{who}.o")
+        out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                              obj, src], capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"nvcc -Xptxas -v {src} failed: {out.stderr[-2000:]}")
+        entry, info = None, {}
+        for line in (out.stdout + out.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry, info = label(m.group(1)), {}
+                continue
+            if entry is None:
+                continue
+            for key, pat in (("spill stores", r"(\d+) bytes spill stores"),
+                             ("spill loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    info[key] = int(m.group(1))
+            if "registers" in info:
+                print(f"  ptxas {who} {entry}: {info['registers']} registers, "
+                      f"{info.get('smem', 0)} B static smem, {info.get('spill stores', 0)} B "
+                      f"spill stores, {info.get('spill loads', 0)} B spill loads  [{card}]")
+                entry = None
+        sass = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass {obj} failed: {sass.stderr[-2000:]}")
+        entry, counts = None, {}
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                entry = label(m.group(1))
+                if entry:
+                    counts[entry] = dict.fromkeys(SASS_OPS, 0)
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if entry is None or m is None:
+                continue
+            if m.group(1) in counts[entry]:
+                counts[entry][m.group(1)] += 1
+        for entry, c in counts.items():
+            print(f"  sass {who} {entry}: " + ", ".join(f"{k} {v}" for k, v in c.items()) +
+                  f"  [{card}]")
+
+
+STENCIL_SWEEP = ((3, 4, 6), (1, 2, 4, 8, 16))  # ring stages, x planes a CTA
+
+
+def stencil_ring_sweep(dev, card) -> None:
+    """The staged kernel's device ms a launch (volumes in turn, the
+    staged kernel forced) at 256^3, 128^3 and 64^3 in each type against its
+    ring depth and x planes a CTA (STENCIL_SWEEP), each setting's output
+    hashed and held equal to the default's.  Trees without the staged
+    kernel print nothing."""
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    if not hasattr(ks, "staged_stages"):
+        return
+    saved = ks.STAGED_XCHUNK, ks.staged_stages
+    for shape in VCYCLE_SHAPES[:3]:
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                           ("f64", torch.float64)):
+            vols = [stencil_volume(shape, dtype, dev, seed=60 + i) for i in range(STENCIL_VOLUMES)]
+            with stencil_staged_route():
+                ref = digest(ks.stencil7(vols[0], 6.0, -1.0))
+                cells = []
+                try:
+                    for stages in STENCIL_SWEEP[0]:
+                        ks.staged_stages = lambda xc, s=stages: s
+                        for xc in STENCIL_SWEEP[1]:
+                            ks.STAGED_XCHUNK = (xc, xc)
+                            check(digest(ks.stencil7(vols[0], 6.0, -1.0)) == ref,
+                                  f"stencil7_staged {tag} {shape}: S={stages} x={xc} changed "
+                                  "the bits")
+                            ms = device_ms(lambda: [ks.stencil7(v, 6.0, -1.0) for v in vols])
+                            cells.append(f"S{stages}x{xc} " + ("-" if ms is None else
+                                                               f"{ms / len(vols):.5f}"))
+                finally:
+                    ks.STAGED_XCHUNK, ks.staged_stages = saved
+            xc = ks.staged_xchunk(shape[0])
+            print(f"  ring sweep stencil7_staged {tag} {'x'.join(map(str, shape))} (device ms a "
+                  f"launch, volumes in turn; default S{ks.staged_stages(xc)}, x{xc}): "
+                  f"{'; '.join(cells)}  [{card}]")
+            del vols
+
+
+def stencil_only(dev, card, other=None) -> None:
+    """``--stencil-only [TREE]``: kernel 11 alone: its per-call and solve
+    hashes (stencil_hashes), its compiled code (stencil_sass) and its
+    timing rows (stencil_rows), with another tree's kernels beside them
+    in the same process when its root is given."""
+    stencil_hashes(dev, card)
+    stencil_sass(card, other)
+    stencil_rows(dev, card, other)
+    stencil_loop_rows(dev, card, other)
+    stencil_ring_sweep(dev, card)
+
+
 def fused_cg_only(dev, card) -> None:
     """The fused loops alone (``--fused-cg-only``), for comparing two trees
     on one card (this file run beside another tree's package gives that
@@ -7643,6 +8117,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--sharded-only"] and len(sys.argv) <= 3:
         sharded_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
         return 0
+    if sys.argv[1:2] == ["--stencil-only"] and len(sys.argv) <= 3:
+        stencil_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
+        return 0
 
     print(f"phase 2: kernels vs plain versions ({time.perf_counter() - t0:.1f} s since the build "
           "began)")
@@ -7693,6 +8170,9 @@ def main() -> int:
         run()
         counts, plain_on_cuda = dict(fc.LAUNCHES), dict(fc.PLAIN_ON_CUDA)
         print(f"  {label} path: launches {counts}, plain on CUDA {plain_on_cuda}")
+        print(f"  {label} path: kernel 11's launches by route: " + ", ".join(
+            f"{k} {counts[k]}" for k in ("stencil7", "stencil7_staged", "stencil7_bf16",
+                                         "stencil7_staged_bf16")))
         for name in kernels:
             check(counts[name] > 0, f"kernel {name} never launched on the {label} path")
             launches[name] = launches.get(name, 0) + counts[name]  # summed over its paths

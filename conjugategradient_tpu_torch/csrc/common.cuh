@@ -155,6 +155,27 @@ __device__ __forceinline__ __nv_bfloat16 mul_rn(float a, __nv_bfloat16 b) {
 __device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
   return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
 }
+// The same two ops on a pair of bf16 values held in one 32-bit word (the
+// lower half one point, the upper half the next), each rounded once per
+// point.  add_rn2: add.rn.bf16x2 rounds each exact sum of two bf16 values
+// to bf16 once; add_rn's float32 sum rounds it twice, to float32 and then
+// to bf16, which gives the same bits (float32's 24 bits >= 2 x 8 + 2: a
+// double rounding that cannot differ; the two types share their exponent
+// range, so subnormal sums are exact in both).  mul_rn2: the two float32
+// products of mul_rn, both rounded to bf16 by one cvt.rn.bf16x2.f32.
+// Neither is ever contracted into an FMA (explicit .rn).
+__device__ __forceinline__ unsigned add_rn2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ unsigned mul_rn2(float a, unsigned b) {
+  const float lo = __fmul_rn(a, __uint_as_float(b << 16));
+  const float hi = __fmul_rn(a, __uint_as_float(b & 0xffff0000u));
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 
 // An operator element (tile or diagonal entry) as float32: a float32 one as
 // it is, a bfloat16 one widened, which is exact (its bits shifted up 16), so

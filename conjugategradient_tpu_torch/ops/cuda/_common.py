@@ -30,6 +30,7 @@ LAUNCHES = {
     "sym_dia_spmv": 0,
     "sym_dia_spmv_tiled": 0,
     "stencil7": 0,
+    "stencil7_staged": 0,
     "fused_stencil_dir_dot": 0,
     "minres_dir_spmv_dot": 0,
     "sym_minres_dir_spmv_dot": 0,
@@ -70,6 +71,7 @@ LAUNCHES = {
     "bicgstab_s_spmv_dot_packed_bf16": 0,
     "bell_spmv_dot_bf16": 0,
     "stencil7_bf16": 0,
+    "stencil7_staged_bf16": 0,
     # not a kernel: builds of BlockedEllMatrix.packed() and
     # SymBellMatrix.packed() (torch ops, once per operator)
     "bell_pack": 0,

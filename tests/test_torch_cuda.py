@@ -279,6 +279,12 @@ def test_entry_points_default_to_the_card(dev):
 STENCIL_SHAPES = [(5, 6, 7), (3, 9, 130), (2, 2, 2), (1, 1, 1), (64, 33, 40)]
 
 
+def _k11_launches(suffix=""):
+    """Launches of kernel 11 on either route (the staged kernel or the
+    register march; ``suffix`` "_bf16" for its bf16 forms)."""
+    return fc.LAUNCHES["stencil7" + suffix] + fc.LAUNCHES["stencil7_staged" + suffix]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_stencil7_kernel_bit_equal_to_plain(dev, dtype):
@@ -286,9 +292,10 @@ def test_stencil7_kernel_bit_equal_to_plain(dev, dtype):
 
     for shape in STENCIL_SHAPES:
         u = torch.randn(shape, dtype=dtype, device=dev)
-        before = fc.LAUNCHES["stencil7"]
+        route = ks.stencil_route(u)  # the staged kernel or the register march
+        before = fc.LAUNCHES[route]
         yk = ks.stencil7(u, 6.0, -1.0)
-        assert fc.LAUNCHES["stencil7"] == before + 1
+        assert fc.LAUNCHES[route] == before + 1
         yp = ks._stencil7_plain(u, 6.0, -1.0)
         torch.cuda.synchronize()
         assert torch.equal(yk, yp), shape
@@ -368,7 +375,7 @@ def test_stencil_solves_take_the_kernels(dev):
     assert torch.equal(info.rho_history.view(torch.int32), again.rho_history.view(torch.int32))
     xm, im = cg_solve(op, b, tol=tol, M=multigrid_preconditioner(op))
     assert bool(im.converged) and int(im.iterations) * 5 <= int(info.iterations)
-    assert fc.LAUNCHES["stencil7"] > 0
+    assert _k11_launches() > 0
     assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
     with pytest.raises(ValueError, match="StencilOperator"):
         cg_solve(op, b, M=multigrid_preconditioner(op), fused="always")
@@ -1048,10 +1055,11 @@ def test_stencil7_bf16_kernel_bit_equal_to_plain(dev):
     bf16 = torch.bfloat16
     for shape in STENCIL_SHAPES:
         u = torch.randn(shape, device=dev).to(bf16)
+        route = ks.stencil_route(u) + "_bf16"  # the staged kernel or the register march
         for c, w in ((6.0, -1.0), (4.25, -0.5), (0.1, -1 / 3)):
-            before = fc.LAUNCHES["stencil7_bf16"]
+            before = fc.LAUNCHES[route]
             yk = ks.stencil7(u, c, w)
-            assert fc.LAUNCHES["stencil7_bf16"] == before + 1 and yk.dtype == bf16
+            assert fc.LAUNCHES[route] == before + 1 and yk.dtype == bf16
             yp = ks._stencil7_plain(u, c, w)
             torch.cuda.synchronize()
             assert torch.equal(yk, yp), (shape, c, w)
@@ -1956,7 +1964,7 @@ def test_nrhs_on_a_stencil_launches_stencil7(dev, capsys):
     matvec is kernel 11."""
     from conjugategradient_tpu_torch import tester
 
-    before = fc.LAUNCHES["stencil7"]
+    before = _k11_launches()
     assert tester.main(["stencil:24", "--nrhs", "3", "--dtype", "float32", "--tol", "1e-2",
                         "--summary", "--device", "cuda"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -1964,7 +1972,7 @@ def test_nrhs_on_a_stencil_launches_stencil7(dev, capsys):
 
     lanes = json.loads(lines[1])
     assert lanes["nrhs"] == 3 and lanes["converged"] == [True] * 3
-    assert fc.LAUNCHES["stencil7"] - before >= 2 * sum(lanes["iterations"])
+    assert _k11_launches() - before >= 2 * sum(lanes["iterations"])
 
 
 def _host_reads(fn):
@@ -2500,13 +2508,13 @@ def test_tester_refine_and_bf16_on_the_card(dev, capsys):
             lines = capsys.readouterr().out.strip().splitlines()
             assert lines[0].split()[:2] == ["1156", "5644"]
             assert json.loads(lines[1])["converged"] == [True], (layout, extra)
-    before = fc.LAUNCHES["stencil7_bf16"]
+    before = _k11_launches("_bf16")
     assert tester.main(["stencil:16", "--dtype", "bfloat16", "--tol", "1e-1", "--summary",
                         "--device", "cuda"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].split()[:2] == ["4096", "27136"]
     assert json.loads(lines[1])["converged"] == [True] and float(lines[0].split()[3]) < 5e-3
-    assert fc.LAUNCHES["stencil7_bf16"] > before
+    assert _k11_launches("_bf16") > before
 
 
 # ---- kernels 1 and 15 on the banded landing: the staged tile ring ------------
@@ -2823,3 +2831,149 @@ def test_sharded_kernels_same_bits_at_every_ring_depth(dev, dtype):
             assert all(torch.equal(u, v) for u, v in zip(both(), ref)), stages
     finally:
         fc.set_sharded_ring_stages(0)
+
+
+# ---- kernel 11 on two routes: the staged kernel and the register march -----------
+
+STENCIL_DTYPES = [torch.float32, torch.float64, torch.bfloat16]
+STENCIL_IDS = ["f32", "f64", "bf16"]
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64, torch.bfloat16: torch.int16}
+
+
+def _assert_same_bits(got, want):
+    """Bit for bit, signed zeros included; NaNs at the same points (their
+    payloads are the conversion's, not compared)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = _BITS[want.dtype]
+    assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+def _route_launch(ks, u, c, w, route):
+    """One call of kernel 11's wrapper, which must launch ``route``'s kernel
+    once and count it there (``_bf16`` on a bf16 volume) and nowhere else."""
+    name = route + ("_bf16" if u.dtype == torch.bfloat16 else "")
+    before = dict(fc.LAUNCHES)
+    y = ks.stencil7(u, c, w)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES[name] == before[name] + 1
+    assert sum(fc.LAUNCHES.values()) == sum(before.values()) + 1
+    return y
+
+
+def _both_routes(ks, u, c, w, monkeypatch):
+    """The wrapper's route (the staged kernel wherever u's rows are 16-byte
+    multiples on an aligned base: the size threshold is off here), then the
+    register march forced, each against the plain version bit for bit."""
+    want = ks._stencil7_plain(u, c, w)
+    _assert_same_bits(_route_launch(ks, u, c, w, ks.stencil_route(u)), want)
+    with monkeypatch.context() as m:
+        m.setattr(ks, "stencil_route", lambda u: "stencil7")
+        _assert_same_bits(_route_launch(ks, u, c, w, "stencil7"), want)
+
+
+@pytest.fixture
+def ks_all_staged(monkeypatch):
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+
+    monkeypatch.setattr(ks, "STAGED_MIN_POINTS", dict.fromkeys(STENCIL_DTYPES, 0))
+    return ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [1, 7, 8, 9, 130, 256, 264])
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES, ids=STENCIL_IDS)
+def test_stencil7_routes_bit_equal_on_ragged_shapes(dev, dtype, nz, ks_all_staged, monkeypatch):
+    """Kernel 11 on every (nx, ny) of {1, 2, 33} x {1, 2, 9}: the staged
+    kernel where nz·itemsize is a multiple of 16 (one tile or several
+    across z and y), else the register march, and the march forced; each
+    bit-equal to the plain version and counted under its own route."""
+    ks = ks_all_staged
+    g = torch.Generator(device=dev).manual_seed(nz)
+    for nx in (1, 2, 33):
+        for ny in (1, 2, 9):
+            u = torch.randn(nx, ny, nz, device=dev, generator=g).to(dtype)
+            staged = (nz * u.element_size()) % 16 == 0
+            assert ks.stencil_route(u) == ("stencil7_staged" if staged else "stencil7")
+            _both_routes(ks, u, 6.0, -1.0, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 8))
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES, ids=STENCIL_IDS)
+def test_stencil7_offset_views(dev, dtype, k, ks_all_staged, monkeypatch):
+    """u as ``buf[k:k + n].view(shape)``, as a row of a batch reaches the
+    kernel: its base is 16-byte aligned only where k·itemsize is, the route
+    goes by it, and either kernel gives the plain version's bits."""
+    ks = ks_all_staged
+    shape = (5, 9, 256)
+    n = math.prod(shape)
+    g = torch.Generator(device=dev).manual_seed(k)
+    buf = torch.randn(n + 8, device=dev, generator=g).to(dtype)
+    u = buf[k:k + n].view(shape)
+    aligned = (k * u.element_size()) % 16 == 0
+    assert ks.stencil_route(u) == ("stencil7_staged" if aligned else "stencil7")
+    _both_routes(ks, u, 0.1, -1 / 3, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [8, 64, 264])
+def test_stencil7_bf16_special_values(dev, nz, ks_all_staged, monkeypatch):
+    """bf16 volumes of normals, subnormals, ±0, values near bf16's largest,
+    ±inf and a NaN, with coefficients whose products underflow or overflow
+    and a -0 center: both routes bit-equal to the plain version, signed
+    zeros included, NaNs at the same points."""
+    ks = ks_all_staged
+    bf16 = torch.bfloat16
+    special = torch.tensor([0.0, -0.0, 2.0 ** -133, -(2.0 ** -133), 3 * 2.0 ** -130, 2.0 ** -126,
+                            -(2.0 ** -127), 3.0e38, -3.0e38, 1.0, -1.0], device=dev)
+    g = torch.Generator(device=dev).manual_seed(nz)
+    shape = (6, 9, nz)
+    pick = torch.randint(0, len(special), shape, device=dev, generator=g)
+    u = torch.where(torch.rand(shape, device=dev, generator=g) < 0.5, special[pick],
+                    torch.randn(shape, device=dev, generator=g)).to(bf16)
+    u[2, 4, nz // 2] = float("inf")
+    u[4, 0, 0] = float("-inf")
+    u[3, 8, nz - 1] = float("nan")
+    for c, w in ((6.0, -1.0), (0.1, -1 / 3), (2.0 ** -120, -(2.0 ** -125)), (-0.0, 1.0),
+                 (1.0e30, 3.0e8)):
+        _both_routes(ks, u, c, w, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES, ids=STENCIL_IDS)
+def test_stencil7_coefficients_bf16_cannot_hold(dev, dtype, ks_all_staged, monkeypatch):
+    """Coefficients that bf16 cannot hold (float32 0.1 and -1/3, random
+    float32 values): the kernels multiply in float32 (float64 for a float64
+    volume) and round each product once, as the plain version does."""
+    ks = ks_all_staged
+    g = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn(7, 10, 264, device=dev, generator=g).to(dtype)
+    pairs = [(0.1, -1 / 3)] + [tuple(float(v) for v in torch.randn(2, generator=g, device=dev))
+                               for _ in range(4)]
+    for c, w in pairs:
+        _both_routes(ks, u, c, w, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", STENCIL_DTYPES, ids=STENCIL_IDS)
+def test_stencil7_staged_same_bits_at_every_ring_depth(dev, dtype, ks_all_staged,
+                                                        monkeypatch):
+    """The staged kernel's ring depth and planes a CTA only change the
+    time: the same bits at 3, 4 and 6 stages and 1, 2, 5 and 8 planes a
+    CTA as at the defaults; a depth the kernel is not built for is refused
+    before the launch (cudaErrorInvalidValue), not run."""
+    ks = ks_all_staged
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = torch.randn(40, 33, 264, device=dev, generator=g).to(dtype)
+    assert ks.stencil_route(u) == "stencil7_staged"
+    ref = ks.stencil7(u, 6.0, -1.0)
+    for stages in (3, 4, 6):
+        monkeypatch.setattr(ks, "staged_stages", lambda xc, s=stages: s)
+        for xchunk in (1, 2, 5, 8):
+            monkeypatch.setattr(ks, "STAGED_XCHUNK", (xchunk, xchunk))
+            _assert_same_bits(ks.stencil7(u, 6.0, -1.0), ref)
+    monkeypatch.setattr(ks, "staged_stages", lambda xc: 5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ks.stencil7(u, 6.0, -1.0)
+    _assert_same_bits(ref, ks._stencil7_plain(u, 6.0, -1.0))
