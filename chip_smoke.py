@@ -311,7 +311,27 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    bfloat16`` and ``stencil:64 --dtype bfloat16 --method minres`` (the
    portable loops on bf16 vectors, kernel 11's bf16 form) beside float32;
    32 steps of the portable CG on a ragged 33 x 35 x 37 bf16 grid (kernel
-   11's bf16 register march).
+   11's bf16 register march).  Then the implicit gradients
+   (``phase_autodiff_path``, ``AUTODIFF_KERNELS``): ``implicit_cg_solve``
+   on the n = 262,144 tiles in both storages (forward and adjoint on
+   kernels 1 or 4, and 2) and ``implicit_gmres_solve`` on the 1M-row DIA
+   lane (64 steps at tol 0, kernel 7 a forward step), the gradients of
+   <c, x> in b and the stored values against float64 on the plain route,
+   a central difference along a seeded symmetric direction (the GMRES one
+   on a convdiff nx = 64 solve that converges), two backward passes'
+   bits, forward and backward ms, launches and the adjoint's count; then
+   the sharded layouts (``phase_sharded_layouts_path``,
+   ``SHARDED_LAYOUT_KERNELS``): ``sharded_symbell_cg_solve`` at P = 4 and
+   8 (CG to 1e-5 ||b|| against the single card's fused CG; standard,
+   Jacobi, pipelined, s-step, MINRES, BiCGStab and GMRES for 24 steps on
+   the cut operator against the one-card solves, twice bit for bit),
+   ``sharded_dia_cg_solve`` (standard, s-step) and
+   ``sharded_symdia_cg_solve`` (standard, pipelined) on symdia-big at P =
+   4, ``sharded_sell_cg_solve`` on the 1.5M-row power-law pattern at P = 4
+   (CG to 1e-5 ||b||, s-step for 24 steps), each with its ms/it and device
+   ms a step (host-bound: not judged) and a hash of its history and x.
+   ``--autodiff-only`` and ``--sharded-layouts-only`` run one of these
+   two paths alone, with its launches counted.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -4940,7 +4960,7 @@ CA_TESTER_MAXITER = 5000
 AMG_NX = 512  # bench.py:787-860's amg lane: poisson2d_coo(512) assembled as float32 CSR
 AMG_TOL_REL = 1e-6
 AMG_PLAIN_MAXITER = 6000
-AMG_REPS = 3  # time to tolerance: the median of 3 solves
+AMG_REPS = 1  # time to tolerance: one timed solve (the run's time budget)
 AMG_APPLY_REPS = 20
 AMG_KERNELS = ("dia_spmv_rows",)
 AMG_F64_SLACK = 3  # float64 AMG / FSAI PCG iterations against the float32 solve's
@@ -8094,6 +8114,530 @@ def fused_cg_only(dev, card) -> None:
     elementwise_floor(dev, card)
 
 
+# ---- implicit gradients (solver/autodiff.py) and the row-sharded layouts ------------------
+
+AUTODIFF_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
+                    "dia_spmv_rows")
+SHARDED_LAYOUT_KERNELS = ("dia_spmv", "fused_dir_spmv_dot", "fused_update_dot", "bell_spmv")
+AD_TOL_REL = 1e-5  # the float32 CG solves: 1e-5 ||b||
+AD_TOL64_REL = 1e-13  # the float64 plain-route reference and the finite differences
+AD_GRAD_RTOL = 1e-4  # a float32 CG gradient against float64's, in 2-norm
+AD_GMRES_STEPS = 64  # GMRES(32) on the 1M lane: two cycles at tol 0 (it converges in ~1e4)
+# after 64 steps the float32 and float64 gradients part by 2e-5 (b) and 9e-5
+# (diagonals) on the CPU at nx = 512; 1e-3 leaves room for the larger n
+AD_GMRES_RTOL = 1e-3
+AD_FD_EPS = 1e-5  # central difference step along a unit-variance direction (float64)
+AD_FD_RTOL = 1e-3  # <g, D> of a float32 CG gradient against the float64 difference
+AD_FD64_RTOL = 1e-6  # <g, D> of a float64 gradient against it
+# float32 GMRES to 1e-5 ||b|| on convdiff nx = 64 (condition ~1e3): <g, D> to
+# 5e-3 of the difference (8e-4 measured on the CPU)
+AD_GMRES_FD_RTOL = 5e-3
+AD_GMRES_FD_NX = 64  # the GMRES solve that converges, for its finite difference
+LAYOUT_STEPS = 24  # fixed-step trajectories against the one-card solves (s = 4 blocks)
+# float32 solves to a tolerance, sharded against one card: the sums run in
+# another order, so the test of the last step may fall one step (one s-step
+# block) either way
+LAYOUT_ITER_SLACK = 1
+POWERLAW_N = 1_572_864  # bench.py:556's irregular lane at the north-star scale
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """The info of every call of ``module.name`` (a solver returning (x,
+    info)) while the block runs."""
+    seen = []
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out[1])
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
+def rel2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def ad_gradients(solve, op, fields, b, c, **kw):
+    """x, info, the gradients of <c, x> in (b, *fields), the forward and
+    backward ms, their kernel launches, and whether a second backward pass
+    over the same graph gives the same bits."""
+    import dataclasses
+
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import _common
+
+    leaves = [getattr(op, f).detach().clone().requires_grad_() for f in fields]
+    opg = dataclasses.replace(op, **dict(zip(fields, leaves)))
+    bb = b.detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    l0, t0 = dict(_common.LAUNCHES), time.perf_counter()
+    x, info = solve(opg, bb, **kw)
+    torch.cuda.synchronize()
+    l1, t1 = dict(_common.LAUNCHES), time.perf_counter()
+    loss = torch.dot(c, x)
+    g = torch.autograd.grad(loss, [bb, *leaves], retain_graph=True)
+    torch.cuda.synchronize()
+    l2, t2 = dict(_common.LAUNCHES), time.perf_counter()
+    g2 = torch.autograd.grad(loss, [bb, *leaves])
+    same = all(torch.equal(u.view(torch.uint8), v.view(torch.uint8)) for u, v in zip(g, g2))
+    return (x, info, g, 1e3 * (t1 - t0), 1e3 * (t2 - t1), launch_delta(l0, l1),
+            launch_delta(l1, l2), same)
+
+
+def fd_directional(solve, op64, fields, D, b64, c64, **kw) -> float:
+    """(L(θ + εD) − L(θ − εD)) / 2ε for L = <c, x(θ)>, in float64."""
+    import dataclasses
+
+    import torch
+
+    def loss(sign):
+        o = dataclasses.replace(op64, **{f: getattr(op64, f) + sign * AD_FD_EPS * d
+                                         for f, d in zip(fields, D)})
+        x, _ = solve(o, b64, **kw)
+        return float(torch.dot(c64, x))
+
+    return (loss(1.0) - loss(-1.0)) / (2 * AD_FD_EPS)
+
+
+def tridiag_directions(big, big_full, seed=3):
+    """One seeded SYMMETRIC perturbation of the block-tridiagonal operator
+    in both storages: symmetric diagonal tiles Dd and upper tiles Doff in
+    symmetric storage; in full storage the same, each lower tile the
+    transpose of its upper mirror, padding slots 0.  Float64."""
+    import torch
+
+    dev = big.device
+    nrb, bn = big.diag_blocks.shape[0], big.bn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    Dd = torch.randn((nrb, bn, bn), generator=gen, dtype=torch.float64, device=dev)
+    Dd = 0.5 * (Dd + Dd.transpose(1, 2))
+    Doff = torch.randn((nrb, bn, bn), generator=gen, dtype=torch.float64, device=dev)
+    i = torch.arange(nrb, device=dev)
+    pad = big.off_cols[:, 0].long() == i  # the last block-row's slot
+    Doff = torch.where(pad[:, None, None], 0.0, Doff)
+    sym = (Dd, Doff[:, None])
+    j = big_full.block_cols.long()
+    ii = i[:, None].expand_as(j)
+    real = big_full.blocks.reshape(nrb, j.shape[1], -1).ne(0).any(dim=2)
+    full = torch.where((j == ii)[..., None, None], Dd[ii],
+                       torch.where((j == ii + 1)[..., None, None], Doff[ii],
+                                   torch.where((j == ii - 1)[..., None, None],
+                                               Doff[j].transpose(-1, -2), 0.0)))
+    full = torch.where(real[..., None, None], full, 0.0)
+    return sym, (full,)
+
+
+def phase_autodiff_path(dev, big, big_full, card):
+    """implicit_cg_solve on the n = 262,144 block-tridiagonal operator in
+    both storages (forward and adjoint on the fused kernels 1 or 4, and 2)
+    and implicit_gmres_solve on the GMRES lane's 1M-row DIA operator
+    (kernel 7 a forward step; the adjoint's transposed matvec is the plain
+    DIA product's VJP): the gradients of <c, x> in b and in the stored
+    values against float64 on the plain route, against a central
+    difference along one seeded direction, two backward passes' bits."""
+    import dataclasses
+
+    import torch
+
+    from conjugategradient_tpu_torch import (CSRMatrix, DIAMatrix, cg_solve, gmres_solve,
+                                             implicit_cg_solve, implicit_gmres_solve)
+    from conjugategradient_tpu_torch.problems import convection_diffusion_2d_coo
+    from conjugategradient_tpu_torch.solver import autodiff
+
+    # warm-up, untimed: the first backward pass of a process imports and
+    # initialises what autograd and torch.func need (seconds, once)
+    w_full, w_sym = block_tridiag_ops(4096, 128, dev)
+    w = torch.ones(4096, dtype=torch.float32, device=dev)
+    for a, fields in ((w_sym, ("diag_blocks", "off_blocks")), (w_full, ("blocks",))):
+        ad_gradients(implicit_cg_solve, a, fields, w, w, tol=1e-3)
+    wv, wc, wp, wshape = convdiff_csr(32)
+    w_dia = DIAMatrix.from_csr_host(wv, wc, wp, wshape, device=dev)
+    w = torch.ones(wshape[0], dtype=torch.float32, device=dev)
+    ad_gradients(implicit_gmres_solve, w_dia, ("diags",), w, w, tol=0.0, maxiter=8, restart=4)
+    del w_full, w_sym, w_dia
+
+    n = N_BIG
+    rng = np.random.default_rng(0)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    c = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+    b64, c64 = b.double(), c.double()
+    tol, tol64 = AD_TOL_REL * float(b.norm()), AD_TOL64_REL * float(b64.norm())
+    d_sym, d_full = tridiag_directions(big, big_full)
+    for label, a, fields, D in (("symmetric storage (K1, K2)", big, ("diag_blocks", "off_blocks"),
+                                 d_sym),
+                                ("full storage (K4, K2)", big_full, ("blocks",), d_full)):
+        with recorded(autodiff, "cg_solve") as infos:
+            x, info, g, fwd_ms, bwd_ms, lf, lb, same = ad_gradients(
+                implicit_cg_solve, a, fields, b, c, tol=tol)
+        k, k_adj = int(info.iterations), int(infos[-1].iterations)
+        a64 = dataclasses.replace(a, **{f: getattr(a, f).double() for f in fields})
+        _, i64, g64, *_ = ad_gradients(implicit_cg_solve, a64, fields, b64, c64, tol=tol64,
+                                       fused="never")
+        errs = [rel2(u, v) for u, v in zip(g, g64)]
+        pred = sum(float((u.double() * d).sum()) for u, d in zip(g[1:], D))
+        fd = fd_directional(cg_solve, a64, fields, D, b64, c64, tol=tol64, fused="never")
+        fd_err = abs(pred - fd) / abs(fd)
+        check(bool(info.converged) and bool(infos[-1].converged),
+              f"autodiff CG {label}: forward or adjoint did not converge")
+        check(max(errs) <= AD_GRAD_RTOL,
+              f"autodiff CG {label}: gradients against float64 {errs}")
+        check(fd_err <= AD_FD_RTOL, f"autodiff CG {label}: <g, D> {pred} against the central "
+                                    f"difference {fd} ({fd_err})")
+        fused_name = "sym_fused_dir_spmv_dot" if "symmetric" in label else "fused_dir_spmv_dot"
+        check(lf.get(fused_name, 0) > 0 and lb.get(fused_name, 0) > 0
+              and lb.get("fused_update_dot", 0) > 0,
+              f"autodiff CG {label}: the fused kernels did not carry forward and adjoint "
+              f"({lf}, {lb})")
+        print(f"  implicit_cg_solve n={n} {label}, f32, tol {AD_TOL_REL:g} ||b||: forward "
+              f"{fwd_ms:.3f} ms ({k} its; launches {lf}), backward {bwd_ms:.3f} ms (adjoint "
+              f"{k_adj} its, float64 forward {int(i64.iterations)}; launches {lb}); "
+              f"backward/forward {bwd_ms / fwd_ms:.2f}; against float64 on the plain route "
+              f"(2-norm, b then {', '.join(fields)}): {', '.join(f'{e:.2e}' for e in errs)}; "
+              f"<g, D> {pred:.9e} against the central difference {fd:.9e} (rel "
+              f"{fd_err:.2e}); two backward passes bit-equal: {same}; hash "
+              f"{digest(*g)}  [{card}]")
+        del a64, g, g64, x
+
+    # GMRES(32) on bench.py's DIA lane, two cycles at tol 0
+    v, cc, p, shape = convdiff_csr(GMRES_NX)
+    dia = DIAMatrix.from_csr_host(v, cc, p, shape, device=dev)
+    nd = shape[0]
+    bd = torch.arange(1, nd + 1, dtype=torch.float32, device=dev) / nd
+    cd = torch.as_tensor(rng.standard_normal(nd), dtype=torch.float32, device=dev)
+    kw = dict(tol=0.0, maxiter=AD_GMRES_STEPS, restart=GMRES_RESTART)
+    with recorded(autodiff, "gmres_solve") as infos:
+        _, info, g, fwd_ms, bwd_ms, lf, lb, same = ad_gradients(
+            implicit_gmres_solve, dia, ("diags",), bd, cd, **kw)
+    k, k_adj = int(info.iterations), int(infos[-1].iterations)
+    d64 = dataclasses.replace(dia, diags=dia.diags.double())
+    _, _, g64, *_ = ad_gradients(implicit_gmres_solve, d64, ("diags",), bd.double(),
+                                 cd.double(), **kw)
+    errs = [rel2(u, v) for u, v in zip(g, g64)]
+    check(k == k_adj == AD_GMRES_STEPS, f"autodiff GMRES 1M: {k} / {k_adj} steps")
+    check(max(errs) <= AD_GMRES_RTOL, f"autodiff GMRES 1M: gradients against float64 {errs}")
+    check(lf.get("dia_spmv_rows", 0) >= AD_GMRES_STEPS,
+          f"autodiff GMRES 1M: dia_spmv_rows launched {lf} in the forward")
+    print(f"  implicit_gmres_solve convdiff DIA n={nd}, GMRES({GMRES_RESTART}) {AD_GMRES_STEPS} "
+          f"steps at tol 0, f32: forward {fwd_ms:.3f} ms ({k} steps; launches {lf}), backward "
+          f"{bwd_ms:.3f} ms (adjoint {k_adj} steps on the plain DIA product's VJP; launches "
+          f"{lb}); backward/forward {bwd_ms / fwd_ms:.2f}; against float64 (b, diags): "
+          f"{errs[0]:.2e}, {errs[1]:.2e}; two backward passes bit-equal: {same}; hash "
+          f"{digest(*g)}  [{card}]")
+    del dia, d64, g, g64
+
+    # the finite difference needs a solve at its solution: GMRES(32) on
+    # convdiff nx = 64, float32 on kernel 7 and float64 on the plain route
+    rows, cols, vals, shp = convection_diffusion_2d_coo(AD_GMRES_FD_NX, peclet=10.0)
+    small = DIAMatrix.from_csr(CSRMatrix.from_coo(rows, cols, vals, shp, dtype=np.float32,
+                                                  device=dev))
+    ns = shp[0]
+    bs = torch.as_tensor(rng.standard_normal(ns), dtype=torch.float32, device=dev)
+    cs = torch.as_tensor(rng.standard_normal(ns), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    D = torch.randn(small.diags.shape, generator=gen, dtype=torch.float64, device=dev)
+    with recorded(autodiff, "gmres_solve") as infos:
+        _, info, g, fwd_ms, bwd_ms, lf, lb, same = ad_gradients(
+            implicit_gmres_solve, small, ("diags",), bs, cs, tol=AD_TOL_REL * float(bs.norm()),
+            maxiter=20 * ns, restart=GMRES_RESTART)
+    s64 = dataclasses.replace(small, diags=small.diags.double())
+    kw64 = dict(tol=AD_TOL64_REL * float(bs.double().norm()), maxiter=20 * ns,
+                restart=GMRES_RESTART)
+    _, i64, g64, *_ = ad_gradients(implicit_gmres_solve, s64, ("diags",), bs.double(),
+                                   cs.double(), **kw64)
+    fd = fd_directional(gmres_solve, s64, ("diags",), (D,), bs.double(), cs.double(), **kw64)
+    pred, pred64 = float((g[1].double() * D).sum()), float((g64[1] * D).sum())
+    fd_err, fd_err64 = abs(pred - fd) / abs(fd), abs(pred64 - fd) / abs(fd)
+    check(bool(info.converged) and bool(infos[-1].converged) and bool(i64.converged),
+          "autodiff GMRES nx=64: a solve did not converge")
+    check(fd_err <= AD_GMRES_FD_RTOL and fd_err64 <= AD_FD64_RTOL,
+          f"autodiff GMRES nx=64: <g, D> {pred} (float64 {pred64}) against {fd}")
+    print(f"  implicit_gmres_solve convdiff DIA n={ns} to {AD_TOL_REL:g} ||b||, f32 on kernel "
+          f"7: {int(info.iterations)} steps forward, {int(infos[-1].iterations)} adjoint; "
+          f"<g, D> {pred:.9e} (float64 route {pred64:.9e}) against the central difference "
+          f"{fd:.9e}: rel {fd_err:.2e} ({fd_err64:.2e}); two backward passes bit-equal: "
+          f"{same}  [{card}]")
+    torch.cuda.synchronize()
+
+
+def symbell_split(blocks, cols, n_shards):
+    """The block-tridiagonal full-storage tiles (nrb, 3, bn, bn) and their
+    block columns (nrb, 3) (torch) as ``partition_symbell_rows`` shards them
+    (bn tiles, n_shards | nrb), built from the tiles on their device:
+    building the CSR of ~100 M nonzeros to partition it would take most of
+    a minute on the host, and the CPU tests hold this split equal to the
+    partitioner on a small operator."""
+    import torch
+
+    nrb, _, bn, _ = blocks.shape
+    L = nrb // n_shards
+    dev = blocks.device
+    i = torch.arange(nrb, device=dev)
+    colsl = cols.long()
+
+    def tile_at(col):
+        hit = (colsl == col[:, None]).to(blocks.dtype)
+        return torch.einsum("rk,rkmn->rmn", hit, blocks)
+
+    r = i % L
+    last = r == L - 1
+    diag = tile_at(i).view(n_shards, L, bn, bn)
+    up = tile_at(i + 1)
+    off = torch.where(last[:, None, None], 0.0, up).view(n_shards, L, 1, bn, bn)
+    off_cols = torch.where(last, r, r + 1).to(torch.int32).view(n_shards, L, 1)
+    lo = tile_at(i - 1)
+    rows = [([0] if s else []) + ([L - 1] if s < n_shards - 1 else []) for s in range(n_shards)]
+    nxr = max(max(len(rs) for rs in rows), 1)
+    cross = torch.zeros((n_shards, nxr, 1, bn, bn), dtype=blocks.dtype, device=dev)
+    cross_rows = torch.zeros((n_shards, nxr), dtype=torch.int32, device=dev)
+    cross_cols = torch.zeros((n_shards, nxr, 1), dtype=torch.int32, device=dev)
+    for s, rs in enumerate(rows):
+        for slot, rr in enumerate(rs):
+            g = s * L + rr
+            cross[s, slot, 0] = lo[g] if rr == 0 and s else up[g]
+            cross_rows[s, slot] = rr
+            cross_cols[s, slot, 0] = g - 1 if rr == 0 and s else g + 1
+    return diag, off, off_cols, cross, cross_rows, cross_cols
+
+
+def layout_timed(label, run, card) -> None:
+    """ms/it of a sharded solve (``run``: every step live) and its device
+    ms a step (these loops are host-bound: printed, not judged)."""
+    import torch
+
+    from conjugategradient_tpu_torch.utils import Timer
+
+    run()
+    t = Timer(torch.device(DEVICE)).start_measure()
+    _, info = run()
+    t.stop_measure()
+    k = max(int(info.iterations), 1)
+    busy = device_ms(run, reps=1)
+    busy_s = "not measured" if busy is None else f"{busy / k:.4f}"
+    print(f"  {label}: {k} steps, {t.get_duration() / k:.4f} ms/it, device {busy_s} ms a step "
+          f"(host-bound: not judged)  [{card}]")
+
+
+def layout_parity(label, sharded, one, squared_one: bool, k: int, min_used: int) -> str:
+    """The sharded history against the one-card solve's (norms squared
+    where the one-card info holds norms), above the float32 floor."""
+    h1 = one.rnorm_history ** 2 if squared_one else one.rho_history
+    ok, used = trajectory_ok(sharded.rho_history, h1, k)
+    hs, ho = (h[1:k + 1].double().cpu().numpy() for h in (sharded.rho_history, h1))
+    keep = ho > 1e-10 * float(h1[0])
+    worst = float(np.abs(hs[keep] / ho[keep] - 1).max()) if keep.any() else 0.0
+    check(ok and used >= min_used,
+          f"{label}: rho_history parts by {worst:.3g} (rtol {TRAJ_RTOL}) from the one-card "
+          f"solve's, {used} entries above the float32 floor")
+    return f"{used}"
+
+
+def phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card):
+    """The symmetric blocked-ELL, DIA, symmetric DIA and SELL front ends and
+    the sharded methods, on one card, against the one-card solves of the
+    same operators (module doc, phase 3)."""
+    import torch
+
+    from conjugategradient_tpu_torch import (SellMatrix, bicgstab_solve, cg_solve, gmres_solve,
+                                             jacobi_preconditioner, minres_solve)
+    from conjugategradient_tpu_torch.parallel import (make_row_mesh, partition_dia_rows,
+                                                      partition_sell_rows,
+                                                      sharded_dia_cg_solve,
+                                                      sharded_sell_cg_solve,
+                                                      sharded_symbell_cg_solve,
+                                                      sharded_symdia_cg_solve)
+    from conjugategradient_tpu_torch.problems import powerlaw_spd_coo
+    from conjugategradient_tpu_torch.solver.pipelined import pipelined_cg_solve
+    from conjugategradient_tpu_torch.solver.sstep import sstep_cg_solve
+
+    n = N_BIG
+    b = torch.as_tensor(np.random.default_rng(9).standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    tol = TOL_SOLVE_REL * float(b.norm())
+    hashes = []
+
+    # (a) symmetric blocked-ELL on the n = 262,144 operator at P = 4 and 8:
+    # CG to 1e-5 ||b|| against the single card's fused CG (equal counts,
+    # tests/test_sharded.py:822), then every method for LAYOUT_STEPS steps
+    # on the cut operator (cut_tridiag_ops) against its one-card solve
+    x1, i1 = cg_solve(big, b, tol=tol)
+    for n_shards in (4, 8):
+        parts = symbell_split(big_full.blocks, big_full.block_cols, n_shards)
+        g = make_row_mesh(n_shards, dev)
+        xs, is_ = sharded_symbell_cg_solve(*parts, b, mesh=g, tol=tol)
+        e, m = rel_max_err(xs, x1)
+        check(int(is_.iterations) == int(i1.iterations) and bool(is_.converged)
+              and e <= 1e-4 * m,
+              f"sharded symbell CG P={n_shards}: {int(is_.iterations)} its against "
+              f"{int(i1.iterations)}, x differs by {e}")
+        print(f"  sharded symbell CG n={n} P={n_shards} to {TOL_SOLVE_REL:g} ||b||: "
+              f"{int(is_.iterations)} its as the single card's fused CG, x to {e / m:.2e} of "
+              f"max|x|; collectives {g.counts}")
+    cut_full, cut_ops, cut_inv = cut_tridiag_ops(*shard_ops, big_full.nnz)
+    jac = jacobi_preconditioner(cut_full)
+    steps = LAYOUT_STEPS
+    one = {
+        "standard": (cg_solve(cut_full, b, tol=0.0, maxiter=steps)[1], False),
+        "jacobi": (cg_solve(cut_full, b, tol=0.0, maxiter=steps, M=jac)[1], False),
+        "pipelined": (pipelined_cg_solve(cut_full, b, tol=0.0, maxiter=steps)[1], False),
+        "sstep": (sstep_cg_solve(cut_full, b, s=4, tol=0.0, maxiter=steps)[1], False),
+        "minres": (minres_solve(cut_full, b, tol=0.0, maxiter=steps)[1], True),
+        "bicgstab": (bicgstab_solve(cut_full, b, tol=0.0, maxiter=steps)[1], True),
+        "gmres": (gmres_solve(cut_full, b, tol=0.0, maxiter=steps)[1], True),
+    }
+    cut_blocks = cut_full.blocks
+    used = []
+    for n_shards in (4, 8):
+        parts = symbell_split(cut_blocks, cut_full.block_cols, n_shards)
+        for name, (info1, squared) in one.items():
+            kw = dict(method="standard" if name == "jacobi" else name)
+            if name == "jacobi":
+                kw["inv_diag"] = cut_inv
+            run = (lambda kw=kw: sharded_symbell_cg_solve(
+                *parts, b, mesh=make_row_mesh(n_shards, dev), tol=0.0, maxiter=steps, **kw))
+            xs, is_ = run()
+            check(int(is_.iterations) == int(info1.iterations),
+                  f"sharded symbell {name} P={n_shards}: {int(is_.iterations)} steps against "
+                  f"{int(info1.iterations)}")
+            # BiCGStab on a symmetric operator amplifies the sums' rounding
+            # (the fused and portable loops part by 5e-2 after step 15)
+            k_cmp = 15 if name == "bicgstab" else steps
+            # s-step records block boundaries only: steps / 4 entries
+            min_used = steps // 4 if name == "sstep" else PARITY_MIN_USED
+            used.append(f"{name} P={n_shards} " + layout_parity(
+                f"sharded symbell {name} P={n_shards}", is_, info1, squared, k_cmp, min_used))
+            xs2, is2 = run()
+            check(torch.equal(xs, xs2) and torch.equal(is_.rho_history.view(torch.int32),
+                                                       is2.rho_history.view(torch.int32)),
+                  f"sharded symbell {name} P={n_shards}: two runs differ")
+            hashes.append(f"symbell {name} P={n_shards} {digest(is_.rho_history, xs)}")
+            if n_shards == 8:
+                layout_timed(f"sharded symbell {name} n={n} P=8", run, card)
+    print(f"  sharded symbell, every method, {steps} steps on the cut operator against the "
+          f"one-card solve: entries above the float32 floor {', '.join(used)}; each twice "
+          f"bit for bit")
+    del cut_full, cut_ops, parts
+
+    # (b) symdia-big (n = 2,097,152, 41 diagonals / 21 stored) at P = 4: DIA
+    # standard and s-step (the matrix-powers basis), SymDIA standard and
+    # pipelined (the JAX front end refuses s-step there)
+    big_dia, big_sym = dia_ops["big"], dia_ops["big_sym"]
+    nd = big_dia.n
+    bd = torch.as_tensor(np.random.default_rng(10).standard_normal(nd), dtype=torch.float32,
+                         device=dev)
+    tol_d = TOL_SOLVE_REL * float(bd.norm())
+    for label, a, front, methods in (
+            ("DIA", big_dia, sharded_dia_cg_solve, ("standard", "sstep")),
+            ("SymDIA", big_sym, sharded_symdia_cg_solve, ("standard", "pipelined"))):
+        diags, n_pad = partition_dia_rows(a.diags.cpu().numpy(), a.shape, 4)
+        diags = torch.as_tensor(diags, device=dev)  # on the card once, not per solve
+        for method in methods:
+            ref = {"standard": cg_solve, "sstep": sstep_cg_solve,
+                   "pipelined": pipelined_cg_solve}[method]
+            x1, i1 = ref(a, bd, tol=tol_d)
+            run = (lambda method=method: front(diags, a.offsets, bd, mesh=make_row_mesh(4, dev),
+                                               tol=tol_d, method=method))
+            xs, is_ = run()
+            e, m = rel_max_err(xs, x1)
+            slack = LAYOUT_ITER_SLACK * (4 if method == "sstep" else 1)
+            check(bool(is_.converged) and abs(int(is_.iterations) - int(i1.iterations)) <= slack
+                  and e <= 1e-4 * m,
+                  f"sharded {label} {method} symdia-big P=4: {int(is_.iterations)} its against "
+                  f"{int(i1.iterations)}, x differs by {e}")
+            hashes.append(f"{label} {method} P=4 {digest(is_.rho_history, xs)}")
+            layout_timed(f"sharded {label} {method} symdia-big n={nd} P=4 "
+                         f"({int(is_.iterations)} its, the single card {int(i1.iterations)}, "
+                         f"x to {e / m:.2e})", run, card)
+        del diags
+
+    # (c) SELL on the irregular power-law pattern at P = 4: CG to 1e-5 ||b||
+    # against the single card's; s-step against the single card's s-step
+    # over its first three blocks.  On this operator s-step's first block
+    # raises ||r||^2 16-fold and the two sum orders part by ~1e-3 (float32)
+    # and ~1e-10 (float64) over three blocks, then by 0.1-0.5 in the fourth
+    # or fifth in either dtype (CPU, n = 200,000): a chaotic trajectory,
+    # not one to hold further.  Each is timed over LAYOUT_STEPS steps
+    t0 = time.perf_counter()
+    rows, cols, vals, shp = powerlaw_spd_coo(POWERLAW_N, avg_degree=4.8, seed=0)
+    order = np.lexsort((cols, rows))
+    r_, c_, v_ = rows[order], cols[order], vals[order].astype(np.float32)
+    indptr = np.zeros(POWERLAW_N + 1, np.int64)
+    np.add.at(indptr, r_ + 1, 1)
+    indptr = np.cumsum(indptr)
+    parts = partition_sell_rows(v_, c_, indptr, shp, 4)
+    parts = tuple(torch.as_tensor(a, device=dev) for a in parts[:4]) + parts[4:]
+    sell = SellMatrix.from_csr_host(v_, c_, indptr, shp, device=dev)
+    print(f"  power-law n={POWERLAW_N} nnz={len(v_)}: built and partitioned in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    bp = torch.zeros(parts[-1], dtype=torch.float32, device=dev)
+    bp[:POWERLAW_N] = torch.as_tensor(np.random.default_rng(11).standard_normal(POWERLAW_N),
+                                      dtype=torch.float32, device=dev)
+    tol_p = TOL_SOLVE_REL * float(bp.norm())
+
+    def sell_run(method, tol, steps=None):
+        return sharded_sell_cg_solve(parts, bp, mesh=make_row_mesh(4, dev), tol=tol,
+                                     maxiter=steps, method=method)
+
+    x1, i1 = cg_solve(sell, bp[:POWERLAW_N], tol=tol_p)
+    xs, is_ = sell_run("standard", tol_p)
+    e, m = rel_max_err(xs[:POWERLAW_N], x1)
+    check(bool(is_.converged) and abs(int(is_.iterations) - int(i1.iterations))
+          <= LAYOUT_ITER_SLACK and e <= 1e-4 * m,
+          f"sharded SELL CG power-law P=4: {int(is_.iterations)} its against "
+          f"{int(i1.iterations)}, x differs by {e}")
+    hashes.append(f"SELL standard P=4 {digest(is_.rho_history, xs)}")
+    print(f"  sharded SELL CG power-law n={POWERLAW_N} P=4 to {TOL_SOLVE_REL:g} ||b||: "
+          f"{int(is_.iterations)} its, the single card {int(i1.iterations)}, x to {e / m:.2e}")
+    _, o_s = sstep_cg_solve(sell, bp[:POWERLAW_N], s=4, tol=0.0, maxiter=steps)
+    xs, is_ = sell_run("sstep", 0.0, steps)
+    used_s = layout_parity("sharded SELL sstep power-law P=4", is_, o_s, False, 12, 3)
+    hashes.append(f"SELL sstep P=4 {digest(is_.rho_history, xs)}")
+    print(f"  sharded SELL s-step power-law P=4, {steps} steps: the first {used_s} block "
+          f"entries agree with the single card's s-step")
+    for method in ("standard", "sstep"):
+        layout_timed(f"sharded SELL {method} power-law n={POWERLAW_N} P=4",
+                     lambda method=method: sell_run(method, 0.0, steps), card)
+    print("  sharded layouts hashes (history and x): " + "; ".join(hashes))
+    torch.cuda.synchronize()
+
+
+def layouts_only(dev, card, which: str) -> None:
+    """``--autodiff-only`` / ``--sharded-layouts-only``: the one path, its
+    operators built as the full run builds them, its launches counted."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    big_full, big = block_tridiag_ops(N_BIG, 128, dev)
+    fc.reset_counts()
+    if which == "autodiff":
+        phase_autodiff_path(dev, big, big_full, card)
+        kernels = AUTODIFF_KERNELS
+    else:
+        dia_ops = dict(zip(("big", "big_sym"),
+                           sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)))
+        shard_ops = sharded_ops(dev, 4)
+        phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card)
+        kernels = SHARDED_LAYOUT_KERNELS
+    counts = dict(fc.LAUNCHES)
+    print(f"  {which} path: launches {({k: counts[k] for k in kernels})}")
+    for name in kernels:
+        check(counts[name] > 0, f"kernel {name} never launched on the {which} path")
+    print(card)
+
+
 def main() -> int:
     import torch
 
@@ -8119,6 +8663,10 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--stencil-only"] and len(sys.argv) <= 3:
         stencil_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
+        return 0
+    if sys.argv[1:] in (["--autodiff-only"], ["--sharded-layouts-only"]):
+        which = "autodiff" if sys.argv[1] == "--autodiff-only" else "sharded layouts"
+        layouts_only(dev, card, which)
         return 0
 
     print(f"phase 2: kernels vs plain versions ({time.perf_counter() - t0:.1f} s since the build "
@@ -8163,6 +8711,9 @@ def main() -> int:
          lambda: phase_refine_path(dev, big, big_full, dia_ops, shard_ops, card)),
         ("bf16 BiCGStab / sharded / stencil", BF16_BICG_KERNELS,
          lambda: phase_bf16_bicgstab_stencil_path(dev, bic_ops, shard_ops, big_full, card)),
+        ("autodiff", AUTODIFF_KERNELS, lambda: phase_autodiff_path(dev, big, big_full, card)),
+        ("sharded layouts", SHARDED_LAYOUT_KERNELS,
+         lambda: phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card)),
     ):
         print(f"phase 3: main path, {label} ({time.perf_counter() - t0:.1f} s since the build "
               "began)")

@@ -75,6 +75,8 @@ from .solver import (
     gmres_solve,
     gmres_solve_batched,
     harvest_deflation_basis,
+    implicit_cg_solve,
+    implicit_gmres_solve,
     jacobi_preconditioner,
     lanczos_eigs,
     lobpcg_eigs,
@@ -149,6 +151,8 @@ __all__ = [
     "gmres_solve",
     "gmres_solve_batched",
     "harvest_deflation_basis",
+    "implicit_cg_solve",
+    "implicit_gmres_solve",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_matrix",

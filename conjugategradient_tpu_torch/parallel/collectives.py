@@ -12,7 +12,11 @@ interface:
 * ``all_gather(local_vectors)``: the owned shards' vectors in, the whole
   vector (every shard's, in shard order) out;
 * ``psum(partials)``: the owned shards' partial sums in, the sum over every
-  shard out, as one device tensor that has the same bits on every shard.
+  shard out, as one device tensor that has the same bits on every shard;
+* ``ring_halo(local_vectors, w)``: each owned shard's vector extended by
+  the ``w`` last rows of its left neighbour and the ``w`` first of its right
+  one (zeros past the ends of the ring), the JAX package's two
+  ``ppermute``s (``parallel/local_ops.ring_halo``).
 
 Two back ends:
 
@@ -27,7 +31,8 @@ not depend on the back end and two runs agree bit for bit (the reference
 pins that, ``tests/test_solver_api.py::test_deterministic_bitwise``).  The
 distributed group all-gathers the partials and sums them itself rather
 than calling ``all_reduce``, whose ring order would change with the group.
-Both count their calls by kind in ``counts``.
+Both count their calls by kind in ``counts`` (a kind appears there once it
+has been called).
 """
 
 from __future__ import annotations
@@ -65,6 +70,23 @@ class ShardGroup:
     def row_offset(s: int, m: int) -> int:
         """First global row of shard ``s`` when every shard has ``m`` rows."""
         return s * m
+
+    def ring_halo(self, local_vectors: Sequence[torch.Tensor], w: int):
+        """Each owned shard's rows (axis 0) extended by its ring
+        neighbours' ``w`` edge rows: [left tail, rows, right head], (m + 2w,
+        ...) each, zeros past the first and the last shard."""
+        self.counts["ring_halo"] = self.counts.get("ring_halo", 0) + 1
+        for v in local_vectors:
+            if w > v.shape[0]:
+                raise ValueError(
+                    f"halo width {w} exceeds the local shard length {v.shape[0]}; "
+                    "a one-hop ring cannot supply it")
+        lefts, rights = self._edges(local_vectors, int(w))
+        return [torch.cat([lt, v, rt]) for lt, v, rt in zip(lefts, local_vectors, rights)]
+
+    @staticmethod
+    def _tail(v: torch.Tensor, w: int) -> torch.Tensor:
+        return v[v.shape[0] - w:]
 
 
 def _joined(vectors: Sequence[torch.Tensor]):
@@ -108,6 +130,15 @@ class InProcessGroup(ShardGroup):
             raise ValueError(f"psum: {len(partials)} partials for {self.n_shards} shards")
         return _left_to_right(partials)
 
+    def _edges(self, vs: Sequence[torch.Tensor], w: int):
+        """A slice of each neighbour's shard, zeros at the ends."""
+        if len(vs) != self.n_shards:
+            raise ValueError(f"ring_halo: {len(vs)} vectors for {self.n_shards} shards")
+        zero = vs[0].new_zeros((w,) + tuple(vs[0].shape[1:]))
+        lefts = [zero] + [self._tail(v, w) for v in vs[:-1]]
+        rights = [v[:w] for v in vs[1:]] + [zero]
+        return lefts, rights
+
 
 class DistributedGroup(ShardGroup):
     """One shard per process: this process's rank in ``process_group``
@@ -117,6 +148,7 @@ class DistributedGroup(ShardGroup):
         import torch.distributed as dist
 
         self._gather = dist.all_gather_into_tensor
+        self._dist = dist
         self.process_group = process_group
         rank = dist.get_rank(process_group)
         super().__init__(dist.get_world_size(process_group), device, (rank,))
@@ -137,3 +169,27 @@ class DistributedGroup(ShardGroup):
         self._gather(out, flat, group=self.process_group)
         parts = out.reshape(self.n_shards, *p.shape)
         return _left_to_right([parts[i] for i in range(self.n_shards)])
+
+    def _edges(self, vs: Sequence[torch.Tensor], w: int):
+        """The neighbours' edge rows by point-to-point messages: this rank's
+        tail goes to rank + 1 and its head to rank - 1, in one batch."""
+        dist, pg = self._dist, self.process_group
+        (v,) = vs
+        rank, last = self.shards[0], self.n_shards - 1
+        left = v.new_zeros((w,) + tuple(v.shape[1:]))
+        right = torch.zeros_like(left)
+        ops = []
+
+        def peer(r):
+            return r if pg is None else dist.get_global_rank(pg, r)
+
+        if rank > 0:
+            ops += [dist.P2POp(dist.isend, v[:w].contiguous(), peer(rank - 1), pg),
+                    dist.P2POp(dist.irecv, left, peer(rank - 1), pg)]
+        if rank < last:
+            ops += [dist.P2POp(dist.isend, self._tail(v, w).contiguous(), peer(rank + 1), pg),
+                    dist.P2POp(dist.irecv, right, peer(rank + 1), pg)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [left], [right]

@@ -1,4 +1,5 @@
 from .amg import rigid_body_modes, smoothed_aggregation_preconditioner
+from .autodiff import implicit_cg_solve, implicit_gmres_solve
 from .batched import (BatchedCGState, batched_cg_init, batched_state_result, cg_solve_batched,
                       run_batched_cg)
 from .batched_nonsym import bicgstab_solve_batched, gmres_solve_batched, minres_solve_batched
@@ -83,6 +84,8 @@ __all__ = [
     "gmres_solve_batched",
     "harvest_deflation_basis",
     "identity_preconditioner",
+    "implicit_cg_solve",
+    "implicit_gmres_solve",
     "jacobi_preconditioner",
     "lanczos_eigs",
     "load_state",

@@ -100,6 +100,7 @@ def make_sstep_loop(
     maxiter: int,
     rcond: float,
     basis_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    gram_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Run the s-step loop shared by the single-device and sharded solvers.
 
@@ -107,8 +108,13 @@ def make_sstep_loop(
     maps the local (3s+1, 3s+1) Gram partial to the global Gram (the
     identity on one device, one sum over the shards otherwise);
     ``basis_fn(r, inv_nu)`` optionally replaces the matvec-at-a-time Krylov
-    basis, returning the (s+1, n_local) scaled rows.  Returns ``(x, k,
-    done, rnorm, hist)`` with the framework's carry conventions.
+    basis, returning the (s+1, n_local) scaled rows.  ``gram_fn(U)``
+    optionally replaces both steps of the Gram: it maps the (rows, n_local)
+    block U, in the accumulation dtype, to the global UUᵀ (the sharded loop
+    of a process that owns several shards forms one partial per shard, so
+    that the sum over the shards runs in the shard group's fixed order).
+    Returns ``(x, k, done, rnorm, hist)`` with the framework's carry
+    conventions.
     """
     acc = torch.promote_types(b.dtype, torch.float32)
     n_local = b.shape[0]
@@ -116,7 +122,7 @@ def make_sstep_loop(
 
     def gram(U):
         U = U.to(acc)
-        return reduce_gram(U @ U.T)
+        return reduce_gram(U @ U.T) if gram_fn is None else gram_fn(U)
 
     def basis(r, inv_nu):
         """Scaled monomial basis K'_j = (A/ν)ʲ r stacked as (s+1, n_local)

@@ -34,8 +34,15 @@ class StencilOperator(LinearOperator):
     matvec reads nothing back from the device.  A bfloat16 operator applied
     to float32 vectors runs the float32 kernel on its rounded values; on
     bfloat16 vectors, the kernel's bf16 form, which rounds every product and
-    sum to bf16 as the JAX kernel does.  The operator holds no tensor:
-    ``device`` says where its vectors live.
+    sum to bf16 as the JAX kernel does.  ``device`` says where its vectors
+    live.
+
+    ``center`` and ``off`` may also be given as 0-d tensors (the JAX
+    operator's array leaves): their values are read once, here, into the
+    host floats the kernels take, and the tensors are kept in
+    ``coefficient_tensors``, through which
+    :func:`~conjugategradient_tpu_torch.solver.autodiff.implicit_cg_solve`
+    sends their gradients.
     """
 
     center: float
@@ -52,8 +59,14 @@ class StencilOperator(LinearOperator):
         if len(shape) != 3 or min(shape) < 1:
             raise ValueError(f"grid_shape must be 3 axes >= 1, got {self.grid_shape}")
         object.__setattr__(self, "grid_shape", shape)
-        object.__setattr__(self, "center", round_to(self.center, self.dtype))
-        object.__setattr__(self, "off", round_to(self.off, self.dtype))
+        tensors = {}
+        for name in ("center", "off"):
+            value = getattr(self, name)
+            if isinstance(value, torch.Tensor):
+                tensors[name] = value
+                value = float(value.detach())
+            object.__setattr__(self, name, round_to(value, self.dtype))
+        object.__setattr__(self, "coefficient_tensors", tensors)
         object.__setattr__(self, "device", torch.device(self.device))
 
     @staticmethod

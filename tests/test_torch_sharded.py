@@ -300,10 +300,11 @@ def small():
     (dict(method="bogus"), ValueError, "unknown method"),
     (dict(method="minres", recompute_r_every=8), ValueError, "residual-replacement"),
     (dict(use_fused="always", recompute_r_every=5), ValueError, "residual-replacement"),
-    (dict(method="pipelined"), NotImplementedError, "ROADMAP.md section 1, item 12"),
-    (dict(method="sstep"), NotImplementedError, "ROADMAP.md section 1, item 12"),
-    (dict(method="bicgstab"), NotImplementedError, "ROADMAP.md section 1, item 12"),
-    (dict(method="gmres"), NotImplementedError, "ROADMAP.md section 1, item 12"),
+    (dict(method="pipelined", use_fused="always", M_local=abs), ValueError, "general-M"),
+    (dict(method="sstep", s=0), ValueError, "s must be >= 1"),
+    (dict(method="bicgstab", M_local=abs, inv_diag=np.ones(128)), ValueError,
+     "either inv_diag or M_local"),
+    (dict(method="gmres", recompute_r_every=5), ValueError, "residual-replacement"),
 ])
 def test_dispatch_errors(small, kw, err, match):
     blocks, bcols, b, _ = small

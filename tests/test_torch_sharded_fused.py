@@ -234,16 +234,17 @@ WORKER = textwrap.dedent('''
     from conjugategradient_tpu_torch.parallel import sharded_cg as front_end
     from conjugategradient_tpu_torch.problems import poisson2d_coo, reference_rhs
 
-    # the operands each solve core gets on this process's device
+    # the operands the solve core hands on to this process's device
     seen = []
-    core = front_end._sharded_solve
+    core = front_end._owned_solve
 
-    def spy(group, blocks, block_cols, b, x0, **kw):
+    def spy(group, op_shards, b, x0, precond, **kw):
+        blocks, block_cols = op_shards
         seen.append((tuple(blocks.shape), tuple(block_cols.shape), tuple(b.shape),
-                     tuple(kw["inv_diag"].shape)))
-        return core(group, blocks, block_cols, b, x0, **kw)
+                     tuple(precond.shape)))
+        return core(group, op_shards, b, x0, precond, **kw)
 
-    front_end._sharded_solve = spy
+    front_end._owned_solve = spy
 
     rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     torch.set_num_threads(1)
