@@ -330,8 +330,33 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    4, ``sharded_sell_cg_solve`` on the 1.5M-row power-law pattern at P = 4
    (CG to 1e-5 ||b||, s-step for 24 steps), each with its ms/it and device
    ms a step (host-bound: not judged) and a hash of its history and x.
-   ``--autodiff-only`` and ``--sharded-layouts-only`` run one of these
-   two paths alone, with its launches counted.
+   Then the rest of ``parallel/`` (``phase_sharded_families_path``,
+   ``FAMILY_KERNELS``): the state API (``sharded_cg_init`` /
+   ``sharded_run_cg`` on the n = 262,144 shards at P = 4, 64 steps at tol
+   = -1; the DIA and SELL siblings on symdia-big and the power-law pattern
+   to 1e-5 ||b||), each in chunks through ``save_state`` / ``load_state``
+   files, bit for bit the uninterrupted portable solve; the 2-D grid at
+   p = 2 (CG to 1e-5 ||b|| on the n = 262,144 operator; standard, Jacobi,
+   pipelined and s-step for 24 steps on the cut operator against the
+   one-card solves; the group's counters); the batched solves at R = 8
+   (lockstep and block CG on the cut operator's P = 4 shards, on
+   symdia-big at P = 4 and on the cut operator's 2-D grid, per-lane counts
+   against the one-card loops); ``sharded_stencil_cg_solve`` and sharded
+   MG-PCG at 256^3, P = 4, against the one-card portable CG and MG-PCG
+   (equal counts; kernel 11's launches by route; one shard's product bit
+   for bit the one-card product's slice); sharded SA-AMG and FSAI PCG on
+   poisson2d(512) at P = 4 against the one-card PCGs (equal counts: the
+   float32 preconditioned solves at a tolerance float32 reaches there,
+   ``F32_REACHABLE_TOL``, the float64 ones at the full tolerances); each
+   sharded call's own launches counted and checked (kernel 5 in the state
+   API and 2-D solves, packed kernel 5 in the AMG and FSAI levels, kernel
+   7 in the DIA state API, kernel 11 by route in each stencil solve); and
+   the sharded LOBPCG (CholQR²) on the eigs lane at P = 4 against the
+   one-card LOBPCG, ms an iteration and device ms beside it (host-bound:
+   not judged); a hash of each solve's history and x.
+   ``--autodiff-only``, ``--sharded-layouts-only`` and
+   ``--sharded-families-only`` run one of these paths alone, with its
+   launches counted.
 4. Check that every kernel launched during its path and that no plain
    version was given a CUDA tensor there; print the kernel table as JSON
    (a kernel's launches summed over the paths that run it).
@@ -406,6 +431,7 @@ torch.profiler, on this card.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -5313,7 +5339,9 @@ DEFL_HARVEST_M = 200
 # also reach the tolerance (at 1e-6 they may stop at the divergence guard,
 # as the JAX package's do: poisson2d(128) and (256) on the CPU)
 DEFL_TOLS = (1e-6, 1e-4)
-DEFL_REPS = {1e-6: 3, 1e-4: 1}  # time to stop: the median of 3 solves at the lane's tolerance
+# time to stop: one timed solve at each tolerance (the median of 3 at 1e-6
+# before the sharded families path took that share of the run's time)
+DEFL_REPS = {1e-6: 1, 1e-4: 1}
 DEFL_F64_TOL_REL = 1e-8
 DEFL_ITER_SLACK = 1  # float64 deflated CG, card against the CPU's plain versions
 LOBPCG_ITER_SLACK = 3  # float64 LOBPCG there (tests/test_torch_lobpcg.py's slack)
@@ -5409,8 +5437,8 @@ def deflation_at_scale(dev, card) -> None:
     LOBPCG with SA-AMG (built on the CSR copy), Lanczos at its default
     length and the harvest of a 200-step CG pass (the first solve
     warm-started from its x), at 1e-6 and 1e-4 of ||b||: setup seconds,
-    basis_quality, iterations, ms to the stop (the median of 3 at 1e-6, one
-    solve at 1e-4) and a step,
+    basis_quality, iterations, ms to the stop (one solve at each tolerance)
+    and a step,
     the true relative residual, the divergence guard and kernel 7's
     launches."""
     import torch
@@ -8452,15 +8480,13 @@ def phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card):
     same operators (module doc, phase 3)."""
     import torch
 
-    from conjugategradient_tpu_torch import (SellMatrix, bicgstab_solve, cg_solve, gmres_solve,
+    from conjugategradient_tpu_torch import (bicgstab_solve, cg_solve, gmres_solve,
                                              jacobi_preconditioner, minres_solve)
     from conjugategradient_tpu_torch.parallel import (make_row_mesh, partition_dia_rows,
-                                                      partition_sell_rows,
                                                       sharded_dia_cg_solve,
                                                       sharded_sell_cg_solve,
                                                       sharded_symbell_cg_solve,
                                                       sharded_symdia_cg_solve)
-    from conjugategradient_tpu_torch.problems import powerlaw_spd_coo
     from conjugategradient_tpu_torch.solver.pipelined import pipelined_cg_solve
     from conjugategradient_tpu_torch.solver.sstep import sstep_cg_solve
 
@@ -8571,18 +8597,8 @@ def phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card):
     # and ~1e-10 (float64) over three blocks, then by 0.1-0.5 in the fourth
     # or fifth in either dtype (CPU, n = 200,000): a chaotic trajectory,
     # not one to hold further.  Each is timed over LAYOUT_STEPS steps
-    t0 = time.perf_counter()
-    rows, cols, vals, shp = powerlaw_spd_coo(POWERLAW_N, avg_degree=4.8, seed=0)
-    order = np.lexsort((cols, rows))
-    r_, c_, v_ = rows[order], cols[order], vals[order].astype(np.float32)
-    indptr = np.zeros(POWERLAW_N + 1, np.int64)
-    np.add.at(indptr, r_ + 1, 1)
-    indptr = np.cumsum(indptr)
-    parts = partition_sell_rows(v_, c_, indptr, shp, 4)
-    parts = tuple(torch.as_tensor(a, device=dev) for a in parts[:4]) + parts[4:]
-    sell = SellMatrix.from_csr_host(v_, c_, indptr, shp, device=dev)
-    print(f"  power-law n={POWERLAW_N} nnz={len(v_)}: built and partitioned in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
+    parts, sell, nnz, secs = powerlaw_parts(dev)
+    print(f"  power-law n={POWERLAW_N} nnz={nnz}: built and partitioned in {secs:.1f} s (host)")
     bp = torch.zeros(parts[-1], dtype=torch.float32, device=dev)
     bp[:POWERLAW_N] = torch.as_tensor(np.random.default_rng(11).standard_normal(POWERLAW_N),
                                       dtype=torch.float32, device=dev)
@@ -8615,9 +8631,474 @@ def phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card):
     torch.cuda.synchronize()
 
 
+FAMILY_KERNELS = ("bell_spmv", "bell_spmv_packed", "dia_spmv", "stencil7_staged", "stencil7")
+STATE_STEPS = 64  # the blocked-ELL state API at tol = -1, in STATE_CHUNKS chunks
+STATE_CHUNKS = 4
+STATE_DIA_CHUNK = 2  # steps a chunk of the DIA solve to tolerance (6 its: 3 files)
+STATE_SELL_CHUNK = 100  # and of the SELL one (565 its: 6 files)
+BATCH_R = 8
+FAMILY_LOBPCG_STEPS = 24  # the fixed-count LOBPCG runs that are timed
+FAMILY_TIMED_STEPS = 64  # the fixed-count runs of the longer solves that are timed
+# The float32 preconditioned solves' counts are held equal to the one-card
+# counts at a tolerance float32 reaches on the operator: the one-card
+# float32 solves to 1e-5 (256^3) and 1e-6 (poisson2d(512)) ||b|| end at a
+# true relative residual of about 1e-3 (MG-PCG), 3.6e-3 (SA-AMG) and 2.4e-2
+# (FSAI(1)) on an H100, so below those the recurrences carry rounding, not
+# the operator, and two summation orders part.  The float64 solves are held
+# equal at the full tolerances.  Each float32 solve's true residual must
+# come within F32_TRUE_SLACK of its tolerance.
+F32_REACHABLE_TOL = {"MG-PCG": 1e-2, "SA-AMG": 1e-2, "FSAI(1)": 1e-1}
+F32_TRUE_SLACK = 2.0
+
+
+def grid_split(blocks, cols, p: int):
+    """The block-tridiagonal tiles (nrb, 3, bn, bn) and their block columns
+    (nrb, 3) (torch) as ``partition_csr_blocks_2d`` splits them into a
+    p x p grid: each block row's tiles that fall in column stripe j,
+    ascending, LOCAL column ids, zero tiles at column 0 after them (a zero
+    tile of the input is padding, as the CSR holds no entry there); built
+    from the tiles on their device (the CSR of ~100 M nonzeros would take
+    most of a minute on the host; the CPU tests hold this split equal to
+    the partitioner on a small operator)."""
+    import torch
+
+    nrb, slots, bn, _ = blocks.shape
+    L = nrb // p
+    dev = blocks.device
+    parts, col_parts, kmax = [], [], 1
+    rows = torch.arange(L, device=dev)[:, None]
+    for i in range(p):
+        rb, rc = blocks[i * L:(i + 1) * L], cols[i * L:(i + 1) * L].long()
+        row_b, row_c = [], []
+        real = rb.abs().amax(dim=(-2, -1)) > 0  # padding slots: zero tiles at column 0
+        for j in range(p):
+            keep = ((rc // L) == j) & real
+            order = torch.argsort(torch.where(keep, rc, nrb), dim=1, stable=True)
+            kept = torch.gather(keep, 1, order)
+            kmax = max(kmax, int(kept.sum(dim=1).max()))
+            row_b.append(torch.where(kept[..., None, None], rb[rows, order], 0.0))
+            row_c.append(torch.where(kept, torch.gather(rc, 1, order) - j * L, 0).to(torch.int32))
+        parts.append(torch.stack(row_b))
+        col_parts.append(torch.stack(row_c))
+    return (torch.stack(parts)[:, :, :, :kmax].contiguous(),
+            torch.stack(col_parts)[:, :, :, :kmax].contiguous())
+
+
+@functools.lru_cache(maxsize=1)
+def powerlaw_parts(dev, n_shards=4):
+    """The power-law SELL operator (POWERLAW_N rows, bench.py:556's pattern)
+    as ``partition_sell_rows`` shards it, on the card, its one-card
+    SellMatrix, its nonzeros and the host seconds the build took; built
+    once a run (both sharded paths take it)."""
+    import torch
+
+    from conjugategradient_tpu_torch import SellMatrix
+    from conjugategradient_tpu_torch.parallel import partition_sell_rows
+    from conjugategradient_tpu_torch.problems import powerlaw_spd_coo
+
+    t0 = time.perf_counter()
+    rows, cols, vals, shp = powerlaw_spd_coo(POWERLAW_N, avg_degree=4.8, seed=0)
+    order = np.lexsort((cols, rows))
+    r_, c_, v_ = rows[order], cols[order], vals[order].astype(np.float32)
+    indptr = np.zeros(POWERLAW_N + 1, np.int64)
+    np.add.at(indptr, r_ + 1, 1)
+    indptr = np.cumsum(indptr)
+    parts = partition_sell_rows(v_, c_, indptr, shp, n_shards)
+    parts = tuple(torch.as_tensor(a, device=dev) for a in parts[:4]) + parts[4:]
+    sell = SellMatrix.from_csr_host(v_, c_, indptr, shp, device=dev)
+    return parts, sell, len(v_), time.perf_counter() - t0
+
+
+def last_three(info, tol):
+    """||r||/tol at a solve's last three history entries (its iterations
+    k - 2 .. k)."""
+    k = int(info.iterations)
+    return info.rho_history[max(k - 2, 0):k + 1].double().sqrt().cpu() / tol
+
+
+def launched(run, names):
+    """``run()`` and the launches of each kernel in ``names`` it made."""
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+
+    before = {k: fc.LAUNCHES[k] for k in names}
+    out = run()
+    return out, {k: fc.LAUNCHES[k] - before[k] for k in names}
+
+
+def timed_solve(run, card, label, steps_of=lambda out: int(out[1].iterations)) -> str:
+    """One warm run, then ms an iteration (CUDA events) and device ms an
+    iteration of ``run``; a line for the report (host-bound: not judged)."""
+    import torch
+
+    run()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = run()
+    e1.record()
+    e1.synchronize()
+    k = max(steps_of(out), 1)
+    busy = device_ms(run, reps=1)
+    busy_s = "not measured" if busy is None else f"{busy / k:.4f}"
+    return (f"  {label}: {k} its, {e0.elapsed_time(e1) / k:.4f} ms/it, device {busy_s} ms/it "
+            f"(host-bound: not judged)  [{card}]")
+
+
+def phase_sharded_families_path(dev, big, big_full, shard_ops, dia_ops, card):
+    """The state API with its files, the 2-D grid, the batched solves, the
+    sharded stencil, multigrid, AMG, FSAI and LOBPCG, on one card, against
+    the one-card solves (module doc, phase 3)."""
+    import tempfile
+
+    import torch
+
+    from conjugategradient_tpu_torch import (StencilOperator, block_cg_solve, cg_solve,
+                                             cg_solve_batched, fsai_preconditioner,
+                                             jacobi_preconditioner, lobpcg_eigs,
+                                             multigrid_preconditioner,
+                                             smoothed_aggregation_preconditioner)
+    from conjugategradient_tpu_torch import parallel as tpar
+    from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+    from conjugategradient_tpu_torch.parallel.sharded_stencil import _local_stencil_matvec
+    from conjugategradient_tpu_torch.solver.checkpoint import load_state, save_state
+    from conjugategradient_tpu_torch.solver.pipelined import pipelined_cg_solve
+    from conjugategradient_tpu_torch.solver.sstep import sstep_cg_solve
+
+    t_phase = time.perf_counter()
+    n = N_BIG
+    b = torch.as_tensor(np.random.default_rng(12).standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    tol = TOL_SOLVE_REL * float(b.norm())
+    hashes = []
+    g4 = tpar.make_row_mesh(4, dev)
+
+    # (a) the state API, in chunks through files, against the uninterrupted
+    # portable solve (use_fused="never" on the blocked-ELL shards)
+    big_dia = dia_ops["big"]
+    diags, _ = tpar.partition_dia_rows(big_dia.diags.cpu().numpy(), big_dia.shape, 4)
+    diags = torch.as_tensor(diags, device=dev)
+    bd = torch.as_tensor(np.random.default_rng(10).standard_normal(big_dia.n),
+                         dtype=torch.float32, device=dev)
+    tol_d = TOL_SOLVE_REL * float(bd.norm())
+    sell_parts, _, _, secs = powerlaw_parts(dev)
+    print(f"  power-law n={POWERLAW_N} SELL at P=4: built and partitioned in {secs:.1f} s (host; "
+          f"once a run)")
+    bp = torch.zeros(sell_parts[-1], dtype=torch.float32, device=dev)
+    bp[:POWERLAW_N] = torch.as_tensor(np.random.default_rng(11).standard_normal(POWERLAW_N),
+                                      dtype=torch.float32, device=dev)
+    tol_p = TOL_SOLVE_REL * float(bp.norm())
+    # the kernel each chunked run must launch (SELL's local product is plain)
+    cases = (
+        ("blocked-ELL n=262144 64 steps at tol -1", shard_ops, b, -1.0, STATE_STEPS,
+         STATE_STEPS // STATE_CHUNKS, tpar.sharded_cg_solve, tpar.sharded_cg_init,
+         tpar.sharded_run_cg, {"use_fused": "never"}, "bell_spmv"),
+        (f"DIA symdia-big to {TOL_SOLVE_REL:g} ||b||", (diags, big_dia.offsets), bd, tol_d, None,
+         STATE_DIA_CHUNK, tpar.sharded_dia_cg_solve, tpar.sharded_dia_cg_init,
+         tpar.sharded_dia_run_cg, {}, "dia_spmv"),
+        (f"SELL power-law to {TOL_SOLVE_REL:g} ||b||", (sell_parts,), bp, tol_p, None,
+         STATE_SELL_CHUNK, tpar.sharded_sell_cg_solve, tpar.sharded_sell_cg_init,
+         tpar.sharded_sell_run_cg, {}, None),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        for label, ops, rhs, tol_c, maxiter, chunk, solve, init, run, kw, kernel in cases:
+            x_ref, info_ref = solve(*ops, rhs, mesh=g4, tol=tol_c, maxiter=maxiter, **kw)
+            t0 = time.perf_counter()
+
+            def chunked():
+                state = init(*ops, rhs, mesh=g4, maxiter=maxiter)
+                chunks = 0
+                while bool(state.live):
+                    state = run(*ops, state, tol=tol_c, steps=chunk, mesh=g4)
+                    save_state(path, state)
+                    state = load_state(path, device=dev)
+                    chunks += 1
+                return state, chunks
+
+            (state, chunks), used = launched(chunked, ("bell_spmv", "dia_spmv"))
+            secs = time.perf_counter() - t0
+            x, info = tpar.sharded_state_result(state)
+            h_ref, h = digest(info_ref.rho_history, x_ref), digest(info.rho_history, x)
+            check(h == h_ref and int(info.iterations) == int(info_ref.iterations),
+                  f"state API {label}: chunked {int(info.iterations)} its hash {h}, the "
+                  f"uninterrupted solve {int(info_ref.iterations)} its hash {h_ref}")
+            check(chunks > 1, f"state API {label}: ran in {chunks} chunk")
+            check(kernel is None or used[kernel] >= 4 * int(info.iterations),
+                  f"state API {label}: the chunked run launched {used} for "
+                  f"{int(info.iterations)} its at P=4")
+            hashes.append(f"state {label.split()[0]} P=4 {h}")
+            print(f"  state API {label} P=4: {chunks} chunks through files ({secs:.2f} s), "
+                  f"{int(info.iterations)} its, launches {used}; history and x sha256 {h}, the "
+                  f"uninterrupted portable solve's {h_ref}  [{card}]")
+    del sell_parts, bp
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    # (b) the 2-D grid at p = 2: CG to tolerance on the n = 262,144 operator;
+    # every single-RHS method for FAMILY steps on the cut operator
+    grid_b, grid_c = grid_split(big_full.blocks, big_full.block_cols, 2)
+    print(f"  2-D grid p=2 of the n={n} operator: blocks {tuple(grid_b.shape)}, "
+          f"{grid_b.numel() * 4 / 1e6:.0f} MB of tiles")
+    g2 = tpar.make_mesh_2d(2, dev)
+    x1, i1 = cg_solve(big_full, b, tol=tol)
+    (xs, is_), used = launched(lambda: tpar.sharded_cg_solve_2d(grid_b, grid_c, b, mesh=g2,
+                                                                 tol=tol), ("bell_spmv",))
+    e, m = rel_max_err(xs, x1)
+    check(int(is_.iterations) == int(i1.iterations) and bool(is_.converged) and e <= 1e-4 * m,
+          f"2-D CG p=2: {int(is_.iterations)} its against {int(i1.iterations)}, x by {e}")
+    check(g2.counts["all_gather"] == 0, f"2-D CG p=2 all-gathered: {g2.counts}")
+    check(used["bell_spmv"] >= 4 * int(is_.iterations),
+          f"2-D CG p=2: {used} for {int(is_.iterations)} its on four blocks")
+    hashes.append(f"2-D standard p=2 {digest(is_.rho_history, xs)}")
+    print(f"  2-D CG p=2 n={n} to {TOL_SOLVE_REL:g} ||b||: {int(is_.iterations)} its as the "
+          f"single card's, x to {e / m:.2e} of max|x|; collectives {g2.counts}; launches "
+          f"{used}  [{card}]")
+    del grid_b, grid_c
+    cut_full, cut_ops, cut_inv = cut_tridiag_ops(*shard_ops, big_full.nnz)
+    cut_b, cut_c = grid_split(cut_full.blocks, cut_full.block_cols, 2)
+    steps = LAYOUT_STEPS
+    jac = jacobi_preconditioner(cut_full)
+    one = {"standard": cg_solve(cut_full, b, tol=0.0, maxiter=steps)[1],
+           "jacobi": cg_solve(cut_full, b, tol=0.0, maxiter=steps, M=jac)[1],
+           "pipelined": pipelined_cg_solve(cut_full, b, tol=0.0, maxiter=steps)[1],
+           "sstep": sstep_cg_solve(cut_full, b, s=4, tol=0.0, maxiter=steps)[1]}
+    used = []
+    for name, info1 in one.items():
+        kw = {"method": "standard" if name == "jacobi" else name}
+        if name == "jacobi":
+            kw["inv_diag"] = cut_inv
+        g = tpar.make_mesh_2d(2, dev)
+        (xs, is_), ran = launched(lambda: tpar.sharded_cg_solve_2d(
+            cut_b, cut_c, b, mesh=g, tol=0.0, maxiter=steps, **kw), ("bell_spmv",))
+        check(int(is_.iterations) == int(info1.iterations) and g.counts["all_gather"] == 0
+              and ran["bell_spmv"] > 0,
+              f"2-D {name} p=2: {int(is_.iterations)} steps against {int(info1.iterations)}, "
+              f"collectives {g.counts}, launches {ran}")
+        min_used = steps // 4 if name == "sstep" else PARITY_MIN_USED
+        used.append(f"{name} " + layout_parity(f"2-D {name} p=2", is_, info1, False, steps,
+                                               min_used))
+        hashes.append(f"2-D {name} p=2 cut {digest(is_.rho_history, xs)}")
+    print(f"  2-D p=2, {steps} steps on the cut operator against the one-card solves: entries "
+          f"above the float32 floor {', '.join(used)}; no all_gather  [{card}]")
+    print(timed_solve(lambda: tpar.sharded_cg_solve_2d(cut_b, cut_c, b, mesh=tpar.make_mesh_2d(
+        2, dev), tol=0.0, maxiter=steps), card, f"2-D CG p=2 n={n}, {steps} steps"))
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    # (c) the batched solves at R = 8: lockstep and block CG against the
+    # one-card loops, per-lane counts
+    def lanes(nn, seed):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal((BATCH_R, nn)),
+                               dtype=torch.float32, device=dev)
+
+    B = lanes(n, 13)
+    tol_b = TOL_SOLVE_REL * torch.linalg.vector_norm(B, dim=1)
+    Bd = lanes(big_dia.n, 14)
+    tol_bd = TOL_SOLVE_REL * torch.linalg.vector_norm(Bd, dim=1)
+    one_card = {"lockstep": cg_solve_batched, "block": block_cg_solve}
+    for label, op1, rhs, tols, run in (
+            ("blocked-ELL cut P=4", cut_full, B, tol_b,
+             lambda m: tpar.sharded_cg_solve_batched(*cut_ops[4], B, mesh=g4, tol=tol_b,
+                                                     method=m)),
+            ("DIA symdia-big P=4", big_dia, Bd, tol_bd,
+             lambda m: tpar.sharded_dia_cg_solve_batched(diags, big_dia.offsets, Bd, mesh=g4,
+                                                         tol=tol_bd, method=m)),
+            ("2-D cut p=2", cut_full, B, tol_b,
+             lambda m: tpar.sharded_cg_solve_2d_batched(cut_b, cut_c, B,
+                                                        mesh=tpar.make_mesh_2d(2, dev),
+                                                        tol=tol_b, method=m))):
+        for method in ("lockstep", "block"):
+            _, i1 = one_card[method](op1, rhs, tol=tols)
+            Xs, is_ = run(method)
+            ks_, k1 = is_.iterations.tolist(), i1.iterations.tolist()
+            check(bool(is_.converged.all()) and ks_ == k1,
+                  f"batched {method} {label}: per-lane its {ks_} against the one-card {k1}")
+            hashes.append(f"batched {method} {label} {digest(is_.rho_history, Xs)}")
+            print(f"  batched {method} R={BATCH_R} {label} to {TOL_SOLVE_REL:g} ||b_i||: per-lane "
+                  f"its {ks_}, the one-card loop's {k1}  [{card}]")
+        print(timed_solve(lambda: run("lockstep"), card, f"batched lockstep R={BATCH_R} {label}",
+                          lambda out: int(out[1].iterations.max())))
+        if not label.startswith("2-D"):  # its one-card loop is the blocked-ELL one
+            print(timed_solve(lambda: cg_solve_batched(op1, rhs, tol=tols), card,
+                              f"one-card lockstep R={BATCH_R} {label.split()[0]}",
+                              lambda out: int(out[1].iterations.max())))
+    del Bd, B, cut_b, cut_c, diags
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    # (d) the sharded stencil at 256^3, P = 4: CG and MG-PCG against the
+    # one-card portable CG and MG-PCG; one shard's product against the
+    # slice of the one-card kernel 11 product
+    op = StencilOperator.poisson(STENCIL_GRID, device=dev)
+    ns = op.shape[0]
+    bs = stencil_rhs(ns, dev, scale=ns)
+    tol_s = TOL_SOLVE_REL * float(bs.double().norm())
+    sx = STENCIL_GRID[0] // 4
+    u = stencil_volume(STENCIL_GRID, torch.float32, dev, seed=60)
+    whole = ks.stencil7(u, 6.0, -1.0)
+    flat, m4 = u.reshape(-1), ns // 4
+    parts = _local_stencil_matvec(g4, [flat[i * m4:(i + 1) * m4] for i in range(4)], 6.0, -1.0,
+                                  (sx,) + STENCIL_GRID[1:])
+    same = all(torch.equal(parts[i].view(torch.int32),
+                           whole.reshape(-1)[i * m4:(i + 1) * m4].view(torch.int32))
+               for i in range(4))
+    check(same, "sharded stencil product: a shard differs from the one-card kernel 11 slice")
+    print(f"  sharded stencil product 256^3 P=4: every shard's y bit for bit the one-card "
+          f"kernel 11 slice (window route {ks.stencil_route(torch.empty((sx + 2,) + STENCIL_GRID[1:], device=dev))}, "
+          f"whole volume {ks.stencil_route(u)})  [{card}]")
+    del u, whole, parts
+    # the V-cycle apply itself: the sharded one gives the one-card bits
+    M1 = multigrid_preconditioner(op)
+    Ms = tpar.sharded_multigrid_preconditioner(STENCIL_GRID, 4, dtype=torch.float32)
+    r = torch.as_tensor(np.random.default_rng(15).standard_normal(ns), dtype=torch.float32,
+                        device=dev)
+    z1 = M1(r)
+    zs = torch.cat(Ms.make_local_apply([], g4)([r[i * m4:(i + 1) * m4] for i in range(4)]))
+    check(torch.equal(z1.view(torch.int32), zs.view(torch.int32)),
+          "sharded V-cycle 256^3 P=4: the apply differs from the one-card apply")
+    print(f"  sharded V-cycle apply 256^3 P=4: bit for bit the one-card apply  [{card}]")
+    del r, z1, zs
+    op64 = StencilOperator.poisson(STENCIL_GRID, dtype=torch.float64, device=dev)
+    bs64 = bs.double()
+    tol_mg = F32_REACHABLE_TOL["MG-PCG"] * float(bs64.norm())
+    # each solve's tolerance and the kernel 11 routes its sharded run must take
+    for label, op_, rhs, M1_, Ms_, tol_c, routes_in in (
+            ("CG", op, bs, None, None, tol_s, ("stencil7_staged",)),
+            ("MG-PCG", op, bs, M1, Ms, tol_mg, ("stencil7", "stencil7_staged")),
+            ("MG-PCG float64", op64, bs64, multigrid_preconditioner(op64),
+             tpar.sharded_multigrid_preconditioner(STENCIL_GRID, 4, dtype=torch.float64), tol_s,
+             ("stencil7",))):
+        x1, i1 = cg_solve(op_, rhs, tol=tol_c, M=M1_, fused="never")
+        (xs, is_), routes = launched(lambda: tpar.sharded_stencil_cg_solve(
+            STENCIL_GRID, rhs, mesh=g4, tol=tol_c, M_local=Ms_), ("stencil7", "stencil7_staged"))
+        e, m = rel_max_err(xs, x1)
+        true = float((op64.matvec(xs.double()) - bs64).norm() / bs64.norm())
+        k = int(is_.iterations)
+        check(bool(is_.converged) and k == int(i1.iterations) and e <= 1e-3 * m,
+              f"sharded stencil {label} 256^3 P=4: {k} its against {int(i1.iterations)}, x by {e}")
+        check(all(routes[r] > 0 for r in routes_in) and sum(routes.values()) >= 4 * k,
+              f"sharded stencil {label} 256^3 P=4: kernel 11 launches by route {routes} in {k} its")
+        check(label != "MG-PCG" or true <= F32_TRUE_SLACK * tol_c / float(bs64.norm()),
+              f"sharded stencil {label} 256^3 P=4: true rel residual {true:.3e} at tol "
+              f"{tol_c / float(bs64.norm()):g}")
+        hashes.append(f"stencil {label} P=4 {digest(is_.rho_history, xs)}")
+        tail = [f"{float(a):.4g}/{float(c):.4g}" for a, c in zip(
+            last_three(is_, tol_c), last_three(i1, tol_c))]
+        print(f"  sharded stencil {label} 256^3 P=4 to {tol_c / float(bs64.norm()):g} ||b||: "
+              f"{k} its, the one-card {label}'s {int(i1.iterations)} (its history and x sha256 "
+              f"{digest(i1.rho_history, x1)}); ||r||/tol of the last three, sharded/one-card: "
+              f"{', '.join(tail)}; true rel residual {true:.3e}; kernel 11 launches by route "
+              f"{routes}  [{card}]")
+        if label == "MG-PCG float64":
+            continue
+        # timed over FAMILY_TIMED_STEPS live steps (tol 0), MG-PCG to tolerance
+        t_tol, t_it = (tol_s, None) if M1_ is not None else (0.0, FAMILY_TIMED_STEPS)
+        print(timed_solve(lambda: tpar.sharded_stencil_cg_solve(
+            STENCIL_GRID, bs, mesh=g4, tol=t_tol, maxiter=t_it, M_local=Ms_), card,
+            f"sharded stencil {label} 256^3 P=4"))
+        print(timed_solve(lambda: cg_solve(op, bs, tol=t_tol, maxiter=t_it, M=M1_,
+                                           fused="never"),
+                          card, f"one-card portable {label} 256^3"))
+    del op, bs, op64, bs64
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    # (e) sharded SA-AMG and FSAI PCG on poisson2d(512) at P = 4
+    A, host, ba = amg_case(dev)
+    na = A.shape[0]
+    h32 = host.astype(np.float32)
+    h32.sort_indices()
+    blocks_a, cols_a, n_pad_a = tpar.partition_csr_rows(h32.data, h32.indices, h32.indptr,
+                                                        h32.shape, 4)
+    blocks_a, cols_a = torch.as_tensor(blocks_a, device=dev), torch.as_tensor(cols_a, device=dev)
+    b_pad = torch.zeros(n_pad_a, dtype=torch.float32, device=dev)
+    b_pad[:na] = ba
+    tol_a = AMG_TOL_REL * float(torch.linalg.vector_norm(ba.double()))
+    A64 = A.astype(torch.float64)
+    blocks_64, b_pad64 = blocks_a.double(), b_pad.double()
+    # float32 at its reachable tolerance with the kernels it must launch
+    # (kernel 5 on the solve's 128-wide tiles, packed kernel 5 on the
+    # preconditioners' 8-wide level tiles); float64 at AMG_TOL_REL, plain
+    for label, M1, build, a1, blk, rhs, tol_rel in (
+            ("SA-AMG", smoothed_aggregation_preconditioner(A),
+             lambda: tpar.sharded_amg_preconditioner(A, 4, n_pad_a, dtype=torch.float32),
+             A, blocks_a, b_pad, F32_REACHABLE_TOL["SA-AMG"]),
+            ("SA-AMG float64", smoothed_aggregation_preconditioner(A64),
+             lambda: tpar.sharded_amg_preconditioner(A64, 4, n_pad_a, dtype=torch.float64),
+             A64, blocks_64, b_pad64, AMG_TOL_REL),
+            ("FSAI(1)", fsai_preconditioner(A, power=1),
+             lambda: tpar.sharded_fsai_preconditioner(A, 4, n_pad_a, dtype=torch.float32),
+             A, blocks_a, b_pad, F32_REACHABLE_TOL["FSAI(1)"]),
+            ("FSAI(1) float64", fsai_preconditioner(A64, power=1),
+             lambda: tpar.sharded_fsai_preconditioner(A64, 4, n_pad_a, dtype=torch.float64),
+             A64, blocks_64, b_pad64, AMG_TOL_REL)):
+        tol_c = tol_rel * float(torch.linalg.vector_norm(ba.double()))
+        x1, i1 = cg_solve(a1, rhs[:na], tol=tol_c, M=M1, maxiter=AMG_PLAIN_MAXITER)
+        t0 = time.perf_counter()
+        pre = build()
+        setup = time.perf_counter() - t0
+        (xs, is_), used = launched(lambda: tpar.sharded_cg_solve(
+            blk, cols_a, rhs, mesh=g4, tol=tol_c, M_local=pre, maxiter=AMG_PLAIN_MAXITER),
+            ("bell_spmv", "bell_spmv_packed"))
+        k, true = int(is_.iterations), true_rel(host, ba, xs[:na])
+        f32 = not label.endswith("float64")
+        check(bool(is_.converged) and k == int(i1.iterations),
+              f"sharded {label} PCG poisson2d(512) P=4: {k} its against {int(i1.iterations)}")
+        check(not f32 or (true <= F32_TRUE_SLACK * tol_rel and used["bell_spmv"] > k
+                          and used["bell_spmv_packed"] > k),
+              f"sharded {label} PCG poisson2d(512) P=4: true rel residual {true:.3e} at tol "
+              f"{tol_rel:g}, launches {used} in {k} its")
+        hashes.append(f"{label} PCG P=4 {digest(is_.rho_history, xs)}")
+        tail = [f"{float(a):.4g}/{float(c):.4g}" for a, c in zip(
+            last_three(is_, tol_c), last_three(i1, tol_c))]
+        print(f"  sharded {label} PCG poisson2d({AMG_NX}) P=4 to {tol_rel:g} ||b||: {k} its, the "
+              f"one-card PCG's {int(i1.iterations)}; ||r||/tol of the last three, "
+              f"sharded/one-card: {', '.join(tail)}; host setup {setup:.2f} s, true rel residual "
+              f"{true:.3e}; launches {used}  [{card}]")
+        if not f32:
+            continue
+        print(timed_solve(lambda: tpar.sharded_cg_solve(
+            blocks_a, cols_a, b_pad, mesh=g4, tol=tol_a, M_local=pre,
+            maxiter=FAMILY_TIMED_STEPS), card, f"sharded {label} PCG poisson2d({AMG_NX}) P=4"))
+        print(timed_solve(lambda: cg_solve(A, ba, tol=tol_a, M=M1, maxiter=FAMILY_TIMED_STEPS),
+                          card, f"one-card {label} PCG poisson2d({AMG_NX})"))
+    del blocks_a, cols_a, A, A64, blocks_64
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    # (f) the sharded LOBPCG (CholQR²) on the eigs lane at P = 4 against the
+    # one-card LOBPCG (Householder QR), Jacobi both
+    jac_big = jacobi_preconditioner(big)
+    m_rows = n // 4
+    inv4 = jac_big.inv_diag.reshape(4, m_rows)
+    pre = tpar.ShardedPreconditioner(op_arrays=(inv4,),
+                                     make_local_apply=lambda arrs: (lambda r: arrs[0] * r))
+    one_run = (lambda maxiter, tol_e: lobpcg_eigs(big, k=EIGS_K, M=jac_big, tol=tol_e,
+                                                  maxiter=maxiter))
+    sh_run = (lambda maxiter, tol_e: tpar.sharded_lobpcg_eigs(
+        shard_ops[0], shard_ops[1], k=EIGS_K, n=n, mesh=g4, M_local=pre, tol=tol_e,
+        maxiter=maxiter))
+    r1, rs = one_run(EIGS_TOL_MAXITER, EIGS_TOL_REL), sh_run(EIGS_TOL_MAXITER, EIGS_TOL_REL)
+    v1, vs = np.asarray(r1.values, np.float64), np.asarray(rs.values, np.float64)
+    theta = float(np.abs(v1).max())
+    bound = (np.asarray(r1.residuals, np.float64) + np.asarray(rs.residuals, np.float64)
+             + EIGS_F32_RQ * theta)
+    check(bool(np.all(rs.converged)) and np.all(np.abs(vs - v1) <= bound),
+          f"sharded LOBPCG P=4: values {vs} against the one card's {v1}, bound {bound}")
+    hashes.append(f"LOBPCG P=4 {digest(torch.as_tensor(vs), rs.vectors)}")
+    print(f"  sharded LOBPCG k={EIGS_K} (Jacobi) P=4 to {EIGS_TOL_REL} (cap {EIGS_TOL_MAXITER}): "
+          f"{rs.iters} its, the one card's {r1.iters}; max |lambda - lambda_1| "
+          f"{np.abs(vs - v1).max():.3e} within {bound.min():.3e}  [{card}]")
+    steps_of = lambda res: res.iters  # noqa: E731
+    print(timed_solve(lambda: sh_run(FAMILY_LOBPCG_STEPS, 0.0), card,
+                      f"sharded LOBPCG (CholQR2) P=4, {FAMILY_LOBPCG_STEPS} its", steps_of))
+    print(timed_solve(lambda: one_run(FAMILY_LOBPCG_STEPS, 0.0), card,
+                      f"one-card LOBPCG (Householder QR), {FAMILY_LOBPCG_STEPS} its", steps_of))
+    print("  sharded families hashes (history and x): " + "; ".join(hashes))
+    print(f"  sharded families phase: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.synchronize()
+
+
 def layouts_only(dev, card, which: str) -> None:
-    """``--autodiff-only`` / ``--sharded-layouts-only``: the one path, its
-    operators built as the full run builds them, its launches counted."""
+    """``--autodiff-only`` / ``--sharded-layouts-only`` /
+    ``--sharded-families-only``: the one path, its operators built as the
+    full run builds them, its launches counted."""
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
 
     big_full, big = block_tridiag_ops(N_BIG, 128, dev)
@@ -8629,8 +9110,12 @@ def layouts_only(dev, card, which: str) -> None:
         dia_ops = dict(zip(("big", "big_sym"),
                            sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)))
         shard_ops = sharded_ops(dev, 4)
-        phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card)
-        kernels = SHARDED_LAYOUT_KERNELS
+        if which == "sharded families":
+            phase_sharded_families_path(dev, big, big_full, shard_ops, dia_ops, card)
+            kernels = FAMILY_KERNELS
+        else:
+            phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card)
+            kernels = SHARDED_LAYOUT_KERNELS
     counts = dict(fc.LAUNCHES)
     print(f"  {which} path: launches {({k: counts[k] for k in kernels})}")
     for name in kernels:
@@ -8664,9 +9149,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--stencil-only"] and len(sys.argv) <= 3:
         stencil_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
         return 0
-    if sys.argv[1:] in (["--autodiff-only"], ["--sharded-layouts-only"]):
-        which = "autodiff" if sys.argv[1] == "--autodiff-only" else "sharded layouts"
-        layouts_only(dev, card, which)
+    only = {"--autodiff-only": "autodiff", "--sharded-layouts-only": "sharded layouts",
+            "--sharded-families-only": "sharded families"}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
+        layouts_only(dev, card, only[sys.argv[1]])
         return 0
 
     print(f"phase 2: kernels vs plain versions ({time.perf_counter() - t0:.1f} s since the build "
@@ -8714,6 +9200,8 @@ def main() -> int:
         ("autodiff", AUTODIFF_KERNELS, lambda: phase_autodiff_path(dev, big, big_full, card)),
         ("sharded layouts", SHARDED_LAYOUT_KERNELS,
          lambda: phase_sharded_layouts_path(dev, big, big_full, shard_ops, dia_ops, card)),
+        ("sharded families", FAMILY_KERNELS,
+         lambda: phase_sharded_families_path(dev, big, big_full, shard_ops, dia_ops, card)),
     ):
         print(f"phase 3: main path, {label} ({time.perf_counter() - t0:.1f} s since the build "
               "began)")

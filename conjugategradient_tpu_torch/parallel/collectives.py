@@ -18,12 +18,25 @@ interface:
   one (zeros past the ends of the ring), the JAX package's two
   ``ppermute``s (``parallel/local_ops.ring_halo``).
 
+* ``assemble(local_vectors)``: the whole vector at the end of a solve (an
+  all_gather on a row group; on a 2-D group the row pieces joined, which
+  is no collective of the loop and is counted as ``assemble``).
+
 Two back ends:
 
 * :class:`InProcessGroup` owns every shard, on one device (one H100 runs
   the P shards of the loop in turn).
 * :class:`DistributedGroup` owns one shard, its rank in a
   ``torch.distributed`` process group (gloo on the CPU, NCCL across GPUs).
+
+Each has a 2-D form for the p × p block decomposition (``make_mesh_2d``,
+``DistributedGroup.mesh_2d``): block (i, j) of A, and the vectors as p ROW
+pieces, piece i on every block of block row i.  The loop's shards are the
+row pieces (``n_shards`` is p, ``psum`` sums over the row pieces only); a
+product adds ``transpose`` (block (i, j) trades its piece i for piece j,
+the JAX package's mesh-transpose ``ppermute``) and ``col_sum`` (the
+partial products of a block row summed over j in order, its ``psum`` over
+the column axis), and no all_gather.
 
 Both sum in one fixed order, ``((p₀ + p₁) + p₂) + …``, with elementwise
 device ops: no reduction over a stacked axis and no atomics, so the bits do
@@ -66,16 +79,29 @@ class ShardGroup:
         self.shards = tuple(shards)
         self.counts = {"all_gather": 0, "psum": 0}
 
+    def own_op(self, a) -> torch.Tensor:
+        """The owned part of an operator array, on the group's device: on a
+        row group the owned shards' slices of its leading shard axis."""
+        return torch.as_tensor(a[self.shards[0]:self.shards[-1] + 1], device=self.device)
+
     @staticmethod
     def row_offset(s: int, m: int) -> int:
         """First global row of shard ``s`` when every shard has ``m`` rows."""
         return s * m
 
+    def assemble(self, local_vectors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole (flat) vector from the owned shards' pieces at the end
+        of a solve: on a row group, one all_gather."""
+        return self.all_gather(local_vectors)
+
+    def _count(self, kind: str) -> None:
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+
     def ring_halo(self, local_vectors: Sequence[torch.Tensor], w: int):
         """Each owned shard's rows (axis 0) extended by its ring
         neighbours' ``w`` edge rows: [left tail, rows, right head], (m + 2w,
         ...) each, zeros past the first and the last shard."""
-        self.counts["ring_halo"] = self.counts.get("ring_halo", 0) + 1
+        self._count("ring_halo")
         for v in local_vectors:
             if w > v.shape[0]:
                 raise ValueError(
@@ -103,6 +129,16 @@ def _joined(vectors: Sequence[torch.Tensor]):
             return None
     start = o - base.storage_offset()
     return base.reshape(-1)[start:start + len(vectors) * m]
+
+
+def _gather_sum(gather, p: torch.Tensor, size: int, pg) -> torch.Tensor:
+    """Σ over the ``size`` ranks of ``pg`` of ``p``: every rank's copy
+    gathered, then summed in rank order on each rank."""
+    flat = p.reshape(-1).contiguous()
+    out = flat.new_empty(size * flat.numel())
+    gather(out, flat, group=pg)
+    parts = out.reshape(size, *p.shape)
+    return _left_to_right([parts[i] for i in range(size)])
 
 
 class InProcessGroup(ShardGroup):
@@ -153,6 +189,12 @@ class DistributedGroup(ShardGroup):
         rank = dist.get_rank(process_group)
         super().__init__(dist.get_world_size(process_group), device, (rank,))
 
+    @staticmethod
+    def mesh_2d(p: int, process_group=None, device=DEFAULT_DEVICE) -> "DistributedMesh2D":
+        """The p × p form over the p² ranks of ``process_group`` (None: the
+        default group): :class:`DistributedMesh2D`."""
+        return DistributedMesh2D(p, process_group, device)
+
     def all_gather(self, local_vectors: Sequence[torch.Tensor]) -> torch.Tensor:
         self.counts["all_gather"] += 1
         (v,) = local_vectors
@@ -164,11 +206,7 @@ class DistributedGroup(ShardGroup):
     def psum(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
         self.counts["psum"] += 1
         (p,) = partials
-        flat = p.reshape(-1).contiguous()
-        out = flat.new_empty(self.n_shards * flat.numel())
-        self._gather(out, flat, group=self.process_group)
-        parts = out.reshape(self.n_shards, *p.shape)
-        return _left_to_right([parts[i] for i in range(self.n_shards)])
+        return _gather_sum(self._gather, p, self.n_shards, self.process_group)
 
     def _edges(self, vs: Sequence[torch.Tensor], w: int):
         """The neighbours' edge rows by point-to-point messages: this rank's
@@ -193,3 +231,120 @@ class DistributedGroup(ShardGroup):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return [left], [right]
+
+
+class _Grid:
+    """What both 2-D back ends share (module doc): ``p``, the owned
+    blocks' rows and columns, and the result's assembly."""
+
+    p: int
+
+    def assemble(self, local_vectors: Sequence[torch.Tensor]) -> torch.Tensor:
+        self._count("assemble")
+        return self._join(local_vectors)
+
+    def ring_halo(self, local_vectors, w):
+        raise ValueError("a 2-D group has no ring halo (use a row group for banded operators)")
+
+
+class InProcessMesh2D(_Grid, InProcessGroup):
+    """The p × p block grid in this process, on one device: every block,
+    every row piece."""
+
+    def __init__(self, p: int, device=DEFAULT_DEVICE):
+        InProcessGroup.__init__(self, p, device)
+        self.p = int(p)
+        self.counts.update(transpose=0, col_sum=0)
+
+    def own_op(self, a) -> torch.Tensor:
+        """The owned blocks of a (p, p, ...) operator array: all of them."""
+        return torch.as_tensor(a, device=self.device)
+
+    def transpose(self, row_pieces: Sequence[torch.Tensor]):
+        """[i][j] = the operand of block (i, j): row piece j."""
+        self._count("transpose")
+        return [list(row_pieces) for _ in range(self.p)]
+
+    def col_sum(self, parts):
+        """Each block row's partial products summed over j, in order."""
+        self._count("col_sum")
+        return [_left_to_right(row) for row in parts]
+
+    @staticmethod
+    def _join(vs):
+        return torch.cat([v.reshape(-1) for v in vs])
+
+
+class DistributedMesh2D(_Grid, DistributedGroup):
+    """The p × p block grid over the p² ranks of a process group, rank
+    i·p + j owning block (i, j) and row piece i (the JAX mesh's device
+    order).  Dots sum over the ranks of its grid column (the row pieces),
+    ``col_sum`` over the ranks of its grid row; both subgroups are made
+    here, on every rank in the same order, as ``torch.distributed``
+    requires.  Build it with :meth:`DistributedGroup.mesh_2d`."""
+
+    def __init__(self, p: int, process_group=None, device=DEFAULT_DEVICE):
+        import torch.distributed as dist
+
+        self._gather = dist.all_gather_into_tensor
+        self._dist = dist
+        self.process_group = process_group
+        p = int(p)
+        world = dist.get_world_size(process_group)
+        if world != p * p:
+            raise ValueError(f"a {p} x {p} grid needs {p * p} ranks, the group has {world}")
+        rank = dist.get_rank(process_group)
+        self.p = p
+        self.i, self.j = divmod(rank, p)
+
+        def glob(r):
+            return r if process_group is None else dist.get_global_rank(process_group, r)
+
+        self._glob = glob
+        cols = [dist.new_group([glob(a * p + c) for a in range(p)]) for c in range(p)]
+        rows = [dist.new_group([glob(a * p + c) for c in range(p)]) for a in range(p)]
+        self._rows_pg, self._cols_pg = cols[self.j], rows[self.i]
+        ShardGroup.__init__(self, p, device, (self.i,))
+        self.counts.update(transpose=0, col_sum=0)
+
+    def own_op(self, a) -> torch.Tensor:
+        """This rank's block of a (p, p, ...) operator array, as (1, 1, ...)."""
+        i, j = self.i, self.j
+        return torch.as_tensor(a[i:i + 1, j:j + 1], device=self.device)
+
+    def all_gather(self, local_vectors) -> torch.Tensor:
+        self.counts["all_gather"] += 1
+        return self._join(local_vectors)
+
+    def _join(self, local_vectors) -> torch.Tensor:
+        (v,) = local_vectors
+        v = v.reshape(-1).contiguous()
+        out = v.new_empty(self.p * v.numel())
+        self._gather(out, v, group=self._rows_pg)
+        return out
+
+    def psum(self, partials) -> torch.Tensor:
+        self.counts["psum"] += 1
+        (q,) = partials
+        return _gather_sum(self._gather, q, self.p, self._rows_pg)
+
+    def transpose(self, row_pieces):
+        """Block (i, j) sends its piece i to rank (j, i) and takes piece j
+        from it, in one batch (the diagonal keeps its own)."""
+        self._count("transpose")
+        (v,) = row_pieces
+        if self.i == self.j:
+            return [[v]]
+        dist = self._dist
+        peer = self._glob(self.j * self.p + self.i)
+        got = torch.empty_like(v)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, v.contiguous(), peer),
+                                       dist.P2POp(dist.irecv, got, peer)])
+        for req in reqs:
+            req.wait()
+        return [[got]]
+
+    def col_sum(self, parts):
+        self._count("col_sum")
+        ((q,),) = parts
+        return [_gather_sum(self._gather, q, self.p, self._cols_pg)]

@@ -11,7 +11,15 @@ runs keep oracle parity.  Two call an existing hand-written kernel where it
 gives the plain form's bits: the blocked-ELL product (``bell_spmv``,
 kernel 5) and the DIA product on the haloed window (``dia_spmv``, kernel 7,
 bit-equal to its plain version, which is the JAX form); both on a CUDA
-device for a float32 result, as ``ops/spmv._kernel_route`` decides.
+device for a float32 result, as ``ops/spmv._kernel_route`` decides.  The
+blocked-ELL product takes the dense-tile kernel where the tiles' width bn
+is one it takes (``CUDA_BN``), and packed kernel 5 on the shard's packed
+view otherwise (the sharded AMG and FSAI levels' tiles of at most 8
+columns), as the one-card ``ops/spmv.bell_spmv`` does; the view is built
+once a solve (:func:`_bell_products`).  The multi-RHS products
+(``_local_*_matvec_multi``, the operand (·, R)) are plain on every device,
+the port's ``ops/spmv.*_spmv_multi`` forms on one shard, as the JAX ones
+are XLA.
 """
 
 from __future__ import annotations
@@ -20,7 +28,10 @@ from typing import Sequence, Union
 
 import torch
 
-from ..ops.spmv import _acc, _kernel_route, bell_apply, dia_apply, sell_bucket_reduce, sym_bell_apply
+from ..ops.cuda._common import CUDA_BN, LAUNCHES
+from ..ops.spmv import (_acc, _kernel_route, bell_apply, dia_apply, full_precision_matmul,
+                        sell_bucket_reduce, sym_bell_apply)
+from ..types.bell import pack_nonzeros
 
 
 def ring_halo(p_local: Union[torch.Tensor, Sequence[torch.Tensor]], w: int, group):
@@ -47,18 +58,49 @@ def _out_dtype(op_dtype, v_dtype):
     return torch.promote_types(op_dtype, v_dtype)
 
 
-def _local_bell_matvec(blocks, block_cols, p_full_2d):
-    """(nrb·bm,) = shard tiles @ the gathered operand (ncb, bn): kernel 5
-    (``bell_spmv``) for a float32 result on a CUDA device, the plain einsum
-    otherwise."""
+def _local_bell_matvec(blocks, block_cols, p_full_2d, packed=None):
+    """(nrb·bm,) = shard tiles @ the gathered operand (ncb, bn): for a
+    float32 result on a CUDA device kernel 5, the dense-tile kernel
+    (``bell_spmv``) where bn is in ``CUDA_BN`` and the packed one
+    (``bell_spmv_packed``) on ``packed``, the shard's view
+    (:func:`_shard_packed`), otherwise; the plain einsum elsewhere."""
     out_dtype = _out_dtype(blocks.dtype, p_full_2d.dtype)
     if _kernel_route("auto", p_full_2d, out_dtype):
-        from ..ops.cuda.bell_spmv import bell_spmv_tiles
+        from ..ops.cuda.bell_spmv import bell_spmv_packed, bell_spmv_tiles
 
-        return bell_spmv_tiles(blocks, block_cols, p_full_2d.to(torch.float32))
+        x = p_full_2d.to(torch.float32)
+        if blocks.shape[-1] in CUDA_BN:
+            return bell_spmv_tiles(blocks, block_cols, x)
+        if packed is None:
+            raise ValueError(f"tiles {blocks.shape[-1]} wide take packed kernel 5: pass the "
+                             "shard's packed view (_shard_packed)")
+        return bell_spmv_packed(packed, x.reshape(-1))
     acc = _acc(out_dtype)
     y = bell_apply(blocks.to(acc), block_cols, p_full_2d.to(acc))
     return y.reshape(-1).to(out_dtype)
+
+
+def _shard_packed(blocks, block_cols, ncols: int):
+    """One shard's packed view (``types/bell.pack_nonzeros``, global
+    columns into the gathered operand of ``ncols`` entries) where its
+    products on the card take packed kernel 5: float32 or bfloat16 tiles
+    on a CUDA device whose width is not in ``CUDA_BN``.  None otherwise.
+    Set-up work, counted in ``LAUNCHES["bell_pack"]``: it reads the tiles
+    and the host reads the view's size."""
+    if (blocks.is_cuda and blocks.dtype in (torch.float32, torch.bfloat16)
+            and blocks.shape[-1] not in CUDA_BN):
+        LAUNCHES["bell_pack"] += 1  # counted as the one-card views' builds are
+        return pack_nonzeros(blocks, block_cols, ncols)
+    return None
+
+
+def _bell_products(blocks_s, cols_s, ncols: int):
+    """The owned shards' products against one gathered operand,
+    ``full (ncb, bn) -> [y_i]`` (:func:`_local_bell_matvec`), with each
+    shard's packed view built here, once."""
+    packs = [_shard_packed(b, c, ncols) for b, c in zip(blocks_s, cols_s)]
+    return lambda full: [_local_bell_matvec(b, c, full, pk)
+                         for b, c, pk in zip(blocks_s, cols_s, packs)]
 
 
 def _local_symbell_matvec(diag_s, off_s, offcols_s, mirror_s, cross_s, crossrows_s,
@@ -177,3 +219,39 @@ def _local_sell_matvec(diag_s, pos_s, cols_s, vals_s, meta, p_full, p_local):
     y_sorted = sell_bucket_reduce(prods, meta)
     y = diag_s.to(acc) * p_local.to(acc) + y_sorted.index_select(0, pos_s)
     return y.to(out_dtype)
+
+
+# ---- multi-RHS forms: the operand (·, R), R lanes a row ----------------------------
+
+def _local_bell_matvec_multi(blocks, block_cols, p_full_3d):
+    """(nrb·bm, R) = shard tiles @ the gathered operand (ncb, bn, R): the
+    tile stream read once for all R lanes, one (bm, bn) × (bn, R) product a
+    tile, summed over a block row's slots (``ops/spmv.bell_spmv_multi``)."""
+    full_precision_matmul()
+    out_dtype = _out_dtype(blocks.dtype, p_full_3d.dtype)
+    acc = _acc(out_dtype)
+    gathered = p_full_3d[block_cols.long()].to(acc)  # (nrb, kmax, bn, R)
+    y = torch.einsum("rkmn,rknB->rkmB", blocks.to(acc), gathered).sum(dim=1)
+    return y.reshape(-1, y.shape[-1]).to(out_dtype)
+
+
+def _local_sell_matvec_multi(diag_s, pos_s, cols_s, vals_s, meta, P_full, P_local):
+    """Multi-RHS bucketed-ELL SpMV on one row shard: the flat gather at the
+    stored GLOBAL columns fetches R contiguous lane values an index
+    (``ops/spmv.sell_spmv_multi``), then the per-bucket sums, the order
+    restore and the diagonal on the shard's own rows."""
+    out_dtype = _out_dtype(vals_s.dtype, P_local.dtype)
+    acc = _acc(out_dtype)
+    prods = vals_s.to(acc)[:, None] * P_full.index_select(0, cols_s).to(acc)
+    y_sorted = sell_bucket_reduce(prods, meta)
+    y = diag_s.to(acc)[:, None] * P_local.to(acc) + y_sorted.index_select(0, pos_s)
+    return y.to(out_dtype)
+
+
+def _local_dia_matvec_multi(diags_s, offsets, window):
+    """Multi-RHS banded SpMV on one row shard from its haloed (m + 2w, R)
+    window, ``offsets`` shifted by w: each diagonal read once for all R
+    lanes (``ops/spmv.dia_spmv_multi``)."""
+    out_dtype = _out_dtype(diags_s.dtype, window.dtype)
+    acc = _acc(out_dtype)
+    return dia_apply(diags_s.to(acc), offsets, window.to(acc)).to(out_dtype)

@@ -39,11 +39,18 @@ holding φ̄²; BiCGStab and GMRES report squared norms.
 
 Each loop returns ``(x, k, done, rho, rnorm, hist)`` with ``x`` one tensor
 per owned shard.
+
+The multi-RHS loops (:func:`_sharded_lockstep_pcg`, :func:`_sharded_block_cg`,
+chosen by :func:`_batched_loop`) keep each owned shard's rows of every lane
+as an (m, R) slab and sum (R,) lane dots or (R, R) Gram blocks over the
+shards; they return the slabs, per-lane ``k``, ``done``, ``rho`` and
+``rnorm`` (R,), and the history as (R, maxiter + 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Union
 
 import torch
@@ -53,6 +60,7 @@ from ..ops.cuda.fused_cg import (C_DONE, C_K, C_LIVE, S_BETA, S_RHO, S_RNORM, Fu
                                  bell_spmv_dot, finish_dir, finish_update, fused_update_dot,
                                  fused_update_dot_pcg, put_hist)
 from ..ops.cuda import fused_minres as fm
+from ..ops.spmv import full_precision_matmul
 from ..solver.restart import _DonePoll, run_chunked
 from ..solver.sstep import make_sstep_loop
 
@@ -1091,3 +1099,210 @@ def _fused_shards_supported(blocks: torch.Tensor, b: torch.Tensor) -> bool:
     m = b.shape[0] // n_shards
     return (bm == bn and bn % 128 == 0 and m % 128 == 0
             and b.dtype == torch.float32 and kmax <= 64 and blocks.is_cuda)
+
+
+# ---- multi-RHS: lockstep (P)CG and block CG --------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LaneCarry:
+    """The multi-RHS carry: (m, R) slabs, per-lane (R,) scalars (ρ is the
+    (R, R) Gram in block CG), the (maxiter + 1, R) history."""
+
+    k: torch.Tensor
+    done: torch.Tensor
+    X: Vecs
+    r: Vecs
+    p: Vecs
+    rho: torch.Tensor
+    rnorm: torch.Tensor
+    hist: torch.Tensor
+
+    @property
+    def live(self) -> torch.Tensor:
+        """Per lane: not done and below the cap."""
+        return (~self.done) & (self.k < self.hist.shape[0] - 1)
+
+
+def _lane_dot(group, us: Vecs, vs: Vecs) -> torch.Tensor:
+    """(R,) Σ over every shard of each lane's u·v (at least float32)."""
+    def part(u, v):
+        acc = torch.promote_types(u.dtype, torch.float32)
+        return torch.sum(u.to(acc) * v.to(acc), dim=0)
+
+    return group.psum([part(u, v) for u, v in zip(us, vs)])
+
+
+def _gram(group, us: Vecs, vs: Vecs) -> torch.Tensor:
+    """(R, R) Σ over every shard of uᵀv (at least float32)."""
+    def part(u, v):
+        acc = torch.promote_types(u.dtype, torch.float32)
+        return u.to(acc).T @ v.to(acc)
+
+    return group.psum([part(u, v) for u, v in zip(us, vs)])
+
+
+def _lane_precond(pre, vs: Vecs) -> Vecs:
+    """Jacobi (one (m,) diagonal per owned shard, shared by the lanes) or
+    the identity."""
+    if pre is None:
+        return list(vs)
+    return [d[:, None] * v for d, v in zip(pre, vs)]
+
+
+def _put_lanes(hist: torch.Tensor, k: torch.Tensor, mask: torch.Tensor, new: torch.Tensor):
+    """hist[k[j], j] = new[j] where ``mask``; the others keep their entry."""
+    idx = (k.long(), torch.arange(k.shape[0], device=k.device))
+    hist.index_put_(idx, torch.where(mask, new, hist[idx]))
+
+
+def _lane_init(group, apply, B: Vecs, X0: Vecs, pre, maxiter: int, block: bool) -> LaneCarry:
+    r0 = [b - ax for b, ax in zip(B, apply(X0))]
+    z0 = _lane_precond(pre, r0)
+    rnorm0 = _lane_dot(group, r0, r0)
+    if block:
+        rho0 = _gram(group, r0, z0)
+    else:
+        rho0 = rnorm0 if pre is None else _lane_dot(group, r0, z0)
+    R, dev = rnorm0.shape[0], rnorm0.device
+    hist = torch.full((maxiter + 1, R), float("nan"), dtype=rnorm0.dtype, device=dev)
+    hist[0] = rnorm0
+    return LaneCarry(k=torch.zeros(R, dtype=torch.int32, device=dev),
+                     done=torch.zeros(R, dtype=torch.bool, device=dev),
+                     X=list(X0), r=r0, p=z0, rho=rho0, rnorm=rnorm0, hist=hist)
+
+
+def _lockstep_body(group, apply, pre, tol, c: LaneCarry) -> LaneCarry:
+    """One lockstep iteration: per-lane α, β and pre-update termination,
+    (R,) dots summed over the shards; lanes that are done or capped are
+    frozen (their α is 0 and their p kept)."""
+    active = c.live
+    Q = apply(c.p)
+    pap = _lane_dot(group, c.p, Q)
+    exact = c.rho == 0
+    alpha = torch.where(exact, 0, c.rho / torch.where(exact, 1, pap))
+    am = torch.where(active, alpha, 0)
+    X = [(x + am * p).to(x.dtype) for x, p in zip(c.X, c.p)]
+    Rv = [(r - am * q).to(r.dtype) for r, q in zip(c.r, Q)]
+    done_new = torch.isnan(c.rnorm) | (torch.sqrt(c.rnorm) <= tol)
+    Z = _lane_precond(pre, Rv)
+    rnorm_next = _lane_dot(group, Rv, Rv)
+    rho_next = rnorm_next if pre is None else _lane_dot(group, Rv, Z)
+    beta = torch.where(exact, 0, rho_next / torch.where(exact, 1, c.rho))
+    P = [torch.where(active, (z + beta * p).to(p.dtype), p) for z, p in zip(Z, c.p)]
+    k = torch.where(active, c.k + 1, c.k)
+    _put_lanes(c.hist, k, active, rnorm_next)
+    return LaneCarry(k=k, done=torch.where(active, done_new, c.done), X=X, r=Rv, p=P,
+                     rho=torch.where(active, rho_next, c.rho),
+                     rnorm=torch.where(active, rnorm_next, c.rnorm), hist=c.hist)
+
+
+def _lockstep_replace(group, apply, B, pre, c: LaneCarry, every: int) -> LaneCarry:
+    """Per-lane residual-replacement restart: only lanes that are not done
+    and at a multiple of ``every`` restart, so frozen lanes keep their
+    state exactly (no ``k < maxiter`` term, as the JAX loop)."""
+    restart = (~c.done) & (c.k % every == 0)
+    Rt = [b - ax for b, ax in zip(B, apply(c.X))]
+    rnorm_t = _lane_dot(group, Rt, Rt)
+    Zt = _lane_precond(pre, Rt)
+    rho_t = rnorm_t if pre is None else _lane_dot(group, Rt, Zt)
+    _put_lanes(c.hist, c.k, restart, rnorm_t)
+    return LaneCarry(k=c.k, done=c.done, X=c.X, r=_keep(restart, Rt, c.r),
+                     p=_keep(restart, Zt, c.p), rho=torch.where(restart, rho_t, c.rho),
+                     rnorm=torch.where(restart, rnorm_t, c.rnorm), hist=c.hist)
+
+
+def _block_body(group, apply, pre, tol, rcond: float, c: LaneCarry) -> LaneCarry:
+    """One block-CG iteration (solver/blockcg.py's O'Leary recurrences):
+    the (R, R) Gram blocks summed over the shards, the pseudo-solves on
+    the summed blocks (once a process), the (m, R) × (R, R) updates local.
+    Every lane moves while any is live (the shared space); after that the
+    step is a no-op."""
+    from ..solver.blockcg import _spd_pinv_apply
+
+    active = c.live
+    go = active.any()
+    Q = apply(c.p)
+    alpha = _spd_pinv_apply(_gram(group, c.p, Q), c.rho, rcond)
+    X = [x + p @ alpha.to(p.dtype) for x, p in zip(c.X, c.p)]
+    Rv = [r - q @ alpha.to(q.dtype) for r, q in zip(c.r, Q)]
+    done_new = torch.isnan(c.rnorm) | (torch.sqrt(c.rnorm) <= tol)
+    Z = _lane_precond(pre, Rv)
+    rnorm_next = _lane_dot(group, Rv, Rv)
+    rho_next = _gram(group, Rv, Z)
+    beta = _spd_pinv_apply(c.rho, rho_next, rcond)
+    P = [z + p @ beta.to(p.dtype) for z, p in zip(Z, c.p)]
+    k = torch.where(active, c.k + 1, c.k)
+    _put_lanes(c.hist, k, active, rnorm_next)
+    return LaneCarry(k=k, done=torch.where(active, done_new, c.done),
+                     X=_keep(go, X, c.X), r=_keep(go, Rv, c.r), p=_keep(go, P, c.p),
+                     rho=torch.where(go, rho_next, c.rho),
+                     rnorm=torch.where(go, rnorm_next, c.rnorm), hist=c.hist)
+
+
+def _block_replace(group, apply, B, pre, c: LaneCarry, every: int) -> LaneCarry:
+    """Full restart of the whole block (the shared space restarts as one)
+    at block iterations that are multiples of ``every`` while a lane is
+    live."""
+    active = ~c.done
+    fire = active.any() & (torch.max(torch.where(active, c.k, 0)) % every == 0)
+    Rt = [b - ax for b, ax in zip(B, apply(c.X))]
+    Zt = _lane_precond(pre, Rt)
+    rnorm_t = _lane_dot(group, Rt, Rt)
+    rho_t = _gram(group, Rt, Zt)
+    _put_lanes(c.hist, c.k, fire & active, rnorm_t)
+    return LaneCarry(k=c.k, done=c.done, X=c.X, r=_keep(fire, Rt, c.r),
+                     p=_keep(fire, Zt, c.p), rho=torch.where(fire, rho_t, c.rho),
+                     rnorm=torch.where(fire, rnorm_t, c.rnorm), hist=c.hist)
+
+
+def _lane_loop(block: bool, group, apply, B: Vecs, X0: Vecs, pre, tol, maxiter: int,
+               recompute_r_every: int = 0, rcond: float = 1e-10):
+    full_precision_matmul()
+    box = [_lane_init(group, apply, B, X0, pre, maxiter, block)]
+    if block:
+        body = lambda c: _block_body(group, apply, pre, tol, rcond, c)  # noqa: E731
+        repl = _block_replace
+    else:
+        body = lambda c: _lockstep_body(group, apply, pre, tol, c)  # noqa: E731
+        repl = _lockstep_replace
+
+    def step():
+        box[0] = body(box[0])
+
+    def replace():
+        box[0] = repl(group, apply, B, pre, box[0], recompute_r_every)
+
+    def live():
+        return box[0].live.any()
+
+    run_chunked(step, live, maxiter, recompute_r_every, replace, done=lambda: ~live())
+    c = box[0]
+    rho = torch.diagonal(c.rho) if block else c.rho
+    return c.X, c.k, c.done, rho, c.rnorm, c.hist.T
+
+
+def _sharded_lockstep_pcg(group, apply: LocalMatvec, B: Vecs, X0: Vecs, precond, tol,
+                          maxiter: int, recompute_r_every: int = 0):
+    """Multi-RHS lockstep (P)CG per shard: solver/batched.py's lane-masked
+    loop on the shards, per-lane residual replacement included.  ``B`` and
+    ``X0``: each owned shard's (m, R) slab; ``precond``: None or the owned
+    shards' (m,) Jacobi diagonals; ``tol``: a scalar or (R,) tensor."""
+    return _lane_loop(False, group, apply, B, X0, precond, tol, maxiter, recompute_r_every)
+
+
+def _sharded_block_cg(group, apply: LocalMatvec, B: Vecs, X0: Vecs, precond, tol,
+                      maxiter: int, recompute_r_every: int = 0, rcond: float = 1e-10):
+    """Block CG per shard (solver/blockcg.py): the same two sums over the
+    shards an iteration as the lockstep loop, (R, R) payloads."""
+    return _lane_loop(True, group, apply, B, X0, precond, tol, maxiter, recompute_r_every,
+                      rcond)
+
+
+def _batched_loop(method: str, recompute_r_every: int, rcond: float):
+    """The multi-RHS loop of the sharded batched front ends."""
+    if method == "block":
+        return functools.partial(_sharded_block_cg, recompute_r_every=recompute_r_every,
+                                 rcond=rcond)
+    if method != "lockstep":
+        raise ValueError(f"method must be 'lockstep' or 'block', got {method!r}")
+    return functools.partial(_sharded_lockstep_pcg, recompute_r_every=recompute_r_every)

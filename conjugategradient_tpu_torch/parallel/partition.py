@@ -7,7 +7,8 @@ packers (``types/bell.pack_host_arrays`` and ``SymBellMatrix._pack_np``,
 so both packages hold the same per-shard arrays bit for bit.
 ``make_row_mesh`` takes the place of the JAX 1-D device mesh: it returns an
 in-process shard group (``collectives.InProcessGroup``) that runs every
-shard on one device.
+shard on one device; ``make_mesh_2d`` the p × p one
+(``collectives.InProcessMesh2D``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,22 @@ import numpy as np
 from ..types.base import DEFAULT_DEVICE
 from ..types.bell import SymBellMatrix, pack_host_arrays
 from ..types.sell import _sell_pack_rows
-from .collectives import InProcessGroup
+from .collectives import InProcessGroup, InProcessMesh2D
 
 
 def make_row_mesh(n_shards: int = 1, device=DEFAULT_DEVICE) -> InProcessGroup:
     """A group of ``n_shards`` row shards, all on ``device`` (the card
     unless the caller names another)."""
     return InProcessGroup(n_shards, device)
+
+
+def make_mesh_2d(p: int, device=DEFAULT_DEVICE) -> InProcessMesh2D:
+    """A p × p block grid, every block on ``device`` (the card unless the
+    caller names another): the 2-D decomposition's substrate.  The JAX
+    function takes a device list and axis names; here the grid is one
+    process's, and ``DistributedGroup.mesh_2d(p)`` spreads it over p²
+    processes."""
+    return InProcessMesh2D(p, device)
 
 
 def _cdiv(a, b):
@@ -183,6 +193,71 @@ def partition_symbell_rows(
             cross_rows[s, :len(xr)] = xr
             cross_cols[s, :len(xr), :xb.shape[1]] = xc
     return diag, off, off_cols, cross, cross_rows, cross_cols, n_padded
+
+
+def partition_csr_blocks_2d(
+    data: np.ndarray,
+    indices: np.ndarray,
+    indptr: np.ndarray,
+    shape: Tuple[int, int],
+    p: int,
+    bm: int = 128,
+    bn: int = 128,
+):
+    """Split host CSR into a p × p grid of blocked-ELL blocks (the 2-D
+    decomposition): block (i, j) holds rows [i·S, (i+1)·S) × columns
+    [j·S, (j+1)·S) with LOCAL column indices, S the stripe (n / p rounded
+    up to a multiple of bm).  kmax is taken over all p² blocks, so banded
+    patterns pay empty-block padding (use the DIA ring for them).
+
+    Returns ``(blocks (p, p, nrb, kmax, bm, bn), block_cols (p, p, nrb,
+    kmax) LOCAL, n_padded)`` as numpy, for
+    :func:`~.sharded_cg.sharded_cg_solve_2d`.
+    """
+    n, ncols = shape
+    if n != ncols:
+        raise ValueError(f"2-D decomposition needs a square system, got {shape}")
+    if bm != bn:
+        raise ValueError("2-D decomposition needs square tiles (stripes "
+                         "serve as both row and column ranges)")
+    stripe = _cdiv(_cdiv(n, p), bm) * bm
+    n_padded = stripe * p
+
+    data = np.asarray(data)
+    indices = np.asarray(indices, dtype=np.int64)
+    indptr = np.asarray(indptr, dtype=np.int64)
+
+    packed = []
+    for i in range(p):
+        r0 = min(i * stripe, n)
+        r1 = min((i + 1) * stripe, n)
+        lo, hi = indptr[r0], indptr[r1]
+        rows_l = np.repeat(np.arange(r0, r1), np.diff(indptr[r0:r1 + 1])) - r0
+        cols_g = indices[lo:hi]
+        vals = data[lo:hi]
+        row_of = []
+        for j in range(p):
+            c0 = j * stripe
+            sel = (cols_g >= c0) & (cols_g < c0 + stripe)
+            rows_s, cols_s, vals_s = rows_l[sel], cols_g[sel] - c0, vals[sel]
+            counts = np.bincount(rows_s, minlength=stripe)
+            sub_indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            order = np.lexsort((cols_s, rows_s))
+            blocks, block_cols, _ = pack_host_arrays(
+                vals_s[order], cols_s[order], sub_indptr, (stripe, stripe), bm=bm, bn=bn)
+            row_of.append((blocks, block_cols))
+        packed.append(row_of)
+
+    nrb = stripe // bm
+    kmax = max(bb.shape[1] for row in packed for bb, _ in row)
+    blocks = np.zeros((p, p, nrb, kmax, bm, bn), dtype=packed[0][0][0].dtype)
+    block_cols = np.zeros((p, p, nrb, kmax), dtype=np.int32)
+    for i in range(p):
+        for j in range(p):
+            bb, bc = packed[i][j]
+            blocks[i, j, :, :bb.shape[1]] = bb
+            block_cols[i, j, :, :bc.shape[1]] = bc
+    return blocks, block_cols, n_padded
 
 
 def partition_dia_rows(

@@ -15,7 +15,11 @@ A carry is written as ``.npz`` with the JAX package's field names and its
 (rows, bn) float32 blocks, β and ρ = ‖r‖² as (1, 1)) and
 ``k, done, X, r, p, rho, rnorm, hist`` for the lockstep multi-RHS
 ``BatchedCGState`` (vectors (N, R), per-lane scalars (R,), the history
-(maxiter+1, R); driven by ``solver.batched.run_batched_cg``).  The port's
+(maxiter+1, R); driven by ``solver.batched.run_batched_cg``), and
+``k, done, x, r, p, rho, rnorm, hist`` for the row-sharded
+``parallel.ShardedCGState`` (global (n_padded,) vectors; driven by
+``parallel.sharded_run_cg`` and its DIA and SELL siblings, the group and
+the operator given again at resume).  The port's
 ``FusedCGState`` keeps k, done, β, ρ and the history in its ``FusedWork``;
 :func:`load_state` builds one (``convert.fused_state_from_arrays``).
 ``run_cg`` drives the same step as the whole solve through
@@ -41,17 +45,13 @@ _FIELDS = {
     "CGState": ("k", "done", "x", "r", "p", "rho", "rnorm_sq", "hist"),
     "FusedCGState": ("k", "done", "x", "r", "p", "beta", "rho", "hist"),
     "BatchedCGState": ("k", "done", "X", "r", "p", "rho", "rnorm", "hist"),
-}
-#: carries of the JAX package that the port does not have yet, and the
-#: ROADMAP.md item that ports them
-_UNPORTED = {
-    "ShardedCGState": "ROADMAP.md section 1, item 12",
+    "ShardedCGState": ("k", "done", "x", "r", "p", "rho", "rnorm", "hist"),
 }
 
 
 def save_state(path, state) -> None:
-    """Write a solver carry (``CGState``, unpreconditioned ``FusedCGState``
-    or ``BatchedCGState``) to ``.npz``."""
+    """Write a solver carry (``CGState``, unpreconditioned ``FusedCGState``,
+    ``BatchedCGState`` or ``ShardedCGState``) to ``.npz``."""
     kind = type(state).__name__
     if kind not in _FIELDS:
         raise TypeError(f"not a checkpointable solver state: {kind}")
@@ -68,10 +68,6 @@ def load_state(path, *, device=DEFAULT_DEVICE):
     onto ``device``; files without ``__kind__`` are ``CGState``."""
     with np.load(path) as z:
         kind = str(z["__kind__"]) if "__kind__" in z else "CGState"
-        if kind in _UNPORTED:
-            raise NotImplementedError(
-                f"a {kind} checkpoint needs the JAX package's {kind}, not yet ported to "
-                f"conjugategradient_tpu_torch ({_UNPORTED[kind]})")
         if kind not in _FIELDS:
             raise TypeError(f"not a checkpointable solver state: {kind}")
         f = {name: np.array(z[name]) for name in _FIELDS[kind]}
@@ -81,9 +77,12 @@ def load_state(path, *, device=DEFAULT_DEVICE):
         return fused_state_from_arrays(f["x"], f["r"], f["p"], f["beta"], f["rho"],
                                        int(f["k"]), bool(f["done"]), f["hist"], device=device)
     t = {name: torch.from_numpy(v).to(torch.device(device)) for name, v in f.items()}
-    if kind == "BatchedCGState":
-        return BatchedCGState(**{**t, "k": t["k"].to(torch.int32),
-                                 "done": t["done"].to(torch.bool)})
+    if kind in ("BatchedCGState", "ShardedCGState"):
+        if kind == "ShardedCGState":
+            from ..parallel.sharded_cg import ShardedCGState as cls
+        else:
+            cls = BatchedCGState
+        return cls(**{**t, "k": t["k"].to(torch.int32), "done": t["done"].to(torch.bool)})
     return CGState(k=t["k"].to(torch.int32), done=t["done"].to(torch.bool), x=t["x"], r=t["r"],
                    p=t["p"], rho=t["rho"], rnorm_sq=t["rnorm_sq"], hist=t["hist"])
 

@@ -134,12 +134,34 @@ def test_fused_files_cross_both_ways(bell_pair, tmp_path):
         _bits(getattr(back, name), getattr(ts, name))
 
 
-# BatchedCGState is ported (its files load: the tests below)
+# every JAX carry is ported: ShardedCGState, the last (ROADMAP.md section 1,
+# item 12), now loads and resumes (tests/test_torch_sharded_state.py holds
+# its files against the JAX package's)
 @pytest.mark.parametrize("kind,item", [("ShardedCGState", "item 12")])
 def test_unported_carries_name_the_roadmap(tmp_path, kind, item):
-    np.savez(tmp_path / "u.npz", __kind__=np.asarray(kind), k=np.int32(0))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, {item}"):
-        load_state(tmp_path / "u.npz", device=CPU)
+    import scipy.sparse as sp
+
+    from conjugategradient_tpu_torch import parallel as tpar
+
+    rows, cols, vals, shape = poisson2d_coo(12)
+    a = sp.csr_matrix((np.asarray(vals, np.float64), (rows, cols)), shape=shape)
+    a.sort_indices()
+    n = shape[0]
+    blocks, bcols, n_pad = tpar.partition_csr_rows(a.data, a.indices, a.indptr, a.shape, 4,
+                                                   bm=8, bn=8)
+    b = torch.zeros(n_pad, dtype=torch.float64)
+    b[:n] = torch.from_numpy(reference_rhs(n))
+    g = tpar.make_row_mesh(4, CPU)
+    x_ref, info = tpar.sharded_cg_solve(blocks, bcols, b, mesh=g, tol=1e-10, use_fused="never")
+    state = tpar.sharded_cg_init(blocks, bcols, b, mesh=g)
+    state = tpar.sharded_run_cg(blocks, bcols, state, tol=1e-10, steps=10, mesh=g)
+    save_state(tmp_path / "u.npz", state)
+    loaded = load_state(tmp_path / "u.npz", device=CPU)
+    assert type(loaded).__name__ == kind, f"{kind} (ROADMAP.md section 1, {item})"
+    done = tpar.sharded_run_cg(blocks, bcols, loaded, tol=1e-10, mesh=g)
+    assert int(done.k) == int(info.iterations) > 10
+    _bits(done.x, x_ref)
+    _bits(done.hist, info.rho_history)
 
 
 def test_refusals(system, bell_pair, tmp_path):

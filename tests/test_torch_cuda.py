@@ -3145,3 +3145,196 @@ def test_sharded_layout_matches_one_device(dev, layout):
     xs2, is2 = run(bp, tol)
     assert torch.equal(xs, xs2)
     assert torch.equal(is_.rho_history.view(torch.int32), is2.rho_history.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bell", "dia"])
+def test_sharded_run_cg_through_a_file_is_the_portable_solve(dev, layout, tmp_path):
+    """sharded_run_cg (bell: kernel 5 on each shard) and sharded_dia_run_cg
+    (kernel 7 on each haloed window) at P = 4, in chunks through a file,
+    give the bits of the uninterrupted portable sharded solve
+    (use_fused="never") on the card."""
+    import scipy.sparse as sp
+
+    from conjugategradient_tpu_torch import CSRMatrix, DIAMatrix
+    from conjugategradient_tpu_torch import parallel as tpar
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+    from conjugategradient_tpu_torch.solver.checkpoint import load_state, save_state
+
+    rows, cols, vals, shape = poisson2d_coo(64)
+    n = shape[0]
+    g = tpar.make_row_mesh(4, dev)
+    if layout == "bell":
+        a = sp.csr_matrix((np.asarray(vals, np.float32), (rows, cols)), shape=shape)
+        a.sort_indices()
+        blocks, bcols, n_pad = tpar.partition_csr_rows(a.data, a.indices, a.indptr, shape, 4)
+        ops = (blocks, bcols)
+        solve, init, run = tpar.sharded_cg_solve, tpar.sharded_cg_init, tpar.sharded_run_cg
+        kernel = "bell_spmv"
+    else:
+        one = DIAMatrix.from_csr(CSRMatrix.from_coo(rows, cols, vals, shape, dtype=np.float32,
+                                                    device="cpu"))
+        diags, n_pad = tpar.partition_dia_rows(one.diags.numpy(), shape, 4)
+        ops = (diags, one.offsets)
+        solve, init = tpar.sharded_dia_cg_solve, tpar.sharded_dia_cg_init
+        run, kernel = tpar.sharded_dia_run_cg, "dia_spmv_rows"
+    b = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    b[:n] = torch.as_tensor(np.random.default_rng(3).standard_normal(n), dtype=torch.float32)
+    tol = 1e-5 * float(b.norm())
+    kw = {"use_fused": "never"} if layout == "bell" else {}
+    x_ref, info = solve(*ops, b, mesh=g, tol=tol, **kw)
+    fc.reset_counts()
+    state = init(*ops, b, mesh=g, maxiter=n_pad + 1)
+    while bool(state.live):
+        state = run(*ops, state, tol=tol, steps=37, mesh=g)
+        save_state(tmp_path / "s.npz", state)
+        state = load_state(tmp_path / "s.npz", device=dev)
+    assert fc.LAUNCHES[kernel] >= 4 * int(info.iterations)
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    x, done = tpar.sharded_state_result(state)
+    assert int(done.iterations) == int(info.iterations) > 37 and bool(done.converged)
+    assert torch.equal(x.view(torch.int32), x_ref.view(torch.int32))
+    assert torch.equal(done.rho_history.view(torch.int32), info.rho_history.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sharded_2d_matches_one_device(dev):
+    """sharded_cg_solve_2d at p = 2 (kernel 5 on each block) against the
+    one-device CG to 1e-5 ||b||: counts within one, x within 1e-4 of
+    max|x|, no all_gather, two runs bit for bit."""
+    import scipy.sparse as sp
+
+    from conjugategradient_tpu_torch import CSRMatrix, cg_solve
+    from conjugategradient_tpu_torch import parallel as tpar
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(64)
+    n = shape[0]
+    a = sp.csr_matrix((np.asarray(vals, np.float32), (rows, cols)), shape=shape)
+    a.sort_indices()
+    blocks, bcols, n_pad = tpar.partition_csr_blocks_2d(a.data, a.indices, a.indptr, shape, 2)
+    b = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    b[:n] = torch.as_tensor(np.random.default_rng(4).standard_normal(n), dtype=torch.float32)
+    tol = 1e-5 * float(b.norm())
+    x1, i1 = cg_solve(CSRMatrix.from_scipy(a, device=dev), b[:n], tol=tol)
+    fc.reset_counts()
+    g = tpar.make_mesh_2d(2, dev)
+    xs, is_ = tpar.sharded_cg_solve_2d(blocks, bcols, b, mesh=g, tol=tol)
+    assert fc.LAUNCHES["bell_spmv"] >= 4 * int(is_.iterations)
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    assert g.counts["all_gather"] == 0 and g.counts["transpose"] == g.counts["col_sum"]
+    assert bool(is_.converged) and abs(int(is_.iterations) - int(i1.iterations)) <= 1
+    _close(xs[:n], x1, rtol=1e-4)
+    xs2, is2 = tpar.sharded_cg_solve_2d(blocks, bcols, b, mesh=tpar.make_mesh_2d(2, dev), tol=tol)
+    assert torch.equal(xs, xs2)
+    assert torch.equal(is_.rho_history.view(torch.int32), is2.rho_history.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(64, 64, 64), (16, 24, 40)])
+def test_sharded_stencil_product_is_the_one_device_slice(dev, grid):
+    """Each shard's product (kernel 11 on its haloed window) is bit for bit
+    the matching slice of the one-device kernel 11 product, across routes:
+    at 64^3 the whole volume takes the staged kernel and each (18, 64, 64)
+    window the register march; on the small grid both the march."""
+    from conjugategradient_tpu_torch.ops.cuda import stencil as ks
+    from conjugategradient_tpu_torch.ops.stencil import stencil7_apply
+    from conjugategradient_tpu_torch.parallel import make_row_mesh
+    from conjugategradient_tpu_torch.parallel.sharded_stencil import _local_stencil_matvec
+
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(grid), dtype=torch.float32,
+                        device=dev)
+    fc.reset_counts()
+    whole = ks.stencil7(u, 6.0, -1.0)
+    P = 4
+    sx = grid[0] // P
+    g = make_row_mesh(P, dev)
+    flat = u.reshape(-1)
+    m = flat.numel() // P
+    parts = _local_stencil_matvec(g, [flat[i * m:(i + 1) * m] for i in range(P)], 6.0, -1.0,
+                                  (sx,) + grid[1:])
+    launches = fc.LAUNCHES["stencil7"] + fc.LAUNCHES["stencil7_staged"]
+    assert launches == 1 + P
+    assert torch.equal(torch.cat(parts).view(torch.int32), whole.reshape(-1).view(torch.int32))
+    plain = stencil7_apply(u.cpu(), 6.0, -1.0)
+    assert torch.equal(whole.cpu().view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sharded_mg_apply_matches_one_device(dev):
+    """The x-slab sharded V-cycle at P = 4 on 64^3 (kernel 11 on every
+    sweep's haloed windows, the agglomerated tail on the one-device cycle)
+    gives the one-device apply's bits on the card."""
+    from conjugategradient_tpu_torch import StencilOperator, multigrid_preconditioner
+    from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_multigrid_preconditioner
+
+    shape = (64, 64, 64)
+    r = torch.as_tensor(np.random.default_rng(6).standard_normal(int(np.prod(shape))),
+                        dtype=torch.float32, device=dev)
+    want = multigrid_preconditioner(StencilOperator.poisson(shape, device=dev))(r)
+    pre = sharded_multigrid_preconditioner(shape, 4, dtype=torch.float32, agglomerate_below=4096)
+    g = make_row_mesh(4, dev)
+    fc.reset_counts()
+    m = r.numel() // 4
+    got = torch.cat(pre.make_local_apply([], g)([r[i * m:(i + 1) * m] for i in range(4)]))
+    assert fc.LAUNCHES["stencil7"] + fc.LAUNCHES["stencil7_staged"] > 0
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["amg", "fsai", "cg"])
+def test_sharded_8_wide_tiles_take_packed_kernel_5(dev, case):
+    """Float32 shards of 8 x 8 tiles, a width the dense-tile kernel does not
+    take, run their products on packed kernel 5 on the card: every level
+    of the sharded SA-AMG apply and both FSAI products at P = 4 (against
+    the float64 apply on the CPU to float32 accuracy), and a
+    ``sharded_cg_solve`` on bn = 8 shards (against the one-device CG); no
+    plain version runs on CUDA tensors."""
+    import scipy.sparse as sp
+
+    from conjugategradient_tpu_torch import CSRMatrix, cg_solve
+    from conjugategradient_tpu_torch import parallel as tpar
+    from conjugategradient_tpu_torch.problems import poisson2d_coo
+
+    rows, cols, vals, shape = poisson2d_coo(64)
+    n = shape[0]
+    a = sp.csr_matrix((np.asarray(vals, np.float64), (rows, cols)), shape=shape)
+    a.sort_indices()
+    a32 = a.astype(np.float32)
+    blocks, bcols, n_pad = tpar.partition_csr_rows(a32.data, a32.indices, a32.indptr, shape, 4,
+                                                   bm=8, bn=8)
+    r = np.zeros(n_pad)
+    r[:n] = np.random.default_rng(7).standard_normal(n)
+    fc.reset_counts()
+    if case == "cg":
+        b = torch.as_tensor(r, dtype=torch.float32, device=dev)
+        tol = 1e-5 * float(b.norm())
+        xs, is_ = tpar.sharded_cg_solve(blocks, bcols, b, mesh=tpar.make_row_mesh(4, dev),
+                                        tol=tol, use_fused="never")
+        assert fc.LAUNCHES["bell_spmv_packed"] >= 4 * int(is_.iterations)
+        assert fc.LAUNCHES["bell_pack"] == 4
+        x1, i1 = cg_solve(CSRMatrix.from_scipy(a32, device=dev), b[:n], tol=tol)
+        assert bool(is_.converged) and abs(int(is_.iterations) - int(i1.iterations)) <= 1
+        _close(xs[:n], x1, rtol=1e-4)
+    else:
+        def build(dtype):
+            A = CSRMatrix.from_scipy(a, device="cpu")
+            if case == "amg":
+                return tpar.sharded_amg_preconditioner(A, 4, n_pad, agglomerate_below=1,
+                                                       dtype=dtype)
+            return tpar.sharded_fsai_preconditioner(A, 4, n_pad, dtype=dtype)
+
+        def apply(pre, device, dtype):
+            g = tpar.make_row_mesh(4, device)
+            arrays = [torch.as_tensor(x, device=device) for x in pre.op_arrays]
+            rt = torch.as_tensor(r, dtype=dtype, device=device)
+            m = n_pad // 4
+            return torch.cat(pre.make_local_apply(arrays, g)(
+                [rt[i * m:(i + 1) * m] for i in range(4)]))
+
+        got = apply(build(torch.float32), dev, torch.float32)
+        assert fc.LAUNCHES["bell_spmv_packed"] > 0 and fc.LAUNCHES["bell_spmv"] == 0
+        want = apply(build(torch.float64), "cpu", torch.float64)
+        _close(got.cpu().double(), want, rtol=1e-4)
+    assert all(v == 0 for v in fc.PLAIN_ON_CUDA.values())

@@ -364,15 +364,16 @@ def test_axis_and_ncols_padded_are_accepted():
 
 
 def test_exports_follow_the_jax_order_and_queued_names_raise():
-    ported = [name for name in jpar.__all__ if name in tpar.__all__]
-    assert ported == [name for name in tpar.__all__ if name in jpar.__all__]
-    assert len(ported) == 13
-    queued = [name for name in jpar.__all__ if name not in tpar.__all__]
-    assert sorted(queued) == sorted(tpar.QUEUED) and len(queued) == 20
-    for name in queued:
-        assert not hasattr(tpar, name)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md section 1, item 12"):
-            getattr(tpar, name)
+    """Every JAX ``parallel`` name is ported, in the JAX order, with the
+    port's three group names after them; none is queued any more."""
+    assert tpar.QUEUED == ()
+    assert len(jpar.__all__) == 33
+    assert tpar.__all__ == list(jpar.__all__) + ["DistributedGroup", "InProcessGroup",
+                                                 "ShardGroup"]
+    for name in tpar.__all__:
+        assert hasattr(tpar, name), name
+    with pytest.raises(AttributeError):
+        getattr(tpar, "sharded_cg_solve_3d")
 
 
 # ---- torch.distributed: the ring halo and a DIA solve over gloo ------------------------------
