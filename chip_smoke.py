@@ -7,7 +7,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 1. Print the card (``nvidia-smi`` name and power limit) and build the
    CUDA kernels from ``conjugategradient_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
-2. Hold each of the forty-nine kernels against its plain-torch version on the
+2. Hold each of the fifty-one kernels against its plain-torch version on the
    card, at the main paths' shapes (128 x 128 tiles on the n = 262,144
    block-tridiagonal operator and on poisson3d_48; 8 x 128 tiles on
    poisson3d_48 for the SpMV; the JAX package's symdia-big operator,
@@ -97,10 +97,11 @@ Usage, from the repository root: ``python3 chip_smoke.py``
    above and below it, a NaN in x, and x or the diagonals not 16-byte
    aligned; both timed on poisson3d_48 (``dia_spmv_rows`` is its route),
    ``dia_spmv`` on symdia-big (its route: 41 diagonals).  Kernel 10 in
-   both forms (``sym_dia_spmv_tiled``, the tiled kernel, on its geometry,
-   and ``sym_dia_spmv``) bit-equal to the
+   its three forms (``sym_dia_spmv_tiled``, the tiled kernel, on its
+   geometry; ``sym_dia_spmv_rows``, the offsets by value, up to 32 stored
+   offsets; and ``sym_dia_spmv``, one thread a row) bit-equal to the
    plain version on symdia-big, poisson3d_48, dense_256 and a ragged
-   n = 1001 (offsets 0, 3, 300), the routed call too; both timed on
+   n = 1001 (offsets 0, 3, 300), the routed call too; each timed on
    symdia-big and poisson3d_48.  Then, before the timing rows, the
    registers, static shared memory and spills that ``nvcc -Xptxas -v``
    reports for each instantiation of kernels 1 and 15 on the banded
@@ -414,6 +415,23 @@ root of another checkout (TREE), its kernels run beside this tree's in
 the same process (TREE's, this tree's, this tree's, TREE's), and its
 ``stencil.cu`` is compiled beside this one for the report and counts.
 
+``python3 chip_smoke.py --dia-only [TREE]`` runs kernels 7 and 10 alone:
+one hash a call on each route in float32 and bf16 (each y held to the plain
+version, each bf16 y to the float32 launch on the widened diagonals) on the
+operators of phase 2 (symdia-big, poisson3d_48, a 27-point stencil, a
+ragged n = 110,591, x at an offset of 1, ragged n = 1001 with offsets 0, 3,
+300 and a NaN, dense_256, a rectangular 1001 x 1300, negative offsets only,
+offsets past n, -0 terms); the history and x of four portable solves (the
+SymDIA CG on poisson3d_48 in float32 and bf16, the bf16 SymDIA CG on
+symdia-big, the bf16 DIA CG on poisson3d_48); the ``-Xptxas -v`` report and
+``cuobjdump -sass`` counts of ``dia_spmv.cu``; device ms a call of kernel 10
+on symdia-big and poisson3d_48 and of kernel 7 on poisson3d_48 in both
+types, and of a step of the bf16 SymDIA CG on symdia-big; and the sweep of
+the tiled kernel's tile height and ring depth.  Given the root of another checkout (TREE), its
+package is imported beside this one: its hashes are printed and held equal
+to this tree's, and its calls are timed in turns with this tree's (TREE's,
+this tree's, this tree's, TREE's).
+
 ``python3 chip_smoke.py --sharded-only [TREE]`` runs kernels 6 and 17
 alone: the ``-Xptxas -v`` report, their ring's geometry and depth sweep
 (on a tree that has it), and their device times at P = 4 and 8 in both
@@ -475,6 +493,7 @@ SOURCES = {
     "sym_minres_dir_spmv_dot_packed": MINRES_SOURCE,
     "sym_fused_dir_spmv_dot_packed": FUSED_SOURCE,
     "sym_dia_spmv_tiled": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
+    "sym_dia_spmv_rows": "conjugategradient_tpu_torch/csrc/dia_spmv.cu",
 }
 REPLACES = {
     "sym_fused_dir_spmv_dot": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
@@ -514,10 +533,11 @@ REPLACES = {
     "minres_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_minres.py:113",
     "sym_minres_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_minres.py:298",
     # packed kernel 4 on symmetric storage's view of D + U + U^T: kernel 1's
-    # function on sparse tiles; the tiled kernel 10, the same function as
-    # sym_dia_spmv
+    # function on sparse tiles; the tiled and by-value kernels 10, the same
+    # function as sym_dia_spmv
     "sym_fused_dir_spmv_dot_packed": "conjugategradient_tpu/ops/pallas/fused_cg.py:338",
     "sym_dia_spmv_tiled": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
+    "sym_dia_spmv_rows": "conjugategradient_tpu/ops/pallas/dia_spmv.py:304",
 }
 # the bfloat16-tile forms of kernels 1, 4, 5, 6, 7, 10, 14, 15, 17, 18 and 19
 # (float32 vectors) and the bf16-volume form of kernel 11: the same sources
@@ -525,7 +545,7 @@ REPLACES = {
 for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_spmv",
               "dia_spmv_rows", "bell_spmv_packed", "fused_dir_spmv_dot_packed",
               "sym_fused_dir_spmv_dot_packed", "sym_dia_spmv", "sym_dia_spmv_tiled",
-              "minres_dir_spmv_dot", "minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot",
+              "sym_dia_spmv_rows", "minres_dir_spmv_dot", "minres_dir_spmv_dot_packed", "sym_minres_dir_spmv_dot",
               "sym_minres_dir_spmv_dot_packed", "minres_shard_spmv_dot",
               "bicgstab_dir_spmv_dot", "bicgstab_dir_spmv_dot_packed", "bicgstab_s_spmv_dot",
               "bicgstab_s_spmv_dot_packed", "bell_spmv_dot", "stencil7", "stencil7_staged"):
@@ -534,7 +554,8 @@ for _name in ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "bell_spmv", "dia_
 BLOCKED_KERNELS = ("sym_fused_dir_spmv_dot", "fused_dir_spmv_dot", "fused_update_dot",
                    "fused_update_dot_pcg", "bell_spmv", "bell_spmv_packed",
                    "fused_dir_spmv_dot_packed", "sym_fused_dir_spmv_dot_packed")
-DIA_KERNELS = ("dia_spmv", "dia_spmv_rows", "sym_dia_spmv", "sym_dia_spmv_tiled")
+DIA_KERNELS = ("dia_spmv", "dia_spmv_rows", "sym_dia_spmv", "sym_dia_spmv_tiled",
+               "sym_dia_spmv_rows")
 STENCIL_KERNELS = ("stencil7", "stencil7_staged", "fused_stencil_dir_dot", "fused_update_dot")
 MINRES_KERNELS = ("minres_dir_spmv_dot", "sym_minres_dir_spmv_dot", "minres_update_dot",
                   "bell_spmv", "bell_spmv_packed", "minres_dir_spmv_dot_packed",
@@ -1535,29 +1556,28 @@ def check_dia(a, sym, rng, errs, label, x=None):
         m = float(yp.abs().max())
         tiling = kd.sym_dia_tiling(sym.offsets, sym.n)
         check(tiling is not None, f"{label}: no geometry for the tiled kernel 10")
-        route = "sym_dia_spmv_tiled" if tiling.pays(sym.n) else "sym_dia_spmv"
+        route = kd.sym_dia_route(sym.offsets, sym.n)
         before = kd.LAUNCHES[route]
         ys = kd.sym_dia_spmv_diags(sym.diags, sym.offsets, sym.offsets_dev, x)
         check(kd.LAUNCHES[route] == before + 1, f"{label}: sym_dia_spmv_diags did not take {route}")
-        yt = kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, tiling)
-        yt2 = kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, tiling)
-        yo = kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, None)
         yps = kd._sym_dia_plain(sym.diags, sym.offsets, x)
-        torch.cuda.synchronize()
-        et, _ = rel_max_err(yt, yps)
-        eo, _ = rel_max_err(yo, yps)
-        check(torch.equal(yt, yps), f"sym_dia_spmv_tiled {label}: not bit-equal to the plain "
-                                    f"version ({et})")
-        check(torch.equal(yt, yt2), f"sym_dia_spmv_tiled {label}: a repeat differs")
-        check(torch.equal(yo, yps), f"sym_dia_spmv {label}: not bit-equal to the plain version ({eo})")
         check(torch.equal(ys, yps), f"{route} {label}: the routed call differs from the plain version")
-        errs["sym_dia_spmv_tiled"] = max(errs["sym_dia_spmv_tiled"], et)
-        errs["sym_dia_spmv"] = max(errs["sym_dia_spmv"], eo)
+        # each kernel 10 forced: the tiled one on its geometry, whether or not
+        # the route takes it there; the by-value one up to 32 stored offsets
+        forced = ["sym_dia_spmv_tiled", "sym_dia_spmv"] + \
+            (["sym_dia_spmv_rows"] if sym.ndiag <= kd.MAX_PARAM_DIAGS else [])
+        for name in forced:
+            y1 = kd.sym_dia_cuda(sym.diags, sym.offsets, sym.offsets_dev, x, name, tiling)
+            y2 = kd.sym_dia_cuda(sym.diags, sym.offsets, sym.offsets_dev, x, name, tiling)
+            torch.cuda.synchronize()
+            e, _ = rel_max_err(y1, yps)
+            check(torch.equal(y1, yps), f"{name} {label}: not bit-equal to the plain version ({e})")
+            check(torch.equal(y1, y2), f"{name} {label}: a repeat differs")
+            errs[name] = max(errs[name], e)
         ef, _ = rel_max_err(ys, yk)
         check(ef <= TOL_Q * m, f"sym_dia_spmv {label}: {ef} from the full layout's y")
-        msg += (f"; sym_dia_spmv_tiled ({tiling}, {tiling.ctas(sym.n)} CTAs) and sym_dia_spmv "
-                f"bit-equal ({sym.ndiag} stored), the route takes {route}; |y_sym - y_full| "
-                f"{ef:.3g}")
+        msg += (f"; {' and '.join(forced)} bit-equal ({tiling}, {tiling.ctas(sym.n)} CTAs; "
+                f"{sym.ndiag} stored), the route takes {route}; |y_sym - y_full| {ef:.3g}")
     print(msg)
     return x, yk
 
@@ -1615,8 +1635,13 @@ def phase_dia_kernels(dev, errs, times, extra):
     for label, offs, n in (("symdia-big", SYMDIA_OFFSETS, SYMDIA_N),
                            ("poisson3d_48", (0, 1, 48, 2304), 110592)):
         t = kd.sym_dia_tiling(offs, n)
-        print(f"  sym_dia_tiling {label}: {t}, {t.ctas(n)} CTAs, {t.smem_bytes} B of shared "
-              f"memory; the route takes {'it' if t.pays(n) else 'sym_dia_spmv'}")
+        launch = []
+        for dt in kd.TILE_GEOMETRY:
+            lt, st = kd.launch_tiling(t, dt)
+            launch.append(f"{str(dt)[6:]}: {lt.planes} planes, {st} stages, {lt.ctas(n)} CTAs, "
+                          f"{lt.smem_bytes(st, 2 if dt == torch.bfloat16 else 4, len(offs))} B "
+                          f"of shared memory, the route takes {kd.sym_dia_route(offs, n, dt)}")
+        print(f"  sym_dia_tiling {label}: {t}, {t.ctas(n)} CTAs; launched as {'; '.join(launch)}")
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     big, big_sym = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, rng, dev)
@@ -1642,6 +1667,11 @@ def phase_dia_kernels(dev, errs, times, extra):
     check_dia(dia_from_arrays(neg, (-300, -3, -1), (777, 777), neg.size, device=dev),
               None, rng, errs, "negative offsets only")
     check_dia_edges(dev, rng, errs)
+    # a wide band (50 stored offsets) that the route gives one thread a row
+    ela = load_matrix(os.path.join(ROOT, MATRICES[1]), layout="dia", dtype=np.float32, device=dev)
+    ela_sym = load_matrix(os.path.join(ROOT, MATRICES[1]), layout="symdia", dtype=np.float32,
+                          device=dev)
+    check_dia(ela, ela_sym, np.random.default_rng(16), errs, "elasticity3d_16")
 
     for label, a, sym, x, y in (("symdia-big", big, big_sym, x_big, y_big),
                                 ("poisson3d_48", p3d, p3d_sym, x_p3d, y_p3d)):
@@ -1653,32 +1683,37 @@ def phase_dia_kernels(dev, errs, times, extra):
               for name in ("dia_spmv", "dia_spmv_rows") if name == "dia_spmv"
               or a.ndiag <= kd.MAX_PARAM_DIAGS}
         tf = t7[kd.dia_route(a.offsets)]
-        tiling = kd.sym_dia_tiling(sym.offsets, sym.n)
-        ts = time_pair(lambda: kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, tiling),
-                       lambda: kd._sym_dia_plain(sym.diags, sym.offsets, x))
-        # the one-thread-a-row kernel on the same operator, while both exist
-        to = time_pair(lambda: kd.sym_dia_cuda(sym.diags, sym.offsets_dev, x, None),
-                       lambda: kd._sym_dia_plain(sym.diags, sym.offsets, x))
+        # each kernel 10 on the same operator: the tiled one on its geometry,
+        # one thread a row, by value (both shapes hold 32 offsets or fewer)
+        t10 = {name: time_pair(
+            lambda: kd.sym_dia_cuda(sym.diags, sym.offsets, sym.offsets_dev, x, name),
+            lambda: kd._sym_dia_plain(sym.diags, sym.offsets, x))
+            for name in ("sym_dia_spmv_tiled", "sym_dia_spmv", "sym_dia_spmv_rows")}
         csr = csr_from_dia(a)
         lib = library_spmv(csr, x, y, label)  # the same y = A x for both storages
         del csr
         for t in t7.values():
             t.update(full_b, library_ms=lib)
-        ts.update(half_b, library_ms=lib)
-        to.update(half_b, library_ms=lib)
+        for t in t10.values():
+            t.update(half_b, library_ms=lib)
         full_bytes = nbytes(a.diags) + (a.shape[1] + a.n) * 4
         print(f"  {label} SpMV on full-layout bytes ({full_bytes / 1e6:.1f} MB): dia_spmv "
-              f"{full_bytes / tf['ms'] / 1e6:.1f} GB/s, sym_dia_spmv_tiled "
-              f"{full_bytes / ts['ms'] / 1e6:.1f} GB/s, sym_dia_spmv "
-              f"{full_bytes / to['ms'] / 1e6:.1f} GB/s effective")
+              f"{full_bytes / tf['ms'] / 1e6:.1f} GB/s, " + ", ".join(
+                  f"{name} {full_bytes / t['ms'] / 1e6:.1f} GB/s" for name, t in t10.items()) +
+              " effective")
         if label == "symdia-big":
-            times["dia_spmv"], times["sym_dia_spmv_tiled"], times["sym_dia_spmv"] = tf, ts, to
+            times["dia_spmv"], times["sym_dia_spmv_tiled"] = tf, t10["sym_dia_spmv_tiled"]
+            times["sym_dia_spmv"] = t10["sym_dia_spmv"]
+            extra[f"sym_dia_spmv_rows {label}"] = t10["sym_dia_spmv_rows"]
         else:
             times["dia_spmv_rows"], extra[f"dia_spmv {label}"] = tf, t7["dia_spmv"]
-            extra[f"sym_dia_spmv_tiled {label}"], extra[f"sym_dia_spmv {label}"] = ts, to
+            times["sym_dia_spmv_rows"] = t10["sym_dia_spmv_rows"]
+            extra[f"sym_dia_spmv_tiled {label}"] = t10["sym_dia_spmv_tiled"]
+            extra[f"sym_dia_spmv {label}"] = t10["sym_dia_spmv"]
     dia_route_rows(p3d, rng, errs, extra)
     torch.cuda.synchronize()
-    return {"big": big, "big_sym": big_sym, "p3d": p3d, "p3d_sym": p3d_sym}
+    return {"big": big, "big_sym": big_sym, "p3d": p3d, "p3d_sym": p3d_sym,
+            "dense_sym": dense_sym, "ela_sym": ela_sym}
 
 
 def dia_route_rows(p3d, rng, errs, extra):
@@ -2790,12 +2825,14 @@ def phase_dia_path(dev, ops, card):
 
     # (a) the tester: --layout auto resolves poisson3d_48 to DIA, which the
     # dia_spmv_rows counter shows (7 diagonals: the by-value kernel 7);
-    # symdia with Jacobi PCG (a small operator: the route by shape takes
-    # sym_dia_spmv, not the tiled kernel)
-    path = MATRICES[0]
-    n = read_csr_host(os.path.join(ROOT, path))[3][0]
-    for layout, precond, kernel in (("auto", "none", "dia_spmv_rows"),
-                                    ("symdia", "jacobi", "sym_dia_spmv")):
+    # symdia with Jacobi PCG (a small operator: the route by shape takes the
+    # by-value kernel 10, not the tiled one), and on elasticity3d_16 (50
+    # stored offsets: one thread a row)
+    for path, layout, precond, kernel in (
+            (MATRICES[0], "auto", "none", "dia_spmv_rows"),
+            (MATRICES[0], "symdia", "jacobi", "sym_dia_spmv_rows"),
+            (MATRICES[1], "symdia", "jacobi", "sym_dia_spmv")):
+        n = read_csr_host(os.path.join(ROOT, path))[3][0]
         before = _common.LAUNCHES[kernel]
         dim, nnz, ms, rel, summ, _ = run_tester(path, layout, precond, TOL_SOLVE_REL * bnorm(n))
         it = summ["iterations"][0]
@@ -4967,7 +5004,7 @@ def phase_multi_path(dev, big, big_full, card):
                         int(ib.iterations.max()))
 
 
-CA_KERNELS = ("bell_spmv", "dia_spmv_rows", "sym_dia_spmv", "stencil7_staged")
+CA_KERNELS = ("bell_spmv", "dia_spmv_rows", "sym_dia_spmv_rows", "stencil7_staged")
 CA_STEPS = 256  # at tol = -1 on the n = 262,144 full-storage tiles
 CA_S = (2, 4)  # s-step block sizes timed there
 CA_F64_TOL_REL = 1e-8  # float64 poisson3d_48 solves to 1e-8 ||b||
@@ -5971,13 +6008,14 @@ BF16_KERNELS = ("sym_fused_dir_spmv_dot_bf16", "fused_dir_spmv_dot_bf16", "bell_
                 "fused_dir_spmv_dot_packed_bf16", "sym_fused_dir_spmv_dot_packed_bf16",
                 "sym_dia_spmv_bf16", "sym_dia_spmv_tiled_bf16", "minres_dir_spmv_dot_bf16",
                 "minres_dir_spmv_dot_packed_bf16", "sym_minres_dir_spmv_dot_bf16",
-                "sym_minres_dir_spmv_dot_packed_bf16", "minres_shard_spmv_dot_bf16")
+                "sym_minres_dir_spmv_dot_packed_bf16", "minres_shard_spmv_dot_bf16",
+                "sym_dia_spmv_rows_bf16")
 # the float32 form's time on the shape a bf16 form is timed on, where that
 # is not the float32 form's own row: kernel 10 one thread a row on
-# poisson3d_48 (its route there)
+# poisson3d_48 (the route there until the by-value kernel took it)
 BF16_F32_ROW = {"sym_dia_spmv_bf16": "sym_dia_spmv poisson3d_48"}
-# the tester's bf16 SymDIA runs on poisson3d_48 (the one-thread-a-row
-# kernel 10), and the JAX tester's on the CPU, recorded once: (inner)
+# the tester's bf16 SymDIA runs on poisson3d_48 (the by-value kernel 10),
+# and the JAX tester's on the CPU, recorded once: (inner)
 # iterations, converged; the card's run is held to the same converged and
 # iterations within 10% (bf16 vector arithmetic rounds at other places in
 # XLA: tests/test_torch_bf16_kernels.py allows 15% on poisson2d_34)
@@ -6225,8 +6263,9 @@ def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, e
                                   extra):
     """The bf16 forms of kernels 10, 14, 15 and 17 at the shapes of their
     float32 forms: kernel 10 on symdia-big's 21 stored diagonals (the tiled
-    kernel), poisson3d_48's 4 (one thread a row) and a ragged n = 1001,
-    both kernels on each; kernels 14 and 15 on the n = 262,144
+    kernel), poisson3d_48's 4 (by value), a ragged n = 1001, and
+    dense_256's 256 and elasticity3d_16's 50 (one thread a row), each
+    kernel that takes the shape on each; kernels 14 and 15 on the n = 262,144
     block-tridiagonal tiles (dense; banded and general landings), with and
     without d, shifted, a first step, and their packed form on
     poisson3d_48's views in both storages; kernel 17 on the n = 262,144
@@ -6247,29 +6286,41 @@ def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, e
     def vec(shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
 
-    # kernel 10: both kernels on each shape, and the routed call
+    # kernel 10: each kernel that takes the shape (the tiled one wherever
+    # its geometry exists, by value up to 32 stored offsets), and the routed
+    # call; dense_256 and elasticity3d_16 are the wide bands (256 and 50
+    # stored offsets) that the route gives one thread a row
     _, ragged = sym_dia_pair(1001, (0, 3, 300), rng, dev, scale=0.3)
     sym_x = {}
-    for label, s in (("symdia-big n=2097152", dia_ops["big_sym"]),
-                     ("poisson3d_48", dia_ops["p3d_sym"]), ("ragged n=1001 0,3,300", ragged)):
+    wide = np.random.default_rng(256)  # x of the wide bands, leaving rng's draws as they were
+    for label, s, xr in (("symdia-big n=2097152", dia_ops["big_sym"], rng),
+                         ("poisson3d_48", dia_ops["p3d_sym"], rng),
+                         ("ragged n=1001 0,3,300", ragged, rng),
+                         ("dense_256", dia_ops["dense_sym"], wide),
+                         ("elasticity3d_16", dia_ops["ela_sym"], wide)):
         lo = s.astype(bf16)
-        x = vec(lo.n)
+        x = torch.as_tensor(xr.standard_normal(lo.n), dtype=f32, device=dev)
         sym_x[label] = (lo, x)
         tiling = kd.sym_dia_tiling(lo.offsets, lo.n)
-        check(tiling == kd.sym_dia_tiling(s.offsets, s.n), f"{label}: bf16 tiling differs")
-        for name, t in (("sym_dia_spmv_tiled_bf16", tiling), ("sym_dia_spmv_bf16", None)):
+        check(tiling is not None and tiling == kd.sym_dia_tiling(s.offsets, s.n),
+              f"{label}: no bf16 tiling, or not float32's")
+        for r in ("sym_dia_spmv_tiled", "sym_dia_spmv_rows", "sym_dia_spmv"):
+            if r == "sym_dia_spmv_rows" and lo.ndiag > kd.MAX_PARAM_DIAGS:
+                continue
+            name = r + "_bf16"
             errs[name] = max(errs[name], bf16_check(
-                name, label, lambda: kd.sym_dia_cuda(lo.diags, lo.offsets_dev, x, t),
-                lambda: kd.sym_dia_cuda(lo.diags.float(), lo.offsets_dev, x, t),
+                name, label, lambda: kd.sym_dia_cuda(lo.diags, lo.offsets, lo.offsets_dev, x, r),
+                lambda: kd.sym_dia_cuda(lo.diags.float(), lo.offsets, lo.offsets_dev, x, r),
                 lambda: kd._sym_dia_plain(lo.diags, lo.offsets, x), exact=True))
-        route = "sym_dia_spmv_tiled_bf16" if tiling.pays(lo.n) else "sym_dia_spmv_bf16"
+        route = kd.sym_dia_route(lo.offsets, lo.n, bf16) + "_bf16"
         before = fc.LAUNCHES[route]
         y = kd.sym_dia_spmv_diags(lo.diags, lo.offsets, lo.offsets_dev, x)
         torch.cuda.synchronize()
         check(fc.LAUNCHES[route] == before + 1
               and torch.equal(y, kd._sym_dia_plain(lo.diags, lo.offsets, x)),
               f"{label}: the routed bf16 call did not take {route} or differs")
-        print(f"  sym_dia_spmv_diags {label} bf16: the route takes {route}, as float32's")
+        print(f"  sym_dia_spmv_diags {label} bf16: the route takes {route} (float32: "
+              f"{kd.sym_dia_route(s.offsets, s.n)})")
 
     # kernels 14 and 15, dense tiles, then the packed form
     full, sym = big_full.astype(bf16), big.astype(bf16)
@@ -6318,11 +6369,12 @@ def phase_bf16_minres_dia_kernels(dev, big, big_full, ops, dia_ops, shard_ops, e
     # timing at the table's shapes, launched as the solver and the loop
     # launch them: in place, on a work that never finishes
     for label, name in (("symdia-big n=2097152", "sym_dia_spmv_tiled_bf16"),
-                        ("poisson3d_48", "sym_dia_spmv_bf16")):
+                        ("poisson3d_48", "sym_dia_spmv_bf16"),
+                        ("poisson3d_48", "sym_dia_spmv_rows_bf16")):
         lo, x = sym_x[label]
-        t = kd.sym_dia_tiling(lo.offsets, lo.n) if name.endswith("tiled_bf16") else None
-        times[name] = time_pair(lambda: kd.sym_dia_cuda(lo.diags, lo.offsets_dev, x, t),
-                                lambda: kd._sym_dia_plain(lo.diags, lo.offsets, x))
+        times[name] = time_pair(
+            lambda: kd.sym_dia_cuda(lo.diags, lo.offsets, lo.offsets_dev, x, name[:-5]),
+            lambda: kd._sym_dia_plain(lo.diags, lo.offsets, x))
         times[name].update(bound(nbytes(lo.diags, lo.offsets_dev) + 2 * lo.n * 4,
                                  2 * (2 * lo.ndiag - 1) * lo.n), library_ms=None)
     work = fm.MinresWork.new(dev, maxiter=1 << 20, tol=-1.0)
@@ -6503,8 +6555,9 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
     """The paths that reach the bf16 forms of kernels 10, 14, 15 and 17:
     the portable CG on symdia-big's bf16 operator (the tiled kernel 10), 64
     steps at tol = -1 beside float32; the tester's --layout symdia in bf16
-    and with --refine bfloat16 on poisson3d_48 (one thread a row) against
-    the JAX tester's counts, and --method minres --dtype bfloat16 on
+    and with --refine bfloat16 on poisson3d_48 (by value) against the JAX
+    tester's counts, a bf16 CG on dense_256's 256 stored offsets (one
+    thread a row), and --method minres --dtype bfloat16 on
     poisson2d_34 (the portable loop on bf16 vectors, as in the JAX
     package); the fused MINRES lane in bf16, 256 steps at tol = -1 in both
     storages beside float32 (kernels 14 and 15, dense, with 16); minres_solve
@@ -6516,7 +6569,7 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
 
     import torch
 
-    from conjugategradient_tpu_torch import cg_solve, fused_minres_solve, minres_solve
+    from conjugategradient_tpu_torch import cg_solve, fused_minres_solve, load_matrix, minres_solve
     from conjugategradient_tpu_torch.ops.cuda import fused_cg as fc
     from conjugategradient_tpu_torch.parallel import make_row_mesh, sharded_cg_solve
     from conjugategradient_tpu_torch.utils import Timer
@@ -6553,17 +6606,17 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
               f"{digest(info.rho_history)}  [{card}]")
     print(f"  symdia-big CG: bf16 / float32 time per step {got['bf16'] / got['float32']:.3f}")
 
-    # (b) the tester on poisson3d_48 as SymDIA in bf16 (one thread a row)
+    # (b) the tester on poisson3d_48 as SymDIA in bf16 (kernel 10 by value)
     for key, tol, dtype, extra_args in (
             ("refine", REFINE_FILE_TOL_REL * bnorm(110592), "float32", ("--refine", "bfloat16")),
             ("bfloat16", 1e-2 * bnorm(110592), "bfloat16", ())):
-        before = fc.LAUNCHES["sym_dia_spmv_bf16"]
+        before = fc.LAUNCHES["sym_dia_spmv_rows_bf16"]
         dim, nnz, ms, rel, summ, _ = run_tester(MATRICES[0], "symdia", "none", tol,
                                                 dtype=dtype, extra=extra_args)
         ji, jc = JAX_SYMDIA_BF16_COUNTS[key]
         its = summ["iterations"][0]
-        check(fc.LAUNCHES["sym_dia_spmv_bf16"] > before,
-              f"tester symdia {key}: kernel 10's bf16 form did not run")
+        check(fc.LAUNCHES["sym_dia_spmv_rows_bf16"] > before,
+              f"tester symdia {key}: kernel 10's by-value bf16 form did not run")
         check(summ["converged"] == [jc] and abs(its - ji) <= REFINE_ITER_REL * ji
               and rel < (REL_ERROR_BOUND if key == "refine" else 5e-3),
               f"tester symdia {key}: {its} its converged {summ['converged']} rel_error {rel}, "
@@ -6571,6 +6624,25 @@ def bf16_minres_dia_path(dev, big, big_full, dia_ops, shard_ops, card):
         print(f"  tester {MATRICES[0]} --layout symdia --dtype {dtype} {' '.join(extra_args)}: "
               f"{dim} {nnz} {ms:.3f} ms rel_error {rel:.3e}, {its} its (the JAX tester on the "
               f"CPU: {ji}, converged {jc})  [{card}]")
+    # a bf16 SymDIA CG on dense_256 (256 stored offsets: one thread a row)
+    ds = load_matrix(os.path.join(ROOT, "problems/dense_256.mtx"), layout="symdia",
+                     dtype=np.float32, device=dev).astype(bf16)
+    bd = torch.arange(1, ds.n + 1, dtype=f32, device=dev)
+    before = fc.LAUNCHES["sym_dia_spmv_bf16"]
+    xd, info = cg_solve(ds, bd, tol=-1.0, maxiter=16)
+    check(int(info.iterations) == 16 and fc.LAUNCHES["sym_dia_spmv_bf16"] - before >= 16,
+          "CG dense_256 SymDIA bf16: kernel 10's one-thread-a-row bf16 form did not run")
+    launched = fc.LAUNCHES["sym_dia_spmv_bf16"] - before
+    # the same solve on the widened operator (float32 sym_dia_spmv, held to
+    # the plain version in phase 1 on dense_256) gives the same bits
+    xw, infow = cg_solve(ds.astype(f32), bd, tol=-1.0, maxiter=16)
+    check(torch.equal(info.rho_history, infow.rho_history) and torch.equal(xd, xw),
+          "CG dense_256 SymDIA bf16: the history or x differs from the float32 solve on the "
+          "widened operator")
+    print(f"  portable CG dense_256 (SymDIA, bf16, {ds.ndiag} stored), 16 steps: "
+          f"{launched} sym_dia_spmv_bf16 launches, rho_history sha256 "
+          f"{digest(info.rho_history)}, history and x bit-equal to the float32 solve on the "
+          f"widened operator  [{card}]")
     dim, nnz, ms, rel, summ, _ = run_tester("problems/poisson2d_34.mtx", "bell", "none", 1.0,
                                             dtype="bfloat16", extra=("--method", "minres"))
     its = summ["iterations"][0]
@@ -7858,13 +7930,6 @@ def stencil_sass(card, other=None) -> None:
     instructions in ``cuobjdump -sass``."""
     import re
 
-    from conjugategradient_tpu_torch.ops.cuda import _build
-
-    tmp = os.path.join(ROOT, "build", "ptxas")
-    os.makedirs(tmp, exist_ok=True)
-    trees = [("this", ROOT)] + ([("other", other)] if other is not None else [])
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-
     def label(name):
         k = re.search(r"(stencil7\w*?_kernel)I(\w+?)E", name)
         if k is None:
@@ -7873,17 +7938,74 @@ def stencil_sass(card, other=None) -> None:
                                                       "f32")
         return f"{k.group(1)}<{ty}>"
 
+    sass_report(card, "stencil.cu", SASS_OPS, other, label)
+
+
+def demangled(names) -> dict:
+    """Each mangled name in ``names`` as ``cu++filt`` (beside nvcc) prints
+    it, or as it is where that tool is missing."""
+    import re
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    names = sorted(set(names))
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return {n: n for n in names}
+    out = subprocess.run([tool, *names], capture_output=True, text=True, timeout=120)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != len(names):
+        return {n: n for n in names}
+    def short(d):
+        """The function's name and template arguments, without the
+        parameter list: up to the '(' that balances the last ')'."""
+        d = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", d.strip())
+        depth = 0
+        for i in range(len(d) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(d[i], 0)
+            if depth == 0 and d[i] == "(":
+                return d[:i]
+        return d
+
+    return {n: short(d) for n, d in zip(names, lines)}
+
+
+def sass_report(card, source, ops, other=None, label=None) -> None:
+    """``nvcc -Xptxas -v`` on ``csrc/<source>`` of this tree and of
+    ``other``'s, as the build compiles it: each function's registers,
+    static shared memory and spills; then each function's count of the
+    instructions ``ops`` in ``cuobjdump -sass``.  ``label`` names a mangled
+    function, or None to leave it out; by default every function, by its
+    demangled name."""
+    import re
+
+    from conjugategradient_tpu_torch.ops.cuda import _build
+
+    tmp = os.path.join(ROOT, "build", "ptxas")
+    os.makedirs(tmp, exist_ok=True)
+    trees = [("this", ROOT)] + ([("other", other)] if other is not None else [])
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    stem = os.path.splitext(source)[0]
     for who, root in trees:
-        src = os.path.join(root, "conjugategradient_tpu_torch", "csrc", "stencil.cu")
-        obj = os.path.join(tmp, f"stencil_{who}.o")
+        src = os.path.join(root, "conjugategradient_tpu_torch", "csrc", source)
+        obj = os.path.join(tmp, f"{stem}_{who}.o")
         out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                               obj, src], capture_output=True, text=True, timeout=600)
         check(out.returncode == 0, f"nvcc -Xptxas -v {src} failed: {out.stderr[-2000:]}")
+        sass = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass {obj} failed: {sass.stderr[-2000:]}")
+        text = out.stdout + out.stderr
+        if label is None:
+            names = demangled(re.findall(r"Compiling entry function '(\S+)'", text) +
+                              re.findall(r"Function : (\S+)", sass.stdout))
+            name_of = names.get
+        else:
+            name_of = label
         entry, info = None, {}
-        for line in (out.stdout + out.stderr).splitlines():
+        for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                entry, info = label(m.group(1)), {}
+                entry, info = name_of(m.group(1)), {}
                 continue
             if entry is None:
                 continue
@@ -7899,15 +8021,13 @@ def stencil_sass(card, other=None) -> None:
                       f"{info.get('smem', 0)} B static smem, {info.get('spill stores', 0)} B "
                       f"spill stores, {info.get('spill loads', 0)} B spill loads  [{card}]")
                 entry = None
-        sass = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=300)
-        check(sass.returncode == 0, f"cuobjdump -sass {obj} failed: {sass.stderr[-2000:]}")
         entry, counts = None, {}
         for line in sass.stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                entry = label(m.group(1))
+                entry = name_of(m.group(1))
                 if entry:
-                    counts[entry] = dict.fromkeys(SASS_OPS, 0)
+                    counts[entry] = dict.fromkeys(ops, 0)
                 continue
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
             if entry is None or m is None:
@@ -7972,6 +8092,309 @@ def stencil_only(dev, card, other=None) -> None:
     stencil_rows(dev, card, other)
     stencil_loop_rows(dev, card, other)
     stencil_ring_sweep(dev, card)
+
+
+# ---- kernels 7 and 10 alone (--dia-only [TREE]) --------------------------------------------
+
+DIA_SOLVE_MAXITER = 2000  # the --dia-only solves' cap, far above their counts
+DIA_SWEEP = ((64, 128), (2, 3, 4, 6, 8))  # the tiled kernel 10's tile heights and ring depths
+DIA_TURN_REPS = 50  # launches a profiler trace of the --dia-only timing rows holds
+
+
+def other_package(root):
+    """The port's package of the tree at ``root`` (another checkout of this
+    repository), imported beside this tree's under another name: its own
+    wrappers, types and solvers, and its kernels built there from its own
+    sources."""
+    import importlib.util
+
+    pkg = os.path.join(root, "conjugategradient_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "other_tree_cgt", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_tree_cgt"] = mod
+    spec.loader.exec_module(mod)
+    import other_tree_cgt.ops.cuda._build as ob  # noqa: F401  (registered just above)
+
+    ob.build()
+    ob.load_library()
+    return mod
+
+
+def dia_hash_cases(dev):
+    """The operators of phase_dia_kernels and dia_route_rows as raw
+    tensors: (label, full (diags, offsets) or None, symmetric (diags,
+    offsets) or None, x), x seeded (a NaN in the ragged n = 1001 one)."""
+    import torch
+
+    from conjugategradient_tpu_torch import load_matrix
+
+    rng = np.random.default_rng(26)
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+
+    def raw(a):
+        return a.diags, tuple(int(o) for o in a.offsets)
+
+    big, big_sym = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)
+    path = os.path.join(ROOT, MATRICES[0])
+    p3d = load_matrix(path, layout="dia", dtype=np.float32, device=dev)
+    p3s = load_matrix(path, layout="symdia", dtype=np.float32, device=dev)
+    dense = os.path.join(ROOT, "problems/dense_256.mtx")
+    dd = load_matrix(dense, layout="dia", dtype=np.float32, device=dev)
+    ds = load_matrix(dense, layout="symdia", dtype=np.float32, device=dev)
+    n = p3d.n
+    o27 = tuple(sorted(i + 48 * j + 2304 * k for i in (-1, 0, 1) for j in (-1, 0, 1)
+                       for k in (-1, 0, 1)))
+    pos27 = tuple(o for o in o27 if o >= 0)
+    f1001, s1001 = sym_dia_pair(1001, (0, 3, 300), rng, dev, scale=0.3)
+    x1001 = vec(1001)
+    x1001[500] = float("nan")
+    xb = vec(n + 1)
+    rect = torch.as_tensor(rng.standard_normal((4, 1001)), dtype=torch.float32, device=dev)
+    neg = torch.as_tensor(rng.standard_normal((3, 777)), dtype=torch.float32, device=dev)
+    past = torch.as_tensor(rng.standard_normal((3, 1000)), dtype=torch.float32, device=dev)
+    xpast = vec(1000)
+    xpast[3] = float("nan")
+    return [
+        ("symdia-big n=2097152", raw(big), raw(big_sym), vec(SYMDIA_N)),
+        ("poisson3d_48", raw(p3d), raw(p3s), vec(n)),
+        ("27-point n=110592", (torch.as_tensor(rng.standard_normal((27, n)), dtype=torch.float32,
+                                               device=dev), o27),
+         (torch.as_tensor(rng.standard_normal((len(pos27), n)), dtype=torch.float32, device=dev),
+          pos27), vec(n)),
+        ("poisson3d_48 n=110591", (p3d.diags[:, :n - 1].contiguous(), raw(p3d)[1]),
+         (p3s.diags[:, :n - 1].contiguous(), raw(p3s)[1]), vec(n - 1)),
+        ("poisson3d_48 x+1", raw(p3d), raw(p3s), xb[1:]),
+        ("ragged n=1001 offsets 0,3,300 NaN", raw(f1001), raw(s1001), x1001),
+        ("dense_256", raw(dd), raw(ds), vec(256)),
+        ("rect 1001x1300", (rect, (-7, 0, 5, 299)), None, vec(1300)),
+        ("negative offsets only", (neg, (-300, -3, -1)), None, vec(777)),
+        ("offsets past n=1000 NaN", None, (past, (0, 5, 2000)), xpast),
+        ("poisson3d_48 -0 rows", None, (-p3s.diags.abs(), raw(p3s)[1]),
+         torch.zeros(n, dtype=torch.float32, device=dev)),
+    ]
+
+
+def dia_calls(pkg, cases, who, card, check_plain: bool) -> list:
+    """One hash a call of kernels 7 and 10 through ``pkg``'s wrappers (the
+    route each tree takes), float32 then bf16 diagonals, on each case of
+    dia_hash_cases; with ``check_plain``, each y held bit for bit to the
+    plain version and each bf16 y to the float32 launch on the widened
+    diagonals.  Returns the hashes in order."""
+    import importlib
+
+    import torch
+
+    kd = importlib.import_module(f"{pkg.__name__}.ops.cuda.dia_spmv")
+    launches = importlib.import_module(f"{pkg.__name__}.ops.cuda._common").LAUNCHES
+    same = lambda u, v: torch.equal(u.view(torch.int32), v.view(torch.int32))  # noqa: E731
+    got = []
+    for label, full, sym, x in cases:
+        for kernel, op, call, plain in (
+                ("K7", full, kd.dia_spmv_diags, kd._dia_plain),
+                ("K10", sym, kd.sym_dia_spmv_diags, kd._sym_dia_plain)):
+            if op is None:
+                continue
+            diags, offs = op
+            od = torch.tensor(offs, dtype=torch.int32, device=diags.device)
+            ys = {}
+            for tag, d in (("f32", diags), ("bf16", diags.bfloat16())):
+                before = dict(launches)
+                ys[tag] = call(d, offs, od, x)
+                route = [k for k in launches if launches[k] != before[k]]
+                torch.cuda.synchronize()
+                h = digest(ys[tag])
+                got.append(h)
+                print(f"  dia hash {who} {kernel} {tag} {label} ({len(offs)} offsets, "
+                      f"{'/'.join(route)}): {h}  [{card}]")
+                if check_plain:
+                    check(same(ys[tag], plain(d, offs, x)),
+                          f"{kernel} {tag} {label}: not bit-equal to the plain version")
+            if check_plain:
+                check(same(ys["bf16"], call(diags.bfloat16().float(), offs, od, x)),
+                      f"{kernel} {label}: the bf16 launch differs from the float32 launch on "
+                      "the widened diagonals")
+    return got
+
+
+def dia_solves(pkg, dev, who, card) -> list:
+    """The history and x of four portable solves through ``pkg``: the
+    SymDIA CG on poisson3d_48 in float32 and bf16 (to 1e-5·||b||, b = 1..n),
+    the bf16 SymDIA CG on symdia-big (BF16_SYMDIA_STEPS steps at tol = -1,
+    b = 1..n / n) and the bf16 DIA CG on poisson3d_48."""
+    import torch
+
+    path = os.path.join(ROOT, MATRICES[0])
+    p3s = pkg.load_matrix(path, layout="symdia", dtype=np.float32, device=dev)
+    p3d = pkg.load_matrix(path, layout="dia", dtype=np.float32, device=dev)
+    _, big = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)
+    big = pkg.SymDIAMatrix(big.diags, big.offsets, big.shape, big.nnz).astype(torch.bfloat16)
+    bp = torch.arange(1, p3s.n + 1, dtype=torch.float32, device=dev)
+    bb = torch.arange(1, big.n + 1, dtype=torch.float32, device=dev) / big.n
+    tol = TOL_SOLVE_REL * bnorm(p3s.n)
+    got = []
+    for label, a, b, kw in (
+            ("SymDIA CG poisson3d_48 f32", p3s, bp, {"tol": tol}),
+            ("SymDIA CG poisson3d_48 bf16", p3s.astype(torch.bfloat16), bp, {"tol": tol}),
+            ("SymDIA CG symdia-big bf16", big, bb, {"tol": -1.0, "maxiter": BF16_SYMDIA_STEPS}),
+            ("DIA CG poisson3d_48 bf16", p3d.astype(torch.bfloat16), bp, {"tol": tol})):
+        kw.setdefault("maxiter", DIA_SOLVE_MAXITER)
+        x, info = pkg.cg_solve(a, b, **kw)
+        h = digest(info.rho_history, x)
+        got.append(h)
+        print(f"  dia solve hash {who} {label}: {int(info.iterations)} its, converged "
+              f"{bool(info.converged)}, rho_history and x sha256 {h}  [{card}]")
+    return got
+
+
+DIA_SASS_OPS = ("LDG", "LDGSTS", "LDS", "STS", "STG", "FMUL", "FADD", "FFMA", "PRMT", "SHF",
+                "LOP3", "IMAD", "SEL", "BAR", "DEPBAR", "BRA")
+
+
+def dia_sass(card, other=None) -> None:
+    """Kernels 7 and 10's compiled code, this tree's and ``other``'s: the
+    registers, static shared memory and spills that ``nvcc -Xptxas -v``
+    reports for each function of ``csrc/dia_spmv.cu``, then each function's
+    count of load, store, arithmetic, conversion (PRMT, SHF, LOP3, IMAD)
+    and barrier instructions in ``cuobjdump -sass``."""
+    sass_report(card, "dia_spmv.cu", DIA_SASS_OPS, other)
+
+
+def dia_turns(fns, reps=DIA_TURN_REPS) -> list:
+    """Device ms a call of each callable in ``fns``, in the given order."""
+    got = []
+    for fn in fns:
+        ms = device_ms(fn, reps=reps)
+        got.append(float("nan") if ms is None else ms)
+    return got
+
+
+def dia_rows_other(dev, card, other=None) -> None:
+    """Device ms a call of the forms of kernels 7 and 10 this slice
+    redesigned, routed as each tree routes them, on the PERF.md rows'
+    operators: kernel 10 on symdia-big (the tiled kernel) and poisson3d_48
+    (a small operator), kernel 7 on poisson3d_48, float32 and bf16 each,
+    with their bytes bound; with ``other`` (a package from other_package),
+    that tree's calls beside this tree's in turns (other, this, this,
+    other).  Then a step of the portable bf16 SymDIA CG on symdia-big."""
+    import importlib
+
+    import torch
+
+    from conjugategradient_tpu_torch import load_matrix
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    rng = np.random.default_rng(27)
+    _, big = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)
+    path = os.path.join(ROOT, MATRICES[0])
+    p3s = load_matrix(path, layout="symdia", dtype=np.float32, device=dev)
+    p3d = load_matrix(path, layout="dia", dtype=np.float32, device=dev)
+    trees = [("this", kd)] + ([("other", importlib.import_module(
+        f"{other.__name__}.ops.cuda.dia_spmv"))] if other is not None else [])
+    for label, a, sym in (("K10 symdia-big", big, True), ("K10 poisson3d_48", p3s, True),
+                          ("K7 poisson3d_48", p3d, False)):
+        x = torch.as_tensor(rng.standard_normal(a.shape[1]), dtype=torch.float32, device=dev)
+        for tag, d in (("f32", a.diags), ("bf16", a.diags.bfloat16())):
+            offs, od = tuple(int(o) for o in a.offsets), a.offsets_dev
+            n = d.shape[1]
+            if sym:
+                moved, flops = nbytes(d, od) + 2 * n * 4, 2 * (2 * len(offs) - 1) * n
+                calls = {who: (lambda m=m: m.sym_dia_spmv_diags(d, offs, od, x)) for who, m in trees}
+                route = kd.sym_dia_route(offs, n, d.dtype)
+            else:
+                moved, flops = nbytes(d, od) + (a.shape[1] + n) * 4, 2 * len(offs) * n
+                calls = {who: (lambda m=m: m.dia_spmv_diags(d, offs, od, x)) for who, m in trees}
+                route = kd.dia_route(offs)
+            bnd = bound(moved, flops)["bound_ms"]
+            order = ("other", "this", "this", "other") if other is not None else ("this",)
+            g = dia_turns([calls[w] for w in order])
+            c = min(g[1:3]) if other is not None else g[0]
+            cells = [f"this ({route}) {c:.5f} ({bnd / c:.3f} of the bound {bnd:.5f})"]
+            if other is not None:
+                p_ = min(g[0], g[3])
+                cells.append(f"other {p_:.5f} ({bnd / p_:.3f}), this / other {c / p_:.3f} "
+                             f"(other, this, this, other: {'; '.join(f'{v:.5f}' for v in g)})")
+            print(f"  turns {label} {tag}: device ms a call; {'; '.join(cells)}  [{card}]")
+    # the bf16 SymDIA CG on symdia-big: device ms a step (the tiled kernel 10
+    # once a step and the loop's vector ops), each tree's solver
+    bb = torch.arange(1, big.n + 1, dtype=torch.float32, device=dev) / big.n
+    pkgs = [("this", sys.modules["conjugategradient_tpu_torch"])] + \
+        ([("other", other)] if other is not None else [])
+    runs = {}
+    for who, pkg in pkgs:
+        op = pkg.SymDIAMatrix(big.diags, big.offsets, big.shape, big.nnz).astype(torch.bfloat16)
+        runs[who] = lambda pkg=pkg, op=op: pkg.cg_solve(op, bb, tol=-1.0,
+                                                        maxiter=BF16_SYMDIA_STEPS)
+    order = ("other", "this", "this", "other") if other is not None else ("this",)
+    cells = []
+    for who in order:
+        prof = kernel_profile(runs[who])
+        cells.append(f"{who} " + ("not measured" if prof is None else
+                                  f"{prof[0] / BF16_SYMDIA_STEPS:.5f}"))
+    print(f"  bf16 SymDIA CG symdia-big, {BF16_SYMDIA_STEPS} steps: device ms a step; "
+          f"{'; '.join(cells)}  [{card}]")
+
+
+def dia_tiled_sweep(dev, card) -> None:
+    """The tiled kernel 10 on symdia-big, float32 and bf16: device ms a call
+    at each tile height and ring depth of DIA_SWEEP, swept forward and then
+    backward (the lesser of the two), each setting's y held bit for bit to
+    the default's (the geometry changes no bit)."""
+    import dataclasses
+
+    import torch
+
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    _, big = sym_dia_pair(SYMDIA_N, SYMDIA_OFFSETS, np.random.default_rng(0), dev)
+    x = torch.as_tensor(np.random.default_rng(28).standard_normal(big.n), dtype=torch.float32,
+                        device=dev)
+    base = kd.sym_dia_tiling(big.offsets, big.n)
+    settings = [(m, st) for m in DIA_SWEEP[0] for st in DIA_SWEEP[1]]
+    for tag, d in (("f32", big.diags), ("bf16", big.diags.bfloat16())):
+        ref = kd.sym_dia_spmv_diags(d, big.offsets, big.offsets_dev, x)
+        got = {}
+        for order in (settings, settings[::-1]):
+            for planes, stages in order:
+                t = dataclasses.replace(base, planes=planes)
+                call = lambda: kd.sym_dia_cuda(d, big.offsets, big.offsets_dev, x,  # noqa: E731
+                                               "sym_dia_spmv_tiled", t, stages)
+                check(torch.equal(call(), ref), f"sym_dia_spmv_tiled {tag} M={planes} "
+                                                f"S={stages}: changed the bits")
+                ms = device_ms(call, reps=DIA_TURN_REPS)
+                got[planes, stages] = min(got.get((planes, stages), math.inf),
+                                          math.inf if ms is None else ms)
+        dm, ds = kd.TILE_GEOMETRY[d.dtype]
+        print(f"  tiled sweep sym_dia_spmv_tiled {tag} symdia-big (device ms a call, the lesser "
+              f"of a forward and a backward sweep; default M{dm}S{ds}): " + "; ".join(
+                  f"M{m}S{st} {v:.5f}" for (m, st), v in got.items()) + f"  [{card}]")
+
+
+def dia_only(dev, card, other=None) -> None:
+    """``--dia-only [TREE]``: kernels 7 and 10 alone.  One hash a call on
+    every route (dia_calls; this tree's calls held to the plain versions),
+    the history and x of four portable solves (dia_solves), the compiled
+    code (dia_sass), the timing rows (dia_rows_other) and the sweep of the
+    tiled kernel's geometry.  Given TREE (another checkout's root), its package runs beside
+    this one: its hashes are printed and held equal to this tree's, and its
+    calls are timed in turns with this tree's."""
+    other_pkg = other_package(other) if other is not None else None
+    cases = dia_hash_cases(dev)
+    this_pkg = sys.modules["conjugategradient_tpu_torch"]
+    mine = dia_calls(this_pkg, cases, "this", card, True) + dia_solves(this_pkg, dev, "this", card)
+    print(f"  dia hashes this: {len(mine)}")
+    if other_pkg is not None:
+        theirs = dia_calls(other_pkg, cases, "other", card, False) + \
+            dia_solves(other_pkg, dev, "other", card)
+        moved = sum(a != b for a, b in zip(mine, theirs))
+        print(f"  dia hashes equal to the other tree's: {len(mine) - moved} of {len(mine)}")
+        check(moved == 0 and len(mine) == len(theirs), f"{moved} dia hashes moved")
+    del cases
+    dia_sass(card, other)
+    dia_rows_other(dev, card, other_pkg)
+    dia_tiled_sweep(dev, card)
 
 
 def fused_cg_only(dev, card) -> None:
@@ -9148,6 +9571,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--stencil-only"] and len(sys.argv) <= 3:
         stencil_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
+        return 0
+    if sys.argv[1:2] == ["--dia-only"] and len(sys.argv) <= 3:
+        dia_only(dev, card, sys.argv[2] if len(sys.argv) == 3 else None)
         return 0
     only = {"--autodiff-only": "autodiff", "--sharded-layouts-only": "sharded layouts",
             "--sharded-families-only": "sharded families"}

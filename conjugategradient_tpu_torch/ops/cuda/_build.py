@@ -52,7 +52,8 @@ SIGNATURES = {
     "cg_dia_spmv": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_dia_spmv_rows": [_P] * 4 + [_I64, _I64, _I, _P],
     "cg_sym_dia_spmv": [_P] * 4 + [_I64, _I, _P],
-    "cg_sym_dia_spmv_tiled": [_P] * 4 + [_I64, _I, _I64, _I, _P],
+    "cg_sym_dia_spmv_rows": [_P] * 4 + [_I64, _I, _P],
+    "cg_sym_dia_spmv_tiled": [_P] * 4 + [_I64, _I, _I64, _I, _I, _I, _P],
     "cg_stencil7_f32": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],
     "cg_stencil7_f64": [_P] * 2 + [_I] * 3 + [_D, _D, _I, _P],
     "cg_stencil7_bf16": [_P] * 2 + [_I] * 3 + [_F, _F, _I, _P],
@@ -82,9 +83,10 @@ SIGNATURES = {
 SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
     "cg_sym_dir_banded", "cg_sym_dir_general", "cg_full_dir", "cg_full_dir_packed",
     "cg_bell_spmv", "cg_bell_spmv_packed", "cg_dia_spmv", "cg_dia_spmv_rows",
-    "cg_sym_dia_spmv", "cg_sym_dia_spmv_tiled", "minres_full_dir", "minres_sym_dir_banded",
-    "minres_sym_dir_general", "minres_dir_packed", "minres_shard_dir", "bicgstab_dir",
-    "bicgstab_s", "bicgstab_dir_packed", "bicgstab_s_packed", "cg_bell_spmv_dot")})
+    "cg_sym_dia_spmv", "cg_sym_dia_spmv_rows", "cg_sym_dia_spmv_tiled", "minres_full_dir",
+    "minres_sym_dir_banded", "minres_sym_dir_general", "minres_dir_packed", "minres_shard_dir",
+    "bicgstab_dir", "bicgstab_s", "bicgstab_dir_packed", "bicgstab_s_packed",
+    "cg_bell_spmv_dot")})
 
 
 def _sources():

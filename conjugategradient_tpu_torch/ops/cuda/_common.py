@@ -29,6 +29,7 @@ LAUNCHES = {
     "dia_spmv_rows": 0,
     "sym_dia_spmv": 0,
     "sym_dia_spmv_tiled": 0,
+    "sym_dia_spmv_rows": 0,
     "stencil7": 0,
     "stencil7_staged": 0,
     "fused_stencil_dir_dot": 0,
@@ -63,6 +64,8 @@ LAUNCHES = {
     "sym_minres_dir_spmv_dot_bf16": 0,
     "sym_minres_dir_spmv_dot_packed_bf16": 0,
     "minres_shard_spmv_dot_bf16": 0,
+    # kernel 10's by-value form on bfloat16 diagonals
+    "sym_dia_spmv_rows_bf16": 0,
     # the bfloat16 forms of kernels 18, 19 and 6 (bf16 tiles or packed
     # values, float32 vectors) and of kernel 11 (bf16 volumes)
     "bicgstab_dir_spmv_dot_bf16": 0,

@@ -107,9 +107,11 @@ def test_sym_dia_bf16_matches_pallas(n, offsets):
                                               n=n, hw=blk.blocked_halo, interpret=True)
     assert want.dtype == jnp.float32
     _close(y.numpy(), np.asarray(want), 1e-5)
-    # the route is chosen from (offsets, n) alone: a bf16 operator takes the
-    # kernel a float32 one of its shape takes
+    # the tiling is chosen from (offsets, n) alone: a bf16 operator's is a
+    # float32 one's, and at these sizes both dtypes take the by-value kernel
     assert tk_dia.sym_dia_tiling(ts.offsets, n) == tk_dia.sym_dia_tiling(offsets, n)
+    assert tk_dia.sym_dia_route(ts.offsets, n, BF16) == tk_dia.sym_dia_route(offsets, n) \
+        == "sym_dia_spmv_rows"
 
 
 # ---- kernels 14 and 15 ---------------------------------------------------------

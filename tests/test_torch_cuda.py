@@ -13,6 +13,7 @@ ops per element, the same on both sides); q and y to 1e-5 of their largest
 entry and the dots to 1e-5 relative (f32 sums in another order).
 """
 
+import dataclasses
 import math
 import pathlib
 import types
@@ -207,12 +208,9 @@ def test_dia_kernels_bit_equal_to_plain(dev):
         assert torch.equal(yb, kd.dia_spmv_diags(lo.float(), offsets, od, x)), label
         assert torch.equal(yb, kd._dia_plain(lo, offsets, x)), label
         if min(offsets) >= 0 and ncols == d.shape[1]:
-            # kernel 10's bf16 form, on the route a float32 operator of
-            # this shape takes
-            n = d.shape[1]
-            tiling = kd.sym_dia_tiling(tuple(offsets), n)
-            sroute = ("sym_dia_spmv_tiled" if tiling is not None and tiling.pays(n)
-                      else "sym_dia_spmv")
+            # kernel 10's bf16 form, on the route bf16 diagonals of this
+            # shape take
+            sroute = kd.sym_dia_route(tuple(offsets), d.shape[1], lo.dtype)
             before = fc.LAUNCHES[f"{sroute}_bf16"]
             ysb = kd.sym_dia_spmv_diags(lo, offsets, od, x)
             assert fc.LAUNCHES[f"{sroute}_bf16"] == before + 1, label
@@ -227,13 +225,16 @@ def test_dia_rows_kernel_bit_equal_to_plain_and_to_dia_spmv(dev, n):
     """Both kernels 7 on the same operands, bit for bit against the plain
     version: offsets beyond n on both sides, ncols equal to n, above and
     below it, a NaN in x, x (a view at offset 1) or the diagonals (a view
-    at offset 1) not 16-byte aligned; a repeat gives the same bits."""
+    at offset 1) not 16-byte aligned; a repeat gives the same bits.  The
+    by-value kernel's bf16 form likewise, and bit-equal to the float32
+    launch on the widened diagonals."""
     from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
 
     g = torch.Generator().manual_seed(n)
     offsets = (-n - 3, -5, -1, 0, 1, 4, 48, n + 2)
     od = torch.tensor(offsets, dtype=torch.int32, device=dev)
     flat = torch.randn(len(offsets) * n + 1, generator=g).to(dev)
+    flat16 = flat.bfloat16()
     bits = lambda t: t.view(torch.int32)  # noqa: E731  (NaN rows compare too)
     for shift in (0, 1):
         d = flat[shift:shift + len(offsets) * n].view(len(offsets), n)
@@ -256,6 +257,19 @@ def test_dia_rows_kernel_bit_equal_to_plain_and_to_dia_spmv(dev, n):
                 c = 1 + ncols // 2 - xs
                 rows = {c - o for o in offsets if 0 <= c < ncols and 0 <= c - o < n}
                 assert set(torch.isnan(y).nonzero().flatten().tolist()) == rows, what
+                # the bf16 form (4 rows a thread) on bf16 diagonals at the same
+                # offset into their buffer: the plain version's bits and the
+                # float32 launch's on the widened diagonals
+                lo = flat16[shift:shift + len(offsets) * n].view(len(offsets), n)
+                before = fc.LAUNCHES["dia_spmv_rows_bf16"]
+                yb = kd.dia_cuda(lo, offsets, od, x, "dia_spmv_rows")
+                yb2 = kd.dia_cuda(lo, offsets, od, x, "dia_spmv_rows")
+                yw = kd.dia_cuda(lo.float(), offsets, od, x, "dia_spmv_rows")
+                ybp = kd._dia_plain(lo, offsets, x)
+                torch.cuda.synchronize()
+                assert fc.LAUNCHES["dia_spmv_rows_bf16"] == before + 2, what
+                assert torch.equal(bits(yb), bits(ybp)) and torch.equal(bits(yb), bits(yw)), what
+                assert torch.equal(bits(yb), bits(yb2)), what
     with pytest.raises(ValueError, match="at most"):
         kd.dia_cuda(torch.zeros(33, n, device=dev), tuple(range(33)),
                     torch.arange(33, dtype=torch.int32, device=dev), torch.zeros(n, device=dev),
@@ -1639,11 +1653,15 @@ SYM_DIA_CASES = [
 @pytest.mark.parametrize("label,offsets,n", SYM_DIA_CASES, ids=[c[0] for c in SYM_DIA_CASES])
 def test_sym_dia_tiled_kernel_bit_equal_to_plain(dev, label, offsets, n):
     """The symmetric DIA product, routed by shape (the tiled kernel where
-    its geometry exists and pays, else sym_dia_spmv): bit-equal to the
-    plain version (x with a NaN; and x = 0 on negative diagonals, where
-    every term is -0), repeats bit-identical, the launch counted under the
-    route's name; each kernel forced on the same operands (the tiled one
-    wherever its geometry exists) gives the same bits."""
+    its geometry exists and pays, else the by-value kernel up to 32 stored
+    offsets, else sym_dia_spmv): bit-equal to the plain version (x with a
+    NaN; and x = 0 on negative diagonals, where every term is -0), repeats
+    bit-identical, the launch counted under the route's name; each kernel
+    forced on the same operands (the tiled one wherever its geometry exists,
+    at each tile height and at ring depths 2, 3, 4 and 8; the by-value one
+    up to 32 offsets) gives the same bits, in float32 and on bf16
+    diagonals, where a bf16 launch gives the float32 launch's bits on the
+    widened diagonals."""
     from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
 
     rng = np.random.default_rng(n)
@@ -1655,22 +1673,98 @@ def test_sym_dia_tiled_kernel_bit_equal_to_plain(dev, label, offsets, n):
     tiling = kd.sym_dia_tiling(offsets, n)
     tiled = tiling is not None and tiling.pays(n)
     assert tiled == (label in ("pitch 1024, n % 4 = 1", "pitch 256", "contiguous rows"))
-    name = "sym_dia_spmv_tiled" if tiled else "sym_dia_spmv"
+    name = kd.sym_dia_route(offsets, n)
+    assert name == ("sym_dia_spmv_tiled" if tiled else "sym_dia_spmv_rows")
     fc.reset_counts()
     yk = kd.sym_dia_spmv_diags(d, offsets, od, x)
     yk2 = kd.sym_dia_spmv_diags(d, offsets, od, x)
     assert fc.LAUNCHES[name] == 2
     yp = kd._sym_dia_plain(d, offsets, x)
     torch.cuda.synchronize()
-    assert torch.equal(yk.view(torch.int32), yk2.view(torch.int32))
-    assert torch.equal(yk.view(torch.int32), yp.view(torch.int32)), label
-    for t in (None, tiling):
-        yf = kd.sym_dia_cuda(d, od, x, t)
-        assert torch.equal(yf.view(torch.int32), yp.view(torch.int32)), (label, t)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(yk), bits(yk2))
+    assert torch.equal(bits(yk), bits(yp)), label
+    # bf16 diagonals take the route judged at bf16's 128-plane tiles: the
+    # three shapes that tile in float32 (140-224 CTAs) give bf16 half the
+    # grid, under MIN_TILE_CTAS, and go by value (the forced launches below
+    # hold the tiled bf16 form)
+    lo = d.bfloat16()
+    name16 = kd.sym_dia_route(offsets, n, lo.dtype)
+    assert name16 == "sym_dia_spmv_rows", label
+    yb = kd.sym_dia_spmv_diags(lo, offsets, od, x)
+    assert fc.LAUNCHES[name16 + "_bf16"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(bits(yb), bits(kd._sym_dia_plain(lo, offsets, x))), label
+    forced = [("sym_dia_spmv", None, None), ("sym_dia_spmv_rows", None, None)]
+    if tiling is not None:
+        forced += [("sym_dia_spmv_tiled", dataclasses.replace(tiling, planes=m), s)
+                   for m in kd.TILE_PLANE_CHOICES for s in (2, 3, 4, kd.MAX_TILE_STAGES)]
+    for lo in (d, d.bfloat16()):
+        ypl = kd._sym_dia_plain(lo, offsets, x)
+        for route, t, stages in forced:
+            yf = kd.sym_dia_cuda(lo, offsets, od, x, route, t, stages)
+            yw = kd.sym_dia_cuda(lo.float(), offsets, od, x, route, t, stages)
+            torch.cuda.synchronize()
+            what = (label, lo.dtype, route, t, stages)
+            assert torch.equal(bits(yf), bits(ypl)) and torch.equal(bits(yf), bits(yw)), what
     z = torch.zeros(n, device=dev)
     dneg = -d.abs()
     assert torch.equal(kd.sym_dia_spmv_diags(dneg, offsets, od, z).view(torch.int32),
                        kd._sym_dia_plain(dneg, offsets, z).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 1001, 110_592, 110_591])
+def test_sym_dia_rows_kernel_bit_equal_to_plain(dev, n):
+    """Kernel 10's by-value kernel in float32 and bf16, bit for bit against
+    the plain version and against one thread a row: offsets that are and are
+    not multiples of the 16-byte unit (4 floats, 8 bf16) and one at or past
+    n, a NaN in x (reaching rows c - k and c + k only), the diagonals or x a
+    view at offset 1 (not 16-byte aligned), a ragged n, x = 0 on negative
+    diagonals (-0 terms); a repeat gives the same bits, and a bf16 launch
+    the float32 launch's bits on the widened diagonals."""
+    from conjugategradient_tpu_torch.ops.cuda import dia_spmv as kd
+
+    g = torch.Generator().manual_seed(n + 5)
+    offsets = (0, 1, 4, 5, 8, 48, 300, n, n + 2)
+    od = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    flat = torch.randn(len(offsets) * n + 1, generator=g).to(dev)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    xb = torch.randn(n + 1, generator=g).to(dev)
+    c = n // 2
+    for shift in (0, 1):
+        for lo in (flat, flat.bfloat16()):
+            d = lo[shift:shift + len(offsets) * n].view(len(offsets), n)
+            for xs in (0, 1):
+                x = xb[xs:xs + n].clone() if xs == 0 else xb[xs:xs + n]
+                x[c] = float("nan")
+                before = fc.LAUNCHES[_form("sym_dia_spmv_rows", d.dtype)]
+                y = kd.sym_dia_cuda(d, offsets, od, x, "sym_dia_spmv_rows")
+                y2 = kd.sym_dia_cuda(d, offsets, od, x, "sym_dia_spmv_rows")
+                launched = fc.LAUNCHES[_form("sym_dia_spmv_rows", d.dtype)] - before
+                yo = kd.sym_dia_cuda(d, offsets, od, x, "sym_dia_spmv")
+                yw = kd.sym_dia_cuda(d.float(), offsets, od, x, "sym_dia_spmv_rows")
+                yp = kd._sym_dia_plain(d, offsets, x)
+                torch.cuda.synchronize()
+                what = f"{d.dtype} diags+{shift} x+{xs}"
+                assert launched == 2, what
+                assert torch.equal(bits(y), bits(yp)) and torch.equal(bits(y), bits(y2)), what
+                assert torch.equal(bits(y), bits(yo)) and torch.equal(bits(y), bits(yw)), what
+                rows = {r for k in offsets if k < n for r in (c - k, c + k) if 0 <= r < n}
+                assert set(torch.isnan(y).nonzero().flatten().tolist()) == rows, what
+                xb[c + xs] = 0.5
+            z = torch.zeros(n, device=dev)
+            dneg = -d.abs()
+            assert torch.equal(bits(kd.sym_dia_cuda(dneg, offsets, od, z, "sym_dia_spmv_rows")),
+                               bits(kd._sym_dia_plain(dneg, offsets, z)))
+    with pytest.raises(ValueError, match="at most"):
+        kd.sym_dia_cuda(torch.zeros(33, n, device=dev), tuple(range(33)),
+                        torch.arange(33, dtype=torch.int32, device=dev),
+                        torch.zeros(n, device=dev), "sym_dia_spmv_rows")
+
+
+def _form(name, dtype):
+    return f"{name}_bf16" if dtype == torch.bfloat16 else name
 
 
 # ---- kernels 2, 3 and 16: the update kernels' chain and what it must keep ------------------
@@ -1911,7 +2005,7 @@ def test_multi_forms_match_the_single_rhs_kernels(dev, form):
         multi, single, kernel = spmv.dia_spmv_multi, spmv.dia_spmv, "dia_spmv_rows"
     elif form == "symdia":
         a = SymDIAMatrix.from_csr(csr)
-        multi, single, kernel = spmv.sym_dia_spmv_multi, spmv.sym_dia_spmv, "sym_dia_spmv"
+        multi, single, kernel = spmv.sym_dia_spmv_multi, spmv.sym_dia_spmv, "sym_dia_spmv_rows"
     else:
         a = SellMatrix.from_csr(csr)
         multi, single, kernel = spmv.sell_spmv_multi, spmv.sell_spmv, None

@@ -369,7 +369,19 @@ def test_sym_dia_tiling_choice(label, offsets, n, want, pays):
     t = tk.sym_dia_tiling(offsets, n)
     assert (t.pitch, t.halo, t.ctas(n)) == want, label
     assert t.pays(n) == pays, label
-    assert t.smem_bytes == 4 * tk.TILE_COLS * (3 * tk.TILE_PLANES + 4 * t.halo) <= tk.MAX_TILE_SMEM
+    # x over the tile and both halos, then a ring of diagonal stages over the
+    # tile and the halo before it, then the offsets and their shifts: each
+    # dtype's launch fits in float32 stages (a bf16 operator that is not
+    # 16-byte aligned widens into them)
+    nd = len(offsets)
+    assert t.planes == tk.TILE_PLANES in tk.TILE_PLANE_CHOICES
+    for dtype, (planes, stages) in tk.TILE_GEOMETRY.items():
+        lt, ls = tk.launch_tiling(t, dtype)
+        assert (lt.pitch, lt.halo, lt.planes, ls) == (t.pitch, t.halo, planes, stages)
+        assert planes in tk.TILE_PLANE_CHOICES and 2 <= stages <= tk.MAX_TILE_STAGES
+        assert lt.smem_bytes(stages, 4, nd) == tk.TILE_COLS * (
+            4 * (planes + 2 * t.halo) + 4 * stages * (planes + t.halo)) + 8 * nd
+        assert lt.smem_bytes(stages, 4, nd) <= tk.MAX_TILE_SMEM
     # pure Python on (offsets, n): the same answer for a list of numpy ints
     assert tk.sym_dia_tiling(tuple(np.int64(o) for o in offsets), n) == t
 
@@ -395,6 +407,112 @@ def test_sym_dia_route_by_shape_on_the_cpu_runs_the_plain_version():
         y = tk.sym_dia_spmv_diags(d, offsets, od, x)
         assert _common.LAUNCHES == before
         assert torch.equal(y, tspmv.sym_dia_apply(d, offsets, x))
+
+
+# ---- kernel 10's route (ops/cuda/dia_spmv.sym_dia_route) --------------------
+
+POS27 = (0, 1, 47, 48, 49, 2255, 2256, 2257, 2303, 2304, 2305, 2351, 2352, 2353)
+
+
+# the cases whose bf16 route differs from float32's: each dtype's tiling is
+# judged at the tile height it launches (TILE_GEOMETRY), and bf16's
+# 128-plane tiles give half the 64-plane grid's CTAs, so a grid of
+# MIN_TILE_CTAS to twice it tiles in float32 only
+BF16_ROUTES = {
+    "40 offsets that tile": "sym_dia_spmv",  # 256 CTAs, 128 at bf16's height
+    "one diagonal, 200 CTAs": "sym_dia_spmv_rows",
+    "0,1,40 at 140 CTAs": "sym_dia_spmv_rows",
+    "one diagonal, 262 CTAs": "sym_dia_spmv_rows",  # 131 at bf16's height
+}
+
+
+@pytest.mark.parametrize("label,offsets,n,want", [
+    # symdia-big: its tiling pays (1,024 CTAs, a 20-plane halo; 512 in bf16)
+    ("symdia-big", tuple(k * 1024 for k in range(21)), 1 << 21, "sym_dia_spmv_tiled"),
+    # poisson3d_48: the tiling does not pay (54 CTAs, 72 halo planes); its
+    # 4 stored offsets go by value
+    ("poisson3d_48", (0, 1, 48, 2304), 110592, "sym_dia_spmv_rows"),
+    ("poisson3d_48 ragged", (0, 1, 48, 2304), 110591, "sym_dia_spmv_rows"),
+    ("27-point half band", POS27, 110592, "sym_dia_spmv_rows"),
+    ("0,3,300 at n=1001", (0, 3, 300), 1001, "sym_dia_spmv_rows"),
+    ("offsets past n", (0, 5, 2000), 1000, "sym_dia_spmv_rows"),
+    ("dense_256", tuple(range(256)), 256, "sym_dia_spmv"),
+    ("at the cap", tuple(range(32)), 4096, "sym_dia_spmv_rows"),
+    ("above the cap", tuple(range(33)), 4096, "sym_dia_spmv"),
+    # the tiled kernel takes a band that tiles, whatever its count
+    ("40 offsets that tile", tuple(k * 64 for k in range(40)), 64 * 8192, "sym_dia_spmv_tiled"),
+    ("no tiling fits", (0, 1, 20000), 40000, "sym_dia_spmv_rows"),
+    ("one diagonal, small", (0,), 777, "sym_dia_spmv_rows"),
+    ("one diagonal, large", (0,), 1 << 20, "sym_dia_spmv_tiled"),
+    # between MIN_TILE_CTAS and twice it only float32 tiles (BF16_ROUTES)
+    ("one diagonal, 200 CTAs", (0,), 32 * 64 * 200, "sym_dia_spmv_tiled"),
+    ("0,1,40 at 140 CTAs", (0, 1, 40), 32 * 64 * 140, "sym_dia_spmv_tiled"),
+    ("one diagonal, 264 CTAs", (0,), 32 * 64 * 264, "sym_dia_spmv_tiled"),
+    ("one diagonal, 262 CTAs", (0,), 32 * 64 * 262, "sym_dia_spmv_tiled"),
+])
+def test_sym_dia_route_choice(label, offsets, n, want):
+    want32, want16 = want, BF16_ROUTES.get(label, want)
+    assert tk.sym_dia_route(offsets, n) == want32, label
+    assert tk.sym_dia_route(offsets, n, torch.float32) == want32, label
+    assert tk.sym_dia_route(offsets, n, torch.bfloat16) == want16, label
+    # pure Python on (offsets, n): the same answer for numpy ints
+    assert tk.sym_dia_route(tuple(np.int64(o) for o in offsets), int(np.int64(n))) == want32
+    tiling = tk.sym_dia_tiling(offsets, n)
+    for dtype, w in ((torch.float32, want32), (torch.bfloat16, want16)):
+        pays = tiling is not None and tk.launch_tiling(tiling, dtype)[0].pays(n)
+        assert (w == "sym_dia_spmv_tiled") == pays, (label, dtype)
+        if w != "sym_dia_spmv_tiled":
+            assert (w == "sym_dia_spmv_rows") == (len(offsets) <= tk.MAX_PARAM_DIAGS), label
+    # float32 launches the route's own 64-plane tiling
+    assert (want32 == "sym_dia_spmv_tiled") == (tiling is not None and tiling.pays(n)), label
+
+
+# each symmetric file's stored offsets as SymDIA (the convection-diffusion
+# operator is not symmetric), and the kernel its route takes: none is large
+# enough for the tiled kernel
+SYM_FILE_ROUTES = {
+    "bcsstk17_profile.mtx": (35, "sym_dia_spmv"),
+    "dense_256.mtx": (256, "sym_dia_spmv"),
+    "elasticity3d_16.mtx": (50, "sym_dia_spmv"),
+    "elasticity3d_8.mtx": (50, "sym_dia_spmv"),
+    "poisson2d_110.mtx": (3, "sym_dia_spmv_rows"),
+    "poisson2d_34.mtx": (3, "sym_dia_spmv_rows"),
+    "poisson3d_48.mtx": (4, "sym_dia_spmv_rows"),
+    "powerlaw_1138.mtx": (850, "sym_dia_spmv"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYM_FILE_ROUTES))
+def test_sym_dia_route_on_the_problem_files(name, host_csr):
+    data, indices, indptr, shape = host_csr[name, False]
+    d = DIAMatrix.from_csr_host(data.astype(np.float32), indices, indptr, shape, device="cpu")
+    s = SymDIAMatrix.from_dia(d, check=True)
+    assert (s.ndiag, tk.sym_dia_route(s.offsets, s.n)) == SYM_FILE_ROUTES[name]
+    # a bf16 operator of the same shape takes the same kernel (none tiles)
+    lo = s.astype(torch.bfloat16)
+    assert tk.sym_dia_route(lo.offsets, s.n, lo.diags.dtype) == SYM_FILE_ROUTES[name][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("label,offsets,n", [
+    ("by value", (0, 1, 48, 2304), 5000),
+    ("by value, offsets past n", (0, 5, 2000), 1000),
+    ("one thread a row", tuple(range(33)), 2000),
+])
+def test_sym_dia_routes_on_the_cpu_run_the_plain_version(dtype, label, offsets, n):
+    """On CPU tensors the wrapper runs ``sym_dia_apply`` on the widened
+    diagonals whichever kernel the route names, and counts no launch."""
+    rng = np.random.default_rng(n + len(offsets))
+    d = torch.from_numpy(rng.standard_normal((len(offsets), n)).astype(np.float32)).to(dtype)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    x[n // 3] = float("nan")
+    od = torch.tensor(offsets, dtype=torch.int32)
+    launches, plain = dict(_common.LAUNCHES), dict(_common.PLAIN_ON_CUDA)
+    y = tk.sym_dia_spmv_diags(d, offsets, od, x)
+    assert _common.LAUNCHES == launches and _common.PLAIN_ON_CUDA == plain
+    assert {"sym_dia_spmv_rows", "sym_dia_spmv_rows_bf16"} <= set(_common.LAUNCHES)
+    want = tspmv.sym_dia_apply(d.float(), offsets, x)
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32)), label
 
 
 # ---- kernel 7's route (ops/cuda/dia_spmv.dia_route) ------------------------
