@@ -43,6 +43,7 @@ from ..ops.spmv import (bell_spmv_multi, dia_spmv_multi, full_precision_matmul,
                         sell_spmv_multi, sym_bell_spmv_multi, sym_dia_spmv_multi)
 from ..types import (BlockedEllMatrix, DIAMatrix, SellMatrix, SymBellMatrix, SymDIAMatrix,
                      as_linear_operator)
+from ..utils.tracing import outermost
 from .cg import CGInfo, cg_solve
 from .restart import run_chunked
 
@@ -292,6 +293,7 @@ def batched_state_result(state: BatchedCGState):
     return state.X.T, _lockstep_info(state)
 
 
+@outermost("cg.solve")
 def cg_solve_batched(
     A: Any,
     B: torch.Tensor,

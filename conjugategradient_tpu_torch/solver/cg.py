@@ -33,6 +33,7 @@ import torch
 from ..ops.blas import dot
 from ..ops.spmv import full_precision_matmul
 from ..types import LinearOperator, as_linear_operator
+from ..utils.tracing import outermost
 from .restart import run_chunked
 
 FUSED_CHOICES = ("auto", "never", "always")
@@ -174,6 +175,7 @@ def cg_replace(
     )
 
 
+@outermost("cg.solve")
 def cg_solve(
     A: Any,
     b: torch.Tensor,

@@ -20,6 +20,10 @@ copies are still in flight and none that arrived is set.  The host then
 runs at most ``LOOKAHEAD`` steps ahead of the device, which keeps the
 device's queue full, and at most ``LOOKAHEAD - 1`` steps are launched after
 the step that set ``done``.
+
+While tracing is on (``utils/tracing.py``), the loop, each launched step
+and each blocking host read are spans: ``cg.loop``, ``cg.step``,
+``cg.live_read`` and ``cg.poll_wait``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import collections
 from typing import Any, Callable, Optional
 
 import torch
+
+from ..utils.tracing import annotate, on
 
 #: steps launched between host reads of the done flag: a read drains the
 #: launch queue, and steps after done are no-ops that cost only launches
@@ -65,11 +71,13 @@ class _DonePoll:
         """Whether a copy that has arrived is set; waits for the oldest
         copy only while ``LOOKAHEAD`` of them are in flight."""
         if not self.cuda:
-            return bool(self.flag())
+            with annotate("cg.poll_wait"):
+                return bool(self.flag())
         while self.pending:
             i = self.pending[0]
             if len(self.pending) >= LOOKAHEAD:
-                self.events[i].synchronize()
+                with annotate("cg.poll_wait"):
+                    self.events[i].synchronize()
             elif not self.events[i].query():
                 break
             self.pending.popleft()
@@ -107,7 +115,19 @@ def run_chunked(step: Callable[[], Any], live: Callable[[], torch.Tensor],
     """
     if every < 0:
         raise ValueError(f"recompute_r_every must be >= 0, got {every}")
+    with annotate("cg.loop"):
+        _loop(step, live, maxiter, every, replace, done, start)
+
+
+def _loop(step, live, maxiter, every, replace, done, start) -> None:
+    """The body of :func:`run_chunked`."""
     poll = _DonePoll(done) if done is not None else None
+    launch = step
+    if poll is not None:
+        def launch():
+            step()
+            poll.push()
+
     launched = start
     next_check = start + CHECK_EVERY
     while launched < maxiter:
@@ -115,17 +135,19 @@ def run_chunked(step: Callable[[], Any], live: Callable[[], torch.Tensor],
         if every:
             stop = min(stop, (launched // every + 1) * every)
         for _ in range(stop - launched):
-            if poll is not None:
-                if poll.finished():
-                    return
-                step()
-                poll.push()
+            if poll is not None and poll.finished():
+                return
+            if on():
+                with annotate("cg.step"):
+                    launch()
             else:
-                step()
+                launch()
         launched = stop
         if every and launched % every == 0:
             replace()
         if launched == next_check:
-            if not bool(live()):
+            with annotate("cg.live_read"):
+                alive = bool(live())
+            if not alive:
                 break
             next_check += CHECK_EVERY

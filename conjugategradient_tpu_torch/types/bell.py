@@ -191,8 +191,10 @@ def _cached_pack(op, tensors, build) -> PackedBell:
     hit = op.__dict__.get("_packed")
     if hit is None or hit[0] != key:
         from ..ops.cuda._common import LAUNCHES
+        from ..utils.tracing import annotate
 
-        hit = (key, build())
+        with annotate("bell.pack"):
+            hit = (key, build())
         object.__setattr__(op, "_packed", hit)
         LAUNCHES["bell_pack"] += 1
     return hit[1]
